@@ -1,0 +1,412 @@
+"""Static-shape graph batches for the port.
+
+Counterpart of ``hydragnn_tpu/data/graph.py``: ``GraphSample`` (one host
+graph), ``GraphBatch`` (a padded batch with the same fields, as tensors),
+``bucket_size``, ``PackSpec``, ``PadSpec``, ``collate`` and
+``apply_segment_plan``. The host work is the JAX package's numpy code,
+copied, so collated arrays match it bit for bit.
+
+Conventions (as in the JAX package): nodes of all graphs are
+concatenated and padded to ``num_nodes``; padding nodes/edges belong to
+a trailing padding graph and are masked; edges are directed
+``senders[k] -> receivers[k]`` and aggregate at ``receivers``.
+
+One addition: a planned batch records the tile sizes its block plan was
+built with (``seg_tile = (be, bn)``), because the port's planner takes
+them as parameters where the JAX package fixed them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from hydragnn_tpu_torch.ops.edge_pipeline import (
+    DEFAULT_BE,
+    DEFAULT_BN,
+    plan_blocks_static,
+    static_block_bound,
+)
+
+Array = Union[np.ndarray, torch.Tensor]
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """A padded batch of graphs with static shapes.
+
+    N = padded node count, E = padded edge count, G = padded graph count
+    (including at least one padding graph slot). Fields are numpy arrays
+    straight out of ``collate(as_numpy=True)``, tensors otherwise.
+    """
+
+    # Node-level
+    x: Array  # [N, F] node input features
+    pos: Optional[Array]  # [N, 3] positions
+    node_graph_idx: Array  # [N] int32 graph id of each node (non-decreasing)
+    node_slot: Array  # [N] int32 index of node within its graph
+    node_mask: Array  # [N] bool
+
+    # Edge-level
+    senders: Array  # [E] int32
+    receivers: Array  # [E] int32
+    edge_mask: Array  # [E] bool
+
+    # Graph-level
+    graph_mask: Array  # [G] bool
+
+    # Optional payloads
+    edge_attr: Optional[Array] = None  # [E, Fe]
+    edge_shifts: Optional[Array] = None  # [E, 3]
+    y_graph: Optional[Array] = None  # [G, Dg]
+    y_node: Optional[Array] = None  # [N, Dn]
+    graph_attr: Optional[Array] = None  # [G, Da]
+    dataset_id: Optional[Array] = None  # [G] int32
+    pe: Optional[Array] = None  # [N, pe_dim]
+    rel_pe: Optional[Array] = None  # [E, pe_dim]
+    cell: Optional[Array] = None  # [G, 3, 3]
+    energy_weight: Optional[Array] = None  # [G]
+    energy: Optional[Array] = None  # [G]
+    forces: Optional[Array] = None  # [N, 3]
+
+    # Angular triplets (DimeNet; not built by the port yet)
+    t_kj: Optional[Array] = None
+    t_ji: Optional[Array] = None
+    triplet_mask: Optional[Array] = None
+
+    # Sorted-segment block plan for receiver aggregation
+    # (ops/edge_pipeline.py); edges are sorted by receiver when present.
+    seg_perm: Optional[Array] = None  # [B*be] int32
+    seg_ids: Optional[Array] = None  # [B*be] int32
+    seg_valid: Optional[Array] = None  # [B*be] bool
+    seg_window: Optional[Array] = None  # [B] int32
+    seg_tile: Optional[Tuple[int, int]] = None  # (be, bn) of the plan
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.senders.shape[0])
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.graph_mask.shape[0])
+
+    def arrays(self) -> Dict[str, Array]:
+        """Every array field that is present, by name."""
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if f.name != "seg_tile" and getattr(self, f.name) is not None
+        }
+
+    def to(
+        self, device: Union[str, torch.device], non_blocking: bool = False
+    ) -> "GraphBatch":
+        """A copy with every array field as a tensor on ``device``."""
+        moved = {
+            k: torch.as_tensor(v).to(device, non_blocking=non_blocking)
+            for k, v in self.arrays().items()
+        }
+        return dataclasses.replace(self, **moved)
+
+
+@dataclasses.dataclass
+class GraphSample:
+    """One graph on the host (numpy), before collation."""
+
+    x: np.ndarray  # [n, F]
+    pos: Optional[np.ndarray] = None  # [n, 3]
+    edge_index: Optional[np.ndarray] = None  # [2, e] (senders, receivers)
+    edge_attr: Optional[np.ndarray] = None  # [e, Fe]
+    edge_shifts: Optional[np.ndarray] = None  # [e, 3]
+    y_graph: Optional[np.ndarray] = None  # [Dg]
+    y_node: Optional[np.ndarray] = None  # [n, Dn]
+    graph_attr: Optional[np.ndarray] = None  # [Da]
+    dataset_id: int = 0
+    pe: Optional[np.ndarray] = None  # [n, pe_dim]
+    rel_pe: Optional[np.ndarray] = None  # [e, pe_dim]
+    cell: Optional[np.ndarray] = None  # [3, 3]
+    energy: Optional[float] = None
+    forces: Optional[np.ndarray] = None  # [n, 3]
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return 0 if self.edge_index is None else int(self.edge_index.shape[1])
+
+
+def bucket_size(n: int, *, base: int = 8, growth: float = 1.25) -> int:
+    """Smallest ladder value >= n; ladder = base * growth^k, rounded to 8."""
+    if n <= base:
+        return base
+    size = float(base)
+    while size < n:
+        size *= growth
+    return int(int(np.ceil(size / 8.0)) * 8)
+
+
+def apply_segment_plan(
+    senders, receivers, edge_mask, edge_payloads, e_real, N,
+    be: int = DEFAULT_BE, bn: int = DEFAULT_BN,
+):
+    """Sort the real edges by receiver IN PLACE (padding edges already
+    target the first padding node, which sorts after every real
+    receiver) and build the static-size block plan at tiles (be, bn).
+    The edge mask is folded into the plan's valid slots. Returns
+    (seg_perm, seg_ids, seg_valid, seg_window)."""
+    order = np.argsort(receivers[:e_real], kind="stable")
+    for arr in (senders, receivers, edge_mask):
+        arr[:e_real] = arr[:e_real][order]
+    for arr in edge_payloads.values():
+        if arr is not None:
+            arr[:e_real] = arr[:e_real][order]
+    b_max = static_block_bound(receivers.shape[0], N, be, bn)
+    return plan_blocks_static(
+        receivers, N, b_max, be, bn, edge_valid=edge_mask
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    """A bin-packing budget: one padded batch shape plus the real
+    capacities a packed batch may fill. ``num_nodes``/``num_graphs``
+    include the mandatory padding slot."""
+
+    num_nodes: int
+    num_edges: int
+    num_graphs: int
+
+    @property
+    def capacity_nodes(self) -> int:
+        return self.num_nodes - 1
+
+    @property
+    def capacity_edges(self) -> int:
+        return self.num_edges
+
+    @property
+    def capacity_graphs(self) -> int:
+        return self.num_graphs - 1
+
+    def fits(self, n_nodes: int, n_edges: int, n_graphs: int) -> bool:
+        return (
+            n_nodes <= self.capacity_nodes
+            and n_edges <= self.capacity_edges
+            and n_graphs <= self.capacity_graphs
+        )
+
+    def pad_spec(self) -> "PadSpec":
+        return PadSpec(
+            num_nodes=self.num_nodes,
+            num_edges=self.num_edges,
+            num_graphs=self.num_graphs,
+            num_triplets=None,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PadSpec:
+    """Static padded sizes for one bucket."""
+
+    num_nodes: int
+    num_edges: int
+    num_graphs: int
+    num_triplets: Optional[int] = None  # None = do not build triplets
+
+    @staticmethod
+    def for_samples(samples: Sequence[GraphSample]) -> "PadSpec":
+        """Bucketed sizes for these samples, with the +1 node and graph
+        slots (edge padding targets the padding node)."""
+        return PadSpec(
+            num_nodes=bucket_size(sum(s.num_nodes for s in samples) + 1),
+            num_edges=bucket_size(max(sum(s.num_edges for s in samples), 1)),
+            num_graphs=len(samples) + 1,
+        )
+
+
+def collate(
+    samples: Sequence[GraphSample],
+    pad: Optional[PadSpec] = None,
+    *,
+    with_segment_plan: bool = False,
+    be: int = DEFAULT_BE,
+    bn: int = DEFAULT_BN,
+    as_numpy: bool = False,
+) -> GraphBatch:
+    """Concatenate and pad host graphs into a static-shape GraphBatch.
+
+    Padding nodes/edges are assigned to graph slot ``len(samples)`` and
+    node slot ``tot_nodes`` (the first padding node). With
+    ``with_segment_plan`` the edges are sorted by receiver and the block
+    plan for the fused edge pipeline is attached at tiles ``(be, bn)``.
+    Floating fields are float32. ``as_numpy`` keeps host
+    arrays; otherwise the fields are CPU tensors (``GraphBatch.to``
+    moves them to a device).
+    """
+    if pad is None:
+        pad = PadSpec.for_samples(samples)
+    if pad.num_triplets is not None:
+        raise NotImplementedError(
+            "angular triplets (DimeNet) are not ported yet: ROADMAP "
+            "Queue 1 item 9"
+        )
+    n_real = sum(s.num_nodes for s in samples)
+    e_real = sum(s.num_edges for s in samples)
+    g_real = len(samples)
+    if n_real >= pad.num_nodes:
+        raise ValueError(
+            f"PadSpec too small: {n_real} real nodes need >= {n_real + 1} "
+            f"padded slots, got {pad.num_nodes}"
+        )
+    if e_real > pad.num_edges or g_real >= pad.num_graphs:
+        raise ValueError(
+            f"PadSpec too small: edges {e_real}/{pad.num_edges}, "
+            f"graphs {g_real}/{pad.num_graphs} (need one padding graph slot)"
+        )
+
+    N, E, G = pad.num_nodes, pad.num_edges, pad.num_graphs
+    f_dim = samples[0].x.shape[1] if samples[0].x.ndim > 1 else 1
+
+    dtype = np.float32
+    x = np.zeros((N, f_dim), dtype=dtype)
+    node_graph_idx = np.full((N,), g_real, dtype=np.int32)
+    node_slot = np.zeros((N,), dtype=np.int32)
+    node_mask = np.zeros((N,), dtype=bool)
+    senders = np.full((E,), n_real, dtype=np.int32)
+    receivers = np.full((E,), n_real, dtype=np.int32)
+    edge_mask = np.zeros((E,), dtype=bool)
+    graph_mask = np.zeros((G,), dtype=bool)
+    graph_mask[:g_real] = True
+
+    def _opt(field: str, width_of) -> Optional[np.ndarray]:
+        vals = [getattr(s, field) for s in samples]
+        if all(v is None for v in vals):
+            return None
+        dims = {np.atleast_2d(v).shape[-1] for v in vals if v is not None}
+        if len(dims) != 1:
+            raise ValueError(f"Inconsistent {field} dims across samples: {dims}")
+        return np.zeros((width_of, dims.pop()), dtype=dtype)
+
+    pos = _opt("pos", N)
+    forces = _opt("forces", N)
+    # Every edge-aligned optional array lives here so the plan's sort
+    # reorders all of them together with senders/receivers.
+    edge_payloads = {
+        f: _opt(f, E) for f in ("edge_attr", "edge_shifts", "rel_pe")
+    }
+    edge_attr = edge_payloads["edge_attr"]
+    edge_shifts = edge_payloads["edge_shifts"]
+    rel_pe = edge_payloads["rel_pe"]
+    y_node = _opt("y_node", N)
+    pe = _opt("pe", N)
+    y_graph = _opt("y_graph", G)
+    graph_attr = _opt("graph_attr", G)
+    cell = None
+    if any(s.cell is not None for s in samples):
+        cell = np.tile(np.eye(3, dtype=dtype), (G, 1, 1))
+    energy = None
+    if any(s.energy is not None for s in samples):
+        if not all(s.energy is not None for s in samples):
+            raise ValueError(
+                "Partially-labeled batch: some samples have energy and "
+                "some do not (zero-filled targets would silently train "
+                "toward 0)."
+            )
+        energy = np.zeros((G,), dtype=dtype)
+    if any(s.forces is not None for s in samples) and not all(
+        s.forces is not None for s in samples
+    ):
+        raise ValueError(
+            "Partially-labeled batch: some samples have forces and some "
+            "do not."
+        )
+    dataset_id = np.zeros((G,), dtype=np.int32)
+
+    node_off = 0
+    edge_off = 0
+    for gi, s in enumerate(samples):
+        n = s.num_nodes
+        e = s.num_edges
+        x[node_off : node_off + n] = np.atleast_2d(s.x.reshape(n, -1))
+        node_graph_idx[node_off : node_off + n] = gi
+        node_slot[node_off : node_off + n] = np.arange(n)
+        node_mask[node_off : node_off + n] = True
+        if pos is not None and s.pos is not None:
+            pos[node_off : node_off + n] = s.pos
+        if forces is not None and s.forces is not None:
+            forces[node_off : node_off + n] = s.forces
+        if y_node is not None and s.y_node is not None:
+            y_node[node_off : node_off + n] = s.y_node.reshape(n, -1)
+        if pe is not None and s.pe is not None:
+            pe[node_off : node_off + n] = s.pe.reshape(n, -1)
+        if e:
+            senders[edge_off : edge_off + e] = s.edge_index[0] + node_off
+            receivers[edge_off : edge_off + e] = s.edge_index[1] + node_off
+            edge_mask[edge_off : edge_off + e] = True
+            if edge_attr is not None and s.edge_attr is not None:
+                edge_attr[edge_off : edge_off + e] = s.edge_attr.reshape(e, -1)
+            if edge_shifts is not None and s.edge_shifts is not None:
+                edge_shifts[edge_off : edge_off + e] = s.edge_shifts
+            if rel_pe is not None and s.rel_pe is not None:
+                rel_pe[edge_off : edge_off + e] = s.rel_pe.reshape(e, -1)
+        if y_graph is not None and s.y_graph is not None:
+            y_graph[gi] = np.asarray(s.y_graph).reshape(-1)
+        if graph_attr is not None and s.graph_attr is not None:
+            graph_attr[gi] = np.asarray(s.graph_attr).reshape(-1)
+        if cell is not None and s.cell is not None:
+            cell[gi] = s.cell
+        if energy is not None and s.energy is not None:
+            energy[gi] = float(np.asarray(s.energy).reshape(-1)[0])
+        dataset_id[gi] = s.dataset_id
+        node_off += n
+        edge_off += e
+
+    # Padding nodes: consecutive slot ids within the padding graph.
+    node_slot[node_off:] = np.arange(N - node_off)
+
+    seg_perm = seg_ids = seg_valid = seg_window = seg_tile = None
+    if with_segment_plan:
+        seg_perm, seg_ids, seg_valid, seg_window = apply_segment_plan(
+            senders, receivers, edge_mask, edge_payloads, e_real, N, be, bn
+        )
+        seg_tile = (int(be), int(bn))
+
+    batch = GraphBatch(
+        x=x,
+        pos=pos,
+        node_graph_idx=node_graph_idx,
+        node_slot=node_slot,
+        node_mask=node_mask,
+        senders=senders,
+        receivers=receivers,
+        edge_mask=edge_mask,
+        graph_mask=graph_mask,
+        edge_attr=edge_attr,
+        edge_shifts=edge_shifts,
+        y_graph=y_graph,
+        y_node=y_node,
+        graph_attr=graph_attr,
+        dataset_id=dataset_id,
+        pe=pe,
+        rel_pe=rel_pe,
+        cell=cell,
+        energy=energy,
+        forces=forces,
+        seg_perm=seg_perm,
+        seg_ids=seg_ids,
+        seg_valid=seg_valid,
+        seg_window=seg_window,
+        seg_tile=seg_tile,
+    )
+    if as_numpy:
+        return batch
+    return batch.to("cpu")

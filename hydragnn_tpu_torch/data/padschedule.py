@@ -1,0 +1,319 @@
+"""Bin-packed batch forming: budget fitting and the first-fit planner.
+
+Counterpart of the packing half of ``hydragnn_tpu/data/padschedule.py``
+(``OpenBin``, ``PackPlanner``, ``pack_epoch_ffd``, ``fit_pack_budgets``
+and their helpers). Device-free size arithmetic, copied so that fitted
+budgets and packed bins match the JAX package's bit for bit. The
+per-device schedules of the dp schemes come with the data fast path
+(ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from hydragnn_tpu_torch.data.graph import PackSpec
+
+# Bound on the size sample the budget fit simulates (the JAX package's
+# HYDRAGNN_TPU_PACKING_FIT_SAMPLE default).
+FIT_SAMPLE = 50000
+# Shuffled epochs the slack candidates are simulated over.
+SIM_EPOCHS = 2
+
+
+def epoch_batch_indices(
+    n: int,
+    batch_size: int,
+    *,
+    shuffle: bool,
+    seed: int,
+    epoch: int,
+) -> Iterator[np.ndarray]:
+    """Index arrays of each batch of one epoch, keyed by (seed, epoch)."""
+    rng = np.random.default_rng((seed, epoch))
+    order = np.arange(n)
+    if shuffle:
+        rng.shuffle(order)
+    for start in range(0, len(order), batch_size):
+        yield order[start : start + batch_size]
+
+
+def dataset_size_arrays(dataset) -> tuple:
+    """Per-sample (node, edge) counts as int64 arrays."""
+    n = np.array([s.num_nodes for s in dataset], dtype=np.int64)
+    e = np.array([s.num_edges for s in dataset], dtype=np.int64)
+    return n, e
+
+
+def _round8(v: float) -> int:
+    return int(int(np.ceil(float(v) / 8.0)) * 8)
+
+
+def _fit_sample(
+    node_sizes: np.ndarray, edge_sizes: np.ndarray, seed: int
+) -> tuple:
+    """Deterministic bounded subsample of the size histogram for the
+    fitting simulation (capacities are ratios of means)."""
+    n = len(node_sizes)
+    if n <= FIT_SAMPLE:
+        return node_sizes, edge_sizes
+    rng = np.random.default_rng((int(seed), n))
+    pick = rng.choice(n, size=FIT_SAMPLE, replace=False)
+    return node_sizes[pick], edge_sizes[pick]
+
+
+def _budget_from_caps(
+    cap_n: int, cap_e: int, cap_g: int, max_n: int, max_e: int
+) -> PackSpec:
+    """PackSpec with sizes rounded to 8; capacities never fall below the
+    largest single graph."""
+    cap_n = max(int(cap_n), int(max_n))
+    cap_e = max(int(cap_e), int(max_e), 1)
+    return PackSpec(
+        num_nodes=_round8(cap_n + 1),
+        num_edges=_round8(cap_e),
+        num_graphs=max(int(cap_g), 1) + 1,
+    )
+
+
+class OpenBin:
+    """One bin a ``PackPlanner`` is filling: remaining capacities under
+    the largest budget, member tags, running real-size totals and a
+    caller-owned ``meta`` dict."""
+
+    __slots__ = (
+        "node_room",
+        "edge_room",
+        "graph_room",
+        "tags",
+        "tot_nodes",
+        "tot_edges",
+        "meta",
+    )
+
+    def __init__(self, node_room: int, edge_room: int, graph_room: int):
+        self.node_room = int(node_room)
+        self.edge_room = int(edge_room)
+        self.graph_room = int(graph_room)
+        self.tags: List = []
+        self.tot_nodes = 0
+        self.tot_edges = 0
+        self.meta: dict = {}
+
+
+class PackPlanner:
+    """Incremental first-fit packer over a nested ``PackSpec`` budget
+    set: items go to the first open bin with room under the largest
+    budget; beyond ``open_window`` open bins the fullest is frozen out
+    of the scan (``take_frozen``); ``assign_budget`` downshifts a
+    finished bin to the smallest budget that holds it."""
+
+    def __init__(self, budgets: Sequence[PackSpec], open_window: int = 256):
+        self.budgets = sorted(
+            budgets, key=lambda b: (b.num_nodes, b.num_edges), reverse=True
+        )
+        if not self.budgets:
+            raise ValueError("PackPlanner needs at least one budget")
+        self.big = self.budgets[0]
+        for b in self.budgets[1:]:
+            if (
+                b.num_edges > self.big.num_edges
+                or b.num_graphs > self.big.num_graphs
+                or b.num_nodes > self.big.num_nodes
+            ):
+                raise ValueError(
+                    f"pack budgets must be nested under the largest; "
+                    f"{b} exceeds {self.big} in some dimension"
+                )
+        self.open_window = max(int(open_window), 1)
+        self._open: List[OpenBin] = []
+        self._frozen: List[OpenBin] = []
+
+    def fits(self, n_nodes: int, n_edges: int) -> bool:
+        """Whether a single item can ever be packed."""
+        return self.big.fits(int(n_nodes), int(n_edges), 1)
+
+    @property
+    def open_bins(self) -> List[OpenBin]:
+        return self._open
+
+    def add(self, tag, n_nodes: int, n_edges: int) -> OpenBin:
+        """Place one item first-fit; returns the bin it landed in."""
+        n, e = int(n_nodes), int(n_edges)
+        placed = None
+        for b in self._open:
+            if b.node_room >= n and b.edge_room >= e and b.graph_room >= 1:
+                placed = b
+                break
+        if placed is None:
+            if not self.fits(n, e):
+                raise ValueError(
+                    f"item ({n} nodes, {e} edges) exceeds the largest "
+                    f"pack budget {self.big}"
+                )
+            placed = OpenBin(
+                self.big.capacity_nodes,
+                self.big.capacity_edges,
+                self.big.capacity_graphs,
+            )
+            self._open.append(placed)
+        placed.node_room -= n
+        placed.edge_room -= e
+        placed.graph_room -= 1
+        placed.tot_nodes += n
+        placed.tot_edges += e
+        placed.tags.append(tag)
+        if len(self._open) > self.open_window:
+            full = min(
+                range(len(self._open)),
+                key=lambda k: self._open[k].node_room,
+            )
+            self._frozen.append(self._open.pop(full))
+        return placed
+
+    def pop(self, b: OpenBin) -> None:
+        """Remove one bin from the scan (no-op if already frozen out)."""
+        try:
+            self._open.remove(b)
+        except ValueError:
+            try:
+                self._frozen.remove(b)
+            except ValueError:
+                pass
+
+    def take_frozen(self) -> List[OpenBin]:
+        out, self._frozen = self._frozen, []
+        return out
+
+    def drain(self) -> List[OpenBin]:
+        """Every remaining bin (frozen first, then open), clearing the
+        planner."""
+        out = self._frozen + self._open
+        self._open, self._frozen = [], []
+        return out
+
+    def assign_budget(
+        self, tot_nodes: int, tot_edges: int, n_graphs: int
+    ) -> PackSpec:
+        """Smallest fitted budget holding the totals."""
+        spec = self.big
+        for cand in self.budgets:  # descending: last fitting = smallest
+            if cand.fits(int(tot_nodes), int(tot_edges), int(n_graphs)):
+                spec = cand
+        return spec
+
+
+def pack_epoch_ffd(
+    order: np.ndarray,
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    budgets: Sequence[PackSpec],
+    open_window: int = 256,
+) -> List[tuple]:
+    """First-fit-decreasing pack of one epoch's order into budget bins:
+    ``[(idx, PackSpec), ...]`` in epoch order."""
+    planner = PackPlanner(budgets, open_window=open_window)
+    order = np.asarray(order, dtype=np.int64)
+    n_of = node_sizes[order]
+    by_size = np.argsort(-n_of, kind="stable")
+    for pos in by_size:
+        i = int(order[pos])
+        n, e = int(node_sizes[i]), int(edge_sizes[i])
+        if not planner.fits(n, e):
+            raise ValueError(
+                f"graph {i} ({n} nodes, {e} edges) exceeds the "
+                f"largest pack budget {planner.big}"
+            )
+        planner.add(int(pos), n, e)
+    out = []
+    for b in sorted(planner.drain(), key=lambda b: min(b.tags)):
+        members = sorted(b.tags)
+        idx = order[members]
+        tot_n = int(node_sizes[idx].sum())
+        tot_e = int(edge_sizes[idx].sum())
+        out.append(
+            (idx, planner.assign_budget(tot_n, tot_e, len(idx)))
+        )
+    return out
+
+
+def fit_pack_budgets(
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    batch_size: int,
+    *,
+    max_budgets: int = 2,
+    slack: Optional[float] = None,
+    max_graphs: Optional[int] = None,
+    seed: int = 0,
+) -> List[PackSpec]:
+    """Fit the budget set the packer fills from the size histogram: a
+    primary budget sized for ``len / batch_size`` bins with a small
+    capacity ``slack`` (simulated over a few candidates when None, the
+    one with the least executed/real size kept), plus
+    ``max_budgets - 1`` halved sub-budgets for tail bins. ``max_graphs``
+    caps a bin's graph count (default 2x ``batch_size``)."""
+    node_sizes = np.asarray(node_sizes, dtype=np.int64)
+    edge_sizes = np.asarray(edge_sizes, dtype=np.int64)
+    if len(node_sizes) == 0:
+        raise ValueError("cannot fit pack budgets over an empty dataset")
+    max_n = int(node_sizes.max())
+    max_e = int(edge_sizes.max())
+    node_sizes, edge_sizes = _fit_sample(node_sizes, edge_sizes, seed)
+    n = len(node_sizes)
+    total_n = int(node_sizes.sum())
+    total_e = int(edge_sizes.sum())
+    min_n = max(int(node_sizes.min()), 1)
+    k = max(1, int(round(n / float(batch_size))))
+
+    def _budget_set(s: float) -> List[PackSpec]:
+        cap_n = int(np.ceil(total_n / k * s))
+        cap_e = int(np.ceil(total_e / k * s))
+        cap_g = (
+            int(max_graphs)
+            if max_graphs is not None
+            else min(cap_n // min_n, 2 * int(batch_size))
+        )
+        cap_g = max(cap_g, 1)
+        out = [_budget_from_caps(cap_n, cap_e, cap_g, max_n, max_e)]
+        for _ in range(max(int(max_budgets), 1) - 1):
+            cap_n //= 2
+            cap_e //= 2
+            cap_g = max(cap_g // 2, 1)
+            cand = _budget_from_caps(cap_n, cap_e, cap_g, max_n, max_e)
+            if cand != out[-1]:
+                out.append(cand)
+        return out
+
+    def _waste(budgets: List[PackSpec]) -> float:
+        executed = real = 0.0
+        for ep in range(SIM_EPOCHS):
+            order = np.concatenate(
+                [
+                    idx
+                    for idx in epoch_batch_indices(
+                        n, batch_size, shuffle=True, seed=seed, epoch=ep
+                    )
+                ]
+            )
+            for idx, spec in pack_epoch_ffd(
+                order, node_sizes, edge_sizes, budgets
+            ):
+                executed += spec.num_nodes + spec.num_edges
+                real += float(
+                    node_sizes[idx].sum() + edge_sizes[idx].sum()
+                )
+        return executed / max(real, 1.0)
+
+    if slack is not None:
+        return _budget_set(float(slack))
+    best = None
+    best_w = float("inf")
+    for s in (1.01, 1.02, 1.04, 1.06, 1.1):
+        cand = _budget_set(s)
+        w = _waste(cand)
+        if w < best_w:
+            best, best_w = cand, w
+    return best

@@ -1,0 +1,66 @@
+"""Carry weights over from the JAX package.
+
+No JAX counterpart. ``params_from_jax`` maps the JAX package's
+``params`` tree — nested dicts of numpy arrays, as
+``jax.device_get(state.params)`` gives them — onto the port's
+``state_dict``, without importing JAX. The port names its submodules as
+flax does, so a path ``stack/conv_0/filter_mlp/dense_1/kernel`` becomes
+``stack.conv_0.filter_mlp.dense_1.weight``:
+
+- a Dense ``kernel`` ``[in, out]`` becomes an ``nn.Linear`` ``weight``
+  ``[out, in]`` (transposed);
+- a ``DenseParams`` kernel (the modules named in ``DENSE_PARAMS``) keeps
+  its ``[in, out]`` layout, because the fused edge pipeline takes it as
+  its W;
+- ``bias`` and per-node ``w_{i}``/``b_{i}`` tensors are copied as they
+  are.
+
+Any other leaf raises, and ``model.load_state_dict(...)`` (strict by
+default) raises on keys or shapes that do not match the model.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# Modules that are DenseParams twins in the port (their kernel is used
+# as [in, out] by a fused kernel): SchNet's lin2.
+DENSE_PARAMS = frozenset({"lin2"})
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX ``params`` tree (module
+    docstring has the mapping)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        module, _, leaf = path.rpartition(".")
+        owner = module.rpartition(".")[2]
+        t = torch.from_numpy(np.array(arr, copy=True))
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{path}: a Dense kernel must be 2-D, got {arr.shape}")
+            if owner in DENSE_PARAMS:
+                out[path] = t
+            else:
+                out[f"{module}.weight"] = t.t().contiguous()
+        elif leaf == "bias" or leaf.startswith(("w_", "b_")):
+            out[path] = t
+        else:
+            raise ValueError(
+                f"{path}: no mapping for parameter {leaf!r} into the port"
+            )
+    return out

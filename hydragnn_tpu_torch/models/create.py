@@ -1,0 +1,41 @@
+"""Model factory.
+
+Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
+a stack class and wraps it in the multihead core. Only SchNet is
+registered so far; the other stacks follow ROADMAP Queue 1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Type, Union
+
+import torch
+from torch import nn
+
+from hydragnn_tpu_torch.device import resolve_device
+from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
+from hydragnn_tpu_torch.models.layers import init_flax_
+from hydragnn_tpu_torch.models.schnet import SchNetStack
+from hydragnn_tpu_torch.models.spec import ModelConfig
+
+STACKS: Dict[str, Type[nn.Module]] = {"SchNet": SchNetStack}
+
+
+def create_model(
+    cfg: ModelConfig,
+    device: Optional[Union[str, torch.device]] = None,
+    *,
+    seed: int = 0,
+) -> MultiHeadGraphModel:
+    """Build the model, initialize it with flax's initializers from a
+    ``torch.Generator`` seeded with ``seed``, and move it to ``device``
+    (``None`` means ``"cuda"``, which raises without a card)."""
+    dev = resolve_device(device)
+    if cfg.mpnn_type not in STACKS:
+        raise ValueError(
+            f"Unknown mpnn_type {cfg.mpnn_type!r}; available in the port: "
+            f"{sorted(STACKS)}"
+        )
+    model = MultiHeadGraphModel(cfg, STACKS[cfg.mpnn_type])
+    init_flax_(model, seed)
+    return model.to(dev)

@@ -1,0 +1,121 @@
+"""Shared building blocks: activations, the Dense twin, MLPs, init.
+
+Counterpart of ``hydragnn_tpu/models/layers.py``: ``activation``,
+``shifted_softplus``, ``DenseParams`` and ``MLP``. A flax ``nn.Dense``
+becomes an ``nn.Linear`` (weight ``[out, in]``, the transpose of flax's
+``[in, out]`` kernel). ``init_flax_`` draws weights with flax's default
+initializers (lecun_normal kernels, zero biases) from a seeded
+``torch.Generator``, so the port starts from the same distribution as
+the JAX package (not the same numbers: the generators differ).
+``MaskedBatchNorm`` comes with the stacks that use it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_LOG2 = math.log(2.0)
+# flax's truncated_normal variance scaling divides the std by the
+# standard deviation of a unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus(x) - log(2): SchNet's activation (zero at zero)."""
+    return F.softplus(x) - _LOG2
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    table = {
+        "relu": F.relu,
+        "selu": F.selu,
+        "prelu": lambda x: F.leaky_relu(x, 0.25),
+        "elu": F.elu,
+        "lrelu_01": lambda x: F.leaky_relu(x, 0.1),
+        "lrelu_025": lambda x: F.leaky_relu(x, 0.25),
+        "lrelu_05": lambda x: F.leaky_relu(x, 0.5),
+        "sigmoid": torch.sigmoid,
+        "softplus": F.softplus,
+        "shifted_softplus": shifted_softplus,
+        "silu": F.silu,
+        "tanh": torch.tanh,
+        # jax.nn.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    }
+    if name not in table:
+        raise ValueError(f"Unknown activation function: {name}")
+    return table[name]
+
+
+class DenseParams(nn.Module):
+    """Parameter-only twin of a Dense layer: holds ``kernel`` ``[in,
+    out]`` (flax's layout, which the fused edge pipeline takes as its W)
+    and ``bias``, and returns them instead of applying the matmul."""
+
+    def __init__(self, in_dim: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_dim, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self):
+        return self.kernel, self.bias
+
+
+class MLP(nn.Module):
+    """Plain MLP: Linear(+act) per layer, optional final activation.
+    Layers are named ``dense_{i}`` as in flax."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        features: Sequence[int],
+        act: str = "relu",
+        final_activation: bool = False,
+        use_bias: bool = True,
+    ):
+        super().__init__()
+        self.n_layers = len(features)
+        self.act = activation(act)
+        self.final_activation = final_activation
+        d = in_dim
+        for i, f in enumerate(features):
+            self.add_module(f"dense_{i}", nn.Linear(d, f, bias=use_bias))
+            d = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"dense_{i}")(x)
+            if i < self.n_layers - 1 or self.final_activation:
+                x = self.act(x)
+        return x
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    std = math.sqrt(1.0 / max(fan_in, 1)) / _TRUNC_STD
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Re-initialize every parameter with flax's defaults, in module
+    order, from ``torch.Generator().manual_seed(seed)``: Linear weights
+    and DenseParams kernels lecun_normal over their fan-in, biases zero,
+    and any other tensor named ``w_*`` (per-node head weights
+    ``[nodes, in, out]``) lecun_normal over its second-to-last axis."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias" or leaf.startswith("b_"):
+            p.zero_()
+        elif leaf == "weight":  # nn.Linear: [out, in]
+            _lecun_normal_(p, p.shape[1], gen)
+        elif leaf == "kernel" or leaf.startswith("w_"):  # [..., in, out]
+            _lecun_normal_(p, p.shape[-2], gen)
+        else:
+            raise ValueError(f"no flax initializer for parameter {name}")
+    return module

@@ -1,0 +1,52 @@
+"""Radial basis, cutoff and edge geometry for the SchNet path.
+
+Counterpart of ``hydragnn_tpu/ops/rbf.py``: ``gaussian_smearing``,
+``cosine_cutoff`` and ``edge_vectors_and_lengths``. The other bases
+(Bessel, sinc, Chebyshev, polynomial cutoff, envelopes, distance
+transforms) come with the stacks that use them (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+
+def gaussian_smearing(
+    dist: torch.Tensor, start: float, stop: float, num_gaussians: int
+) -> torch.Tensor:
+    """exp(-gamma (d - mu_k)^2) on an even grid of centers."""
+    offset = torch.linspace(
+        start, stop, num_gaussians, dtype=dist.dtype, device=dist.device
+    )
+    coeff = -0.5 / (offset[1] - offset[0]) ** 2
+    diff = dist[..., None] - offset
+    return torch.exp(coeff * diff**2)
+
+
+def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """0.5 (cos(pi d/c) + 1) for d < c else 0."""
+    out = 0.5 * (torch.cos(math.pi * dist / cutoff) + 1.0)
+    return torch.where(dist < cutoff, out, 0.0)
+
+
+def edge_vectors_and_lengths(
+    pos: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    shifts: Optional[torch.Tensor] = None,
+    *,
+    normalize: bool = False,
+    eps: float = 1e-9,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """vec = pos[s] - pos[r] (+ shift); length = sqrt(|vec|^2 + eps).
+    Returns (vectors [E, 3], lengths [E])."""
+    vec = pos[senders] - pos[receivers]
+    if shifts is not None:
+        vec = vec + shifts
+    length = torch.sqrt(torch.sum(vec * vec, dim=-1) + eps)
+    if normalize:
+        vec = vec / length[..., None]
+    return vec, length
