@@ -1,34 +1,51 @@
-"""Drive the PyTorch/CUDA port on one GPU and hold its kernel to account.
+"""Drive the PyTorch/CUDA port on one GPU and hold its kernels to account.
 
     python3 chip_smoke.py
 
-Phases (each prints a line; any failure raises and exits non-zero):
+Phases (each prints lines tagged with its name; any failure raises and
+exits non-zero):
 
-1. device   torch/CUDA versions and the card's name and power limit;
-            exits 2 without a CUDA device.
-2. build    K1's library, built from csrc/edge_pipeline.cu with nvcc for
-            sm_90a on every run; the ptxas register and shared-memory
-            report.
-3. kernel   K1 (the fused edge pipeline) against its plain PyTorch
-            version on the card, at the shapes of the served bins
-            (F_in = F_out = 128), every flavour (a; a,b; a,b,W) in f32
-            and bf16, plus a plan with an empty window and static
-            padding, and E = 0; two runs must give the same bits. Times
-            with CUDA events: the kernel, the plain version, the bound
-            from bytes and operations, and index_add_ for the
-            reduce-only flavour.
-4. slice    bench.py's headline SchNet at full width (4 CFConv layers,
-            128 filters, 50 Gaussians, hidden 128, graph head 2x128
-            shared + [128, 128]) with random weights from a seeded
-            generator, serving 256 synthetic qm9 requests through
-            DynamicBatcher -> ServingEngine(device="cuda"). Checks: every
-            request has a finite result; K1's launch count rises by
-            exactly 4 x dispatched bins during process(); each bin's
-            served outputs equal a direct make_forward call on the same
-            collated batch bit for bit; one bin matches the same model
-            on the CPU's plain path.
-5. report   the kernels JSON line, the card line, and the final
-            {"ok": true, "device": ...} line.
+1. device      torch/CUDA versions and the card's name and power limit;
+               exits 2 without a CUDA device.
+2. build       the kernels' library, built from csrc/edge_pipeline.cu (K1)
+               and csrc/edge_pipeline_bwd.cu (K2) for sm_90a on every run
+               (one nvcc per source, in parallel, then one link); the
+               ptxas register and spill report.
+3. kernel      K1 (the fused edge pipeline) against its plain PyTorch
+               version on the card, at the shapes of the served bins
+               (F_in = F_out = 128), every flavour (a; a,b; a,W; a,b,W)
+               in f32 and bf16 and with bf16 a/b and an f32 W, plus a
+               plan with an empty window and static padding, and E = 0;
+               two runs must give the same bits. Times with CUDA events:
+               the kernel, the plain version, the bound from bytes and
+               operations, and index_add_ for the reduce-only flavour.
+4. kernel-bwd  K2 (the pullback) against its plain version at the train
+               bin's shape in every flavour and dtype mix, the empty-window
+               plan and E = 0, same bits on two runs; timed like K1.
+5. slice       bench.py's headline SchNet at full width (4 CFConv layers,
+               128 filters, 50 Gaussians, hidden 128, graph head 2x128
+               shared + [128, 128]) with random weights from a seeded
+               generator, serving 256 synthetic qm9 requests through
+               DynamicBatcher -> ServingEngine(device="cuda"). Checks:
+               every request has a finite result; K1's launch count rises
+               by exactly 4 x dispatched bins during process(); each bin's
+               served outputs equal a direct make_forward call on the same
+               collated batch bit for bit; one bin matches the same model
+               on the CPU's plain path.
+6. train       the same SchNet trained by run_training on the card (f32,
+               batch 32, 2 epochs) on the BCC set of tests/test_graphs.py
+               (300 configurations, seed 7), then run_prediction. Checks:
+               finite losses, the train loss falls, K1 launches = 4 x model
+               forwards and K2 launches = 4 x train steps; the first train
+               step on the card equals the same step on the CPU's plain
+               path (loss, gradients, AdamW-updated parameters) in f32 and,
+               at the bf16 tolerance, in bf16; whether two identical runs
+               of that step give the same bits is reported. Then one train
+               step at bench.py's headline shape (128 molecules of 9-30
+               atoms, radius 4.0, 32 neighbours): eager and device time and
+               K1's and K2's share of the device time.
+7. report      the kernels JSON line, the card line, and the final
+               {"ok": true, "device": ...} line.
 """
 
 import copy
@@ -42,6 +59,7 @@ import torch
 
 F32_TOL = dict(rtol=1e-5, atol=1e-4)  # tests/test_pallas_segment.py:341
 BF16_TOL = dict(rtol=4e-2, atol=2.5e-1)  # tests/test_pallas_segment.py:342
+VJP_TOL = dict(rtol=1e-4, atol=1e-3)  # tests/test_pallas_segment.py:808
 CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 # H100 SXM published peaks (dense): HBM bytes/s, f32 (no tensor cores)
 # and bf16 tensor-core FLOP/s.
@@ -109,21 +127,91 @@ def eager_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound(e_valid, n, f_in, f_out, slots, blocks, has_b, has_w, dtype):
-    """Least time for the work: inputs read once (valid edge rows of a
-    and b, W, the plan), the output written once; operations: the
-    multiply, the reduce adds and one [N, F_in] @ [F_in, F_out]."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (
-        e_valid * f_in * size * (2 if has_b else 1)
-        + (f_in * f_out * size if has_w else 0)
-        + slots * (4 + 4 + 1) + blocks * 4
-        + n * f_out * size
-    )
-    ops = e_valid * f_in * (2 if has_b else 1) + (2 * n * f_in * f_out if has_w else 0)
+def _size(dtype):
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def bound(nbytes, ops, dtype):
+    """Least time for the work: ``nbytes`` over the HBM rate or ``ops``
+    over the peak rate of ``dtype``, whichever is larger."""
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
+    """K1's bytes (valid edge rows of a and b, W, the plan read once; the
+    output written once) and operations (the multiply, the reduce adds,
+    one [N, F_in] @ [F_in, F_out])."""
+    out_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
+    nbytes = (
+        e_valid * f_in * _size(a_dt) * (2 if has_b else 1)
+        + (f_in * f_out * _size(w_dt) if has_w else 0)
+        + slots * (4 + 4 + 1) + blocks * 4
+        + n * f_out * _size(out_dt)
+    )
+    ops = e_valid * f_in * (2 if has_b else 1) + (2 * n * f_in * f_out if has_w else 0)
+    return nbytes, ops, out_dt
+
+
+def k2_work(e, e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
+    """K2's bytes (g, the plan, W and the valid edge rows of whichever of
+    a and b the outputs need, read once; d_a, d_b and d_W written once)
+    and operations (g @ W^T and msg_sum^T @ g per node, the per-edge
+    products and message sums)."""
+    g_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
+    reads_a = has_b or has_w
+    nbytes = (
+        n * f_out * _size(g_dt) + slots * (4 + 4 + 1) + blocks * 4
+        + e_valid * f_in * _size(a_dt) * (int(reads_a) + int(has_b))
+        + (2 * f_in * f_out * _size(w_dt) if has_w else 0)
+        + e * f_in * _size(a_dt) * (2 if has_b else 1)
+    )
+    ops = e_valid * f_in * ((2 if has_b else 0) + (2 if has_w else 0))
+    if has_w:
+        ops += 4 * n * f_in * f_out
+    return nbytes, ops, g_dt
+
+
+# dtype mixes (a/b, W) and the flavours each takes: bf16 a/b with an f32
+# master W needs W.
+MIXES = {
+    (torch.float32, torch.float32): ("a", "ab", "aw", "abw"),
+    (torch.bfloat16, torch.bfloat16): ("a", "ab", "aw", "abw"),
+    (torch.bfloat16, torch.float32): ("aw", "abw"),
+}
+
+
+def mix_name(a_dt, w_dt):
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    return names[a_dt] if a_dt == w_dt else f"{names[a_dt]}+{names[w_dt]}W"
+
+
+def empty_window_plan(dev):
+    """A plan with an empty node window and two static padding blocks."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import plan_blocks_static, static_block_bound
+
+    rng = np.random.default_rng(3)
+    n, e = 200, 400
+    seg = np.sort(np.concatenate([rng.integers(0, 60, 200), rng.integers(120, 200, 200)]))
+    plan = plan_blocks_static(seg, n, static_block_bound(e, n) + 2,
+                              edge_valid=rng.random(e) > 0.1)
+    return tuple(torch.from_numpy(p).to(dev) for p in plan), n, e
+
+
+def batch_cases(batches, dev):
+    """(key, plan, n, e, e_valid, batch) for each device batch, then the
+    empty-window plan (batch None, not timed)."""
+    out = []
+    for key, batch in batches:
+        plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+        out.append((key, plan, batch.num_nodes, batch.num_edges,
+                    int(batch.edge_mask.sum()), batch))
+    plan, n, e = empty_window_plan(dev)
+    out.append(("empty_window", plan, n, e, int(plan[2].sum()), None))
+    return out
 
 
 def phase_device():
@@ -148,7 +236,8 @@ def phase_build():
 
     cuda_build.build(force=True)  # from the source, every run
     r = cuda_build.build_report
-    log(f"[build] edge_pipeline: {r['seconds']:.2f} s -> {os.path.relpath(r['path'])}")
+    log(f"[build] K1 + K2 (one nvcc per source, started together, then the link): "
+        f"{r['seconds']:.2f} s -> {os.path.relpath(r['path'])}")
     for line in r["ptxas"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"[build]   ptxas: {line.strip()}")
@@ -171,48 +260,29 @@ def served_bins(samples, budgets):
 
 
 def phase_kernel(samples, budgets):
-    import numpy as np
-
     from hydragnn_tpu_torch.data.graph import collate
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_plain,
         edge_pipeline_planned,
-        plan_blocks_static,
-        static_block_bound,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     f = 128
-    cases = {}
-    for spec, members in served_bins(samples, budgets).items():
-        batch = collate(members, spec.pad_spec(), with_segment_plan=True).to(dev)
-        cases[f"n{spec.num_nodes}_e{spec.num_edges}"] = (batch, spec)
-    # an extra plan: an empty node window and two static padding blocks
-    rng = np.random.default_rng(3)
-    n_x, e_x = 200, 400
-    seg = np.sort(np.concatenate([rng.integers(0, 60, 200), rng.integers(120, 200, 200)]))
-    plan_x = plan_blocks_static(seg, n_x, static_block_bound(e_x, n_x) + 2,
-                                edge_valid=rng.random(e_x) > 0.1)
+    batches = [
+        (f"n{spec.num_nodes}_e{spec.num_edges}",
+         collate(members, spec.pad_spec(), with_segment_plan=True).to(dev))
+        for spec, members in served_bins(samples, budgets).items()
+    ]
     rows = []
     main = None
-    for key, (batch, spec) in list(cases.items()) + [("empty_window", (None, None))]:
-        if batch is not None:
-            plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
-            n, e = batch.num_nodes, batch.num_edges
-            e_valid = int(batch.edge_mask.sum())
-            rcv_valid = batch.receivers[batch.edge_mask].long()
-        else:
-            plan = tuple(torch.from_numpy(p).to(dev) for p in plan_x)
-            n, e = n_x, e_x
-            e_valid = int(plan[2].sum())
-            rcv_valid = None
+    for key, plan, n, e, e_valid, batch in batch_cases(batches, dev):
         slots, blocks = plan[0].numel(), plan[3].numel()
-        for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn(e, f, generator=gen).to(dev, dtype)
-            b = torch.randn(e, f, generator=gen).to(dev, dtype)
-            w = (torch.randn(f, f, generator=gen) / f ** 0.5).to(dev, dtype)
-            for stages in ("a", "ab", "abw"):
+        for (a_dt, w_dt), flavours in MIXES.items():
+            a = torch.randn(e, f, generator=gen).to(dev, a_dt)
+            b = torch.randn(e, f, generator=gen).to(dev, a_dt)
+            w = (torch.randn(f, f, generator=gen) / f ** 0.5).to(dev, w_dt)
+            for stages in flavours:
                 args = (a, b if "b" in stages else None, w if "w" in stages else None,
                         *plan, n)
                 with torch.no_grad():
@@ -220,34 +290,32 @@ def phase_kernel(samples, budgets):
                     again = edge_pipeline_planned(*args)
                     ref = edge_pipeline_plain(*args)
                 torch.cuda.synchronize()
-                check(torch.equal(got, again), f"{key} {stages} {dtype}: two runs differ")
-                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                name = mix_name(a_dt, w_dt)
+                check(torch.equal(got, again), f"{key} {stages} {name}: two runs differ")
+                check(got.dtype == ref.dtype, f"{key} {stages} {name}: output dtype")
+                tol = F32_TOL if a_dt == torch.float32 else BF16_TOL
                 torch.testing.assert_close(got.float(), ref.float(), **tol)
                 err = float((got.float() - ref.float()).abs().max())
-                row = {"shape": key, "flavour": stages, "dtype": str(dtype).split(".")[-1],
+                row = {"shape": key, "flavour": stages, "dtype": name,
                        "n": n, "e_valid": e_valid, "max_abs_err": err}
                 if batch is not None:
                     with torch.no_grad():
                         row["ms"] = time_ms(lambda: edge_pipeline_planned(*args))
                         row["plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
-                    row["bound_ms"], row["bound_by"] = bound(
-                        e_valid, n, f, f, slots, blocks, "b" in stages, "w" in stages, dtype)
+                    nbytes, ops, out_dt = k1_work(e_valid, n, f, f, slots, blocks, a_dt,
+                                                  w_dt, "b" in stages, "w" in stages)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, out_dt)
                     row["library_ms"] = None
                     if stages == "a":
                         a_valid = a[batch.edge_mask]
-                        out = torch.zeros(n, f, dtype=dtype, device=dev)
+                        rcv_valid = batch.receivers[batch.edge_mask].long()
+                        out = torch.zeros(n, f, dtype=a_dt, device=dev)
                         row["library_ms"] = time_ms(
                             lambda: out.index_add_(0, rcv_valid, a_valid))
-                    if stages == "abw" and dtype == torch.float32 and (
-                            main is None or n > main["n"]):
+                    if stages == "abw" and name == "f32" and (main is None or n > main["n"]):
                         main = row
                 rows.append(row)
-                log(f"[kernel] {key} {stages} {row['dtype']}: max|err| {err:.3g}"
-                    + (f", kernel {row['ms'] * 1e3:.1f} us, plain {row['plain_ms'] * 1e3:.1f} us,"
-                       f" bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
-                       + (f", index_add_ {row['library_ms'] * 1e3:.1f} us"
-                          if row["library_ms"] is not None else "")
-                       if "ms" in row else ""))
+                log(f"[kernel] {key} {stages} {name}: max|err| {err:.3g}" + timing_note(row))
     # E = 0: zeros without a launch
     before = edge_pipeline_planned.launches
     with torch.no_grad():
@@ -260,20 +328,103 @@ def phase_kernel(samples, budgets):
     return main, rows
 
 
+def timing_note(row):
+    if "ms" not in row:
+        return ""
+    return (f", kernel {row['ms'] * 1e3:.1f} us, plain {row['plain_ms'] * 1e3:.1f} us,"
+            f" bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})"
+            + (f", index_add_ {row['library_ms'] * 1e3:.1f} us"
+               if row.get("library_ms") is not None else ""))
+
+
+def phase_kernel_bwd(batches):
+    """K2 against its plain version on the train bins' plans (and the
+    empty-window plan), every flavour and dtype mix."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    f = 128
+    rows = []
+    main = None
+    for key, plan, n, e, e_valid, batch in batch_cases(batches, dev):
+        slots, blocks = plan[0].numel(), plan[3].numel()
+        covered = torch.zeros(e, dtype=torch.bool, device=dev)
+        covered[plan[0][plan[2]].long()] = True
+        for (a_dt, w_dt), flavours in MIXES.items():
+            a = torch.randn(e, f, generator=gen).to(dev, a_dt)
+            b = torch.randn(e, f, generator=gen).to(dev, a_dt)
+            w = (torch.randn(f, f, generator=gen) / f ** 0.5).to(dev, w_dt)
+            for stages in flavours:
+                g_dt = torch.promote_types(a_dt, w_dt) if "w" in stages else a_dt
+                g = torch.randn(n, f, generator=gen).to(dev, g_dt)
+                args = (g, a, b if "b" in stages else None,
+                        w if "w" in stages else None, *plan, n)
+                got = edge_pipeline_bwd_planned(*args)
+                again = edge_pipeline_bwd_planned(*args)
+                ref = edge_pipeline_bwd_plain(*args)
+                torch.cuda.synchronize()
+                name = mix_name(a_dt, w_dt)
+                tol = VJP_TOL if a_dt == torch.float32 else BF16_TOL
+                err = 0.0
+                for which, x, y, z in zip("abw", got, again, ref):
+                    check((x is None) == (z is None), f"{key} {stages} {name}: d{which}")
+                    if z is None:
+                        continue
+                    check(x.dtype == z.dtype and torch.equal(x, y),
+                          f"{key} {stages} {name}: d{which} dtype or two runs differ")
+                    torch.testing.assert_close(x.float(), z.float(), **tol)
+                    if which != "w":
+                        check(not bool(x[~covered].any()),
+                              f"{key} {stages} {name}: d{which} nonzero off the plan")
+                    err = max(err, float((x.float() - z.float()).abs().max()))
+                row = {"shape": key, "flavour": stages, "dtype": name,
+                       "n": n, "e_valid": e_valid, "max_abs_err": err}
+                if batch is not None:
+                    row["ms"] = time_ms(lambda: edge_pipeline_bwd_planned(*args))
+                    row["plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(*args))
+                    nbytes, ops, _ = k2_work(e, e_valid, n, f, f, slots, blocks, a_dt,
+                                             w_dt, "b" in stages, "w" in stages)
+                    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, g_dt)
+                    row["library_ms"] = None
+                    if stages == "abw" and name == "f32" and (main is None or n > main["n"]):
+                        main = row
+                rows.append(row)
+                log(f"[kernel-bwd] {key} {stages} {name}: max|err| {err:.3g}"
+                    + timing_note(row))
+    before = edge_pipeline_bwd_planned.launches
+    z = edge_pipeline_bwd_planned(g, a[:0], b[:0], w, *plan, n)
+    check(edge_pipeline_bwd_planned.launches == before and z[0].shape == (0, f)
+          and z[2].shape == (f, f) and not bool(z[2].any()),
+          "E=0 must return empty d_a and zero d_W without a launch")
+    log("[kernel-bwd] E=0: empty d_a/d_b, zero d_W, no launch")
+    log(f"[kernel-bwd] {len(rows)} comparisons passed (f32 rtol 1e-4 atol 1e-3, "
+        f"bf16 rtol 4e-2 atol 2.5e-1; identical bits on two runs; zero rows off the plan)")
+    return main, rows
+
+
+FULL_WIDTH_ARCH = {
+    "mpnn_type": "SchNet", "radius": 4.0, "max_neighbours": 32, "num_gaussians": 50,
+    "num_filters": 128, "hidden_dim": 128, "num_conv_layers": 4,
+    "output_heads": {"graph": {"num_sharedlayers": 2, "dim_sharedlayers": 128,
+                               "num_headlayers": 2, "dim_headlayers": [128, 128]}},
+    "task_weights": [1.0],
+}
+
+
 def full_width_config():
+    """The served/trained model's spec, from ``FULL_WIDTH_ARCH``."""
+    from hydragnn_tpu_torch.config import normalize_output_heads
     from hydragnn_tpu_torch.models.spec import model_config_from_dict
 
-    head = {"num_sharedlayers": 2, "dim_sharedlayers": 128,
-            "num_headlayers": 2, "dim_headlayers": [128, 128]}
+    arch = dict(FULL_WIDTH_ARCH, input_dim=1, output_type=["graph"], output_dim=[1],
+                output_heads=normalize_output_heads(FULL_WIDTH_ARCH["output_heads"]))
     return model_config_from_dict({
         "NeuralNetwork": {
-            "Architecture": {
-                "mpnn_type": "SchNet", "input_dim": 1, "radius": 4.0,
-                "max_neighbours": 32, "num_gaussians": 50, "num_filters": 128,
-                "hidden_dim": 128, "num_conv_layers": 4,
-                "output_heads": {"graph": [{"type": "branch-0", "architecture": head}]},
-                "output_type": ["graph"], "output_dim": [1], "task_weights": [1.0],
-            },
+            "Architecture": arch,
             "Variables_of_interest": {"output_names": ["energy"]},
         }
     })
@@ -361,6 +512,265 @@ def phase_slice(samples, budgets, settings):
     return launches, len(records)
 
 
+def bcc_config(path, precision="fp32"):
+    """tests/inputs/ci.json's data, targets and training settings (batch 32,
+    AdamW at 0.01) with bench.py's full-width SchNet, for two epochs."""
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {
+            "name": "chip_smoke_bcc", "format": "unit_test",
+            "compositional_stratified_splitting": True, "path": {"total": path},
+            "node_features": {"name": ["x", "x2", "x3"], "dim": [1, 1, 1],
+                              "column_index": [0, 6, 7]},
+            "graph_features": {"name": ["sum_x_x2_x3"], "dim": [1], "column_index": [0]},
+        },
+        "NeuralNetwork": {
+            "Architecture": dict(FULL_WIDTH_ARCH),
+            "Variables_of_interest": {
+                "input_node_features": [0], "output_names": ["sum_x_x2_x3"],
+                "output_index": [0], "type": ["graph"], "denormalize_output": False,
+            },
+            "Training": {
+                "num_epoch": 2, "perc_train": 0.7, "loss_function_type": "mse",
+                "batch_size": 32, "precision": precision,
+                "Optimizer": {"type": "AdamW", "learning_rate": 0.01},
+            },
+        },
+    }
+
+
+def assert_close_scaled(got, ref, tol, what):
+    """``got`` equals ``ref`` at ``tol``'s rtol and its atol times
+    ``ref``'s largest magnitude (never more than the atol itself)."""
+    import numpy as np
+
+    scale = float(np.abs(ref).max())
+    check(scale > 0, f"{what}: reference is all zeros")
+    np.testing.assert_allclose(got, ref, rtol=tol["rtol"],
+                               atol=tol["atol"] * min(scale, 1.0), err_msg=what)
+    return float(np.abs(got - ref).max()), scale
+
+
+def one_step(model, cfg, training, batch, compute_dtype):
+    """One AdamW step of ``model`` on ``batch``: (loss, {name: grad},
+    {name: updated parameter}) on the host."""
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    opt = select_optimizer(model.parameters(), training)
+    step = make_train_step(model, opt, cfg, compute_dtype)
+    _, loss, _ = step(TrainState(model, opt), batch)
+    grads = {k: p.grad.detach().float().cpu().numpy() for k, p in model.named_parameters()}
+    params = {k: p.detach().float().cpu().numpy() for k, p in model.named_parameters()}
+    return float(loss), grads, params
+
+
+def phase_train(config, splits):
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    # The run: counts of K1/K2 launches and of model forwards, from 0.
+    forwards = [0]
+    plain_forward = MultiHeadGraphModel.forward
+
+    def counted_forward(self, batch):
+        forwards[0] += 1
+        return plain_forward(self, batch)
+
+    MultiHeadGraphModel.forward = counted_forward
+    try:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t0 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k1, k2, n_fwd = (edge_pipeline_planned.launches,
+                         edge_pipeline_bwd_planned.launches, forwards[0])
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        forwards[0] = 0
+        err, _, trues, preds = port.run_prediction(full, state=state, model=model, cfg=cfg)
+        torch.cuda.synchronize()
+        k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
+                                        edge_pipeline_bwd_planned.launches, forwards[0])
+    finally:
+        MultiHeadGraphModel.forward = plain_forward
+    layers = cfg.num_conv_layers
+    losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
+    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
+    check(hist.train_loss[-1] < hist.train_loss[0],
+          f"train loss did not fall: {hist.train_loss}")
+    check(k2 == layers * state.step and state.step > 0,
+          f"K2 launched {k2} times in {state.step} train steps (want {layers} per step)")
+    check(k1 == layers * n_fwd, f"K1 launched {k1} times in {n_fwd} forwards")
+    check(k1_pred == layers * n_fwd_pred and k2_pred == 0 and n_fwd_pred > 0,
+          f"run_prediction: K1 {k1_pred}, K2 {k2_pred}, {n_fwd_pred} forwards")
+    check(np.isfinite(preds[0]).all() and preds[0].shape == trues[0].shape,
+          "run_prediction: bad predictions")
+    log(f"[train] run_training on the card ({train_s:.2f} s, {state.step} train steps, "
+        f"{n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
+        f"test {hist.test_loss}; the train loss falls")
+    log(f"[train] K2 launches {k2} = {layers} x {state.step} train steps; K1 launches "
+        f"{k1} = {layers} x {n_fwd} forwards")
+    log(f"[train] run_prediction: error {err:.6g} over {trues[0].shape[0]} graphs, "
+        f"K1 launches {k1_pred} = {layers} x {n_fwd_pred} forwards, K2 0")
+
+    # The first train step on the card against the CPU's plain path.
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    batch = next(iter(GraphLoader(splits[0], 32, shuffle=True, seed=0, fixed_pad="auto")))
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    parity = {}
+    for precision, dtype, tol in (("fp32", torch.float32, VJP_TOL),
+                                  ("bf16", torch.bfloat16, BF16_TOL)):
+        card = one_step(copy.deepcopy(model0), cfg, training, batch.to("cuda"), dtype)
+        cpu = one_step(copy.deepcopy(model0).to("cpu"), cfg, training, batch, dtype)
+        worst = {"loss": assert_close_scaled(np.asarray(card[0]), np.asarray(cpu[0]),
+                                             F32_TOL if dtype == torch.float32 else tol,
+                                             f"{precision} loss")}
+        for what, i in (("grad", 1), ("param", 2)):
+            errs = [assert_close_scaled(card[i][k], cpu[i][k], tol, f"{precision} {what} {k}")
+                    for k in cpu[i]]
+            worst[what] = max(errs)
+        parity[precision] = worst
+        log(f"[train] first step, card vs CPU plain path, {precision}: loss {card[0]:.6g} vs "
+            f"{cpu[0]:.6g}; worst |err| (|ref|) grads {worst['grad'][0]:.3g} "
+            f"({worst['grad'][1]:.3g}), updated params {worst['param'][0]:.3g} "
+            f"({worst['param'][1]:.3g}); rtol {tol['rtol']}, atol {tol['atol']} x "
+            f"min(max|ref|, 1)")
+        if precision == "fp32":
+            again = one_step(copy.deepcopy(model0), cfg, training, batch.to("cuda"), dtype)
+            same = again[0] == card[0] and all(
+                np.array_equal(again[2][k], card[2][k]) for k in card[2])
+            log(f"[train] two identical f32 steps on the card give "
+                f"{'the same bits' if same else 'different bits'} (loss and parameters; "
+                f"the h[snd] gather's backward adds with atomics)")
+    return {"k1": k1, "k2": k2, "steps": state.step, "forwards": n_fwd,
+            "train_loss": hist.train_loss, "val_loss": hist.val_loss,
+            "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
+            "parity": parity}
+
+
+def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0):
+    """bench.py's random molecules (``_molecules``), from the same seeded
+    generator, with the port's radius graph."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_configs):
+        n = int(rng.integers(n_lo, n_hi))
+        pos = rng.uniform(0, 2.2 * n ** (1 / 3), size=(n, 3))
+        x = rng.integers(0, 5, size=(n, 1)).astype(np.float32)
+        ei = radius_graph(pos, radius, max_neighbours=max_neighbours)
+        out.append(GraphSample(x=x, pos=pos.astype(np.float32), edge_index=ei,
+                               y_graph=np.array([rng.normal()], dtype=np.float32)))
+    return out
+
+
+def phase_train_timing():
+    """One train step at bench.py's headline shape: eager time, device
+    time from the profiler, and K1's and K2's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.data.graph import PadSpec, collate
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    samples = molecules(128, 9, 30, 4.0, 32, seed=0)
+    batch = collate(samples, PadSpec.for_samples(samples), with_segment_plan=True).to("cuda")
+    cfg = full_width_config()
+    model = create_model(cfg, device="cuda", seed=0)
+    opt = select_optimizer(model.parameters(), {"Optimizer": {"type": "AdamW",
+                                                              "learning_rate": 1e-3}})
+    step = make_train_step(model, opt, cfg)
+    state = TrainState(model, opt)
+    e_valid = int(batch.edge_mask.sum())
+    eager = eager_ms(lambda: step(state, batch), iters=20, warmup=3)
+    n_prof = 5
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            step(state, batch)
+        torch.cuda.synchronize()
+    check(edge_pipeline_planned.launches == 4 * n_prof
+          and edge_pipeline_bwd_planned.launches == 4 * n_prof,
+          "headline step: want 4 K1 and 4 K2 launches per step")
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_prof
+    k1 = sum(e.time_range.elapsed_us() for e in kernels
+             if "edge_pipeline_kernel<" in e.name) / 1e3 / n_prof
+    k2 = sum(e.time_range.elapsed_us() for e in kernels
+             if "edge_pipeline_bwd_kernel<" in e.name or "dw_reduce_kernel<" in e.name
+             ) / 1e3 / n_prof
+    out = {"graphs": len(samples), "nodes": batch.num_nodes, "edges": batch.num_edges,
+           "e_valid": e_valid, "eager_ms": eager}
+    if busy > 0:
+        out.update(device_ms=busy, k1_ms=k1, k2_ms=k2)
+        log(f"[train] one f32 train step at the headline shape (128 molecules, "
+            f"{batch.num_nodes} nodes, {e_valid} edges; padded {batch.num_edges}): "
+            f"{eager:.3f} ms issued eagerly, {busy:.3f} ms of device time (profiler, "
+            f"{len(kernels) // n_prof} kernels per step); K1 {k1:.3f} ms "
+            f"({100 * k1 / busy:.1f}%), K2 {k2:.3f} ms ({100 * k2 / busy:.1f}%) of it; "
+            f"the device idles {100 * (1 - busy / eager):.0f}% of the eager step")
+    else:
+        log(f"[train] one f32 train step at the headline shape: {eager:.3f} ms issued "
+            f"eagerly; device time not measured (the profiler recorded no kernels)")
+    return out
+
+
+def bcc_data():
+    """The BCC set of tests/test_graphs.py (300 configurations, seed 7)
+    written under dataset/ (gitignored), its config, and its stratified
+    train/val/test split as the runner makes it."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+    from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+
+    path = os.path.join("dataset", "chip_smoke_bcc")
+    t0 = time.perf_counter()
+    deterministic_graph_data(path, number_configurations=300, seed=7)
+    config = bcc_config(path)
+    samples = process_raw_samples(read_lsms_directory(path, config["Dataset"]), config)
+    splits = split_dataset(samples, 0.7, stratified=True)
+    log(f"[train] BCC set: 300 configurations (seed 7), splits "
+        f"{[len(x) for x in splits]}, in {time.perf_counter() - t0:.2f} s")
+    return config, splits
+
+
+def train_bins(trainset):
+    """The first two batches of the BCC run's train loader (batch 32) on
+    the card: the shapes K2 meets in phase train."""
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+
+    loader = GraphLoader(trainset, 32, shuffle=True, seed=0, fixed_pad="auto")
+    out = []
+    for batch in loader:
+        out.append((f"train_n{batch.num_nodes}_e{batch.num_edges}", batch.to("cuda")))
+        if len(out) == 2:
+            break
+    return out
+
+
 def main():
     card = phase_device()
     # The port lives next to this script; a copy of the script alone
@@ -375,15 +785,20 @@ def main():
     settings = ServingSettings(enabled=True)
     budgets = fit_serving_budgets(*dataset_size_arrays(samples), settings)
     main_row, rows = phase_kernel(samples, budgets)
+    config, splits = bcc_data()
+    bwd_row, bwd_rows = phase_kernel_bwd(train_bins(splits[0]))
     launches, bins = phase_slice(samples, budgets, settings)
+    train = phase_train(config, splits)
+    headline = phase_train_timing()
 
     kernels = [{
         "name": "edge_pipeline",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
+        "launches": train["k1"],
+        "launches_by_path": {"serve": launches, "train": train["k1"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "f32"),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -392,7 +807,24 @@ def main():
         "shape": main_row["shape"],
         "bins": bins,
         "flavours": [r for r in rows if "ms" in r],
+    }, {
+        "name": "edge_pipeline_bwd",
+        "route": "cuda",
+        "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
+        "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
+        "launches": train["k2"],
+        "launches_by_path": {"serve": 0, "train": train["k2"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"),
+        "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": None,
+        "shape": bwd_row["shape"],
+        "flavours": [r for r in bwd_rows if "ms" in r],
     }]
+    log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
+    log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

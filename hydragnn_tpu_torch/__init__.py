@@ -1,21 +1,35 @@
 """hydragnn_tpu_torch: the PyTorch/CUDA port of ``hydragnn_tpu``.
 
-The package mirrors the JAX package's layout (``data/``, ``ops/``,
-``models/``, ``serve/``, ``export.py``); each module names its JAX
-counterpart in its docstring. It imports ``torch`` and numpy only —
-never ``jax``, ``flax``, ``optax`` or ``hydragnn_tpu`` — and keeps its
-own copies of the host logic it needs (collate, the block planner, the
-packer, the synthetic request generator).
+The package mirrors the JAX package's layout (``config/``, ``data/``,
+``ops/``, ``models/``, ``train/``, ``serve/``, ``utils/``,
+``export.py``, ``runner.py``); each module names its JAX counterpart in
+its docstring. It imports ``torch`` and numpy only — never ``jax``,
+``flax``, ``optax`` or ``hydragnn_tpu`` — and keeps its own copies of
+the host logic it needs (config defaulting, the synthetic data, collate,
+the block planner, the packer, the request generator).
 
-What runs today is the serving path for SchNet: ``DynamicBatcher`` ->
-``ServingEngine`` -> ``export.make_forward`` -> ``MultiHeadGraphModel``,
-with the fused edge pipeline (``ops/edge_pipeline.py``) running as a
-hand-written CUDA kernel on the card. Training and the other stacks are
-later work (ROADMAP.md).
+What runs today, for SchNet on one device:
+
+- training: ``run_training(config)`` then ``run_prediction(...)``, with
+  the fused edge pipeline's forward (K1) and backward (K2) as
+  hand-written CUDA kernels on the card (``ops/edge_pipeline.py``);
+- serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
+  ``export.make_forward`` -> ``MultiHeadGraphModel``.
+
+The other stacks and schemes are later work (ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
-imports none of its submodules. The kernel is compiled with ``nvcc`` at
-its first launch (``ops/cuda_build.py``).
+imports none of its submodules (``run_training``/``run_prediction`` load
+the runner on first access). The kernels are compiled with ``nvcc`` at
+their first launch (``ops/cuda_build.py``).
 """
 
-__all__: list = []
+__all__ = ["run_training", "run_prediction"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from hydragnn_tpu_torch import runner
+
+        return getattr(runner, name)
+    raise AttributeError(f"module 'hydragnn_tpu_torch' has no attribute {name!r}")

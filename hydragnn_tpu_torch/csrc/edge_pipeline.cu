@@ -8,8 +8,9 @@
 //
 //     out[n] = sum_{slots s: valid[s], seg[s] == n} (a[perm[s]] * b[perm[s]]) @ W
 //
-// with b and W each optional, f32 or bf16 operands, f32 accumulation and
-// one cast of the output to the operand type.
+// with b and W each optional, f32 or bf16 operands (bf16 a/b may come with
+// an f32 master W, as the JAX kernel takes it), f32 accumulation and one
+// cast of the output to promote(a, W).
 //
 // Design. One CTA owns one node window of bn rows and walks that
 // window's plan blocks (found by binary search in window_id). The TPU
@@ -89,12 +90,13 @@ __device__ __forceinline__ void flush(float* acc_row, const float* r, int cb, in
   }
 }
 
-template <typename T, bool HAS_B, bool HAS_W>
+// T: a and b; TW: W; TO: the output, promote(T, TW).
+template <typename T, typename TW, typename TO, bool HAS_B, bool HAS_W>
 __global__ void __launch_bounds__(kThreads)
 edge_pipeline_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                     const T* __restrict__ w, const int* __restrict__ perm,
+                     const TW* __restrict__ w, const int* __restrict__ perm,
                      const int* __restrict__ seg, const uint8_t* __restrict__ valid,
-                     const int* __restrict__ window_id, T* __restrict__ out,
+                     const int* __restrict__ window_id, TO* __restrict__ out,
                      int n_edges, int n_nodes, int f_in, int f_out, int be, int bn,
                      int n_blocks, int groups) {
   extern __shared__ float smem[];
@@ -202,7 +204,7 @@ edge_pipeline_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 
   const int rows = min(bn, n_nodes - node_base);
-  T* out_w = out + (size_t)node_base * f_out;
+  TO* out_w = out + (size_t)node_base * f_out;
   if constexpr (!HAS_W) {
     for (int i = tid; i < rows * f_in; i += kThreads) store(out_w + i, tiles[i]);
     return;
@@ -274,12 +276,12 @@ int slot_groups(int bn, int f_in) {
   return groups;
 }
 
-template <typename T, bool HAS_B, bool HAS_W>
+template <typename T, typename TW, typename TO, bool HAS_B, bool HAS_W>
 cudaError_t launch(const void* a, const void* b, const void* w, const void* perm,
                    const void* seg, const void* valid, const void* window_id, void* out,
                    int n_edges, int n_nodes, int f_in, int f_out, int be, int bn,
                    int n_blocks, cudaStream_t stream) {
-  auto kernel = edge_pipeline_kernel<T, HAS_B, HAS_W>;
+  auto kernel = edge_pipeline_kernel<T, TW, TO, HAS_B, HAS_W>;
   const int groups = slot_groups(bn, f_in);
   if (groups == 0) return cudaErrorInvalidValue;
   const size_t smem = smem_floats(groups, bn, f_in) * sizeof(float);
@@ -295,26 +297,28 @@ cudaError_t launch(const void* a, const void* b, const void* w, const void* perm
   }
   const int n_windows = (n_nodes + bn - 1) / bn;
   kernel<<<n_windows, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(w),
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const TW*>(w),
       static_cast<const int*>(perm), static_cast<const int*>(seg),
       static_cast<const uint8_t*>(valid), static_cast<const int*>(window_id),
-      static_cast<T*>(out), n_edges, n_nodes, f_in, f_out, be, bn, n_blocks, groups);
+      static_cast<TO*>(out), n_edges, n_nodes, f_in, f_out, be, bn, n_blocks, groups);
   return cudaGetLastError();
 }
 
-template <typename T>
+// Flavours with W take TW; without W the weight type is moot and TO is T.
+template <typename T, typename TW, typename TO>
 cudaError_t launch_flavour(int has_b, int has_w, const void* a, const void* b,
                            const void* w, const void* perm, const void* seg,
                            const void* valid, const void* window_id, void* out,
                            int n_edges, int n_nodes, int f_in, int f_out, int be,
                            int bn, int n_blocks, cudaStream_t stream) {
-#define HG_LAUNCH(HB, HW)                                                        \
-  return launch<T, HB, HW>(a, b, w, perm, seg, valid, window_id, out, n_edges,   \
-                           n_nodes, f_in, f_out, be, bn, n_blocks, stream)
-  if (has_b && has_w) HG_LAUNCH(true, true);
-  if (has_b) HG_LAUNCH(true, false);
-  if (has_w) HG_LAUNCH(false, true);
-  HG_LAUNCH(false, false);
+#define HG_LAUNCH(TW_, TO_, HB, HW)                                               \
+  return launch<T, TW_, TO_, HB, HW>(a, b, w, perm, seg, valid, window_id, out,  \
+                                     n_edges, n_nodes, f_in, f_out, be, bn,      \
+                                     n_blocks, stream)
+  if (has_b && has_w) HG_LAUNCH(TW, TO, true, true);
+  if (has_w) HG_LAUNCH(TW, TO, false, true);
+  if (has_b) HG_LAUNCH(T, T, true, false);
+  HG_LAUNCH(T, T, false, false);
 #undef HG_LAUNCH
 }
 
@@ -322,23 +326,31 @@ cudaError_t launch_flavour(int has_b, int has_w, const void* a, const void* b,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue when the sizes do not
-// fit shared memory. The caller allocates `out` ([n_nodes, f_out]).
+// dtype: 0 = float32; 1 = bfloat16; 2 = bfloat16 a/b with a float32 W
+// (and a float32 output), which needs W. Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue when the sizes do
+// not fit shared memory. The caller allocates `out` ([n_nodes, f_out]).
 int hg_edge_pipeline_fwd(const void* a, const void* b, const void* w,
                          const void* perm, const void* seg, const void* valid,
                          const void* window_id, void* out, int n_edges, int n_nodes,
                          int f_in, int f_out, int be, int bn, int n_blocks, int dtype,
                          int has_b, int has_w, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf16;
   if (dtype == 0)
-    return (int)launch_flavour<float>(has_b, has_w, a, b, w, perm, seg, valid,
-                                      window_id, out, n_edges, n_nodes, f_in, f_out,
-                                      be, bn, n_blocks, s);
+    return (int)launch_flavour<float, float, float>(has_b, has_w, a, b, w, perm, seg,
+                                                    valid, window_id, out, n_edges,
+                                                    n_nodes, f_in, f_out, be, bn,
+                                                    n_blocks, s);
   if (dtype == 1)
-    return (int)launch_flavour<__nv_bfloat16>(has_b, has_w, a, b, w, perm, seg, valid,
-                                              window_id, out, n_edges, n_nodes, f_in,
-                                              f_out, be, bn, n_blocks, s);
+    return (int)launch_flavour<bf16, bf16, bf16>(has_b, has_w, a, b, w, perm, seg, valid,
+                                                 window_id, out, n_edges, n_nodes, f_in,
+                                                 f_out, be, bn, n_blocks, s);
+  if (dtype == 2 && has_w)
+    return (int)launch_flavour<bf16, float, float>(has_b, has_w, a, b, w, perm, seg,
+                                                   valid, window_id, out, n_edges,
+                                                   n_nodes, f_in, f_out, be, bn,
+                                                   n_blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``hydragnn_tpu/data/graph.py``: ``GraphSample`` (one host
 graph), ``GraphBatch`` (a padded batch with the same fields, as tensors),
-``bucket_size``, ``PackSpec``, ``PadSpec``, ``collate`` and
-``apply_segment_plan``. The host work is the JAX package's numpy code,
+``select_input_features``, ``bucket_size``, ``PackSpec``, ``PadSpec``,
+``collate`` and ``apply_segment_plan``. The host work is the JAX package's numpy code,
 copied, so collated arrays match it bit for bit.
 
 Conventions (as in the JAX package): nodes of all graphs are
@@ -142,6 +142,35 @@ class GraphSample:
     @property
     def num_edges(self) -> int:
         return 0 if self.edge_index is None else int(self.edge_index.shape[1])
+
+
+def select_input_features(samples, input_cols):
+    """Column-select every sample's node features
+    (``Variables_of_interest.input_node_features``). Returns ``samples``
+    unchanged (the same object) when the selection already covers the
+    first sample's columns in order, as raw-ingested samples do;
+    otherwise a new list of selected samples."""
+    if input_cols is None or len(samples) == 0:
+        return samples
+    cols = [int(c) for c in input_cols]
+    if not cols:
+        return samples
+    if min(cols) < 0:
+        raise ValueError(
+            f"input_node_features {cols} must be non-negative column indices"
+        )
+    if cols == list(range(int(samples[0].x.shape[1]))):
+        return samples
+    out = []
+    for s in samples:
+        width = int(s.x.shape[1])
+        if max(cols) >= width:
+            raise ValueError(
+                f"input_node_features {cols} out of range for node features "
+                f"of width {width}"
+            )
+        out.append(dataclasses.replace(s, x=np.ascontiguousarray(s.x[:, cols])))
+    return out
 
 
 def bucket_size(n: int, *, base: int = 8, growth: float = 1.25) -> int:

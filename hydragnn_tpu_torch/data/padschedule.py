@@ -2,8 +2,10 @@
 
 Counterpart of the packing half of ``hydragnn_tpu/data/padschedule.py``
 (``OpenBin``, ``PackPlanner``, ``pack_epoch_ffd``, ``fit_pack_budgets``
-and their helpers). Device-free size arithmetic, copied so that fitted
-budgets and packed bins match the JAX package's bit for bit. The
+and their helpers) and the unpacked specs the loader pads to
+(``ladder_spec``, ``worst_case_spec_from_sizes``). Device-free size
+arithmetic, copied so that fitted budgets, packed bins and pad specs
+match the JAX package's bit for bit. The
 per-device schedules of the dp schemes come with the data fast path
 (ROADMAP Queue 1 item 10).
 """
@@ -14,7 +16,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from hydragnn_tpu_torch.data.graph import PackSpec
+from hydragnn_tpu_torch.data.graph import PackSpec, PadSpec, bucket_size
 
 # Bound on the size sample the budget fit simulates (the JAX package's
 # HYDRAGNN_TPU_PACKING_FIT_SAMPLE default).
@@ -38,6 +40,30 @@ def epoch_batch_indices(
         rng.shuffle(order)
     for start in range(0, len(order), batch_size):
         yield order[start : start + batch_size]
+
+
+def ladder_spec(tot_nodes: int, tot_edges: int, n_graphs: int) -> PadSpec:
+    """Bucketed per-batch PadSpec from size totals (``PadSpec.for_samples``
+    arithmetic without the samples)."""
+    return PadSpec(
+        num_nodes=bucket_size(int(tot_nodes) + 1),
+        num_edges=bucket_size(max(int(tot_edges), 1)),
+        num_graphs=int(n_graphs) + 1,
+    )
+
+
+def worst_case_spec_from_sizes(
+    node_sizes: np.ndarray, edge_sizes: np.ndarray, batch_size: int
+) -> PadSpec:
+    """Worst-case bucketed spec over any batch of ``batch_size`` samples
+    (nodes and edges bound independently)."""
+    node_top = sorted((int(c) for c in node_sizes), reverse=True)
+    edge_top = sorted((int(c) for c in edge_sizes), reverse=True)
+    return PadSpec(
+        num_nodes=bucket_size(sum(node_top[:batch_size]) + 1),
+        num_edges=bucket_size(max(sum(edge_top[:batch_size]), 1)),
+        num_graphs=batch_size + 1,
+    )
 
 
 def dataset_size_arrays(dataset) -> tuple:

@@ -20,7 +20,7 @@ from typing import List, Optional, Tuple, Type
 import torch
 from torch import nn
 
-from hydragnn_tpu_torch.models.layers import MLP, activation
+from hydragnn_tpu_torch.models.layers import MLP, Dense, activation
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.ops.segment import (
     dense_segment_sum,
@@ -76,7 +76,7 @@ class MLPNode(nn.Module):
                 setattr(self, f"w_{i}", nn.Parameter(torch.empty(num_nodes, d, o)))
                 setattr(self, f"b_{i}", nn.Parameter(torch.zeros(num_nodes, o)))
             else:
-                self.add_module(f"dense_{i}", nn.Linear(d, o))
+                self.add_module(f"dense_{i}", Dense(d, o))
             d = o
 
     def forward(self, x: torch.Tensor, batch, branch_mask=None) -> torch.Tensor:

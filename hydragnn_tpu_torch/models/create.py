@@ -1,13 +1,16 @@
 """Model factory.
 
 Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
-a stack class and wraps it in the multihead core. Only SchNet is
-registered so far; the other stacks follow ROADMAP Queue 1.
+a stack class and wraps it in the multihead core (``create_model``), and
+builds both from a full config (``create_model_config``). The port's
+model carries its parameters, so creation also initializes them (the
+JAX package's ``init_params``). Only SchNet is registered so far; the
+other stacks follow ROADMAP Queue 1.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Type, Union
+from typing import Dict, Optional, Tuple, Type, Union
 
 import torch
 from torch import nn
@@ -16,7 +19,7 @@ from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
 from hydragnn_tpu_torch.models.layers import init_flax_
 from hydragnn_tpu_torch.models.schnet import SchNetStack
-from hydragnn_tpu_torch.models.spec import ModelConfig
+from hydragnn_tpu_torch.models.spec import ModelConfig, model_config_from_dict
 
 STACKS: Dict[str, Type[nn.Module]] = {"SchNet": SchNetStack}
 
@@ -39,3 +42,15 @@ def create_model(
     model = MultiHeadGraphModel(cfg, STACKS[cfg.mpnn_type])
     init_flax_(model, seed)
     return model.to(dev)
+
+
+def create_model_config(
+    config: dict,
+    device: Optional[Union[str, torch.device]] = None,
+    *,
+    seed: int = 0,
+) -> Tuple[MultiHeadGraphModel, ModelConfig]:
+    """The model (initialized from ``seed``, on ``device``) and its spec
+    from a full (post-``update_config``) JSON config."""
+    cfg = model_config_from_dict(config)
+    return create_model(cfg, device, seed=seed), cfg

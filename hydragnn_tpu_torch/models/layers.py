@@ -2,8 +2,9 @@
 
 Counterpart of ``hydragnn_tpu/models/layers.py``: ``activation``,
 ``shifted_softplus``, ``DenseParams`` and ``MLP``. A flax ``nn.Dense``
-becomes an ``nn.Linear`` (weight ``[out, in]``, the transpose of flax's
-``[in, out]`` kernel). ``init_flax_`` draws weights with flax's default
+becomes ``Dense``, an ``nn.Linear`` (weight ``[out, in]``, the transpose
+of flax's ``[in, out]`` kernel) that computes in the promoted type of its
+input and weight as flax does, so bf16 inputs meet f32 master weights. ``init_flax_`` draws weights with flax's default
 initializers (lecun_normal kernels, zero biases) from a seeded
 ``torch.Generator``, so the port starts from the same distribution as
 the JAX package (not the same numbers: the generators differ).
@@ -52,6 +53,17 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return table[name]
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's type promotion: input, weight and bias
+    are cast to ``promote(x.dtype, weight.dtype)`` (a bf16 input and an
+    f32 weight compute in f32), where ``nn.Linear`` would raise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 class DenseParams(nn.Module):
     """Parameter-only twin of a Dense layer: holds ``kernel`` ``[in,
     out]`` (flax's layout, which the fused edge pipeline takes as its W)
@@ -84,7 +96,7 @@ class MLP(nn.Module):
         self.final_activation = final_activation
         d = in_dim
         for i, f in enumerate(features):
-            self.add_module(f"dense_{i}", nn.Linear(d, f, bias=use_bias))
+            self.add_module(f"dense_{i}", Dense(d, f, bias=use_bias))
             d = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,7 +124,7 @@ def init_flax_(module: nn.Module, seed: int = 0) -> nn.Module:
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "bias" or leaf.startswith("b_"):
             p.zero_()
-        elif leaf == "weight":  # nn.Linear: [out, in]
+        elif leaf == "weight":  # Dense (nn.Linear): [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         elif leaf == "kernel" or leaf.startswith("w_"):  # [..., in, out]
             _lecun_normal_(p, p.shape[-2], gen)

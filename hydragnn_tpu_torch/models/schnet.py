@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from hydragnn_tpu_torch.models.layers import MLP, DenseParams
+from hydragnn_tpu_torch.models.layers import MLP, Dense, DenseParams
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.ops.rbf import (
     cosine_cutoff,
@@ -49,7 +49,7 @@ class CFConv(nn.Module):
             (num_filters, num_filters),
             act="shifted_softplus",
         )
-        self.lin1 = nn.Linear(in_dim, num_filters, bias=False)
+        self.lin1 = Dense(in_dim, num_filters, bias=False)
         if equivariant:
             self.coord_mlp = MLP(num_filters, (num_filters, 1), act="relu")
         # lin2's matmul runs inside the fused edge pipeline, so it is a

@@ -1,13 +1,16 @@
-"""Build and load the CUDA library of K1 (``csrc/edge_pipeline.cu``).
+"""Build and load the CUDA library of K1 and K2.
 
-No JAX counterpart (Pallas compiles inside ``jax.jit``). The source is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library with a
-plain C interface, loaded with ``ctypes``. Nothing is built when this
-module is imported: the first launch builds the library, and
-``build(force=True)`` rebuilds it from the source.
+No JAX counterpart (Pallas compiles inside ``jax.jit``). The sources
+(``csrc/edge_pipeline.cu``: K1, the fused edge pipeline;
+``csrc/edge_pipeline_bwd.cu``: K2, its pullback) are compiled for
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. Nothing is built when this module is imported: the first
+launch builds the library, and ``build(force=True)`` rebuilds it from
+the sources.
 
 The library goes to ``hydragnn_tpu_torch/csrc/build/`` (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
+``.gitignore``), named by a hash of the sources and flags, so an edited
 source is rebuilt and a finished build is reused. A failed build raises
 with the compiler's output; there is no fallback.
 """
@@ -26,11 +29,13 @@ CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCE = os.path.join(CSRC, "edge_pipeline.cu")
+SOURCES = tuple(
+    os.path.join(CSRC, name) for name in ("edge_pipeline.cu", "edge_pipeline_bwd.cu")
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -54,9 +59,25 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libedge_pipeline_{digest.hexdigest()[:12]}.so")
+
+
+def _run_all(commands) -> list:
+    """Start every command at once and wait for all of them: (exit
+    code, merged output) per command."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    results = []
+    for p in procs:
+        output = p.communicate()[0]
+        results.append((p.returncode, output))
+    return results
 
 
 def build(force: bool = False) -> str:
@@ -67,21 +88,30 @@ def build(force: bool = False) -> str:
         if force or not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
+            objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+            nvcc = nvcc_path()
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise RuntimeError(
-                    f"nvcc failed to build {SOURCE} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}"
+            try:
+                results = _run_all(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(SOURCES, objs)
                 )
-            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+                if all(rc == 0 for rc, _ in results):
+                    results += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+                failed = [(rc, o) for rc, o in results if rc != 0]
+                if failed:
+                    raise RuntimeError(
+                        f"nvcc failed to build {', '.join(SOURCES)} (exit "
+                        f"{failed[0][0]}):\n" + "\n".join(o for _, o in results)
+                    )
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            finally:
+                for path in (tmp, *objs):
+                    if os.path.exists(path):
+                        os.remove(path)
             build_report.update(
-                seconds=time.perf_counter() - t0, ptxas=proc.stdout, path=out
+                seconds=time.perf_counter() - t0,
+                ptxas="".join(o for _, o in results), path=out,
             )
     return out
 
@@ -99,6 +129,8 @@ def load_library() -> ctypes.CDLL:
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.hg_edge_pipeline_fwd.argtypes = [p] * 8 + [i] * 10 + [p]
                 lib.hg_edge_pipeline_fwd.restype = i
+                lib.hg_edge_pipeline_bwd.argtypes = [p] * 12 + [i] * 10 + [p]
+                lib.hg_edge_pipeline_bwd.restype = i
                 lib.hg_cuda_error_string.argtypes = [i]
                 lib.hg_cuda_error_string.restype = ctypes.c_char_p
                 _lib = lib

@@ -16,7 +16,12 @@ parts:
   hand-written Hopper kernel in ``csrc/edge_pipeline.cu`` (built by
   ``ops/cuda_build.py`` at first use); on a CPU tensor it runs the plain
   PyTorch version ``edge_pipeline_plain`` below. There is no other
-  route and no fallback between the two.
+  route and no fallback between the two;
+- kernel K2, ``edge_pipeline_bwd_planned``, K1's pullback (d_a, d_b,
+  d_W for a cotangent of the output): ``csrc/edge_pipeline_bwd.cu`` on
+  CUDA tensors, ``edge_pipeline_bwd_plain`` on CPU tensors. Autograd
+  reaches it through ``EdgePipelineFn``, which ``edge_pipeline_planned``
+  takes whenever an operand needs a gradient.
 
 The JAX kernel's tiles (be=512, bn=256) were sized for the TPU's VMEM and
 its 128x128 matrix unit. On Hopper one CTA owns one node window and keeps
@@ -34,16 +39,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 # Hopper tile sizes (the TPU kernel used be=512, bn=256).
 DEFAULT_BE = 64  # plan slots per block (an aligned tile of sorted edges)
 DEFAULT_BN = 32  # node-window rows (one CTA each)
 
 # Dynamic shared memory a Hopper block may opt into (232,448 bytes), and
-# the floats the kernel stages beside its window tiles (a 64 x 128 W chunk
-# and 256 (row, edge) slot pairs; csrc/edge_pipeline.cu::smem_floats).
+# the floats both kernels stage beside their window tiles: a 64 x 128 W
+# chunk and 256 (row, edge) slot pairs (smem_floats in csrc/*.cu).
 _MAX_SMEM = 232448
-_STAGED_FLOATS = 64 * 128 + 2 * 256
+_W_CHUNK_FLOATS = 64 * 128
+_SLOT_FLOATS = 2 * 256
 
 
 def plan_sorted_blocks(
@@ -146,12 +153,18 @@ def static_block_bound(
 
 
 # ----------------------------------------------------------------------
-# K1: the fused edge pipeline
+# K1 (the fused edge pipeline) and K2 (its pullback)
 # ----------------------------------------------------------------------
 
 
 def _out_dtype(a: torch.Tensor, w: Optional[torch.Tensor]) -> torch.dtype:
     return torch.promote_types(a.dtype, w.dtype) if w is not None else a.dtype
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic type: f32 for f32/bf16 (the
+    kernels' accumulator), f64 for f64 (gradient checks)."""
+    return torch.promote_types(torch.float32, dtype)
 
 
 def edge_pipeline_plain(
@@ -167,26 +180,125 @@ def edge_pipeline_plain(
     be: int = DEFAULT_BE,
 ) -> torch.Tensor:
     """K1's plain PyTorch version: gather the plan slots, multiply,
-    matmul, ``index_add_`` into the segments, in f32, and cast once to
-    ``promote(a, W)``. Invalid slots are selected to zero (never
-    multiplied), as in the TPU kernel. ``window_id``/``be`` are unused
-    here: slots carry their own segment ids."""
+    matmul, ``index_add_`` into the segments, in f32 (f64 for f64
+    operands), and cast once to ``promote(a, W)``. Invalid slots are
+    selected to zero (never multiplied), as in the TPU kernel.
+    ``window_id``/``be`` are unused here: slots carry their own segment
+    ids."""
     del window_id, be
     f_out = w.shape[1] if w is not None else a.shape[1]
     out_dtype = _out_dtype(a, w)
+    ct = _acc_dtype(out_dtype)
     if a.shape[0] == 0:
         return torch.zeros((num_segments, f_out), dtype=out_dtype, device=a.device)
     idx = perm.long()
-    msg = a.float()[idx]
+    msg = a.to(ct)[idx]
     if b is not None:
-        msg = msg * b.float()[idx]
+        msg = msg * b.to(ct)[idx]
     msg = torch.where(valid[:, None], msg, 0.0)
     if w is not None:
-        msg = msg @ w.float()
+        msg = msg @ w.to(ct)
     n_pad = max((num_segments + bn - 1) // bn, 1) * bn
-    out = torch.zeros((n_pad, f_out), dtype=torch.float32, device=a.device)
+    out = torch.zeros((n_pad, f_out), dtype=ct, device=a.device)
     out.index_add_(0, seg_padded.long(), msg)
     return out[:num_segments].to(out_dtype)
+
+
+def edge_pipeline_bwd_plain(
+    g: torch.Tensor,
+    a: torch.Tensor,
+    b: Optional[torch.Tensor],
+    w: Optional[torch.Tensor],
+    perm: torch.Tensor,
+    seg_padded: torch.Tensor,
+    valid: torch.Tensor,
+    window_id: torch.Tensor,
+    num_segments: int,
+    bn: int = DEFAULT_BN,
+    be: int = DEFAULT_BE,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K2's plain PyTorch version, after the JAX package's XLA pullback
+    (``_edge_pipeline_bwd_xla``): ``slot_g = g[seg]`` at valid slots,
+    ``d_h = slot_g @ W^T``, ``d_a = d_h * b``, ``d_b = d_h * a``
+    (scattered to the edge rows), ``d_W = msg^T @ slot_g``, in f32 (f64
+    for f64 operands) with one terminal cast to each operand's type.
+    Returns ``(d_a, d_b, d_W)`` with None for an absent operand. Invalid
+    slots are selected away after the products, and ``g`` is never
+    indexed past ``num_segments`` (their ``seg`` may lie in the padded
+    window)."""
+    del window_id, bn, be
+    ct = _acc_dtype(torch.promote_types(a.dtype, g.dtype))
+    d_w = None if w is None else torch.zeros(w.shape, dtype=w.dtype, device=a.device)
+    if a.shape[0] == 0:
+        return (
+            torch.zeros_like(a),
+            None if b is None else torch.zeros_like(b),
+            d_w,
+        )
+    vm = valid[:, None]
+    idx = perm.long()
+    rows = seg_padded.long().clamp(max=num_segments - 1)
+    slot_g = torch.where(vm, g.to(ct)[rows], 0.0)  # [S, F_out]
+    a_s = a.to(ct)[idx]
+    b_s = None if b is None else b.to(ct)[idx]
+    if w is not None:
+        msg = a_s if b_s is None else a_s * b_s
+        msg = torch.where(vm, msg, 0.0)
+        d_w = (msg.T @ slot_g).to(w.dtype)
+        d_h = slot_g @ w.to(ct).T  # [S, F_in]
+    else:
+        d_h = slot_g
+
+    def scatter(rows_grad):
+        out = torch.zeros(a.shape, dtype=ct, device=a.device)
+        return out.index_add_(0, idx, torch.where(vm, rows_grad, 0.0))
+
+    if b_s is None:
+        return scatter(d_h).to(a.dtype), None, d_w
+    return scatter(d_h * b_s).to(a.dtype), scatter(d_h * a_s).to(b.dtype), d_w
+
+
+@once_differentiable
+def _pullback(ctx, g):
+    a, b, w, perm, seg_padded, valid, window_id = ctx.saved_tensors
+    d_a, d_b, d_w = edge_pipeline_bwd_planned(
+        g, a, b, w, perm, seg_padded, valid, window_id, *ctx.plan_sizes
+    )
+    need = ctx.needs_input_grad
+    return (
+        d_a if need[0] else None,
+        d_b if need[1] else None,
+        d_w if need[2] else None,
+    ) + (None,) * 7
+
+
+class EdgePipelineFn(torch.autograd.Function):
+    """``edge_pipeline_planned`` with a gradient: K1 forward and K2
+    backward on CUDA tensors, ``edge_pipeline_plain`` and
+    ``edge_pipeline_bwd_plain`` on CPU tensors. The backward is
+    ``once_differentiable``, and a backward asked to build a graph
+    (``create_graph=True``, as forces of an interatomic potential need)
+    raises instead of returning a gradient whose own gradient is
+    silently missing."""
+
+    @staticmethod
+    def forward(ctx, a, b, w, perm, seg_padded, valid, window_id,
+                num_segments, bn, be):
+        ctx.save_for_backward(a, b, w, perm, seg_padded, valid, window_id)
+        ctx.plan_sizes = (num_segments, bn, be)
+        return _edge_pipeline_fwd(
+            a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the edge pipeline's backward (K2) is differentiable once; "
+                "second derivatives (interatomic-potential forces) wait for "
+                "the MLIP slice: ROADMAP Queue 1 item 7"
+            )
+        return _pullback(ctx, g)
 
 
 def edge_pipeline_planned(
@@ -201,34 +313,66 @@ def edge_pipeline_planned(
     bn: int = DEFAULT_BN,
     be: int = DEFAULT_BE,
 ) -> torch.Tensor:
-    """``segment_sum((a * b) @ w)`` over a block plan: ``[N, F_out]``.
+    """``segment_sum((a * b) @ w)`` over a block plan: ``[N, F_out]`` in
+    ``promote(a, W)``.
 
-    A CUDA ``a`` launches the Hopper kernel (and counts the launch in
+    A CUDA ``a`` launches the Hopper kernel K1 (and counts the launch in
     ``edge_pipeline_planned.launches``); a CPU ``a`` runs
-    ``edge_pipeline_plain``. Anything else raises. E=0 returns zeros of
-    the output dtype without a launch. Padding edges are invalid plan
-    slots (``plan_sorted_blocks(edge_valid=...)``), so callers must not
+    ``edge_pipeline_plain``. Anything else raises. When an operand needs
+    a gradient the call goes through ``EdgePipelineFn``, whose backward
+    is K2 (``edge_pipeline_bwd_planned``). E=0 returns zeros without a
+    launch. Padding edges are invalid plan slots
+    (``plan_sorted_blocks(edge_valid=...)``), so callers must not
     pre-mask the operands."""
-    if a.shape[0] == 0:
-        f_out = w.shape[1] if w is not None else a.shape[1]
-        return torch.zeros(
-            (num_segments, f_out), dtype=_out_dtype(a, w), device=a.device
-        )
-    if a.device.type == "cpu":
-        return edge_pipeline_plain(
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, w)
+    ):
+        return EdgePipelineFn.apply(
             a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
         )
-    if a.device.type != "cuda":
-        raise ValueError(
-            f"edge_pipeline_planned runs on CUDA or CPU tensors, got "
-            f"{a.device}"
-        )
-    return _edge_pipeline_cuda(
+    return _edge_pipeline_fwd(
         a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
     )
 
 
 edge_pipeline_planned.launches = 0
+
+
+def edge_pipeline_bwd_planned(
+    g: torch.Tensor,
+    a: torch.Tensor,
+    b: Optional[torch.Tensor],
+    w: Optional[torch.Tensor],
+    perm: torch.Tensor,
+    seg_padded: torch.Tensor,
+    valid: torch.Tensor,
+    window_id: torch.Tensor,
+    num_segments: int,
+    bn: int = DEFAULT_BN,
+    be: int = DEFAULT_BE,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The pullback of ``edge_pipeline_planned`` for the cotangent ``g``
+    ``[N, F_out]``: ``(d_a, d_b, d_W)``, None for an absent operand.
+
+    A CUDA ``a`` launches the Hopper kernel K2 (counted in
+    ``edge_pipeline_bwd_planned.launches``); a CPU ``a`` runs
+    ``edge_pipeline_bwd_plain``. Anything else raises. E=0 returns zeros
+    without a launch."""
+    if a.shape[0] == 0 or a.device.type == "cpu":
+        return edge_pipeline_bwd_plain(
+            g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+        )
+    if a.device.type != "cuda":
+        raise ValueError(
+            f"edge_pipeline_bwd_planned runs on CUDA or CPU tensors, got "
+            f"{a.device}"
+        )
+    return _edge_pipeline_bwd_cuda(
+        g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+    )
+
+
+edge_pipeline_bwd_planned.launches = 0
 
 
 def segment_sum_planned(
@@ -253,28 +397,38 @@ def segment_sum_product_planned(
     )
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+def _edge_pipeline_fwd(
+    a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+) -> torch.Tensor:
+    """K1 without autograd: zeros for E=0, the plain version on the CPU,
+    the kernel on CUDA."""
+    if a.shape[0] == 0:
+        f_out = w.shape[1] if w is not None else a.shape[1]
+        return torch.zeros(
+            (num_segments, f_out), dtype=_out_dtype(a, w), device=a.device
+        )
+    if a.device.type == "cpu":
+        return edge_pipeline_plain(
+            a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+        )
+    if a.device.type != "cuda":
+        raise ValueError(
+            f"edge_pipeline_planned runs on CUDA or CPU tensors, got "
+            f"{a.device}"
+        )
+    return _edge_pipeline_cuda(
+        a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+    )
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"edge_pipeline_planned: {msg}")
+        raise ValueError(f"edge_pipeline: {msg}")
 
 
-def _edge_pipeline_cuda(
-    a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
-) -> torch.Tensor:
-    """Validate, allocate the output, launch the kernel on the current
-    stream and count the launch. Raises on anything the kernel does not
-    take; never falls back."""
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (a, b, w)
-    ):
-        raise NotImplementedError(
-            "edge_pipeline_planned on CUDA is forward-only: its backward "
-            "kernel (K2) comes with the training slice (ROADMAP Queue 2); "
-            "call it under torch.no_grad()"
-        )
+def _validate(a, b, w, perm, seg_padded, valid, window_id, num_segments, be):
+    """Check what both kernels take; returns (E, F_in, F_out, blocks,
+    dtype code): 0 = f32, 1 = bf16, 2 = bf16 a/b with an f32 W."""
     dev = a.device
     tensors = {"a": a, "b": b, "w": w, "perm": perm, "seg_padded": seg_padded,
                "valid": valid, "window_id": window_id}
@@ -283,7 +437,8 @@ def _edge_pipeline_cuda(
             continue
         _check(t.device == dev, f"{name} is on {t.device}, a is on {dev}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
-    _check(a.dtype in _DTYPE_CODE, f"a must be float32 or bfloat16, got {a.dtype}")
+    _check(a.dtype in (torch.float32, torch.bfloat16),
+           f"a must be float32 or bfloat16, got {a.dtype}")
     _check(a.dim() == 2, f"a must be [E, F_in], got {tuple(a.shape)}")
     e, f_in = a.shape
     if b is not None:
@@ -291,11 +446,15 @@ def _edge_pipeline_cuda(
                f"b must match a ({a.dtype}, {tuple(a.shape)}), got "
                f"({b.dtype}, {tuple(b.shape)})")
     f_out = f_in
+    code = 0 if a.dtype == torch.float32 else 1
     if w is not None:
-        _check(w.dtype == a.dtype, f"w must be {a.dtype}, got {w.dtype}")
+        _check(w.dtype == a.dtype or (a.dtype, w.dtype) == (torch.bfloat16, torch.float32),
+               f"w must be {a.dtype} (or float32 with bfloat16 a), got {w.dtype}")
         _check(w.dim() == 2 and w.shape[0] == f_in,
                f"w must be [{f_in}, F_out], got {tuple(w.shape)}")
         f_out = w.shape[1]
+        if w.dtype != a.dtype:
+            code = 2
     n_blocks = window_id.numel()
     _check(window_id.dtype == torch.int32 and window_id.dim() == 1,
            "window_id must be a 1-D int32 tensor")
@@ -308,16 +467,37 @@ def _edge_pipeline_cuda(
            f"valid must be bool [{n_blocks * be}]")
     _check(n_blocks >= 1 and num_segments >= 1, "empty plan or output")
     _check(0 < e < 2**31 and f_in > 0 and f_out > 0, "bad operand sizes")
+    return e, f_in, f_out, n_blocks, code
+
+
+def _raise_on(lib, err: int, which: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{which} kernel launch failed: CUDA error {err} "
+            f"({lib.hg_cuda_error_string(err).decode(errors='replace')})"
+        )
+
+
+def _edge_pipeline_cuda(
+    a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+) -> torch.Tensor:
+    """Validate, allocate the output, launch K1 on the current stream
+    and count the launch. Raises on anything the kernel does not take;
+    never falls back."""
+    e, f_in, f_out, n_blocks, code = _validate(
+        a, b, w, perm, seg_padded, valid, window_id, num_segments, be
+    )
     # The kernel gives each of up to 8 slot-walking warps its own f32
     # [bn, F_in] tile, as many as fit; it needs room for one at least.
-    smem = 4 * (bn * f_in + _STAGED_FLOATS)
+    smem = 4 * (bn * f_in + _W_CHUNK_FLOATS + _SLOT_FLOATS)
     _check(smem <= _MAX_SMEM,
            f"a [{bn}, {f_in}] f32 window tile needs {smem} bytes of shared "
            f"memory > {_MAX_SMEM}; use a smaller bn")
     from hydragnn_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
-    out = torch.empty((num_segments, f_out), dtype=a.dtype, device=dev)
+    dev = a.device
+    out = torch.empty((num_segments, f_out), dtype=_out_dtype(a, w), device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hg_edge_pipeline_fwd(
@@ -330,14 +510,66 @@ def _edge_pipeline_cuda(
             window_id.data_ptr(),
             out.data_ptr(),
             e, num_segments, f_in, f_out, be, bn, n_blocks,
-            _DTYPE_CODE[a.dtype], int(b is not None), int(w is not None),
+            code, int(b is not None), int(w is not None),
             stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"edge_pipeline kernel launch failed: CUDA error {err} "
-            f"({lib.hg_cuda_error_string(err).decode(errors='replace')})"
-        )
+    _raise_on(lib, err, "edge_pipeline (K1)")
     edge_pipeline_planned.launches += 1
     return out
 
+
+def _edge_pipeline_bwd_cuda(
+    g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+):
+    """Validate, allocate d_a/d_b/d_W and the f32 d_W partials, launch K2
+    on the current stream and count the launch. Raises on anything the
+    kernel does not take; never falls back."""
+    e, f_in, f_out, n_blocks, code = _validate(
+        a, b, w, perm, seg_padded, valid, window_id, num_segments, be
+    )
+    dev = a.device
+    g = g.contiguous()
+    _check(g.device == dev and g.dtype == _out_dtype(a, w)
+           and g.shape == (num_segments, f_out),
+           f"g must be {_out_dtype(a, w)} [{num_segments}, {f_out}] on {dev}, "
+           f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    # The g window, and with W its product g @ W^T and one warp tile at
+    # least (csrc/edge_pipeline_bwd.cu::smem_floats).
+    floats = bn * f_out + _SLOT_FLOATS + (
+        2 * bn * f_in + _W_CHUNK_FLOATS if w is not None else 0
+    )
+    _check(4 * floats <= _MAX_SMEM,
+           f"K2 staging for bn={bn}, F_in={f_in}, F_out={f_out} needs "
+           f"{4 * floats} bytes of shared memory > {_MAX_SMEM}; use a smaller bn")
+    from hydragnn_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library()
+    d_a = torch.empty_like(a)
+    d_b = None if b is None else torch.empty_like(b)
+    d_w = dw_part = None
+    if w is not None:
+        d_w = torch.empty_like(w)
+        n_windows = (num_segments + bn - 1) // bn
+        dw_part = torch.empty((n_windows, f_in, f_out), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hg_edge_pipeline_bwd(
+            g.data_ptr(),
+            a.data_ptr(),
+            None if b is None else b.data_ptr(),
+            None if w is None else w.data_ptr(),
+            perm.data_ptr(),
+            seg_padded.data_ptr(),
+            valid.view(torch.uint8).data_ptr(),
+            window_id.data_ptr(),
+            d_a.data_ptr(),
+            None if d_b is None else d_b.data_ptr(),
+            None if d_w is None else d_w.data_ptr(),
+            None if dw_part is None else dw_part.data_ptr(),
+            e, num_segments, f_in, f_out, be, bn, n_blocks,
+            code, int(b is not None), int(w is not None),
+            stream,
+        )
+    _raise_on(lib, err, "edge_pipeline_bwd (K2)")
+    edge_pipeline_bwd_planned.launches += 1
+    return d_a, d_b, d_w

@@ -1,0 +1,127 @@
+"""Host neighbour lists: radius graphs and connectivity repair.
+
+Counterpart of the host half of ``hydragnn_tpu/ops/neighbors.py``:
+``radius_graph`` (its numpy cell list, ``_cell_list_pairs``, and the
+per-receiver cap ``_cap_neighbors``) and ``ensure_connected``, copied so
+that the edge arrays equal the JAX package's numpy path element for
+element. The JAX package may take a native C++ cell list instead, which
+finds the same edges in another order; the port has no native library.
+Periodic graphs (``radius_graph_pbc``) and the in-jit builder come with
+the slices that use them (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+
+def radius_graph(
+    pos: np.ndarray,
+    radius: float,
+    *,
+    max_neighbours: Optional[int] = None,
+    loop: bool = False,
+) -> np.ndarray:
+    """All directed edges (s, r) with |pos_s - pos_r| <= radius, as
+    edge_index [2, E] (senders in row 0, receivers in row 1);
+    ``max_neighbours`` keeps each receiver's nearest senders."""
+    pos = np.asarray(pos, dtype=np.float64)
+    if pos.shape[0] == 0:
+        return np.zeros((2, 0), dtype=np.int64)
+    senders, receivers, _ = _cell_list_pairs(pos, radius, loop=loop)
+    return _cap_neighbors(senders, receivers, pos, max_neighbours)
+
+
+def ensure_connected(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Connectivity repair: add artificial chain edges (both directions)
+    between the components a radius cutoff left apart."""
+    parent = np.arange(num_nodes)
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for s, r in edge_index.T:
+        ra, rb = find(int(s)), find(int(r))
+        if ra != rb:
+            parent[ra] = rb
+    roots = sorted({find(i) for i in range(num_nodes)})
+    if len(roots) <= 1:
+        return edge_index
+    extra = []
+    for a, b in zip(roots[:-1], roots[1:]):
+        extra.append((a, b))
+        extra.append((b, a))
+    extra = np.array(extra, dtype=edge_index.dtype).T
+    return np.concatenate([edge_index, extra], axis=1)
+
+
+def _cell_list_pairs(pos: np.ndarray, radius: float, *, loop: bool):
+    """Binned pair search; returns (senders, receivers, d2) numpy arrays."""
+    n = pos.shape[0]
+    lo = pos.min(axis=0)
+    cell_size = max(radius, 1e-12)
+    bins = np.floor((pos - lo) / cell_size).astype(np.int64)
+    nbins = bins.max(axis=0) + 1
+    key = (bins[:, 0] * nbins[1] + bins[:, 1]) * nbins[2] + bins[:, 2]
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    senders_l, receivers_l, d2_l = [], [], []
+    uniq, starts = np.unique(sorted_key, return_index=True)
+    starts = np.append(starts, n)
+    bin_of = {int(k): i for i, k in enumerate(uniq)}
+    r2 = radius * radius
+    offsets = [
+        (dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
+    ]
+    for bi, k in enumerate(uniq):
+        members = order[starts[bi] : starts[bi + 1]]
+        kz = int(k) % nbins[2]
+        ky = (int(k) // nbins[2]) % nbins[1]
+        kx = int(k) // (nbins[1] * nbins[2])
+        cand = []
+        for dx, dy, dz in offsets:
+            nx, ny, nz = kx + dx, ky + dy, kz + dz
+            if not (0 <= nx < nbins[0] and 0 <= ny < nbins[1] and 0 <= nz < nbins[2]):
+                continue
+            bj = bin_of.get(int((nx * nbins[1] + ny) * nbins[2] + nz))
+            if bj is not None:
+                cand.append(order[starts[bj] : starts[bj + 1]])
+        cand = np.concatenate(cand)
+        diff = pos[cand][None, :, :] - pos[members][:, None, :]
+        d2 = np.einsum("ijk,ijk->ij", diff, diff)
+        mask = d2 <= r2
+        if not loop:
+            mask &= members[:, None] != cand[None, :]
+        ri, ci = np.nonzero(mask)
+        if ri.size:
+            receivers_l.append(members[ri])
+            senders_l.append(cand[ci])
+            d2_l.append(d2[ri, ci])
+    if not senders_l:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, np.zeros(0)
+    return (
+        np.concatenate(senders_l),
+        np.concatenate(receivers_l),
+        np.concatenate(d2_l),
+    )
+
+
+def _cap_neighbors(senders, receivers, pos, max_neighbours) -> np.ndarray:
+    """Keep at most ``max_neighbours`` nearest senders per receiver (a
+    stable sort by distance), in the input's order."""
+    if max_neighbours is None:
+        return np.stack([senders, receivers]).astype(np.int64)
+    d2 = np.sum((pos[senders] - pos[receivers]) ** 2, axis=1)
+    keep = np.zeros(senders.shape[0], dtype=bool)
+    for r in np.unique(receivers):
+        idx = np.nonzero(receivers == r)[0]
+        if idx.size > max_neighbours:
+            idx = idx[np.argsort(d2[idx], kind="stable")[:max_neighbours]]
+        keep[idx] = True
+    return np.stack([senders[keep], receivers[keep]]).astype(np.int64)

@@ -1,0 +1,216 @@
+"""End-to-end orchestration: ``run_training`` and ``run_prediction``.
+
+Counterpart of ``hydragnn_tpu/runner.py`` on one device (``scheme:
+single``): config loading, raw ingestion and splitting, ``update_config``,
+model and optimizer construction, the epoch loop, and a test pass that
+collects per-sample predictions. Both entry points run on ``"cuda"``
+unless the caller passes another ``device`` (the tests pass ``"cpu"``).
+
+Refused with ``NotImplementedError`` naming the ROADMAP item that ports
+it: data-parallel and multibranch schemes (Queue 1 item 11), bin
+packing, supersteps and the parallel input pipeline (item 10),
+checkpoints and ``continue`` (item 6), the divergence guard (item 12),
+interatomic-potential training (item 7), and dataset formats other than
+the raw LSMS text files (item 10).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from hydragnn_tpu_torch.config import load_config, save_config, update_config
+from hydragnn_tpu_torch.data.graph import GraphSample, select_input_features
+from hydragnn_tpu_torch.data.loader import GraphLoader, split_dataset
+from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
+from hydragnn_tpu_torch.device import resolve_device
+from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.train.loop import test as run_test
+from hydragnn_tpu_torch.train.loop import train_validate_test
+from hydragnn_tpu_torch.train.optimizer import grad_clip_norm, select_optimizer
+from hydragnn_tpu_torch.train.state import TrainState, resolve_precision
+from hydragnn_tpu_torch.utils.print_utils import (
+    get_log_name_config,
+    print_distributed,
+    setup_log,
+)
+
+
+def _ingest_datasets(config: dict) -> Tuple[List[GraphSample], ...]:
+    """train/val/test GraphSamples from the raw LSMS text directories of
+    ``Dataset.path`` (one ``total`` directory split by ``perc_train``, or
+    one per split); normalization statistics come from all of them."""
+    ds = config.get("Dataset", {})
+    fmt = ds.get("format", "unit_test")
+    if fmt not in ("unit_test", "LSMS"):
+        raise NotImplementedError(
+            f"Dataset.format {fmt!r} is not ported yet (the port reads the raw "
+            "LSMS text format): ROADMAP Queue 1 item 10"
+        )
+    paths = ds.get("path", {})
+    if not isinstance(paths, dict):
+        raise ValueError(f"Dataset.path must be a dict, got {type(paths)}")
+    training = config["NeuralNetwork"]["Training"]
+    if "total" in paths:
+        samples = process_raw_samples(read_lsms_directory(paths["total"], ds), config)
+        return split_dataset(
+            samples,
+            float(training.get("perc_train", 0.7)),
+            stratified=bool(ds.get("compositional_stratified_splitting", False)),
+        )
+    raws = {split: read_lsms_directory(paths[split], ds)
+            for split in ("train", "validate", "test")}
+    samples = process_raw_samples(raws["train"] + raws["validate"] + raws["test"], config)
+    n_tr, n_va = len(raws["train"]), len(raws["validate"])
+    return samples[:n_tr], samples[n_tr : n_tr + n_va], samples[n_tr + n_va :]
+
+
+def _input_cols(config: dict):
+    return config.get("NeuralNetwork", {}).get("Variables_of_interest", {}).get(
+        "input_node_features"
+    )
+
+
+def _refuse_unported(config: dict) -> None:
+    """Raise on every configured feature this slice does not port."""
+    arch = config["NeuralNetwork"].get("Architecture", {})
+    training = config["NeuralNetwork"].get("Training", {})
+    par = training.get("Parallelism", {})
+    scheme = par.get("scheme", "auto")
+    if scheme not in ("auto", "single"):
+        raise NotImplementedError(
+            f"Parallelism scheme {scheme!r} is not ported yet (the port trains "
+            "on one device): ROADMAP Queue 1 item 11"
+        )
+    packing = par.get("packing", {}).get("enabled", "auto")
+    if packing not in ("auto", False, "false", "0", "off", "no", ""):
+        raise NotImplementedError(
+            "bin-packed batches (Parallelism.packing) are not ported yet: "
+            "ROADMAP Queue 1 item 10"
+        )
+    steps = par.get("superstep", {}).get("steps", "auto")
+    if steps not in ("auto", 1, "1"):
+        raise NotImplementedError(
+            "supersteps (Parallelism.superstep) are not ported yet: ROADMAP "
+            "Queue 1 item 10"
+        )
+    if int(par.get("pipeline", {}).get("workers", 0) or 0) > 0:
+        raise NotImplementedError(
+            "the parallel input pipeline is not ported yet (the port collates "
+            "serially): ROADMAP Queue 1 item 10"
+        )
+    ckpt = training.get("Checkpoint", False)
+    if (ckpt.get("enabled", True) if isinstance(ckpt, dict) else ckpt) or training.get(
+        "continue"
+    ):
+        raise NotImplementedError(
+            "checkpoints and continue are not ported yet: ROADMAP Queue 1 item 6"
+        )
+    guard = training.get("Guard", False)
+    if guard.get("enabled", True) if isinstance(guard, dict) else guard:
+        raise NotImplementedError(
+            "the divergence guard is not ported yet: ROADMAP Queue 1 item 12"
+        )
+    if arch.get("enable_interatomic_potential"):
+        raise NotImplementedError(
+            "interatomic-potential (energy + force) training is not ported "
+            "yet: ROADMAP Queue 1 item 7"
+        )
+
+
+def run_training(
+    config_source,
+    datasets: Optional[Tuple[Sequence[GraphSample], ...]] = None,
+    *,
+    seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+):
+    """Train end to end from a JSON config (path or dict) on one device
+    (``None`` means ``"cuda"``). ``datasets`` may give (train, val, test)
+    sample lists instead of ``Dataset.path``. Every batch carries the
+    block plan at the Hopper tiles unless ``Training.use_segment_plan``
+    is false, so each CFConv layer runs K1 forward and K2 backward.
+
+    Returns (state, model, cfg, history, config)."""
+    config = load_config(config_source)
+    _refuse_unported(config)
+    dev = resolve_device(device)
+    verbosity = int(config.get("Verbosity", {}).get("level", 0))
+    if datasets is None:
+        trainset, valset, testset = _ingest_datasets(config)
+    else:
+        in_cols = _input_cols(config)
+        trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
+    config = update_config(config, trainset, valset, testset)
+    log_name = get_log_name_config(config)
+    if verbosity > 0:
+        setup_log(log_name)
+    save_config(config, log_name)
+    config["_log_name"] = log_name
+
+    training = config["NeuralNetwork"]["Training"]
+    param_dtype, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
+    batch_size = int(training.get("batch_size", 32))
+    seg_plan = training.get("use_segment_plan", True)
+    seg_plan = True if seg_plan == "auto" else bool(seg_plan)
+    model, cfg = create_model_config(config, dev, seed=seed)
+    model.to(param_dtype)
+    print_distributed(
+        verbosity, 1, f"Model parameters: {sum(p.numel() for p in model.parameters())}"
+    )
+    train_loader = GraphLoader(
+        trainset, batch_size, shuffle=True, seed=seed, fixed_pad="auto",
+        with_segment_plan=seg_plan,
+    )
+    val_loader, test_loader = (
+        GraphLoader(ds, batch_size, fixed_pad="auto", with_segment_plan=seg_plan,
+                    cache_batches=True)
+        for ds in (valset, testset)
+    )
+    state = TrainState(model, select_optimizer(model.parameters(), training))
+    state, hist = train_validate_test(
+        model, cfg, state, train_loader, val_loader, test_loader, config,
+        device=dev, compute_dtype=compute_dtype,
+        clip_norm=grad_clip_norm(training), verbosity=verbosity,
+    )
+    return state, model, cfg, hist, config
+
+
+def run_prediction(
+    config_source,
+    datasets: Optional[Tuple] = None,
+    *,
+    state: Optional[TrainState] = None,
+    model=None,
+    cfg=None,
+):
+    """A test pass of a trained model over the config's test split (or
+    ``datasets``' third entry), on the model's device. Returns (error,
+    per-task error, true values, predicted values), one array per head.
+    ``state``, ``model`` and ``cfg`` come from ``run_training``; loading
+    them from a checkpoint waits for the checkpoint port."""
+    if state is None or model is None or cfg is None:
+        raise NotImplementedError(
+            "run_prediction needs state, model and cfg from run_training until "
+            "checkpoints are ported: ROADMAP Queue 1 item 6"
+        )
+    config = load_config(config_source)
+    _refuse_unported(config)
+    if datasets is None:
+        trainset, valset, testset = _ingest_datasets(config)
+    else:
+        in_cols = _input_cols(config)
+        trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
+    config = update_config(config, trainset, valset, testset)
+    training = config["NeuralNetwork"]["Training"]
+    dev = next(model.parameters()).device
+    _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
+    seg_plan = training.get("use_segment_plan", True)
+    test_loader = GraphLoader(
+        testset, int(training.get("batch_size", 32)),
+        with_segment_plan=True if seg_plan == "auto" else bool(seg_plan),
+    )
+    return run_test(
+        model, cfg, state, test_loader, device=dev, compute_dtype=compute_dtype
+    )

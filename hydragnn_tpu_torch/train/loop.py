@@ -1,0 +1,258 @@
+"""Training / validation / test loops.
+
+Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
+``make_eval_step``, ``History``, ``train_validate_test`` (the serial
+feed) and ``test``. An epoch runs each batch's step on the device and
+keeps the graph-weighted loss sums there; the host fetches them once at
+the end of the epoch (the JAX loop's discipline), never per step. The
+plateau scheduler steps on the validation loss and early stopping
+follows ``Training.EarlyStopping``/``patience``, as in the JAX loop.
+
+Not ported yet, and refused by the runner: checkpoint saves and resume,
+the divergence guard, supersteps, the pipeline feed, telemetry and the
+MLIP loss (ROADMAP Queue 1 items 6, 7, 10, 12, 13).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from hydragnn_tpu_torch.models.spec import ModelConfig
+from hydragnn_tpu_torch.train.losses import multihead_loss
+from hydragnn_tpu_torch.train.optimizer import (
+    ReduceLROnPlateau,
+    clip_by_global_norm_,
+    get_learning_rate,
+    set_learning_rate,
+)
+from hydragnn_tpu_torch.train.state import TrainState, cast_batch
+from hydragnn_tpu_torch.utils.print_utils import print_distributed
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    cfg: ModelConfig,
+    compute_dtype: torch.dtype = torch.float32,
+    clip_norm: float = 0.0,
+) -> Callable:
+    """``step(state, batch) -> (state, loss, per_task)``: one optimizer
+    step on a batch already on the model's device. The losses come back
+    as device tensors (no host sync); the gradients stay in ``.grad``
+    until the next step."""
+    params = list(model.parameters())
+
+    def step(state: TrainState, batch):
+        b = cast_batch(batch, compute_dtype)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        tot, tasks = multihead_loss(model(b), b, cfg)
+        tot.backward()
+        if clip_norm > 0:
+            clip_by_global_norm_(params, clip_norm)
+        optimizer.step()
+        state.step += 1
+        return state, tot.detach(), tasks.detach()
+
+    return step
+
+
+def make_eval_step(
+    model: torch.nn.Module,
+    cfg: ModelConfig,
+    compute_dtype: torch.dtype = torch.float32,
+    collect_outputs: bool = False,
+) -> Callable:
+    """``step(state, batch) -> (loss, per_task[, outputs])`` in eval mode
+    without gradients."""
+
+    def step(state: TrainState, batch):
+        del state
+        b = cast_batch(batch, compute_dtype)
+        model.eval()
+        with torch.no_grad():
+            outputs = model(b)
+            tot, tasks = multihead_loss(outputs, b, cfg)
+        if collect_outputs:
+            return tot, tasks, list(outputs)
+        return tot, tasks
+
+    return step
+
+
+@dataclass
+class History:
+    train_loss: List[float] = field(default_factory=list)
+    val_loss: List[float] = field(default_factory=list)
+    test_loss: List[float] = field(default_factory=list)
+    train_tasks: List[np.ndarray] = field(default_factory=list)
+    val_tasks: List[np.ndarray] = field(default_factory=list)
+    test_tasks: List[np.ndarray] = field(default_factory=list)
+    lr: List[float] = field(default_factory=list)
+    epoch_seconds: List[float] = field(default_factory=list)
+
+
+def _fetch_epoch(loss_sum, tasks_sum, n_graphs) -> Tuple[float, np.ndarray]:
+    """The one host fetch of an epoch: (mean loss, mean per-task)."""
+    vals = torch.cat(
+        [loss_sum.reshape(1).double(), tasks_sum.reshape(-1).double(),
+         n_graphs.reshape(1).double()]
+    ).cpu().numpy()
+    denom = max(float(vals[-1]), 1.0)
+    return float(vals[0]) / denom, vals[1:-1] / denom
+
+
+def _run_epoch(step_fn, state, loader, *, train: bool, device: torch.device):
+    """One pass over the loader; weighted partial sums accumulate on the
+    device and are fetched once at the end."""
+    loss_sum = tasks_sum = n_graphs = None
+    for batch in loader:
+        batch = batch.to(device)
+        ng = batch.graph_mask.sum().to(torch.float32)
+        if train:
+            state, loss, tasks = step_fn(state, batch)
+        else:
+            loss, tasks = step_fn(state, batch)
+        if loss_sum is None:
+            loss_sum, tasks_sum, n_graphs = loss * ng, tasks * ng, ng
+        else:
+            loss_sum = loss_sum + loss * ng
+            tasks_sum = tasks_sum + tasks * ng
+            n_graphs = n_graphs + ng
+    if loss_sum is None:
+        return state, 0.0, np.zeros(1)
+    loss, tasks = _fetch_epoch(loss_sum, tasks_sum, n_graphs)
+    return state, loss, tasks
+
+
+def train_validate_test(
+    model: torch.nn.Module,
+    cfg: ModelConfig,
+    state: TrainState,
+    train_loader,
+    val_loader,
+    test_loader,
+    config: dict,
+    *,
+    device: torch.device,
+    compute_dtype: torch.dtype = torch.float32,
+    clip_norm: float = 0.0,
+    verbosity: int = 0,
+) -> Tuple[TrainState, History]:
+    """The epoch loop: train, validate, test, step the plateau scheduler
+    on the validation loss, stop early after ``patience`` epochs without
+    improvement when ``EarlyStopping`` is set."""
+    training = config["NeuralNetwork"]["Training"]
+    num_epoch = int(training.get("num_epoch", 1))
+    patience = int(training.get("patience", 10))
+    early_stop = bool(training.get("EarlyStopping", False))
+    train_step = make_train_step(
+        model, state.optimizer, cfg, compute_dtype, clip_norm=clip_norm
+    )
+    eval_step = make_eval_step(model, cfg, compute_dtype)
+    sched_cfg = training.get("ReduceLROnPlateau", {})
+    scheduler = ReduceLROnPlateau(
+        factor=float(sched_cfg.get("factor", 0.5)),
+        patience=int(sched_cfg.get("patience", 5)),
+        min_lr=float(sched_cfg.get("min_lr", 1e-5)),
+        threshold=float(sched_cfg.get("threshold", 1e-4)),
+    )
+    hist = History()
+    best_val = float("inf")
+    bad_epochs = 0
+    for epoch in range(num_epoch):
+        t0 = time.time()
+        train_loader.set_epoch(epoch)
+        state, train_loss, train_tasks = _run_epoch(
+            train_step, state, train_loader, train=True, device=device
+        )
+        _, val_loss, val_tasks = _run_epoch(
+            eval_step, state, val_loader, train=False, device=device
+        )
+        _, test_loss, test_tasks = _run_epoch(
+            eval_step, state, test_loader, train=False, device=device
+        )
+        lr = get_learning_rate(state.optimizer)
+        new_lr = scheduler.step(val_loss, lr)
+        if new_lr != lr:
+            set_learning_rate(state.optimizer, new_lr)
+        hist.train_loss.append(train_loss)
+        hist.val_loss.append(val_loss)
+        hist.test_loss.append(test_loss)
+        hist.train_tasks.append(train_tasks)
+        hist.val_tasks.append(val_tasks)
+        hist.test_tasks.append(test_tasks)
+        hist.lr.append(new_lr)
+        hist.epoch_seconds.append(time.time() - t0)
+        print_distributed(
+            verbosity,
+            1,
+            f"Epoch {epoch:4d} | train {train_loss:.6f} | val {val_loss:.6f} "
+            f"| test {test_loss:.6f} | lr {new_lr:.2e} "
+            f"| {time.time() - t0:.2f}s",
+        )
+        if val_loss < best_val:
+            best_val = val_loss
+            bad_epochs = 0
+        else:
+            bad_epochs += 1
+            if early_stop and bad_epochs >= patience:
+                print_distributed(verbosity, 1, f"Early stopping at epoch {epoch}")
+                break
+    return state, hist
+
+
+def test(
+    model: torch.nn.Module,
+    cfg: ModelConfig,
+    state: TrainState,
+    loader,
+    *,
+    device: torch.device,
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[float, np.ndarray, List[np.ndarray], List[np.ndarray]]:
+    """A full test pass collecting per-sample true/pred per head. Returns
+    (error, per-task error, trues, preds); trues/preds hold one
+    ``[num_samples_or_nodes, dim]`` array per head, padding removed. The
+    loss sums stay on the device until the end; only the per-sample
+    collections cross to the host per batch."""
+    eval_step = make_eval_step(model, cfg, compute_dtype, collect_outputs=True)
+    loss_sum = tasks_sum = ng_sum = None
+    trues: List[List[np.ndarray]] = [[] for _ in cfg.heads]
+    preds: List[List[np.ndarray]] = [[] for _ in cfg.heads]
+    for batch in loader:
+        batch = batch.to(device)
+        loss, tasks, outputs = eval_step(state, batch)
+        ng = batch.graph_mask.sum()
+        ngf = ng.to(torch.float32)
+        if loss_sum is None:
+            loss_sum, tasks_sum, ng_sum = loss * ngf, tasks * ngf, ng
+        else:
+            loss_sum = loss_sum + loss * ngf
+            tasks_sum = tasks_sum + tasks * ngf
+            ng_sum = ng_sum + ng
+        gm = batch.graph_mask.cpu().numpy()
+        nm = batch.node_mask.cpu().numpy()
+        for hi, (level, start, end) in enumerate(cfg.head_offsets()):
+            out = outputs[hi][:, : cfg.heads[hi].dim].float().cpu().numpy()
+            if level == "graph":
+                y, m = batch.y_graph[:, start:end].cpu().numpy(), gm
+            else:
+                y, m = batch.y_node[:, start:end].cpu().numpy(), nm
+            trues[hi].append(y[m])
+            preds[hi].append(out[m])
+    error, tasks_avg = (
+        (0.0, np.zeros(1)) if loss_sum is None
+        else _fetch_epoch(loss_sum, tasks_sum, ng_sum)
+    )
+    return (
+        error,
+        tasks_avg,
+        [np.concatenate(t, axis=0) for t in trues],
+        [np.concatenate(p, axis=0) for p in preds],
+    )

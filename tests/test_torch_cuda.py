@@ -1,4 +1,4 @@
-"""K1 on the card: the Hopper kernel against its plain PyTorch version.
+"""K1 and K2 on the card: the Hopper kernels against their plain versions.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -10,10 +10,21 @@ JAX is not installed; there, skip the JAX-pinning conftest:
 import numpy as np
 import pytest
 
-# tests/test_pallas_segment.py:341-342 — the fused kernel's tolerances.
+# tests/test_pallas_segment.py:341-342 and :808 — the fused kernels'
+# forward and gradient tolerances.
 TOL = {
     "float32": dict(rtol=1e-5, atol=1e-4),
     "bfloat16": dict(rtol=4e-2, atol=2.5e-1),
+}
+VJP_TOL = {
+    "float32": dict(rtol=1e-4, atol=1e-3),
+    "bfloat16": dict(rtol=4e-2, atol=2.5e-1),
+}
+# dtype mixes: (a/b, W); "bf16_f32w" is bf16 a/b with an f32 master W.
+MIXES = {
+    "float32": ("float32", "float32"),
+    "bfloat16": ("bfloat16", "bfloat16"),
+    "bf16_f32w": ("bfloat16", "float32"),
 }
 
 
@@ -31,7 +42,8 @@ def _need_card():
     return torch
 
 
-def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32):
+def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
+          w_dtype=None):
     """A served-bin-like case: receiver-sorted real edges, padding edges
     masked out of the plan, static block padding."""
     from hydragnn_tpu_torch.ops.edge_pipeline import (
@@ -53,31 +65,36 @@ def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32):
     a = torch.tensor(rng.normal(size=(e_pad, f_in)), dtype=dtype, device=dev)
     b = torch.tensor(rng.normal(size=(e_pad, f_in)), dtype=dtype, device=dev)
     w = torch.tensor(
-        rng.normal(size=(f_in, f_out)) / np.sqrt(f_in), dtype=dtype, device=dev
+        rng.normal(size=(f_in, f_out)) / np.sqrt(f_in), dtype=w_dtype or dtype,
+        device=dev,
     )
     perm, seg_p, valid, window = (torch.from_numpy(p).to(dev) for p in plan)
     return a, b, w, perm, seg_p, valid, window
 
 
+SHAPES = [(1250, 1280, 640, 128), (37, 64, 200, 16), (300, 304, 40, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("stages", ["a", "ab", "abw"])
+@pytest.mark.parametrize(
+    "stages,dt",
+    [(s, d) for d in ("float32", "bfloat16") for s in ("a", "ab", "abw")]
+    + [("aw", "float32"), ("aw", "bf16_f32w"), ("abw", "bf16_f32w")],
+)
 def test_kernel_matches_plain(stages, dt):
-    """Each flavour, both dtypes: the kernel equals its plain version
-    within the fused kernel's tolerances, and two runs give the same
-    bits."""
+    """K1 in each flavour and dtype mix equals its plain version within
+    the fused kernel's tolerances, and two runs give the same bits; the
+    output type is promote(a, W)."""
     torch = _need_card()
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_plain,
         edge_pipeline_planned,
     )
 
-    dtype = getattr(torch, dt)
-    for seed, (e_real, e_pad, n, f) in enumerate(
-        [(1250, 1280, 640, 128), (37, 64, 200, 16), (300, 304, 40, 128)]
-    ):
+    a_dt, w_dt = (getattr(torch, x) for x in MIXES[dt])
+    for seed, (e_real, e_pad, n, f) in enumerate(SHAPES):
         a, b, w, perm, seg_p, valid, window = _case(
-            torch, seed, e_real, e_pad, n, f, f, dtype
+            torch, seed, e_real, e_pad, n, f, f, a_dt, w_dtype=w_dt
         )
         b = b if "b" in stages else None
         w = w if "w" in stages else None
@@ -89,18 +106,67 @@ def test_kernel_matches_plain(stages, dt):
             ref = edge_pipeline_plain(*args)
         torch.cuda.synchronize()
         assert edge_pipeline_planned.launches == before + 2
-        assert got.dtype == ref.dtype == dtype
+        out_dt = torch.promote_types(a_dt, w_dt) if w is not None else a_dt
+        assert got.dtype == ref.dtype == out_dt
         assert torch.equal(got, again)
-        torch.testing.assert_close(got.float(), ref.float(), **TOL[dt])
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[MIXES[dt][0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "stages,dt",
+    [(s, d) for d in ("float32", "bfloat16") for s in ("a", "ab", "aw", "abw")]
+    + [("aw", "bf16_f32w"), ("abw", "bf16_f32w")],
+)
+def test_k2_matches_plain(stages, dt):
+    """K2 in each flavour and dtype mix equals its plain version within
+    the gradient tolerances, two runs give the same bits (no atomics),
+    and masked or padding edges get exactly zero."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+    )
+
+    a_dt, w_dt = (getattr(torch, x) for x in MIXES[dt])
+    for seed, (e_real, e_pad, n, f) in enumerate(SHAPES):
+        a, b, w, perm, seg_p, valid, window = _case(
+            torch, seed, e_real, e_pad, n, f, f, a_dt, w_dtype=w_dt
+        )
+        b = b if "b" in stages else None
+        w = w if "w" in stages else None
+        g_dt = torch.promote_types(a_dt, w_dt) if w is not None else a_dt
+        g = torch.randn(n, f, generator=torch.Generator().manual_seed(seed)).to("cuda", g_dt)
+        args = (g, a, b, w, perm, seg_p, valid, window, n)
+        before = edge_pipeline_bwd_planned.launches
+        got = edge_pipeline_bwd_planned(*args)
+        again = edge_pipeline_bwd_planned(*args)
+        ref = edge_pipeline_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert edge_pipeline_bwd_planned.launches == before + 2
+        covered = torch.zeros(a.shape[0], dtype=torch.bool, device="cuda")
+        covered[perm[valid].long()] = True
+        for name, x, y, z in zip("abw", got, again, ref):
+            if z is None:
+                assert x is None
+                continue
+            assert x.dtype == z.dtype and x.shape == z.shape, name
+            assert torch.equal(x, y), name
+            torch.testing.assert_close(x.float(), z.float(), **VJP_TOL[MIXES[dt][0]])
+            if name != "w":
+                assert not x[~covered].any(), name
 
 
 @pytest.mark.cuda
 def test_kernel_edge_cases():
     """E=0 returns zeros without a launch; a plan built at the TPU's
     tiles (be=512, bn=256) runs through the same kernel; a gradient
-    request raises instead of silently dropping the gradient."""
+    request (at the Hopper tiles: K2 stages three [bn, F] f32 tiles in
+    shared memory, which bn=256 at F=128 overflows) runs K1 forward and
+    K2 backward, one launch each, and gives the CPU path's gradients."""
     torch = _need_card()
     from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
         edge_pipeline_plain,
         edge_pipeline_planned,
     )
@@ -122,6 +188,26 @@ def test_kernel_edge_cases():
         )
         assert edge_pipeline_planned.launches == before
         assert z.shape == (300, 128) and not z.any()
-    w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        edge_pipeline_planned(a, b, w, perm, seg_p, valid, window, 300)
+    with pytest.raises(ValueError, match="smaller bn"):
+        edge_pipeline_bwd_planned(
+            torch.ones(300, 128, device="cuda"), a, b, w, perm, seg_p, valid,
+            window, 300, bn=256, be=512,
+        )
+    a, b, w, perm, seg_p, valid, window = _case(
+        torch, 6, 900, 1024, 300, 128, 128, torch.float32
+    )
+    args = [t.detach().clone().requires_grad_(True) for t in (a, b, w)]
+    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    out = edge_pipeline_planned(*args, perm, seg_p, valid, window, 300)
+    gout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, args, gout)
+    torch.cuda.synchronize()
+    assert (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches) == (
+        k1 + 1, k2 + 1
+    )
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (a, b, w)]
+    out_c = edge_pipeline_planned(
+        *cpu, *(t.cpu() for t in (perm, seg_p, valid, window)), 300
+    )
+    for got, want in zip(grads, torch.autograd.grad(out_c, cpu, gout.cpu())):
+        torch.testing.assert_close(got.cpu(), want, **VJP_TOL["float32"])

@@ -60,12 +60,16 @@ def _samples(port, n=12, seed=0, histogram="qm9"):
 
 
 def test_import_pulls_in_no_jax():
-    """A fresh interpreter importing the port (and its serving and
-    model modules) loads no jax, flax or hydragnn_tpu module."""
+    """A fresh interpreter importing the port (its serving, model and
+    training modules, and the runner behind ``run_training``) loads no
+    jax, flax, optax or hydragnn_tpu module."""
     code = (
         "import sys, hydragnn_tpu_torch\n"
         "import hydragnn_tpu_torch.serve.engine, hydragnn_tpu_torch.models.create\n"
-        "import hydragnn_tpu_torch.models.convert\n"
+        "import hydragnn_tpu_torch.models.convert, hydragnn_tpu_torch.runner\n"
+        "import hydragnn_tpu_torch.data.synthetic, hydragnn_tpu_torch.ops.neighbors\n"
+        "assert callable(hydragnn_tpu_torch.run_training)\n"
+        "assert callable(hydragnn_tpu_torch.run_prediction)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'hydragnn_tpu'))\n"
         "print(','.join(bad))\n"
@@ -95,7 +99,14 @@ def test_sources_import_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
+    rel = {os.path.relpath(f, PORT) for f in files}
+    # the training slice's modules are among those walked
+    assert {
+        "runner.py", "config/config.py", "data/loader.py", "data/raw.py",
+        "data/synthetic.py", "ops/neighbors.py", "train/loop.py",
+        "train/losses.py", "train/optimizer.py", "train/state.py",
+        "utils/print_utils.py",
+    } <= rel
     for f in files:
         for mod in _imported_modules(f):
             assert mod.split(".")[0] not in FORBIDDEN, f"{f} imports {mod}"
