@@ -12,16 +12,19 @@ exits non-zero):
                (one nvcc per source, in parallel, then one link); the
                ptxas register and spill report.
 3. kernel      K1 (the fused edge pipeline) against its plain PyTorch
-               version on the card, at the shapes of the served bins
-               (F_in = F_out = 128), every flavour (a; a,b; a,W; a,b,W)
+               version on the card, at the shapes of the served bins and
+               of the headline train step (F_in = F_out = 128; the
+               headline's windows hold more valid slots than one staging
+               pass), every flavour (a; a,b; a,W; a,b,W)
                in f32 and bf16 and with bf16 a/b and an f32 W, plus a
                plan with an empty window and static padding, and E = 0;
                two runs must give the same bits. Times with CUDA events:
                the kernel, the plain version, the bound from bytes and
                operations, and index_add_ for the reduce-only flavour.
 4. kernel-bwd  K2 (the pullback) against its plain version at the train
-               bin's shape in every flavour and dtype mix, the empty-window
-               plan and E = 0, same bits on two runs; timed like K1.
+               bins' shapes and the headline train step's in every flavour
+               and dtype mix, the empty-window plan and E = 0, same bits on
+               two runs; timed like K1.
 5. slice       bench.py's headline SchNet at full width (4 CFConv layers,
                128 filters, 50 Gaussians, hidden 128, graph head 2x128
                shared + [128, 128]) with random weights from a seeded
@@ -35,15 +38,17 @@ exits non-zero):
 6. train       the same SchNet trained by run_training on the card (f32,
                batch 32, 2 epochs) on the BCC set of tests/test_graphs.py
                (300 configurations, seed 7), then run_prediction. Checks:
-               finite losses, the train loss falls, K1 launches = 4 x model
+               finite losses, every step's loss finite and the last
+               epoch's mean below the first step's loss, K1 launches = 4 x model
                forwards and K2 launches = 4 x train steps; the first train
                step on the card equals the same step on the CPU's plain
                path (loss, gradients, AdamW-updated parameters) in f32 and,
                at the bf16 tolerance, in bf16; whether two identical runs
                of that step give the same bits is reported. Then one train
                step at bench.py's headline shape (128 molecules of 9-30
-               atoms, radius 4.0, 32 neighbours): eager and device time and
-               K1's and K2's share of the device time.
+               atoms, radius 4.0, 32 neighbours): card against the CPU's
+               plain path (loss, gradients, updated parameters), then
+               eager and device time and K1's and K2's share of it.
 7. report      the kernels JSON line, the card line, and the final
                {"ok": true, "device": ...} line.
 """
@@ -66,6 +71,7 @@ CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 N_REQUESTS = 256
+K_CHUNK = 256  # plan slots the kernels stage per pass (kChunk in csrc/*.cu)
 
 
 def log(msg):
@@ -201,6 +207,20 @@ def empty_window_plan(dev):
     return tuple(torch.from_numpy(p).to(dev) for p in plan), n, e
 
 
+def window_fill(plan):
+    """The most valid plan slots of any one node window."""
+    perm, _, valid, window = plan
+    be = perm.numel() // window.numel()
+    return int(torch.bincount(window.long().repeat_interleave(be)[valid]).max())
+
+
+def check_spans_passes(rows, tag):
+    fill = max(r["window_fill"] for r in rows)
+    check(fill > K_CHUNK, f"{tag}: no case puts more than {K_CHUNK} valid slots in a window")
+    log(f"[{tag}] the fullest window holds {fill} valid slots (> {K_CHUNK} staged per "
+        f"pass: row sums carry across staging passes)")
+
+
 def batch_cases(batches, dev):
     """(key, plan, n, e, e_valid, batch) for each device batch, then the
     empty-window plan (batch None, not timed)."""
@@ -259,7 +279,7 @@ def served_bins(samples, budgets):
     return bins
 
 
-def phase_kernel(samples, budgets):
+def phase_kernel(samples, budgets, headline):
     from hydragnn_tpu_torch.data.graph import collate
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_plain,
@@ -273,11 +293,12 @@ def phase_kernel(samples, budgets):
         (f"n{spec.num_nodes}_e{spec.num_edges}",
          collate(members, spec.pad_spec(), with_segment_plan=True).to(dev))
         for spec, members in served_bins(samples, budgets).items()
-    ]
+    ] + [headline]
     rows = []
     main = None
     for key, plan, n, e, e_valid, batch in batch_cases(batches, dev):
         slots, blocks = plan[0].numel(), plan[3].numel()
+        fill = window_fill(plan)
         for (a_dt, w_dt), flavours in MIXES.items():
             a = torch.randn(e, f, generator=gen).to(dev, a_dt)
             b = torch.randn(e, f, generator=gen).to(dev, a_dt)
@@ -296,8 +317,8 @@ def phase_kernel(samples, budgets):
                 tol = F32_TOL if a_dt == torch.float32 else BF16_TOL
                 torch.testing.assert_close(got.float(), ref.float(), **tol)
                 err = float((got.float() - ref.float()).abs().max())
-                row = {"shape": key, "flavour": stages, "dtype": name,
-                       "n": n, "e_valid": e_valid, "max_abs_err": err}
+                row = {"shape": key, "flavour": stages, "dtype": name, "n": n,
+                       "e_valid": e_valid, "window_fill": fill, "max_abs_err": err}
                 if batch is not None:
                     with torch.no_grad():
                         row["ms"] = time_ms(lambda: edge_pipeline_planned(*args))
@@ -323,6 +344,7 @@ def phase_kernel(samples, budgets):
     check(edge_pipeline_planned.launches == before and z.shape == (n, f)
           and not bool(z.any()), "E=0 must return zeros without a launch")
     log(f"[kernel] E=0: zeros {tuple(z.shape)} {z.dtype}, no launch")
+    check_spans_passes(rows, "kernel")
     log(f"[kernel] {len(rows)} comparisons passed (f32 rtol 1e-5 atol 1e-4, "
         f"bf16 rtol 4e-2 atol 2.5e-1; identical bits on two runs)")
     return main, rows
@@ -338,8 +360,9 @@ def timing_note(row):
 
 
 def phase_kernel_bwd(batches):
-    """K2 against its plain version on the train bins' plans (and the
-    empty-window plan), every flavour and dtype mix."""
+    """K2 against its plain version on the train bins' and the headline
+    step's plans (and the empty-window plan), every flavour and dtype
+    mix."""
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_bwd_plain,
         edge_pipeline_bwd_planned,
@@ -352,6 +375,7 @@ def phase_kernel_bwd(batches):
     main = None
     for key, plan, n, e, e_valid, batch in batch_cases(batches, dev):
         slots, blocks = plan[0].numel(), plan[3].numel()
+        fill = window_fill(plan)
         covered = torch.zeros(e, dtype=torch.bool, device=dev)
         covered[plan[0][plan[2]].long()] = True
         for (a_dt, w_dt), flavours in MIXES.items():
@@ -381,8 +405,8 @@ def phase_kernel_bwd(batches):
                         check(not bool(x[~covered].any()),
                               f"{key} {stages} {name}: d{which} nonzero off the plan")
                     err = max(err, float((x.float() - z.float()).abs().max()))
-                row = {"shape": key, "flavour": stages, "dtype": name,
-                       "n": n, "e_valid": e_valid, "max_abs_err": err}
+                row = {"shape": key, "flavour": stages, "dtype": name, "n": n,
+                       "e_valid": e_valid, "window_fill": fill, "max_abs_err": err}
                 if batch is not None:
                     row["ms"] = time_ms(lambda: edge_pipeline_bwd_planned(*args))
                     row["plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(*args))
@@ -401,6 +425,7 @@ def phase_kernel_bwd(batches):
           and z[2].shape == (f, f) and not bool(z[2].any()),
           "E=0 must return empty d_a and zero d_W without a launch")
     log("[kernel-bwd] E=0: empty d_a/d_b, zero d_W, no launch")
+    check_spans_passes(rows, "kernel-bwd")
     log(f"[kernel-bwd] {len(rows)} comparisons passed (f32 rtol 1e-4 atol 1e-3, "
         f"bf16 rtol 4e-2 atol 2.5e-1; identical bits on two runs; zero rows off the plan)")
     return main, rows
@@ -578,16 +603,31 @@ def phase_train(config, splits):
         edge_pipeline_bwd_planned,
         edge_pipeline_planned,
     )
+    from hydragnn_tpu_torch.train import loop
 
-    # The run: counts of K1/K2 launches and of model forwards, from 0.
+    # The run: counts of K1/K2 launches and of model forwards, from 0, and
+    # every train step's loss (kept on the card, read after the run).
     forwards = [0]
+    step_losses = []
     plain_forward = MultiHeadGraphModel.forward
+    plain_make_train_step = loop.make_train_step
 
     def counted_forward(self, batch):
         forwards[0] += 1
         return plain_forward(self, batch)
 
+    def recorded_make_train_step(*args, **kwargs):
+        step = plain_make_train_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, loss, tasks = step(state, batch)
+            step_losses.append(loss)
+            return state, loss, tasks
+
+        return recorded
+
     MultiHeadGraphModel.forward = counted_forward
+    loop.make_train_step = recorded_make_train_step
     try:
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         t0 = time.perf_counter()
@@ -604,11 +644,15 @@ def phase_train(config, splits):
                                         edge_pipeline_bwd_planned.launches, forwards[0])
     finally:
         MultiHeadGraphModel.forward = plain_forward
+        loop.make_train_step = plain_make_train_step
     layers = cfg.num_conv_layers
+    steps = torch.stack(step_losses).double().cpu().numpy()
     losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
-    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
-    check(hist.train_loss[-1] < hist.train_loss[0],
-          f"train loss did not fall: {hist.train_loss}")
+    check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
+          f"non-finite loss in {losses} or in the steps {steps.tolist()}")
+    check(len(steps) == state.step, f"{len(steps)} step losses for {state.step} steps")
+    check(hist.train_loss[-1] < hist.train_loss[0] and hist.train_loss[-1] < steps[0],
+          f"train loss did not fall: epoch means {hist.train_loss}, first step {steps[0]}")
     check(k2 == layers * state.step and state.step > 0,
           f"K2 launched {k2} times in {state.step} train steps (want {layers} per step)")
     check(k1 == layers * n_fwd, f"K1 launched {k1} times in {n_fwd} forwards")
@@ -618,7 +662,10 @@ def phase_train(config, splits):
           "run_prediction: bad predictions")
     log(f"[train] run_training on the card ({train_s:.2f} s, {state.step} train steps, "
         f"{n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
-        f"test {hist.test_loss}; the train loss falls")
+        f"test {hist.test_loss}; the last epoch's mean train loss is below the first "
+        f"epoch's and below the first step's loss {steps[0]:.6g}")
+    log(f"[train] per-step train loss: {[float(f'{x:.4g}') for x in steps]} "
+        f"(largest {steps.max():.4g} at step {int(steps.argmax())})")
     log(f"[train] K2 launches {k2} = {layers} x {state.step} train steps; K1 launches "
         f"{k1} = {layers} x {n_fwd} forwards")
     log(f"[train] run_prediction: error {err:.6g} over {trues[0].shape[0]} graphs, "
@@ -641,6 +688,7 @@ def phase_train(config, splits):
             errs = [assert_close_scaled(card[i][k], cpu[i][k], tol, f"{precision} {what} {k}")
                     for k in cpu[i]]
             worst[what] = max(errs)
+        worst["loss_value"] = card[0]
         parity[precision] = worst
         log(f"[train] first step, card vs CPU plain path, {precision}: loss {card[0]:.6g} vs "
             f"{cpu[0]:.6g}; worst |err| (|ref|) grads {worst['grad'][0]:.3g} "
@@ -654,7 +702,10 @@ def phase_train(config, splits):
             log(f"[train] two identical f32 steps on the card give "
                 f"{'the same bits' if same else 'different bits'} (loss and parameters; "
                 f"the h[snd] gather's backward adds with atomics)")
+    log(f"[train] run_training's first step loss {steps[0]:.6g}; the f32 parity step "
+        f"above (same model seed, same first batch) {parity['fp32']['loss_value']:.6g}")
     return {"k1": k1, "k2": k2, "steps": state.step, "forwards": n_fwd,
+            "step_losses": steps.tolist(),
             "train_loss": hist.train_loss, "val_loss": hist.val_loss,
             "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
             "parity": parity}
@@ -680,12 +731,22 @@ def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0):
     return out
 
 
-def phase_train_timing():
-    """One train step at bench.py's headline shape: eager time, device
-    time from the profiler, and K1's and K2's share of it."""
+def headline_batch():
+    """bench.py's headline train batch: 128 molecules, collated with the
+    block plan, on the host."""
+    from hydragnn_tpu_torch.data.graph import PadSpec, collate
+
+    samples = molecules(128, 9, 30, 4.0, 32, seed=0)
+    return collate(samples, PadSpec.for_samples(samples), with_segment_plan=True)
+
+
+def phase_train_timing(cpu_batch):
+    """One train step at bench.py's headline shape: the card's step
+    against the CPU's plain path, then eager time, device time from the
+    profiler, and K1's and K2's share of it."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from hydragnn_tpu_torch.data.graph import PadSpec, collate
     from hydragnn_tpu_torch.models.create import create_model
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_bwd_planned,
@@ -695,12 +756,23 @@ def phase_train_timing():
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
     from hydragnn_tpu_torch.train.state import TrainState
 
-    samples = molecules(128, 9, 30, 4.0, 32, seed=0)
-    batch = collate(samples, PadSpec.for_samples(samples), with_segment_plan=True).to("cuda")
+    batch = cpu_batch.to("cuda")
     cfg = full_width_config()
     model = create_model(cfg, device="cuda", seed=0)
-    opt = select_optimizer(model.parameters(), {"Optimizer": {"type": "AdamW",
-                                                              "learning_rate": 1e-3}})
+    training = {"Optimizer": {"type": "AdamW", "learning_rate": 1e-3}}
+    card = one_step(copy.deepcopy(model), cfg, training, batch, torch.float32)
+    cpu = one_step(copy.deepcopy(model).to("cpu"), cfg, training, cpu_batch, torch.float32)
+    loss_err = assert_close_scaled(np.asarray(card[0]), np.asarray(cpu[0]), F32_TOL,
+                                   "headline loss")
+    worst = {what: max(assert_close_scaled(card[i][k], cpu[i][k], VJP_TOL,
+                                           f"headline {what} {k}") for k in cpu[i])
+             for what, i in (("grad", 1), ("param", 2))}
+    log(f"[train] headline step, card vs CPU plain path, fp32: loss {card[0]:.6g} vs "
+        f"{cpu[0]:.6g} (|err| {loss_err[0]:.3g}); worst |err| (|ref|) grads "
+        f"{worst['grad'][0]:.3g} ({worst['grad'][1]:.3g}), updated params "
+        f"{worst['param'][0]:.3g} ({worst['param'][1]:.3g}); rtol 1e-4, atol 1e-3 x "
+        f"min(max|ref|, 1)")
+    opt = select_optimizer(model.parameters(), training)
     step = make_train_step(model, opt, cfg)
     state = TrainState(model, opt)
     e_valid = int(batch.edge_mask.sum())
@@ -722,8 +794,10 @@ def phase_train_timing():
     k2 = sum(e.time_range.elapsed_us() for e in kernels
              if "edge_pipeline_bwd_kernel<" in e.name or "dw_reduce_kernel<" in e.name
              ) / 1e3 / n_prof
-    out = {"graphs": len(samples), "nodes": batch.num_nodes, "edges": batch.num_edges,
-           "e_valid": e_valid, "eager_ms": eager}
+    out = {"graphs": int(batch.graph_mask.sum()), "nodes": batch.num_nodes,
+           "edges": batch.num_edges, "e_valid": e_valid, "eager_ms": eager,
+           "cpu_parity": {"loss": loss_err[0], "grad": worst["grad"][0],
+                          "param": worst["param"][0]}}
     if busy > 0:
         out.update(device_ms=busy, k1_ms=k1, k2_ms=k2)
         log(f"[train] one f32 train step at the headline shape (128 molecules, "
@@ -784,12 +858,14 @@ def main():
     samples = synthetic_request_samples("qm9", N_REQUESTS, seed=0)
     settings = ServingSettings(enabled=True)
     budgets = fit_serving_budgets(*dataset_size_arrays(samples), settings)
-    main_row, rows = phase_kernel(samples, budgets)
+    head_cpu = headline_batch()
+    head = (f"headline_n{head_cpu.num_nodes}_e{head_cpu.num_edges}", head_cpu.to("cuda"))
+    main_row, rows = phase_kernel(samples, budgets, head)
     config, splits = bcc_data()
-    bwd_row, bwd_rows = phase_kernel_bwd(train_bins(splits[0]))
+    bwd_row, bwd_rows = phase_kernel_bwd(train_bins(splits[0]) + [head])
     launches, bins = phase_slice(samples, budgets, settings)
     train = phase_train(config, splits)
-    headline = phase_train_timing()
+    headline = phase_train_timing(head_cpu)
 
     kernels = [{
         "name": "edge_pipeline",

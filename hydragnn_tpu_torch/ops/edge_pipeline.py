@@ -45,13 +45,6 @@ from torch.autograd.function import once_differentiable
 DEFAULT_BE = 64  # plan slots per block (an aligned tile of sorted edges)
 DEFAULT_BN = 32  # node-window rows (one CTA each)
 
-# Dynamic shared memory a Hopper block may opt into (232,448 bytes), and
-# the floats both kernels stage beside their window tiles: a 64 x 128 W
-# chunk and 256 (row, edge) slot pairs (smem_floats in csrc/*.cu).
-_MAX_SMEM = 232448
-_W_CHUNK_FLOATS = 64 * 128
-_SLOT_FLOATS = 2 * 256
-
 
 def plan_sorted_blocks(
     seg_sorted: np.ndarray,
@@ -356,9 +349,15 @@ def edge_pipeline_bwd_planned(
 
     A CUDA ``a`` launches the Hopper kernel K2 (counted in
     ``edge_pipeline_bwd_planned.launches``); a CPU ``a`` runs
-    ``edge_pipeline_bwd_plain``. Anything else raises. E=0 returns zeros
-    without a launch."""
-    if a.shape[0] == 0 or a.device.type == "cpu":
+    ``edge_pipeline_bwd_plain``. Anything else raises. E=0 returns empty
+    d_a/d_b and a zero d_W without a launch."""
+    if a.shape[0] == 0:
+        return (
+            torch.zeros_like(a),
+            None if b is None else torch.zeros_like(b),
+            None if w is None else torch.zeros_like(w),
+        )
+    if a.device.type == "cpu":
         return edge_pipeline_bwd_plain(
             g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
         )
@@ -470,12 +469,19 @@ def _validate(a, b, w, perm, seg_padded, valid, window_id, num_segments, be):
     return e, f_in, f_out, n_blocks, code
 
 
-def _raise_on(lib, err: int, which: str) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"{which} kernel launch failed: CUDA error {err} "
-            f"({lib.hg_cuda_error_string(err).decode(errors='replace')})"
+def _raise_on(lib, err: int, which: str, bn: int, f_in: int) -> None:
+    """Raise on a launcher's CUDA error. The launchers return
+    cudaErrorInvalidValue (1) when not even one f32 [bn, F_in] window
+    tile fits the card's shared memory beside their other staging."""
+    if err == 0:
+        return
+    what = f"CUDA error {err} ({lib.hg_cuda_error_string(err).decode(errors='replace')})"
+    if err == 1:
+        raise ValueError(
+            f"{which} refused bn={bn}, F_in={f_in}: {what}; its [bn, F_in] f32 "
+            f"window tiles do not fit the card's shared memory; use a smaller bn"
         )
+    raise RuntimeError(f"{which} kernel launch failed: {what}")
 
 
 def _edge_pipeline_cuda(
@@ -487,12 +493,6 @@ def _edge_pipeline_cuda(
     e, f_in, f_out, n_blocks, code = _validate(
         a, b, w, perm, seg_padded, valid, window_id, num_segments, be
     )
-    # The kernel gives each of up to 8 slot-walking warps its own f32
-    # [bn, F_in] tile, as many as fit; it needs room for one at least.
-    smem = 4 * (bn * f_in + _W_CHUNK_FLOATS + _SLOT_FLOATS)
-    _check(smem <= _MAX_SMEM,
-           f"a [{bn}, {f_in}] f32 window tile needs {smem} bytes of shared "
-           f"memory > {_MAX_SMEM}; use a smaller bn")
     from hydragnn_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
@@ -513,7 +513,7 @@ def _edge_pipeline_cuda(
             code, int(b is not None), int(w is not None),
             stream,
         )
-    _raise_on(lib, err, "edge_pipeline (K1)")
+    _raise_on(lib, err, "edge_pipeline (K1)", bn, f_in)
     edge_pipeline_planned.launches += 1
     return out
 
@@ -533,14 +533,6 @@ def _edge_pipeline_bwd_cuda(
            and g.shape == (num_segments, f_out),
            f"g must be {_out_dtype(a, w)} [{num_segments}, {f_out}] on {dev}, "
            f"got {g.dtype} {tuple(g.shape)} on {g.device}")
-    # The g window, and with W its product g @ W^T and one warp tile at
-    # least (csrc/edge_pipeline_bwd.cu::smem_floats).
-    floats = bn * f_out + _SLOT_FLOATS + (
-        2 * bn * f_in + _W_CHUNK_FLOATS if w is not None else 0
-    )
-    _check(4 * floats <= _MAX_SMEM,
-           f"K2 staging for bn={bn}, F_in={f_in}, F_out={f_out} needs "
-           f"{4 * floats} bytes of shared memory > {_MAX_SMEM}; use a smaller bn")
     from hydragnn_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
@@ -570,6 +562,6 @@ def _edge_pipeline_bwd_cuda(
             code, int(b is not None), int(w is not None),
             stream,
         )
-    _raise_on(lib, err, "edge_pipeline_bwd (K2)")
+    _raise_on(lib, err, "edge_pipeline_bwd (K2)", bn, f_in)
     edge_pipeline_bwd_planned.launches += 1
     return d_a, d_b, d_w

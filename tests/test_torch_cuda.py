@@ -42,10 +42,11 @@ def _need_card():
     return torch
 
 
-def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
-          w_dtype=None):
-    """A served-bin-like case: receiver-sorted real edges, padding edges
-    masked out of the plan, static block padding."""
+def _plan(seed, e_real, e_pad, n, be=64, bn=32):
+    """A served-bin-like plan on the host: receiver-sorted real edges,
+    padding edges and a tenth of the real ones masked out of the plan,
+    static block padding. Returns (rng, (perm, seg_padded, valid,
+    window_id))."""
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         plan_blocks_static,
         static_block_bound,
@@ -61,6 +62,13 @@ def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
         seg, n, static_block_bound(e_pad, n, be, bn) + 2, be, bn,
         edge_valid=mask,
     )
+    return rng, plan
+
+
+def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
+          w_dtype=None):
+    """``_plan``'s case on the card with random a, b and W."""
+    rng, plan = _plan(seed, e_real, e_pad, n, be, bn)
     dev = torch.device("cuda")
     a = torch.tensor(rng.normal(size=(e_pad, f_in)), dtype=dtype, device=dev)
     b = torch.tensor(rng.normal(size=(e_pad, f_in)), dtype=dtype, device=dev)
@@ -72,7 +80,28 @@ def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
     return a, b, w, perm, seg_p, valid, window
 
 
-SHAPES = [(1250, 1280, 640, 128), (37, 64, 200, 16), (300, 304, 40, 128)]
+# (real edges, padded edges, nodes, F). The last two put more valid slots
+# in a node window than the kernels stage in one pass (kChunk = 256 in
+# csrc/*.cu), so a warp's row sums carry across passes: ~1,350 valid
+# slots in each of 2 windows, and the headline train step's density
+# (~265 per window) over 82 windows, whose d_W partials K2 folds in order.
+SHAPES = [(1250, 1280, 640, 128), (37, 64, 200, 16), (300, 304, 40, 128),
+          (3000, 3072, 64, 128), (24000, 24576, 2600, 128)]
+K_CHUNK = 256
+
+
+def test_cuda_shapes_span_staging_passes():
+    """The card's shapes include windows of more valid plan slots than
+    one staging pass holds, and one with more than 64 windows (checked
+    on the host, where the plans are built)."""
+    most, windows = [], []
+    for seed, (e_real, e_pad, n, _) in enumerate(SHAPES):
+        _, (perm, seg_p, valid, window) = _plan(seed, e_real, e_pad, n)
+        per_window = np.bincount(np.repeat(window, 64)[valid])
+        most.append(int(per_window.max()))
+        windows.append(int(window.max()) + 1)
+    assert max(most[:3]) <= K_CHUNK < min(most[3:]), most
+    assert windows[-1] > 64, windows
 
 
 @pytest.mark.cuda
