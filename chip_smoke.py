@@ -8,9 +8,12 @@ exits non-zero):
 1. device      torch/CUDA versions and the card's name and power limit;
                exits 2 without a CUDA device.
 2. build       the kernels' library, built from csrc/edge_pipeline.cu (K1)
-               and csrc/edge_pipeline_bwd.cu (K2) for sm_90a on every run
-               (one nvcc per source, in parallel, then one link); the
-               ptxas register and spill report.
+               and csrc/edge_pipeline_bwd.cu (K2), which share
+               csrc/edge_tile.cuh, for sm_90a on every run (one nvcc per
+               source, in parallel, then one link); each kernel's ptxas
+               registers and spills. Where a gitignored prior_kernels/
+               holds an earlier version's two .cu files, that version is
+               built too, in parallel, for phase 5.
 3. kernel      K1 (the fused edge pipeline) against its plain PyTorch
                version on the card, at the shapes of the served bins and
                of the headline train step (F_in = F_out = 128; the
@@ -25,7 +28,14 @@ exits non-zero):
                bins' shapes and the headline train step's in every flavour
                and dtype mix, the empty-window plan and E = 0, same bits on
                two runs; timed like K1.
-5. slice       bench.py's headline SchNet at full width (4 CFConv layers,
+5. shapes      K1 and K2 (a,b,W, f32) at the main path's three shapes:
+               the largest served bin, the first train bin of the BCC run
+               and the headline batch: each kernel's launch shape (CTAs,
+               cluster, threads, dynamic shared memory), its time, the
+               plain version's, the bound and, with prior_kernels/, the
+               earlier kernels' time in turns in the same run after a
+               check that they agree.
+6. slice       bench.py's headline SchNet at full width (4 CFConv layers,
                128 filters, 50 Gaussians, hidden 128, graph head 2x128
                shared + [128, 128]) with random weights from a seeded
                generator, serving 256 synthetic qm9 requests through
@@ -35,7 +45,7 @@ exits non-zero):
                served outputs equal a direct make_forward call on the same
                collated batch bit for bit; one bin matches the same model
                on the CPU's plain path.
-6. train       the same SchNet trained by run_training on the card (f32,
+7. train       the same SchNet trained by run_training on the card (f32,
                batch 32, 2 epochs) on the BCC set of tests/test_graphs.py
                (300 configurations, seed 7), then run_prediction. Checks:
                finite losses, every step's loss finite and the last
@@ -49,8 +59,9 @@ exits non-zero):
                atoms, radius 4.0, 32 neighbours): card against the CPU's
                plain path (loss, gradients, updated parameters), then
                eager and device time and K1's and K2's share of it.
-7. report      the kernels JSON line, the card line, and the final
-               {"ok": true, "device": ...} line.
+8. report      the kernels JSON line (with each kernel's times at the
+               three shapes under "by_shape"), the card line, and the
+               final {"ok": true, "device": ...} line.
 """
 
 import copy
@@ -71,7 +82,10 @@ CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 N_REQUESTS = 256
-K_CHUNK = 256  # plan slots the kernels stage per pass (kChunk in csrc/*.cu)
+# Valid plan slots a window must exceed somewhere: four of the kernels'
+# 64-slot chunks (kSub in csrc/edge_tile.cuh), so node sums carry across
+# chunks and through every ring stage.
+K_CHUNK = 256
 
 
 def log(msg):
@@ -217,8 +231,8 @@ def window_fill(plan):
 def check_spans_passes(rows, tag):
     fill = max(r["window_fill"] for r in rows)
     check(fill > K_CHUNK, f"{tag}: no case puts more than {K_CHUNK} valid slots in a window")
-    log(f"[{tag}] the fullest window holds {fill} valid slots (> {K_CHUNK} staged per "
-        f"pass: row sums carry across staging passes)")
+    log(f"[{tag}] the fullest window holds {fill} valid slots (> {K_CHUNK}: node sums "
+        f"carry across staged chunks)")
 
 
 def batch_cases(batches, dev):
@@ -251,16 +265,58 @@ def phase_device():
     return card
 
 
+def ptxas_lines(report):
+    """Each kernel's ptxas -v report on one line: name, registers, shared
+    memory and spills (static shared memory only; the dynamic amount is
+    in the launch shapes)."""
+    parts, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "registers" in line):
+            parts.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    out = [(n, "; ".join(p)) for n, p in parts.items()]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+    except OSError:
+        names = [n for n, _ in out]
+    return [(short if short else n, what) for (n, what), short in zip(out, names)]
+
+
 def phase_build():
+    """Build the kernels from the checkout; with a ``prior_kernels/``
+    directory (gitignored, holding an earlier version's two .cu files)
+    build that version too, in parallel, to time both in one call."""
+    import threading
+
     from hydragnn_tpu_torch.ops import cuda_build
 
+    prior = None
+    prior_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "prior_kernels")
+    sources = [os.path.join(prior_dir, f) for f in ("edge_pipeline.cu", "edge_pipeline_bwd.cu")]
+    worker = None
+    if all(os.path.exists(f) for f in sources):
+        prior = {}
+        worker = threading.Thread(target=lambda: prior.update(cuda_build.compile_library(
+            sources, os.path.join(prior_dir, "build", "libprior.so"))))
+        worker.start()
     cuda_build.build(force=True)  # from the source, every run
+    if worker is not None:
+        worker.join()
+        check("path" in prior, "the prior kernels did not build")
     r = cuda_build.build_report
     log(f"[build] K1 + K2 (one nvcc per source, started together, then the link): "
         f"{r['seconds']:.2f} s -> {os.path.relpath(r['path'])}")
-    for line in r["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   ptxas: {line.strip()}")
+    for name, what in ptxas_lines(r["ptxas"]):
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+        log(f"[build]   ptxas: {name.split('(')[0]}: {what}")
+    if prior is None:
+        log("[build] no prior_kernels/ here: the earlier kernels are not timed in this run")
+        return None
+    log(f"[build] prior kernels from prior_kernels/ ({prior['seconds']:.2f} s, built "
+        f"beside the checkout's)")
+    return prior["path"]
 
 
 def served_bins(samples, budgets):
@@ -279,8 +335,18 @@ def served_bins(samples, budgets):
     return bins
 
 
-def phase_kernel(samples, budgets, headline):
+def served_batches(samples, budgets):
+    """(key, batch on the card) for each served bin of ``served_bins``."""
     from hydragnn_tpu_torch.data.graph import collate
+
+    return [
+        (f"n{spec.num_nodes}_e{spec.num_edges}",
+         collate(members, spec.pad_spec(), with_segment_plan=True).to("cuda"))
+        for spec, members in served_bins(samples, budgets).items()
+    ]
+
+
+def phase_kernel(samples, budgets, headline):
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_plain,
         edge_pipeline_planned,
@@ -289,11 +355,7 @@ def phase_kernel(samples, budgets, headline):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     f = 128
-    batches = [
-        (f"n{spec.num_nodes}_e{spec.num_edges}",
-         collate(members, spec.pad_spec(), with_segment_plan=True).to(dev))
-        for spec, members in served_bins(samples, budgets).items()
-    ] + [headline]
+    batches = served_batches(samples, budgets) + [headline]
     rows = []
     main = None
     for key, plan, n, e, e_valid, batch in batch_cases(batches, dev):
@@ -429,6 +491,135 @@ def phase_kernel_bwd(batches):
     log(f"[kernel-bwd] {len(rows)} comparisons passed (f32 rtol 1e-4 atol 1e-3, "
         f"bf16 rtol 4e-2 atol 2.5e-1; identical bits on two runs; zero rows off the plan)")
     return main, rows
+
+
+def launch_shape(lib, which, n, e, f_in, f_out, bn, has_b=True, has_w=True):
+    """The checkout's kernel launch shape from its library: CTAs, CTAs per
+    cluster, threads, dynamic shared memory bytes (and K1's columns per
+    CTA or K2's finishing CTAs)."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    if which == "k1":
+        lib.hg_edge_pipeline_fwd_shape(n, f_in, f_out, bn, 0, int(has_b), int(has_w), out)
+        keys = ("ctas", "cluster", "threads", "smem_bytes", "columns_per_cta")
+    else:
+        lib.hg_edge_pipeline_bwd_shape(e, n, f_in, f_out, bn, 0, int(has_b), int(has_w), out)
+        keys = ("ctas", "cluster", "threads", "smem_bytes", "finish_ctas")
+    return dict(zip(keys, list(out)))
+
+
+class PriorKernels:
+    """The earlier K1 and K2 (their C interface: K1's as now, K2's
+    without the coverage mask, zeroing d_a/d_b itself), loaded from the
+    library phase_build made from ``prior_kernels/``; f32 a,b,W only."""
+
+    def __init__(self, path):
+        import ctypes
+
+        self.lib = ctypes.CDLL(path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.lib.hg_edge_pipeline_fwd.argtypes = [p] * 8 + [i] * 10 + [p]
+        self.lib.hg_edge_pipeline_fwd.restype = i
+        self.lib.hg_edge_pipeline_bwd.argtypes = [p] * 12 + [i] * 10 + [p]
+        self.lib.hg_edge_pipeline_bwd.restype = i
+
+    def fwd(self, a, b, w, plan, n, bn=32):
+        perm, seg, valid, window = plan
+        out = torch.empty((n, w.shape[1]), dtype=torch.float32, device=a.device)
+        err = self.lib.hg_edge_pipeline_fwd(
+            a.data_ptr(), b.data_ptr(), w.data_ptr(), perm.data_ptr(), seg.data_ptr(),
+            valid.view(torch.uint8).data_ptr(), window.data_ptr(), out.data_ptr(),
+            a.shape[0], n, a.shape[1], w.shape[1], perm.numel() // window.numel(), bn,
+            window.numel(), 0, 1, 1, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"prior K1 launch failed: {err}")
+        return out
+
+    def bwd(self, g, a, b, w, plan, n, bn=32):
+        perm, seg, valid, window = plan
+        d_a, d_b, d_w = torch.empty_like(a), torch.empty_like(b), torch.empty_like(w)
+        part = torch.empty(((n + bn - 1) // bn, *w.shape), dtype=torch.float32,
+                           device=a.device)
+        err = self.lib.hg_edge_pipeline_bwd(
+            g.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(), perm.data_ptr(),
+            seg.data_ptr(), valid.view(torch.uint8).data_ptr(), window.data_ptr(),
+            d_a.data_ptr(), d_b.data_ptr(), d_w.data_ptr(), part.data_ptr(),
+            a.shape[0], n, a.shape[1], w.shape[1], perm.numel() // window.numel(), bn,
+            window.numel(), 0, 1, 1, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"prior K2 launch failed: {err}")
+        return d_a, d_b, d_w
+
+
+def phase_shapes(shapes, prior_path):
+    """K1 and K2 (a,b,W, f32, F = 128) at the main path's three shapes:
+    the largest served bin, the first train bin of the BCC run, and the
+    headline train batch. Each: the launch shape, the kernel's time, the
+    plain version's, the bound and, with ``prior_kernels/``, the earlier
+    kernels' time in the same call (timed in turns: earlier, now, now,
+    earlier; each reported as the mean of its two readings), after a
+    check that the earlier kernels give the same results."""
+    from hydragnn_tpu_torch.ops.cuda_build import load_library
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    lib = load_library()
+    prior = PriorKernels(prior_path) if prior_path else None
+    gen = torch.Generator().manual_seed(4)
+    dev = torch.device("cuda")
+    f = 128
+    rows = []
+    for label, batch in shapes:
+        plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+        n, e = batch.num_nodes, batch.num_edges
+        e_valid = int(batch.edge_mask.sum())
+        slots, blocks = plan[0].numel(), plan[3].numel()
+        a, b = (torch.randn(e, f, generator=gen).to(dev) for _ in range(2))
+        w = (torch.randn(f, f, generator=gen) / f ** 0.5).to(dev)
+        g = torch.randn(n, f, generator=gen).to(dev)
+        k1 = lambda: edge_pipeline_planned(a, b, w, *plan, n)  # noqa: E731
+        k2 = lambda: edge_pipeline_bwd_planned(g, a, b, w, *plan, n)  # noqa: E731
+        row = {"shape": label, "n": n, "e": e, "e_valid": e_valid,
+               "windows": (n + 31) // 32, "window_fill": window_fill(plan)}
+        for which, fn, plain, old in (
+                ("k1", k1, lambda: edge_pipeline_plain(a, b, w, *plan, n),
+                 prior and (lambda: prior.fwd(a, b, w, plan, n))),
+                ("k2", k2, lambda: edge_pipeline_bwd_plain(g, a, b, w, *plan, n),
+                 prior and (lambda: prior.bwd(g, a, b, w, plan, n)))):
+            with torch.no_grad():
+                r = {"launch": launch_shape(lib, which, n, e, f, f, 32)}
+                if which == "k1":
+                    nbytes, ops, dt = k1_work(e_valid, n, f, f, slots, blocks, torch.float32,
+                                              torch.float32, True, True)
+                else:
+                    nbytes, ops, dt = k2_work(e, e_valid, n, f, f, slots, blocks,
+                                              torch.float32, torch.float32, True, True)
+                r["bound_ms"], r["bound_by"] = bound(nbytes, ops, dt)
+                if old is not None:
+                    got, was = fn(), old()
+                    torch.cuda.synchronize()
+                    for x, y in zip(got if which == "k2" else [got],
+                                    was if which == "k2" else [was]):
+                        torch.testing.assert_close(x, y, **VJP_TOL)
+                    t = [time_ms(old), time_ms(fn), time_ms(fn), time_ms(old)]
+                    r["ms"], r["prior_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                    r["ms_runs"], r["prior_ms_runs"] = t[1:3], [t[0], t[3]]
+                else:
+                    r["ms"], r["prior_ms"] = time_ms(fn), None
+                r["plain_ms"] = time_ms(plain)
+            row[which] = r
+            prior_note = (f", earlier kernel {r['prior_ms'] * 1e3:.1f} us "
+                          f"({r['prior_ms_runs'][0] * 1e3:.1f}, {r['prior_ms_runs'][1] * 1e3:.1f})"
+                          if r["prior_ms"] is not None else ", earlier kernel not timed")
+            log(f"[shapes] {which.upper()} {label} (n {n}, e {e}, {e_valid} valid, "
+                f"{row['windows']} windows): {r['launch']}; kernel {r['ms'] * 1e3:.1f} us"
+                f"{prior_note}, plain {r['plain_ms'] * 1e3:.1f} us, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        rows.append(row)
+    return rows
 
 
 FULL_WIDTH_ARCH = {
@@ -792,7 +983,7 @@ def phase_train_timing(cpu_batch):
     k1 = sum(e.time_range.elapsed_us() for e in kernels
              if "edge_pipeline_kernel<" in e.name) / 1e3 / n_prof
     k2 = sum(e.time_range.elapsed_us() for e in kernels
-             if "edge_pipeline_bwd_kernel<" in e.name or "dw_reduce_kernel<" in e.name
+             if "edge_pipeline_bwd_kernel<" in e.name or "bwd_finish_kernel<" in e.name
              ) / 1e3 / n_prof
     out = {"graphs": int(batch.graph_mask.sum()), "nodes": batch.num_nodes,
            "edges": batch.num_edges, "e_valid": e_valid, "eager_ms": eager,
@@ -854,7 +1045,7 @@ def main():
     from hydragnn_tpu_torch.serve.engine import ServingSettings, fit_serving_budgets
     from hydragnn_tpu_torch.serve.loadgen import synthetic_request_samples
 
-    phase_build()
+    prior_path = phase_build()
     samples = synthetic_request_samples("qm9", N_REQUESTS, seed=0)
     settings = ServingSettings(enabled=True)
     budgets = fit_serving_budgets(*dataset_size_arrays(samples), settings)
@@ -862,8 +1053,12 @@ def main():
     head = (f"headline_n{head_cpu.num_nodes}_e{head_cpu.num_edges}", head_cpu.to("cuda"))
     main_row, rows = phase_kernel(samples, budgets, head)
     config, splits = bcc_data()
-    bwd_row, bwd_rows = phase_kernel_bwd(train_bins(splits[0]) + [head])
-    launches, bins = phase_slice(samples, budgets, settings)
+    bins = train_bins(splits[0])
+    bwd_row, bwd_rows = phase_kernel_bwd(bins + [head])
+    served = served_batches(samples, budgets)
+    shape_rows = phase_shapes([max(served, key=lambda kb: kb[1].num_nodes), bins[0], head],
+                              prior_path)
+    launches, n_bins = phase_slice(samples, budgets, settings)
     train = phase_train(config, splits)
     headline = phase_train_timing(head_cpu)
 
@@ -881,7 +1076,9 @@ def main():
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": main_row["shape"],
-        "bins": bins,
+        "bins": n_bins,
+        "by_shape": [dict(r["k1"], shape=r["shape"], n=r["n"], e_valid=r["e_valid"])
+                     for r in shape_rows],
         "flavours": [r for r in rows if "ms" in r],
     }, {
         "name": "edge_pipeline_bwd",
@@ -897,6 +1094,8 @@ def main():
         "bound_by": bwd_row["bound_by"],
         "library_ms": None,
         "shape": bwd_row["shape"],
+        "by_shape": [dict(r["k2"], shape=r["shape"], n=r["n"], e_valid=r["e_valid"])
+                     for r in shape_rows],
         "flavours": [r for r in bwd_rows if "ms" in r],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")

@@ -12,255 +12,256 @@
 // an f32 master W, as the JAX kernel takes it), f32 accumulation and one
 // cast of the output to promote(a, W).
 //
-// Design. One CTA owns one node window of bn rows and walks that
-// window's plan blocks (found by binary search in window_id). The TPU
-// kernel carried a window's partial sums across consecutive grid steps
-// in its output tile; Hopper runs blocks in no order, so here nothing
-// crosses CTAs and every output row is written exactly once, zeros
-// included. The CTA stages kChunk slots at a time in shared memory as
-// (row, edge) pairs, invalid slots marked -1, so the walk never waits on
-// a chain of dependent index loads. Each warp then takes a contiguous
-// share of the staged slots: a lane owns a column set, keeps the running
-// sum of the current row in registers and adds it into the warp's own
-// f32 [bn, F_in] tile in shared memory when the row changes. The warp
-// tiles are folded in a fixed order and multiplied once by W
-// (sum(msg) @ W == sum(msg @ W)) with a register-tiled f32 product whose
-// W rows are staged kKC at a time in shared memory. There are no float
-// atomics, so the same inputs give the same bits on every run.
+// What bounds it on this card. Per call it must read the valid rows of a
+// and b, W and the plan, and write [N, F_out]: at bench.py's headline
+// train batch (24,656 edges, F = 128, f32) ~27 MB, 8 us at 3.35 TB/s,
+// against 2 N F_in F_out ~ 0.09 GFLOP of product. So bytes bound it,
+// and at a served bin (584 nodes, ~1,200 edges) latency does: the
+// launch, the walk, and how many SMs have work.
 //
-// What bounds it on this card. Per plan slot the kernel reads 9 bytes of
-// plan and, for a valid slot, F_in elements of a and of b; W is read once
-// per CTA (from L2 after the first). At the serving shapes (a qm9 bin of
-// ~600 nodes and ~1200 edges, F = 128) that is under 2 MB against
-// ~2*N*F*F flops in the product, far below both the 3.35 TB/s memory rate
-// and the 67 TFLOP/s f32 rate: the kernel is bound by latency (the
-// launch, the slot walk, ~20 CTAs on 132 SMs), not by bytes or
-// operations. The design answers that with small windows (bn = 32 gives
-// ~20 CTAs per bin instead of 3 at the TPU's bn = 256), eight warps that
-// walk a window's slots in parallel, each with kUnroll slots' loads in
-// flight at once, W staged in a few large chunks, and one pass over the
-// inputs with no [E, F] message in device memory. wgmma, TMA
-// staging and a persistent grid are later work.
+// Design (the shared pieces are in edge_tile.cuh):
+// - Grid: one CTA per (node window of bn rows, slab of F_in columns).
+//   Each CTA sums its slab of the window's message into an f32
+//   [bn, slab] tile (each node's run of receiver-sorted slots is summed
+//   by the one warp that owns it: no per-warp tiles, no fold), streaming
+//   the plan's contiguous edge tiles through the cp.async ring. Chunks
+//   without a valid slot (padding edges, static padding blocks) are
+//   never staged.
+// - With W the output needs a sum over all of F_in, so the slab CTAs of
+//   one window form a thread-block cluster (cudaLaunchKernelEx with the
+//   cluster-dimension attribute; at most 8, the portable limit: slabs are
+//   32 columns up to F_in = 256, then 64 up to 512, and so on). Each CTA
+//   multiplies its sum by W[slab, :] (f32 FMAs; W's slab rows are
+//   contiguous and staged with coalesced copies over the idle ring) into
+//   an f32 [bn, F_out] partial in its shared memory; then
+//   rank r adds the cluster's partials through distributed shared memory
+//   (cluster.map_shared_rank), always in rank order, and writes output
+//   columns [r F_out / cluster, (r + 1) F_out / cluster). No float
+//   atomics: the same inputs give the same bits on every run.
+// - Without W (the reduce-only and a,b flavours) the slabs are
+//   independent: no cluster, each CTA writes its columns.
+// - Every output row of the window is written exactly once, zeros for an
+//   empty window included.
+// wgmma (64-row tiles, so bn = 64), TMA multicast and a persistent grid
+// are later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "edge_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;  // plan slots staged per pass
-constexpr int kVec = 4;      // columns a lane carries per pass (stride 32)
-constexpr int kUnroll = 8;   // slots whose operands are loaded before any is added
-// Product tiling: a 16 x 16 thread grid, each thread kRT rows x kCT cols,
-// over W rows staged kKC at a time.
-constexpr int kTX = 16;
-constexpr int kTY = 16;
-constexpr int kRT = 2;
-constexpr int kCT = 8;
-constexpr int kKC = 64;
+using namespace hg;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+constexpr int kMaxCluster = 8;
 
-// First i in [0, n) with arr[i] >= key; arr is non-decreasing.
-__device__ __forceinline__ int lower_bound(const int* arr, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (arr[mid] < key) lo = mid + 1; else hi = mid;
+// Columns per CTA (a multiple of kSlab) and CTAs per window: with W at
+// most kMaxCluster CTAs, which share one window's product through a
+// cluster; without W one 32-column slab each.
+__host__ __device__ inline void slabs_of(int f_in, bool has_w, int& subs, int& n_slabs) {
+  const int n32 = (f_in + kSlab - 1) / kSlab;
+  subs = has_w ? (n32 + kMaxCluster - 1) / kMaxCluster : 1;
+  n_slabs = (n32 + subs - 1) / subs;
+}
+
+// Shared memory, in bytes from 16-byte aligned offsets: the message sum
+// [bn16, kMsgLd] f32, the ring [kStages][ops][kSub][kRingLd] (T) and the
+// walk's shared ints; with W, W's slab rows [32, ldw] (TW) are staged
+// over the ring once the walk is done, followed there by the f32
+// partial [bn16, ldp] when the CTA has one 32-column slab (else the
+// partial, which lives across slabs, follows the walk's ints). Keeping
+// W out of the walk's way holds a CTA at ~69 KB at F = 128, so three
+// fit on an SM.
+struct FwdLayout {
+  int bn16, ldw, ldp;
+  size_t msg, ring, ints, w, part, total;
+  __host__ __device__ FwdLayout(int bn, int f_out, int sz_t, int sz_w, bool has_b,
+                                bool has_w, int subs) {
+    bn16 = round_up(bn, 16);
+    const int ops = has_b ? 2 : 1;
+    ldw = round_up(f_out, 8) + 32 / sz_w;
+    ldp = round_up(f_out, 8) + 8;
+    const size_t w_bytes = has_w ? align16((size_t)kSlab * ldw * sz_w) : 0;
+    const size_t part_bytes = has_w ? align16((size_t)bn16 * ldp * 4) : 0;
+    size_t off = 0;
+    msg = off;
+    off = align16(off + (size_t)bn16 * kMsgLd * 4);
+    ring = w = off;
+    size_t ring_bytes = (size_t)kStages * ring_stage_bytes(ops, sz_t);
+    const size_t over = w_bytes + (subs == 1 ? part_bytes : 0);
+    ring_bytes = ring_bytes > over ? ring_bytes : over;
+    off = align16(off + ring_bytes);
+    ints = off;
+    off = align16(off + kWalkBytes);
+    part = ring + w_bytes;
+    if (subs != 1) {
+      part = off;
+      off += part_bytes;
+    }
+    total = off;
   }
-  return lo;
+};
+
+// Four consecutive outputs (16-byte aligned for f32, 8 for bf16).
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
-// Shared memory, in floats: the warp tiles, then the W chunk, then the
-// staged (row, edge) slot pairs.
-__host__ __device__ __forceinline__ size_t smem_floats(int groups, int bn, int f_in) {
-  return (size_t)groups * bn * f_in + (size_t)kKC * kTX * kCT + 2 * kChunk;
-}
-
-__device__ __forceinline__ void flush(float* acc_row, const float* r, int cb, int f_in) {
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    const int c = cb + 32 * j;
-    if (c < f_in) acc_row[c] += r[j];
-  }
-}
-
-// T: a and b; TW: W; TO: the output, promote(T, TW).
+// T: a and b; TW: W; TO: the output, promote(T, TW). vec bits: 1 = a and b
+// rows take 16-byte copies; 4 = W rows do; 8 = output rows take 4-wide
+// stores (F_out % 4 == 0, out 16-byte aligned).
 template <typename T, typename TW, typename TO, bool HAS_B, bool HAS_W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 edge_pipeline_kernel(const T* __restrict__ a, const T* __restrict__ b,
                      const TW* __restrict__ w, const int* __restrict__ perm,
                      const int* __restrict__ seg, const uint8_t* __restrict__ valid,
-                     const int* __restrict__ window_id, TO* __restrict__ out,
-                     int n_edges, int n_nodes, int f_in, int f_out, int be, int bn,
-                     int n_blocks, int groups) {
-  extern __shared__ float smem[];
-  const int tile = bn * f_in;
-  float* tiles = smem;                                    // [groups][bn][f_in]
-  float* wchunk = smem + (size_t)groups * tile;           // [kKC][kTX * kCT]
-  int* s_row = reinterpret_cast<int*>(wchunk + kKC * kTX * kCT);  // [kChunk]
-  int* s_e = s_row + kChunk;                              // [kChunk]
-  __shared__ int s_range[2];
+                     const int* __restrict__ window_id, TO* __restrict__ out, int n_edges,
+                     int n_nodes, int f_in, int f_out, int be, int bn, int n_blocks,
+                     int n_slabs, int subs, int vec) {
+  constexpr int kOps = HAS_B ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdLayout L(bn, f_out, sizeof(T), sizeof(TW), HAS_B, HAS_W, subs);
+  float* msg_s = reinterpret_cast<float*>(smem + L.msg);
+  TW* w_s = reinterpret_cast<TW*>(smem + L.w);
+  float* part = reinterpret_cast<float*>(smem + L.part);
 
-  const int win = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  if (tid == 0) {
-    s_range[0] = lower_bound(window_id, n_blocks, win);
-    s_range[1] = lower_bound(window_id, n_blocks, win + 1);
-  }
-  for (int i = tid; i < groups * tile; i += kThreads) tiles[i] = 0.f;
-  __syncthreads();
-
+  const int warp = tid / 32, lane = tid % 32;
+  const int slab = blockIdx.x % n_slabs;
+  const int win = blockIdx.x / n_slabs;
   const int node_base = win * bn;
-  const int slot_end = s_range[1] * be;
-
-  // Phase 1: reduce the window's valid slots into the warp tiles.
-  for (int base = s_range[0] * be; base < slot_end; base += kChunk) {
-    const int cnt = min(kChunk, slot_end - base);
-    for (int i = tid; i < cnt; i += kThreads) {
-      const int s = base + i;
-      int row = -1, e = 0;
-      if (valid[s]) {
-        row = seg[s] - node_base;
-        e = perm[s];
-        // Outside the plan contract: contributes nothing (the TPU
-        // kernel's one-hot compare drops such slots too) and never
-        // reads or writes out of range.
-        if (row < 0 || row >= bn || e < 0 || e >= n_edges) {
-          row = -1;
-          e = 0;
-        }
-      }
-      s_row[i] = row;
-      s_e[i] = e;
-    }
-    __syncthreads();
-    if (warp < groups) {
-      float* acc = tiles + (size_t)warp * tile;
-      const int per = (cnt + groups - 1) / groups;
-      const int lo = warp * per;
-      const int hi = min(lo + per, cnt);
-      for (int cb = lane; cb < f_in; cb += 32 * kVec) {
-        float r[kVec];
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) r[j] = 0.f;
-        int cur = -1;
-        for (int i0 = lo; i0 < hi; i0 += kUnroll) {
-          // Load kUnroll slots' operands first (invalid slots read row 0,
-          // always in range, and are skipped below), so their loads are
-          // in flight together; then add them in slot order.
-          int rows[kUnroll];
-          float v[kUnroll][kVec];
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const int i = i0 + u;
-            rows[u] = i < hi ? s_row[i] : -1;
-            const size_t off = (size_t)(i < hi ? s_e[i] : 0) * f_in;
-#pragma unroll
-            for (int j = 0; j < kVec; ++j) {
-              const int c = cb + 32 * j;
-              float x = 0.f;
-              if (c < f_in) {
-                x = to_f32(a[off + c]);
-                if constexpr (HAS_B) x *= to_f32(b[off + c]);
-              }
-              v[u][j] = x;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            if (rows[u] < 0) continue;  // select, never multiply, invalid slots away
-            if (rows[u] != cur) {
-              if (cur >= 0) flush(acc + cur * f_in, r, cb, f_in);
-#pragma unroll
-              for (int j = 0; j < kVec; ++j) r[j] = 0.f;
-              cur = rows[u];
-            }
-#pragma unroll
-            for (int j = 0; j < kVec; ++j) r[j] += v[u][j];
-          }
-        }
-        if (cur >= 0) flush(acc + cur * f_in, r, cb, f_in);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Fold the warp tiles into tile 0, always in warp order.
-  if (groups > 1) {
-    for (int i = tid; i < tile; i += kThreads) {
-      float v = tiles[i];
-      for (int g = 1; g < groups; ++g) v += tiles[(size_t)g * tile + i];
-      tiles[i] = v;
-    }
-    __syncthreads();
-  }
-
   const int rows = min(bn, n_nodes - node_base);
-  TO* out_w = out + (size_t)node_base * f_out;
-  if constexpr (!HAS_W) {
-    for (int i = tid; i < rows * f_in; i += kThreads) store(out_w + i, tiles[i]);
-    return;
-  }
 
-  // Phase 2: out[r, c] = sum_k tile[r, k] * W[k, c], f32 FMAs. Loops are
-  // uniform across the CTA (every thread reaches every barrier).
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-  for (int rp = 0; rp < rows; rp += kTY * kRT) {
-    for (int cp = 0; cp < f_out; cp += kTX * kCT) {
-      float sum[kRT][kCT];
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-#pragma unroll
-        for (int j = 0; j < kCT; ++j) sum[i][j] = 0.f;
-      const int r0 = rp + ty * kRT;
-      for (int k0 = 0; k0 < f_in; k0 += kKC) {
-        __syncthreads();  // the previous chunk is consumed
-        for (int i = tid; i < kKC * kTX * kCT; i += kThreads) {
-          const int kk = i / (kTX * kCT), c = cp + i % (kTX * kCT);
-          wchunk[i] = (k0 + kk < f_in && c < f_out)
-                          ? to_f32(w[(size_t)(k0 + kk) * f_out + c]) : 0.f;
-        }
-        __syncthreads();
-        const int kn = min(kKC, f_in - k0);
-        for (int kk = 0; kk < kn; ++kk) {
-          float av[kRT], wv[kCT];
-#pragma unroll
-          for (int i = 0; i < kRT; ++i)
-            av[i] = (r0 + i < bn) ? tiles[(r0 + i) * f_in + k0 + kk] : 0.f;
-#pragma unroll
-          for (int j = 0; j < kCT; ++j) wv[j] = wchunk[kk * kTX * kCT + tx + j * kTX];
-#pragma unroll
-          for (int i = 0; i < kRT; ++i)
-#pragma unroll
-            for (int j = 0; j < kCT; ++j) sum[i][j] = fmaf(av[i], wv[j], sum[i][j]);
-        }
+  Walk<T, kOps> wk;
+  wk.perm = perm;
+  wk.seg = seg;
+  wk.valid = valid;
+  wk.a = a;
+  wk.b = b;
+  wk.ring = reinterpret_cast<T*>(smem + L.ring);
+  wk.ints = reinterpret_cast<int*>(smem + L.ints);
+  int hi;
+  window_range(window_id, n_blocks, win, wk.lo, hi);
+  wk.nsub = (be + kSub - 1) / kSub;
+  wk.n_cand = (hi - wk.lo) * wk.nsub;
+  wk.be = be;
+  wk.node_base = node_base;
+  wk.rows = rows;
+  wk.n_edges = n_edges;
+  wk.f_in = f_in;
+  wk.vec = vec & 1;
+
+  for (int sub = 0; sub < subs; ++sub) {
+    const int c0 = (slab * subs + sub) * kSlab;
+    if (c0 >= f_in) break;  // uniform: a ragged last CTA
+    wk.c0 = c0;
+    for (int i = tid; i < L.bn16 * kMsgLd; i += kThreads) msg_s[i] = 0.f;
+    wk.start();
+    wk.finish([&](int st, int, const int* codes) {
+      chunk_slots<T, kOps, true>(msg_s, codes, wk.ring_at(st, 0), wk.ring_at(st, kOps - 1),
+                                 [](int, int) { return 0.f; },
+                                 [](int, int, float, float, float) {});
+    });
+    if constexpr (HAS_W) {  // the ring is idle: W's slab rows go there
+      stage_tile<TW>(w_s, L.ldw, w, c0, kSlab, f_in, 0, round_up(f_out, 8), f_out, vec & 4);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    if constexpr (!HAS_W) {
+      for (int i = tid; i < rows * kSlab; i += kThreads) {
+        const int r = i / kSlab, c = i % kSlab;
+        if (c0 + c < f_in)
+          store(out + (size_t)(node_base + r) * f_out + c0 + c, msg_s[r * kMsgLd + c]);
       }
+    } else {
+      // part[n, j] (+)= sum_i msg[n, i] W[c0 + i, j]: each thread a 4 x 4
+      // block, rows 4 warp.., columns 4 lane.. (f32 FMAs; edge_tile.cuh).
+      for (int r0 = warp * 4; r0 < L.bn16; r0 += 4 * kWarps) {
+        for (int j = lane * 4; j < f_out; j += 128) {
+          float acc[4][4] = {};
+#pragma unroll 4
+          for (int i = 0; i < kSlab; ++i) {
+            float wv[4];
+            load4(w_s + i * L.ldw + j, wv);
 #pragma unroll
-      for (int i = 0; i < kRT; ++i) {
-        if (r0 + i >= rows) continue;
+            for (int u = 0; u < 4; ++u) {
+              const float m = msg_s[(r0 + u) * kMsgLd + i];  // one address per warp
 #pragma unroll
-        for (int j = 0; j < kCT; ++j) {
-          const int c = cp + tx + j * kTX;
-          if (c < f_out) store(out_w + (size_t)(r0 + i) * f_out + c, sum[i][j]);
+              for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(m, wv[v], acc[u][v]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float* p = part + (r0 + u) * L.ldp + j;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) p[v] = sub == 0 ? acc[u][v] : p[v] + acc[u][v];
+          }
         }
       }
     }
+    __syncthreads();  // msg_s and w_s are free for the next slab
+  }
+
+  if constexpr (HAS_W) {
+    // The window's output: rank r sums the cluster's partials, in rank
+    // order, over its share of the F_out columns, four at a time where
+    // the output rows allow 16-byte (f32) or 8-byte (bf16) stores.
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const float* src[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      src[q] = q < n_slabs ? cluster.map_shared_rank(part, q) : part;
+    const int cw = round_up((f_out + n_slabs - 1) / n_slabs, 4);
+    const int j0 = slab * cw;
+    if (vec & 8) {
+      for (int i = tid; i < rows * (cw / 4); i += kThreads) {
+        const int r = i / (cw / 4), j = j0 + (i % (cw / 4)) * 4;
+        if (j >= f_out) continue;
+        float4 v[kMaxCluster];
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < n_slabs) v[q] = *reinterpret_cast<const float4*>(src[q] + r * L.ldp + j);
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q) {
+          if (q >= n_slabs) continue;
+          sum[0] += v[q].x;
+          sum[1] += v[q].y;
+          sum[2] += v[q].z;
+          sum[3] += v[q].w;
+        }
+        store4(out + (size_t)(node_base + r) * f_out + j, sum);
+      }
+    } else {
+      for (int i = tid; i < rows * cw; i += kThreads) {
+        const int r = i / cw, j = j0 + i % cw;
+        if (j >= f_out) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMaxCluster; ++q)
+          if (q < n_slabs) sum += src[q][r * L.ldp + j];
+        store(out + (size_t)(node_base + r) * f_out + j, sum);
+      }
+    }
+    cluster.sync();  // no CTA leaves while another reads its partial
   }
 }
 
-// The most warps (up to kWarps) whose [bn, f_in] tiles, with the W chunk
-// and the staged slots, fit the card's opt-in shared memory per block;
-// 0 when even one does not.
-int slot_groups(int bn, int f_in) {
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
+
+int max_smem_optin() {
   static int max_smem = -1;  // read once: a CUDA graph capture makes no query
   if (max_smem < 0) {
     int dev = 0, bytes = 0;
@@ -270,10 +271,7 @@ int slot_groups(int bn, int f_in) {
       return 0;
     max_smem = bytes;
   }
-  int groups = kWarps;
-  while (groups > 0 && smem_floats(groups, bn, f_in) * sizeof(float) > (size_t)max_smem)
-    --groups;
-  return groups;
+  return max_smem;
 }
 
 template <typename T, typename TW, typename TO, bool HAS_B, bool HAS_W>
@@ -282,25 +280,43 @@ cudaError_t launch(const void* a, const void* b, const void* w, const void* perm
                    int n_edges, int n_nodes, int f_in, int f_out, int be, int bn,
                    int n_blocks, cudaStream_t stream) {
   auto kernel = edge_pipeline_kernel<T, TW, TO, HAS_B, HAS_W>;
-  const int groups = slot_groups(bn, f_in);
-  if (groups == 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_floats(groups, bn, f_in) * sizeof(float);
+  int subs, n_slabs;
+  slabs_of(f_in, HAS_W, subs, n_slabs);
+  const FwdLayout L(bn, f_out, sizeof(T), sizeof(TW), HAS_B, HAS_W, subs);
+  if (L.total > (size_t)max_smem_optin()) return cudaErrorInvalidValue;
   // Opt in above 48 KB once per instantiation and size (raised only), so
   // a steady stream of launches, or a CUDA graph capture, makes no
   // attribute calls.
   static size_t opted = 48 * 1024;
-  if (smem > opted) {
+  if (L.total > opted) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (err != cudaSuccess) return err;
-    opted = smem;
+    opted = L.total;
   }
   const int n_windows = (n_nodes + bn - 1) / bn;
-  kernel<<<n_windows, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const TW*>(w),
-      static_cast<const int*>(perm), static_cast<const int*>(seg),
+  const int vec = ((f_in * (int)sizeof(T)) % 16 == 0 && aligned16(a) && aligned16(b) ? 1 : 0) |
+                  ((f_out * (int)sizeof(TW)) % 16 == 0 && aligned16(w) ? 4 : 0) |
+                  (f_out % 4 == 0 && aligned16(out) ? 8 : 0);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_windows * n_slabs);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = L.total;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = HAS_W ? n_slabs : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const TW*>(w), static_cast<const int*>(perm), static_cast<const int*>(seg),
       static_cast<const uint8_t*>(valid), static_cast<const int*>(window_id),
-      static_cast<TO*>(out), n_edges, n_nodes, f_in, f_out, be, bn, n_blocks, groups);
+      static_cast<TO*>(out), n_edges, n_nodes, f_in, f_out, be, bn, n_blocks, n_slabs, subs,
+      vec);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -327,9 +343,9 @@ cudaError_t launch_flavour(int has_b, int has_w, const void* a, const void* b,
 extern "C" {
 
 // dtype: 0 = float32; 1 = bfloat16; 2 = bfloat16 a/b with a float32 W
-// (and a float32 output), which needs W. Returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue when the sizes do
-// not fit shared memory. The caller allocates `out` ([n_nodes, f_out]).
+// (and a float32 output), which needs W. Returns the launch's CUDA error
+// (0 on success), or cudaErrorInvalidValue when the sizes do not fit
+// shared memory. The caller allocates `out` ([n_nodes, f_out]).
 int hg_edge_pipeline_fwd(const void* a, const void* b, const void* w,
                          const void* perm, const void* seg, const void* valid,
                          const void* window_id, void* out, int n_edges, int n_nodes,
@@ -352,6 +368,21 @@ int hg_edge_pipeline_fwd(const void* a, const void* b, const void* w,
                                                    n_nodes, f_in, f_out, be, bn,
                                                    n_blocks, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K1's launch shape for these sizes: out[0] CTAs, out[1] CTAs per
+// cluster, out[2] threads per CTA, out[3] dynamic shared memory per CTA
+// in bytes, out[4] columns per CTA.
+void hg_edge_pipeline_fwd_shape(int n_nodes, int f_in, int f_out, int bn, int dtype,
+                                int has_b, int has_w, int* out) {
+  int subs, n_slabs;
+  slabs_of(f_in, has_w, subs, n_slabs);
+  const FwdLayout L(bn, f_out, dtype == 0 ? 4 : 2, dtype == 1 ? 2 : 4, has_b, has_w, subs);
+  out[0] = ((n_nodes + bn - 1) / bn) * n_slabs;
+  out[1] = has_w ? n_slabs : 1;
+  out[2] = kThreads;
+  out[3] = (int)L.total;
+  out[4] = subs * kSlab;
 }
 
 const char* hg_cuda_error_string(int err) {

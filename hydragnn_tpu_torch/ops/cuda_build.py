@@ -2,17 +2,20 @@
 
 No JAX counterpart (Pallas compiles inside ``jax.jit``). The sources
 (``csrc/edge_pipeline.cu``: K1, the fused edge pipeline;
-``csrc/edge_pipeline_bwd.cu``: K2, its pullback) are compiled for
+``csrc/edge_pipeline_bwd.cu``: K2, its pullback; both include the
+shared device code in ``csrc/edge_tile.cuh``) are compiled for
 Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
 linked into one shared library with a plain C interface, loaded with
 ``ctypes``. Nothing is built when this module is imported: the first
 launch builds the library, and ``build(force=True)`` rebuilds it from
-the sources.
+the sources. ``compile_library`` builds any other set of sources the
+same way (``chip_smoke.py`` uses it to time an earlier version of the
+kernels beside these).
 
 The library goes to ``hydragnn_tpu_torch/csrc/build/`` (listed in
-``.gitignore``), named by a hash of the sources and flags, so an edited
-source is rebuilt and a finished build is reused. A failed build raises
-with the compiler's output; there is no fallback.
+``.gitignore``), named by a hash of the sources, the header and the
+flags, so an edited source is rebuilt and a finished build is reused. A
+failed build raises with the compiler's output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = tuple(
     os.path.join(CSRC, name) for name in ("edge_pipeline.cu", "edge_pipeline_bwd.cu")
 )
+HEADERS = (os.path.join(CSRC, "edge_tile.cuh"),)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,7 +64,7 @@ def nvcc_path() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libedge_pipeline_{digest.hexdigest()[:12]}.so")
@@ -80,39 +84,44 @@ def _run_all(commands) -> list:
     return results
 
 
+def compile_library(sources, out: str) -> dict:
+    """Compile ``sources`` (one nvcc each, started together) and link them
+    into the shared library ``out``; returns {"seconds", "ptxas", "path"}.
+    Raises with the compiler's output if any step fails."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    try:
+        results = _run_all(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources, objs)
+        )
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+        failed = [(rc, o) for rc, o in results if rc != 0]
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed to build {', '.join(sources)} (exit "
+                f"{failed[0][0]}):\n" + "\n".join(o for _, o in results)
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for path in (tmp, *objs):
+            if os.path.exists(path):
+                os.remove(path)
+    return {"seconds": time.perf_counter() - t0,
+            "ptxas": "".join(o for _, o in results), "path": out}
+
+
 def build(force: bool = False) -> str:
     """Compile the library unless it is built already (always with
     ``force``); returns its path and records ``build_report``."""
     out = library_path()
     with _lock:
         if force or not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
-            nvcc = nvcc_path()
-            t0 = time.perf_counter()
-            try:
-                results = _run_all(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-                    for src, obj in zip(SOURCES, objs)
-                )
-                if all(rc == 0 for rc, _ in results):
-                    results += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
-                failed = [(rc, o) for rc, o in results if rc != 0]
-                if failed:
-                    raise RuntimeError(
-                        f"nvcc failed to build {', '.join(SOURCES)} (exit "
-                        f"{failed[0][0]}):\n" + "\n".join(o for _, o in results)
-                    )
-                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-            finally:
-                for path in (tmp, *objs):
-                    if os.path.exists(path):
-                        os.remove(path)
-            build_report.update(
-                seconds=time.perf_counter() - t0,
-                ptxas="".join(o for _, o in results), path=out,
-            )
+            build_report.update(compile_library(SOURCES, out))
     return out
 
 
@@ -129,8 +138,13 @@ def load_library() -> ctypes.CDLL:
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.hg_edge_pipeline_fwd.argtypes = [p] * 8 + [i] * 10 + [p]
                 lib.hg_edge_pipeline_fwd.restype = i
-                lib.hg_edge_pipeline_bwd.argtypes = [p] * 12 + [i] * 10 + [p]
+                lib.hg_edge_pipeline_bwd.argtypes = [p] * 13 + [i] * 10 + [p]
                 lib.hg_edge_pipeline_bwd.restype = i
+                shape = ctypes.POINTER(ctypes.c_int)
+                lib.hg_edge_pipeline_fwd_shape.argtypes = [i] * 7 + [shape]
+                lib.hg_edge_pipeline_fwd_shape.restype = None
+                lib.hg_edge_pipeline_bwd_shape.argtypes = [i] * 8 + [shape]
+                lib.hg_edge_pipeline_bwd_shape.restype = None
                 lib.hg_cuda_error_string.argtypes = [i]
                 lib.hg_cuda_error_string.restype = ctypes.c_char_p
                 _lib = lib

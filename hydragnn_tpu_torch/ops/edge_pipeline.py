@@ -24,13 +24,17 @@ parts:
   takes whenever an operand needs a gradient.
 
 The JAX kernel's tiles (be=512, bn=256) were sized for the TPU's VMEM and
-its 128x128 matrix unit. On Hopper one CTA owns one node window and keeps
-its ``[bn, F_in]`` f32 accumulator in shared memory, so the port's
-defaults are small: a qm9 serving bin of 32 graphs has about 600 nodes,
-and bn=32 gives it about 20 CTAs where bn=256 would give 3. The plan
+its 128x128 matrix unit. On Hopper one CTA owns one node window and one
+32-column slab of F_in, so the port's defaults are small: a qm9 serving
+bin of 32 graphs has about 600 nodes, and bn=32 gives it about 20
+windows (80 CTAs at F_in = 128) where bn=256 would give 3. The plan
 contract (aligned tiles, invalid padding slots, one all-invalid block
 per empty window, padding blocks that repeat the last window) is the
-JAX package's, unchanged.
+JAX package's, unchanged. The kernels rely on its tile form: every
+block reads one contiguous be-row tile of the sorted edges,
+``perm[k*be + i] = min(t*be + i, E-1)`` with ``t = perm[k*be] // be``,
+which they stage with asynchronous copies instead of gathering rows
+(tests/test_torch_ops.py pins it).
 """
 
 from __future__ import annotations
@@ -469,17 +473,17 @@ def _validate(a, b, w, perm, seg_padded, valid, window_id, num_segments, be):
     return e, f_in, f_out, n_blocks, code
 
 
-def _raise_on(lib, err: int, which: str, bn: int, f_in: int) -> None:
+def _raise_on(lib, err: int, which: str, bn: int, f_out: int) -> None:
     """Raise on a launcher's CUDA error. The launchers return
-    cudaErrorInvalidValue (1) when not even one f32 [bn, F_in] window
-    tile fits the card's shared memory beside their other staging."""
+    cudaErrorInvalidValue (1) when a window's tiles ([bn, F_out] and
+    [bn, 32] per CTA) do not fit the card's shared memory."""
     if err == 0:
         return
     what = f"CUDA error {err} ({lib.hg_cuda_error_string(err).decode(errors='replace')})"
     if err == 1:
         raise ValueError(
-            f"{which} refused bn={bn}, F_in={f_in}: {what}; its [bn, F_in] f32 "
-            f"window tiles do not fit the card's shared memory; use a smaller bn"
+            f"{which} refused bn={bn}, F_out={f_out}: {what}; its window "
+            f"tiles do not fit the card's shared memory; use a smaller bn"
         )
     raise RuntimeError(f"{which} kernel launch failed: {what}")
 
@@ -513,7 +517,7 @@ def _edge_pipeline_cuda(
             code, int(b is not None), int(w is not None),
             stream,
         )
-    _raise_on(lib, err, "edge_pipeline (K1)", bn, f_in)
+    _raise_on(lib, err, "edge_pipeline (K1)", bn, f_out)
     edge_pipeline_planned.launches += 1
     return out
 
@@ -521,9 +525,11 @@ def _edge_pipeline_cuda(
 def _edge_pipeline_bwd_cuda(
     g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
 ):
-    """Validate, allocate d_a/d_b/d_W and the f32 d_W partials, launch K2
-    on the current stream and count the launch. Raises on anything the
-    kernel does not take; never falls back."""
+    """Validate, allocate d_a/d_b/d_W, the f32 d_W partials and the
+    zeroed E-byte coverage mask (K2 writes every d_a/d_b row once and
+    zeros the rows no valid slot covers, so the outputs need no memset),
+    launch K2 on the current stream and count the launch. Raises on
+    anything the kernel does not take; never falls back."""
     e, f_in, f_out, n_blocks, code = _validate(
         a, b, w, perm, seg_padded, valid, window_id, num_segments, be
     )
@@ -543,6 +549,7 @@ def _edge_pipeline_bwd_cuda(
         d_w = torch.empty_like(w)
         n_windows = (num_segments + bn - 1) // bn
         dw_part = torch.empty((n_windows, f_in, f_out), dtype=torch.float32, device=dev)
+    covered = torch.zeros(e, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hg_edge_pipeline_bwd(
@@ -558,10 +565,11 @@ def _edge_pipeline_bwd_cuda(
             None if d_b is None else d_b.data_ptr(),
             None if d_w is None else d_w.data_ptr(),
             None if dw_part is None else dw_part.data_ptr(),
+            covered.data_ptr(),
             e, num_segments, f_in, f_out, be, bn, n_blocks,
             code, int(b is not None), int(w is not None),
             stream,
         )
-    _raise_on(lib, err, "edge_pipeline_bwd (K2)", bn, f_in)
+    _raise_on(lib, err, "edge_pipeline_bwd (K2)", bn, f_out)
     edge_pipeline_bwd_planned.launches += 1
     return d_a, d_b, d_w

@@ -80,11 +80,12 @@ def _case(torch, seed, e_real, e_pad, n, f_in, f_out, dtype, be=64, bn=32,
     return a, b, w, perm, seg_p, valid, window
 
 
-# (real edges, padded edges, nodes, F). The last two put more valid slots
-# in a node window than the kernels stage in one pass (kChunk = 256 in
-# csrc/*.cu), so a warp's row sums carry across passes: ~1,350 valid
-# slots in each of 2 windows, and the headline train step's density
-# (~265 per window) over 82 windows, whose d_W partials K2 folds in order.
+# (real edges, padded edges, nodes, F). The last two put more than 256
+# valid slots in a node window (four of the kernels' 64-slot staged
+# chunks, kSub in csrc/edge_tile.cuh), so node sums carry across many
+# chunks and both ring stages: ~1,350 valid slots in each of 2 windows,
+# and the headline train step's density (~265 per window) over 82
+# windows, whose d_W partials K2 folds in order.
 SHAPES = [(1250, 1280, 640, 128), (37, 64, 200, 16), (300, 304, 40, 128),
           (3000, 3072, 64, 128), (24000, 24576, 2600, 128)]
 K_CHUNK = 256
@@ -184,6 +185,67 @@ def test_k2_matches_plain(stages, dt):
             torch.testing.assert_close(x.float(), z.float(), **VJP_TOL[MIXES[dt][0]])
             if name != "w":
                 assert not x[~covered].any(), name
+
+
+# (F_in, F_out) past the headline's 128 -> 128: ragged slabs of 32 columns
+# with F_in != F_out; more 32-column slabs (12) than one cluster of K1's
+# CTAs holds (8), so K1 takes 64-column slabs there; and rows of a and b
+# that are not a multiple of 16 bytes (20 columns), which the kernels
+# stage with plain loads instead of 16-byte copies.
+WIDTHS = [(48, 80), (384, 384), (20, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_in,f_out", WIDTHS)
+@pytest.mark.parametrize(
+    "stages,dt",
+    [(s, "float32") for s in ("a", "ab", "aw", "abw")]
+    + [("abw", "bfloat16"), ("abw", "bf16_f32w")],
+)
+def test_kernels_ragged_and_wide(stages, dt, f_in, f_out):
+    """K1 and K2 at widths other than the main path's: each equals its
+    plain version (same bits on two runs), and K2 leaves exactly zero in
+    the rows no valid slot covers. Without W the output width is F_in."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    a_dt, w_dt = (getattr(torch, x) for x in MIXES[dt])
+    e_real, e_pad, n = 1250, 1280, 640
+    a, b, w, perm, seg_p, valid, window = _case(
+        torch, 7, e_real, e_pad, n, f_in, f_out, a_dt, w_dtype=w_dt
+    )
+    b = b if "b" in stages else None
+    w = w if "w" in stages else None
+    width = f_out if w is not None else f_in
+    plan = (perm, seg_p, valid, window, n)
+    with torch.no_grad():
+        got = edge_pipeline_planned(a, b, w, *plan)
+        again = edge_pipeline_planned(a, b, w, *plan)
+        ref = edge_pipeline_plain(a, b, w, *plan)
+    g_dt = torch.promote_types(a_dt, w_dt) if w is not None else a_dt
+    g = torch.randn(n, width, generator=torch.Generator().manual_seed(7)).to("cuda", g_dt)
+    grads = edge_pipeline_bwd_planned(g, a, b, w, *plan)
+    grads_again = edge_pipeline_bwd_planned(g, a, b, w, *plan)
+    grads_ref = edge_pipeline_bwd_plain(g, a, b, w, *plan)
+    torch.cuda.synchronize()
+    assert got.shape == (n, width) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[MIXES[dt][0]])
+    covered = torch.zeros(a.shape[0], dtype=torch.bool, device="cuda")
+    covered[perm[valid].long()] = True
+    for name, x, y, z in zip("abw", grads, grads_again, grads_ref):
+        if z is None:
+            assert x is None
+            continue
+        assert x.dtype == z.dtype and x.shape == z.shape, name
+        assert torch.equal(x, y), name
+        torch.testing.assert_close(x.float(), z.float(), **VJP_TOL[MIXES[dt][0]])
+        if name != "w":
+            assert not x[~covered].any(), name
 
 
 @pytest.mark.cuda

@@ -251,3 +251,58 @@ def test_aggregate_receivers_match(port, agg_case, op, planned):
     b = torch.from_numpy(h2)[tb.receivers.long()]
     got = _aggregate(port.seg, a, b, torch.from_numpy(w), tb, op)
     np.testing.assert_allclose(got.numpy(), want[op], **F32_TOL)
+
+
+def _assert_tile_plan(perm, valid, be, e):
+    """Every block of a plan reads one contiguous be-row tile: with
+    ``t = perm[k*be] // be``, ``perm[k*be:(k+1)*be] == min(t*be +
+    arange(be), E-1)``; so every valid slot's edge row is ``t*be + i``.
+    The only other blocks are the trailing static padding blocks, which
+    hold no valid slot (perm 0: the kernels read tile 0 and use none of
+    it)."""
+    blocks = perm.reshape(-1, be)
+    vblocks = valid.reshape(-1, be)
+    tiled = []
+    for row in blocks:
+        t = row[0] // be
+        tiled.append(np.array_equal(row, np.minimum(t * be + np.arange(be), e - 1)))
+    tiled = np.asarray(tiled)
+    n_real = len(tiled) if tiled.all() else int(np.argmin(tiled))
+    assert tiled[:n_real].all()
+    assert not vblocks[n_real:].any() and not blocks[n_real:].any()
+    rows = (blocks[:, :1] // be) * be + np.arange(be)
+    assert (perm[valid] == rows.reshape(-1)[valid]).all()
+    assert (rows.reshape(-1)[valid] < e).all()
+    return n_real
+
+
+@pytest.mark.parametrize("tiles", [(64, 32), (512, 256)], ids=["hopper", "tpu"])
+@pytest.mark.parametrize("shape", range(5), ids=lambda i: f"shape{i}")
+def test_plans_read_contiguous_tiles(port, shape, tiles):
+    """The plan contract K1 and K2 stage from (csrc/edge_tile.cuh), at
+    the card tests' shapes (tests/test_torch_cuda.py SHAPES) and at the
+    TPU's tiles: plan_sorted_blocks and plan_blocks_static blocks are
+    whole tiles, and the static form adds only all-invalid padding."""
+    from tests.test_torch_cuda import SHAPES, _plan
+
+    be, bn = tiles
+    e_real, e_pad, n, _ = SHAPES[shape]
+    rng, (perm, seg_p, valid, window) = _plan(shape, e_real, e_pad, n, be, bn)
+    n_real = _assert_tile_plan(perm, valid, be, e_pad)
+    assert n_real < len(window)  # _plan pads by 2 blocks past the bound
+    seg = np.sort(rng.integers(0, n, e_pad))
+    sp, _, sv, sw = port.ep.plan_sorted_blocks(seg, n, be, bn, edge_valid=rng.random(e_pad) > 0.1)
+    assert _assert_tile_plan(sp, sv, be, e_pad) == len(sw)
+
+
+def test_collated_plan_reads_contiguous_tiles(port):
+    """The plan a collated GraphBatch carries (the main path's) keeps
+    the same tile contract."""
+    samples = jloadgen.synthetic_request_samples("qm9", 40, seed=3)
+    pad = jgraph.PadSpec.for_samples(samples)
+    tpad = port.graph.PadSpec(pad.num_nodes, pad.num_edges, pad.num_graphs)
+    batch = port.graph.collate(samples, tpad, with_segment_plan=True)
+    be = batch.seg_perm.numel() // batch.seg_window.numel()
+    assert be == port.ep.DEFAULT_BE
+    _assert_tile_plan(batch.seg_perm.numpy(), batch.seg_valid.numpy(), be,
+                      batch.num_edges)
