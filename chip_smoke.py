@@ -59,11 +59,43 @@ exits non-zero):
                atoms, radius 4.0, 32 neighbours): card against the CPU's
                plain path (loss, gradients, updated parameters), then
                eager and device time and K1's and K2's share of it.
-8. report      the kernels JSON line (with each kernel's times at the
-               three shapes under "by_shape"), the card line, and the
-               final {"ok": true, "device": ...} line.
+8. mlip-kernels  K1 and K2 in the reduce-only flavour at PaiNN's widths
+               (F = 1, 3, 64, 192) on the first MLIP train batch's plan,
+               against their plain versions in f32 and bf16 (same bits on
+               two runs, K2 zero off the plan), each width's launch shape,
+               and the times at F = 64 and 192 beside the bound, the plain
+               version and index_add_; then EdgePipelineBwdFn (K2 forward,
+               K1/K2 backward) on the card against the CPU plain path in
+               every flavour.
+9. mlip        examples/md17/md17.json's PaiNN interatomic potential at
+               full width (hidden 64, 3 layers, num_radial 20, graph head
+               1x64 + [64, 64], add pooling; energy weight 1, force weight
+               10) trained by run_training on the card (f32, 2 epochs) on
+               bench.py's painn_md17_mlip molecules (256 of 19-23 atoms,
+               seed 1, with energies and forces) split 0.8, then
+               run_prediction. Checks: finite losses, finite energies and
+               forces of the expected shapes, and K1 = K2 = 6 x (forwards
+               + train steps) launches (12 of each per train step: 6 K1
+               forward and 6 as K2's backward; 6 K2 in the force pass and
+               6 in the loss's backward); whether the loss fell is
+               reported. The first MLIP train step on the card against
+               the CPU plain path (loss, per-task losses, energies,
+               forces, gradients; updated parameters shown) in f32 and
+               bf16, on the first train batch of examples/md17/md17.py's
+               MD17 stand-in (Morse energies and forces) and of bench's
+               molecules: each within [train]'s tolerance or, where the
+               card's own step with the scatter in place of K1/K2 misses
+               it too, within 10 x that step's error; 12 K1 and 12 K2
+               launches in the step. Then the step's eager and device
+               time.
+10. report     the kernels JSON line (with each kernel's times at the
+               three SchNet shapes under "by_shape" and at PaiNN's widths
+               under "mlip_widths"; "launches" sums the serving, SchNet
+               training and MLIP runs, "launches_by_path" splits them), the
+               card line, and the final {"ok": true, "device": ...} line.
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -755,12 +787,13 @@ def bcc_config(path, precision="fp32"):
     }
 
 
-def assert_close_scaled(got, ref, tol, what):
+def assert_close_scaled(got, ref, tol, what, scale=None):
     """``got`` equals ``ref`` at ``tol``'s rtol and its atol times
-    ``ref``'s largest magnitude (never more than the atol itself)."""
+    ``scale`` (``ref``'s largest magnitude unless given; never more than
+    the atol itself). Returns (largest error, largest |ref|)."""
     import numpy as np
 
-    scale = float(np.abs(ref).max())
+    scale = float(np.abs(ref).max()) if scale is None else scale
     check(scale > 0, f"{what}: reference is all zeros")
     np.testing.assert_allclose(got, ref, rtol=tol["rtol"],
                                atol=tol["atol"] * min(scale, 1.0), err_msg=what)
@@ -782,29 +815,20 @@ def one_step(model, cfg, training, batch, compute_dtype):
     return float(loss), grads, params
 
 
-def phase_train(config, splits):
-    import numpy as np
-
-    import hydragnn_tpu_torch as port
-    from hydragnn_tpu_torch.config import update_config
-    from hydragnn_tpu_torch.data.loader import GraphLoader
+@contextlib.contextmanager
+def recorded_run():
+    """While open, model forwards are counted (``rec["forwards"]``) and
+    every train step's loss is kept on the card (``rec["losses"]``, read
+    after the run)."""
     from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
-    from hydragnn_tpu_torch.models.create import create_model_config
-    from hydragnn_tpu_torch.ops.edge_pipeline import (
-        edge_pipeline_bwd_planned,
-        edge_pipeline_planned,
-    )
     from hydragnn_tpu_torch.train import loop
 
-    # The run: counts of K1/K2 launches and of model forwards, from 0, and
-    # every train step's loss (kept on the card, read after the run).
-    forwards = [0]
-    step_losses = []
+    rec = {"forwards": 0, "losses": []}
     plain_forward = MultiHeadGraphModel.forward
     plain_make_train_step = loop.make_train_step
 
     def counted_forward(self, batch):
-        forwards[0] += 1
+        rec["forwards"] += 1
         return plain_forward(self, batch)
 
     def recorded_make_train_step(*args, **kwargs):
@@ -812,7 +836,7 @@ def phase_train(config, splits):
 
         def recorded(state, batch):
             state, loss, tasks = step(state, batch)
-            step_losses.append(loss)
+            rec["losses"].append(loss)
             return state, loss, tasks
 
         return recorded
@@ -820,24 +844,40 @@ def phase_train(config, splits):
     MultiHeadGraphModel.forward = counted_forward
     loop.make_train_step = recorded_make_train_step
     try:
+        yield rec
+    finally:
+        MultiHeadGraphModel.forward = plain_forward
+        loop.make_train_step = plain_make_train_step
+
+
+def phase_train(config, splits):
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    with recorded_run() as rec:
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         t0 = time.perf_counter()
         state, model, cfg, hist, full = port.run_training(config, device="cuda")
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         k1, k2, n_fwd = (edge_pipeline_planned.launches,
-                         edge_pipeline_bwd_planned.launches, forwards[0])
+                         edge_pipeline_bwd_planned.launches, rec["forwards"])
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
-        forwards[0] = 0
+        rec["forwards"] = 0
         err, _, trues, preds = port.run_prediction(full, state=state, model=model, cfg=cfg)
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
-                                        edge_pipeline_bwd_planned.launches, forwards[0])
-    finally:
-        MultiHeadGraphModel.forward = plain_forward
-        loop.make_train_step = plain_make_train_step
+                                        edge_pipeline_bwd_planned.launches, rec["forwards"])
     layers = cfg.num_conv_layers
-    steps = torch.stack(step_losses).double().cpu().numpy()
+    steps = torch.stack(rec["losses"]).double().cpu().numpy()
     losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
     check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
           f"non-finite loss in {losses} or in the steps {steps.tolist()}")
@@ -902,9 +942,12 @@ def phase_train(config, splits):
             "parity": parity}
 
 
-def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0):
+def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0, forces=False,
+              atomic_numbers=False):
     """bench.py's random molecules (``_molecules``), from the same seeded
-    generator, with the port's radius graph."""
+    generator in its order of draws, with the port's radius graph:
+    ``atomic_numbers`` draws node features 1..8 (else 0..4), ``forces``
+    an energy and forces (else a graph target)."""
     import numpy as np
 
     from hydragnn_tpu_torch.data.graph import GraphSample
@@ -915,10 +958,15 @@ def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0):
     for _ in range(n_configs):
         n = int(rng.integers(n_lo, n_hi))
         pos = rng.uniform(0, 2.2 * n ** (1 / 3), size=(n, 3))
-        x = rng.integers(0, 5, size=(n, 1)).astype(np.float32)
+        lo, hi = (1, 9) if atomic_numbers else (0, 5)
+        x = rng.integers(lo, hi, size=(n, 1)).astype(np.float32)
         ei = radius_graph(pos, radius, max_neighbours=max_neighbours)
-        out.append(GraphSample(x=x, pos=pos.astype(np.float32), edge_index=ei,
-                               y_graph=np.array([rng.normal()], dtype=np.float32)))
+        if forces:
+            kw = {"energy": float(rng.normal()),
+                  "forces": rng.normal(size=(n, 3)).astype(np.float32) * 0.1}
+        else:
+            kw = {"y_graph": np.array([rng.normal()], dtype=np.float32)}
+        out.append(GraphSample(x=x, pos=pos.astype(np.float32), edge_index=ei, **kw))
     return out
 
 
@@ -936,13 +984,8 @@ def phase_train_timing(cpu_batch):
     against the CPU's plain path, then eager time, device time from the
     profiler, and K1's and K2's share of it."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from hydragnn_tpu_torch.models.create import create_model
-    from hydragnn_tpu_torch.ops.edge_pipeline import (
-        edge_pipeline_bwd_planned,
-        edge_pipeline_planned,
-    )
     from hydragnn_tpu_torch.train.loop import make_train_step
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
     from hydragnn_tpu_torch.train.state import TrainState
@@ -968,39 +1011,501 @@ def phase_train_timing(cpu_batch):
     state = TrainState(model, opt)
     e_valid = int(batch.edge_mask.sum())
     eager = eager_ms(lambda: step(state, batch), iters=20, warmup=3)
-    n_prof = 5
+    prof = device_profile(lambda: step(state, batch), per_call=(4, 4), what="headline step")
+    out = {"graphs": int(batch.graph_mask.sum()), "nodes": batch.num_nodes,
+           "edges": batch.num_edges, "e_valid": e_valid, "eager_ms": eager,
+           "cpu_parity": {"loss": loss_err[0], "grad": worst["grad"][0],
+                          "param": worst["param"][0]}}
+    out.update(prof)
+    log(f"[train] one f32 train step at the headline shape (128 molecules, "
+        f"{batch.num_nodes} nodes, {e_valid} edges; padded {batch.num_edges}): "
+        f"{eager:.3f} ms issued eagerly, " + profile_note(prof, eager, "step"))
+    return out
+
+
+def device_profile(fn, per_call, what, n_prof=5):
+    """Device time of one call of ``fn`` from ``torch.profiler`` over
+    ``n_prof`` calls: all kernels, K1's and K2's (with its finishing
+    kernel), and kernels per call; checks that each call launches
+    ``per_call`` = (K1, K2) kernels. Empty when the profiler recorded no
+    device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
     edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            step(state, batch)
+            fn()
         torch.cuda.synchronize()
-    check(edge_pipeline_planned.launches == 4 * n_prof
-          and edge_pipeline_bwd_planned.launches == 4 * n_prof,
-          "headline step: want 4 K1 and 4 K2 launches per step")
+    got = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+    check(got == (per_call[0] * n_prof, per_call[1] * n_prof),
+          f"{what}: K1/K2 launched {got} in {n_prof} calls, want {per_call} per call")
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_prof
+    if busy <= 0:
+        return {}
     k1 = sum(e.time_range.elapsed_us() for e in kernels
              if "edge_pipeline_kernel<" in e.name) / 1e3 / n_prof
     k2 = sum(e.time_range.elapsed_us() for e in kernels
              if "edge_pipeline_bwd_kernel<" in e.name or "bwd_finish_kernel<" in e.name
              ) / 1e3 / n_prof
-    out = {"graphs": int(batch.graph_mask.sum()), "nodes": batch.num_nodes,
-           "edges": batch.num_edges, "e_valid": e_valid, "eager_ms": eager,
-           "cpu_parity": {"loss": loss_err[0], "grad": worst["grad"][0],
-                          "param": worst["param"][0]}}
-    if busy > 0:
-        out.update(device_ms=busy, k1_ms=k1, k2_ms=k2)
-        log(f"[train] one f32 train step at the headline shape (128 molecules, "
-            f"{batch.num_nodes} nodes, {e_valid} edges; padded {batch.num_edges}): "
-            f"{eager:.3f} ms issued eagerly, {busy:.3f} ms of device time (profiler, "
-            f"{len(kernels) // n_prof} kernels per step); K1 {k1:.3f} ms "
-            f"({100 * k1 / busy:.1f}%), K2 {k2:.3f} ms ({100 * k2 / busy:.1f}%) of it; "
-            f"the device idles {100 * (1 - busy / eager):.0f}% of the eager step")
-    else:
-        log(f"[train] one f32 train step at the headline shape: {eager:.3f} ms issued "
-            f"eagerly; device time not measured (the profiler recorded no kernels)")
+    return {"device_ms": busy, "k1_ms": k1, "k2_ms": k2,
+            "kernels_per_call": len(kernels) // n_prof}
+
+
+def profile_note(prof, eager, unit):
+    if not prof:
+        return "device time not measured (the profiler recorded no kernels)"
+    busy, k1, k2 = prof["device_ms"], prof["k1_ms"], prof["k2_ms"]
+    return (f"{busy:.3f} ms of device time (profiler, {prof['kernels_per_call']} kernels "
+            f"per {unit}); K1 {k1:.3f} ms ({100 * k1 / busy:.1f}%), K2 {k2:.3f} ms "
+            f"({100 * k2 / busy:.1f}%) of it; the device idles "
+            f"{100 * (1 - busy / eager):.0f}% of the eager {unit}")
+
+
+# ---------------------------------------------------------------- [mlip]
+
+PAINN_WIDTHS = (1, 3, 64, 192)  # layer 0 (scalar, vector), layers 1-2
+
+
+def md17_frames(n_frames=400, seed=0):
+    """examples/md17/md17.py's MD17 stand-in (``synthetic_md17``), from
+    the same seeded generator, with the port's radius graph: thermal
+    perturbations of one random 21-atom molecule (aspirin's size), with
+    energies and analytic forces of a Morse pair potential (D 0.5, a 1.2,
+    r0 1.8), so the forces are the energy's gradient as in MD17."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    n_atoms, depth, width, r0 = 21, 0.5, 1.2, 1.8
+
+    def morse(pos):
+        diff = pos[:, None, :] - pos[None, :, :]
+        d = np.linalg.norm(diff, axis=-1)
+        np.fill_diagonal(d, np.inf)
+        ex = np.exp(-width * (d - r0))
+        energy = float((depth * (1.0 - ex) ** 2).sum() / 2.0)
+        dedr = 2.0 * depth * width * (1.0 - ex) * ex
+        with np.errstate(invalid="ignore"):
+            unit = np.where(np.isfinite(d[..., None]), diff / d[..., None], 0.0)
+        return energy, (-(dedr[..., None] * unit).sum(axis=1)).astype(np.float32)
+
+    rng = np.random.default_rng(seed)
+    z = rng.choice([1, 6, 8], n_atoms, p=[0.4, 0.45, 0.15]).astype(np.float32)
+    base = rng.uniform(0, 2.2 * n_atoms ** (1 / 3), (n_atoms, 3))
+    out = []
+    for _ in range(n_frames):
+        pos = (base + rng.normal(scale=0.12, size=base.shape)).astype(np.float32)
+        energy, forces = morse(pos)
+        out.append(GraphSample(x=z.reshape(-1, 1), pos=pos, energy=energy, forces=forces,
+                               edge_index=radius_graph(pos, 4.0, max_neighbours=24)))
     return out
+
+
+def closest_pair(samples):
+    """The smallest distance between two atoms of one sample."""
+    import numpy as np
+
+    out = np.inf
+    for s in samples:
+        d = np.linalg.norm(s.pos[:, None, :] - s.pos[None, :, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        out = min(out, float(d.min()))
+    return out
+
+
+def mlip_data():
+    """examples/md17/md17.json (its Simulation section is ignored) cut to
+    2 epochs in f32, with two data sets split by its perc_train: bench.py's
+    ``painn_md17_mlip`` molecules (``_molecules(256, 19, 24, 4.0, 32,
+    seed=1, forces=True, atomic_numbers=True)``, bench.py:2497; random
+    energies and forces) and examples/md17/md17.py's 400-frame MD17
+    stand-in (Morse energies and their forces)."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "md17",
+                        "md17.json")
+    with open(path) as f:
+        config = json.load(f)
+    config["Verbosity"] = {"level": 0}
+    training = config["NeuralNetwork"]["Training"]
+    training["num_epoch"] = 2
+    training["precision"] = "fp32"
+    perc = float(training["perc_train"])
+    t0 = time.perf_counter()
+    samples = molecules(256, 19, 24, 4.0, 32, seed=1, forces=True, atomic_numbers=True)
+    splits = split_dataset(samples, perc)
+    md17 = split_dataset(md17_frames(), perc)
+    log(f"[mlip] md17.json's PaiNN (hidden 64, 3 layers, num_radial 20, radius 4.0, "
+        f"graph head 1x64 + [64, 64], add pooling; energy_weight 1, force_weight 10; "
+        f"AdamW 0.002, batch 32), 2 epochs f32; bench's molecules: 256 of 19-23 atoms "
+        f"(seed 1; closest atom pair {closest_pair(samples):.3f}), splits "
+        f"{[len(x) for x in splits]}; MD17 stand-in: 400 frames of 21 atoms (closest "
+        f"pair {closest_pair(md17[0]):.3f}), splits {[len(x) for x in md17]}; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return config, splits, md17
+
+
+def mlip_train_batch(trainset, plan=True):
+    """The MLIP run's first train batch (batch 32) on the host; without
+    ``plan``, the same batch with its edges in collation order and no
+    block plan (aggregation takes the scatter, another summation order)."""
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+
+    return next(iter(GraphLoader(trainset, 32, shuffle=True, seed=0, fixed_pad="auto",
+                                 with_segment_plan=plan)))
+
+
+def phase_mlip_kernels(batch):
+    """K1 and K2 in the reduce-only flavour at PaiNN's widths on the first
+    MLIP train batch's plan: against their plain versions in f32 and bf16
+    (same bits on two runs, zero rows off the plan), each width's launch
+    shape, and the times at F = 64 and 192 (f32) beside the bound, the
+    plain version and, for K1, index_add_. Then EdgePipelineBwdFn (K2
+    forward, K1/K2 backward) on the card against the CPU plain path in
+    every flavour."""
+    from hydragnn_tpu_torch.ops.cuda_build import load_library
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        EdgePipelineBwdFn,
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    lib = load_library()
+    dev = batch.seg_perm.device
+    gen = torch.Generator().manual_seed(5)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    n, e = batch.num_nodes, batch.num_edges
+    e_valid = int(batch.edge_mask.sum())
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    covered = torch.zeros(e, dtype=torch.bool, device=dev)
+    covered[plan[0][plan[2]].long()] = True
+    rows = []
+    for f in PAINN_WIDTHS:
+        shapes = {k: launch_shape(lib, k, n, e, f, f, 32, has_b=False, has_w=False)
+                  for k in ("k1", "k2")}
+        log(f"[mlip-kernels] F = {f} (n {n}, e {e}, {e_valid} valid): K1 {shapes['k1']}; "
+            f"K2 {shapes['k2']}")
+        for dt, tol, vjp_tol in ((torch.float32, F32_TOL, VJP_TOL),
+                                 (torch.bfloat16, BF16_TOL, BF16_TOL)):
+            a = torch.randn(e, f, generator=gen).to(dev, dt)
+            g = torch.randn(n, f, generator=gen).to(dev, dt)
+            args = (a, None, None, *plan, n)
+            with torch.no_grad():
+                got, again = edge_pipeline_planned(*args), edge_pipeline_planned(*args)
+                ref = edge_pipeline_plain(*args)
+            d_a, d_b, d_w = edge_pipeline_bwd_planned(g, *args)
+            d_again = edge_pipeline_bwd_planned(g, *args)[0]
+            d_ref = edge_pipeline_bwd_plain(g, *args)[0]
+            torch.cuda.synchronize()
+            name = mix_name(dt, dt)
+            check(torch.equal(got, again) and torch.equal(d_a, d_again),
+                  f"F={f} {name}: two runs differ")
+            check(got.dtype == dt and d_a.dtype == dt and d_b is None and d_w is None,
+                  f"F={f} {name}: output types")
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+            torch.testing.assert_close(d_a.float(), d_ref.float(), **vjp_tol)
+            check(not bool(d_a[~covered].any()), f"F={f} {name}: K2 nonzero off the plan")
+            row = {"f": f, "dtype": name, "n": n, "e_valid": e_valid,
+                   "k1_launch": shapes["k1"], "k2_launch": shapes["k2"],
+                   "k1_max_abs_err": float((got.float() - ref.float()).abs().max()),
+                   "k2_max_abs_err": float((d_a.float() - d_ref.float()).abs().max())}
+            if f >= 64 and dt == torch.float32:
+                with torch.no_grad():
+                    row["k1_ms"] = time_ms(lambda: edge_pipeline_planned(*args))
+                    row["k1_plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
+                    a_valid = a[batch.edge_mask]
+                    rcv_valid = batch.receivers[batch.edge_mask].long()
+                    out = torch.zeros(n, f, dtype=dt, device=dev)
+                    row["k1_library_ms"] = time_ms(
+                        lambda: out.index_add_(0, rcv_valid, a_valid))
+                    row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
+                    row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+                nbytes, ops, out_dt = k1_work(e_valid, n, f, f, slots, blocks, dt, dt,
+                                              False, False)
+                row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
+                nbytes, ops, g_dt = k2_work(e, e_valid, n, f, f, slots, blocks, dt, dt,
+                                            False, False)
+                row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
+                log(f"[mlip-kernels] F = {f} f32: K1 {row['k1_ms'] * 1e3:.1f} us, plain "
+                    f"{row['k1_plain_ms'] * 1e3:.1f} us, index_add_ "
+                    f"{row['k1_library_ms'] * 1e3:.1f} us, bound "
+                    f"{row['k1_bound_ms'] * 1e3:.2f} us ({row['k1_bound_by']}); K2 "
+                    f"{row['k2_ms'] * 1e3:.1f} us, plain {row['k2_plain_ms'] * 1e3:.1f} us, "
+                    f"bound {row['k2_bound_ms'] * 1e3:.2f} us ({row['k2_bound_by']})")
+            rows.append(row)
+    log(f"[mlip-kernels] K1 and K2, reduce-only, F = {list(PAINN_WIDTHS)} in f32 and "
+        f"bf16: {2 * len(rows)} comparisons passed (identical bits on two runs; K2 zero "
+        f"off the plan)")
+
+    # EdgePipelineBwdFn's backward on the card against the CPU plain path.
+    f_in, f_out = 64, 64
+    for stages in ("a", "ab", "aw", "abw"):
+        has_b, has_w = "b" in stages, "w" in stages
+        prim = {"g": torch.randn(n, f_out if has_w else f_in, generator=gen),
+                "a": torch.randn(e, f_in, generator=gen),
+                "b": torch.randn(e, f_in, generator=gen),
+                "w": torch.randn(f_in, f_out, generator=gen) / f_in ** 0.5}
+        names = ["g", "a"] + (["b"] if has_b else []) + (["w"] if has_w else [])
+        res, counts = [], None
+        for where in ("cuda", "cpu"):
+            ins = {k: prim[k].to(where).requires_grad_(True) for k in names}
+            where_plan = [t.to(where) for t in plan]
+            outs = [o for o in EdgePipelineBwdFn.apply(
+                ins["g"], ins["a"], ins.get("b"), ins.get("w"), *where_plan, n, 32, 64)
+                if o is not None]
+            cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)).to(where)
+                   for i, o in enumerate(outs)]
+            k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+            grads = torch.autograd.grad(outs, [ins[k] for k in names], cot,
+                                        allow_unused=True)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                counts = (edge_pipeline_planned.launches - k1,
+                          edge_pipeline_bwd_planned.launches - k2)
+            res.append([o.detach().cpu() for o in outs]
+                       + [None if x is None else x.detach().cpu() for x in grads])
+        err = 0.0
+        for i, (x, y) in enumerate(zip(*res)):
+            check((x is None) == (y is None), f"double backward {stages}: output {i}")
+            if x is not None:
+                err = max(err, assert_close_scaled(x.numpy(), y.numpy(), VJP_TOL,
+                                                   f"double backward {stages} {i}")[0])
+        check(counts[0] > 0, f"double backward {stages}: no K1 launch")
+        log(f"[mlip-kernels] EdgePipelineBwdFn {stages}, F {f_in} -> {f_out}: the first "
+            f"derivatives and their gradients (g, a, b, W) card vs CPU plain path, max|err| "
+            f"{err:.3g}; its backward launched K1 {counts[0]}, K2 {counts[1]}")
+    return rows
+
+
+def mlip_step(model, cfg, training, batch, compute_dtype):
+    """The first MLIP train step of ``model`` on ``batch``, on the host:
+    graph energies and forces from the initial parameters, then one AdamW
+    step on the energy + force loss (loss, per-task losses, gradients,
+    updated parameters), and the K1/K2 launches of that step."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.mlip import energy_and_forces
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState, cast_batch
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    ge, forces = energy_and_forces(model, cast_batch(batch, compute_dtype), cfg,
+                                   create_graph=False)
+    opt = select_optimizer(model.parameters(), training)
+    step = make_train_step(model, opt, cfg, compute_dtype, compute_grad_energy=True)
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    _, loss, tasks = step(TrainState(model, opt), batch)
+    launches = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+    return {"loss": host(loss), "tasks": host(tasks), "energies": host(ge),
+            "forces": host(forces), "launches": launches,
+            "grads": {k: host(p.grad if p.grad is not None else torch.zeros_like(p))
+                      for k, p in model.named_parameters()},
+            "params": {k: host(p) for k, p in model.named_parameters()}}
+
+
+def mlip_run(config, splits):
+    """run_training of an MLIP config on the card, then run_prediction on
+    the test split: finite losses, energies and forces, and K1/K2 launch
+    counts. Whether the last epoch's mean train loss fell below the first
+    step's is reported, not held: on bench's random molecules (random
+    force targets of ~0.1, atoms closer than half an angstrom, initial
+    forces orders of magnitude larger than the targets) this config's
+    loss does not fall within 2 epochs from every initialisation, in the
+    JAX package either (PERF.md, PR 4)."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    with recorded_run() as rec:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t0 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, datasets=splits,
+                                                          device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k1, k2, n_fwd = (edge_pipeline_planned.launches,
+                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        rec["forwards"] = 0
+        err, tasks, trues, preds = port.run_prediction(full, datasets=splits, state=state,
+                                                       model=model, cfg=cfg)
+        torch.cuda.synchronize()
+        k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
+                                        edge_pipeline_bwd_planned.launches, rec["forwards"])
+    # Each forward aggregates twice per layer (the scalar and the folded
+    # vector message), each through K1; the force pass runs K2 once per
+    # aggregation, and a train step's backward K2 (the energy loss through
+    # the forward) and K1 (K2's own backward) once more per aggregation.
+    per_fwd = 2 * cfg.num_conv_layers
+    losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
+    check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
+          f"non-finite loss in {losses} or in the steps {steps.tolist()}")
+    check(len(steps) == state.step > 0, f"{len(steps)} step losses for {state.step} steps")
+    fell = hist.train_loss[-1] < steps[0]
+    want = per_fwd * (n_fwd + state.step)
+    check(k1 == want and k2 == want,
+          f"run_training K1 {k1}, K2 {k2}, want {want} = {per_fwd} x ({n_fwd} "
+          f"forwards + {state.step} train steps) each")
+    check(k1_pred == k2_pred == per_fwd * n_fwd_pred and n_fwd_pred > 0,
+          f"run_prediction K1 {k1_pred}, K2 {k2_pred} in {n_fwd_pred} forwards")
+    n_test = len(splits[2])
+    n_atoms = sum(s.num_nodes for s in splits[2])
+    check(len(preds) == 2 and preds[0].shape == trues[0].shape == (n_test, 1)
+          and preds[1].shape == trues[1].shape == (n_atoms, 3)
+          and np.isfinite(preds[0]).all() and np.isfinite(preds[1]).all(),
+          f"run_prediction wants finite energies [graphs, 1] and forces [atoms, 3]")
+    log(f"[mlip] bench's molecules: run_training on the card ({train_s:.2f} s, {state.step} train "
+        f"steps, {n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
+        f"test {hist.test_loss}; the last epoch's mean train loss is "
+        f"{'below' if fell else 'not below'} the first step's {steps[0]:.6g}")
+    log(f"[mlip] bench's molecules: per-step train loss {[float(f'{x:.4g}') for x in steps]}")
+    log(f"[mlip] bench's molecules: K1 launches {k1} and K2 launches {k2} = {per_fwd} x ({n_fwd} "
+        f"forwards + {state.step} train steps): per train step {2 * per_fwd} of each, per "
+        f"evaluation forward {per_fwd} of each")
+    log(f"[mlip] bench's molecules: run_prediction error {err:.6g} (per task "
+        f"{np.round(tasks, 6).tolist()}) over {n_test} molecules, energies "
+        f"{preds[0].shape}, forces {preds[1].shape}, all finite; K1 {k1_pred}, K2 "
+        f"{k2_pred} = {per_fwd} x {n_fwd_pred} forwards")
+    return {"k1": k1 + k1_pred, "k2": k2 + k2_pred, "steps": state.step,
+            "forwards": n_fwd + n_fwd_pred, "step_losses": steps.tolist(),
+            "train_loss": hist.train_loss, "val_loss": hist.val_loss,
+            "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
+            "loss_fell": bool(fell)}
+
+
+def tensors(x, y):
+    """(name, x, y) for each array of two like results: an array, or
+    dicts of arrays by name."""
+    if isinstance(x, dict):
+        return [(k, x[k], y[k]) for k in y]
+    return [("", x, y)]
+
+
+def close_scaled(got, ref, tol):
+    """``got`` equals ``ref`` as ``assert_close_scaled`` holds it."""
+    import numpy as np
+
+    scale = float(np.abs(ref).max())
+    return bool(np.allclose(got, ref, rtol=tol["rtol"], atol=tol["atol"] * min(scale, 1.0)))
+
+
+def scaled_error(got, ref):
+    """The largest |got - ref| over the largest |ref|."""
+    import numpy as np
+
+    scale = float(np.abs(ref).max())
+    return float(np.abs(got - ref).max()) / scale if scale > 0 else float(np.abs(got).max())
+
+
+def phase_mlip(config, splits, md17_splits, first_batch):
+    """md17.json's PaiNN potential trained by run_training on the card on
+    bench's molecules, then run_prediction; the first MLIP train step on
+    the card against the CPU plain path in f32 and bf16 with its launch
+    counts (on the MD17 stand-in's first train batch and on bench's); the
+    step's eager and device time on bench's first batch."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    run = mlip_run(config, splits)
+
+    # The first MLIP train step on the card against the CPU's plain path,
+    # on the first train batch of the MD17 stand-in and of bench's
+    # molecules, beside the same step on the card with the scatter
+    # (index_add_) in place of K1/K2. Atoms closer than an angstrom give
+    # forces and gradients orders of magnitude above the targets, and
+    # then the card's other ops (matmuls, sin, sqrt) alone move the
+    # forces and gradients past [train]'s tolerances. So each result is
+    # held to [train]'s tolerance or, where the card's scatter step misses
+    # it too, to 10 x that step's error (each tensor's largest error over
+    # its largest |ref|): a wrong kernel is off by the whole result. The
+    # updated parameters are shown: AdamW's first step moves each entry
+    # by lr x sign(g), so an entry whose gradient is within that noise of
+    # zero flips on either step.
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    per_fwd = 2 * cfg.num_conv_layers
+    parity = {}
+    for data, trainset in (("MD17 stand-in", md17_splits[0]), ("bench's molecules", splits[0])):
+        for precision, dtype, tol in (("fp32", torch.float32, VJP_TOL),
+                                      ("bf16", torch.bfloat16, BF16_TOL)):
+            what = f"{data} {precision}"
+            planned = mlip_train_batch(trainset)
+            card = mlip_step(copy.deepcopy(model0), cfg, training, planned.to("cuda"), dtype)
+            scatter = mlip_step(copy.deepcopy(model0), cfg, training,
+                                mlip_train_batch(trainset, plan=False).to("cuda"), dtype)
+            cpu = mlip_step(copy.deepcopy(model0).to("cpu"), cfg, training, planned, dtype)
+            check(card["launches"] == (2 * per_fwd, 2 * per_fwd)
+                  and scatter["launches"] == (0, 0),
+                  f"{what} MLIP step: K1/K2 launched {card['launches']} (want "
+                  f"{2 * per_fwd} each), without the plan {scatter['launches']}")
+            check(cpu["launches"] == (0, 0), "the CPU step launched a kernel")
+            # energies are forward values; the loss is mostly the force
+            # term, a function of first derivatives, as the rest are
+            tols = {"loss": tol, "tasks": tol, "forces": tol, "grads": tol, "params": tol,
+                    "energies": F32_TOL if dtype == torch.float32 else tol}
+            rows = {}
+            for k, t in tols.items():
+                pairs = tensors(card[k], cpu[k])
+                ok = all(close_scaled(a, b, t) for _, a, b in pairs)
+                err = max(scaled_error(a, b) for _, a, b in pairs)
+                floor = max(scaled_error(a, b) for _, a, b in tensors(scatter[k], cpu[k]))
+                check(ok or k == "params" or err <= 10 * floor,
+                      f"{what} {k}: card vs CPU {err:.3g} x max|ref|, outside the tolerance "
+                      f"and above 10 x the scatter step's {floor:.3g}")
+                scale = max(float(np.abs(b).max()) for _, _, b in pairs)
+                rows[k] = (err, floor, ok, scale)
+            parity[what] = rows
+            log(f"[mlip] first step, {data}, card vs CPU plain path, {precision}: loss "
+                f"{float(card['loss']):.6g} vs {float(cpu['loss']):.6g}; largest error / "
+                f"max|ref| (card's scatter step), in rtol {tol['rtol']} atol {tol['atol']} "
+                f"x min(max|ref|, 1), max|ref|: "
+                + ", ".join(f"{k} {e:.3g} ({f:.3g}) {'yes' if ok else 'no'} {m:.3g}"
+                            for k, (e, f, ok, m) in rows.items())
+                + f"; K1 {card['launches'][0]}, K2 {card['launches'][1]} launches in the "
+                f"step")
+
+    # The MLIP train step's time (f32, the first train batch).
+    batch = first_batch.to("cuda")
+    timed = copy.deepcopy(model0)
+    opt = select_optimizer(timed.parameters(), training)
+    step = make_train_step(timed, opt, cfg, compute_grad_energy=True)
+    timed_state = TrainState(timed, opt)
+    eager = eager_ms(lambda: step(timed_state, batch), iters=20, warmup=3)
+    prof = device_profile(lambda: step(timed_state, batch),
+                          per_call=(2 * per_fwd, 2 * per_fwd), what="MLIP step")
+    e_valid = int(batch.edge_mask.sum())
+    log(f"[mlip] one f32 MLIP train step (32 molecules, {batch.num_nodes} nodes, "
+        f"{e_valid} edges; padded {batch.num_edges}): {eager:.3f} ms issued eagerly, "
+        + profile_note(prof, eager, "step"))
+    return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
+            "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
+                                edges=batch.num_edges, e_valid=e_valid)}
 
 
 def bcc_data():
@@ -1061,15 +1566,21 @@ def main():
     launches, n_bins = phase_slice(samples, budgets, settings)
     train = phase_train(config, splits)
     headline = phase_train_timing(head_cpu)
+    mlip_cfg, mlip_splits, md17_splits = mlip_data()
+    mlip_batch = mlip_train_batch(mlip_splits[0])
+    mlip_rows = phase_mlip_kernels(mlip_batch.to("cuda"))
+    mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_batch)
+    widths = [r for r in mlip_rows if "k1_ms" in r]
 
     kernels = [{
         "name": "edge_pipeline",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
-        "launches": train["k1"],
-        "launches_by_path": {"serve": launches, "train": train["k1"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "f32"),
+        "launches": launches + train["k1"] + mlip["k1"],
+        "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"]},
+        "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
+                           + [r["k1_max_abs_err"] for r in mlip_rows if r["dtype"] == "f32"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1080,14 +1591,17 @@ def main():
         "by_shape": [dict(r["k1"], shape=r["shape"], n=r["n"], e_valid=r["e_valid"])
                      for r in shape_rows],
         "flavours": [r for r in rows if "ms" in r],
+        "mlip_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                        for r in widths],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
-        "launches": train["k2"],
-        "launches_by_path": {"serve": 0, "train": train["k2"]},
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"),
+        "launches": train["k2"] + mlip["k2"],
+        "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"]},
+        "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
+                           + [r["k2_max_abs_err"] for r in mlip_rows if r["dtype"] == "f32"]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
@@ -1097,9 +1611,12 @@ def main():
         "by_shape": [dict(r["k2"], shape=r["shape"], n=r["n"], e_valid=r["e_valid"])
                      for r in shape_rows],
         "flavours": [r for r in bwd_rows if "ms" in r],
+        "mlip_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                        for r in widths],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
+    log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Counterpart of ``hydragnn_tpu/export.py::make_forward``: eval mode, no
 gradients, the raw tuple of head outputs. The port's model carries its
 weights, so there is no ``variables`` argument. Export to a file
-(``export_inference``/``load_exported``) and the MLIP ``with_forces``
-form come in later slices (ROADMAP Queue 1 items 7 and 14).
+(``export_inference``/``load_exported``) and the ``with_forces`` form
+(energies and forces from ``train/mlip.energy_and_forces``) come with
+the export and serving item (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ def make_forward(model, cfg: ModelConfig, *, with_forces: bool = False) -> Calla
     del cfg
     if with_forces:
         raise NotImplementedError(
-            "with_forces (energies + forces) needs the MLIP slice: ROADMAP "
-            "Queue 1 item 7"
+            "with_forces (energies + forces) is not ported to the served "
+            "forward yet: ROADMAP Queue 1 item 14"
         )
     model.eval()
 

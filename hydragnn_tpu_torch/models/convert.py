@@ -5,7 +5,11 @@ No JAX counterpart. ``params_from_jax`` maps the JAX package's
 ``jax.device_get(state.params)`` gives them — onto the port's
 ``state_dict``, without importing JAX. The port names its submodules as
 flax does, so a path ``stack/conv_0/filter_mlp/dense_1/kernel`` becomes
-``stack.conv_0.filter_mlp.dense_1.weight``:
+``stack.conv_0.filter_mlp.dense_1.weight``, and PaiNN's
+``stack/message_0/filter_layer``, ``.../scalar_message_mlp/dense_{i}``,
+``stack/update_0/update_U`` (no bias), ``.../update_mlp/dense_{i}``,
+``stack/node_embed_out_0/dense_{i}`` and ``stack/vec_embed_out_0`` (no
+bias) map the same way:
 
 - a Dense ``kernel`` ``[in, out]`` becomes an ``nn.Linear`` ``weight``
   ``[out, in]`` (transposed);

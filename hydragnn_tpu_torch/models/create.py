@@ -4,8 +4,8 @@ Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
 a stack class and wraps it in the multihead core (``create_model``), and
 builds both from a full config (``create_model_config``). The port's
 model carries its parameters, so creation also initializes them (the
-JAX package's ``init_params``). Only SchNet is registered so far; the
-other stacks follow ROADMAP Queue 1.
+JAX package's ``init_params``). SchNet and PAINN are registered so far;
+the other stacks follow ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ from torch import nn
 
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
+from hydragnn_tpu_torch.models.equivariant import PAINNStack
 from hydragnn_tpu_torch.models.layers import init_flax_
 from hydragnn_tpu_torch.models.schnet import SchNetStack
 from hydragnn_tpu_torch.models.spec import ModelConfig, model_config_from_dict
 
-STACKS: Dict[str, Type[nn.Module]] = {"SchNet": SchNetStack}
+STACKS: Dict[str, Type[nn.Module]] = {"SchNet": SchNetStack, "PAINN": PAINNStack}
 
 
 def create_model(

@@ -1,0 +1,182 @@
+"""PaiNN: the equivariant stack with scalar and vector node channels.
+
+Counterpart of ``PainnMessage``, ``PainnUpdate``, ``_PainnLayout`` and
+``PAINNStack`` in ``hydragnn_tpu/models/equivariant.py``. Each layer
+holds a scalar channel ``s`` [N, F] and a vector channel ``v`` [N, 3, F]:
+
+- the message: a sinc radial basis of the edge length times the cosine
+  cutoff filters the sender's scalar MLP, split into three gates (the
+  vector-state gate, the edge-direction gate, the scalar message); both
+  messages go to the receivers through ``aggregate_receivers``, the
+  vector message with its 3-axis folded into the features ([E, 3F]) so
+  it reaches K1 as one call;
+- the update: U/V maps of the vector channel mixed with the scalar
+  channel through the norm of V v and the inner product of U v and V v;
+- a tanh MLP and a linear map resize both channels to the hidden width.
+
+The vector-channel Denses have no bias, as in the JAX package: a bias on
+``[N, 3, F]`` adds a fixed lab-frame direction that does not rotate with
+the input. Submodules carry the flax names (``message_{i}``,
+``update_{i}``, ``node_embed_out_{i}``, ``vec_embed_out_{i}``), so
+``models/convert.params_from_jax`` maps a flax PaiNN tree as it is. EGNN
+and PNAEq, the other stacks of that module, wait for ROADMAP Queue 1
+item 9 (PNAEq with PNA, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from hydragnn_tpu_torch.models.layers import MLP, Dense
+from hydragnn_tpu_torch.models.spec import ModelConfig
+from hydragnn_tpu_torch.ops.rbf import (
+    cosine_cutoff,
+    edge_vectors_and_lengths,
+    sinc_basis,
+)
+from hydragnn_tpu_torch.ops.segment import aggregate_receivers
+
+
+class PainnMessage(nn.Module):
+    """PaiNN message block."""
+
+    def __init__(
+        self,
+        node_size: int,
+        num_radial: int,
+        cutoff: float,
+        edge_dim: Optional[int] = None,
+    ):
+        super().__init__()
+        f = node_size
+        self.node_size = f
+        self.num_radial = num_radial
+        self.cutoff = float(cutoff)
+        self.filter_layer = Dense(num_radial, 3 * f)
+        self.edge_filter = (
+            MLP(edge_dim, (f, 3 * f), act="silu") if edge_dim else None
+        )
+        self.scalar_message_mlp = MLP(f, (f, 3 * f), act="silu")
+
+    def forward(
+        self,
+        s: torch.Tensor,
+        v: torch.Tensor,
+        batch,
+        unit: torch.Tensor,
+        dist: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        snd = batch.senders
+        f = self.node_size
+        rbf = sinc_basis(dist, self.cutoff, self.num_radial)
+        filt = self.filter_layer(rbf) * cosine_cutoff(dist, self.cutoff)[:, None]
+        if self.edge_filter is not None and batch.edge_attr is not None:
+            filt = filt * self.edge_filter(batch.edge_attr)
+        filter_out = filt * self.scalar_message_mlp(s)[snd]
+        gate_v, gate_e, msg_s = torch.split(filter_out, f, dim=-1)
+        # The displacement is already unit length and is divided by the
+        # distance again, as in the reference (PAINNStack.py:255-258).
+        direction = unit / torch.clamp(dist, min=1e-9)[:, None]
+        msg_v = v[snd] * gate_v[:, None, :] + gate_e[:, None, :] * direction[:, :, None]
+        n = batch.num_nodes
+        # K1 takes contiguous rows: msg_s is a column slice of
+        # filter_out. The vector message folds [E, 3, F] to [E, 3F] (a
+        # view), so both channels are one K1 call each.
+        s = s + aggregate_receivers(msg_s.contiguous(), batch)
+        e, _, fv = msg_v.shape
+        v = v + aggregate_receivers(msg_v.reshape(e, 3 * fv), batch).reshape(n, 3, fv)
+        return s, v
+
+
+class PainnUpdate(nn.Module):
+    """PaiNN update block; the last layer updates the scalar channel
+    only."""
+
+    def __init__(self, node_size: int, last_layer: bool = False):
+        super().__init__()
+        f = node_size
+        self.node_size = f
+        self.last_layer = last_layer
+        self.update_U = Dense(f, f, bias=False)
+        self.update_V = Dense(f, f, bias=False)
+        self.update_mlp = MLP(2 * f, (f, 2 * f if last_layer else 3 * f), act="silu")
+
+    def forward(
+        self, s: torch.Tensor, v: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        f = self.node_size
+        uv = self.update_U(v)
+        vv = self.update_V(v)
+        vv_norm = torch.sqrt(torch.sum(vv * vv, dim=1) + 1e-12)
+        mlp_out = self.update_mlp(torch.cat([vv_norm, s], dim=-1))
+        inner = torch.sum(uv * vv, dim=1)
+        if self.last_layer:
+            a_sv, a_ss = torch.split(mlp_out, f, dim=-1)
+            return s + a_sv * inner + a_ss, v
+        a_vv, a_sv, a_ss = torch.split(mlp_out, f, dim=-1)
+        return s + a_sv * inner + a_ss, v + a_vv[:, None, :] * uv
+
+
+class PAINNStack(nn.Module):
+    """PaiNN stack: message, update and resize per layer (the JAX
+    package's ``_PainnLayout`` with ``PAINNStack``'s message). Layer 0
+    runs at the input width, the others at ``hidden_dim``."""
+
+    norm_kind = "none"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.radius is None or cfg.num_radial is None:
+            raise ValueError("PAINNStack requires radius and num_radial")
+        self.cfg = cfg
+        layers = cfg.num_conv_layers
+        in_dims = [cfg.input_dim] + [cfg.hidden_dim] * (layers - 1)
+        for i in range(layers):
+            self.add_module(
+                f"message_{i}",
+                PainnMessage(in_dims[i], cfg.num_radial, cfg.radius, cfg.edge_dim),
+            )
+            self.add_module(
+                f"update_{i}", PainnUpdate(in_dims[i], last_layer=i == layers - 1)
+            )
+            self.add_module(
+                f"node_embed_out_{i}",
+                MLP(in_dims[i], (cfg.hidden_dim, cfg.hidden_dim), act="tanh"),
+            )
+            if i < layers - 1:
+                self.add_module(
+                    f"vec_embed_out_{i}", Dense(in_dims[i], cfg.hidden_dim, bias=False)
+                )
+
+    def embed(
+        self, batch
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict[str, Any]]:
+        if batch.pos is None:
+            raise ValueError("PAINNStack requires node positions")
+        unit, dist = edge_vectors_and_lengths(
+            batch.pos, batch.senders, batch.receivers, batch.edge_shifts,
+            normalize=True,
+        )
+        x = batch.x
+        v = torch.zeros((x.shape[0], 3, x.shape[-1]), dtype=x.dtype, device=x.device)
+        return x, v, {"unit": unit, "dist": dist}
+
+    def conv(
+        self,
+        i: int,
+        inv: torch.Tensor,
+        equiv: Optional[torch.Tensor],
+        batch,
+        extras: Dict[str, Any],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        s, v = getattr(self, f"message_{i}")(
+            inv, equiv, batch, extras["unit"], extras["dist"]
+        )
+        s, v = getattr(self, f"update_{i}")(s, v)
+        s = getattr(self, f"node_embed_out_{i}")(s)
+        if i < self.cfg.num_conv_layers - 1:
+            v = getattr(self, f"vec_embed_out_{i}")(v)
+        return s, v

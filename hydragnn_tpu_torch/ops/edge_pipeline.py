@@ -21,7 +21,9 @@ parts:
   d_W for a cotangent of the output): ``csrc/edge_pipeline_bwd.cu`` on
   CUDA tensors, ``edge_pipeline_bwd_plain`` on CPU tensors. Autograd
   reaches it through ``EdgePipelineFn``, which ``edge_pipeline_planned``
-  takes whenever an operand needs a gradient.
+  takes whenever an operand needs a gradient, and differentiates it
+  again (forces of an interatomic potential) through
+  ``EdgePipelineBwdFn``, whose backward is K1 and K2 once more.
 
 The JAX kernel's tiles (be=512, bn=256) were sized for the TPU's VMEM and
 its 128x128 matrix unit. On Hopper one CTA owns one node window and one
@@ -43,7 +45,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 # Hopper tile sizes (the TPU kernel used be=512, bn=256).
 DEFAULT_BE = 64  # plan slots per block (an aligned tile of sorted edges)
@@ -255,28 +256,24 @@ def edge_pipeline_bwd_plain(
     return scatter(d_h * b_s).to(a.dtype), scatter(d_h * a_s).to(b.dtype), d_w
 
 
-@once_differentiable
-def _pullback(ctx, g):
-    a, b, w, perm, seg_padded, valid, window_id = ctx.saved_tensors
-    d_a, d_b, d_w = edge_pipeline_bwd_planned(
-        g, a, b, w, perm, seg_padded, valid, window_id, *ctx.plan_sizes
-    )
-    need = ctx.needs_input_grad
-    return (
-        d_a if need[0] else None,
-        d_b if need[1] else None,
-        d_w if need[2] else None,
-    ) + (None,) * 7
+def _pullback(g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be):
+    """K2 (``edge_pipeline_bwd_planned``), through ``EdgePipelineBwdFn``
+    when a graph is being built over it, so its own gradient exists."""
+    args = (g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be)
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (g, a, b, w)
+    ):
+        return EdgePipelineBwdFn.apply(*args)
+    return edge_pipeline_bwd_planned(*args)
 
 
 class EdgePipelineFn(torch.autograd.Function):
     """``edge_pipeline_planned`` with a gradient: K1 forward and K2
     backward on CUDA tensors, ``edge_pipeline_plain`` and
-    ``edge_pipeline_bwd_plain`` on CPU tensors. The backward is
-    ``once_differentiable``, and a backward asked to build a graph
-    (``create_graph=True``, as forces of an interatomic potential need)
-    raises instead of returning a gradient whose own gradient is
-    silently missing."""
+    ``edge_pipeline_bwd_plain`` on CPU tensors. A backward asked to build
+    a graph (``create_graph=True``, as forces of an interatomic potential
+    need) runs K2 through ``EdgePipelineBwdFn``, whose own backward is K1
+    and K2 again."""
 
     @staticmethod
     def forward(ctx, a, b, w, perm, seg_padded, valid, window_id,
@@ -289,13 +286,93 @@ class EdgePipelineFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the edge pipeline's backward (K2) is differentiable once; "
-                "second derivatives (interatomic-potential forces) wait for "
-                "the MLIP slice: ROADMAP Queue 1 item 7"
-            )
-        return _pullback(ctx, g)
+        a, b, w, perm, seg_padded, valid, window_id = ctx.saved_tensors
+        grads = _pullback(
+            g, a, b, w, perm, seg_padded, valid, window_id, *ctx.plan_sizes
+        )
+        need = ctx.needs_input_grad
+        return tuple(d if n else None for d, n in zip(grads, need)) + (None,) * 7
+
+
+def _add(x: Optional[torch.Tensor], y: Optional[torch.Tensor]):
+    return y if x is None else x if y is None else x + y
+
+
+class EdgePipelineBwdFn(torch.autograd.Function):
+    """K2 with a gradient: ``(d_a, d_b, d_W) = K2(g, a, b, W)`` forward,
+    and a backward written with K1 and K2 themselves plus elementwise
+    ops, so every second-order launch is one of the two kernels. The
+    JAX package has no kernel here: its pullback is differentiable XLA
+    ops (``_edge_pipeline_bwd_xla``), and this is their derivative.
+
+    With ``sg = g[seg]`` at valid slots, ``d_h = sg @ W^T`` and
+    ``(u_a, u_b, u_W)`` the cotangents of ``(d_a, d_b, d_W)``, and
+    ``c = u_a * b + u_b * a``:
+
+        g_bar = K1(c, -, W) + K1(a, b, u_W)
+        a_bar = u_b * d_h + b * (sg @ u_W^T)
+        b_bar = u_a * d_h + a * (sg @ u_W^T)
+        W_bar = sum_e c[e]^T sg[e]
+
+    ``d_h`` and ``W_bar`` are one K2 launch with ``a := c`` and no b (its
+    d_a and d_W), and ``sg @ u_W^T`` is K2's d_a with ``W := u_W``. Terms
+    of absent operands drop out: without b, ``c = u_a`` and the products
+    by b and a go; in the reduce-only flavour ``g_bar = K1(u_a)`` and
+    nothing else. Every row no valid slot covers gets exactly zero, as
+    in the first order."""
+
+    @staticmethod
+    def forward(ctx, g, a, b, w, perm, seg_padded, valid, window_id,
+                num_segments, bn, be):
+        ctx.save_for_backward(g, a, b, w, perm, seg_padded, valid, window_id)
+        ctx.plan_sizes = (num_segments, bn, be)
+        ctx.set_materialize_grads(False)
+        return edge_pipeline_bwd_planned(
+            g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+        )
+
+    @staticmethod
+    def backward(ctx, u_a, u_b, u_w):
+        g, a, b, w, *plan = ctx.saved_tensors
+        plan = (*plan, *ctx.plan_sizes)
+        need_g, need_a, need_b, need_w = ctx.needs_input_grad[:4]
+        # Cotangents arrive in any layout (an expanded zero, a view);
+        # the kernels take contiguous rows of the primal's type.
+        u_a, u_b, u_w = (
+            None if u is None else u.to(x.dtype).contiguous()
+            for u, x in ((u_a, a), (u_b, b), (u_w, w))
+        )
+        # Elementwise products in f32 (f64 for f64), one cast each.
+        ct = _acc_dtype(a.dtype)
+
+        def mul(x, y):
+            return None if x is None or y is None else x.to(ct) * y.to(ct)
+
+        def cast(x, dtype):
+            return None if x is None else x.to(dtype)
+
+        c = u_a if b is None else cast(_add(mul(u_a, b), mul(u_b, a)), a.dtype)
+        g_bar = a_bar = b_bar = w_bar = None
+        if need_g:
+            if c is not None:
+                g_bar = edge_pipeline_planned(c, None, w, *plan)
+            if u_w is not None:
+                g_bar = _add(g_bar, edge_pipeline_planned(a, b, u_w, *plan))
+        d_h = sg_uw = None
+        if c is not None and (
+            (need_a and u_b is not None) or (need_b and u_a is not None)
+            or (need_w and w is not None)
+        ):
+            d_h, _, w_bar = _pullback(g, c, None, w, *plan)
+        if u_w is not None and (need_a or need_b):
+            sg_uw = _pullback(g, a, None, u_w, *plan)[0]
+        if need_a:
+            # without b, d_W = sum a^T sg: a's share of u_W is sg @ u_W^T
+            from_w = sg_uw if b is None else mul(b, sg_uw)
+            a_bar = cast(_add(mul(u_b, d_h), from_w), a.dtype)
+        if need_b and b is not None:
+            b_bar = cast(_add(mul(u_a, d_h), mul(a, sg_uw)), b.dtype)
+        return (g_bar, a_bar, b_bar, w_bar if need_w else None) + (None,) * 7
 
 
 def edge_pipeline_planned(

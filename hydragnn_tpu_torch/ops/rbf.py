@@ -1,8 +1,8 @@
-"""Radial basis, cutoff and edge geometry for the SchNet path.
+"""Radial basis, cutoff and edge geometry for the SchNet and PaiNN paths.
 
 Counterpart of ``hydragnn_tpu/ops/rbf.py``: ``gaussian_smearing``,
-``cosine_cutoff`` and ``edge_vectors_and_lengths``. The other bases
-(Bessel, sinc, Chebyshev, polynomial cutoff, envelopes, distance
+``sinc_basis``, ``cosine_cutoff`` and ``edge_vectors_and_lengths``. The
+other bases (Bessel, Chebyshev, polynomial cutoff, envelopes, distance
 transforms) come with the stacks that use them (ROADMAP Queue 1).
 """
 
@@ -24,6 +24,15 @@ def gaussian_smearing(
     coeff = -0.5 / (offset[1] - offset[0]) ** 2
     diff = dist[..., None] - offset
     return torch.exp(coeff * diff**2)
+
+
+def sinc_basis(dist: torch.Tensor, cutoff: float, num_basis: int) -> torch.Tensor:
+    """sin(n pi d / c) / d for n = 1..num_basis, PaiNN's radial expansion.
+    Lengths below 1e-8 are clamped there first (padding edges have length
+    sqrt(eps), and sin(x)/x's gradient at 0 is 0/0)."""
+    n = torch.arange(1, num_basis + 1, dtype=dist.dtype, device=dist.device)
+    d_safe = torch.where(dist < 1e-8, 1e-8, dist)[..., None]
+    return torch.sin(n * math.pi * d_safe / cutoff) / d_safe
 
 
 def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:

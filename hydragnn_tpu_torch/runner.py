@@ -10,8 +10,10 @@ Refused with ``NotImplementedError`` naming the ROADMAP item that ports
 it: data-parallel and multibranch schemes (Queue 1 item 11), bin
 packing, supersteps and the parallel input pipeline (item 10),
 checkpoints and ``continue`` (item 6), the divergence guard (item 12),
-interatomic-potential training (item 7), and dataset formats other than
-the raw LSMS text files (item 10).
+and dataset formats other than the raw LSMS text files (item 10). An
+interatomic-potential config (``enable_interatomic_potential``) trains
+on the energy + force loss, and ``run_prediction`` then returns graph
+energies and forces.
 """
 
 from __future__ import annotations
@@ -74,7 +76,6 @@ def _input_cols(config: dict):
 
 def _refuse_unported(config: dict) -> None:
     """Raise on every configured feature this slice does not port."""
-    arch = config["NeuralNetwork"].get("Architecture", {})
     training = config["NeuralNetwork"].get("Training", {})
     par = training.get("Parallelism", {})
     scheme = par.get("scheme", "auto")
@@ -111,11 +112,6 @@ def _refuse_unported(config: dict) -> None:
     if guard.get("enabled", True) if isinstance(guard, dict) else guard:
         raise NotImplementedError(
             "the divergence guard is not ported yet: ROADMAP Queue 1 item 12"
-        )
-    if arch.get("enable_interatomic_potential"):
-        raise NotImplementedError(
-            "interatomic-potential (energy + force) training is not ported "
-            "yet: ROADMAP Queue 1 item 7"
         )
 
 
@@ -187,7 +183,8 @@ def run_prediction(
 ):
     """A test pass of a trained model over the config's test split (or
     ``datasets``' third entry), on the model's device. Returns (error,
-    per-task error, true values, predicted values), one array per head.
+    per-task error, true values, predicted values), one array per head
+    (for an interatomic potential: graph energies, then forces).
     ``state``, ``model`` and ``cfg`` come from ``run_training``; loading
     them from a checkpoint waits for the checkpoint port."""
     if state is None or model is None or cfg is None:
@@ -212,5 +209,6 @@ def run_prediction(
         with_segment_plan=True if seg_plan == "auto" else bool(seg_plan),
     )
     return run_test(
-        model, cfg, state, test_loader, device=dev, compute_dtype=compute_dtype
+        model, cfg, state, test_loader, device=dev, compute_dtype=compute_dtype,
+        compute_grad_energy=cfg.enable_interatomic_potential,
     )

@@ -22,8 +22,7 @@ the engine warms. Not ported yet: telemetry rows (the engine keeps its
 running totals and ``rollup()`` returns them, but emits nothing until
 telemetry is ported, ROADMAP Queue 1 item 13), the fleet wiring and
 its hooks, executables installed from exported artifacts, the MLIP
-``with_forces`` form and ``ensure_fields`` for mixed datasets (items 7
-and 14).
+``with_forces`` form and ``ensure_fields`` for mixed datasets (item 14).
 """
 
 from __future__ import annotations

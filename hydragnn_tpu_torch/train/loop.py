@@ -7,10 +7,14 @@ keeps the graph-weighted loss sums there; the host fetches them once at
 the end of the epoch (the JAX loop's discipline), never per step. The
 plateau scheduler steps on the validation loss and early stopping
 follows ``Training.EarlyStopping``/``patience``, as in the JAX loop.
+With ``compute_grad_energy`` (an interatomic potential) the steps take
+the energy + force loss of ``train/mlip.py`` (three per-task losses:
+energy, energy per atom, force), and the collecting test pass returns
+[graph energies, forces].
 
 Not ported yet, and refused by the runner: checkpoint saves and resume,
-the divergence guard, supersteps, the pipeline feed, telemetry and the
-MLIP loss (ROADMAP Queue 1 items 6, 7, 10, 12, 13).
+the divergence guard, supersteps, the pipeline feed and telemetry
+(ROADMAP Queue 1 items 6, 10, 12, 13).
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ import torch
 
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train.losses import multihead_loss
+from hydragnn_tpu_torch.train.mlip import (
+    energy_and_forces,
+    energy_force_loss,
+    energy_force_loss_terms,
+)
 from hydragnn_tpu_torch.train.optimizer import (
     ReduceLROnPlateau,
     clip_by_global_norm_,
@@ -40,18 +49,23 @@ def make_train_step(
     cfg: ModelConfig,
     compute_dtype: torch.dtype = torch.float32,
     clip_norm: float = 0.0,
+    compute_grad_energy: bool = False,
 ) -> Callable:
     """``step(state, batch) -> (state, loss, per_task)``: one optimizer
     step on a batch already on the model's device. The losses come back
     as device tensors (no host sync); the gradients stay in ``.grad``
-    until the next step."""
+    until the next step. ``compute_grad_energy`` trains on the MLIP
+    energy + force loss, whose backward differentiates the force pass."""
     params = list(model.parameters())
 
     def step(state: TrainState, batch):
         b = cast_batch(batch, compute_dtype)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        tot, tasks = multihead_loss(model(b), b, cfg)
+        if compute_grad_energy:
+            tot, tasks = energy_force_loss(model, b, cfg)
+        else:
+            tot, tasks = multihead_loss(model(b), b, cfg)
         tot.backward()
         if clip_norm > 0:
             clip_by_global_norm_(params, clip_norm)
@@ -67,14 +81,25 @@ def make_eval_step(
     cfg: ModelConfig,
     compute_dtype: torch.dtype = torch.float32,
     collect_outputs: bool = False,
+    compute_grad_energy: bool = False,
 ) -> Callable:
     """``step(state, batch) -> (loss, per_task[, outputs])`` in eval mode
-    without gradients."""
+    without parameter gradients. With ``compute_grad_energy`` the forces
+    take a gradient with respect to the positions only (no graph is
+    kept), and the outputs are [graph energies [G, 1], forces [N, 3]]."""
 
     def step(state: TrainState, batch):
         del state
         b = cast_batch(batch, compute_dtype)
         model.eval()
+        if compute_grad_energy:
+            with torch.enable_grad():
+                ge, forces = energy_and_forces(model, b, cfg, create_graph=False)
+            ge, forces = ge.detach(), forces.detach()
+            tot, tasks = energy_force_loss_terms(ge, forces, b, cfg)
+            if collect_outputs:
+                return tot, tasks, [ge[:, None], forces]
+            return tot, tasks
         with torch.no_grad():
             outputs = model(b)
             tot, tasks = multihead_loss(outputs, b, cfg)
@@ -151,10 +176,12 @@ def train_validate_test(
     num_epoch = int(training.get("num_epoch", 1))
     patience = int(training.get("patience", 10))
     early_stop = bool(training.get("EarlyStopping", False))
+    mlip = cfg.enable_interatomic_potential
     train_step = make_train_step(
-        model, state.optimizer, cfg, compute_dtype, clip_norm=clip_norm
+        model, state.optimizer, cfg, compute_dtype, clip_norm=clip_norm,
+        compute_grad_energy=mlip,
     )
-    eval_step = make_eval_step(model, cfg, compute_dtype)
+    eval_step = make_eval_step(model, cfg, compute_dtype, compute_grad_energy=mlip)
     sched_cfg = training.get("ReduceLROnPlateau", {})
     scheduler = ReduceLROnPlateau(
         factor=float(sched_cfg.get("factor", 0.5)),
@@ -215,16 +242,22 @@ def test(
     *,
     device: torch.device,
     compute_dtype: torch.dtype = torch.float32,
+    compute_grad_energy: bool = False,
 ) -> Tuple[float, np.ndarray, List[np.ndarray], List[np.ndarray]]:
     """A full test pass collecting per-sample true/pred per head. Returns
     (error, per-task error, trues, preds); trues/preds hold one
-    ``[num_samples_or_nodes, dim]`` array per head, padding removed. The
-    loss sums stay on the device until the end; only the per-sample
+    ``[num_samples_or_nodes, dim]`` array per head, padding removed (with
+    ``compute_grad_energy``: graph energies [G, 1] and forces [N, 3]).
+    The loss sums stay on the device until the end; only the per-sample
     collections cross to the host per batch."""
-    eval_step = make_eval_step(model, cfg, compute_dtype, collect_outputs=True)
+    eval_step = make_eval_step(
+        model, cfg, compute_dtype, collect_outputs=True,
+        compute_grad_energy=compute_grad_energy,
+    )
+    n_coll = 2 if compute_grad_energy else len(cfg.heads)
     loss_sum = tasks_sum = ng_sum = None
-    trues: List[List[np.ndarray]] = [[] for _ in cfg.heads]
-    preds: List[List[np.ndarray]] = [[] for _ in cfg.heads]
+    trues: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
+    preds: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
     for batch in loader:
         batch = batch.to(device)
         loss, tasks, outputs = eval_step(state, batch)
@@ -238,6 +271,13 @@ def test(
             ng_sum = ng_sum + ng
         gm = batch.graph_mask.cpu().numpy()
         nm = batch.node_mask.cpu().numpy()
+        if compute_grad_energy:
+            ge, forces = (o.float().cpu().numpy() for o in outputs)
+            trues[0].append(batch.energy.cpu().numpy()[gm, None])
+            preds[0].append(ge[gm])
+            trues[1].append(batch.forces.cpu().numpy()[nm])
+            preds[1].append(forces[nm])
+            continue
         for hi, (level, start, end) in enumerate(cfg.head_offsets()):
             out = outputs[hi][:, : cfg.heads[hi].dim].float().cpu().numpy()
             if level == "graph":

@@ -302,3 +302,97 @@ def test_kernel_edge_cases():
     )
     for got, want in zip(grads, torch.autograd.grad(out_c, cpu, gout.cpu())):
         torch.testing.assert_close(got.cpu(), want, **VJP_TOL["float32"])
+
+
+# PaiNN's aggregation widths (md17.json: input width 1, hidden 64): the
+# scalar and the folded vector message of layer 0 (F = 1, 3; rows of 4
+# and 12 bytes, staged with plain loads, one or three live columns of a
+# 32-column slab) and of the hidden layers (F = 64, 192: two and six
+# slabs), reduce-only, at the MLIP train batch's density (32 molecules
+# of 19-23 atoms: ~680 nodes, ~6,500 edges).
+PAINN_WIDTHS = [1, 3, 64, 192]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", PAINN_WIDTHS)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_kernels_painn_widths(f, dt):
+    """K1 and K2 in the reduce-only flavour at PaiNN's widths: each equals
+    its plain version (same bits on two runs), and K2 leaves exactly zero
+    in the rows no valid slot covers."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    a_dt = getattr(torch, dt)
+    n = 680
+    a, _, _, perm, seg_p, valid, window = _case(torch, 11, 6500, 6656, n, f, f, a_dt)
+    plan = (perm, seg_p, valid, window, n)
+    with torch.no_grad():
+        got = edge_pipeline_planned(a, None, None, *plan)
+        again = edge_pipeline_planned(a, None, None, *plan)
+        ref = edge_pipeline_plain(a, None, None, *plan)
+    g = torch.randn(n, f, generator=torch.Generator().manual_seed(f)).to("cuda", a_dt)
+    d_a, d_b, d_w = edge_pipeline_bwd_planned(g, a, None, None, *plan)
+    d_a2 = edge_pipeline_bwd_planned(g, a, None, None, *plan)[0]
+    d_ref = edge_pipeline_bwd_plain(g, a, None, None, *plan)[0]
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and got.dtype == a_dt and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dt])
+    assert d_b is None and d_w is None and d_a.dtype == a_dt
+    assert torch.equal(d_a, d_a2)
+    torch.testing.assert_close(d_a.float(), d_ref.float(), **VJP_TOL[dt])
+    covered = torch.zeros(a.shape[0], dtype=torch.bool, device="cuda")
+    covered[perm[valid].long()] = True
+    assert not d_a[~covered].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw"])
+def test_double_backward_matches_cpu(stages):
+    """``EdgePipelineBwdFn`` on the card (K2 forward; K1 and K2 in its
+    backward, counted) against the same function on the CPU plain path:
+    the first derivatives with a graph, then the gradients of a scalar
+    of them with respect to a, b, W and the cotangent."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        EdgePipelineBwdFn,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    n = 300
+    a, b, w, perm, seg_p, valid, window = _case(torch, 8, 900, 1024, n, 48, 40,
+                                                torch.float32)
+    has_b, has_w = "b" in stages, "w" in stages
+    gen = torch.Generator().manual_seed(8)
+    g = torch.randn(n, 40 if has_w else 48, generator=gen).cuda()
+    results = []
+    for dev in ("cuda", "cpu"):
+        ins = {k: x.detach().to(dev).requires_grad_(True)
+               for k, x in (("g", g), ("a", a), ("b", b), ("w", w))}
+        plan = [t.to(dev) for t in (perm, seg_p, valid, window)]
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        outs = EdgePipelineBwdFn.apply(
+            ins["g"], ins["a"], ins["b"] if has_b else None,
+            ins["w"] if has_w else None, *plan, n, 32, 64,
+        )
+        # a scalar of the first derivatives whose cotangents are all
+        # nonzero: the squares' sum
+        loss = sum((o * o).sum() for o in outs if o is not None)
+        names = ["g", "a"] + (["b"] if has_b else []) + (["w"] if has_w else [])
+        grads = torch.autograd.grad(loss, [ins[k] for k in names], allow_unused=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert edge_pipeline_bwd_planned.launches > k2
+            assert edge_pipeline_planned.launches > k1
+        results.append([(o.detach().cpu() if o is not None else None) for o in outs]
+                       + [(x.detach().cpu() if x is not None else None) for x in grads])
+    for x, y in zip(*results):
+        assert (x is None) == (y is None)
+        if x is not None:
+            torch.testing.assert_close(x, y, **VJP_TOL["float32"])

@@ -7,8 +7,12 @@
   with masked edges, an empty node window and static padding blocks,
   bf16 a/b with an f32 master W, a single block, and E=0;
 - ``EdgePipelineFn`` (K1 forward, K2 backward) under
-  ``torch.autograd.gradcheck`` in f64, and its refusal to differentiate
-  twice;
+  ``torch.autograd.gradcheck`` in f64, and differentiated twice: a
+  backward with ``create_graph=True`` gives K2's plain result with a
+  graph, ``torch.autograd.gradgradcheck`` holds ``EdgePipelineBwdFn``
+  (K2 forward, K1/K2 backward) in every flavour, with invalid slots and
+  at E=0, and its backward equals JAX's derivative of the XLA pullback
+  (``_edge_pipeline_bwd_xla``) in every flavour;
 - K1's plain version with bf16 a/b and an f32 W against the Pallas K1.
 
 Tolerances (tests/test_pallas_segment.py:342 and :808): f32 gradients
@@ -223,23 +227,112 @@ def test_edge_pipeline_fn_gradcheck(port, stages):
     assert torch.autograd.gradcheck(fn, tuple(ins[k] for k in used))
 
 
-def test_edge_pipeline_twice_differentiated_raises(port, case):
-    """Asking the backward for a graph (forces of an interatomic
-    potential) raises instead of dropping K2's own derivative."""
+def _small_plan(port, rng, n=12, e=40, be=8, bn=4):
+    """A plan at small tiles over ``e`` receiver-sorted edges: an empty
+    window (nodes 4..7), a fifth of the edges masked out, and a static
+    padding block."""
+    ep = port.ep
+    seg = np.sort(np.concatenate([rng.integers(0, 4, e // 2), rng.integers(8, n, e - e // 2)]))
+    plan = ep.plan_blocks_static(
+        seg.astype(np.int32), n, ep.static_block_bound(e, n, be, bn) + 1, be, bn,
+        edge_valid=rng.random(e) > 0.2,
+    )
+    assert not plan[2].all()
+    return [port.torch.from_numpy(p) for p in plan], (n, bn, be)
+
+
+@pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw", "abw_E0"])
+def test_edge_pipeline_fn_gradgradcheck(port, stages):
+    """Second derivatives of ``EdgePipelineFn`` (their analytic side is
+    ``EdgePipelineBwdFn``'s backward, written with K1 and K2) against
+    finite differences of its first derivatives, in f64 on the CPU path
+    (E=40, N=12, F 3 -> 2; masked edges, an empty window, static
+    padding), and at E=0."""
+    torch = port.torch
+    rng = np.random.default_rng(11)
+    plan, sizes = _small_plan(port, rng)
+    e = 0 if stages.endswith("E0") else 40
+    # torch.empty gives row strides at E=0 too, where gradcheck refuses
+    # the stride-0 layout of an empty numpy draw
+    ins = {k: torch.empty(shape, dtype=torch.float64)
+           .copy_(torch.from_numpy(rng.normal(size=shape))).requires_grad_(True)
+           for k, shape in (("a", (e, 3)), ("b", (e, 3)), ("w", (3, 2)))}
+    used = [k for k in "abw" if k in stages]
+
+    def fn(*xs):
+        ops = dict(zip(used, xs))
+        return port.ep.EdgePipelineFn.apply(
+            ops["a"], ops.get("b"), ops.get("w"), *plan, *sizes
+        )
+
+    assert torch.autograd.gradgradcheck(fn, tuple(ins[k] for k in used))
+
+
+@pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw"])
+def test_edge_pipeline_bwd_fn_matches_jax_vjp(port, case, stages):
+    """``EdgePipelineBwdFn``'s backward (K1 and K2 plain versions plus
+    elementwise ops) equals JAX's derivative of its XLA pullback
+    ``_edge_pipeline_bwd_xla`` for the same cotangents of (d_a, d_b,
+    d_W), in f32: the gradients with respect to g, a, b and W."""
     torch = port.torch
     n, be, bn, plan, _, ops = case
+    has_b, has_w = "b" in stages, "w" in stages
+    g = ops["g_out"] if has_w else ops["g_in"]
+    e, f_in = ops["a"].shape
+    rng = np.random.default_rng(23)
+    cot = [rng.normal(size=(e, f_in)).astype(np.float32)]
+    if has_b:
+        cot.append(rng.normal(size=(e, f_in)).astype(np.float32))
+    if has_w:
+        cot.append(rng.normal(size=ops["w"].shape).astype(np.float32))
+    names = ["g", "a"] + (["b"] if has_b else []) + (["w"] if has_w else [])
+    prim = {"g": g, "a": ops["a"], "b": ops["b"], "w": ops["w"]}
+    jplan = [jnp.asarray(p) for p in plan]
+
+    def jfn(*xs):
+        d = dict(zip(names, xs))
+        out = jps._edge_pipeline_bwd_xla(
+            d["a"], d.get("b"), d.get("w"), jplan[0], jplan[1], jplan[2], d["g"]
+        )
+        return tuple(o for o in out if o is not None)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(prim[k]) for k in names))
+    want = vjp(tuple(jnp.asarray(c) for c in cot))
+    tins = {k: torch.from_numpy(prim[k]).requires_grad_(True) for k in names}
+    outs = port.ep.EdgePipelineBwdFn.apply(
+        tins["g"], tins["a"], tins.get("b"), tins.get("w"),
+        *(torch.from_numpy(p) for p in plan), n, bn, be,
+    )
+    got = torch.autograd.grad(
+        [o for o in outs if o is not None], [tins[k] for k in names],
+        [torch.from_numpy(c) for c in cot], allow_unused=True,
+    )
+    for k, x, y in zip(names, got, want):
+        if not np.abs(np.asarray(y)).any():  # d_a does not depend on a
+            assert x is None or not x.any(), k
+            continue
+        _assert_close(x.numpy(), np.asarray(y), VJP_F32_TOL, f"{stages} d/d{k}")
+
+
+def test_edge_pipeline_twice_differentiated_raises(port, case):
+    """A backward asked for a graph (forces of an interatomic potential)
+    now returns K2's plain result with a graph attached, where it once
+    raised: the first derivative is unchanged and can be differentiated
+    again."""
+    torch = port.torch
+    n, be, bn, plan, _, ops = case
+    plan = [torch.from_numpy(p) for p in plan]
     a = torch.from_numpy(ops["a"]).requires_grad_(True)
     w = torch.from_numpy(ops["w"]).requires_grad_(True)
-    out = port.ep.edge_pipeline_planned(
-        a, None, w, *(torch.from_numpy(p) for p in plan), n, bn, be
-    )
-    (da,) = torch.autograd.grad(out.sum(), a)  # once is fine
-    assert da.shape == a.shape
-    out = port.ep.edge_pipeline_planned(
-        a, None, w, *(torch.from_numpy(p) for p in plan), n, bn, be
-    )
-    with pytest.raises(NotImplementedError, match="differentiable once"):
-        torch.autograd.grad(out.sum(), a, create_graph=True)
+    out = port.ep.edge_pipeline_planned(a, None, w, *plan, n, bn, be)
+    (da,) = torch.autograd.grad(out.sum(), a, create_graph=True)
+    want = port.ep.edge_pipeline_bwd_plain(
+        torch.ones(n, w.shape[1]), a.detach(), None, w.detach(), *plan, n, bn, be
+    )[0]
+    assert da.requires_grad and da.shape == a.shape
+    np.testing.assert_array_equal(da.detach().numpy(), want.numpy())
+    (dw,) = torch.autograd.grad(da.square().sum(), w)  # differentiable again
+    assert dw.shape == w.shape and bool(dw.abs().sum() > 0)
 
 
 @pytest.mark.parametrize("stages", ["aw", "abw"])
