@@ -46,8 +46,10 @@ exits non-zero):
                collated batch bit for bit; one bin matches the same model
                on the CPU's plain path.
 7. train       the same SchNet trained by run_training on the card (f32,
-               batch 32, 2 epochs) on the BCC set of tests/test_graphs.py
-               (300 configurations, seed 7), then run_prediction. Checks:
+               batch 32, 2 epochs, packing named off so the run keeps the
+               ladder batches the checks below take) on the BCC set of
+               tests/test_graphs.py (300 configurations, seed 7), then
+               run_prediction. Checks:
                finite losses, every step's loss finite and the last
                epoch's mean below the first step's loss, K1 launches = 4 x model
                forwards and K2 launches = 4 x train steps; the first train
@@ -60,7 +62,8 @@ exits non-zero):
                plain path (loss, gradients, updated parameters), then
                eager and device time and K1's and K2's share of it.
 8. mlip-kernels  K1 and K2 in the reduce-only flavour at PaiNN's widths
-               (F = 1, 3, 64, 192) on the first MLIP train batch's plan,
+               (F = 1, 3, 64, 192) on the plan of the first packed bin
+               that md17.json's run_training trains on,
                against their plain versions in f32 and bf16 (same bits on
                two runs, K2 zero off the plan), each width's launch shape,
                and the times at F = 64 and 192 beside the bound, the plain
@@ -70,29 +73,53 @@ exits non-zero):
 9. mlip        examples/md17/md17.json's PaiNN interatomic potential at
                full width (hidden 64, 3 layers, num_radial 20, graph head
                1x64 + [64, 64], add pooling; energy weight 1, force weight
-               10) trained by run_training on the card (f32, 2 epochs) on
-               bench.py's painn_md17_mlip molecules (256 of 19-23 atoms,
-               seed 1, with energies and forces) split 0.8, then
+               10) trained by run_training on the card (f32, 2 epochs,
+               packing "auto", which packs) on bench.py's painn_md17_mlip
+               molecules (256 of 19-23 atoms, seed 1, with energies and
+               forces) split 0.8, then
                run_prediction. Checks: finite losses, finite energies and
                forces of the expected shapes, and K1 = K2 = 6 x (forwards
                + train steps) launches (12 of each per train step: 6 K1
                forward and 6 as K2's backward; 6 K2 in the force pass and
                6 in the loss's backward); whether the loss fell is
-               reported. The first MLIP train step on the card against
-               the CPU plain path (loss, per-task losses, energies,
-               forces, gradients; updated parameters shown) in f32 and
-               bf16, on the first train batch of examples/md17/md17.py's
-               MD17 stand-in (Morse energies and forces) and of bench's
+               reported; every train batch a packed bin of the budgets.
+               The first MLIP train step on the card against the CPU
+               plain path (loss, per-task losses, energies, forces,
+               gradients; updated parameters shown) in f32 and bf16, on
+               the first train batch run_training forms (packing
+               resolved as it resolves it) from examples/md17/md17.py's
+               MD17 stand-in (Morse energies and forces) and from bench's
                molecules: each within [train]'s tolerance or, where the
                card's own step with the scatter in place of K1/K2 misses
                it too, within 10 x that step's error; 12 K1 and 12 K2
                launches in the step. Then the step's eager and device
-               time.
-10. report     the kernels JSON line (with each kernel's times at the
-               three SchNet shapes under "by_shape" and at PaiNN's widths
-               under "mlip_widths"; "launches" sums the serving, SchNet
-               training and MLIP runs, "launches_by_path" splits them), the
-               card line, and the final {"ok": true, "device": ...} line.
+               time on bench's first packed bin.
+10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
+               width (F = 128) on the first packed train bin of zinc.json's
+               run, in f32 and bf16: against their plain versions (same
+               bits on two runs, K2 zero off the plan), the launch shape
+               and shared memory per CTA, and the times beside the bound,
+               the plain version, index_add_ (K1) and index_select of g's
+               rows (K2, the reduce-only pullback as one library call).
+11. zinc       examples/zinc/zinc.json's PNAPlus + GPS at full width (hidden
+               64, 3 layers, GPS multihead x4, pe_dim 8, num_nodes 40) on
+               examples/zinc/zinc.py's 400 molecules (seed 0) split 0.8:
+               zinc.json (f32) and zinc_bf16.json trained by run_training
+               on the card (2 epochs each, packing "auto" resolved to the
+               fitted budgets, printed), then run_prediction. Checks:
+               finite losses, every train batch a packed bin, K1 launches
+               = 3 x forwards and K2 launches = 3 x train steps, finite
+               predictions; the first train step on the first packed bin,
+               card against the CPU plain path in f32 and bf16 (loss,
+               gradients, AdamW-updated parameters, running statistics; see
+               hold_zinc_step for the scaling); the f32 step's eager and
+               device time and kernel count.
+12. report     the kernels JSON line (with each kernel's times at the
+               three SchNet shapes under "by_shape", at PaiNN's widths
+               under "mlip_widths" and at PNA's under "zinc_width";
+               "launches" sums the serving, SchNet training, MLIP and ZINC
+               runs, "launches_by_path" splits them), the card line, and
+               the final {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -782,6 +809,11 @@ def bcc_config(path, precision="fp32"):
                 "num_epoch": 2, "perc_train": 0.7, "loss_function_type": "mse",
                 "batch_size": 32, "precision": precision,
                 "Optimizer": {"type": "AdamW", "learning_rate": 0.01},
+                # "auto" would pack this set (budgets 160/704/65 and
+                # 80/352/33, PERF.md section 4); the phase keeps the
+                # ladder batches its first-step check and the kernel
+                # phases' train bins are taken from.
+                "Parallelism": {"packing": {"enabled": False}},
             },
         },
     }
@@ -817,13 +849,14 @@ def one_step(model, cfg, training, batch, compute_dtype):
 
 @contextlib.contextmanager
 def recorded_run():
-    """While open, model forwards are counted (``rec["forwards"]``) and
+    """While open, model forwards are counted (``rec["forwards"]``),
     every train step's loss is kept on the card (``rec["losses"]``, read
-    after the run)."""
+    after the run) and its batch shape (nodes, edges, graphs) noted
+    (``rec["shapes"]``)."""
     from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
     from hydragnn_tpu_torch.train import loop
 
-    rec = {"forwards": 0, "losses": []}
+    rec = {"forwards": 0, "losses": [], "shapes": []}
     plain_forward = MultiHeadGraphModel.forward
     plain_make_train_step = loop.make_train_step
 
@@ -837,6 +870,7 @@ def recorded_run():
         def recorded(state, batch):
             state, loss, tasks = step(state, batch)
             rec["losses"].append(loss)
+            rec["shapes"].append((batch.num_nodes, batch.num_edges, batch.num_graphs))
             return state, loss, tasks
 
         return recorded
@@ -1023,6 +1057,19 @@ def phase_train_timing(cpu_batch):
     return out
 
 
+def device_kernels(prof):
+    """The kernels a ``torch.profiler`` run recorded on the device. The
+    ranges user annotations leave on the device's timeline (such as
+    ``Optimizer.step#AdamW.step``, which spans the optimizer's kernels)
+    are not kernels and would count those kernels twice."""
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    check(not any(e.name.startswith("Optimizer.") for e in kernels),
+          "the profiler's user-annotation ranges were not told apart from kernels")
+    return kernels
+
+
 def device_profile(fn, per_call, what, n_prof=5):
     """Device time of one call of ``fn`` from ``torch.profiler`` over
     ``n_prof`` calls: all kernels, K1's and K2's (with its finishing
@@ -1044,8 +1091,7 @@ def device_profile(fn, per_call, what, n_prof=5):
     got = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
     check(got == (per_call[0] * n_prof, per_call[1] * n_prof),
           f"{what}: K1/K2 launched {got} in {n_prof} calls, want {per_call} per call")
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_prof
     if busy <= 0:
         return {}
@@ -1153,19 +1199,32 @@ def mlip_data():
     return config, splits, md17
 
 
-def mlip_train_batch(trainset, plan=True):
-    """The MLIP run's first train batch (batch 32) on the host; without
-    ``plan``, the same batch with its edges in collation order and no
-    block plan (aggregation takes the scatter, another summation order)."""
+def train_loader(config, trainset, plan=True):
+    """The train loader run_training builds for ``config`` at seed 0, and
+    its packed budgets (None where "auto" keeps the ladder): packing
+    resolved as the runner resolves it. Without ``plan`` the same batches
+    keep their edges in collation order and carry no block plan
+    (aggregation takes the scatter, another summation order)."""
     from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.runner import packing_settings, resolve_packing
 
-    return next(iter(GraphLoader(trainset, 32, shuffle=True, seed=0, fixed_pad="auto",
-                                 with_segment_plan=plan)))
+    bs = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    pk = packing_settings(config)
+    packed, budgets, slack = resolve_packing(pk, bs, trainset, 0)
+    loader = GraphLoader(trainset, bs, shuffle=True, seed=0, fixed_pad="auto",
+                         with_segment_plan=plan, packing=packed, pack_budgets=budgets,
+                         pack_max_budgets=pk["max_budgets"], pack_slack=slack,
+                         pack_max_graphs=pk["max_graphs"])
+    return loader, budgets
+
+
+def budget_keys(budgets):
+    return [(b.num_nodes, b.num_edges, b.num_graphs) for b in budgets or ()]
 
 
 def phase_mlip_kernels(batch):
     """K1 and K2 in the reduce-only flavour at PaiNN's widths on the first
-    MLIP train batch's plan: against their plain versions in f32 and bf16
+    packed MLIP train bin's plan: against their plain versions in f32 and bf16
     (same bits on two runs, zero rows off the plan), each width's launch
     shape, and the times at F = 64 and 192 (f32) beside the bound, the
     plain version and, for K1, index_add_. Then EdgePipelineBwdFn (K2
@@ -1230,6 +1289,9 @@ def phase_mlip_kernels(batch):
                         lambda: out.index_add_(0, rcv_valid, a_valid))
                     row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
                     row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+                    # the reduce-only pullback is one gather of g's rows
+                    row["k2_library_ms"] = time_ms(
+                        lambda: g.index_select(0, batch.receivers))
                 nbytes, ops, out_dt = k1_work(e_valid, n, f, f, slots, blocks, dt, dt,
                                               False, False)
                 row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
@@ -1241,6 +1303,7 @@ def phase_mlip_kernels(batch):
                     f"{row['k1_library_ms'] * 1e3:.1f} us, bound "
                     f"{row['k1_bound_ms'] * 1e3:.2f} us ({row['k1_bound_by']}); K2 "
                     f"{row['k2_ms'] * 1e3:.1f} us, plain {row['k2_plain_ms'] * 1e3:.1f} us, "
+                    f"index_select {row['k2_library_ms'] * 1e3:.1f} us, "
                     f"bound {row['k2_bound_ms'] * 1e3:.2f} us ({row['k2_bound_by']})")
             rows.append(row)
     log(f"[mlip-kernels] K1 and K2, reduce-only, F = {list(PAINN_WIDTHS)} in f32 and "
@@ -1318,10 +1381,10 @@ def mlip_step(model, cfg, training, batch, compute_dtype):
             "params": {k: host(p) for k, p in model.named_parameters()}}
 
 
-def mlip_run(config, splits):
+def mlip_run(config, splits, budgets):
     """run_training of an MLIP config on the card, then run_prediction on
-    the test split: finite losses, energies and forces, and K1/K2 launch
-    counts. Whether the last epoch's mean train loss fell below the first
+    the test split: finite losses, energies and forces, every train batch
+    a packed bin of ``budgets``, and K1/K2 launch counts. Whether the last epoch's mean train loss fell below the first
     step's is reported, not held: on bench's random molecules (random
     force targets of ~0.1, atoms closer than half an angstrom, initial
     forces orders of magnitude larger than the targets) this config's
@@ -1345,6 +1408,7 @@ def mlip_run(config, splits):
         k1, k2, n_fwd = (edge_pipeline_planned.launches,
                          edge_pipeline_bwd_planned.launches, rec["forwards"])
         steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        shapes = set(rec["shapes"])
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         rec["forwards"] = 0
         err, tasks, trues, preds = port.run_prediction(full, datasets=splits, state=state,
@@ -1352,6 +1416,8 @@ def mlip_run(config, splits):
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+    check(shapes <= set(budget_keys(budgets)),
+          f"MLIP train batches {sorted(shapes)} are not all packed bins {budget_keys(budgets)}")
     # Each forward aggregates twice per layer (the scalar and the folded
     # vector message), each through K1; the force pass runs K2 once per
     # aggregation, and a train step's backward K2 (the energy loss through
@@ -1375,7 +1441,7 @@ def mlip_run(config, splits):
           and np.isfinite(preds[0]).all() and np.isfinite(preds[1]).all(),
           f"run_prediction wants finite energies [graphs, 1] and forces [atoms, 3]")
     log(f"[mlip] bench's molecules: run_training on the card ({train_s:.2f} s, {state.step} train "
-        f"steps, {n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
+        f"steps on packed bins {sorted(shapes)}, {n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
         f"test {hist.test_loss}; the last epoch's mean train loss is "
         f"{'below' if fell else 'not below'} the first step's {steps[0]:.6g}")
     log(f"[mlip] bench's molecules: per-step train loss {[float(f'{x:.4g}') for x in steps]}")
@@ -1390,7 +1456,7 @@ def mlip_run(config, splits):
             "forwards": n_fwd + n_fwd_pred, "step_losses": steps.tolist(),
             "train_loss": hist.train_loss, "val_loss": hist.val_loss,
             "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
-            "loss_fell": bool(fell)}
+            "loss_fell": bool(fell), "bins": sorted(shapes)}
 
 
 def tensors(x, y):
@@ -1417,12 +1483,13 @@ def scaled_error(got, ref):
     return float(np.abs(got - ref).max()) / scale if scale > 0 else float(np.abs(got).max())
 
 
-def phase_mlip(config, splits, md17_splits, first_batch):
+def phase_mlip(config, splits, md17_splits, budgets, first_batch):
     """md17.json's PaiNN potential trained by run_training on the card on
     bench's molecules, then run_prediction; the first MLIP train step on
     the card against the CPU plain path in f32 and bf16 with its launch
-    counts (on the MD17 stand-in's first train batch and on bench's); the
-    step's eager and device time on bench's first batch."""
+    counts (on the first train batch run_training forms from the MD17
+    stand-in and from bench's molecules, the latter the first packed
+    bin); the step's eager and device time on bench's first packed bin."""
     import numpy as np
 
     from hydragnn_tpu_torch.config import update_config
@@ -1431,7 +1498,7 @@ def phase_mlip(config, splits, md17_splits, first_batch):
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
     from hydragnn_tpu_torch.train.state import TrainState
 
-    run = mlip_run(config, splits)
+    run = mlip_run(config, splits, budgets)
 
     # The first MLIP train step on the card against the CPU's plain path,
     # on the first train batch of the MD17 stand-in and of bench's
@@ -1455,10 +1522,11 @@ def phase_mlip(config, splits, md17_splits, first_batch):
         for precision, dtype, tol in (("fp32", torch.float32, VJP_TOL),
                                       ("bf16", torch.bfloat16, BF16_TOL)):
             what = f"{data} {precision}"
-            planned = mlip_train_batch(trainset)
+            planned = next(iter(train_loader(config, trainset)[0]))
+            unplanned = next(iter(train_loader(config, trainset, plan=False)[0]))
             card = mlip_step(copy.deepcopy(model0), cfg, training, planned.to("cuda"), dtype)
-            scatter = mlip_step(copy.deepcopy(model0), cfg, training,
-                                mlip_train_batch(trainset, plan=False).to("cuda"), dtype)
+            scatter = mlip_step(copy.deepcopy(model0), cfg, training, unplanned.to("cuda"),
+                                dtype)
             cpu = mlip_step(copy.deepcopy(model0).to("cpu"), cfg, training, planned, dtype)
             check(card["launches"] == (2 * per_fwd, 2 * per_fwd)
                   and scatter["launches"] == (0, 0),
@@ -1481,7 +1549,9 @@ def phase_mlip(config, splits, md17_splits, first_batch):
                 scale = max(float(np.abs(b).max()) for _, _, b in pairs)
                 rows[k] = (err, floor, ok, scale)
             parity[what] = rows
-            log(f"[mlip] first step, {data}, card vs CPU plain path, {precision}: loss "
+            log(f"[mlip] first step, {data} (batch {planned.num_nodes} nodes, "
+                f"{planned.num_edges} edges, {planned.num_graphs} graphs), card vs CPU plain "
+                f"path, {precision}: loss "
                 f"{float(card['loss']):.6g} vs {float(cpu['loss']):.6g}; largest error / "
                 f"max|ref| (card's scatter step), in rtol {tol['rtol']} atol {tol['atol']} "
                 f"x min(max|ref|, 1), max|ref|: "
@@ -1490,7 +1560,7 @@ def phase_mlip(config, splits, md17_splits, first_batch):
                 + f"; K1 {card['launches'][0]}, K2 {card['launches'][1]} launches in the "
                 f"step")
 
-    # The MLIP train step's time (f32, the first train batch).
+    # The MLIP train step's time (f32, the first packed train bin).
     batch = first_batch.to("cuda")
     timed = copy.deepcopy(model0)
     opt = select_optimizer(timed.parameters(), training)
@@ -1500,10 +1570,351 @@ def phase_mlip(config, splits, md17_splits, first_batch):
     prof = device_profile(lambda: step(timed_state, batch),
                           per_call=(2 * per_fwd, 2 * per_fwd), what="MLIP step")
     e_valid = int(batch.edge_mask.sum())
-    log(f"[mlip] one f32 MLIP train step (32 molecules, {batch.num_nodes} nodes, "
+    log(f"[mlip] one f32 MLIP train step on the first packed bin "
+        f"({int(batch.graph_mask.sum())} molecules, {batch.num_nodes} nodes, "
         f"{e_valid} edges; padded {batch.num_edges}): {eager:.3f} ms issued eagerly, "
         + profile_note(prof, eager, "step"))
     return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
+            "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
+                                edges=batch.num_edges, e_valid=e_valid)}
+
+
+# ---------------------------------------------------------------- [zinc]
+
+ZINC_LOGP = {6: 0.34, 7: -0.8, 8: -0.55, 9: 0.2, 16: 0.6}  # C N O F S
+ZINC_WIDTH = 128  # PNA's moment pass: [h, h*h] at hidden 64
+
+
+def synthetic_zinc(n_mols=400, seed=0):
+    """examples/zinc/zinc.py's ZINC-like molecules (``synthetic_zinc``),
+    from the same seeded generator in its order of draws, with the
+    port's Laplacian and relative PE (pe_dim 8): a random tree of 12-32
+    organic atoms plus ring closures, bond edges both ways, a
+    penalized-logP-like target, random layout positions."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.pe import laplacian_pe, relative_pe
+
+    rng = np.random.default_rng(seed)
+    types = np.array(list(ZINC_LOGP))
+    probs = np.array([0.6, 0.12, 0.16, 0.06, 0.06])
+    out = []
+    for _ in range(n_mols):
+        n = int(rng.integers(12, 33))
+        z = rng.choice(types, n, p=probs)
+        edges = [(i, int(rng.integers(0, i))) for i in range(1, n)]
+        n_rings = int(rng.integers(0, 4))
+        for _ in range(n_rings):
+            a, b = rng.integers(0, n, 2)
+            if a != b:
+                edges.append((int(a), int(b)))
+        snd = np.array([e[0] for e in edges] + [e[1] for e in edges])
+        rcv = np.array([e[1] for e in edges] + [e[0] for e in edges])
+        ei = np.stack([snd, rcv]).astype(np.int64)
+        deg = np.bincount(snd, minlength=n)
+        y = (sum(ZINC_LOGP[int(t)] for t in z) / n + 0.15 * n_rings
+             - 0.1 * float((deg > 3).sum()))
+        pos = rng.uniform(0, n ** (1 / 3), (n, 3)).astype(np.float32)
+        pe = laplacian_pe(ei, n, 8)
+        out.append(GraphSample(x=z.reshape(-1, 1).astype(np.float32), pos=pos,
+                               edge_index=ei, pe=pe, rel_pe=relative_pe(ei, pe),
+                               y_graph=np.array([y], np.float32)))
+    return out
+
+
+def zinc_data():
+    """examples/zinc/zinc.json and zinc_bf16.json cut to 2 epochs, and
+    zinc.py's 400 molecules (seed 0) split 0.8 as zinc.py's main() splits
+    them."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "zinc")
+    configs = {}
+    for precision, name in (("fp32", "zinc.json"), ("bf16", "zinc_bf16.json")):
+        with open(os.path.join(here, name)) as f:
+            config = json.load(f)
+        config["Verbosity"] = {"level": 0}
+        config["NeuralNetwork"]["Training"]["num_epoch"] = 2
+        configs[precision] = config
+    t0 = time.perf_counter()
+    samples = synthetic_zinc(400)
+    splits = split_dataset(samples, 0.8)
+    log(f"[zinc] zinc.json's PNAPlus + GPS (hidden 64, 3 layers, num_radial 5, GPS "
+        f"multihead x4, pe_dim 8, num_nodes 40; graph head 2x64 + [64, 64]; AdamW 0.002, "
+        f"batch 64, packing auto with 2 budgets), 2 epochs, f32 and bf16; zinc.py's 400 "
+        f"molecules of 12-32 atoms (seed 0, Laplacian PE by eigh on the host), splits "
+        f"{[len(x) for x in splits]}, made in {time.perf_counter() - t0:.2f} s")
+    return configs, splits
+
+
+def phase_zinc_kernels(batch):
+    """K1 and K2 in the reduce-only flavour at PNA's moment-pass width
+    (F = 128) on the first packed train bin's plan, in f32 and bf16:
+    against their plain versions (same bits on two runs, K2 zero off the
+    plan), the launch shape and shared memory per CTA, and the times
+    beside the bound, the plain version and one library call
+    (index_add_ for K1, index_select of g's rows for K2)."""
+    from hydragnn_tpu_torch.ops.cuda_build import load_library
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    lib = load_library()
+    dev = batch.seg_perm.device
+    gen = torch.Generator().manual_seed(11)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    n, e, f = batch.num_nodes, batch.num_edges, ZINC_WIDTH
+    e_valid = int(batch.edge_mask.sum())
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    covered = torch.zeros(e, dtype=torch.bool, device=dev)
+    covered[plan[0][plan[2]].long()] = True
+    shapes = {k: launch_shape(lib, k, n, e, f, f, 32, has_b=False, has_w=False)
+              for k in ("k1", "k2")}
+    log(f"[zinc-kernels] first packed train bin: n {n}, e {e} ({e_valid} valid), "
+        f"{batch.num_graphs} graph slots, plan {slots} slots in {blocks} blocks; F = {f}: "
+        f"K1 {shapes['k1']}; K2 {shapes['k2']}")
+    rows = []
+    for dt, tol, vjp_tol in ((torch.float32, F32_TOL, VJP_TOL),
+                             (torch.bfloat16, BF16_TOL, BF16_TOL)):
+        a = torch.randn(e, f, generator=gen).to(dev, dt)
+        g = torch.randn(n, f, generator=gen).to(dev, dt)
+        args = (a, None, None, *plan, n)
+        with torch.no_grad():
+            got, again = edge_pipeline_planned(*args), edge_pipeline_planned(*args)
+            ref = edge_pipeline_plain(*args)
+        d_a, d_b, d_w = edge_pipeline_bwd_planned(g, *args)
+        d_again = edge_pipeline_bwd_planned(g, *args)[0]
+        d_ref = edge_pipeline_bwd_plain(g, *args)[0]
+        torch.cuda.synchronize()
+        name = mix_name(dt, dt)
+        check(torch.equal(got, again) and torch.equal(d_a, d_again),
+              f"F={f} {name}: two runs differ")
+        check(got.dtype == dt and d_a.dtype == dt and d_b is None and d_w is None,
+              f"F={f} {name}: output types")
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        torch.testing.assert_close(d_a.float(), d_ref.float(), **vjp_tol)
+        check(not bool(d_a[~covered].any()), f"F={f} {name}: K2 nonzero off the plan")
+        row = {"f": f, "dtype": name, "n": n, "e": e, "e_valid": e_valid,
+               "k1_launch": shapes["k1"], "k2_launch": shapes["k2"],
+               "k1_max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "k2_max_abs_err": float((d_a.float() - d_ref.float()).abs().max())}
+        a_valid = a[batch.edge_mask]
+        rcv_valid = batch.receivers[batch.edge_mask].long()
+        out = torch.zeros(n, f, dtype=dt, device=dev)
+        with torch.no_grad():
+            row["k1_ms"] = time_ms(lambda: edge_pipeline_planned(*args))
+            row["k1_plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
+            row["k1_library_ms"] = time_ms(lambda: out.index_add_(0, rcv_valid, a_valid))
+            row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
+            row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+            row["k2_library_ms"] = time_ms(lambda: g.index_select(0, batch.receivers))
+        nbytes, ops, out_dt = k1_work(e_valid, n, f, f, slots, blocks, dt, dt, False, False)
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
+        nbytes, ops, g_dt = k2_work(e, e_valid, n, f, f, slots, blocks, dt, dt, False, False)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
+        rows.append(row)
+        log(f"[zinc-kernels] F = {f} {name}: K1 max|err| {row['k1_max_abs_err']:.3g}, "
+            f"{row['k1_ms'] * 1e3:.1f} us, plain {row['k1_plain_ms'] * 1e3:.1f} us, "
+            f"index_add_ {row['k1_library_ms'] * 1e3:.1f} us, bound "
+            f"{row['k1_bound_ms'] * 1e3:.2f} us ({row['k1_bound_by']}); K2 max|err| "
+            f"{row['k2_max_abs_err']:.3g}, {row['k2_ms'] * 1e3:.1f} us, plain "
+            f"{row['k2_plain_ms'] * 1e3:.1f} us, index_select "
+            f"{row['k2_library_ms'] * 1e3:.1f} us, bound {row['k2_bound_ms'] * 1e3:.2f} us "
+            f"({row['k2_bound_by']})")
+    log(f"[zinc-kernels] K1 and K2, reduce-only, F = {f} in f32 and bf16: 4 comparisons "
+        f"passed (identical bits on two runs; K2 zero off the plan)")
+    return rows
+
+
+def zinc_step(model, cfg, training, batch, compute_dtype):
+    """One AdamW step of ``model`` on ``batch`` in train mode: the loss,
+    gradients, updated parameters and running statistics on the host,
+    and the K1/K2 launches of the step."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    # copies: on the CPU .numpy() would share the parameters' memory
+    before = {k: v.detach().float().cpu().numpy().copy() for k, v in model.named_parameters()}
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    loss, grads, params = one_step(model, cfg, training, batch, compute_dtype)
+    launches = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+    stats = {k: v.float().cpu().numpy() for k, v in model.named_buffers()}
+    return {"loss": loss, "grads": grads, "params": params, "stats": stats,
+            "before": before, "launches": launches}
+
+
+def hold_zinc_step(card, cpu, tol, lr, what):
+    """The card's first step against the CPU's: the loss at ``tol`` (f32:
+    F32_TOL), the gradients at ``tol`` with the atol scaled by the
+    largest gradient over all parameters (a bias in front of a batch
+    norm and the attention's key bias have a true gradient of zero, and
+    both sides return rounding noise there), the updated parameters the
+    same way except where the CPU's gradient is within the gradient
+    tolerance of zero (AdamW's first step moves an entry by lr x sign(g),
+    and a sign inside the tolerance is not determined: held to a move of
+    at most lr plus decay), and the running statistics at ``tol``
+    unscaled (a norm after a norm sees a batch mean of rounding noise).
+    Returns the largest errors."""
+    import numpy as np
+
+    loss_tol = F32_TOL if tol is VJP_TOL else tol
+    worst = {"loss": assert_close_scaled(np.asarray(card["loss"]), np.asarray(cpu["loss"]),
+                                         loss_tol, f"{what} loss")[0]}
+    g_scale = max(float(np.abs(g).max()) for g in cpu["grads"].values())
+    p_scale = max(float(np.abs(p).max()) for p in cpu["params"].values())
+    worst["grad"] = max(assert_close_scaled(card["grads"][k], cpu["grads"][k], tol,
+                                            f"{what} grad {k}", scale=g_scale)[0]
+                        for k in cpu["grads"])
+    worst["param"] = 0.0
+    for k, ref in cpu["params"].items():
+        got, old = card["params"][k], cpu["before"][k]
+        same = np.isclose(got, ref, rtol=tol["rtol"], atol=tol["atol"] * min(p_scale, 1.0))
+        noise = np.abs(cpu["grads"][k]) <= tol["atol"] * min(g_scale, 1.0)
+        small = np.abs(got - old) <= lr * (1.0 + 1e-4 * np.abs(old)) * 1.001
+        bad = ~(same | (noise & small))
+        if bad.any():
+            i = np.unravel_index(np.argmax(np.where(bad, np.abs(got - ref), -1)), got.shape)
+            check(False, f"{what} param {k}: {int(bad.sum())} entries off, the worst at {i}: "
+                  f"card {got[i]:.6g}, CPU {ref[i]:.6g}, before {old[i]:.6g}; gradient card "
+                  f"{card['grads'][k][i]:.6g}, CPU {cpu['grads'][k][i]:.6g}; largest |grad| "
+                  f"{g_scale:.3g}")
+        worst["param"] = max(worst["param"], float(np.abs(got - ref)[same].max(initial=0)))
+    worst["stats"] = max(assert_close_scaled(card["stats"][k], cpu["stats"][k],
+                                             F32_TOL if tol is VJP_TOL else tol,
+                                             f"{what} stat {k}", scale=1.0)[0]
+                         for k in cpu["stats"])
+    worst["scales"] = (g_scale, p_scale)
+    return worst
+
+
+def zinc_run(config, splits, budgets):
+    """run_training of a ZINC config on the card, then run_prediction:
+    finite losses, every train batch a packed bin of the budgets, K1 and
+    K2 launch counts (3 K1 per forward, 3 K2 per train step), finite
+    predictions of the expected shape."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    precision = config["NeuralNetwork"]["Training"].get("precision", "fp32")
+    with recorded_run() as rec:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t0 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, datasets=splits,
+                                                          seed=0, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k1, k2, n_fwd = (edge_pipeline_planned.launches,
+                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        shapes = list(rec["shapes"])
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        rec["forwards"] = 0
+        err, tasks, trues, preds = port.run_prediction(full, datasets=splits, state=state,
+                                                       model=model, cfg=cfg)
+        torch.cuda.synchronize()
+        k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
+                                        edge_pipeline_bwd_planned.launches, rec["forwards"])
+    layers = cfg.num_conv_layers
+    keys = set(budget_keys(budgets))
+    losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
+    check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
+          f"{precision}: non-finite loss in {losses} or in the steps {steps.tolist()}")
+    check(len(steps) == state.step > 0 and set(shapes) <= keys,
+          f"{precision}: train batches {sorted(set(shapes))} are not all packed bins {keys}")
+    check(k1 == layers * n_fwd and k2 == layers * state.step,
+          f"{precision} run_training: K1 {k1} in {n_fwd} forwards, K2 {k2} in "
+          f"{state.step} train steps (want {layers} per forward and per step)")
+    check(k1_pred == layers * n_fwd_pred and k2_pred == 0 and n_fwd_pred > 0,
+          f"{precision} run_prediction: K1 {k1_pred}, K2 {k2_pred}, {n_fwd_pred} forwards")
+    n_test = len(splits[2])
+    check(preds[0].shape == trues[0].shape == (n_test, 1) and np.isfinite(preds[0]).all(),
+          f"{precision} run_prediction wants finite [graphs, 1] predictions")
+    fell = hist.train_loss[-1] < steps[0]
+    log(f"[zinc] {precision}: run_training on the card ({train_s:.2f} s, {state.step} train "
+        f"steps on packed bins {sorted(set(shapes))}, {n_fwd} forwards): train loss "
+        f"{hist.train_loss}, val {hist.val_loss}, test {hist.test_loss}; the last epoch's "
+        f"mean train loss is {'below' if fell else 'not below'} the first step's "
+        f"{steps[0]:.6g}")
+    log(f"[zinc] {precision}: per-step train loss {[float(f'{x:.4g}') for x in steps]}")
+    log(f"[zinc] {precision}: K1 launches {k1} = {layers} x {n_fwd} forwards, K2 launches "
+        f"{k2} = {layers} x {state.step} train steps; run_prediction error {err:.6g} over "
+        f"{n_test} molecules, K1 {k1_pred} = {layers} x {n_fwd_pred} forwards, K2 0")
+    return {"k1": k1 + k1_pred, "k2": k2, "steps": state.step, "forwards": n_fwd + n_fwd_pred,
+            "step_losses": steps.tolist(), "train_loss": hist.train_loss,
+            "val_loss": hist.val_loss, "test_loss": hist.test_loss,
+            "prediction_error": err, "seconds": train_s, "loss_fell": bool(fell),
+            "bins": sorted(set(shapes))}
+
+
+def phase_zinc(configs, splits, loader, first_bin):
+    """zinc.json and zinc_bf16.json trained by run_training on the card
+    (2 epochs each), then run_prediction; the first train step on the
+    card against the CPU plain path in f32 and bf16, running statistics
+    included; the f32 step's eager and device time on the first packed
+    bin."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    budgets = loader.pack_budgets
+    stats = loader.packing_stats(0)
+    log(f"[zinc] packing on ('auto' resolved as the JAX package resolves it): train "
+        f"budgets {budget_keys(budgets)}; epoch 0 "
+        f"packs {stats['batches']} bins, node fill {stats['node_fill']:.3f}, edge fill "
+        f"{stats['edge_fill']:.3f}, pad ratio {stats['pad_ratio']:.3f}")
+    runs = {p: zinc_run(c, splits, budgets) for p, c in configs.items()}
+
+    full = update_config(configs["fp32"], *splits)
+    training = full["NeuralNetwork"]["Training"]
+    lr = float(training["Optimizer"]["learning_rate"])
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    layers = cfg.num_conv_layers
+    parity = {}
+    for precision, dtype, tol in (("fp32", torch.float32, VJP_TOL),
+                                  ("bf16", torch.bfloat16, BF16_TOL)):
+        card = zinc_step(copy.deepcopy(model0), cfg, training, first_bin.to("cuda"), dtype)
+        cpu = zinc_step(copy.deepcopy(model0).to("cpu"), cfg, training, first_bin, dtype)
+        check(card["launches"] == (layers, layers) and cpu["launches"] == (0, 0),
+              f"{precision} ZINC step: K1/K2 launched {card['launches']} on the card (want "
+              f"{layers} each), {cpu['launches']} on the CPU")
+        worst = hold_zinc_step(card, cpu, tol, lr, f"zinc {precision}")
+        parity[precision] = worst
+        log(f"[zinc] first step on the first packed bin, card vs CPU plain path, "
+            f"{precision}: loss {card['loss']:.6g} vs {cpu['loss']:.6g} (|err| "
+            f"{worst['loss']:.3g}); worst |err| grads {worst['grad']:.3g} (largest |grad| "
+            f"{worst['scales'][0]:.3g}), updated params {worst['param']:.3g}, running "
+            f"statistics {worst['stats']:.3g}; rtol {tol['rtol']}, atol {tol['atol']} x "
+            f"min(largest, 1); K1 {card['launches'][0]}, K2 {card['launches'][1]} in the step")
+
+    batch = first_bin.to("cuda")
+    timed = copy.deepcopy(model0)
+    opt = select_optimizer(timed.parameters(), training)
+    step = make_train_step(timed, opt, cfg)
+    timed_state = TrainState(timed, opt)
+    eager = eager_ms(lambda: step(timed_state, batch), iters=20, warmup=3)
+    prof = device_profile(lambda: step(timed_state, batch), per_call=(layers, layers),
+                          what="ZINC step")
+    e_valid = int(batch.edge_mask.sum())
+    log(f"[zinc] one f32 train step on the first packed bin ({int(batch.graph_mask.sum())} "
+        f"molecules, {batch.num_nodes} nodes, {e_valid} edges; padded {batch.num_edges}): "
+        f"{eager:.3f} ms issued eagerly, " + profile_note(prof, eager, "step"))
+    return {"k1": sum(r["k1"] for r in runs.values()),
+            "k2": sum(r["k2"] for r in runs.values()), "runs": runs,
+            "parity": parity,
+            "packing": dict(stats, budgets=budget_keys(budgets)),
             "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
                                 edges=batch.num_edges, e_valid=e_valid)}
 
@@ -1567,20 +1978,34 @@ def main():
     train = phase_train(config, splits)
     headline = phase_train_timing(head_cpu)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
-    mlip_batch = mlip_train_batch(mlip_splits[0])
+    mlip_loader, mlip_budgets = train_loader(mlip_cfg, mlip_splits[0])
+    check(mlip_loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
+    mlip_batch = next(iter(mlip_loader))
+    log(f"[mlip] packing on ('auto' resolved as the JAX package resolves it): train "
+        f"budgets {budget_keys(mlip_budgets)}; the first packed bin holds "
+        f"{int(mlip_batch.graph_mask.sum())} molecules, {mlip_batch.num_nodes} nodes, "
+        f"{int(mlip_batch.edge_mask.sum())} edges (padded {mlip_batch.num_edges})")
     mlip_rows = phase_mlip_kernels(mlip_batch.to("cuda"))
-    mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_batch)
+    mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_budgets, mlip_batch)
     widths = [r for r in mlip_rows if "k1_ms" in r]
+    zinc_cfgs, zinc_splits = zinc_data()
+    zinc_loader, _ = train_loader(zinc_cfgs["fp32"], zinc_splits[0])
+    check(zinc_loader.packing, "zinc.json's packing 'auto' did not pack zinc.py's set")
+    zinc_bin = next(iter(zinc_loader))
+    zinc_rows = phase_zinc_kernels(zinc_bin.to("cuda"))
+    zinc = phase_zinc(zinc_cfgs, zinc_splits, zinc_loader, zinc_bin)
 
     kernels = [{
         "name": "edge_pipeline",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
-        "launches": launches + train["k1"] + mlip["k1"],
-        "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"]},
+        "launches": launches + train["k1"] + mlip["k1"] + zinc["k1"],
+        "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
+                             "zinc": zinc["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
-                           + [r["k1_max_abs_err"] for r in mlip_rows if r["dtype"] == "f32"]),
+                           + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows
+                              if r["dtype"] == "f32"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1593,15 +2018,19 @@ def main():
         "flavours": [r for r in rows if "ms" in r],
         "mlip_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                         for r in widths],
+        "zinc_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                       for r in zinc_rows],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
-        "launches": train["k2"] + mlip["k2"],
-        "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"]},
+        "launches": train["k2"] + mlip["k2"] + zinc["k2"],
+        "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
+                             "zinc": zinc["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
-                           + [r["k2_max_abs_err"] for r in mlip_rows if r["dtype"] == "f32"]),
+                           + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows
+                              if r["dtype"] == "f32"]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
@@ -1613,10 +2042,13 @@ def main():
         "flavours": [r for r in bwd_rows if "ms" in r],
         "mlip_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                         for r in widths],
+        "zinc_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                       for r in zinc_rows],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
+    log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

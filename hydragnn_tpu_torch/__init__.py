@@ -8,11 +8,13 @@ its docstring. It imports ``torch`` and numpy only — never ``jax``,
 the host logic it needs (config defaulting, the synthetic data, collate,
 the block planner, the packer, the request generator).
 
-What runs today, for SchNet on one device:
+What runs today on one device:
 
-- training: ``run_training(config)`` then ``run_prediction(...)``, with
-  the fused edge pipeline's forward (K1) and backward (K2) as
-  hand-written CUDA kernels on the card (``ops/edge_pipeline.py``);
+- training: ``run_training(config)`` then ``run_prediction(...)`` for
+  SchNet, PaiNN potentials and PNA/PNAPlus with GPS, on bucketed or
+  bin-packed batches, with the fused edge pipeline's forward (K1) and
+  backward (K2) as hand-written CUDA kernels on the card
+  (``ops/edge_pipeline.py``);
 - serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
   ``export.make_forward`` -> ``MultiHeadGraphModel``.
 

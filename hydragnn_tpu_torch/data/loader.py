@@ -1,17 +1,20 @@
-"""Host-side batching: shuffled, bucket-padded epochs and dataset splits.
+"""Host-side batching: shuffled, bucket-padded or bin-packed epochs and
+dataset splits.
 
 Counterpart of ``hydragnn_tpu/data/loader.py``: ``GraphLoader`` on its
 serial path (an epoch's batch order from ``epoch_batch_indices``, each
-batch padded to one worst-case shape or up the bucket ladder, collated
-on the host) and ``split_dataset``. Batch order, pad specs and collated
-arrays equal the JAX package's for the same seed.
+batch padded to one worst-case shape or up the bucket ladder, or the
+epoch's order first-fit-decreasing packed into fitted budgets, collated
+on the host) and ``split_dataset``. Batch order, pad specs, packed bins
+and collated arrays equal the JAX package's for the same seed.
 
 The port's batches carry the block plan at the Hopper tiles by default
-(``with_segment_plan=True``), so every CFConv layer runs K1 forward and
-K2 backward; ``with_segment_plan=False`` gives the ``index_add_``
-scatter path. There is no crossover table. Bin packing, spec schedules,
-resampling, triplets, the parallel input pipeline and supersteps come
-with ROADMAP Queue 1 item 10.
+(``with_segment_plan=True``), packed bins included, so every aggregation
+runs K1 forward and K2 backward; ``with_segment_plan=False`` gives the
+``index_add_`` scatter path. There is no crossover table. Spec
+schedules, resampling, triplets, the parallel input pipeline and
+supersteps come with ROADMAP Queue 1 item 10; the device-coordinated
+packer of the dp scheme with item 11.
 """
 
 from __future__ import annotations
@@ -22,15 +25,15 @@ import numpy as np
 
 from hydragnn_tpu_torch.data.graph import GraphBatch, GraphSample, PadSpec, collate
 from hydragnn_tpu_torch.data.padschedule import (
+    MAX_PAD_BUCKETS,
     dataset_size_arrays,
     epoch_batch_indices,
+    fit_pack_budgets,
     ladder_spec,
+    ladder_spec_keys,
+    pack_epoch_ffd,
     worst_case_spec_from_sizes,
 )
-
-# Distinct ladder shapes "auto" padding accepts (the JAX package's
-# HYDRAGNN_TPU_MAX_PAD_BUCKETS default).
-MAX_PAD_BUCKETS = 6
 
 
 class GraphLoader:
@@ -41,7 +44,13 @@ class GraphLoader:
     takes the ladder when the first four epochs' orders give at most
     ``MAX_PAD_BUCKETS`` distinct shapes, and clamps to the worst case
     for good once twice that many are seen. ``cache_batches`` keeps a
-    fixed-order loader's collated batches for later epochs."""
+    fixed-order loader's collated batches for later epochs.
+
+    ``packing`` replaces fixed-size batches with bin-packed ones: each
+    epoch's order is first-fit-decreasing packed into ``pack_budgets``
+    (or budgets fitted from this loader's own size histogram with
+    ``pack_max_budgets``, ``pack_slack`` and ``pack_max_graphs``), one
+    batch per bin, padded to its budget's shape."""
 
     def __init__(
         self,
@@ -53,6 +62,11 @@ class GraphLoader:
         fixed_pad: "bool | str" = True,
         with_segment_plan: bool = True,
         cache_batches: bool = False,
+        packing: bool = False,
+        pack_budgets: Optional[List] = None,
+        pack_max_budgets: int = 2,
+        pack_slack: Optional[float] = None,
+        pack_max_graphs: Optional[int] = None,
     ):
         self.dataset = list(dataset)
         self.batch_size = int(batch_size)
@@ -62,6 +76,19 @@ class GraphLoader:
         self._epoch = 0
         self._auto_selected = False
         self._seen_specs: set = set()
+        self.packing = bool(packing)
+        self.pack_budgets: Optional[List] = None
+        self._pack_plan_cache: Optional[tuple] = None
+        if self.packing:
+            fixed_pad = False
+            if pack_budgets is not None:
+                self.pack_budgets = list(pack_budgets)
+            elif len(self.dataset):
+                self.pack_budgets = fit_pack_budgets(
+                    *self._size_arrays(), self.batch_size,
+                    max_budgets=pack_max_budgets, slack=pack_slack,
+                    max_graphs=pack_max_graphs, seed=self._seed,
+                )
         if fixed_pad == "auto":
             fixed_pad = (
                 True if not len(self.dataset) else not self._ladder_is_small()
@@ -83,16 +110,56 @@ class GraphLoader:
             seed=self._seed, epoch=epoch,
         )
 
-    def planned_spec_keys(self, epochs: int = 2) -> set:
-        """Distinct bucketed (nodes, edges, graphs) keys of the first
-        ``epochs`` epochs on the ladder."""
+    def _packed_plan(self, epoch: int) -> List[tuple]:
+        """One epoch's packed ``(idx, PackSpec)`` bins, cached per epoch;
+        a fixed-order loader packs once for every epoch."""
+        if not self.shuffle:
+            epoch = 0
+        if self._pack_plan_cache is not None and self._pack_plan_cache[0] == epoch:
+            return self._pack_plan_cache[1]
+        if not self.pack_budgets:
+            return []
         nodes, edges = self._size_arrays()
-        keys = set()
-        for ep in range(epochs):
-            for idx in self._epoch_batches(ep):
-                spec = ladder_spec(int(nodes[idx].sum()), int(edges[idx].sum()), len(idx))
-                keys.add((spec.num_nodes, spec.num_edges, spec.num_graphs))
-        return keys
+        batches = list(self._epoch_batches(epoch))
+        order = np.concatenate(batches) if batches else np.zeros(0, np.int64)
+        bins = pack_epoch_ffd(order, nodes, edges, self.pack_budgets)
+        self._pack_plan_cache = (epoch, bins)
+        return bins
+
+    def packing_stats(self, epoch: Optional[int] = None) -> Optional[dict]:
+        """One epoch's packed plan in numbers (None when packing is
+        off): bins, budgets, node and edge fill, and the executed/real
+        (nodes + edges) pad ratio."""
+        if not self.packing or not self.pack_budgets:
+            return None
+        plan = self._packed_plan(self._epoch if epoch is None else epoch)
+        if not plan:
+            return None
+        nodes, edges = self._size_arrays()
+        real_n = sum(int(nodes[idx].sum()) for idx, _ in plan)
+        real_e = sum(int(edges[idx].sum()) for idx, _ in plan)
+        exe_n = sum(spec.num_nodes for _, spec in plan)
+        exe_e = sum(spec.num_edges for _, spec in plan)
+        return {
+            "batches": len(plan),
+            "budgets": len(self.pack_budgets),
+            "node_fill": real_n / max(exe_n, 1),
+            "edge_fill": real_e / max(exe_e, 1),
+            "pad_ratio": (exe_n + exe_e) / max(real_n + real_e, 1),
+        }
+
+    def planned_spec_keys(self, epochs: int = 2) -> set:
+        """Distinct (nodes, edges, graphs) keys of the first ``epochs``
+        epochs: the budgets when packing, else the ladder's."""
+        if self.packing:
+            return {
+                (b.num_nodes, b.num_edges, b.num_graphs)
+                for b in (self.pack_budgets or [])
+            }
+        return ladder_spec_keys(
+            *self._size_arrays(), self.batch_size, shuffle=self.shuffle,
+            seed=self._seed, epochs=epochs,
+        )
 
     def _ladder_is_small(self) -> bool:
         return len(self.planned_spec_keys(epochs=4)) <= MAX_PAD_BUCKETS
@@ -105,6 +172,8 @@ class GraphLoader:
         self._epoch = epoch
 
     def __len__(self) -> int:
+        if self.packing:
+            return len(self._packed_plan(self._epoch))
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _fixed_batch_spec(self) -> PadSpec:
@@ -116,7 +185,11 @@ class GraphLoader:
 
     def epoch_plan(self, epoch: int) -> Iterator[tuple]:
         """``(idx, spec)`` for every batch of one epoch, from size
-        metadata alone."""
+        metadata alone: the packed bins when packing."""
+        if self.packing:
+            for idx, budget in self._packed_plan(epoch):
+                yield idx, budget.pad_spec()
+            return
         nodes = edges = None
         for idx in self._epoch_batches(epoch):
             if self.pad_spec is not None:

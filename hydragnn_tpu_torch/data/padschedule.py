@@ -3,11 +3,12 @@
 Counterpart of the packing half of ``hydragnn_tpu/data/padschedule.py``
 (``OpenBin``, ``PackPlanner``, ``pack_epoch_ffd``, ``fit_pack_budgets``
 and their helpers) and the unpacked specs the loader pads to
-(``ladder_spec``, ``worst_case_spec_from_sizes``). Device-free size
-arithmetic, copied so that fitted budgets, packed bins and pad specs
-match the JAX package's bit for bit. The
-per-device schedules of the dp schemes come with the data fast path
-(ROADMAP Queue 1 item 10).
+(``ladder_spec``, ``worst_case_spec_from_sizes``), and the ``packing:
+"auto"`` decision (``packing_beats_ladder``). Device-free size
+arithmetic, copied so that fitted budgets, packed bins, pad specs and
+the decision match the JAX package's bit for bit. The per-device
+schedules and the device-coordinated packer of the dp schemes come with
+the data fast path (ROADMAP Queue 1 items 10 and 11).
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ from hydragnn_tpu_torch.data.graph import PackSpec, PadSpec, bucket_size
 FIT_SAMPLE = 50000
 # Shuffled epochs the slack candidates are simulated over.
 SIM_EPOCHS = 2
+# Distinct ladder shapes "auto" padding accepts (the JAX package's
+# HYDRAGNN_TPU_MAX_PAD_BUCKETS default).
+MAX_PAD_BUCKETS = 6
+# Executed/real ratio packing must reach against the unpacked baseline's
+# for "auto" to pack: a 3% padding-waste win.
+PACK_MARGIN = 0.97
 
 
 def epoch_batch_indices(
@@ -50,6 +57,29 @@ def ladder_spec(tot_nodes: int, tot_edges: int, n_graphs: int) -> PadSpec:
         num_edges=bucket_size(max(int(tot_edges), 1)),
         num_graphs=int(n_graphs) + 1,
     )
+
+
+def ladder_spec_keys(
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    batch_size: int,
+    *,
+    shuffle: bool,
+    seed: int,
+    epochs: int,
+) -> set:
+    """Distinct (nodes, edges, graphs) ladder keys over the first
+    ``epochs`` epochs' batches."""
+    keys = set()
+    for ep in range(epochs):
+        for idx in epoch_batch_indices(
+            len(node_sizes), batch_size, shuffle=shuffle, seed=seed, epoch=ep
+        ):
+            spec = ladder_spec(
+                int(node_sizes[idx].sum()), int(edge_sizes[idx].sum()), len(idx)
+            )
+            keys.add((spec.num_nodes, spec.num_edges, spec.num_graphs))
+    return keys
 
 
 def worst_case_spec_from_sizes(
@@ -274,13 +304,17 @@ def fit_pack_budgets(
     slack: Optional[float] = None,
     max_graphs: Optional[int] = None,
     seed: int = 0,
-) -> List[PackSpec]:
+    with_meta: bool = False,
+) -> "List[PackSpec] | tuple":
     """Fit the budget set the packer fills from the size histogram: a
     primary budget sized for ``len / batch_size`` bins with a small
-    capacity ``slack`` (simulated over a few candidates when None, the
-    one with the least executed/real size kept), plus
-    ``max_budgets - 1`` halved sub-budgets for tail bins. ``max_graphs``
-    caps a bin's graph count (default 2x ``batch_size``)."""
+    capacity ``slack`` (simulated over ``SIM_EPOCHS`` shuffled epochs
+    for a few candidates when None, the one with the least
+    executed/real size kept), plus ``max_budgets - 1`` halved
+    sub-budgets for tail bins. ``max_graphs`` caps a bin's graph count
+    (default 2x ``batch_size``). ``with_meta`` returns ``(budgets,
+    {"slack", "waste"})``: the chosen slack and its simulated
+    executed/real (nodes + edges) ratio."""
     node_sizes = np.asarray(node_sizes, dtype=np.int64)
     edge_sizes = np.asarray(edge_sizes, dtype=np.int64)
     if len(node_sizes) == 0:
@@ -334,12 +368,60 @@ def fit_pack_budgets(
         return executed / max(real, 1.0)
 
     if slack is not None:
-        return _budget_set(float(slack))
+        cand = _budget_set(float(slack))
+        if with_meta:
+            return cand, {"slack": float(slack), "waste": _waste(cand)}
+        return cand
     best = None
     best_w = float("inf")
+    best_s = None
     for s in (1.01, 1.02, 1.04, 1.06, 1.1):
         cand = _budget_set(s)
         w = _waste(cand)
         if w < best_w:
-            best, best_w = cand, w
+            best, best_w, best_s = cand, w, s
+    if with_meta:
+        return best, {"slack": best_s, "waste": best_w}
     return best
+
+
+def packing_beats_ladder(
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    batch_size: int,
+    *,
+    seed: int = 0,
+    **fit_kw,
+) -> Optional[tuple]:
+    """The ``packing: "auto"`` decision: fit budgets and return
+    ``(budgets, slack)`` when the packed executed/real (nodes + edges)
+    ratio is at most ``PACK_MARGIN`` times the unpacked baseline's, else
+    None. The baseline is what the run's train loader
+    (``fixed_pad="auto"``) would do: the ladder while the first four
+    shuffled epochs give at most ``MAX_PAD_BUCKETS`` distinct shapes,
+    else one worst-case spec. Both sides are simulated over
+    ``SIM_EPOCHS`` shuffled epochs; the packed side is the fit's own."""
+    node_sizes = np.asarray(node_sizes, dtype=np.int64)
+    edge_sizes = np.asarray(edge_sizes, dtype=np.int64)
+    if len(node_sizes) == 0:
+        return None
+    budgets, meta = fit_pack_budgets(
+        node_sizes, edge_sizes, batch_size, seed=seed, with_meta=True, **fit_kw
+    )
+    ladder_ok = len(ladder_spec_keys(
+        node_sizes, edge_sizes, batch_size, shuffle=True, seed=seed, epochs=4
+    )) <= MAX_PAD_BUCKETS
+    worst = worst_case_spec_from_sizes(node_sizes, edge_sizes, batch_size)
+    baseline_exe = real = 0.0
+    for ep in range(SIM_EPOCHS):
+        for idx in epoch_batch_indices(
+            len(node_sizes), batch_size, shuffle=True, seed=seed, epoch=ep
+        ):
+            tot_n = int(node_sizes[idx].sum())
+            tot_e = int(edge_sizes[idx].sum())
+            spec = ladder_spec(tot_n, tot_e, len(idx)) if ladder_ok else worst
+            baseline_exe += spec.num_nodes + spec.num_edges
+            real += float(tot_n + tot_e)
+    if meta["waste"] <= (baseline_exe / max(real, 1.0)) * PACK_MARGIN:
+        return budgets, meta["slack"]
+    return None

@@ -3,8 +3,10 @@
 Counterpart of ``hydragnn_tpu/data/raw.py``: ``RawSample``,
 ``read_lsms_directory``, ``minmax_normalize`` and
 ``process_raw_samples``, copied so that the samples equal the JAX
-package's array for array. Periodic boundary conditions and positional
-encodings (GPS) raise until the slices that port them (ROADMAP Queue 1).
+package's array for array. A GPS config (``global_attn_engine`` with
+``pe_dim > 0``) attaches each sample's Laplacian PE and relative PE.
+Periodic boundary conditions raise until the slice that ports them
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 
 from hydragnn_tpu_torch.data.graph import GraphSample
 from hydragnn_tpu_torch.ops.neighbors import ensure_connected, radius_graph
+from hydragnn_tpu_torch.ops.pe import laplacian_pe, relative_pe
 
 
 @dataclasses.dataclass
@@ -91,16 +94,12 @@ def process_raw_samples(
             "periodic boundary conditions (radius_graph_pbc) are not ported "
             "yet: ROADMAP Queue 1 item 3"
         )
-    if arch.get("global_attn_engine") and int(arch.get("pe_dim") or 0) > 0:
-        raise NotImplementedError(
-            "positional encodings (GPS) are not ported yet: ROADMAP Queue 1 "
-            "item 8"
-        )
     if normalize:
         raw = minmax_normalize(raw)
     voi = nn_cfg["Variables_of_interest"]
     radius = float(arch.get("radius") or 5.0)
     max_neigh = arch.get("max_neighbours")
+    pe_dim = int(arch.get("pe_dim") or 0) if arch.get("global_attn_engine") else 0
     input_cols = voi.get("input_node_features", [0])
     out_types = voi.get("type", [])
     out_index = voi.get("output_index", [])
@@ -119,6 +118,10 @@ def process_raw_samples(
             for i, t in enumerate(out_types)
             if t == "node"
         ]
+        pe = rel = None
+        if pe_dim > 0:
+            pe = laplacian_pe(edge_index, s.node_features.shape[0], pe_dim)
+            rel = relative_pe(edge_index, pe)
         samples.append(
             GraphSample(
                 x=s.node_features[:, input_cols].astype(np.float32),
@@ -134,6 +137,8 @@ def process_raw_samples(
                 ),
                 dataset_id=s.dataset_id,
                 cell=s.cell,
+                pe=pe,
+                rel_pe=rel,
             )
         )
     return samples

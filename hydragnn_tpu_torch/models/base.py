@@ -5,22 +5,28 @@ Counterpart of ``hydragnn_tpu/models/base.py``: ``graph_pool``,
 ``MultiHeadGraphModel``. Graph heads are a per-branch shared MLP plus a
 per-head MLP; node heads are MLPs (shared or per node slot); rows are
 routed to their branch by ``dataset_id`` as masked dense compute plus a
-select, as in the JAX package.
+select, as in the JAX package. Batch-normed stacks (``norm_kind =
+"batch"``) get a ``MaskedBatchNorm`` ``feature_norm_{i}`` after every
+conv layer, and a GPS config (``global_attn_engine``) lifts the inputs
+with ``GPSInputEmbed`` and wraps every conv layer in a ``GPSLayer``, in
+the JAX package's order: conv, GPS layer, feature norm, activation.
 
 Not ported yet, and raising ``NotImplementedError`` that names their
-ROADMAP item: GPS global attention (Queue 1 item 8), graph-attribute
-conditioning (item 8), conv-type node heads (item 8), batch-normed
-stacks (item 8) and per-layer readouts (MACE, item 9).
+ROADMAP item: graph-attribute conditioning (Queue 1 item 8), conv-type
+node heads (item 8) and per-layer readouts (MACE, item 9).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple, Type
 
+import dataclasses
+
 import torch
 from torch import nn
 
-from hydragnn_tpu_torch.models.layers import MLP, Dense, activation
+from hydragnn_tpu_torch.models.gps import GPSInputEmbed, GPSLayer
+from hydragnn_tpu_torch.models.layers import MLP, Dense, MaskedBatchNorm, activation
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.ops.segment import (
     dense_segment_sum,
@@ -185,15 +191,14 @@ class MultiHeadDecoder(nn.Module):
 
 
 class MultiHeadGraphModel(nn.Module):
-    """Encoder stack + multihead decoder, with the activation between
-    conv layers; ``forward(batch)`` returns the list of head outputs."""
+    """Encoder stack + multihead decoder, with the GPS layers, feature
+    norms and activation between conv layers; ``forward(batch)`` returns
+    the list of head outputs. Batch norms use batch statistics and
+    update their running statistics in ``train()`` mode, and read the
+    running statistics in ``eval()`` mode."""
 
     def __init__(self, cfg: ModelConfig, stack_cls: Type[nn.Module]):
         super().__init__()
-        if cfg.use_global_attn:
-            raise NotImplementedError(
-                "GPS global attention is not ported yet: ROADMAP Queue 1 item 8"
-            )
         if cfg.use_graph_attr_conditioning:
             raise NotImplementedError(
                 "graph-attribute conditioning is not ported yet: ROADMAP "
@@ -204,22 +209,36 @@ class MultiHeadGraphModel(nn.Module):
                 "per-layer readouts (MACE) are not ported yet: ROADMAP "
                 "Queue 1 item 9"
             )
-        if getattr(stack_cls, "norm_kind", "none") != "none":
-            raise NotImplementedError(
-                "batch-normed stacks are not ported yet: ROADMAP Queue 1 item 8"
-            )
         self.cfg = cfg
         self.stack_cls = stack_cls
         self.stack = stack_cls(cfg)
         self.decoder = MultiHeadDecoder(cfg)
+        layers = range(cfg.num_conv_layers)
+        self.norm_layers = getattr(stack_cls, "norm_kind", "none") == "batch"
+        if self.norm_layers:
+            for i in layers:
+                self.add_module(f"feature_norm_{i}", MaskedBatchNorm(cfg.hidden_dim))
+        if cfg.use_global_attn:
+            self.gps_embed = GPSInputEmbed(cfg)
+            for i in layers:
+                self.add_module(f"gps_{i}", GPSLayer(cfg))
 
     def encode(self, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Embedding + conv layers; returns (node_repr, equiv_feat)."""
-        act = activation(self.cfg.activation)
+        cfg = self.cfg
+        act = activation(cfg.activation)
+        if cfg.use_global_attn:
+            x_emb, e_emb = self.gps_embed(batch)
+            batch = dataclasses.replace(
+                batch, x=x_emb, edge_attr=batch.edge_attr if e_emb is None else e_emb
+            )
         inv, equiv, extras = self.stack.embed(batch)
         use_act = getattr(self.stack_cls, "inter_layer_activation", True)
-        for i in range(self.cfg.num_conv_layers):
-            inv, equiv = self.stack.conv(i, inv, equiv, batch, extras)
+        for i in range(cfg.num_conv_layers):
+            h, equiv = self.stack.conv(i, inv, equiv, batch, extras)
+            inv = getattr(self, f"gps_{i}")(inv, h, batch) if cfg.use_global_attn else h
+            if self.norm_layers:
+                inv = getattr(self, f"feature_norm_{i}")(inv, batch.node_mask)
             if use_act:
                 inv = act(inv)
         return inv, equiv

@@ -16,8 +16,12 @@ bias) map the same way:
 - a ``DenseParams`` kernel (the modules named in ``DENSE_PARAMS``) keeps
   its ``[in, out]`` layout, because the fused edge pipeline takes it as
   its W;
-- ``bias`` and per-node ``w_{i}``/``b_{i}`` tensors are copied as they
-  are.
+- ``bias``, batch-norm ``scale`` and per-node ``w_{i}``/``b_{i}``
+  tensors are copied as they are;
+- with ``batch_stats`` (the JAX package's ``batch_stats`` collection),
+  each ``MaskedBatchNorm``'s running ``mean`` and ``var`` become the
+  buffers of the same name (``stack``-level ``feature_norm_{i}`` and
+  ``gps_{i}/norm{1,2,3}`` for PNA + GPS).
 
 Any other leaf raises, and ``model.load_state_dict(...)`` (strict by
 default) raises on keys or shapes that do not match the model.
@@ -25,7 +29,7 @@ default) raises on keys or shapes that do not match the model.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -46,10 +50,20 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a JAX ``params`` tree (module
-    docstring has the mapping)."""
+def params_from_jax(
+    params: Mapping, batch_stats: Optional[Mapping] = None
+) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX ``params`` tree and, for a
+    batch-normed model, its ``batch_stats`` tree (module docstring has
+    the mapping)."""
     out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(batch_stats or {}).items():
+        leaf = path.rpartition(".")[2]
+        if leaf not in ("mean", "var"):
+            raise ValueError(
+                f"{path}: no mapping for batch statistic {leaf!r} into the port"
+            )
+        out[path] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
     for path, arr in _flatten(params).items():
         module, _, leaf = path.rpartition(".")
         owner = module.rpartition(".")[2]
@@ -61,7 +75,7 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                 out[path] = t
             else:
                 out[f"{module}.weight"] = t.t().contiguous()
-        elif leaf == "bias" or leaf.startswith(("w_", "b_")):
+        elif leaf in ("bias", "scale") or leaf.startswith(("w_", "b_")):
             out[path] = t
         else:
             raise ValueError(

@@ -4,8 +4,8 @@ Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
 a stack class and wraps it in the multihead core (``create_model``), and
 builds both from a full config (``create_model_config``). The port's
 model carries its parameters, so creation also initializes them (the
-JAX package's ``init_params``). SchNet and PAINN are registered so far;
-the other stacks follow ROADMAP Queue 1.
+JAX package's ``init_params``). SchNet, PAINN, PNA and PNAPlus are
+registered so far; the other stacks follow ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -19,10 +19,16 @@ from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
 from hydragnn_tpu_torch.models.equivariant import PAINNStack
 from hydragnn_tpu_torch.models.layers import init_flax_
+from hydragnn_tpu_torch.models.pna import PNAPlusStack, PNAStack
 from hydragnn_tpu_torch.models.schnet import SchNetStack
 from hydragnn_tpu_torch.models.spec import ModelConfig, model_config_from_dict
 
-STACKS: Dict[str, Type[nn.Module]] = {"SchNet": SchNetStack, "PAINN": PAINNStack}
+STACKS: Dict[str, Type[nn.Module]] = {
+    "SchNet": SchNetStack,
+    "PAINN": PAINNStack,
+    "PNA": PNAStack,
+    "PNAPlus": PNAPlusStack,
+}
 
 
 def create_model(

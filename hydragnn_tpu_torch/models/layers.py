@@ -1,14 +1,13 @@
 """Shared building blocks: activations, the Dense twin, MLPs, init.
 
 Counterpart of ``hydragnn_tpu/models/layers.py``: ``activation``,
-``shifted_softplus``, ``DenseParams`` and ``MLP``. A flax ``nn.Dense``
+``shifted_softplus``, ``DenseParams``, ``MLP`` and ``MaskedBatchNorm``. A flax ``nn.Dense``
 becomes ``Dense``, an ``nn.Linear`` (weight ``[out, in]``, the transpose
 of flax's ``[in, out]`` kernel) that computes in the promoted type of its
 input and weight as flax does, so bf16 inputs meet f32 master weights. ``init_flax_`` draws weights with flax's default
 initializers (lecun_normal kernels, zero biases) from a seeded
 ``torch.Generator``, so the port starts from the same distribution as
 the JAX package (not the same numbers: the generators differ).
-``MaskedBatchNorm`` comes with the stacks that use it.
 """
 
 from __future__ import annotations
@@ -107,6 +106,44 @@ class MLP(nn.Module):
         return x
 
 
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the unmasked rows of a padded [N, F] array, written
+    out as the JAX package's: in training, the masked rows' mean and
+    biased variance (divided by the row count) in the input's type, and
+    running statistics ``ra = momentum * ra + (1 - momentum) * batch``
+    kept in f32 buffers ``mean``/``var`` (flax's ``batch_stats``); in
+    eval, the running statistics cast to the input's type. ``scale`` and
+    ``bias`` are parameters (a bf16 input meets them in f32, so the
+    output is f32, as in flax). ``nn.BatchNorm1d`` differs in all of
+    this (unbiased running variance, the other momentum convention, no
+    mask), so it is not used."""
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features, dtype=torch.float32))
+        self.register_buffer("var", torch.ones(features, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            m = mask.to(x.dtype)[:, None]
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=0) / count
+            var = (((x - mean) ** 2) * m).sum(dim=0) / count
+            with torch.no_grad():
+                keep = self.momentum
+                self.mean.copy_(keep * self.mean + (1.0 - keep) * mean.float())
+                self.var.copy_(keep * self.var + (1.0 - keep) * var.float())
+        else:
+            mean = self.mean.to(x.dtype)
+            var = self.var.to(x.dtype)
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean) * inv * self.scale + self.bias
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     std = math.sqrt(1.0 / max(fan_in, 1)) / _TRUNC_STD
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
@@ -117,13 +154,16 @@ def init_flax_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Re-initialize every parameter with flax's defaults, in module
     order, from ``torch.Generator().manual_seed(seed)``: Linear weights
     and DenseParams kernels lecun_normal over their fan-in, biases zero,
-    and any other tensor named ``w_*`` (per-node head weights
-    ``[nodes, in, out]``) lecun_normal over its second-to-last axis."""
+    any other tensor named ``w_*`` (per-node head weights
+    ``[nodes, in, out]``) lecun_normal over its second-to-last axis, and
+    batch-norm ``scale``s one."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "bias" or leaf.startswith("b_"):
             p.zero_()
+        elif leaf == "scale":
+            p.fill_(1.0)
         elif leaf == "weight":  # Dense (nn.Linear): [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         elif leaf == "kernel" or leaf.startswith("w_"):  # [..., in, out]

@@ -1,9 +1,11 @@
-"""Radial basis, cutoff and edge geometry for the SchNet and PaiNN paths.
+"""Radial basis, cutoff and edge geometry for the SchNet, PaiNN and
+PNAPlus paths.
 
 Counterpart of ``hydragnn_tpu/ops/rbf.py``: ``gaussian_smearing``,
-``sinc_basis``, ``cosine_cutoff`` and ``edge_vectors_and_lengths``. The
-other bases (Bessel, Chebyshev, polynomial cutoff, envelopes, distance
-transforms) come with the stacks that use them (ROADMAP Queue 1).
+``sinc_basis``, ``cosine_cutoff``, ``envelope`` (the DimeNet envelope of
+PNAPlus's Bessel basis) and ``edge_vectors_and_lengths``. The other
+bases (Chebyshev, polynomial cutoff, distance transforms) come with the
+stacks that use them (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
     """0.5 (cos(pi d/c) + 1) for d < c else 0."""
     out = 0.5 * (torch.cos(math.pi * dist / cutoff) + 1.0)
     return torch.where(dist < cutoff, out, 0.0)
+
+
+def envelope(dist_scaled: torch.Tensor, exponent: int = 5) -> torch.Tensor:
+    """DimeNet's smooth envelope u(x) with u(1) = u'(1) = u''(1) = 0 on
+    x = d / cutoff, zero from x = 1; x is clamped at 1e-8 inside 1/x."""
+    p = exponent + 1
+    a = -(p + 1) * (p + 2) / 2.0
+    b = p * (p + 2.0)
+    c = -p * (p + 1) / 2.0
+    x = dist_scaled
+    x_safe = torch.where(x < 1e-8, 1e-8, x)
+    out = 1.0 / x_safe + a * x ** (p - 1) + b * x**p + c * x ** (p + 1)
+    return torch.where(x < 1.0, out, 0.0)
 
 
 def edge_vectors_and_lengths(

@@ -1,8 +1,9 @@
 """Segment reductions and receiver aggregation.
 
 Counterpart of ``hydragnn_tpu/ops/segment.py``: ``segment_sum``,
-``segment_mean``, ``segment_max``, ``degree`` and the
-``aggregate_receivers{,_product,_pipeline,_mean}`` family.
+``segment_mean``, ``segment_max``, ``segment_min``, ``degree``, the
+``aggregate_receivers{,_product,_pipeline,_mean}`` family and PNA's
+``segment_multi_aggregate``.
 
 Dispatch. The JAX package chose between its Pallas kernel and XLA's
 scatter with a crossover table of TPU measurements. The port reads no
@@ -119,6 +120,34 @@ def segment_max(
     return torch.where(out <= neg, float(empty_value), out)
 
 
+def segment_min(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    empty_value: float = 0.0,
+) -> torch.Tensor:
+    """Masked min per segment: masked slots read ``finfo.max``, and a
+    segment that nothing reaches (or only masked slots) gives
+    ``empty_value``. Tied minima share the gradient equally, as JAX's
+    ``segment_min`` does; the min is order-free, so CUDA runs agree."""
+    pos = (
+        torch.finfo(data.dtype).max
+        if data.dtype.is_floating_point
+        else torch.iinfo(data.dtype).max
+    )
+    if mask is not None:
+        data = torch.where(_bcast(mask, data), data, pos)
+    out = torch.full(
+        (num_segments,) + tuple(data.shape[1:]), pos,
+        dtype=data.dtype, device=data.device,
+    )
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    out = out.scatter_reduce(0, idx, data, "amin", include_self=False)
+    return torch.where(out >= pos, float(empty_value), out)
+
+
 def _plan(batch):
     """The batch's plan as K1's trailing arguments."""
     be, bn = batch.seg_tile
@@ -196,3 +225,31 @@ def aggregate_receivers_mean(msg: torch.Tensor, batch) -> torch.Tensor:
     )
     count = torch.clamp(count, min=1)
     return total / _bcast(count, total)
+
+
+def segment_multi_aggregate(h: torch.Tensor, batch, *, eps: float = 1e-5):
+    """PNA's (mean, min, max, std) aggregators in two passes over the
+    edges. The moment pass sums ``concat([h, h * h])`` [E, 2F] through
+    ``aggregate_receivers`` (K1, reduce-only, on a planned batch) for the
+    mean and ``std = sqrt(max(E[h^2] - E[h]^2, 0) + eps)``; the extreme
+    pass takes one ``segment_min`` of ``concat([h, -h])`` for min and
+    max (an empty segment's max half reads -0.0, equal to 0). The clamp
+    at zero is ``torch.maximum``, whose gradient splits a tie in half
+    as JAX's ``maximum`` does (a receiver with one edge has var = 0)."""
+    f = h.shape[-1]
+    moments = aggregate_receivers(torch.cat([h, h * h], dim=-1), batch)
+    count = torch.clamp(
+        degree(batch.receivers, batch.num_nodes, mask=batch.edge_mask,
+               dtype=h.dtype),
+        min=1,
+    )
+    moments = moments / _bcast(count.to(moments.dtype), moments)
+    mean, sq_mean = moments[:, :f], moments[:, f:]
+    var = sq_mean - mean * mean
+    var = torch.maximum(var, torch.zeros_like(var))
+    std = torch.sqrt(var + eps)
+    ext = segment_min(
+        torch.cat([h, -h], dim=-1), batch.receivers, batch.num_nodes,
+        mask=batch.edge_mask,
+    )
+    return mean, ext[:, :f], -ext[:, f:], std

@@ -6,10 +6,18 @@ model and optimizer construction, the epoch loop, and a test pass that
 collects per-sample predictions. Both entry points run on ``"cuda"``
 unless the caller passes another ``device`` (the tests pass ``"cpu"``).
 
+Bin packing (``Training.Parallelism.packing``) is resolved as the JAX
+package resolves it on the single scheme: ``"auto"`` (the default)
+packs when the fitted budgets beat the unpacked ladder's padding waste
+(``padschedule.packing_beats_ladder`` on the train split's sizes and the
+run's seed), ``true`` fits budgets, and eval loaders fit their own
+budgets with the train-tuned slack.
+
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: data-parallel and multibranch schemes (Queue 1 item 11), bin
-packing, supersteps and the parallel input pipeline (item 10),
-checkpoints and ``continue`` (item 6), the divergence guard (item 12),
+it: data-parallel and multibranch schemes (Queue 1 item 11),
+supersteps and the parallel input pipeline (item 10),
+checkpoints and ``continue`` (item 6), the end-of-training batch-norm
+recalibration (item 8), the divergence guard (item 12),
 and dataset formats other than the raw LSMS text files (item 10). An
 interatomic-potential config (``enable_interatomic_potential``) trains
 on the energy + force loss, and ``run_prediction`` then returns graph
@@ -25,6 +33,11 @@ import torch
 from hydragnn_tpu_torch.config import load_config, save_config, update_config
 from hydragnn_tpu_torch.data.graph import GraphSample, select_input_features
 from hydragnn_tpu_torch.data.loader import GraphLoader, split_dataset
+from hydragnn_tpu_torch.data.padschedule import (
+    dataset_size_arrays,
+    fit_pack_budgets,
+    packing_beats_ladder,
+)
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config
@@ -74,6 +87,27 @@ def _input_cols(config: dict):
     )
 
 
+def _check_num_nodes_bound(config: dict, *datasets) -> None:
+    """Raise when a graph exceeds ``Architecture.num_nodes``, the static
+    per-graph bound of GPS's dense layout and of per-node heads (the
+    dense scatter would drop its extra nodes)."""
+    arch = config["NeuralNetwork"]["Architecture"]
+    heads = arch.get("output_heads", {})
+    needs_bound = bool(arch.get("global_attn_engine")) or (
+        isinstance(heads.get("node"), dict)
+        and heads["node"].get("type") == "mlp_per_node"
+    )
+    bound = arch.get("num_nodes")
+    if not needs_bound or bound is None:
+        return
+    max_n = max((s.num_nodes for ds in datasets for s in ds), default=0)
+    if max_n > int(bound):
+        raise ValueError(
+            f"Graph with {max_n} nodes exceeds Architecture.num_nodes="
+            f"{bound}; raise num_nodes (it must bound every split)"
+        )
+
+
 def _refuse_unported(config: dict) -> None:
     """Raise on every configured feature this slice does not port."""
     training = config["NeuralNetwork"].get("Training", {})
@@ -83,12 +117,6 @@ def _refuse_unported(config: dict) -> None:
         raise NotImplementedError(
             f"Parallelism scheme {scheme!r} is not ported yet (the port trains "
             "on one device): ROADMAP Queue 1 item 11"
-        )
-    packing = par.get("packing", {}).get("enabled", "auto")
-    if packing not in ("auto", False, "false", "0", "off", "no", ""):
-        raise NotImplementedError(
-            "bin-packed batches (Parallelism.packing) are not ported yet: "
-            "ROADMAP Queue 1 item 10"
         )
     steps = par.get("superstep", {}).get("steps", "auto")
     if steps not in ("auto", 1, "1"):
@@ -108,11 +136,71 @@ def _refuse_unported(config: dict) -> None:
         raise NotImplementedError(
             "checkpoints and continue are not ported yet: ROADMAP Queue 1 item 6"
         )
+    recal = training.get("bn_recalibration", 0)
+    if isinstance(recal, dict):
+        recal = recal.get("epochs", 1) if recal.get("enabled", True) else 0
+    if int(recal):
+        raise NotImplementedError(
+            "the end-of-training batch-norm recalibration is not ported yet: "
+            "ROADMAP Queue 1 item 8"
+        )
     guard = training.get("Guard", False)
     if guard.get("enabled", True) if isinstance(guard, dict) else guard:
         raise NotImplementedError(
             "the divergence guard is not ported yet: ROADMAP Queue 1 item 12"
         )
+
+
+def packing_settings(config: dict) -> dict:
+    """The ``Training.Parallelism.packing`` block resolved with the JAX
+    package's strict grammar: ``enabled`` is ``"auto"`` (the default),
+    ``True`` or ``False`` (boolean spellings accepted, anything else
+    raises), plus ``max_budgets``, ``slack`` and ``max_graphs``."""
+    par = config["NeuralNetwork"].get("Training", {}).get("Parallelism", {})
+    pk = dict(par.get("packing", {}))
+    enabled = pk.get("enabled", "auto")
+    if isinstance(enabled, str):
+        word = enabled.strip().lower()
+        if word == "auto":
+            enabled = "auto"
+        elif word in ("1", "true", "yes", "on"):
+            enabled = True
+        elif word in ("", "0", "false", "no", "off"):
+            enabled = False
+        else:
+            raise ValueError(
+                f"Parallelism.packing.enabled: {enabled!r} not recognized "
+                '(use true/false/"auto")'
+            )
+    slack, max_graphs = pk.get("slack"), pk.get("max_graphs")
+    return {
+        "enabled": enabled if enabled == "auto" else bool(enabled),
+        "max_budgets": max(1, int(pk.get("max_budgets", 2))),
+        "slack": None if slack is None else float(slack),
+        "max_graphs": None if max_graphs is None else int(max_graphs),
+    }
+
+
+def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0) -> tuple:
+    """``(packing_on, train_budgets, slack)`` for the single scheme, as
+    the JAX runner's ``_resolve_packing`` decides: ``"auto"`` packs when
+    ``packing_beats_ladder`` finds the fitted budgets beat the ladder
+    (the run's unpacked baseline, ``fixed_pad="auto"``) on the train
+    split's sizes and ``seed``; ``True`` fits the budgets. The slack is
+    the train fit's, which the eval loaders reuse."""
+    mode = pk["enabled"]
+    if not mode or not len(trainset):
+        return False, None, None
+    ns, es = dataset_size_arrays(trainset)
+    kw = dict(max_budgets=pk["max_budgets"], slack=pk["slack"],
+              max_graphs=pk["max_graphs"], seed=int(seed))
+    if mode == "auto":
+        won = packing_beats_ladder(ns, es, batch_size, **kw)
+        return (False, None, None) if won is None else (True, won[0], won[1])
+    if pk["slack"] is not None:
+        return True, fit_pack_budgets(ns, es, batch_size, **kw), pk["slack"]
+    budgets, meta = fit_pack_budgets(ns, es, batch_size, with_meta=True, **kw)
+    return True, budgets, meta["slack"]
 
 
 def run_training(
@@ -126,7 +214,8 @@ def run_training(
     (``None`` means ``"cuda"``). ``datasets`` may give (train, val, test)
     sample lists instead of ``Dataset.path``. Every batch carries the
     block plan at the Hopper tiles unless ``Training.use_segment_plan``
-    is false, so each CFConv layer runs K1 forward and K2 backward.
+    is false, so each aggregation runs K1 forward and K2 backward;
+    batches are bin-packed where ``resolve_packing`` says so.
 
     Returns (state, model, cfg, history, config)."""
     config = load_config(config_source)
@@ -139,6 +228,7 @@ def run_training(
         in_cols = _input_cols(config)
         trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
     config = update_config(config, trainset, valset, testset)
+    _check_num_nodes_bound(config, trainset, valset, testset)
     log_name = get_log_name_config(config)
     if verbosity > 0:
         setup_log(log_name)
@@ -155,13 +245,23 @@ def run_training(
     print_distributed(
         verbosity, 1, f"Model parameters: {sum(p.numel() for p in model.parameters())}"
     )
+    pk = packing_settings(config)
+    packed, budgets, slack = resolve_packing(pk, batch_size, trainset, seed)
+    pack_kw = dict(packing=packed, pack_max_budgets=pk["max_budgets"],
+                   pack_slack=slack, pack_max_graphs=pk["max_graphs"])
+    if packed:
+        print_distributed(
+            verbosity, 2,
+            "packing: on, train budgets "
+            f"{[(b.num_nodes, b.num_edges, b.num_graphs) for b in budgets]}",
+        )
     train_loader = GraphLoader(
         trainset, batch_size, shuffle=True, seed=seed, fixed_pad="auto",
-        with_segment_plan=seg_plan,
+        with_segment_plan=seg_plan, pack_budgets=budgets, **pack_kw,
     )
     val_loader, test_loader = (
         GraphLoader(ds, batch_size, fixed_pad="auto", with_segment_plan=seg_plan,
-                    cache_batches=True)
+                    cache_batches=True, **pack_kw)
         for ds in (valset, testset)
     )
     state = TrainState(model, select_optimizer(model.parameters(), training))
@@ -200,6 +300,7 @@ def run_prediction(
         in_cols = _input_cols(config)
         trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
     config = update_config(config, trainset, valset, testset)
+    _check_num_nodes_bound(config, trainset, valset, testset)
     training = config["NeuralNetwork"]["Training"]
     dev = next(model.parameters()).device
     _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)

@@ -67,6 +67,11 @@ def make_train_step(
         else:
             tot, tasks = multihead_loss(model(b), b, cfg)
         tot.backward()
+        # A parameter the loss does not reach takes a zero gradient, as in
+        # optax, so AdamW's weight decay still moves it.
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if clip_norm > 0:
             clip_by_global_norm_(params, clip_norm)
         optimizer.step()

@@ -396,3 +396,144 @@ def test_double_backward_matches_cpu(stages):
         assert (x is None) == (y is None)
         if x is not None:
             torch.testing.assert_close(x, y, **VJP_TOL["float32"])
+
+
+def _zinc_bin(seed=0, n_mols=320):
+    """The first packed bin of ZINC-like bond graphs (12-32 atoms, a
+    random tree plus ring closures, as examples/zinc/zinc.py draws them)
+    packed into budgets fitted for batch 64 (zinc.json's), collated with
+    the block plan: ~1,440 nodes, ~2,900 edges, up to 120 graph slots
+    with a long run of padding nodes."""
+    from hydragnn_tpu_torch.data.graph import GraphSample, collate
+    from hydragnn_tpu_torch.data.padschedule import (
+        dataset_size_arrays,
+        epoch_batch_indices,
+        fit_pack_budgets,
+        pack_epoch_ffd,
+    )
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(n_mols):
+        n = int(rng.integers(12, 33))
+        edges = [(i, int(rng.integers(0, i))) for i in range(1, n)]
+        for _ in range(int(rng.integers(0, 4))):
+            a, b = rng.integers(0, n, 2)
+            if a != b:
+                edges.append((int(a), int(b)))
+        ei = np.array([[e[0] for e in edges] + [e[1] for e in edges],
+                       [e[1] for e in edges] + [e[0] for e in edges]], np.int64)
+        samples.append(GraphSample(
+            x=rng.integers(6, 9, (n, 1)).astype(np.float32),
+            pos=rng.uniform(0, 3, (n, 3)).astype(np.float32), edge_index=ei,
+            y_graph=np.zeros(1, np.float32)))
+    ns, es = dataset_size_arrays(samples)
+    budgets = fit_pack_budgets(ns, es, 64, max_budgets=2, seed=0)
+    order = np.concatenate(list(epoch_batch_indices(len(samples), 64, shuffle=True,
+                                                    seed=0, epoch=0)))
+    idx, spec = pack_epoch_ffd(order, ns, es, budgets)[0]
+    return collate([samples[i] for i in idx], spec.pad_spec(), with_segment_plan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_kernels_pna_width(dt):
+    """K1 and K2 in the reduce-only flavour at PNA's moment-pass width
+    (F = 128: [h, h*h] at hidden 64) on a packed ZINC bin's plan: each
+    equals its plain version (same bits on two runs), K2 zero off the
+    plan."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    a_dt = getattr(torch, dt)
+    batch = _zinc_bin().to("cuda")
+    n, e, f = batch.num_nodes, batch.num_edges, 128
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window, n)
+    gen = torch.Generator().manual_seed(128)
+    a = torch.randn(e, f, generator=gen).to("cuda", a_dt)
+    g = torch.randn(n, f, generator=gen).to("cuda", a_dt)
+    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    with torch.no_grad():
+        got = edge_pipeline_planned(a, None, None, *plan)
+        again = edge_pipeline_planned(a, None, None, *plan)
+        ref = edge_pipeline_plain(a, None, None, *plan)
+    d_a, d_b, d_w = edge_pipeline_bwd_planned(g, a, None, None, *plan)
+    d_a2 = edge_pipeline_bwd_planned(g, a, None, None, *plan)[0]
+    d_ref = edge_pipeline_bwd_plain(g, a, None, None, *plan)[0]
+    torch.cuda.synchronize()
+    assert (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2) == (2, 2)
+    assert got.shape == (n, f) and got.dtype == a_dt and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dt])
+    assert d_b is None and d_w is None and torch.equal(d_a, d_a2)
+    torch.testing.assert_close(d_a.float(), d_ref.float(), **VJP_TOL[dt])
+    covered = torch.zeros(e, dtype=torch.bool, device="cuda")
+    covered[batch.seg_perm[batch.seg_valid].long()] = True
+    assert not d_a[~covered].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_masked_batch_norm_on_card(dt):
+    """MaskedBatchNorm on the card against the CPU: two train steps
+    (outputs and f32 running statistics) over a packed bin's node mask,
+    then eval mode."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
+
+    batch = _zinc_bin()
+    mask = batch.node_mask
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn(mask.shape[0], 64, generator=gen) * 3 + 1 for _ in range(2)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        bn = MaskedBatchNorm(64).to(dev)
+        with torch.no_grad():
+            bn.scale.copy_(torch.linspace(0.5, 1.5, 64))
+            bn.bias.copy_(torch.linspace(-1, 1, 64))
+        bn.train()
+        got = [bn(x.to(dev, getattr(torch, dt)), mask.to(dev)) for x in xs]
+        bn.eval()
+        got.append(bn(xs[1].to(dev, getattr(torch, dt)), mask.to(dev)))
+        outs[dev] = [o.detach().float().cpu() for o in got] + [bn.mean.cpu(), bn.var.cpu()]
+    assert all(o.dtype == torch.float32 for o in outs["cuda"])
+    for x, y in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(x, y, **TOL[dt])
+
+
+@pytest.mark.cuda
+def test_dense_batch_and_segment_min_on_card():
+    """to_dense_batch/from_dense_batch at zinc.json's bound (40 slots; the
+    packed bin's padding graph holds hundreds of padding nodes, most past
+    the bound) and segment_min with ties, forward and gradient, on the
+    card against the CPU."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.dense import from_dense_batch, to_dense_batch
+    from hydragnn_tpu_torch.ops.segment import segment_min
+
+    batch = _zinc_bin()
+    assert int(batch.node_slot.max()) >= 40
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(batch.num_nodes, 64, generator=gen)
+    w = torch.randn(batch.num_graphs, 40, 64, generator=gen)
+    h = torch.randn(batch.num_edges, 8, generator=gen)
+    h[1] = h[0]  # a tie into one receiver (edges are receiver-sorted)
+    assert batch.receivers[1] == batch.receivers[0]
+    cot = torch.randn(batch.num_nodes, 8, generator=gen)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        b = batch.to(dev)
+        xx = x.to(dev).requires_grad_(True)
+        hh = h.to(dev).requires_grad_(True)
+        dense, mask = to_dense_batch(xx, b, 40)
+        back = from_dense_batch(dense * w.to(dev), b, 40)
+        mn = segment_min(hh, b.receivers, b.num_nodes, mask=b.edge_mask)
+        ((back * back).sum() + (mn * cot.to(dev)).sum()).backward()
+        res[dev] = [t.detach().cpu() for t in (dense, mask, back, mn, xx.grad, hh.grad)]
+    for name, x_, y_ in zip(("dense", "mask", "back", "min", "d_x", "d_h"),
+                            res["cuda"], res["cpu"]):
+        torch.testing.assert_close(x_, y_, rtol=1e-5, atol=1e-5, msg=name)

@@ -200,5 +200,5 @@ def test_params_from_jax_layout(port, models):
     assert set(sd) == set(tmodel.state_dict())
     with pytest.raises(ValueError, match="no mapping"):
         port.convert.params_from_jax(
-            {"stack": {"conv_0": {"lin1": {"scale": np.ones(3)}}}}
+            {"stack": {"conv_0": {"lin1": {"embedding": np.ones(3)}}}}
         )

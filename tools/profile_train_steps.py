@@ -1,0 +1,110 @@
+"""Where a train step's device time goes, kernel by kernel, on the card.
+
+    python tools/profile_train_steps.py
+
+Builds two of chip_smoke.py's models at full width with random weights
+(seed 0): examples/md17/md17.json's PaiNN potential on bench.py's
+molecules and examples/zinc/zinc.json's PNAPlus + GPS on zinc.py's
+molecules. Then it times one f32 train step (a fresh AdamW on a copy of
+the model each time) on:
+
+- md17.json: the first batch of the unpacked bucket ladder (``packing``
+  off) and the first packed bin that run_training trains on, in turns
+  (ladder, packed, packed, ladder);
+- zinc.json: the first packed bin.
+
+For each step it prints the batch's size, the eager time (CUDA events
+around 20 back-to-back steps), the device time and kernel count
+(``torch.profiler`` over 5 steps, user-annotation ranges left out as
+chip_smoke.py leaves them out), and the kernels that take the most
+device time, grouped by name. Needs one CUDA device; exits 2 without
+one.
+"""
+
+import copy
+import os
+import sys
+from collections import defaultdict
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+TOP = 8
+
+
+def step_profile(model0, cfg, training, batch, mlip, n_prof=5):
+    """Eager ms, device ms, kernels per step and the top kernels by name
+    of one f32 train step on ``batch`` (a CUDA batch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    model = copy.deepcopy(model0)
+    opt = select_optimizer(model.parameters(), training)
+    step = make_train_step(model, opt, cfg, compute_grad_energy=mlip)
+    state = TrainState(model, opt)
+    eager = cs.eager_ms(lambda: step(state, batch), iters=20, warmup=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            step(state, batch)
+        torch.cuda.synchronize()
+    kernels = cs.device_kernels(prof)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / n_prof
+        by_name[e.name][1] += 1
+    device = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    return eager, device, len(kernels) // n_prof, top
+
+
+def report(what, batch, result):
+    eager, device, n, top = result
+    idle = 100 * (1 - device / eager) if device else float("nan")
+    print(f"{what}: {batch.num_nodes} nodes, {int(batch.edge_mask.sum())} valid of "
+          f"{batch.num_edges} edge slots, {batch.num_graphs} graph slots; {eager:.3f} ms "
+          f"eager, {device:.3f} ms device, {n} kernels, idle {idle:.0f}%", flush=True)
+    for name, (ms, count) in top:
+        print(f"    {ms:8.4f} ms {100 * ms / device:5.1f}%  x{count // 5:<4d} {name[:110]}",
+              flush=True)
+
+
+def main():
+    import chip_smoke as cs
+
+    cs.phase_device()
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+
+    print(cs.card_line(), flush=True)
+    config, splits, _ = cs.mlip_data()
+    ladder_config = copy.deepcopy(config)
+    ladder_config["NeuralNetwork"]["Training"].setdefault("Parallelism", {})["packing"] = {
+        "enabled": False}
+    ladder = next(iter(cs.train_loader(ladder_config, splits[0])[0])).to("cuda")
+    loader, _ = cs.train_loader(config, splits[0])
+    cs.check(loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
+    packed = next(iter(loader)).to("cuda")
+    full = update_config(config, *splits)
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    training = full["NeuralNetwork"]["Training"]
+    for what, batch in (("md17 ladder", ladder), ("md17 packed", packed),
+                        ("md17 packed", packed), ("md17 ladder", ladder)):
+        report(what, batch, step_profile(model0, cfg, training, batch, mlip=True))
+
+    configs, zsplits = cs.zinc_data()
+    zloader, _ = cs.train_loader(configs["fp32"], zsplits[0])
+    zbin = next(iter(zloader)).to("cuda")
+    zfull = update_config(configs["fp32"], *zsplits)
+    zmodel0, zcfg = create_model_config(zfull, "cuda", seed=0)
+    report("zinc packed", zbin, step_profile(zmodel0, zcfg, zfull["NeuralNetwork"]["Training"],
+                                             zbin, mlip=False))
+
+
+if __name__ == "__main__":
+    main()
