@@ -114,12 +114,38 @@ exits non-zero):
                gradients, AdamW-updated parameters, running statistics; see
                hold_zinc_step for the scaling); the f32 step's eager and
                device time and kernel count.
-12. report     the kernels JSON line (with each kernel's times at the
+12. polymer-kernels  K1 and K2 in the conv node head's a,W flavour at
+               (F_in, F_out) = (64, 64) and (64, 1), f32, on the plan of the
+               first packed train bin of polymers.json's run: against their
+               plain versions (same bits on two runs, K2 zero off the plan),
+               launch shapes, times beside the bound and the plain version.
+13. polymers   examples/open_polymers_2026/polymers.json's SAGE at full
+               width (hidden 64, 3 layers; graph head 1x64 + [64, 64], conv
+               node head [64, 64] + 1; AdamW 0.0005, batch 32) on the
+               example's 300 chains (seed 26) split 0.8, trained by
+               run_training on the card (3 epochs, packing "auto", which
+               packs), then run_prediction(config) alone, which builds the
+               model on the card and restores the run's checkpoint. Checks:
+               finite losses, every train batch a packed bin, K1 launches = 3
+               x forwards and K2 launches = 3 x train steps (the conv head's
+               three layers), the restored tensors equal the run's final
+               ones bit for bit, the predictions equal the in-process
+               run_prediction(..., state=...) bit for bit or else within the
+               f32 forward tolerance (which held is printed); the first train
+               step on the first packed bin, card against the CPU plain path;
+               the step's eager and device time and kernel count.
+14. zoo        one train step each of GIN, MFC, CGCNN (polymers.json's
+               widths) and GAT (csce_gap.json's: hidden 60, heads 6) on the
+               first polymer bin, card against the CPU plain path, and one
+               recalibrate_batch_stats pass of polymers.json's model, card
+               against CPU.
+15. report     the kernels JSON line (with each kernel's times at the
                three SchNet shapes under "by_shape", at PaiNN's widths
-               under "mlip_widths" and at PNA's under "zinc_width";
-               "launches" sums the serving, SchNet training, MLIP and ZINC
-               runs, "launches_by_path" splits them), the card line, and
-               the final {"ok": true, "device": ...} line.
+               under "mlip_widths", at PNA's under "zinc_width" and at the
+               conv node head's under "polymer_widths"; "launches" sums the
+               serving, SchNet training, MLIP, ZINC and polymer runs,
+               "launches_by_path" splits them), the card line, and the
+               final {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -1919,6 +1945,412 @@ def phase_zinc(configs, splits, loader, first_bin):
                                 edges=batch.num_edges, e_valid=e_valid)}
 
 
+# ---------------------------------------------------------------- [polymers]
+
+POLY_MONOMERS = 3  # one-hot monomer types
+POLYMER_WIDTHS = ((64, 64), (64, 1))  # the conv node head's K1/K2: [64, 64] + 1
+
+
+def polymer_chain(rng):
+    """examples/open_polymers_2026/train.py's ``polymer_chain``, from the
+    same seeded generator in its order of draws: a backbone of 20-39
+    sites with side groups of 1-2 atoms on about half of them, one-hot
+    monomer types, a graph target from length, branching and
+    composition, and a per-node strain proxy."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+
+    n_backbone = int(rng.integers(20, 40))
+    edges = [(i, i + 1) for i in range(n_backbone - 1)]
+    types = [int(rng.integers(0, POLY_MONOMERS)) for _ in range(n_backbone)]
+    n = n_backbone
+    for i in range(n_backbone):
+        if rng.random() < 0.5:
+            k = int(rng.integers(1, 3))
+            prev = i
+            for _ in range(k):
+                edges.append((prev, n))
+                types.append(int(rng.integers(0, POLY_MONOMERS)))
+                prev = n
+                n += 1
+    snd = np.array([e[0] for e in edges] + [e[1] for e in edges])
+    rcv = np.array([e[1] for e in edges] + [e[0] for e in edges])
+    t = np.asarray(types)
+    x = np.zeros((n, POLY_MONOMERS), np.float32)
+    x[np.arange(n), t] = 1.0
+    deg = np.bincount(snd, minlength=n).astype(np.float32)
+    branch_frac = float((deg > 2).mean())
+    comp = x.mean(axis=0)
+    y_graph = np.array(
+        [0.01 * n + 2.0 * branch_frac + float(comp @ [0.5, -0.3, 0.1])], np.float32
+    )
+    ntype = t[rcv].astype(np.float32)
+    nbr_mean = np.zeros(n, np.float32)
+    np.add.at(nbr_mean, snd, ntype)
+    nbr_mean /= np.maximum(deg, 1.0)
+    y_node = (0.3 * deg + np.abs(t - nbr_mean)).astype(np.float32)
+    return GraphSample(x=x, edge_index=np.stack([snd, rcv]).astype(np.int64),
+                       y_graph=y_graph, y_node=y_node.reshape(-1, 1))
+
+
+def example_config(*parts):
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", *parts)
+    with open(here) as f:
+        return json.load(f)
+
+
+def polymer_data():
+    """examples/open_polymers_2026/polymers.json cut to 3 epochs, and the
+    example's 300 chains (seed 26) split 0.8 as its main() splits them."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    config = example_config("open_polymers_2026", "polymers.json")
+    config["Verbosity"] = {"level": 0}
+    config["NeuralNetwork"]["Training"]["num_epoch"] = 3
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(26)
+    splits = split_dataset([polymer_chain(rng) for _ in range(300)], 0.8)
+    log(f"[polymers] polymers.json's SAGE (hidden 64, 3 layers, mean pooling; graph head "
+        f"1x64 + [64, 64], conv node head [64, 64] + 1; AdamW 0.0005, batch 32, packing "
+        f"auto), 3 epochs; the example's 300 chains (seed 26), splits "
+        f"{[len(x) for x in splits]}, made in {time.perf_counter() - t0:.2f} s")
+    return config, splits
+
+
+def phase_polymer_kernels(batch):
+    """K1 and K2 in the conv node head's a,W flavour at (F_in, F_out) =
+    (64, 64) and (64, 1), f32, on the plan of the first train bin
+    polymers.json's run_training forms: against their plain versions
+    (same bits on two runs, K2 zero off the plan), the launch shapes, and
+    the times beside the bound and the plain version (no one PyTorch call
+    computes the a,W flavour, so no library time)."""
+    from hydragnn_tpu_torch.ops.cuda_build import load_library
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    t0 = time.perf_counter()
+    lib = load_library()
+    dev = batch.seg_perm.device
+    gen = torch.Generator().manual_seed(13)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    n, e = batch.num_nodes, batch.num_edges
+    e_valid = int(batch.edge_mask.sum())
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    covered = torch.zeros(e, dtype=torch.bool, device=dev)
+    covered[plan[0][plan[2]].long()] = True
+    log(f"[polymer-kernels] first train bin: n {n}, e {e} ({e_valid} valid), "
+        f"{batch.num_graphs} graph slots, plan {slots} slots in {blocks} blocks")
+    rows = []
+    dt = torch.float32
+    for f_in, f_out in POLYMER_WIDTHS:
+        a = torch.randn(e, f_in, generator=gen).to(dev)
+        w = (torch.randn(f_in, f_out, generator=gen) / f_in ** 0.5).to(dev)
+        g = torch.randn(n, f_out, generator=gen).to(dev)
+        args = (a, None, w, *plan, n)
+        with torch.no_grad():
+            got, again = edge_pipeline_planned(*args), edge_pipeline_planned(*args)
+            ref = edge_pipeline_plain(*args)
+        d_a, d_b, d_w = edge_pipeline_bwd_planned(g, *args)
+        da2, _, dw2 = edge_pipeline_bwd_planned(g, *args)
+        ra, _, rw = edge_pipeline_bwd_plain(g, *args)
+        torch.cuda.synchronize()
+        what = f"a,W ({f_in}, {f_out}) f32"
+        check(torch.equal(got, again) and torch.equal(d_a, da2) and torch.equal(d_w, dw2),
+              f"{what}: two runs differ")
+        check(got.shape == (n, f_out) and d_b is None and d_w.shape == (f_in, f_out),
+              f"{what}: output shapes")
+        torch.testing.assert_close(got, ref, **F32_TOL)
+        torch.testing.assert_close(d_a, ra, **VJP_TOL)
+        torch.testing.assert_close(d_w, rw, **VJP_TOL)
+        check(not bool(d_a[~covered].any()), f"{what}: K2 nonzero off the plan")
+        shapes = {k: launch_shape(lib, k, n, e, f_in, f_out, 32, has_b=False, has_w=True)
+                  for k in ("k1", "k2")}
+        row = {"f_in": f_in, "f_out": f_out, "dtype": "f32", "n": n, "e": e,
+               "e_valid": e_valid, "k1_launch": shapes["k1"], "k2_launch": shapes["k2"],
+               "k1_max_abs_err": float((got - ref).abs().max()),
+               "k2_max_abs_err": max(float((d_a - ra).abs().max()),
+                                     float((d_w - rw).abs().max()))}
+        with torch.no_grad():
+            row["k1_ms"] = time_ms(lambda: edge_pipeline_planned(*args))
+            row["k1_plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
+            row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
+            row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+        row["k1_library_ms"] = row["k2_library_ms"] = None
+        nbytes, ops, out_dt = k1_work(e_valid, n, f_in, f_out, slots, blocks, dt, dt,
+                                      False, True)
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
+        nbytes, ops, g_dt = k2_work(e, e_valid, n, f_in, f_out, slots, blocks, dt, dt,
+                                    False, True)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
+        rows.append(row)
+        log(f"[polymer-kernels] {what}: K1 {shapes['k1']}, max|err| "
+            f"{row['k1_max_abs_err']:.3g}, {row['k1_ms'] * 1e3:.1f} us, plain "
+            f"{row['k1_plain_ms'] * 1e3:.1f} us, bound {row['k1_bound_ms'] * 1e3:.2f} us "
+            f"({row['k1_bound_by']}); K2 {shapes['k2']}, max|err| "
+            f"{row['k2_max_abs_err']:.3g}, {row['k2_ms'] * 1e3:.1f} us, plain "
+            f"{row['k2_plain_ms'] * 1e3:.1f} us, bound {row['k2_bound_ms'] * 1e3:.2f} us "
+            f"({row['k2_bound_by']})")
+    log(f"[polymer-kernels] K1 and K2, a,W at (64, 64) and (64, 1), f32: 4 comparisons "
+        f"passed (identical bits on two runs; K2 zero off the plan) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def state_tensors(state):
+    """A TrainState's tensors by name: the model's state_dict (parameters
+    and running statistics) and the optimizer's per-parameter state."""
+    out = dict(state.model.state_dict())
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def polymer_run(config, splits, budgets):
+    """run_training of polymers.json on the card; then
+    run_prediction(config) alone (no state, model or cfg: it builds the
+    model on the card and restores the run's checkpoint) against the
+    in-process run_prediction(..., state=...): the restored tensors equal
+    the run's final ones bit for bit, and the predictions equal the
+    in-process ones bit for bit, or else within the f32 forward
+    tolerance (SAGE's mean aggregation is index_add_, whose float atomics
+    can order the sums differently from run to run)."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.runner import restore_checkpoint_state
+
+    with recorded_run() as rec:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t0 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, datasets=splits, seed=0,
+                                                          device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k1, k2, n_fwd = (edge_pipeline_planned.launches,
+                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        shapes = list(rec["shapes"])
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        rec["forwards"] = 0
+        t0 = time.perf_counter()
+        alone = port.run_prediction(full, datasets=splits)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
+                                        edge_pipeline_bwd_planned.launches, rec["forwards"])
+    inproc = port.run_prediction(full, datasets=splits, state=state, model=model, cfg=cfg)
+    layers = len(cfg.node_branches[0].dim_headlayers[:cfg.node_branches[0].num_headlayers]) + 1
+    keys = set(budget_keys(budgets))
+    losses = hist.train_loss + hist.val_loss + hist.test_loss + [alone[0]]
+    check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
+          f"polymers: non-finite loss in {losses} or in the steps {steps.tolist()}")
+    check(len(steps) == state.step > 0 and set(shapes) <= keys,
+          f"polymers: train batches {sorted(set(shapes))} are not all packed bins {keys}")
+    check(layers == 3 and k1 == layers * n_fwd and k2 == layers * state.step,
+          f"polymers run_training: K1 {k1} in {n_fwd} forwards, K2 {k2} in {state.step} "
+          f"train steps (want {layers} per forward and per step, from the conv head)")
+    check(k1_pred == layers * n_fwd_pred and k2_pred == 0 and n_fwd_pred > 0,
+          f"polymers run_prediction(config): K1 {k1_pred}, K2 {k2_pred}, {n_fwd_pred} "
+          f"forwards")
+    fresh = create_model_config(full, "cuda", seed=7)[0]
+    restored = state_tensors(restore_checkpoint_state(full, fresh))
+    saved = state_tensors(state)
+    check(set(restored) == set(saved) and all(torch.equal(restored[k], saved[k])
+                                              for k in saved),
+          "polymers: the restored checkpoint differs from the run's final state")
+    n_test_nodes = sum(s.num_nodes for s in splits[2])
+    check([p.shape for p in alone[3]] == [(len(splits[2]), 1), (n_test_nodes, 1)]
+          and all(np.isfinite(p).all() for p in alone[3]),
+          f"polymers run_prediction wants finite [graphs, 1] and [nodes, 1] predictions, "
+          f"got {[p.shape for p in alone[3]]}")
+    same = all(np.array_equal(a, b) for a, b in zip(alone[3], inproc[3]))
+    worst = max(float(np.abs(a.astype(np.float64) - b).max())
+                for a, b in zip(alone[3], inproc[3]))
+    if not same:
+        for a, b in zip(alone[3], inproc[3]):
+            np.testing.assert_allclose(a, b, **F32_TOL)
+    held = "bit for bit" if same else f"within rtol 1e-5 / atol 1e-4 (max |diff| {worst:.3g})"
+    fell = hist.train_loss[-1] < steps[0]
+    log(f"[polymers] run_training on the card ({train_s:.2f} s, {state.step} train steps "
+        f"on packed bins {sorted(set(shapes))}, {n_fwd} forwards): train loss "
+        f"{hist.train_loss}, val {hist.val_loss}, test {hist.test_loss}; per-task test "
+        f"{np.asarray(hist.test_tasks[-1]).reshape(-1).tolist()}; the last epoch's mean "
+        f"train loss is {'below' if fell else 'not below'} the first step's {steps[0]:.6g}")
+    log(f"[polymers] K1 launches {k1} = {layers} x {n_fwd} forwards, K2 launches {k2} = "
+        f"{layers} x {state.step} train steps (all from the conv node head)")
+    log(f"[polymers] run_prediction(config) alone ({pred_s:.2f} s): restored the run's "
+        f"checkpoint ({len(saved)} tensors equal bit for bit), error {alone[0]:.6g} over "
+        f"{len(splits[2])} chains / {n_test_nodes} nodes, K1 {k1_pred} = {layers} x "
+        f"{n_fwd_pred} forwards, K2 0; predictions equal the in-process "
+        f"run_prediction(..., state=...) {held}")
+    return {"k1": k1 + k1_pred, "k2": k2, "steps": state.step,
+            "forwards": n_fwd + n_fwd_pred, "step_losses": steps.tolist(),
+            "train_loss": hist.train_loss, "val_loss": hist.val_loss,
+            "test_loss": hist.test_loss, "prediction_error": alone[0],
+            "predictions_bit_for_bit": same, "prediction_max_abs_diff": worst,
+            "seconds": train_s, "prediction_seconds": pred_s, "loss_fell": bool(fell),
+            "bins": sorted(set(shapes))}
+
+
+def phase_polymers(config, splits, loader, first_bin):
+    """polymers.json trained by run_training on the card, then
+    run_prediction(config) alone (polymer_run); the first train step on
+    the first packed bin, card against the CPU plain path; the step's
+    eager and device time."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    budgets = loader.pack_budgets
+    stats = loader.packing_stats(0)
+    log(f"[polymers] packing on ('auto' resolved as the JAX package resolves it): train "
+        f"budgets {budget_keys(budgets)}; epoch 0 packs {stats['batches']} bins, node fill "
+        f"{stats['node_fill']:.3f}, edge fill {stats['edge_fill']:.3f}, pad ratio "
+        f"{stats['pad_ratio']:.3f}; the first bin holds {int(first_bin.graph_mask.sum())} "
+        f"chains, {int(first_bin.node_mask.sum())} real nodes of {first_bin.num_nodes}, "
+        f"{int(first_bin.edge_mask.sum())} valid edges of {first_bin.num_edges}")
+    run = polymer_run(config, splits, budgets)
+
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    lr = float(training["Optimizer"]["learning_rate"])
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    card = zinc_step(copy.deepcopy(model0), cfg, training, first_bin.to("cuda"),
+                     torch.float32)
+    cpu = zinc_step(copy.deepcopy(model0).to("cpu"), cfg, training, first_bin, torch.float32)
+    check(card["launches"] == (3, 3) and cpu["launches"] == (0, 0),
+          f"polymer step: K1/K2 launched {card['launches']} on the card (want 3 each), "
+          f"{cpu['launches']} on the CPU")
+    worst = hold_zinc_step(card, cpu, VJP_TOL, lr, "polymers f32")
+    log(f"[polymers] first step on the first packed bin, card vs CPU plain path, f32: loss "
+        f"{card['loss']:.6g} vs {cpu['loss']:.6g} (|err| {worst['loss']:.3g}); worst |err| "
+        f"grads {worst['grad']:.3g} (largest |grad| {worst['scales'][0]:.3g}), updated "
+        f"params {worst['param']:.3g}, running statistics {worst['stats']:.3g}; rtol "
+        f"{VJP_TOL['rtol']}, atol {VJP_TOL['atol']} x min(largest, 1); K1 3, K2 3 in the step")
+
+    batch = first_bin.to("cuda")
+    timed = copy.deepcopy(model0)
+    opt = select_optimizer(timed.parameters(), training)
+    step = make_train_step(timed, opt, cfg)
+    timed_state = TrainState(timed, opt)
+    eager = eager_ms(lambda: step(timed_state, batch), iters=20, warmup=3)
+    prof = device_profile(lambda: step(timed_state, batch), per_call=(3, 3),
+                          what="polymer step")
+    e_valid = int(batch.edge_mask.sum())
+    log(f"[polymers] one f32 train step on the first packed bin "
+        f"({int(batch.graph_mask.sum())} chains, {batch.num_nodes} nodes, {e_valid} edges; "
+        f"padded {batch.num_edges}): {eager:.3f} ms issued eagerly, "
+        + profile_note(prof, eager, "step"))
+    seconds = time.perf_counter() - t0
+    log(f"[polymers] phase took {seconds:.1f} s")
+    return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": worst,
+            "packing": dict(stats, budgets=budget_keys(budgets)), "seconds": seconds,
+            "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
+                                edges=batch.num_edges, e_valid=e_valid), "model0": model0,
+            "cfg": cfg}
+
+
+def zoo_configs():
+    """One config per remaining invariant stack at its example's widths:
+    GAT at csce_gap.json's (hidden 60, 3 layers, graph head 1x60 + [60,
+    60]; heads 6), with the polymers' three input features and graph
+    target in place of csce's; GIN, MFC and CGCNN, which no example
+    config names, at polymers.json's (hidden 64 — CGCNN keeps the input
+    width —, 3 layers, both heads), MFC with max_neighbours 10 (PyG
+    MFConv's default max_degree) and bn_recalibration off."""
+    configs = {}
+    for stack in ("GIN", "MFC", "CGCNN"):
+        config = example_config("open_polymers_2026", "polymers.json")
+        arch = config["NeuralNetwork"]["Architecture"]
+        arch["mpnn_type"] = stack
+        if stack == "MFC":
+            arch["max_neighbours"] = 10
+            config["NeuralNetwork"]["Training"]["bn_recalibration"] = 0
+        configs[stack] = config
+    gat = example_config("csce", "csce_gap.json")
+    poly = example_config("open_polymers_2026", "polymers.json")
+    voi = poly["NeuralNetwork"]["Variables_of_interest"]
+    gat["NeuralNetwork"]["Variables_of_interest"] = {
+        k: (v if k == "input_node_features" else v[:1]) for k, v in voi.items()}
+    configs["GAT"] = gat
+    return configs
+
+
+def phase_zoo(splits, first_bin, poly_model, poly_cfg, trainset):
+    """One train step each of GIN, MFC, CGCNN and GAT (zoo_configs) on
+    the first packed polymer bin, card against the CPU plain path (loss,
+    gradients, AdamW-updated parameters, running statistics, as
+    hold_zinc_step holds them) with their K1/K2 launches (3 each from a
+    conv node head, none without one); then one recalibrate_batch_stats
+    pass of polymers.json's model over the first four unpacked train
+    batches, card against CPU."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
+    from hydragnn_tpu_torch.train.loop import TrainState, recalibrate_batch_stats
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+
+    t0 = time.perf_counter()
+    out = {}
+    for stack, config in zoo_configs().items():
+        full = update_config(config, *splits)
+        training = full["NeuralNetwork"]["Training"]
+        lr = float(training["Optimizer"]["learning_rate"])
+        model0, cfg = create_model_config(full, "cuda", seed=0)
+        want = (3, 3) if cfg.node_branches else (0, 0)
+        card = zinc_step(copy.deepcopy(model0), cfg, training, first_bin.to("cuda"),
+                         torch.float32)
+        cpu = zinc_step(copy.deepcopy(model0).to("cpu"), cfg, training, first_bin,
+                        torch.float32)
+        check(card["launches"] == want and cpu["launches"] == (0, 0),
+              f"zoo {stack}: K1/K2 launched {card['launches']} on the card (want {want}), "
+              f"{cpu['launches']} on the CPU")
+        worst = hold_zinc_step(card, cpu, VJP_TOL, lr, f"zoo {stack}")
+        n_params = sum(p.numel() for p in model0.parameters())
+        out[stack] = {k: v for k, v in worst.items() if k != "scales"}
+        out[stack].update(launches=card["launches"], params=n_params)
+        log(f"[zoo] {stack} (hidden {cfg.hidden_dim}, {cfg.num_conv_layers} layers, "
+            f"{n_params} parameters, heads {[h.type for h in cfg.heads]}): first step card "
+            f"vs CPU, loss {card['loss']:.6g} vs {cpu['loss']:.6g}; worst |err| grads "
+            f"{worst['grad']:.3g} (largest |grad| {worst['scales'][0]:.3g}), params "
+            f"{worst['param']:.3g}, statistics {worst['stats']:.3g}; K1/K2 {card['launches']}")
+    loader = GraphLoader(trainset, 32, with_segment_plan=True)
+    batches = [b for b, _ in zip(loader, range(4))]
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(poly_model).to(dev)
+        state = TrainState(model, select_optimizer(model.parameters(), {}))
+        recalibrate_batch_stats(model, state, batches, device=torch.device(dev))
+        stats[dev] = {k: v.float().cpu().numpy() for k, v in model.named_buffers()}
+    n_bn = sum(isinstance(m, MaskedBatchNorm) for m in poly_model.modules())
+    recal = max(assert_close_scaled(stats["cuda"][k], stats["cpu"][k], F32_TOL,
+                                    f"recalibrated {k}", scale=1.0)[0] for k in stats["cpu"])
+    out["recalibration"] = {"max_abs_err": recal, "batch_norms": n_bn, "batches": 4}
+    seconds = time.perf_counter() - t0
+    log(f"[zoo] recalibrate_batch_stats of polymers.json's model over 4 unpacked train "
+        f"batches ({n_bn} batch norms): card vs CPU worst |err| {recal:.3g} (rtol "
+        f"{F32_TOL['rtol']}, atol {F32_TOL['atol']})")
+    log(f"[zoo] phase took {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 def bcc_data():
     """The BCC set of tests/test_graphs.py (300 configurations, seed 7)
     written under dataset/ (gitignored), its config, and its stratified
@@ -1994,17 +2426,25 @@ def main():
     zinc_bin = next(iter(zinc_loader))
     zinc_rows = phase_zinc_kernels(zinc_bin.to("cuda"))
     zinc = phase_zinc(zinc_cfgs, zinc_splits, zinc_loader, zinc_bin)
+    poly_cfg, poly_splits = polymer_data()
+    poly_loader, _ = train_loader(poly_cfg, poly_splits[0])
+    check(poly_loader.packing, "polymers.json's packing 'auto' did not pack the chains")
+    poly_bin = next(iter(poly_loader))
+    poly_rows = phase_polymer_kernels(poly_bin.to("cuda"))
+    polymers = phase_polymers(poly_cfg, poly_splits, poly_loader, poly_bin)
+    zoo = phase_zoo(poly_splits, poly_bin, polymers.pop("model0"), polymers.pop("cfg"),
+                    poly_splits[0])
 
     kernels = [{
         "name": "edge_pipeline",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
-        "launches": launches + train["k1"] + mlip["k1"] + zinc["k1"],
+        "launches": launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"],
         "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
-                             "zinc": zinc["k1"]},
+                             "zinc": zinc["k1"], "polymers": polymers["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
-                           + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows
+                           + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               if r["dtype"] == "f32"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2020,16 +2460,18 @@ def main():
                         for r in widths],
         "zinc_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                        for r in zinc_rows],
+        "polymer_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                           for r in poly_rows],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
-        "launches": train["k2"] + mlip["k2"] + zinc["k2"],
+        "launches": train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"],
         "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
-                             "zinc": zinc["k2"]},
+                             "zinc": zinc["k2"], "polymers": polymers["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
-                           + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows
+                           + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               if r["dtype"] == "f32"]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
@@ -2044,11 +2486,15 @@ def main():
                         for r in widths],
         "zinc_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                        for r in zinc_rows],
+        "polymer_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                           for r in poly_rows],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
+    log(f"[report] polymers: {json.dumps(polymers)}")
+    log(f"[report] zoo: {json.dumps(zoo)}")
     log(f"[report] card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

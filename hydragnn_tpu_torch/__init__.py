@@ -11,10 +11,12 @@ the block planner, the packer, the request generator).
 What runs today on one device:
 
 - training: ``run_training(config)`` then ``run_prediction(...)`` for
-  SchNet, PaiNN potentials and PNA/PNAPlus with GPS, on bucketed or
-  bin-packed batches, with the fused edge pipeline's forward (K1) and
-  backward (K2) as hand-written CUDA kernels on the card
-  (``ops/edge_pipeline.py``);
+  SchNet, PaiNN potentials, GIN, SAGE, MFC, CGCNN, GAT and PNA/PNAPlus
+  with GPS, on bucketed or bin-packed batches, with the fused edge
+  pipeline's forward (K1) and backward (K2) as hand-written CUDA kernels
+  on the card (``ops/edge_pipeline.py``); every run saves a checkpoint,
+  from which ``run_prediction(config)`` alone predicts
+  (``utils/checkpoint.py``);
 - serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
   ``export.make_forward`` -> ``MultiHeadGraphModel``.
 

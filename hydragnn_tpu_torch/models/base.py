@@ -1,19 +1,21 @@
 """Multi-headed GNN core: encoder orchestration and multihead decoders.
 
 Counterpart of ``hydragnn_tpu/models/base.py``: ``graph_pool``,
-``select_branch``, ``MLPNode``, ``MultiHeadDecoder`` and
-``MultiHeadGraphModel``. Graph heads are a per-branch shared MLP plus a
-per-head MLP; node heads are MLPs (shared or per node slot); rows are
-routed to their branch by ``dataset_id`` as masked dense compute plus a
-select, as in the JAX package. Batch-normed stacks (``norm_kind =
-"batch"``) get a ``MaskedBatchNorm`` ``feature_norm_{i}`` after every
-conv layer, and a GPS config (``global_attn_engine``) lifts the inputs
-with ``GPSInputEmbed`` and wraps every conv layer in a ``GPSLayer``, in
-the JAX package's order: conv, GPS layer, feature norm, activation.
+``select_branch``, ``MLPNode``, ``ConvNodeHead``, ``MultiHeadDecoder``,
+``GraphAttrConditioner`` and ``MultiHeadGraphModel``. Graph heads are a
+per-branch shared MLP plus a per-head MLP; node heads are MLPs (shared
+or per node slot) or a chain of convs (``"conv"``); rows are routed to
+their branch by ``dataset_id`` as masked dense compute plus a select, as
+in the JAX package. Batch-normed stacks (``norm_kind = "batch"``) get a
+``MaskedBatchNorm`` ``feature_norm_{i}`` after every conv layer, and a
+GPS config (``global_attn_engine``) lifts the inputs with
+``GPSInputEmbed`` and wraps every conv layer in a ``GPSLayer``, in the
+JAX package's order: conv, GPS layer, graph-attribute conditioning
+(``film``/``concat_node``), feature norm, activation; ``fuse_pool``
+conditions the pooled graph features instead.
 
-Not ported yet, and raising ``NotImplementedError`` that names their
-ROADMAP item: graph-attribute conditioning (Queue 1 item 8), conv-type
-node heads (item 8) and per-layer readouts (MACE, item 9).
+Not ported yet, and raising ``NotImplementedError`` that names its
+ROADMAP item: per-layer readouts (MACE, item 9).
 """
 
 from __future__ import annotations
@@ -26,9 +28,16 @@ import torch
 from torch import nn
 
 from hydragnn_tpu_torch.models.gps import GPSInputEmbed, GPSLayer
-from hydragnn_tpu_torch.models.layers import MLP, Dense, MaskedBatchNorm, activation
+from hydragnn_tpu_torch.models.layers import (
+    MLP,
+    Dense,
+    DenseParams,
+    MaskedBatchNorm,
+    activation,
+)
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.ops.segment import (
+    aggregate_receivers_pipeline,
     dense_segment_sum,
     segment_max,
     segment_mean,
@@ -102,6 +111,43 @@ class MLPNode(nn.Module):
         return x
 
 
+class ConvNodeHead(nn.Module):
+    """Node head of message-passing layers: for each width ``d`` of
+    ``hidden_dims + (output_dim,)``, ``self_{i}(x) + mean over incoming
+    edges of x_snd @ neigh_{i}``, then ``MaskedBatchNorm`` ``bn_{i}`` over
+    this branch's real nodes, and the activation on all but the last
+    layer. The neighbour term is one call of the fused edge pipeline (K1
+    in its a,W flavour on a planned batch, K2 as its backward), with the
+    mean's degree scale applied after the sum; ``neigh_{i}`` is a
+    ``DenseParams`` whose ``[in, out]`` kernel is K1's W."""
+
+    def __init__(self, in_dim: int, hidden_dims: Tuple[int, ...], output_dim: int,
+                 act: str):
+        super().__init__()
+        self.dims = tuple(hidden_dims) + (output_dim,)
+        self.act = activation(act)
+        d_in = in_dim
+        for i, d in enumerate(self.dims):
+            self.add_module(f"neigh_{i}", DenseParams(d_in, d, use_bias=False))
+            self.add_module(f"self_{i}", Dense(d_in, d))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(d))
+            d_in = d
+
+    def forward(self, x: torch.Tensor, batch, branch_mask=None) -> torch.Tensor:
+        # batch statistics come from this branch's real nodes only
+        bn_mask = batch.node_mask if branch_mask is None else batch.node_mask & branch_mask
+        snd = batch.senders.long()
+        last = len(self.dims) - 1
+        for i in range(len(self.dims)):
+            w_n, _ = getattr(self, f"neigh_{i}")()
+            neigh = aggregate_receivers_pipeline(x[snd], None, batch, weight=w_n, mean=True)
+            x = getattr(self, f"self_{i}")(x) + neigh
+            x = getattr(self, f"bn_{i}")(x, bn_mask)
+            if i < last:
+                x = self.act(x)
+        return x
+
+
 class MultiHeadDecoder(nn.Module):
     """Graph and node heads with branch routing. Submodules carry the
     flax names: ``graph_shared_<branch>``, ``head<i>_<branch>``."""
@@ -136,25 +182,19 @@ class MultiHeadDecoder(nn.Module):
                     names.append(name)
             elif head.type == "node":
                 for b in cfg.node_branches:
-                    if b.node_head_type not in ("mlp", "mlp_per_node"):
-                        if b.node_head_type == "conv":
-                            raise NotImplementedError(
-                                "conv-type node heads are not ported yet: "
-                                "ROADMAP Queue 1 item 8"
-                            )
-                        raise ValueError(f"Unknown node head type {b.node_head_type}")
-                    name = f"head{hi}_{b.name}"
-                    self.add_module(
-                        name,
-                        MLPNode(
-                            h,
-                            tuple(b.dim_headlayers[: b.num_headlayers]),
-                            out_dim,
-                            cfg.activation,
+                    hidden = tuple(b.dim_headlayers[: b.num_headlayers])
+                    if b.node_head_type in ("mlp", "mlp_per_node"):
+                        head_mod = MLPNode(
+                            h, hidden, out_dim, cfg.activation,
                             per_node=b.node_head_type == "mlp_per_node",
                             num_nodes=cfg.num_nodes,
-                        ),
-                    )
+                        )
+                    elif b.node_head_type == "conv":
+                        head_mod = ConvNodeHead(h, hidden, out_dim, cfg.activation)
+                    else:
+                        raise ValueError(f"Unknown node head type {b.node_head_type}")
+                    name = f"head{hi}_{b.name}"
+                    self.add_module(name, head_mod)
                     names.append(name)
             else:
                 raise ValueError(f"Unknown head type {head.type}")
@@ -190,6 +230,44 @@ class MultiHeadDecoder(nn.Module):
         return outputs
 
 
+class GraphAttrConditioner(nn.Module):
+    """Conditioning on the per-graph attributes ``graph_attr`` [G, Da]:
+    ``film`` scales and shifts features by ``x * (1 + gamma) + beta``
+    from a one-layer MLP ``film`` of the attributes; ``concat_node`` and
+    ``fuse_pool`` project ``[x, attr]`` back to the width with the Dense
+    ``proj``. One module serves every layer (and the pool), as in the JAX
+    package, so every input it sees is ``features`` wide."""
+
+    def __init__(self, features: int, attr_dim: int, mode: str, act: str):
+        super().__init__()
+        if mode not in ("film", "concat_node", "fuse_pool"):
+            raise ValueError(
+                "graph_attr_conditioning_mode must be film, concat_node, or "
+                f"fuse_pool; got {mode}"
+            )
+        if attr_dim <= 0:
+            raise ValueError(
+                "graph-attribute conditioning needs Architecture.graph_attr_dim, "
+                "the width of each sample's graph_attr"
+            )
+        self.mode = mode
+        if mode == "film":
+            self.film = MLP(attr_dim, (2 * features,), act=act)
+        else:
+            self.proj = Dense(features + attr_dim, features)
+
+    def forward(self, x: torch.Tensor, graph_attr: torch.Tensor,
+                graph_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.mode == "film":
+            gamma, beta = torch.chunk(self.film(graph_attr), 2, dim=-1)
+            if graph_idx is not None:
+                gamma, beta = gamma[graph_idx], beta[graph_idx]
+            return x * (1.0 + gamma) + beta
+        attr = graph_attr if graph_idx is None else graph_attr[graph_idx]
+        dt = torch.promote_types(x.dtype, attr.dtype)
+        return self.proj(torch.cat([x.to(dt), attr.to(dt)], dim=-1))
+
+
 class MultiHeadGraphModel(nn.Module):
     """Encoder stack + multihead decoder, with the GPS layers, feature
     norms and activation between conv layers; ``forward(batch)`` returns
@@ -199,11 +277,6 @@ class MultiHeadGraphModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, stack_cls: Type[nn.Module]):
         super().__init__()
-        if cfg.use_graph_attr_conditioning:
-            raise NotImplementedError(
-                "graph-attribute conditioning is not ported yet: ROADMAP "
-                "Queue 1 item 8"
-            )
         if getattr(stack_cls, "per_layer_readouts", False):
             raise NotImplementedError(
                 "per-layer readouts (MACE) are not ported yet: ROADMAP "
@@ -217,11 +290,19 @@ class MultiHeadGraphModel(nn.Module):
         self.norm_layers = getattr(stack_cls, "norm_kind", "none") == "batch"
         if self.norm_layers:
             for i in layers:
-                self.add_module(f"feature_norm_{i}", MaskedBatchNorm(cfg.hidden_dim))
+                self.add_module(f"feature_norm_{i}",
+                                MaskedBatchNorm(self.stack.conv_out_dim(i)))
         if cfg.use_global_attn:
             self.gps_embed = GPSInputEmbed(cfg)
             for i in layers:
                 self.add_module(f"gps_{i}", GPSLayer(cfg))
+        self.conditioning = (
+            cfg.graph_attr_conditioning_mode if cfg.use_graph_attr_conditioning else None
+        )
+        if self.conditioning:
+            self.graph_conditioner = GraphAttrConditioner(
+                cfg.hidden_dim, cfg.graph_attr_dim, self.conditioning, cfg.activation
+            )
 
     def encode(self, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Embedding + conv layers; returns (node_repr, equiv_feat)."""
@@ -237,6 +318,9 @@ class MultiHeadGraphModel(nn.Module):
         for i in range(cfg.num_conv_layers):
             h, equiv = self.stack.conv(i, inv, equiv, batch, extras)
             inv = getattr(self, f"gps_{i}")(inv, h, batch) if cfg.use_global_attn else h
+            if self.conditioning in ("film", "concat_node") and batch.graph_attr is not None:
+                inv = self.graph_conditioner(inv, batch.graph_attr,
+                                             batch.node_graph_idx.long())
             if self.norm_layers:
                 inv = getattr(self, f"feature_norm_{i}")(inv, batch.node_mask)
             if use_act:
@@ -246,4 +330,6 @@ class MultiHeadGraphModel(nn.Module):
     def forward(self, batch) -> List[torch.Tensor]:
         node_repr, _ = self.encode(batch)
         pooled = graph_pool(node_repr, batch, self.cfg.graph_pooling)
+        if self.conditioning == "fuse_pool" and batch.graph_attr is not None:
+            pooled = self.graph_conditioner(pooled, batch.graph_attr, None)
         return self.decoder(node_repr, pooled, batch)

@@ -13,11 +13,13 @@ bias) map the same way:
 
 - a Dense ``kernel`` ``[in, out]`` becomes an ``nn.Linear`` ``weight``
   ``[out, in]`` (transposed);
-- a ``DenseParams`` kernel (the modules named in ``DENSE_PARAMS``) keeps
-  its ``[in, out]`` layout, because the fused edge pipeline takes it as
-  its W;
-- ``bias``, batch-norm ``scale`` and per-node ``w_{i}``/``b_{i}``
-  tensors are copied as they are;
+- a ``DenseParams`` kernel (SchNet's ``lin2`` and a conv node head's
+  ``neigh_{i}``: the module names ``DENSE_PARAMS`` matches) keeps its
+  ``[in, out]`` layout, because the fused edge pipeline takes it as its
+  W;
+- ``bias``, batch-norm ``scale``, per-node ``w_{i}``/``b_{i}``, MFC's
+  per-degree ``w_root``/``w_neigh``, GIN's scalar ``eps`` and GAT's
+  ``att`` tensors are copied as they are;
 - with ``batch_stats`` (the JAX package's ``batch_stats`` collection),
   each ``MaskedBatchNorm``'s running ``mean`` and ``var`` become the
   buffers of the same name (``stack``-level ``feature_norm_{i}`` and
@@ -31,12 +33,16 @@ from __future__ import annotations
 
 from typing import Dict, Mapping, Optional
 
+import re
+
 import numpy as np
 import torch
 
 # Modules that are DenseParams twins in the port (their kernel is used
-# as [in, out] by a fused kernel): SchNet's lin2.
-DENSE_PARAMS = frozenset({"lin2"})
+# as [in, out] by a fused kernel): SchNet's lin2 and a conv node head's
+# neigh_{i}. The match is on the whole module name, so SAGE's plain
+# Dense lin_neigh is not one.
+DENSE_PARAMS = re.compile(r"lin2|neigh_\d+")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -71,11 +77,11 @@ def params_from_jax(
         if leaf == "kernel":
             if arr.ndim != 2:
                 raise ValueError(f"{path}: a Dense kernel must be 2-D, got {arr.shape}")
-            if owner in DENSE_PARAMS:
+            if DENSE_PARAMS.fullmatch(owner):
                 out[path] = t
             else:
                 out[f"{module}.weight"] = t.t().contiguous()
-        elif leaf in ("bias", "scale") or leaf.startswith(("w_", "b_")):
+        elif leaf in ("bias", "scale", "eps", "att") or leaf.startswith(("w_", "b_")):
             out[path] = t
         else:
             raise ValueError(

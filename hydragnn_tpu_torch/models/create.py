@@ -4,8 +4,9 @@ Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
 a stack class and wraps it in the multihead core (``create_model``), and
 builds both from a full config (``create_model_config``). The port's
 model carries its parameters, so creation also initializes them (the
-JAX package's ``init_params``). SchNet, PAINN, PNA and PNAPlus are
-registered so far; the other stacks follow ROADMAP Queue 1.
+JAX package's ``init_params``). SchNet, PAINN, the invariant stacks
+(GIN, SAGE, MFC, CGCNN, GAT) and PNA/PNAPlus are registered so far; the
+other stacks follow ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -18,6 +19,13 @@ from torch import nn
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
 from hydragnn_tpu_torch.models.equivariant import PAINNStack
+from hydragnn_tpu_torch.models.invariant import (
+    CGCNNStack,
+    GATStack,
+    GINStack,
+    MFCStack,
+    SAGEStack,
+)
 from hydragnn_tpu_torch.models.layers import init_flax_
 from hydragnn_tpu_torch.models.pna import PNAPlusStack, PNAStack
 from hydragnn_tpu_torch.models.schnet import SchNetStack
@@ -25,6 +33,11 @@ from hydragnn_tpu_torch.models.spec import ModelConfig, model_config_from_dict
 
 STACKS: Dict[str, Type[nn.Module]] = {
     "SchNet": SchNetStack,
+    "GIN": GINStack,
+    "SAGE": SAGEStack,
+    "MFC": MFCStack,
+    "CGCNN": CGCNNStack,
+    "GAT": GATStack,
     "PAINN": PAINNStack,
     "PNA": PNAStack,
     "PNAPlus": PNAPlusStack,

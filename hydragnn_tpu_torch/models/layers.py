@@ -154,20 +154,24 @@ def init_flax_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Re-initialize every parameter with flax's defaults, in module
     order, from ``torch.Generator().manual_seed(seed)``: Linear weights
     and DenseParams kernels lecun_normal over their fan-in, biases zero,
-    any other tensor named ``w_*`` (per-node head weights
-    ``[nodes, in, out]``) lecun_normal over its second-to-last axis, and
-    batch-norm ``scale``s one."""
+    any other tensor named ``w_*`` or ``att`` (per-node head weights
+    ``[nodes, in, out]``, MFC's per-degree ``[degrees, in, out]``, GAT's
+    ``[heads, width]``) lecun_normal over the fan-in flax gives it (the
+    product of every axis but the last), batch-norm ``scale``s one, and
+    a scalar ``eps`` its module's ``eps_init`` (GIN)."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        owner, _, leaf = name.rpartition(".")
         if leaf == "bias" or leaf.startswith("b_"):
             p.zero_()
         elif leaf == "scale":
             p.fill_(1.0)
+        elif leaf == "eps":
+            p.fill_(module.get_submodule(owner).eps_init)
         elif leaf == "weight":  # Dense (nn.Linear): [out, in]
             _lecun_normal_(p, p.shape[1], gen)
-        elif leaf == "kernel" or leaf.startswith("w_"):  # [..., in, out]
-            _lecun_normal_(p, p.shape[-2], gen)
+        elif leaf in ("kernel", "att") or leaf.startswith("w_"):  # [..., in, out]
+            _lecun_normal_(p, p.numel() // p.shape[-1], gen)
         else:
             raise ValueError(f"no flax initializer for parameter {name}")
     return module

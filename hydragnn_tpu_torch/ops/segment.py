@@ -1,7 +1,8 @@
 """Segment reductions and receiver aggregation.
 
 Counterpart of ``hydragnn_tpu/ops/segment.py``: ``segment_sum``,
-``segment_mean``, ``segment_max``, ``segment_min``, ``degree``, the
+``segment_mean``, ``segment_max``, ``segment_min``, ``segment_std``,
+``segment_softmax``, ``degree``, the
 ``aggregate_receivers{,_product,_pipeline,_mean}`` family and PNA's
 ``segment_multi_aggregate``.
 
@@ -146,6 +147,44 @@ def segment_min(
     idx = _bcast(segment_ids.long(), data).expand_as(data)
     out = out.scatter_reduce(0, idx, data, "amin", include_self=False)
     return torch.where(out >= pos, float(empty_value), out)
+
+
+def segment_std(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Per-segment standard deviation ``sqrt(max(E[x^2] - E[x]^2, 0) +
+    eps)`` over the unmasked slots (an empty segment gives sqrt(eps)).
+    The clamp is ``torch.maximum``, whose gradient splits a tie in half
+    as JAX's ``maximum`` does."""
+    mean = segment_mean(data, segment_ids, num_segments, mask)
+    sq_mean = segment_mean(data * data, segment_ids, num_segments, mask)
+    var = sq_mean - mean * mean
+    var = torch.maximum(var, torch.zeros_like(var))
+    return torch.sqrt(var + eps)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax of ``logits`` [K, ...] within segments: the masked segment
+    max is subtracted, masked slots get zero weight, and the denominator
+    is clamped at 1e-16 (a segment of masked slots only gives zeros)."""
+    seg_max = segment_max(logits, segment_ids, num_segments, mask)
+    ids = segment_ids.long()
+    exp = torch.exp(logits - seg_max[ids])
+    if mask is not None:
+        exp = torch.where(_bcast(mask, exp), exp, 0.0)
+    denom = exp.new_zeros((num_segments,) + tuple(exp.shape[1:])).index_add_(0, ids, exp)
+    denom = torch.clamp(denom, min=1e-16)
+    return exp / denom[ids]
 
 
 def _plan(batch):

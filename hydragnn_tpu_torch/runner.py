@@ -13,15 +13,21 @@ packs when the fitted budgets beat the unpacked ladder's padding waste
 run's seed), ``true`` fits budgets, and eval loaders fit their own
 budgets with the train-tuned slack.
 
+Checkpoints: every run saves its final state under
+``./logs/<log_name>/`` (``utils/checkpoint.py``; ``Training.Checkpoint``
+adds a save on every improving epoch), and ``run_prediction(config)``
+given no state restores the run's ``latest`` checkpoint
+(``restore_checkpoint_state``). ``Training.bn_recalibration`` refreshes
+the running statistics at the end of training from an eval-shaped,
+unpacked loader over the train split.
+
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
 it: data-parallel and multibranch schemes (Queue 1 item 11),
-supersteps and the parallel input pipeline (item 10),
-checkpoints and ``continue`` (item 6), the end-of-training batch-norm
-recalibration (item 8), the divergence guard (item 12),
-and dataset formats other than the raw LSMS text files (item 10). An
-interatomic-potential config (``enable_interatomic_potential``) trains
-on the energy + force loss, and ``run_prediction`` then returns graph
-energies and forces.
+supersteps and the parallel input pipeline (item 10), ``continue``
+(resume) and the divergence guard (item 12), and dataset formats other
+than the raw LSMS text files (item 10). An interatomic-potential config
+(``enable_interatomic_potential``) trains on the energy + force loss,
+and ``run_prediction`` then returns graph energies and forces.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ from hydragnn_tpu_torch.data.padschedule import (
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validate_test
 from hydragnn_tpu_torch.train.loop import test as run_test
-from hydragnn_tpu_torch.train.loop import train_validate_test
 from hydragnn_tpu_torch.train.optimizer import grad_clip_norm, select_optimizer
 from hydragnn_tpu_torch.train.state import TrainState, resolve_precision
+from hydragnn_tpu_torch.utils.checkpoint import find_continue_log_name, load_checkpoint
 from hydragnn_tpu_torch.utils.print_utils import (
     get_log_name_config,
     print_distributed,
@@ -129,20 +136,10 @@ def _refuse_unported(config: dict) -> None:
             "the parallel input pipeline is not ported yet (the port collates "
             "serially): ROADMAP Queue 1 item 10"
         )
-    ckpt = training.get("Checkpoint", False)
-    if (ckpt.get("enabled", True) if isinstance(ckpt, dict) else ckpt) or training.get(
-        "continue"
-    ):
+    if training.get("continue"):
         raise NotImplementedError(
-            "checkpoints and continue are not ported yet: ROADMAP Queue 1 item 6"
-        )
-    recal = training.get("bn_recalibration", 0)
-    if isinstance(recal, dict):
-        recal = recal.get("epochs", 1) if recal.get("enabled", True) else 0
-    if int(recal):
-        raise NotImplementedError(
-            "the end-of-training batch-norm recalibration is not ported yet: "
-            "ROADMAP Queue 1 item 8"
+            "continue (resuming a run from its checkpoint) is not ported yet: "
+            "ROADMAP Queue 1 item 12"
         )
     guard = training.get("Guard", False)
     if guard.get("enabled", True) if isinstance(guard, dict) else guard:
@@ -264,13 +261,36 @@ def run_training(
                     cache_batches=True, **pack_kw)
         for ds in (valset, testset)
     )
+    # The recalibration reads plain unpacked batches of the train split,
+    # as eval batches them (the JAX runner's recal_loader).
+    recal_loader = (
+        GraphLoader(trainset, batch_size, with_segment_plan=seg_plan)
+        if bn_recalibration_epochs(training) else None
+    )
     state = TrainState(model, select_optimizer(model.parameters(), training))
     state, hist = train_validate_test(
         model, cfg, state, train_loader, val_loader, test_loader, config,
         device=dev, compute_dtype=compute_dtype,
         clip_norm=grad_clip_norm(training), verbosity=verbosity,
+        log_name=log_name, recal_loader=recal_loader,
     )
     return state, model, cfg, hist, config
+
+
+def restore_checkpoint_state(config: dict, model) -> TrainState:
+    """A ``TrainState`` for ``model`` with the optimizer ``Training``
+    names, loaded from the run's ``latest`` checkpoint (or its newest
+    restorable epoch file). A config that came back from
+    ``run_training`` names its run directory (``_log_name``); a fresh
+    one derives it, and when that directory holds no checkpoint
+    (``num_epoch`` changed since training), ``find_continue_log_name``
+    finds the run that does."""
+    training = config["NeuralNetwork"]["Training"]
+    state = TrainState(model, select_optimizer(model.parameters(), training))
+    log_name = config.get("_log_name") or find_continue_log_name(
+        get_log_name_config(config)
+    )
+    return load_checkpoint(log_name, state)
 
 
 def run_prediction(
@@ -280,18 +300,17 @@ def run_prediction(
     state: Optional[TrainState] = None,
     model=None,
     cfg=None,
+    device: Optional[Union[str, torch.device]] = None,
 ):
     """A test pass of a trained model over the config's test split (or
-    ``datasets``' third entry), on the model's device. Returns (error,
-    per-task error, true values, predicted values), one array per head
-    (for an interatomic potential: graph energies, then forces).
-    ``state``, ``model`` and ``cfg`` come from ``run_training``; loading
-    them from a checkpoint waits for the checkpoint port."""
-    if state is None or model is None or cfg is None:
-        raise NotImplementedError(
-            "run_prediction needs state, model and cfg from run_training until "
-            "checkpoints are ported: ROADMAP Queue 1 item 6"
-        )
+    ``datasets``' third entry). Returns (error, per-task error, true
+    values, predicted values), one array per head (for an interatomic
+    potential: graph energies, then forces). ``state``, ``model`` and
+    ``cfg`` may come from ``run_training``; without a model one is built
+    from the config on ``device`` (``None`` means ``"cuda"``), and
+    without a state the run's checkpoint is restored into the model
+    (``restore_checkpoint_state``). The pass runs on the model's
+    device."""
     config = load_config(config_source)
     _refuse_unported(config)
     if datasets is None:
@@ -302,7 +321,13 @@ def run_prediction(
     config = update_config(config, trainset, valset, testset)
     _check_num_nodes_bound(config, trainset, valset, testset)
     training = config["NeuralNetwork"]["Training"]
+    if model is None or cfg is None:
+        dev = resolve_device(device)
+        model, cfg = create_model_config(config, dev)
+        model.to(resolve_precision(training.get("precision", "fp32"), dev)[0])
     dev = next(model.parameters()).device
+    if state is None:
+        state = restore_checkpoint_state(config, model)
     _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
     seg_plan = training.get("use_segment_plan", True)
     test_loader = GraphLoader(

@@ -12,20 +12,28 @@ the energy + force loss of ``train/mlip.py`` (three per-task losses:
 energy, energy per atom, force), and the collecting test pass returns
 [graph energies, forces].
 
-Not ported yet, and refused by the runner: checkpoint saves and resume,
-the divergence guard, supersteps, the pipeline feed and telemetry
-(ROADMAP Queue 1 items 6, 10, 12, 13).
+Checkpoints (``utils/checkpoint.py``): with ``Training.Checkpoint`` on,
+every epoch that improves the validation loss (from epoch
+``checkpoint_warmup`` on) saves its epoch file and ``latest``, keeping
+the newest ``checkpoint_keep`` (5); every run saves ``latest`` at its
+end, after the end-of-training batch-norm recalibration
+(``recalibrate_batch_stats``, ``Training.bn_recalibration``).
+
+Not ported yet, and refused by the runner: resume (``continue``), the
+divergence guard, supersteps, the pipeline feed and telemetry (ROADMAP
+Queue 1 items 12, 10, 13).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train.losses import multihead_loss
 from hydragnn_tpu_torch.train.mlip import (
@@ -40,6 +48,7 @@ from hydragnn_tpu_torch.train.optimizer import (
     set_learning_rate,
 )
 from hydragnn_tpu_torch.train.state import TrainState, cast_batch
+from hydragnn_tpu_torch.utils.checkpoint import checkpoint_settings, save_checkpoint
 from hydragnn_tpu_torch.utils.print_utils import print_distributed
 
 
@@ -160,6 +169,79 @@ def _run_epoch(step_fn, state, loader, *, train: bool, device: torch.device):
     return state, loss, tasks
 
 
+@torch.no_grad()
+def recalibrate_batch_stats(
+    model: torch.nn.Module,
+    state: TrainState,
+    loader,
+    *,
+    device: torch.device,
+    compute_dtype: torch.dtype = torch.float32,
+    epochs: int = 1,
+) -> TrainState:
+    """Replace every ``MaskedBatchNorm``'s running statistics with the
+    exact pooled moments of the data in ``loader``, as the JAX package's
+    ``recalibrate_batch_stats`` does: one train-mode forward per batch
+    from zeroed running statistics (so each buffer then holds ``(1 -
+    momentum)`` times that batch's masked moment, and train mode reads
+    only batch statistics, so outputs are untouched), each batch's
+    moments weighted by its real nodes and pooled in float64 on the host
+    by the law of total variance, over ``epochs`` passes. Parameters do
+    not change. The runner passes an eval-shaped, unpacked loader over
+    the train split and runs this at the end of training only, before
+    the final save. A model without batch norms, or an empty loader,
+    leaves the state as it was."""
+    bns = {name: m for name, m in model.named_modules() if isinstance(m, MaskedBatchNorm)}
+    if epochs <= 0 or not bns:
+        return state
+    kept = {name: (m.mean.clone(), m.var.clone()) for name, m in bns.items()}
+    was_training = model.training
+    model.train()
+    sums, weight = None, 0.0
+    for _ in range(int(epochs)):
+        for batch in loader:
+            batch = batch.to(device)
+            for m in bns.values():
+                m.mean.zero_()
+                m.var.zero_()
+            model(cast_batch(batch, compute_dtype))
+            # from a zero seed each buffer holds (1 - momentum) x the
+            # batch's moment; one host fetch for all of them
+            flat = torch.cat([torch.cat([m.mean, m.var]) / (1.0 - m.momentum)
+                              for m in bns.values()]).double().cpu().numpy()
+            w = float(batch.node_mask.sum())
+            scaled, at = [], 0
+            for m in bns.values():
+                f = m.mean.numel()
+                mean, var = flat[at:at + f], flat[at + f:at + 2 * f]
+                scaled.append(np.stack([mean * w, (var + mean ** 2) * w]))
+                at += 2 * f
+            sums = scaled if sums is None else [a + b for a, b in zip(sums, scaled)]
+            weight += w
+    model.train(was_training)
+    if sums is None or weight <= 0.0:
+        for name, m in bns.items():
+            m.mean.copy_(kept[name][0])
+            m.var.copy_(kept[name][1])
+        return state
+    for m, tot in zip(bns.values(), sums):
+        mean, sq = tot[0] / weight, tot[1] / weight
+        m.mean.copy_(torch.from_numpy(mean.astype(np.float32)))
+        m.var.copy_(torch.from_numpy(np.maximum(sq - mean ** 2, 0.0).astype(np.float32)))
+    return state
+
+
+def bn_recalibration_epochs(training: dict) -> int:
+    """``Training.bn_recalibration`` (``N`` or ``{"enabled": true,
+    "epochs": N}``) as a number of end-of-training passes (0 = off)."""
+    raw = training.get("bn_recalibration", 0)
+    if isinstance(raw, dict):
+        if not raw.get("enabled", True):
+            return 0
+        return max(0, int(raw.get("epochs", 1)))
+    return max(0, int(raw))
+
+
 def train_validate_test(
     model: torch.nn.Module,
     cfg: ModelConfig,
@@ -173,14 +255,22 @@ def train_validate_test(
     compute_dtype: torch.dtype = torch.float32,
     clip_norm: float = 0.0,
     verbosity: int = 0,
+    log_name: Optional[str] = None,
+    recal_loader=None,
 ) -> Tuple[TrainState, History]:
     """The epoch loop: train, validate, test, step the plateau scheduler
     on the validation loss, stop early after ``patience`` epochs without
-    improvement when ``EarlyStopping`` is set."""
+    improvement when ``EarlyStopping`` is set. With a ``log_name`` the
+    run saves checkpoints under ``./logs/<log_name>/`` (module
+    docstring); ``recal_loader`` is the feed of the end-of-training
+    batch-norm recalibration (the train loader when None)."""
     training = config["NeuralNetwork"]["Training"]
     num_epoch = int(training.get("num_epoch", 1))
     patience = int(training.get("patience", 10))
     early_stop = bool(training.get("EarlyStopping", False))
+    save_on_best = log_name is not None and checkpoint_settings(training).enabled
+    warmup = int(training.get("checkpoint_warmup", 0))
+    keep = int(training.get("checkpoint_keep", 5))
     mlip = cfg.enable_interatomic_potential
     train_step = make_train_step(
         model, state.optimizer, cfg, compute_dtype, clip_norm=clip_norm,
@@ -231,11 +321,21 @@ def train_validate_test(
         if val_loss < best_val:
             best_val = val_loss
             bad_epochs = 0
+            if save_on_best and epoch >= warmup:
+                save_checkpoint(log_name, state, epoch=epoch, keep=keep)
         else:
             bad_epochs += 1
             if early_stop and bad_epochs >= patience:
                 print_distributed(verbosity, 1, f"Early stopping at epoch {epoch}")
                 break
+    recal = bn_recalibration_epochs(training)
+    if recal:
+        state = recalibrate_batch_stats(
+            model, state, train_loader if recal_loader is None else recal_loader,
+            device=device, compute_dtype=compute_dtype, epochs=recal,
+        )
+    if log_name is not None:
+        save_checkpoint(log_name, state)
     return state, hist
 
 

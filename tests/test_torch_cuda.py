@@ -191,8 +191,10 @@ def test_k2_matches_plain(stages, dt):
 # with F_in != F_out; more 32-column slabs (12) than one cluster of K1's
 # CTAs holds (8), so K1 takes 64-column slabs there; and rows of a and b
 # that are not a multiple of 16 bytes (20 columns), which the kernels
-# stage with plain loads instead of 16-byte copies.
-WIDTHS = [(48, 80), (384, 384), (20, 36)]
+# stage with plain loads instead of 16-byte copies; and a conv node
+# head's last layer (64 -> 1): one output column, so one of K1's two slab
+# CTAs owns no output column, and g's rows are 4 bytes wide.
+WIDTHS = [(48, 80), (384, 384), (20, 36), (64, 1)]
 
 
 @pytest.mark.cuda

@@ -2,16 +2,17 @@
 
     python tools/profile_train_steps.py
 
-Builds two of chip_smoke.py's models at full width with random weights
-(seed 0): examples/md17/md17.json's PaiNN potential on bench.py's
-molecules and examples/zinc/zinc.json's PNAPlus + GPS on zinc.py's
-molecules. Then it times one f32 train step (a fresh AdamW on a copy of
-the model each time) on:
+Builds three of chip_smoke.py's models at full width with random
+weights (seed 0): examples/md17/md17.json's PaiNN potential on
+bench.py's molecules, examples/zinc/zinc.json's PNAPlus + GPS on
+zinc.py's molecules and examples/open_polymers_2026/polymers.json's SAGE
+with its conv node head on the example's chains. Then it times one f32
+train step (a fresh AdamW on a copy of the model each time) on:
 
 - md17.json: the first batch of the unpacked bucket ladder (``packing``
   off) and the first packed bin that run_training trains on, in turns
   (ladder, packed, packed, ladder);
-- zinc.json: the first packed bin.
+- zinc.json and polymers.json: the first packed bin.
 
 For each step it prints the batch's size, the eager time (CUDA events
 around 20 back-to-back steps), the device time and kernel count
@@ -104,6 +105,15 @@ def main():
     zmodel0, zcfg = create_model_config(zfull, "cuda", seed=0)
     report("zinc packed", zbin, step_profile(zmodel0, zcfg, zfull["NeuralNetwork"]["Training"],
                                              zbin, mlip=False))
+
+    pconfig, psplits = cs.polymer_data()
+    ploader, _ = cs.train_loader(pconfig, psplits[0])
+    pbin = next(iter(ploader)).to("cuda")
+    pfull = update_config(pconfig, *psplits)
+    pmodel0, pcfg = create_model_config(pfull, "cuda", seed=0)
+    report("polymers packed", pbin, step_profile(pmodel0, pcfg,
+                                                 pfull["NeuralNetwork"]["Training"], pbin,
+                                                 mlip=False))
 
 
 if __name__ == "__main__":
