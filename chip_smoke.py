@@ -3,7 +3,14 @@
     python3 chip_smoke.py
 
 Phases (each prints lines tagged with its name; any failure raises and
-exits non-zero):
+exits non-zero). Every run_training, run_prediction and served bin below
+runs its steps as the port runs them on a card: each step shape eager
+once, then captured as a CUDA graph and replayed (train/capture.py), so
+K1's and K2's launch counts come from replays (a replay adds the
+launches its capture recorded). Each run_training is timed beside the
+same call with every step eager (eager_steps(), which keeps the port
+from building its graph cache), with its captures, replays, capture
+seconds and graph memory printed.
 
 1. device      torch/CUDA versions and the card's name and power limit;
                exits 2 without a CUDA device.
@@ -39,8 +46,11 @@ exits non-zero):
                128 filters, 50 Gaussians, hidden 128, graph head 2x128
                shared + [128, 128]) with random weights from a seeded
                generator, serving 256 synthetic qm9 requests through
-               DynamicBatcher -> ServingEngine(device="cuda"). Checks:
-               every request has a finite result; K1's launch count rises
+               DynamicBatcher -> ServingEngine(device="cuda"), which
+               captures one forward graph per budget at warm-up and
+               replays it per bin. Checks: one capture per budget and one
+               replay per bin; every request has a finite result; K1's
+               launch count rises
                by exactly 4 x dispatched bins during process(); each bin's
                served outputs equal a direct make_forward call on the same
                collated batch bit for bit; one bin matches the same model
@@ -139,12 +149,31 @@ exits non-zero):
                first polymer bin, card against the CPU plain path, and one
                recalibrate_batch_stats pass of polymers.json's model, card
                against CPU.
-15. report     the kernels JSON line (with each kernel's times at the
+15. capture    at each path's step shape (the SchNet headline batch, the
+               first packed MLIP, ZINC and polymer bins): one train step
+               through the train loop's superstep eager and replayed, the
+               replayed step against the eager one (bit for bit for SchNet
+               and PaiNN, whose aggregations all run K1/K2; else at [zinc]'s
+               card-vs-CPU tolerance), each path's step time (CUDA events,
+               back-to-back steps from the host batch), the graph's replays
+               alone, and K1's and K2's device time inside replayed steps
+               (profiler); one 2-step replay against 2 single replays on the
+               headline step (bit for bit) and one 4-step replay against 4
+               on the polymer bin (loss sums within rtol 1e-4); one replayed
+               step per optimizer type (9) on the polymer bin against its
+               eager step, all finite; an SGD learning-rate change reaching
+               the next replay exactly, with no recapture; polymers.json
+               trained with superstep steps 4 (the groups superstep_groups
+               forms, 4-step dispatches, K1/K2 per forward and per step,
+               the plateau scheduler cutting the rate every epoch with no
+               capture after epoch 1).
+16. report     the kernels JSON line (with each kernel's times at the
                three SchNet shapes under "by_shape", at PaiNN's widths
                under "mlip_widths", at PNA's under "zinc_width" and at the
                conv node head's under "polymer_widths"; "launches" sums the
-               serving, SchNet training, MLIP, ZINC and polymer runs,
-               "launches_by_path" splits them), the card line, and the
+               serving, SchNet training, MLIP, ZINC and polymer runs and
+               the superstep run, "launches_by_path" splits them), the
+               card line, and the
                final {"ok": true, "device": ...} line.
 """
 
@@ -763,8 +792,16 @@ def phase_slice(samples, budgets, settings):
     check(launches == cfg.num_conv_layers * len(records),
           f"K1 launched {launches} times for {len(records)} bins "
           f"(want {cfg.num_conv_layers} per bin)")
-    log(f"[slice] served {len(reqs)} requests in {len(records)} bins, "
-        f"K1 launches {launches} = {cfg.num_conv_layers} x {len(records)}")
+    graphs = engine.graphs
+    check(graphs.captures == len(budgets) and graphs.replays == len(records)
+          and graphs.eager_runs == len(budgets),
+          f"engine: {graphs.captures} captures, {graphs.replays} replays, "
+          f"{graphs.eager_runs} eager forwards for {len(budgets)} budgets, "
+          f"{len(records)} bins")
+    log(f"[slice] served {len(reqs)} requests in {len(records)} bins, each a replay of its "
+        f"budget's captured forward ({graphs.captures} graphs captured in "
+        f"{graphs.capture_seconds:.2f} s at warm-up), K1 launches {launches} = "
+        f"{cfg.num_conv_layers} x {len(records)}")
     for r in reqs:
         check(r.result is not None and r.result[0].shape == (1,)
               and bool(np.isfinite(r.result[0]).all()), f"request {r.req_id}: bad result")
@@ -801,16 +838,23 @@ def phase_slice(samples, budgets, settings):
         f"latency p50 {roll['p50_ms']:.2f} ms p99 {roll['p99_ms']:.2f} ms "
         f"(all {len(reqs)} enqueued at once); host collate+launch per bin "
         f"{np.mean(collate_ms):.2f} ms mean; node fill {roll['node_fill']:.3f}")
+    served_bin = {}
     for spec in budgets:
-        dev_batch = engine.collate_bin(samples[:4], spec).to("cuda")
+        host = engine.collate_bin(samples[:4], spec)
+        dev_batch = host.to("cuda")
+        key = (spec.num_nodes, spec.num_edges, spec.num_graphs)
         eager = eager_ms(lambda: forward(dev_batch))
+        served = eager_ms(lambda: [o.clone() for o in graphs.replay(key, [host])])
         replay = time_ms(lambda: forward(dev_batch), replays=10, per_graph=2)
+        served_bin[f"n{spec.num_nodes}_e{spec.num_edges}"] = {
+            "eager_ms": eager, "replay_ms": served, "device_ms": replay}
         log(f"[slice] one forward at n{spec.num_nodes}_e{spec.num_edges}: "
-            f"{eager:.3f} ms issued eagerly from Python, {replay:.3f} ms of "
-            f"device time (CUDA graph replay); the device idles "
+            f"{eager:.3f} ms issued eagerly from Python, {served:.3f} ms as the engine "
+            f"serves it (host pack + one copy + replay of the budget's graph + output "
+            f"copy), {replay:.3f} ms of device time (CUDA graph replay); the device idles "
             f"{100 * (1 - replay / eager):.0f}% of the eager forward")
     engine.close()
-    return launches, len(records)
+    return launches, len(records), served_bin
 
 
 def bcc_config(path, precision="fp32"):
@@ -875,45 +919,119 @@ def one_step(model, cfg, training, batch, compute_dtype):
 
 @contextlib.contextmanager
 def recorded_run():
-    """While open, model forwards are counted (``rec["forwards"]``),
-    every train step's loss is kept on the card (``rec["losses"]``, read
-    after the run) and its batch shape (nodes, edges, graphs) noted
-    (``rec["shapes"]``)."""
-    from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
+    """While open, every step dispatch of the train loop and the test
+    pass (``train.loop._dispatch``, eager or replayed) is recorded: its
+    model forwards (one a step, ``rec["forwards"]``), each train step's
+    loss kept on the card (``rec["losses"]``, [K] per dispatch, read
+    after the run) and each train batch's shape (nodes, edges, graphs;
+    ``rec["shapes"]``)."""
     from hydragnn_tpu_torch.train import loop
 
     rec = {"forwards": 0, "losses": [], "shapes": []}
-    plain_forward = MultiHeadGraphModel.forward
-    plain_make_train_step = loop.make_train_step
+    plain_dispatch = loop._dispatch
 
-    def counted_forward(self, batch):
-        rec["forwards"] += 1
-        return plain_forward(self, batch)
+    def recorded(run, graphs, key, batches, device):
+        out = plain_dispatch(run, graphs, key, batches, device)
+        rec["forwards"] += len(batches)
+        if key[0] == "train":
+            rec["losses"].append(out[0].clone())
+            rec["shapes"] += [(b.num_nodes, b.num_edges, b.num_graphs) for b in batches]
+        return out
 
-    def recorded_make_train_step(*args, **kwargs):
-        step = plain_make_train_step(*args, **kwargs)
-
-        def recorded(state, batch):
-            state, loss, tasks = step(state, batch)
-            rec["losses"].append(loss)
-            rec["shapes"].append((batch.num_nodes, batch.num_edges, batch.num_graphs))
-            return state, loss, tasks
-
-        return recorded
-
-    MultiHeadGraphModel.forward = counted_forward
-    loop.make_train_step = recorded_make_train_step
+    loop._dispatch = recorded
     try:
         yield rec
     finally:
-        MultiHeadGraphModel.forward = plain_forward
-        loop.make_train_step = plain_make_train_step
+        loop._dispatch = plain_dispatch
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """While open, each named callable of ``module`` adds its wall
+    seconds (between device synchronizations) to ``times[name]``."""
+    times = {n: 0.0 for n in names}
+    plain = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                times[name] += time.perf_counter() - t0
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n, plain[n]))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(module, n, plain[n])
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """While open, run_training and run_prediction build no graph cache,
+    so they issue every step eagerly: the baseline the replayed runs are
+    timed against (the port itself has no such switch)."""
+    from hydragnn_tpu_torch import runner
+
+    plain = runner._step_graphs
+    runner._step_graphs = lambda dev: None
+    try:
+        yield
+    finally:
+        runner._step_graphs = plain
+
+
+def eager_seconds(fn):
+    """Seconds of ``fn()`` (a run_training call) with every step eager."""
+    with eager_steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def graph_report(tag, state, hist, train_s, eager_s, steady=None):
+    """Hold and print what a run's graph cache did: every step went
+    through it (replays, one capture per key, none twice), and with
+    ``steady`` the epochs from that one on captured nothing new. Returns
+    the numbers for the report line."""
+    graphs = state.graphs
+    check(graphs is not None and graphs.replays > 0 and graphs.captures > 0,
+          f"{tag}: the run's steps were not replayed from CUDA graphs")
+    check(graphs.captures == len(graphs.graphs),
+          f"{tag}: {graphs.captures} captures for {len(graphs.graphs)} graphs")
+    if steady is not None:
+        check(not any(hist.epoch_captures[steady:]),
+              f"{tag}: captures per epoch {hist.epoch_captures}: the steady state "
+              f"(epoch {steady} on) captured anew")
+    mem = graphs.memory()
+    out = {"seconds": train_s, "eager_seconds": eager_s, "captures": graphs.captures,
+           "capture_seconds": graphs.capture_seconds, "replays": graphs.replays,
+           "eager_steps": graphs.eager_runs, "epoch_captures": hist.epoch_captures,
+           "epoch_seconds": hist.epoch_seconds,
+           "graph_pool_bytes": mem["pool_bytes"], "keys": [list(map(str, k))
+                                                           for k in graphs.graphs]}
+    log(f"[{tag}] run_training {train_s:.2f} s with its steps replayed ({graphs.eager_runs} "
+        f"eager first sights, {graphs.captures} captures in {graphs.capture_seconds:.2f} s, "
+        f"{graphs.replays} replays; captures per epoch {hist.epoch_captures}; "
+        f"{mem['graphs']} graphs whose pools reserved {mem['pool_bytes'] / 2**20:.1f} MiB; "
+        f"epochs {[round(x, 3) for x in hist.epoch_seconds]} s) against {eager_s:.2f} s for "
+        f"the same run_training with every step eager")
+    return out
 
 
 def phase_train(config, splits):
     import numpy as np
 
     import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch import runner
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.models.create import create_model_config
@@ -922,7 +1040,9 @@ def phase_train(config, splits):
         edge_pipeline_planned,
     )
 
-    with recorded_run() as rec:
+    stages = ("_ingest_datasets", "update_config", "create_model_config", "resolve_packing",
+              "GraphLoader", "select_optimizer", "_step_graphs", "train_validate_test")
+    with recorded_run() as rec, timed_calls(runner, stages) as first_run:
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         t0 = time.perf_counter()
         state, model, cfg, hist, full = port.run_training(config, device="cuda")
@@ -936,8 +1056,13 @@ def phase_train(config, splits):
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+    eager_s, _ = eager_seconds(lambda: port.run_training(config, device="cuda"))
+    graphs = graph_report("train", state, hist, train_s, eager_s)
+    log(f"[train] the process's first run_training ({train_s:.2f} s) by call: "
+        + ", ".join(f"{n} {t:.3f} s" for n, t in first_run.items())
+        + f"; the rest {train_s - sum(first_run.values()):.3f} s")
     layers = cfg.num_conv_layers
-    steps = torch.stack(rec["losses"]).double().cpu().numpy()
+    steps = torch.cat(rec["losses"]).double().cpu().numpy()
     losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
     check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
           f"non-finite loss in {losses} or in the steps {steps.tolist()}")
@@ -999,7 +1124,7 @@ def phase_train(config, splits):
             "step_losses": steps.tolist(),
             "train_loss": hist.train_loss, "val_loss": hist.val_loss,
             "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
-            "parity": parity}
+            "graphs": graphs, "first_run_seconds": first_run, "parity": parity}
 
 
 def molecules(n_configs, n_lo, n_hi, radius, max_neighbours, seed=0, forces=False,
@@ -1066,6 +1191,7 @@ def phase_train_timing(cpu_batch):
         f"{worst['grad'][0]:.3g} ({worst['grad'][1]:.3g}), updated params "
         f"{worst['param'][0]:.3g} ({worst['param'][1]:.3g}); rtol 1e-4, atol 1e-3 x "
         f"min(max|ref|, 1)")
+    model0 = copy.deepcopy(model)
     opt = select_optimizer(model.parameters(), training)
     step = make_train_step(model, opt, cfg)
     state = TrainState(model, opt)
@@ -1080,7 +1206,7 @@ def phase_train_timing(cpu_batch):
     log(f"[train] one f32 train step at the headline shape (128 molecules, "
         f"{batch.num_nodes} nodes, {e_valid} edges; padded {batch.num_edges}): "
         f"{eager:.3f} ms issued eagerly, " + profile_note(prof, eager, "step"))
-    return out
+    return out, (model0, cfg, training)
 
 
 def device_kernels(prof):
@@ -1433,7 +1559,7 @@ def mlip_run(config, splits, budgets):
         train_s = time.perf_counter() - t0
         k1, k2, n_fwd = (edge_pipeline_planned.launches,
                          edge_pipeline_bwd_planned.launches, rec["forwards"])
-        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        steps = torch.cat(rec["losses"]).double().cpu().numpy()
         shapes = set(rec["shapes"])
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         rec["forwards"] = 0
@@ -1442,6 +1568,9 @@ def mlip_run(config, splits, budgets):
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+    eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits,
+                                                         device="cuda"))
+    graphs = graph_report("mlip", state, hist, train_s, eager_s)
     check(shapes <= set(budget_keys(budgets)),
           f"MLIP train batches {sorted(shapes)} are not all packed bins {budget_keys(budgets)}")
     # Each forward aggregates twice per layer (the scalar and the folded
@@ -1482,7 +1611,7 @@ def mlip_run(config, splits, budgets):
             "forwards": n_fwd + n_fwd_pred, "step_losses": steps.tolist(),
             "train_loss": hist.train_loss, "val_loss": hist.val_loss,
             "test_loss": hist.test_loss, "prediction_error": err, "seconds": train_s,
-            "loss_fell": bool(fell), "bins": sorted(shapes)}
+            "graphs": graphs, "loss_fell": bool(fell), "bins": sorted(shapes)}
 
 
 def tensors(x, y):
@@ -1602,7 +1731,8 @@ def phase_mlip(config, splits, md17_splits, budgets, first_batch):
         + profile_note(prof, eager, "step"))
     return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
             "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
-                                edges=batch.num_edges, e_valid=e_valid)}
+                                edges=batch.num_edges, e_valid=e_valid),
+            "step": (model0, cfg, training)}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -1842,7 +1972,7 @@ def zinc_run(config, splits, budgets):
         train_s = time.perf_counter() - t0
         k1, k2, n_fwd = (edge_pipeline_planned.launches,
                          edge_pipeline_bwd_planned.launches, rec["forwards"])
-        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        steps = torch.cat(rec["losses"]).double().cpu().numpy()
         shapes = list(rec["shapes"])
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         rec["forwards"] = 0
@@ -1851,6 +1981,9 @@ def zinc_run(config, splits, budgets):
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
+    eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits, seed=0,
+                                                         device="cuda"))
+    graphs = graph_report(f"zinc] [{precision}", state, hist, train_s, eager_s)
     layers = cfg.num_conv_layers
     keys = set(budget_keys(budgets))
     losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
@@ -1879,8 +2012,8 @@ def zinc_run(config, splits, budgets):
     return {"k1": k1 + k1_pred, "k2": k2, "steps": state.step, "forwards": n_fwd + n_fwd_pred,
             "step_losses": steps.tolist(), "train_loss": hist.train_loss,
             "val_loss": hist.val_loss, "test_loss": hist.test_loss,
-            "prediction_error": err, "seconds": train_s, "loss_fell": bool(fell),
-            "bins": sorted(set(shapes))}
+            "prediction_error": err, "seconds": train_s, "graphs": graphs,
+            "loss_fell": bool(fell), "bins": sorted(set(shapes))}
 
 
 def phase_zinc(configs, splits, loader, first_bin):
@@ -1942,7 +2075,8 @@ def phase_zinc(configs, splits, loader, first_bin):
             "parity": parity,
             "packing": dict(stats, budgets=budget_keys(budgets)),
             "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
-                                edges=batch.num_edges, e_valid=e_valid)}
+                                edges=batch.num_edges, e_valid=e_valid),
+            "step": (model0, cfg, training)}
 
 
 # ---------------------------------------------------------------- [polymers]
@@ -2140,7 +2274,7 @@ def polymer_run(config, splits, budgets):
         train_s = time.perf_counter() - t0
         k1, k2, n_fwd = (edge_pipeline_planned.launches,
                          edge_pipeline_bwd_planned.launches, rec["forwards"])
-        steps = torch.stack(rec["losses"]).double().cpu().numpy()
+        steps = torch.cat(rec["losses"]).double().cpu().numpy()
         shapes = list(rec["shapes"])
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         rec["forwards"] = 0
@@ -2182,6 +2316,13 @@ def polymer_run(config, splits, budgets):
         for a, b in zip(alone[3], inproc[3]):
             np.testing.assert_allclose(a, b, **F32_TOL)
     held = "bit for bit" if same else f"within rtol 1e-5 / atol 1e-4 (max |diff| {worst:.3g})"
+    # after the checks on the run's checkpoint, which the eager twin overwrites
+    eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits, seed=0,
+                                                         device="cuda"))
+    # Each key is eager on its first sight and captured on its second: the
+    # train step within epoch 0 (8 bins of one budget), a validation or
+    # test bin seen once an epoch in epoch 1; from epoch 2 on all replay.
+    graphs = graph_report("polymers", state, hist, train_s, eager_s, steady=2)
     fell = hist.train_loss[-1] < steps[0]
     log(f"[polymers] run_training on the card ({train_s:.2f} s, {state.step} train steps "
         f"on packed bins {sorted(set(shapes))}, {n_fwd} forwards): train loss "
@@ -2200,8 +2341,8 @@ def polymer_run(config, splits, budgets):
             "train_loss": hist.train_loss, "val_loss": hist.val_loss,
             "test_loss": hist.test_loss, "prediction_error": alone[0],
             "predictions_bit_for_bit": same, "prediction_max_abs_diff": worst,
-            "seconds": train_s, "prediction_seconds": pred_s, "loss_fell": bool(fell),
-            "bins": sorted(set(shapes))}
+            "seconds": train_s, "prediction_seconds": pred_s, "graphs": graphs,
+            "loss_fell": bool(fell), "bins": sorted(set(shapes))}
 
 
 def phase_polymers(config, splits, loader, first_bin):
@@ -2262,7 +2403,319 @@ def phase_polymers(config, splits, loader, first_bin):
             "packing": dict(stats, budgets=budget_keys(budgets)), "seconds": seconds,
             "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
                                 edges=batch.num_edges, e_valid=e_valid), "model0": model0,
-            "cfg": cfg}
+            "cfg": cfg, "training": training}
+
+
+# ---------------------------------------------------------------- [capture]
+
+def _host(t):
+    return t.detach().float().cpu().numpy().copy()
+
+
+def host_params(model):
+    return {k: _host(p) for k, p in model.named_parameters()}
+
+
+def host_state(model, before=None):
+    """A model's gradients, parameters and buffers on the host."""
+    return {"grads": {k: _host(p.grad) for k, p in model.named_parameters()},
+            "params": host_params(model),
+            "stats": {k: _host(v) for k, v in model.named_buffers()}, "before": before}
+
+
+def graph_path(model0, cfg, training, mlip=False):
+    """A copy of ``model0`` with its optimizer and the train loop's
+    superstep over it, through a graph cache of its own."""
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    model = copy.deepcopy(model0)
+    opt = select_optimizer(model.parameters(), training)
+    cache = StepGraphs("cuda")
+    fn = make_superstep_fn(model, opt, cfg, compute_grad_energy=mlip,
+                           device=torch.device("cuda"), graphs=cache)
+    return model, opt, fn, TrainState(model, opt, graphs=cache)
+
+
+def replay_pair(model0, cfg, training, host_batch, mlip=False):
+    """The train loop's superstep over a copy of ``model0`` through a
+    graph cache, after its first (eager) step on ``host_batch``; and an
+    eager twin holding the same parameters, buffers and optimizer state
+    (so the next step of the two starts from the same bits). Returns
+    (replay path, eager path), each (model, optimizer, superstep,
+    state)."""
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    replay = graph_path(model0, cfg, training, mlip)
+    replay[2](replay[3], None, [host_batch])
+    model = copy.deepcopy(replay[0])
+    opt = select_optimizer(model.parameters(), training)
+    opt.load_state_dict(replay[1].state_dict())
+    fn = make_superstep_fn(model, opt, cfg, compute_grad_energy=mlip,
+                           device=torch.device("cuda"))
+    return replay, (model, opt, fn, TrainState(model, opt, step=replay[3].step))
+
+
+def same_bits(a, b):
+    """Two models (with their optimizers) hold the same bits."""
+    (ma, oa), (mb, ob) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(ma.state_dict().values(),
+                                                  mb.state_dict().values()))
+            and all(torch.equal(x, y) for sa, sb in zip(oa.state.values(), ob.state.values())
+                    for x, y in zip(sa.values(), sb.values())))
+
+
+def replay_vs_eager(tag, model0, cfg, training, host_batch, per_call, *, mlip=False,
+                    exact=False, iters=20):
+    """From the same state (``replay_pair``: one eager step through a
+    graph cache, then a twin), one train step on ``host_batch`` through
+    the graph cache (its capture and replay) and one eager: the replayed
+    step against the eager one, bit for bit where ``exact``, else as
+    [zinc] holds the card against the CPU (``hold_zinc_step``). Then each path's step time from
+    ``iters`` back-to-back steps (CUDA events; both from the host batch,
+    the replay's including its pack and copy), the graph's replays
+    alone (the step's device time), and a profile of replayed steps
+    (``per_call`` = K1 and K2 launches a step, counted from the
+    replays): K1's and K2's device time inside the graph."""
+    import numpy as np
+
+    lr = float(training["Optimizer"]["learning_rate"])
+    recs, paths = {}, {}
+    paths["replay"], paths["eager"] = replay_pair(model0, cfg, training, host_batch, mlip)
+    for mode in ("eager", "replay"):
+        model, opt, fn, state = paths[mode]
+        before = host_params(model)
+        _, acc = fn(state, None, [host_batch])
+        rec = host_state(model, before)
+        rec["loss"] = float(acc[0] / acc[2])
+        rec["acc"] = [t.clone() for t in acc]
+        recs[mode] = rec
+    graphs = paths["replay"][3].graphs
+    check((graphs.eager_runs, graphs.captures, graphs.replays) == (1, 1, 1),
+          f"{tag}: graph cache ran {graphs.eager_runs} eager, {graphs.captures} captures, "
+          f"{graphs.replays} replays (want 1, 1, 1)")
+    bitwise = (same_bits(paths["eager"][:2], paths["replay"][:2])
+               and all(torch.equal(x, y) for x, y in zip(recs["eager"]["acc"],
+                                                         recs["replay"]["acc"]))
+               and all(np.array_equal(recs["eager"]["grads"][k], recs["replay"]["grads"][k])
+                       for k in recs["eager"]["grads"]))
+    if exact:
+        check(bitwise, f"{tag}: the replayed step differs from the eager step")
+        worst = None
+    else:
+        worst = hold_zinc_step(recs["replay"], recs["eager"], VJP_TOL, lr, f"{tag} replay")
+    timing = {}
+    for mode in ("eager", "replay"):
+        _, _, fn, state = paths[mode]
+        timing[f"{mode}_ms"] = eager_ms(lambda: fn(state, None, [host_batch]), iters=iters,
+                                        warmup=2)
+    graph = next(iter(graphs.graphs.values())).graph
+    timing["graph_ms"] = eager_ms(graph.replay, iters=iters, warmup=2)
+    _, _, fn, state = paths["replay"]
+    prof = device_profile(lambda: fn(state, None, [host_batch]), per_call=per_call,
+                          what=f"{tag} replayed step")
+    held = ("bit for bit" if bitwise else
+            f"within the card-vs-CPU tolerance (grads {worst['grad']:.3g}, params "
+            f"{worst['param']:.3g}, loss {worst['loss']:.3g}; not bit for bit)")
+    log(f"[capture] {tag} ({host_batch.num_nodes} nodes, {host_batch.num_edges} edges): one "
+        f"train step {timing['eager_ms']:.3f} ms issued eagerly, {timing['replay_ms']:.3f} "
+        f"ms replayed from its CUDA graph (host pack + one copy + replay), "
+        f"{timing['graph_ms']:.3f} ms of device time (replays alone); the replayed step "
+        f"equals the eager step {held}")
+    if prof:
+        busy = prof["device_ms"]
+        log(f"[capture] {tag}, replayed steps under the profiler: {busy:.3f} ms of device "
+            f"time, {prof['kernels_per_call']} kernels a step; K1 {prof['k1_ms']:.3f} ms "
+            f"({100 * prof['k1_ms'] / busy:.1f}%), K2 {prof['k2_ms']:.3f} ms "
+            f"({100 * prof['k2_ms'] / busy:.1f}%), per launch K1 "
+            f"{1e3 * prof['k1_ms'] / per_call[0]:.1f} us, K2 "
+            f"{1e3 * prof['k2_ms'] / per_call[1]:.1f} us; the device idles "
+            f"{100 * (1 - busy / timing['replay_ms']):.0f}% of the replayed step")
+    else:
+        log(f"[capture] {tag}: the profiler recorded no kernels of the replays; K1's and "
+            f"K2's time inside the graph not measured")
+    return dict(timing, bitwise=bitwise, nodes=host_batch.num_nodes,
+                edges=host_batch.num_edges, replay_profile=prof,
+                per_launch_us={"k1": 1e3 * prof["k1_ms"] / per_call[0],
+                               "k2": 1e3 * prof["k2_ms"] / per_call[1]} if prof else None)
+
+
+def k_replay_vs_singles(tag, model0, cfg, training, host_batch, k, *, exact):
+    """Three groups of ``k`` steps on ``host_batch``: as K-step
+    supersteps (eager, capture and replay, replay) and as single steps
+    through a graph cache (eager, then replays). The last group is one
+    K-step replay against k single replays: the same bits where
+    ``exact`` (parameters, optimizer state, the group's loss sum), else
+    the loss sums within rtol 1e-4."""
+    out = {}
+    for mode in ("singles", "k"):
+        model, opt, fn, state = graph_path(model0, cfg, training)
+        sums = []
+        for _ in range(3):
+            if mode == "k":
+                _, acc = fn(state, None, [host_batch] * k)
+            else:
+                acc = None
+                for _ in range(k):
+                    _, acc = fn(state, acc, [host_batch])
+            sums.append(acc[0].clone())
+        check(state.step == 3 * k and state.graphs.captures == 1,
+              f"{tag} {mode}: {state.step} steps, {state.graphs.captures} captures")
+        out[mode] = (model, opt, torch.stack(sums))
+    bitwise = (same_bits(out["singles"][:2], out["k"][:2])
+               and torch.equal(out["singles"][2], out["k"][2]))
+    if exact:
+        check(bitwise, f"{tag}: one {k}-step replay differs from {k} single replays")
+    else:
+        torch.testing.assert_close(out["k"][2], out["singles"][2], rtol=1e-4, atol=0.0)
+    rel = float(((out["k"][2] - out["singles"][2]).abs() / out["singles"][2].abs()).max())
+    log(f"[capture] {tag}: one {k}-step replay against {k} single replays (after a "
+        f"{k}-step eager warm-up and a {k}-step capture): "
+        + ("bit for bit (parameters, optimizer state, loss sums)" if bitwise else
+           f"loss sums within rtol 1e-4 (largest relative gap {rel:.3g}; not bit for bit)"))
+    return {"k": k, "bitwise": bitwise, "largest_relative_gap": rel}
+
+
+def optimizer_replays(model0, cfg, training, host_batch):
+    """One replayed step per optimizer type on ``host_batch`` against an
+    eager step from the same state (``replay_pair``; held as [zinc]
+    holds the card against the CPU), every parameter finite; then SGD: a
+    learning-rate change between replays reaches the replayed step (the
+    parameters move by exactly -lr_new x the replay's gradient) with no
+    recapture."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.train.optimizer import set_learning_rate
+
+    kinds = ("SGD", "Adam", "AdamW", "Adadelta", "Adagrad", "Adamax", "RMSprop", "LAMB",
+             "FusedLAMB")
+    lr = float(training["Optimizer"]["learning_rate"])
+    rows = {}
+    for kind in kinds:
+        opt_training = {"Optimizer": {"type": kind, "learning_rate": lr}}
+        recs, paths = {}, {}
+        paths["replay"], paths["eager"] = replay_pair(model0, cfg, opt_training, host_batch)
+        for mode in ("eager", "replay"):
+            model, _, fn, state = paths[mode]
+            before = host_params(model)
+            _, acc = fn(state, None, [host_batch])
+            recs[mode] = dict(host_state(model, before), loss=float(acc[0] / acc[2]))
+            if mode == "replay":
+                check(state.graphs.replays == 1, f"{kind}: the second step was not replayed")
+        check(all(np.isfinite(v).all() for v in recs["replay"]["params"].values()),
+              f"{kind}: non-finite parameters after the replayed step")
+        worst = hold_zinc_step(recs["replay"], recs["eager"], VJP_TOL, lr, f"{kind} replay")
+        moved = max(float(np.abs(recs["replay"]["params"][k] - recs["replay"]["before"][k]).max())
+                    for k in recs["replay"]["params"])
+        check(moved > 0, f"{kind}: the replayed step moved no parameter")
+        rows[kind] = {"loss": recs["replay"]["loss"], "grad_err": worst["grad"],
+                      "param_err": worst["param"], "largest_move": moved}
+    log("[capture] one replayed step per optimizer on the polymer bin against an eager step "
+        "from the same state (rtol 1e-4, atol 1e-3 x min(largest, 1); all finite): "
+        + ", ".join(
+            f"{k} loss {r['loss']:.6g} grads {r['grad_err']:.2g} params {r['param_err']:.2g} "
+            f"moved {r['largest_move']:.2g}" for k, r in rows.items()))
+
+    model, opt, fn, state = graph_path(model0, cfg, {"Optimizer": {"type": "SGD",
+                                                                   "learning_rate": lr}})
+    fn(state, None, [host_batch])
+    fn(state, None, [host_batch])
+    lr_t = opt.param_groups[0]["lr"]
+    set_learning_rate(opt, lr / 4)
+    check(opt.param_groups[0]["lr"] is lr_t, "set_learning_rate rebound the lr tensor")
+    before = [p.detach().clone() for p in model.parameters()]
+    fn(state, None, [host_batch])
+    want = [b + p.grad * torch.neg(lr_t) for b, p in zip(before, model.parameters())]
+    exact = all(torch.equal(p, w) for p, w in zip(model.parameters(), want))
+    old = [b + p.grad * -lr for b, p in zip(before, model.parameters())]
+    check(exact and state.graphs.captures == 1 and state.graphs.replays == 2
+          and not all(torch.equal(p, o) for p, o in zip(model.parameters(), old)),
+          "a learning-rate change did not reach the replayed SGD step")
+    log(f"[capture] SGD: after set_learning_rate({lr / 4:g}) the next replay moved every "
+        f"parameter by exactly -{lr / 4:g} x its gradient (no recapture: 1 capture, 2 replays)")
+    return rows
+
+
+def phase_capture(steps, poly, head_cpu):
+    """Eager against replay at each path's step shape (``steps``: tag,
+    model, cfg, training, host batch, mlip, exact), one K-step replay
+    against K single replays (the SchNet headline step bit for bit, the
+    polymer bin within tolerance), one replayed step per optimizer, a
+    learning-rate change reaching a replayed step, and polymers.json
+    trained with K-step supersteps through run_training."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.data.padschedule import superstep_groups
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    t0 = time.perf_counter()
+    out = {"steps": {}}
+    for tag, model0, cfg, training, batch, per_call, mlip, exact in steps:
+        out["steps"][tag] = replay_vs_eager(tag, model0, cfg, training, batch, per_call,
+                                            mlip=mlip, exact=exact)
+    head_model, head_cfg, head_training = steps[0][1:4]
+    out["k_headline"] = k_replay_vs_singles("SchNet headline step", head_model, head_cfg,
+                                            head_training, head_cpu, 2, exact=True)
+    out["k_polymer"] = k_replay_vs_singles("polymer bin", poly["model0"], poly["cfg"],
+                                           poly["training"], poly["bin"], 4, exact=False)
+    out["optimizers"] = optimizer_replays(poly["model0"], poly["cfg"], poly["training"],
+                                          poly["bin"])
+
+    # polymers.json trained with K = 4 supersteps: each epoch's 8 bins of
+    # one budget make two groups; the plateau scheduler, told to cut the
+    # rate every epoch, changes it between epochs with no recapture.
+    k = 4
+    config = copy.deepcopy(poly["config"])
+    training = config["NeuralNetwork"]["Training"]
+    training["Parallelism"] = dict(training.get("Parallelism", {}), superstep={"steps": k})
+    training["ReduceLROnPlateau"] = {"factor": 0.5, "patience": 0, "threshold": 1.0}
+    plan = list(poly["loader"].epoch_plan(0))
+    groups = [len(g) for g in superstep_groups(plan, k)]
+    check(groups.count(k) >= 1, f"K = {k} forms no full group in {groups}")
+    with recorded_run() as rec:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t1 = time.perf_counter()
+        state, model, cfg, hist, _ = port.run_training(config, datasets=poly["splits"],
+                                                       seed=0, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    sizes = [len(x) for x in rec["losses"]]
+    steps_losses = torch.cat(rec["losses"]).double().cpu().numpy()
+    lr0 = float(training["Optimizer"]["learning_rate"])
+    check(sizes.count(k) >= 1 and sum(sizes) == state.step and np.isfinite(steps_losses).all()
+          and np.isfinite(hist.train_loss).all(),
+          f"K = {k} run: dispatch sizes {sizes}, {state.step} steps")
+    check(k1 == 3 * rec["forwards"] and k2 == 3 * state.step,
+          f"K = {k} run: K1 {k1} in {rec['forwards']} forwards, K2 {k2} in {state.step} steps")
+    check(np.allclose(hist.lr, [lr0 * 0.5 ** (e + 1) for e in range(len(hist.lr))], rtol=1e-6)
+          and not any(hist.epoch_captures[2:]),
+          f"K = {k} run: lr {hist.lr}, captures per epoch {hist.epoch_captures}")
+    graphs = graph_report(f"capture] [polymers K={k}", state, hist, run_s,
+                          poly["run_seconds"], steady=2)
+    log(f"[capture] polymers.json with superstep steps {k}: epoch 0's plan of {len(plan)} "
+        f"bins groups into {groups} (superstep_groups); the run dispatched {sizes} steps "
+        f"per dispatch over {state.step} steps, K1 {k1} = 3 x {rec['forwards']} forwards, K2 "
+        f"{k2} = 3 x {state.step} steps; the plateau scheduler cut the rate each epoch "
+        f"({hist.lr}) with captures per epoch {hist.epoch_captures}; train loss "
+        f"{hist.train_loss} ({run_s:.2f} s against {poly['run_seconds']:.2f} s for the K = 1 "
+        f"run in [polymers])")
+    out["superstep_run"] = {"k": k, "groups": groups, "dispatch_sizes": sizes,
+                            "lr": hist.lr, "train_loss": hist.train_loss, "k1": k1, "k2": k2,
+                            "graphs": graphs}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[capture] eager against replay per step, {card_line()}: " + "; ".join(
+        f"{tag} {r['eager_ms']:.3f} -> {r['replay_ms']:.3f} ms (device {r['graph_ms']:.3f})"
+        for tag, r in out["steps"].items()) + f"; phase took {out['seconds']:.1f} s")
+    return out, k1, k2
 
 
 def zoo_configs():
@@ -2406,9 +2859,9 @@ def main():
     served = served_batches(samples, budgets)
     shape_rows = phase_shapes([max(served, key=lambda kb: kb[1].num_nodes), bins[0], head],
                               prior_path)
-    launches, n_bins = phase_slice(samples, budgets, settings)
+    launches, n_bins, served_bin = phase_slice(samples, budgets, settings)
     train = phase_train(config, splits)
-    headline = phase_train_timing(head_cpu)
+    headline, head_step = phase_train_timing(head_cpu)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
     mlip_loader, mlip_budgets = train_loader(mlip_cfg, mlip_splits[0])
     check(mlip_loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
@@ -2432,17 +2885,29 @@ def main():
     poly_bin = next(iter(poly_loader))
     poly_rows = phase_polymer_kernels(poly_bin.to("cuda"))
     polymers = phase_polymers(poly_cfg, poly_splits, poly_loader, poly_bin)
-    zoo = phase_zoo(poly_splits, poly_bin, polymers.pop("model0"), polymers.pop("cfg"),
-                    poly_splits[0])
+    poly = {"model0": polymers.pop("model0"), "cfg": polymers.pop("cfg"),
+            "training": polymers.pop("training"), "bin": poly_bin, "config": poly_cfg,
+            "splits": poly_splits, "loader": poly_loader,
+            "run_seconds": polymers["run"]["seconds"]}
+    zoo = phase_zoo(poly_splits, poly_bin, poly["model0"], poly["cfg"], poly_splits[0])
+    capture, cap_k1, cap_k2 = phase_capture([
+        ("SchNet headline step", *head_step, head_cpu, (4, 4), False, True),
+        ("MLIP first packed bin", *mlip.pop("step"), mlip_batch, (12, 12), True, True),
+        ("ZINC first packed bin", *zinc.pop("step"), zinc_bin, (3, 3), False, False),
+        ("polymer first packed bin", poly["model0"], poly["cfg"], poly["training"],
+         poly_bin, (3, 3), False, False),
+    ], poly, head_cpu)
 
     kernels = [{
         "name": "edge_pipeline",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
-        "launches": launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"],
+        "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
+                     + cap_k1),
         "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
-                             "zinc": zinc["k1"], "polymers": polymers["k1"]},
+                             "zinc": zinc["k1"], "polymers": polymers["k1"],
+                             "polymers_superstep": cap_k1},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               if r["dtype"] == "f32"]),
@@ -2467,9 +2932,10 @@ def main():
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
-        "launches": train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"],
+        "launches": train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + cap_k2,
         "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
-                             "zinc": zinc["k2"], "polymers": polymers["k2"]},
+                             "zinc": zinc["k2"], "polymers": polymers["k2"],
+                             "polymers_superstep": cap_k2},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               if r["dtype"] == "f32"]),
@@ -2495,6 +2961,7 @@ def main():
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] polymers: {json.dumps(polymers)}")
     log(f"[report] zoo: {json.dumps(zoo)}")
+    log(f"[report] capture: {json.dumps(dict(capture, served_bin=served_bin))}")
     log(f"[report] card: {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,12 @@ What runs today on one device:
   pipeline's forward (K1) and backward (K2) as hand-written CUDA kernels
   on the card (``ops/edge_pipeline.py``); every run saves a checkpoint,
   from which ``run_prediction(config)`` alone predicts
-  (``utils/checkpoint.py``);
+  (``utils/checkpoint.py``); on the card every step is a replayed CUDA
+  graph (``train/capture.py``), K steps to a graph where
+  ``Parallelism.superstep`` groups them;
 - serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
-  ``export.make_forward`` -> ``MultiHeadGraphModel``.
+  ``export.make_forward`` -> ``MultiHeadGraphModel``, one captured
+  forward per budget on the card.
 
 The other stacks and schemes are later work (ROADMAP.md).
 

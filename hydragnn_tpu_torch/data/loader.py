@@ -1,24 +1,33 @@
-"""Host-side batching: shuffled, bucket-padded or bin-packed epochs and
-dataset splits.
+"""Host-side batching: shuffled, bucket-padded or bin-packed epochs, the
+serial superstep feed, and dataset splits.
 
 Counterpart of ``hydragnn_tpu/data/loader.py``: ``GraphLoader`` on its
 serial path (an epoch's batch order from ``epoch_batch_indices``, each
 batch padded to one worst-case shape or up the bucket ladder, or the
 epoch's order first-fit-decreasing packed into fitted budgets, collated
-on the host) and ``split_dataset``. Batch order, pad specs, packed bins
+on the host), ``SuperstepLoader`` (the epoch plan delivered as groups of
+K same-spec batches, ``MacroBatch``, and singletons) and
+``split_dataset``. Batch order, pad specs, packed bins, superstep groups
 and collated arrays equal the JAX package's for the same seed.
 
 The port's batches carry the block plan at the Hopper tiles by default
 (``with_segment_plan=True``), packed bins included, so every aggregation
 runs K1 forward and K2 backward; ``with_segment_plan=False`` gives the
 ``index_add_`` scatter path. There is no crossover table. Spec
-schedules, resampling, triplets, the parallel input pipeline and
-supersteps come with ROADMAP Queue 1 item 10; the device-coordinated
+schedules, resampling, triplets and the parallel input pipeline come
+with ROADMAP Queue 1 item 10; the device-coordinated
 packer of the dp scheme with item 11.
+
+Where the JAX package stacks a superstep group into one ``[K, ...]``
+host batch, the port keeps its K collated batches side by side
+(``MacroBatch``): on the card the step cache packs them into one pinned
+buffer and one copy (``train/capture.py``), on the CPU the loop runs
+them one by one.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +41,7 @@ from hydragnn_tpu_torch.data.padschedule import (
     ladder_spec,
     ladder_spec_keys,
     pack_epoch_ffd,
+    superstep_groups,
     worst_case_spec_from_sizes,
 )
 
@@ -208,21 +218,78 @@ class GraphLoader:
                     spec = self._fixed_batch_spec()
             yield idx, spec
 
+    def collate_entry(self, idx, spec) -> GraphBatch:
+        """One plan entry's batch (CPU tensors)."""
+        return collate(
+            [self.dataset[i] for i in idx], spec,
+            with_segment_plan=self.with_segment_plan,
+        )
+
     def __iter__(self) -> Iterator[GraphBatch]:
         if self._batch_cache is not None:
             yield from self._batch_cache
             return
         cache: Optional[List[GraphBatch]] = [] if self.cache_batches else None
         for idx, spec in self.epoch_plan(self._epoch):
-            batch = collate(
-                [self.dataset[i] for i in idx], spec,
-                with_segment_plan=self.with_segment_plan,
-            )
+            batch = self.collate_entry(idx, spec)
             if cache is not None:
                 cache.append(batch)
             yield batch
         if cache is not None:
             self._batch_cache = cache
+
+
+@dataclass
+class MacroBatch:
+    """One superstep group: ``k`` consecutive same-spec batches of the
+    epoch plan, run as one K-step dispatch."""
+
+    batches: List[GraphBatch]
+
+    @property
+    def k(self) -> int:
+        return len(self.batches)
+
+
+class SuperstepLoader:
+    """Serial superstep delivery over a GraphLoader: the epoch plan is
+    folded into same-spec runs of ``k`` (``padschedule.superstep_groups``)
+    and each full run is delivered as one ``MacroBatch``; a run's tail
+    (< k entries) as plain batches. Batch content and order equal
+    iterating the wrapped loader; only the grouping changes. ``k`` must
+    be at least 2 (keep the plain loader for K = 1). A fixed-order
+    loader with ``cache_batches`` replays its first epoch's deliveries."""
+
+    def __init__(self, loader: GraphLoader, k: int):
+        if int(k) <= 1:
+            raise ValueError(
+                "SuperstepLoader needs k >= 2; keep the plain loader for K=1"
+            )
+        self.loader = loader
+        self.k = int(k)
+        self._cache: Optional[list] = None
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        """Deliveries (dispatches) this epoch: groups, not steps."""
+        return len(superstep_groups(self.loader.epoch_plan(self.loader._epoch), self.k))
+
+    def __iter__(self):
+        if self._cache is not None:
+            yield from self._cache
+            return
+        cache: Optional[list] = [] if self.loader.cache_batches else None
+        plan = list(self.loader.epoch_plan(self.loader._epoch))
+        for group in superstep_groups(plan, self.k):
+            batches = [self.loader.collate_entry(idx, spec) for idx, spec in group]
+            item = MacroBatch(batches) if len(batches) > 1 else batches[0]
+            if cache is not None:
+                cache.append(item)
+            yield item
+        if cache is not None:
+            self._cache = cache
 
 
 def split_dataset(

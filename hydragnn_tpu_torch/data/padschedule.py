@@ -4,9 +4,10 @@ Counterpart of the packing half of ``hydragnn_tpu/data/padschedule.py``
 (``OpenBin``, ``PackPlanner``, ``pack_epoch_ffd``, ``fit_pack_budgets``
 and their helpers) and the unpacked specs the loader pads to
 (``ladder_spec``, ``worst_case_spec_from_sizes``), and the ``packing:
-"auto"`` decision (``packing_beats_ladder``). Device-free size
-arithmetic, copied so that fitted budgets, packed bins, pad specs and
-the decision match the JAX package's bit for bit. The per-device
+"auto"`` decision (``packing_beats_ladder``), and the superstep
+grouping (``superstep_groups``, ``auto_superstep_k``). Device-free size
+arithmetic, copied so that fitted budgets, packed bins, pad specs, the
+decision and the groups match the JAX package's bit for bit. The per-device
 schedules and the device-coordinated packer of the dp schemes come with
 the data fast path (ROADMAP Queue 1 items 10 and 11).
 """
@@ -425,3 +426,120 @@ def packing_beats_ladder(
     if meta["waste"] <= (baseline_exe / max(real, 1.0)) * PACK_MARGIN:
         return budgets, meta["slack"]
     return None
+
+
+# ----------------------------------------------------------------------
+# Superstep grouping: one epoch's (idx, spec) plan folded into runs of K
+# consecutive same-spec batches, each run one K-step dispatch
+# (train/loop.make_superstep_fn; on the card one CUDA-graph replay).
+# ----------------------------------------------------------------------
+
+
+def _spec_key(spec) -> tuple:
+    return (
+        spec.num_nodes,
+        spec.num_edges,
+        spec.num_graphs,
+        spec.num_triplets,
+    )
+
+
+def superstep_groups(plan, k: int) -> List[list]:
+    """Group one epoch's ``[(idx, spec), ...]`` plan into superstep
+    groups: each group is a list of consecutive same-spec plan entries
+    of length exactly ``k`` (one K-step dispatch) or length 1 (a plain
+    single-step batch).
+
+    Maximal same-spec runs are cut into full ``k``-chunks as they
+    accumulate; a run's remainder (< k entries) is emitted as
+    singletons, so the set of step shapes stays bounded at {K steps per
+    spec} plus {one step per spec}. Entries with ``spec=None`` are never
+    grouped. ``k <= 1`` returns every entry as a singleton: the plan's
+    batch order and content are always preserved, only the grouping
+    boundaries change."""
+    k = int(k)
+    groups: List[list] = []
+    run: List[tuple] = []
+    run_key = None
+
+    def _flush():
+        # remainder of a broken run: singletons (see docstring)
+        groups.extend([e] for e in run)
+        run.clear()
+
+    for entry in plan:
+        spec = entry[1]
+        key = None if spec is None else _spec_key(spec)
+        if key is None:
+            _flush()
+            run_key = None
+            groups.append([entry])
+            continue
+        if key != run_key:
+            _flush()
+            run_key = key
+        if k <= 1:
+            groups.append([entry])
+            continue
+        run.append(entry)
+        if len(run) == k:
+            groups.append(list(run))
+            run.clear()
+    _flush()
+    return groups
+
+
+def estimate_spec_bytes(
+    spec,
+    *,
+    node_cols: float = 16.0,
+    edge_cols: float = 8.0,
+    graph_cols: float = 12.0,
+    triplet_cols: float = 4.0,
+) -> int:
+    """Coarse host-RAM bound of one collated batch at ``spec``:
+    float32-equivalent columns per node, edge, graph and triplet row.
+    Used only to cap an auto-picked K against ``max_host_bytes``."""
+    triplets = spec.num_triplets or 0
+    return int(
+        4
+        * (
+            spec.num_nodes * node_cols
+            + spec.num_edges * edge_cols
+            + spec.num_graphs * graph_cols
+            + triplets * triplet_cols
+        )
+    )
+
+
+def auto_superstep_k(
+    plan,
+    *,
+    max_host_bytes: int = 256 << 20,
+    candidates: Sequence[int] = (32, 16, 8),
+    min_grouped_frac: float = 0.5,
+    min_steps: int = 64,
+) -> int:
+    """The ``superstep: {steps: "auto"}`` decision, a pure function of
+    one epoch's plan: the largest candidate K whose full K-groups cover
+    at least ``min_grouped_frac`` of the epoch's steps and whose K
+    batches stay under ``max_host_bytes`` (``estimate_spec_bytes`` x K).
+    Plans shorter than ``min_steps`` return 1."""
+    plan = list(plan)
+    if len(plan) < max(int(min_steps), 2):
+        return 1
+    specs = [s for _, s in plan if s is not None]
+    if not specs:
+        return 1
+    biggest = max(estimate_spec_bytes(s) for s in specs)
+    for k in sorted({int(c) for c in candidates}, reverse=True):
+        if k <= 1:
+            continue
+        if biggest * k > int(max_host_bytes):
+            continue
+        grouped = sum(
+            len(g) for g in superstep_groups(plan, k) if len(g) > 1
+        )
+        if grouped >= min_grouped_frac * len(plan):
+            return k
+    return 1

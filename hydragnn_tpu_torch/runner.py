@@ -13,6 +13,15 @@ packs when the fitted budgets beat the unpacked ladder's padding waste
 run's seed), ``true`` fits budgets, and eval loaders fit their own
 budgets with the train-tuned slack.
 
+Supersteps (``Training.Parallelism.superstep``) are resolved as the JAX
+runner resolves them on the single scheme (``parallel/runtime.py``: an
+integer pins K, ``"auto"`` asks the epoch plan), and a loader with K > 1
+delivers K-batch groups (``data/loader.SuperstepLoader``). On the card
+every train, eval and test step runs through the run's CUDA-graph cache
+(``train/capture.StepGraphs``, kept on the returned state), as the JAX
+package runs every step through ``jax.jit``; a capture that fails
+raises.
+
 Checkpoints: every run saves its final state under
 ``./logs/<log_name>/`` (``utils/checkpoint.py``; ``Training.Checkpoint``
 adds a save on every improving epoch), and ``run_prediction(config)``
@@ -22,8 +31,8 @@ the running statistics at the end of training from an eval-shaped,
 unpacked loader over the train split.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: data-parallel and multibranch schemes (Queue 1 item 11),
-supersteps and the parallel input pipeline (item 10), ``continue``
+it: data-parallel and multibranch schemes (Queue 1 item 11), the
+parallel input pipeline (item 10), ``continue``
 (resume) and the divergence guard (item 12), and dataset formats other
 than the raw LSMS text files (item 10). An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
@@ -38,7 +47,7 @@ import torch
 
 from hydragnn_tpu_torch.config import load_config, save_config, update_config
 from hydragnn_tpu_torch.data.graph import GraphSample, select_input_features
-from hydragnn_tpu_torch.data.loader import GraphLoader, split_dataset
+from hydragnn_tpu_torch.data.loader import GraphLoader, SuperstepLoader, split_dataset
 from hydragnn_tpu_torch.data.padschedule import (
     dataset_size_arrays,
     fit_pack_budgets,
@@ -47,6 +56,8 @@ from hydragnn_tpu_torch.data.padschedule import (
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.parallel.runtime import _superstep_from_config, resolve_superstep_k
+from hydragnn_tpu_torch.train.capture import StepGraphs
 from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validate_test
 from hydragnn_tpu_torch.train.loop import test as run_test
 from hydragnn_tpu_torch.train.optimizer import grad_clip_norm, select_optimizer
@@ -125,12 +136,6 @@ def _refuse_unported(config: dict) -> None:
             f"Parallelism scheme {scheme!r} is not ported yet (the port trains "
             "on one device): ROADMAP Queue 1 item 11"
         )
-    steps = par.get("superstep", {}).get("steps", "auto")
-    if steps not in ("auto", 1, "1"):
-        raise NotImplementedError(
-            "supersteps (Parallelism.superstep) are not ported yet: ROADMAP "
-            "Queue 1 item 10"
-        )
     if int(par.get("pipeline", {}).get("workers", 0) or 0) > 0:
         raise NotImplementedError(
             "the parallel input pipeline is not ported yet (the port collates "
@@ -200,6 +205,18 @@ def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0) -> tuple
     return True, budgets, meta["slack"]
 
 
+def _with_supersteps(settings: dict, loader):
+    """``loader`` delivering superstep groups of the K it resolves to
+    (itself when K is 1)."""
+    k = resolve_superstep_k(settings, loader)
+    return SuperstepLoader(loader, k) if k > 1 else loader
+
+
+def _step_graphs(dev: torch.device) -> Optional[StepGraphs]:
+    """The run's CUDA-graph cache on a card; None on the CPU."""
+    return StepGraphs(dev) if dev.type == "cuda" else None
+
+
 def run_training(
     config_source,
     datasets: Optional[Tuple[Sequence[GraphSample], ...]] = None,
@@ -212,7 +229,10 @@ def run_training(
     sample lists instead of ``Dataset.path``. Every batch carries the
     block plan at the Hopper tiles unless ``Training.use_segment_plan``
     is false, so each aggregation runs K1 forward and K2 backward;
-    batches are bin-packed where ``resolve_packing`` says so.
+    batches are bin-packed where ``resolve_packing`` says so, and
+    grouped into supersteps where ``Parallelism.superstep`` resolves to
+    K > 1. On the card every step replays a captured CUDA graph
+    (``state.graphs``).
 
     Returns (state, model, cfg, history, config)."""
     config = load_config(config_source)
@@ -267,7 +287,13 @@ def run_training(
         GraphLoader(trainset, batch_size, with_segment_plan=seg_plan)
         if bn_recalibration_epochs(training) else None
     )
-    state = TrainState(model, select_optimizer(model.parameters(), training))
+    superstep = _superstep_from_config(training.get("Parallelism", {}))
+    train_loader, val_loader, test_loader = (
+        _with_supersteps(superstep, ld) for ld in (train_loader, val_loader, test_loader))
+    if isinstance(train_loader, SuperstepLoader):
+        print_distributed(verbosity, 2, f"supersteps: K = {train_loader.k}")
+    state = TrainState(model, select_optimizer(model.parameters(), training),
+                       graphs=_step_graphs(dev))
     state, hist = train_validate_test(
         model, cfg, state, train_loader, val_loader, test_loader, config,
         device=dev, compute_dtype=compute_dtype,
@@ -328,6 +354,8 @@ def run_prediction(
     dev = next(model.parameters()).device
     if state is None:
         state = restore_checkpoint_state(config, model)
+    if state.graphs is None:
+        state.graphs = _step_graphs(dev)
     _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
     seg_plan = training.get("use_segment_plan", True)
     test_loader = GraphLoader(

@@ -7,6 +7,13 @@ The engine holds one inference forward (``export.make_forward``: eval
 mode, no gradients, the raw head tuple) on one device and runs one
 warm-up forward per fitted ``PackSpec`` budget at start, so the kernel
 library is built and every budget shape has run once before traffic.
+On a card the warm-up then captures the forward at each budget as a
+CUDA graph (``train/capture.StepGraphs``), the counterpart of the JAX
+engine's one compiled executable per budget, and each dispatch copies
+its bin into that budget's static buffers (one pinned copy) and replays
+the graph; the outputs are copied out of the graph's buffers at once, so
+a later replay cannot overwrite a bin that is still in flight. Served
+outputs equal a direct forward's on the same batch.
 Every bin is collated WITH the sorted-segment block plan, so on a CUDA
 device each CFConv layer's edge pipeline runs the hand-written K1
 kernel (the JAX engine collates without a plan and stays on XLA's
@@ -40,6 +47,7 @@ from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.export import make_forward
 from hydragnn_tpu_torch.serve.admission import admit_state
 from hydragnn_tpu_torch.serve.batcher import DynamicBatcher, ServeRequest
+from hydragnn_tpu_torch.train.capture import StepGraphs
 
 
 @dataclass(frozen=True)
@@ -144,6 +152,7 @@ class ServingEngine:
             model.load_state_dict(state)
         model.to(self.device)
         self._forward = make_forward(model, cfg)
+        self.graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         self._warm: Dict[Tuple[int, int, int], bool] = {}
         self.warmup_ms: Dict[Tuple[int, int, int], float] = {}
         self._closed = False
@@ -184,16 +193,24 @@ class ServingEngine:
             as_numpy=True,
         )
 
+    def _graph_forward(self, batches):
+        return self._forward(batches[0])
+
     def warm_all(self) -> None:
         """Run one forward per budget shape (building the kernel library
-        on the first), so no shape is first seen under traffic."""
+        on the first), then on a card capture it, so no shape is first
+        seen under traffic. A capture that fails raises."""
         for b in self.budgets:
             key = _spec_key(b)
             if key in self._warm:
                 continue
             t0 = time.perf_counter()
-            dev = self.collate_bin([self._example], b).to(self.device)
-            self._forward(dev)
+            host = [self.collate_bin([self._example], b)]
+            if self.graphs is None:
+                self._forward(host[0].to(self.device))
+            else:
+                self.graphs.eager(self._graph_forward, host)
+                self.graphs.capture(key, self._graph_forward, host)
             self._sync()
             self._warm[key] = True
             self.warmup_ms[key] = round(1e3 * (time.perf_counter() - t0), 3)
@@ -226,7 +243,10 @@ class ServingEngine:
         for s in samples:
             offsets.append((off, s.num_nodes))
             off += s.num_nodes
-        outs = self._forward(batch.to(self.device))
+        if self.graphs is None:
+            outs = self._forward(batch.to(self.device))
+        else:
+            outs = tuple(o.clone() for o in self.graphs.replay(key, [batch]))
         t1 = time.perf_counter()
         return {
             "reqs": reqs,
@@ -327,6 +347,7 @@ class ServingEngine:
         Idempotent; aggregates survive."""
         self._closed = True
         self._warm = {}
+        self.graphs = None
 
     # -- reporting -----------------------------------------------------
 

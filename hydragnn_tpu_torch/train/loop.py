@@ -1,16 +1,26 @@
 """Training / validation / test loops.
 
 Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
-``make_eval_step``, ``History``, ``train_validate_test`` (the serial
-feed) and ``test``. An epoch runs each batch's step on the device and
-keeps the graph-weighted loss sums there; the host fetches them once at
-the end of the epoch (the JAX loop's discipline), never per step. The
-plateau scheduler steps on the validation loss and early stopping
-follows ``Training.EarlyStopping``/``patience``, as in the JAX loop.
-With ``compute_grad_energy`` (an interatomic potential) the steps take
-the energy + force loss of ``train/mlip.py`` (three per-task losses:
-energy, energy per atom, force), and the collecting test pass returns
-[graph energies, forces].
+``make_eval_step``, ``fold_step_metrics``, ``make_superstep_fn``,
+``superstep_task_count``, ``History``, ``train_validate_test`` (the
+serial feed, with superstep groups) and ``test``. An epoch runs each
+batch's step on the device and keeps the graph-weighted loss sums there;
+the host fetches them once at the end of the epoch (the JAX loop's
+discipline), never per step. The plateau scheduler steps on the
+validation loss and early stopping follows ``Training.EarlyStopping``/
+``patience``, as in the JAX loop. With ``compute_grad_energy`` (an
+interatomic potential) the steps take the energy + force loss of
+``train/mlip.py`` (three per-task losses: energy, energy per atom,
+force), and the collecting test pass returns [graph energies, forces].
+
+Where ``jax.jit`` compiles each step once per shape, the port on the
+card runs every train, eval and test step through a ``StepGraphs``
+cache (``train/capture.py``): eager the first time a shape is seen,
+captured as a CUDA graph the second, replayed after that. A superstep
+group (``data/loader.MacroBatch``) of K batches is one graph of K steps
+on the card, and K eager steps on the CPU; either way its per-step
+losses fold into the epoch's sums as K single steps would
+(``fold_step_metrics``), so K does not change a result.
 
 Checkpoints (``utils/checkpoint.py``): with ``Training.Checkpoint`` on,
 every epoch that improves the validation loss (from epoch
@@ -20,8 +30,8 @@ end, after the end-of-training batch-norm recalibration
 (``recalibrate_batch_stats``, ``Training.bn_recalibration``).
 
 Not ported yet, and refused by the runner: resume (``continue``), the
-divergence guard, supersteps, the pipeline feed and telemetry (ROADMAP
-Queue 1 items 12, 10, 13).
+divergence guard, the pipeline feed and telemetry (ROADMAP Queue 1
+items 12, 10, 13).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hydragnn_tpu_torch.data.loader import MacroBatch
 from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train.losses import multihead_loss
@@ -42,6 +53,7 @@ from hydragnn_tpu_torch.train.mlip import (
     energy_force_loss_terms,
 )
 from hydragnn_tpu_torch.train.optimizer import (
+    OptaxOptimizer,
     ReduceLROnPlateau,
     clip_by_global_norm_,
     get_learning_rate,
@@ -52,22 +64,13 @@ from hydragnn_tpu_torch.utils.checkpoint import checkpoint_settings, save_checkp
 from hydragnn_tpu_torch.utils.print_utils import print_distributed
 
 
-def make_train_step(
-    model: torch.nn.Module,
-    optimizer: torch.optim.Optimizer,
-    cfg: ModelConfig,
-    compute_dtype: torch.dtype = torch.float32,
-    clip_norm: float = 0.0,
-    compute_grad_energy: bool = False,
-) -> Callable:
-    """``step(state, batch) -> (state, loss, per_task)``: one optimizer
-    step on a batch already on the model's device. The losses come back
-    as device tensors (no host sync); the gradients stay in ``.grad``
-    until the next step. ``compute_grad_energy`` trains on the MLIP
-    energy + force loss, whose backward differentiates the force pass."""
+def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy):
+    """``body(batch) -> (loss, per_task)``: one optimizer step on a batch
+    already on the model's device, with no host sync (so it can be
+    captured). The gradients stay in ``.grad`` until the next step."""
     params = list(model.parameters())
 
-    def step(state: TrainState, batch):
+    def body(batch):
         b = cast_batch(batch, compute_dtype)
         model.train()
         optimizer.zero_grad(set_to_none=True)
@@ -84,8 +87,53 @@ def make_train_step(
         if clip_norm > 0:
             clip_by_global_norm_(params, clip_norm)
         optimizer.step()
+        return tot.detach(), tasks.detach()
+
+    return body
+
+
+def _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy):
+    """``body(batch) -> (loss, per_task[, *outputs])`` in eval mode
+    without parameter gradients (no host sync)."""
+
+    def body(batch):
+        b = cast_batch(batch, compute_dtype)
+        model.eval()
+        if compute_grad_energy:
+            with torch.enable_grad():
+                ge, forces = energy_and_forces(model, b, cfg, create_graph=False)
+            ge, forces = ge.detach(), forces.detach()
+            tot, tasks = energy_force_loss_terms(ge, forces, b, cfg)
+            outputs = (ge[:, None], forces)
+        else:
+            with torch.no_grad():
+                outputs = tuple(model(b))
+                tot, tasks = multihead_loss(outputs, b, cfg)
+        return (tot, tasks) + (outputs if collect_outputs else ())
+
+    return body
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    optimizer: OptaxOptimizer,
+    cfg: ModelConfig,
+    compute_dtype: torch.dtype = torch.float32,
+    clip_norm: float = 0.0,
+    compute_grad_energy: bool = False,
+) -> Callable:
+    """``step(state, batch) -> (state, loss, per_task)``: one eager
+    optimizer step on a batch already on the model's device. The losses
+    come back as device tensors (no host sync); the gradients stay in
+    ``.grad`` until the next step. ``compute_grad_energy`` trains on the
+    MLIP energy + force loss, whose backward differentiates the force
+    pass."""
+    body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy)
+
+    def step(state: TrainState, batch):
+        tot, tasks = body(batch)
         state.step += 1
-        return state, tot.detach(), tasks.detach()
+        return state, tot, tasks
 
     return step
 
@@ -98,30 +146,112 @@ def make_eval_step(
     compute_grad_energy: bool = False,
 ) -> Callable:
     """``step(state, batch) -> (loss, per_task[, outputs])`` in eval mode
-    without parameter gradients. With ``compute_grad_energy`` the forces
-    take a gradient with respect to the positions only (no graph is
-    kept), and the outputs are [graph energies [G, 1], forces [N, 3]]."""
+    without parameter gradients, run eagerly. With
+    ``compute_grad_energy`` the forces take a gradient with respect to
+    the positions only (no graph is kept), and the outputs are [graph
+    energies [G, 1], forces [N, 3]]."""
+    body = _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy)
 
     def step(state: TrainState, batch):
         del state
-        b = cast_batch(batch, compute_dtype)
-        model.eval()
-        if compute_grad_energy:
-            with torch.enable_grad():
-                ge, forces = energy_and_forces(model, b, cfg, create_graph=False)
-            ge, forces = ge.detach(), forces.detach()
-            tot, tasks = energy_force_loss_terms(ge, forces, b, cfg)
-            if collect_outputs:
-                return tot, tasks, [ge[:, None], forces]
-            return tot, tasks
-        with torch.no_grad():
-            outputs = model(b)
-            tot, tasks = multihead_loss(outputs, b, cfg)
-        if collect_outputs:
-            return tot, tasks, list(outputs)
-        return tot, tasks
+        out = body(batch)
+        return (out[0], out[1], list(out[2:])) if collect_outputs else out
 
     return step
+
+
+def fold_step_metrics(acc, tots, tasks, gs):
+    """Fold K steps' ``(loss [K], per_task [K, T], graphs [K])`` rows into
+    the epoch accumulator ``(loss_sum, tasks_sum, n_graphs)`` (None
+    before the first step) with exactly the per-step op sequence: each
+    product rounded, then the adds chained in step order, so K steps
+    folded at once give the bits K single steps give. (Each torch op is
+    its own kernel, so no product is contracted into an add, the hazard
+    the JAX package's version fences against.)"""
+    prod_l = tots * gs
+    prod_t = tasks * gs[:, None]
+    for i in range(gs.shape[0]):
+        if acc is None:
+            # gs may be a graph's output, which its next replay rewrites
+            acc = (prod_l[i], prod_t[i], gs[i].clone())
+        else:
+            acc = (acc[0] + prod_l[i], acc[1] + prod_t[i], acc[2] + gs[i])
+    return acc
+
+
+def _spec_key(batch) -> tuple:
+    return (batch.num_nodes, batch.num_edges, batch.num_graphs)
+
+
+def _steps_fn(body) -> Callable:
+    """K steps of ``body`` over K device batches: ``(loss [K], per_task
+    [K, T], graphs [K], *each step's extra outputs)``."""
+
+    def run(batches):
+        rows = [body(b) for b in batches]
+        out = (
+            torch.stack([r[0] for r in rows]),
+            torch.stack([r[1] for r in rows]),
+            torch.stack([b.graph_mask.sum().to(torch.float32) for b in batches]),
+        )
+        return out + tuple(x for r in rows for x in r[2:])
+
+    return run
+
+
+def _dispatch(run, graphs, key, batches, device):
+    """``run`` over host batches: through the graph cache on the card,
+    eagerly on ``device`` otherwise."""
+    if graphs is None:
+        return run([b.to(device) for b in batches])
+    return graphs.run(key + (len(batches),) + _spec_key(batches[0]), run, batches)
+
+
+def make_superstep_fn(
+    model: torch.nn.Module,
+    optimizer: Optional[OptaxOptimizer],
+    cfg: ModelConfig,
+    *,
+    train: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    clip_norm: float = 0.0,
+    compute_grad_energy: bool = False,
+    device: Optional[torch.device] = None,
+    graphs=None,
+) -> Callable:
+    """The superstep: K train (or eval) steps over a list of K batches of
+    one shape in one dispatch. With ``graphs`` (a ``StepGraphs``, on the
+    card) it is one captured graph of K steps over K static buffers that
+    the host fills with one copy; without, K eager steps on ``device``.
+
+    Train signature ``(state, acc, batches) -> (state, acc)``; eval
+    ``(state, acc, batches) -> acc``, where ``acc = (loss_sum, tasks_sum,
+    n_graphs)`` are the f32 weighted partial sums of the epoch (None
+    before its first step), folded by ``fold_step_metrics``: one K-step
+    dispatch gives the bits of K single-step dispatches."""
+    if train:
+        body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm,
+                           compute_grad_energy)
+    else:
+        body = _eval_body(model, cfg, compute_dtype, False, compute_grad_energy)
+    run = _steps_fn(body)
+    key = ("train" if train else "eval", compute_dtype)
+
+    def superstep(state, acc, batches):
+        tots, tasks, gs = _dispatch(run, graphs, key, batches, device)
+        acc = fold_step_metrics(acc, tots, tasks, gs)
+        if train:
+            state.step += len(batches)
+            return state, acc
+        return acc
+
+    return superstep
+
+
+def superstep_task_count(cfg: ModelConfig) -> int:
+    """Length of the per-task loss vector: 3 for the MLIP loss (energy,
+    energy/atom, force), one per head otherwise."""
+    return 3 if cfg.enable_interatomic_potential else len(cfg.heads)
 
 
 @dataclass
@@ -134,6 +264,8 @@ class History:
     test_tasks: List[np.ndarray] = field(default_factory=list)
     lr: List[float] = field(default_factory=list)
     epoch_seconds: List[float] = field(default_factory=list)
+    # CUDA graphs captured during each epoch (0 on the CPU).
+    epoch_captures: List[int] = field(default_factory=list)
 
 
 def _fetch_epoch(loss_sum, tasks_sum, n_graphs) -> Tuple[float, np.ndarray]:
@@ -146,26 +278,20 @@ def _fetch_epoch(loss_sum, tasks_sum, n_graphs) -> Tuple[float, np.ndarray]:
     return float(vals[0]) / denom, vals[1:-1] / denom
 
 
-def _run_epoch(step_fn, state, loader, *, train: bool, device: torch.device):
-    """One pass over the loader; weighted partial sums accumulate on the
-    device and are fetched once at the end."""
-    loss_sum = tasks_sum = n_graphs = None
-    for batch in loader:
-        batch = batch.to(device)
-        ng = batch.graph_mask.sum().to(torch.float32)
+def _run_epoch(superstep, state, loader, *, train: bool):
+    """One pass over the loader: each delivery (a batch, or a
+    ``MacroBatch`` of K) is one superstep dispatch; the weighted partial
+    sums accumulate on the device and are fetched once at the end."""
+    acc = None
+    for item in loader:
+        batches = item.batches if isinstance(item, MacroBatch) else [item]
         if train:
-            state, loss, tasks = step_fn(state, batch)
+            state, acc = superstep(state, acc, batches)
         else:
-            loss, tasks = step_fn(state, batch)
-        if loss_sum is None:
-            loss_sum, tasks_sum, n_graphs = loss * ng, tasks * ng, ng
-        else:
-            loss_sum = loss_sum + loss * ng
-            tasks_sum = tasks_sum + tasks * ng
-            n_graphs = n_graphs + ng
-    if loss_sum is None:
+            acc = superstep(state, acc, batches)
+    if acc is None:
         return state, 0.0, np.zeros(1)
-    loss, tasks = _fetch_epoch(loss_sum, tasks_sum, n_graphs)
+    loss, tasks = _fetch_epoch(*acc)
     return state, loss, tasks
 
 
@@ -198,26 +324,27 @@ def recalibrate_batch_stats(
     was_training = model.training
     model.train()
     sums, weight = None, 0.0
-    for _ in range(int(epochs)):
-        for batch in loader:
-            batch = batch.to(device)
-            for m in bns.values():
-                m.mean.zero_()
-                m.var.zero_()
-            model(cast_batch(batch, compute_dtype))
-            # from a zero seed each buffer holds (1 - momentum) x the
-            # batch's moment; one host fetch for all of them
-            flat = torch.cat([torch.cat([m.mean, m.var]) / (1.0 - m.momentum)
-                              for m in bns.values()]).double().cpu().numpy()
-            w = float(batch.node_mask.sum())
-            scaled, at = [], 0
-            for m in bns.values():
-                f = m.mean.numel()
-                mean, var = flat[at:at + f], flat[at + f:at + 2 * f]
-                scaled.append(np.stack([mean * w, (var + mean ** 2) * w]))
-                at += 2 * f
-            sums = scaled if sums is None else [a + b for a, b in zip(sums, scaled)]
-            weight += w
+    batches = (b for _ in range(int(epochs)) for item in loader
+               for b in (item.batches if isinstance(item, MacroBatch) else [item]))
+    for batch in batches:
+        batch = batch.to(device)
+        for m in bns.values():
+            m.mean.zero_()
+            m.var.zero_()
+        model(cast_batch(batch, compute_dtype))
+        # from a zero seed each buffer holds (1 - momentum) x the
+        # batch's moment; one host fetch for all of them
+        flat = torch.cat([torch.cat([m.mean, m.var]) / (1.0 - m.momentum)
+                          for m in bns.values()]).double().cpu().numpy()
+        w = float(batch.node_mask.sum())
+        scaled, at = [], 0
+        for m in bns.values():
+            f = m.mean.numel()
+            mean, var = flat[at:at + f], flat[at + f:at + 2 * f]
+            scaled.append(np.stack([mean * w, (var + mean ** 2) * w]))
+            at += 2 * f
+        sums = scaled if sums is None else [a + b for a, b in zip(sums, scaled)]
+        weight += w
     model.train(was_training)
     if sums is None or weight <= 0.0:
         for name, m in bns.items():
@@ -260,10 +387,13 @@ def train_validate_test(
 ) -> Tuple[TrainState, History]:
     """The epoch loop: train, validate, test, step the plateau scheduler
     on the validation loss, stop early after ``patience`` epochs without
-    improvement when ``EarlyStopping`` is set. With a ``log_name`` the
-    run saves checkpoints under ``./logs/<log_name>/`` (module
-    docstring); ``recal_loader`` is the feed of the end-of-training
-    batch-norm recalibration (the train loader when None)."""
+    improvement when ``EarlyStopping`` is set. The loaders may deliver
+    ``MacroBatch`` groups (``data/loader.SuperstepLoader``); the steps
+    run through ``state.graphs`` where the run has one (on the card).
+    With a ``log_name`` the run saves checkpoints under
+    ``./logs/<log_name>/`` (module docstring); ``recal_loader`` is the
+    feed of the end-of-training batch-norm recalibration (the train
+    loader when None)."""
     training = config["NeuralNetwork"]["Training"]
     num_epoch = int(training.get("num_epoch", 1))
     patience = int(training.get("patience", 10))
@@ -271,12 +401,12 @@ def train_validate_test(
     save_on_best = log_name is not None and checkpoint_settings(training).enabled
     warmup = int(training.get("checkpoint_warmup", 0))
     keep = int(training.get("checkpoint_keep", 5))
-    mlip = cfg.enable_interatomic_potential
-    train_step = make_train_step(
-        model, state.optimizer, cfg, compute_dtype, clip_norm=clip_norm,
-        compute_grad_energy=mlip,
-    )
-    eval_step = make_eval_step(model, cfg, compute_dtype, compute_grad_energy=mlip)
+    graphs = state.graphs
+    kw = dict(compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential,
+              device=device, graphs=graphs)
+    train_step = make_superstep_fn(model, state.optimizer, cfg, train=True,
+                                   clip_norm=clip_norm, **kw)
+    eval_step = make_superstep_fn(model, None, cfg, train=False, **kw)
     sched_cfg = training.get("ReduceLROnPlateau", {})
     scheduler = ReduceLROnPlateau(
         factor=float(sched_cfg.get("factor", 0.5)),
@@ -289,16 +419,13 @@ def train_validate_test(
     bad_epochs = 0
     for epoch in range(num_epoch):
         t0 = time.time()
+        captures = graphs.captures if graphs is not None else 0
         train_loader.set_epoch(epoch)
         state, train_loss, train_tasks = _run_epoch(
-            train_step, state, train_loader, train=True, device=device
+            train_step, state, train_loader, train=True
         )
-        _, val_loss, val_tasks = _run_epoch(
-            eval_step, state, val_loader, train=False, device=device
-        )
-        _, test_loss, test_tasks = _run_epoch(
-            eval_step, state, test_loader, train=False, device=device
-        )
+        _, val_loss, val_tasks = _run_epoch(eval_step, state, val_loader, train=False)
+        _, test_loss, test_tasks = _run_epoch(eval_step, state, test_loader, train=False)
         lr = get_learning_rate(state.optimizer)
         new_lr = scheduler.step(val_loss, lr)
         if new_lr != lr:
@@ -311,6 +438,8 @@ def train_validate_test(
         hist.test_tasks.append(test_tasks)
         hist.lr.append(new_lr)
         hist.epoch_seconds.append(time.time() - t0)
+        hist.epoch_captures.append(
+            (graphs.captures if graphs is not None else 0) - captures)
         print_distributed(
             verbosity,
             1,
@@ -353,27 +482,19 @@ def test(
     (error, per-task error, trues, preds); trues/preds hold one
     ``[num_samples_or_nodes, dim]`` array per head, padding removed (with
     ``compute_grad_energy``: graph energies [G, 1] and forces [N, 3]).
-    The loss sums stay on the device until the end; only the per-sample
-    collections cross to the host per batch."""
-    eval_step = make_eval_step(
-        model, cfg, compute_dtype, collect_outputs=True,
-        compute_grad_energy=compute_grad_energy,
-    )
+    Each batch's step runs through ``state.graphs`` where there is one
+    (its outputs are fetched right after the replay); the loss sums stay
+    on the device until the end, and only the per-sample collections
+    cross to the host per batch."""
+    run = _steps_fn(_eval_body(model, cfg, compute_dtype, True, compute_grad_energy))
     n_coll = 2 if compute_grad_energy else len(cfg.heads)
-    loss_sum = tasks_sum = ng_sum = None
+    acc = None
     trues: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
     preds: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
     for batch in loader:
-        batch = batch.to(device)
-        loss, tasks, outputs = eval_step(state, batch)
-        ng = batch.graph_mask.sum()
-        ngf = ng.to(torch.float32)
-        if loss_sum is None:
-            loss_sum, tasks_sum, ng_sum = loss * ngf, tasks * ngf, ng
-        else:
-            loss_sum = loss_sum + loss * ngf
-            tasks_sum = tasks_sum + tasks * ngf
-            ng_sum = ng_sum + ng
+        tots, tasks, gs, *outputs = _dispatch(
+            run, state.graphs, ("test", compute_dtype), [batch], device)
+        acc = fold_step_metrics(acc, tots, tasks, gs)
         gm = batch.graph_mask.cpu().numpy()
         nm = batch.node_mask.cpu().numpy()
         if compute_grad_energy:
@@ -391,10 +512,7 @@ def test(
                 y, m = batch.y_node[:, start:end].cpu().numpy(), nm
             trues[hi].append(y[m])
             preds[hi].append(out[m])
-    error, tasks_avg = (
-        (0.0, np.zeros(1)) if loss_sum is None
-        else _fetch_epoch(loss_sum, tasks_sum, ng_sum)
-    )
+    error, tasks_avg = (0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
     return (
         error,
         tasks_avg,

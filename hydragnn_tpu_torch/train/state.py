@@ -15,6 +15,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from hydragnn_tpu_torch.train.optimizer import OptaxOptimizer
+
 PRECISIONS = ("bf16", "fp32", "fp64")
 _TARGETS = frozenset({"y_graph", "y_node", "energy", "forces"})
 
@@ -22,11 +24,14 @@ _TARGETS = frozenset({"y_graph", "y_node", "energy", "forces"})
 @dataclasses.dataclass
 class TrainState:
     """What a run trains: the model (which holds the parameters), its
-    optimizer, and the number of optimizer steps taken."""
+    optimizer, the number of optimizer steps taken, and, on the card,
+    the run's CUDA-graph cache of its steps (``train/capture.StepGraphs``;
+    None runs them eagerly)."""
 
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: OptaxOptimizer
     step: int = 0
+    graphs: Optional[object] = None
 
 
 def resolve_precision(

@@ -19,8 +19,12 @@ The format is the port's own: one ``torch.save`` of ``{"model":
 model.state_dict()`` (parameters and batch-norm running statistics),
 ``"optimizer": optimizer.state_dict(), "step": n}``, under the ``.pt``
 suffix, so the port never reads the JAX package's msgpack files. The
-asynchronous writer, the resume manifest and ``continue`` are ROADMAP
-Queue 1 item 12.
+optimizer's state holds its learning rate and step count as device
+tensors; a load copies every saved tensor into the live one (the
+module's ``load_state_dict`` copies parameters in place, the port's
+optimizers do the same for their state), so CUDA graphs captured before
+a restore replay with the restored values. The asynchronous writer, the
+resume manifest and ``continue`` are ROADMAP Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -114,8 +118,8 @@ def save_checkpoint(log_name: str, state, *, epoch: Optional[int] = None,
 
 def _restore(state, path: str) -> None:
     """Load the blob at ``path`` into ``state`` in place, bit for bit:
-    ``load_state_dict`` copies each tensor to its parameter's device (and
-    keeps AdamW's step counts on the host, where torch keeps them)."""
+    each tensor is copied into the live one on its device (module
+    docstring)."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])

@@ -1,4 +1,7 @@
-"""K1 and K2 on the card: the Hopper kernels against their plain versions.
+"""K1 and K2 on the card: the Hopper kernels against their plain versions;
+and CUDA-graph capture of the train loop's steps (``train/capture.py``):
+replayed train and eval steps, a K = 2 replay and every optimizer's
+captured step against eager ones, bit for bit.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -539,3 +542,148 @@ def test_dense_batch_and_segment_min_on_card():
     for name, x_, y_ in zip(("dense", "mask", "back", "min", "d_x", "d_h"),
                             res["cuda"], res["cpu"]):
         torch.testing.assert_close(x_, y_, rtol=1e-5, atol=1e-5, msg=name)
+
+
+OPTIMIZERS = ("SGD", "Adam", "AdamW", "Adadelta", "Adagrad", "Adamax", "RMSprop",
+              "LAMB", "FusedLAMB")
+
+
+def _capture_case(torch, optimizer="AdamW", n_batches=6, seed=0, device="cuda"):
+    """A small SchNet (2 CFConv layers, hidden 16, 16 filters, 16
+    Gaussians) on the card with its optimizer, and ``n_batches`` planned
+    host batches of 8 qm9-like requests, all padded to one shape."""
+    from hydragnn_tpu_torch.data.graph import PadSpec, collate
+    from hydragnn_tpu_torch.models import spec
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serve.loadgen import synthetic_request_samples
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+
+    samples = synthetic_request_samples("qm9", 8 * n_batches, seed=seed)
+    groups = [samples[i:i + 8] for i in range(0, len(samples), 8)]
+    pad = PadSpec(
+        num_nodes=max(sum(s.num_nodes for s in g) for g in groups) + 8,
+        num_edges=max(sum(s.num_edges for s in g) for g in groups) + 8,
+        num_graphs=9,
+    )
+    batches = [collate(g, pad, with_segment_plan=True) for g in groups]
+    cfg = spec.ModelConfig(
+        mpnn_type="SchNet", input_dim=1, hidden_dim=16, num_conv_layers=2,
+        heads=(spec.HeadSpec(name="energy", type="graph", dim=1),), task_weights=(1.0,),
+        graph_branches=(spec.BranchSpec(name="branch-0", num_sharedlayers=2,
+                                        dim_sharedlayers=16, num_headlayers=2,
+                                        dim_headlayers=(16, 16)),),
+        radius=4.0, max_neighbours=32, num_gaussians=16, num_filters=16,
+    )
+    model = create_model(cfg, device, seed=seed)
+    opt = select_optimizer(model.parameters(),
+                           {"Optimizer": {"type": optimizer, "learning_rate": 0.01}})
+    return model, cfg, opt, batches
+
+
+def _supersteps(torch, model, cfg, opt, graphs):
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+
+    kw = dict(device=torch.device("cuda"), graphs=graphs)
+    return (make_superstep_fn(model, opt, cfg, train=True, **kw),
+            make_superstep_fn(model, None, cfg, train=False, **kw))
+
+
+def _state_equal(torch, m1, o1, m2, o2):
+    for (n, a), (_, b) in zip(m1.state_dict().items(), m2.state_dict().items()):
+        assert torch.equal(a, b), n
+    for s1, s2 in zip(o1.state.values(), o2.state.values()):
+        for k in s1:
+            assert torch.equal(s1[k], s2[k]), k
+    for g1, g2 in zip(o1.param_groups, o2.param_groups):
+        assert torch.equal(g1["step"], g2["step"]) and torch.equal(g1["lr"], g2["lr"])
+
+
+@pytest.mark.cuda
+def test_replayed_steps_equal_eager():
+    """Four SchNet train steps and two eval steps through the graph cache
+    (eager, capture and replay, replays) equal four eager steps bit for
+    bit: parameters, optimizer state, loss sums. K1 and K2 count the
+    replays' launches (2 a forward, 2 a train step) as eager steps
+    would."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    results = {}
+    for mode in ("eager", "graphs"):
+        model, cfg, opt, batches = _capture_case(torch)
+        graphs = StepGraphs("cuda") if mode == "graphs" else None
+        train, evaluate = _supersteps(torch, model, cfg, opt, graphs)
+        state = TrainState(model, opt, graphs=graphs)
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        acc = None
+        for b in batches[:4]:
+            state, acc = train(state, acc, [b])
+        ev = None
+        for b in batches[4:] + batches[4:]:
+            ev = evaluate(state, ev, [b])
+        torch.cuda.synchronize()
+        launches = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
+        assert launches == (2 * 8, 2 * 4), (mode, launches)
+        results[mode] = (model, opt, acc, ev, graphs)
+    (m1, o1, a1, e1, _), (m2, o2, a2, e2, graphs) = results["eager"], results["graphs"]
+    assert (graphs.eager_runs, graphs.captures, graphs.replays) == (2, 2, 6)
+    _state_equal(torch, m1, o1, m2, o2)
+    for x, y in zip(a1 + e1, a2 + e2):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_k_step_replay_equals_single_replays():
+    """Six steps as K = 2 groups (eager, capture and replay, replay) equal
+    six single steps through the cache bit for bit."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    runs = []
+    for k in (1, 2):
+        model, cfg, opt, batches = _capture_case(torch)
+        graphs = StepGraphs("cuda")
+        train, _ = _supersteps(torch, model, cfg, opt, graphs)
+        state, acc = TrainState(model, opt, graphs=graphs), None
+        for i in range(0, 6, k):
+            state, acc = train(state, acc, batches[i:i + k])
+        torch.cuda.synchronize()
+        assert state.step == 6 and graphs.captures == 1
+        runs.append((model, opt, acc))
+    _state_equal(torch, runs[0][0], runs[0][1], runs[1][0], runs[1][1])
+    for x, y in zip(runs[0][2], runs[1][2]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", OPTIMIZERS)
+def test_optimizer_captured_step_equals_eager(kind):
+    """Each optimizer's replayed step equals its eager step bit for bit,
+    with a learning-rate change before the third step that the replay
+    reads from the device tensor (no recapture)."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.optimizer import set_learning_rate
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    runs = []
+    for graphs in (None, StepGraphs("cuda")):
+        model, cfg, opt, batches = _capture_case(torch, kind)
+        train, _ = _supersteps(torch, model, cfg, opt, graphs)
+        state, acc = TrainState(model, opt, graphs=graphs), None
+        for i in range(4):
+            if i == 2:
+                set_learning_rate(opt, 0.002)
+            state, acc = train(state, acc, [batches[i]])
+        torch.cuda.synchronize()
+        runs.append((model, opt, acc))
+        if graphs is not None:
+            assert graphs.captures == 1 and graphs.replays == 3
+    assert all(torch.isfinite(p).all() for p in runs[1][0].parameters())
+    _state_equal(torch, runs[0][0], runs[0][1], runs[1][0], runs[1][1])
