@@ -99,10 +99,11 @@ seconds and graph memory printed.
                the first train batch run_training forms (packing
                resolved as it resolves it) from examples/md17/md17.py's
                MD17 stand-in (Morse energies and forces) and from bench's
-               molecules: each within [train]'s tolerance or, where the
-               card's own step with the scatter in place of K1/K2 misses
-               it too, within 10 x that step's error; 12 K1 and 12 K2
-               launches in the step. Then the step's eager and device
+               molecules: each within [train]'s tolerance or else within
+               10 x the card's own floor, the median of five card steps
+               with the scatter in place of K1/K2 (each its own atomic
+               order; all five printed); 12 K1 and 12 K2 launches in the
+               step. Then the step's eager and device
                time on bench's first packed bin.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
@@ -149,12 +150,44 @@ seconds and graph memory printed.
                first polymer bin, card against the CPU plain path, and one
                recalibrate_batch_stats pass of polymers.json's model, card
                against CPU.
-15. capture    at each path's step shape (the SchNet headline batch, the
-               first packed MLIP, ZINC and polymer bins): one train step
+15. mace-kernels  K1 and K2 in the reduce-only flavour at MACE's receiver-sum
+               width (F = 288: 32 channels x 9 harmonic components) on the
+               first packed train bin of oc20.json's run, in f32 and bf16:
+               against their plain versions (same bits on two runs, K2 zero
+               off the plan), the launch shape and shared memory per CTA,
+               the times beside the bound, the plain version, index_add_
+               (K1) and index_select (K2); EdgePipelineBwdFn at F = 288,
+               card against the CPU plain path.
+16. oc20       examples/open_catalyst_2020/oc20.json's MACE potential at
+               full width (hidden 32, 2 layers, max_ell 2, node_max_ell 2,
+               correlation 2, num_radial 8; graph head 1x32 + [32, 32], add
+               pooling; energy weight 1, force weight 25; AdamW 0.002, batch
+               8) on this script's copy of oc20.py's 200 periodic slab +
+               adsorbate systems (seed 0, Lennard-Jones labels under PBC)
+               split 0.8, trained by run_training on the card (f32, 2
+               epochs, packing "auto", which packs), then run_prediction.
+               Checks: finite losses, energies and forces; every train batch
+               a packed bin; K1 = K2 = 2 x (forwards + train steps); the
+               first train step on the first packed bin, card against the
+               CPU plain path by [mlip]'s rule, with 4 K1 and 4 K2 launches;
+               the step's eager and device time and K1 + K2's share.
+17. egnn       examples/mptrj/mptrj_forces.json's EGNN (hidden 64, 3 layers,
+               force weight 10, AdamW 0.001, batch 32) on this script's copy
+               of examples/common/crystals.py's crystals (300, species Ni,
+               Nb, Al, Ti, seed 3) split 0.8, trained by run_training on the
+               card (2 epochs), then run_prediction: finite results, no
+               K1/K2 launch (its sums run at the senders); the first step,
+               card against the CPU plain path by [mlip]'s rule with the
+               card's error the smallest of ten card steps (its own sums
+               are atomics, and near a ReLU kink bimodal); the step's
+               time.
+18. capture    at each path's step shape (the SchNet headline batch, the
+               first packed MLIP, ZINC, polymer and oc20 bins): one train step
                through the train loop's superstep eager and replayed, the
                replayed step against the eager one (bit for bit for SchNet
                and PaiNN, whose aggregations all run K1/K2; else at [zinc]'s
-               card-vs-CPU tolerance), each path's step time (CUDA events,
+               card-vs-CPU tolerance, MACE's printing which held), each
+               path's step time (CUDA events,
                back-to-back steps from the host batch), the graph's replays
                alone, and K1's and K2's device time inside replayed steps
                (profiler); one 2-step replay against 2 single replays on the
@@ -167,13 +200,13 @@ seconds and graph memory printed.
                forms, 4-step dispatches, K1/K2 per forward and per step,
                the plateau scheduler cutting the rate every epoch with no
                capture after epoch 1).
-16. report     the kernels JSON line (with each kernel's times at the
+19. report     the kernels JSON line (with each kernel's times at the
                three SchNet shapes under "by_shape", at PaiNN's widths
-               under "mlip_widths", at PNA's under "zinc_width" and at the
-               conv node head's under "polymer_widths"; "launches" sums the
-               serving, SchNet training, MLIP, ZINC and polymer runs and
-               the superstep run, "launches_by_path" splits them), the
-               card line, and the
+               under "mlip_widths", at PNA's under "zinc_width", at the
+               conv node head's under "polymer_widths" and at MACE's under
+               "mace_width"; "launches" sums the serving, SchNet training,
+               MLIP, ZINC, polymer and oc20 runs and the superstep run,
+               "launches_by_path" splits them), the card line, and the
                final {"ok": true, "device": ...} line.
 """
 
@@ -1374,6 +1407,55 @@ def budget_keys(budgets):
     return [(b.num_nodes, b.num_edges, b.num_graphs) for b in budgets or ()]
 
 
+def bwd_fn_card_vs_cpu(tag, plan, n, e, f_in, f_out, flavours, gen):
+    """EdgePipelineBwdFn (K2 forward, K1/K2 backward: the force pass and
+    its derivative in an MLIP step) on the card against the CPU plain
+    path on ``plan``, in each flavour: its first derivatives and their
+    gradients with respect to g, a, b and W, each within VJP_TOL scaled
+    by its largest |ref|; its backward launches K1."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        EdgePipelineBwdFn,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    for stages in flavours:
+        has_b, has_w = "b" in stages, "w" in stages
+        prim = {"g": torch.randn(n, f_out if has_w else f_in, generator=gen),
+                "a": torch.randn(e, f_in, generator=gen),
+                "b": torch.randn(e, f_in, generator=gen),
+                "w": torch.randn(f_in, f_out, generator=gen) / f_in ** 0.5}
+        names = ["g", "a"] + (["b"] if has_b else []) + (["w"] if has_w else [])
+        res, counts = [], None
+        for where in ("cuda", "cpu"):
+            ins = {k: prim[k].to(where).requires_grad_(True) for k in names}
+            where_plan = [t.to(where) for t in plan]
+            outs = [o for o in EdgePipelineBwdFn.apply(
+                ins["g"], ins["a"], ins.get("b"), ins.get("w"), *where_plan, n, 32, 64)
+                if o is not None]
+            cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)).to(where)
+                   for i, o in enumerate(outs)]
+            k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+            grads = torch.autograd.grad(outs, [ins[k] for k in names], cot,
+                                        allow_unused=True)
+            if where == "cuda":
+                torch.cuda.synchronize()
+                counts = (edge_pipeline_planned.launches - k1,
+                          edge_pipeline_bwd_planned.launches - k2)
+            res.append([o.detach().cpu() for o in outs]
+                       + [None if x is None else x.detach().cpu() for x in grads])
+        err = 0.0
+        for i, (x, y) in enumerate(zip(*res)):
+            check((x is None) == (y is None), f"double backward {stages}: output {i}")
+            if x is not None:
+                err = max(err, assert_close_scaled(x.numpy(), y.numpy(), VJP_TOL,
+                                                   f"double backward {stages} {i}")[0])
+        check(counts[0] > 0, f"double backward {stages}: no K1 launch")
+        log(f"[{tag}] EdgePipelineBwdFn {stages}, F {f_in} -> {f_out}: the first "
+            f"derivatives and their gradients (g, a, b, W) card vs CPU plain path, max|err| "
+            f"{err:.3g}; its backward launched K1 {counts[0]}, K2 {counts[1]}")
+
+
 def phase_mlip_kernels(batch):
     """K1 and K2 in the reduce-only flavour at PaiNN's widths on the first
     packed MLIP train bin's plan: against their plain versions in f32 and bf16
@@ -1384,7 +1466,6 @@ def phase_mlip_kernels(batch):
     every flavour."""
     from hydragnn_tpu_torch.ops.cuda_build import load_library
     from hydragnn_tpu_torch.ops.edge_pipeline import (
-        EdgePipelineBwdFn,
         edge_pipeline_bwd_plain,
         edge_pipeline_bwd_planned,
         edge_pipeline_plain,
@@ -1462,43 +1543,7 @@ def phase_mlip_kernels(batch):
         f"bf16: {2 * len(rows)} comparisons passed (identical bits on two runs; K2 zero "
         f"off the plan)")
 
-    # EdgePipelineBwdFn's backward on the card against the CPU plain path.
-    f_in, f_out = 64, 64
-    for stages in ("a", "ab", "aw", "abw"):
-        has_b, has_w = "b" in stages, "w" in stages
-        prim = {"g": torch.randn(n, f_out if has_w else f_in, generator=gen),
-                "a": torch.randn(e, f_in, generator=gen),
-                "b": torch.randn(e, f_in, generator=gen),
-                "w": torch.randn(f_in, f_out, generator=gen) / f_in ** 0.5}
-        names = ["g", "a"] + (["b"] if has_b else []) + (["w"] if has_w else [])
-        res, counts = [], None
-        for where in ("cuda", "cpu"):
-            ins = {k: prim[k].to(where).requires_grad_(True) for k in names}
-            where_plan = [t.to(where) for t in plan]
-            outs = [o for o in EdgePipelineBwdFn.apply(
-                ins["g"], ins["a"], ins.get("b"), ins.get("w"), *where_plan, n, 32, 64)
-                if o is not None]
-            cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)).to(where)
-                   for i, o in enumerate(outs)]
-            k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
-            grads = torch.autograd.grad(outs, [ins[k] for k in names], cot,
-                                        allow_unused=True)
-            if where == "cuda":
-                torch.cuda.synchronize()
-                counts = (edge_pipeline_planned.launches - k1,
-                          edge_pipeline_bwd_planned.launches - k2)
-            res.append([o.detach().cpu() for o in outs]
-                       + [None if x is None else x.detach().cpu() for x in grads])
-        err = 0.0
-        for i, (x, y) in enumerate(zip(*res)):
-            check((x is None) == (y is None), f"double backward {stages}: output {i}")
-            if x is not None:
-                err = max(err, assert_close_scaled(x.numpy(), y.numpy(), VJP_TOL,
-                                                   f"double backward {stages} {i}")[0])
-        check(counts[0] > 0, f"double backward {stages}: no K1 launch")
-        log(f"[mlip-kernels] EdgePipelineBwdFn {stages}, F {f_in} -> {f_out}: the first "
-            f"derivatives and their gradients (g, a, b, W) card vs CPU plain path, max|err| "
-            f"{err:.3g}; its backward launched K1 {counts[0]}, K2 {counts[1]}")
+    bwd_fn_card_vs_cpu("mlip-kernels", plan, n, e, 64, 64, ("a", "ab", "aw", "abw"), gen)
     return rows
 
 
@@ -1533,11 +1578,37 @@ def mlip_step(model, cfg, training, batch, compute_dtype):
             "params": {k: host(p) for k, p in model.named_parameters()}}
 
 
-def mlip_run(config, splits, budgets):
+def mlip_step_timing(tag, model0, cfg, training, host_batch, per_step):
+    """One f32 MLIP train step's eager time and, from the profiler, its
+    device time, kernel count and K1's and K2's share, on ``host_batch``."""
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    batch = host_batch.to("cuda")
+    timed = copy.deepcopy(model0)
+    opt = select_optimizer(timed.parameters(), training)
+    step = make_train_step(timed, opt, cfg, compute_grad_energy=True)
+    state = TrainState(timed, opt)
+    eager = eager_ms(lambda: step(state, batch), iters=20, warmup=3)
+    prof = device_profile(lambda: step(state, batch), per_call=per_step,
+                          what=f"{tag} step")
+    e_valid = int(batch.edge_mask.sum())
+    log(f"[{tag}] one f32 MLIP train step on the first train batch "
+        f"({int(batch.graph_mask.sum())} graphs, {batch.num_nodes} nodes, {e_valid} "
+        f"edges; padded {batch.num_edges}): {eager:.3f} ms issued eagerly, "
+        + profile_note(prof, eager, "step"))
+    return dict(prof, eager_ms=eager, nodes=batch.num_nodes, edges=batch.num_edges,
+                e_valid=e_valid)
+
+
+def mlip_run(config, splits, budgets, tag="mlip", data="bench's molecules", per_fwd=None):
     """run_training of an MLIP config on the card, then run_prediction on
     the test split: finite losses, energies and forces, every train batch
-    a packed bin of ``budgets``, and K1/K2 launch counts. Whether the last epoch's mean train loss fell below the first
-    step's is reported, not held: on bench's random molecules (random
+    a packed bin of ``budgets``, and K1/K2 launch counts: ``per_fwd`` of
+    each per evaluation forward and twice that per train step (PaiNN's
+    default: two per layer). Whether the last epoch's mean train loss
+    fell below the first step's is reported, not held: on bench's random molecules (random
     force targets of ~0.1, atoms closer than half an angstrom, initial
     forces orders of magnitude larger than the targets) this config's
     loss does not fall within 2 epochs from every initialisation, in the
@@ -1570,14 +1641,17 @@ def mlip_run(config, splits, budgets):
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
     eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits,
                                                          device="cuda"))
-    graphs = graph_report("mlip", state, hist, train_s, eager_s)
-    check(shapes <= set(budget_keys(budgets)),
-          f"MLIP train batches {sorted(shapes)} are not all packed bins {budget_keys(budgets)}")
-    # Each forward aggregates twice per layer (the scalar and the folded
-    # vector message), each through K1; the force pass runs K2 once per
-    # aggregation, and a train step's backward K2 (the energy loss through
-    # the forward) and K1 (K2's own backward) once more per aggregation.
-    per_fwd = 2 * cfg.num_conv_layers
+    graphs = graph_report(tag, state, hist, train_s, eager_s)
+    check(budgets is None or shapes <= set(budget_keys(budgets)),
+          f"{data} train batches {sorted(shapes)} are not all packed bins "
+          f"{budget_keys(budgets)}")
+    # PaiNN's forward aggregates twice per layer (the scalar and the
+    # folded vector message), each through K1; the force pass runs K2
+    # once per aggregation, and a train step's backward K2 (the energy
+    # loss through the forward) and K1 (K2's own backward) once more per
+    # aggregation.
+    if per_fwd is None:
+        per_fwd = 2 * cfg.num_conv_layers
     losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
     check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
           f"non-finite loss in {losses} or in the steps {steps.tolist()}")
@@ -1594,17 +1668,17 @@ def mlip_run(config, splits, budgets):
     check(len(preds) == 2 and preds[0].shape == trues[0].shape == (n_test, 1)
           and preds[1].shape == trues[1].shape == (n_atoms, 3)
           and np.isfinite(preds[0]).all() and np.isfinite(preds[1]).all(),
-          f"run_prediction wants finite energies [graphs, 1] and forces [atoms, 3]")
-    log(f"[mlip] bench's molecules: run_training on the card ({train_s:.2f} s, {state.step} train "
-        f"steps on packed bins {sorted(shapes)}, {n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
+          f"{data}: run_prediction wants finite energies [graphs, 1] and forces [atoms, 3]")
+    log(f"[{tag}] {data}: run_training on the card ({train_s:.2f} s, {state.step} train "
+        f"steps on {'packed bins' if budgets else 'batches'} {sorted(shapes)}, {n_fwd} forwards): train loss {hist.train_loss}, val {hist.val_loss}, "
         f"test {hist.test_loss}; the last epoch's mean train loss is "
         f"{'below' if fell else 'not below'} the first step's {steps[0]:.6g}")
-    log(f"[mlip] bench's molecules: per-step train loss {[float(f'{x:.4g}') for x in steps]}")
-    log(f"[mlip] bench's molecules: K1 launches {k1} and K2 launches {k2} = {per_fwd} x ({n_fwd} "
+    log(f"[{tag}] {data}: per-step train loss {[float(f'{x:.4g}') for x in steps]}")
+    log(f"[{tag}] {data}: K1 launches {k1} and K2 launches {k2} = {per_fwd} x ({n_fwd} "
         f"forwards + {state.step} train steps): per train step {2 * per_fwd} of each, per "
         f"evaluation forward {per_fwd} of each")
-    log(f"[mlip] bench's molecules: run_prediction error {err:.6g} (per task "
-        f"{np.round(tasks, 6).tolist()}) over {n_test} molecules, energies "
+    log(f"[{tag}] {data}: run_prediction error {err:.6g} (per task "
+        f"{np.round(tasks, 6).tolist()}) over {n_test} samples, energies "
         f"{preds[0].shape}, forces {preds[1].shape}, all finite; K1 {k1_pred}, K2 "
         f"{k2_pred} = {per_fwd} x {n_fwd_pred} forwards")
     return {"k1": k1 + k1_pred, "k2": k2 + k2_pred, "steps": state.step,
@@ -1638,6 +1712,94 @@ def scaled_error(got, ref):
     return float(np.abs(got - ref).max()) / scale if scale > 0 else float(np.abs(got).max())
 
 
+N_FLOORS = 5  # card steps with the scatter in place of K1/K2 per first-step gate
+
+
+def hold_mlip_step(tag, data, config, trainset, model0, cfg, training, precision, dtype, tol,
+                   per_step, card_runs=1):
+    """The first MLIP train step on the card against the CPU's plain path,
+    on the first train batch run_training forms from ``trainset``, beside
+    the same step on the card with the scatter (``index_add_``) in place
+    of K1/K2, taken ``N_FLOORS`` times. Atoms closer than an angstrom give
+    forces and gradients orders of magnitude above the targets, and then
+    the card's other ops (matmuls, sin, sqrt) alone move the forces and
+    gradients past [train]'s tolerances. So each result is held to
+    ``tol`` or, where it misses, to 10 x the card's own floor: the median
+    over the scatter steps of each step's largest error over the largest
+    |ref| (each scatter step sums in its own atomic order, so one step's
+    floor is one sample of that noise; the median of five does not hang
+    on one lucky order). A wrong kernel is off by the whole result. The
+    updated parameters are shown: AdamW's first step moves each entry by
+    lr x sign(g), so an entry whose gradient is within that noise of zero
+    flips on either step. Checks ``per_step`` = (K1, K2) launches in the
+    card's step, none in the scatter and CPU steps.
+
+    A stack whose own sums are ``index_add_`` (EGNN: no K1/K2 at all)
+    makes the card's step one more sample of the same atomic noise, and
+    near a ReLU's kink that noise is bimodal: an atomic order either
+    keeps a unit on the CPU's side of the kink or flips it, and a flip
+    moves the forces by ~1e-3 and the gradients by ~6e-5 of their
+    largest, in about half the orders (so a median of five card steps
+    against a median of five floors still fails a correct step). There
+    ``card_runs`` card steps are taken and the card's error is the
+    smallest of them: a correct implementation gives the CPU's result
+    (within the rule) in some atomic orders, a wrong one in none. With
+    one run (the K1/K2 paths, whose steps give the same bits every time)
+    it is that run's."""
+    import numpy as np
+
+    what = f"{data} {precision}"
+    planned = next(iter(train_loader(config, trainset)[0]))
+    unplanned = next(iter(train_loader(config, trainset, plan=False)[0]))
+    cards = [mlip_step(copy.deepcopy(model0), cfg, training, planned.to("cuda"), dtype)
+             for _ in range(card_runs)]
+    card = cards[0]
+    scatters = [mlip_step(copy.deepcopy(model0), cfg, training, unplanned.to("cuda"), dtype)
+                for _ in range(N_FLOORS)]
+    cpu = mlip_step(copy.deepcopy(model0).to("cpu"), cfg, training, planned, dtype)
+    check(all(c["launches"] == tuple(per_step) for c in cards)
+          and all(sc["launches"] == (0, 0) for sc in scatters),
+          f"{what} MLIP step: K1/K2 launched {[c['launches'] for c in cards]} (want "
+          f"{tuple(per_step)}), without the plan {[sc['launches'] for sc in scatters]}")
+    check(cpu["launches"] == (0, 0), "the CPU step launched a kernel")
+    # energies are forward values; the loss is mostly the force term, a
+    # function of first derivatives, as the rest are
+    tols = {"loss": tol, "tasks": tol, "forces": tol, "grads": tol, "params": tol,
+            "energies": F32_TOL if dtype == torch.float32 else tol}
+    rows = {}
+    for k, t in tols.items():
+        oks = [all(close_scaled(a, b, t) for _, a, b in tensors(c[k], cpu[k])) for c in cards]
+        errs = [max(scaled_error(a, b) for _, a, b in tensors(c[k], cpu[k])) for c in cards]
+        ok, err = any(oks), min(errs)
+        floors = [max(scaled_error(a, b) for _, a, b in tensors(sc[k], cpu[k]))
+                  for sc in scatters]
+        floor = float(np.median(floors))
+        check(ok or k == "params" or err <= 10 * floor,
+              f"{what} {k}: card vs CPU {err:.3g} x max|ref| (runs "
+              f"{[float(f'{e:.3g}') for e in errs]}), outside the tolerance and above 10 x "
+              f"the median scatter floor {floor:.3g} (floors "
+              f"{[float(f'{f:.3g}') for f in floors]})")
+        scale = max(float(np.abs(b).max()) for _, _, b in tensors(card[k], cpu[k]))
+        rows[k] = (err, floor, ok, scale, floors, errs)
+    log(f"[{tag}] first step, {data} (batch {planned.num_nodes} nodes, {planned.num_edges} "
+        f"edges, {planned.num_graphs} graphs), card vs CPU plain path, {precision}: loss "
+        f"{float(card['loss']):.6g} vs {float(cpu['loss']):.6g}; largest error / max|ref| "
+        f"(median of {N_FLOORS} scatter floors), in rtol {tol['rtol']} atol {tol['atol']} x "
+        f"min(max|ref|, 1), max|ref|: "
+        + ", ".join(f"{k} {e:.3g} ({f:.3g}) {'yes' if ok else 'no'} {m:.3g}"
+                    for k, (e, f, ok, m, _, _) in rows.items())
+        + f"; K1 {card['launches'][0]}, K2 {card['launches'][1]} launches in the step")
+    log(f"[{tag}] first step, {what}: the {N_FLOORS} scatter floors per result: "
+        + "; ".join(f"{k} {[float(f'{x:.3g}') for x in fl]}"
+                    for k, (_, _, _, _, fl, _) in rows.items()))
+    if card_runs > 1:
+        log(f"[{tag}] first step, {what}: the {card_runs} card steps' errors per result "
+            f"(the smallest held): "
+            + "; ".join(f"{k} {[float(f'{x:.3g}') for x in er]}"
+                        for k, (_, _, _, _, _, er) in rows.items()))
+    return rows
+
+
 def phase_mlip(config, splits, md17_splits, budgets, first_batch):
     """md17.json's PaiNN potential trained by run_training on the card on
     bench's molecules, then run_prediction; the first MLIP train step on
@@ -1645,29 +1807,14 @@ def phase_mlip(config, splits, md17_splits, budgets, first_batch):
     counts (on the first train batch run_training forms from the MD17
     stand-in and from bench's molecules, the latter the first packed
     bin); the step's eager and device time on bench's first packed bin."""
-    import numpy as np
-
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.models.create import create_model_config
-    from hydragnn_tpu_torch.train.loop import make_train_step
-    from hydragnn_tpu_torch.train.optimizer import select_optimizer
-    from hydragnn_tpu_torch.train.state import TrainState
 
     run = mlip_run(config, splits, budgets)
 
     # The first MLIP train step on the card against the CPU's plain path,
     # on the first train batch of the MD17 stand-in and of bench's
-    # molecules, beside the same step on the card with the scatter
-    # (index_add_) in place of K1/K2. Atoms closer than an angstrom give
-    # forces and gradients orders of magnitude above the targets, and
-    # then the card's other ops (matmuls, sin, sqrt) alone move the
-    # forces and gradients past [train]'s tolerances. So each result is
-    # held to [train]'s tolerance or, where the card's scatter step misses
-    # it too, to 10 x that step's error (each tensor's largest error over
-    # its largest |ref|): a wrong kernel is off by the whole result. The
-    # updated parameters are shown: AdamW's first step moves each entry
-    # by lr x sign(g), so an entry whose gradient is within that noise of
-    # zero flips on either step.
+    # molecules (hold_mlip_step).
     full = update_config(config, *splits)
     training = full["NeuralNetwork"]["Training"]
     model0, cfg = create_model_config(full, "cuda", seed=0)
@@ -1676,63 +1823,14 @@ def phase_mlip(config, splits, md17_splits, budgets, first_batch):
     for data, trainset in (("MD17 stand-in", md17_splits[0]), ("bench's molecules", splits[0])):
         for precision, dtype, tol in (("fp32", torch.float32, VJP_TOL),
                                       ("bf16", torch.bfloat16, BF16_TOL)):
-            what = f"{data} {precision}"
-            planned = next(iter(train_loader(config, trainset)[0]))
-            unplanned = next(iter(train_loader(config, trainset, plan=False)[0]))
-            card = mlip_step(copy.deepcopy(model0), cfg, training, planned.to("cuda"), dtype)
-            scatter = mlip_step(copy.deepcopy(model0), cfg, training, unplanned.to("cuda"),
-                                dtype)
-            cpu = mlip_step(copy.deepcopy(model0).to("cpu"), cfg, training, planned, dtype)
-            check(card["launches"] == (2 * per_fwd, 2 * per_fwd)
-                  and scatter["launches"] == (0, 0),
-                  f"{what} MLIP step: K1/K2 launched {card['launches']} (want "
-                  f"{2 * per_fwd} each), without the plan {scatter['launches']}")
-            check(cpu["launches"] == (0, 0), "the CPU step launched a kernel")
-            # energies are forward values; the loss is mostly the force
-            # term, a function of first derivatives, as the rest are
-            tols = {"loss": tol, "tasks": tol, "forces": tol, "grads": tol, "params": tol,
-                    "energies": F32_TOL if dtype == torch.float32 else tol}
-            rows = {}
-            for k, t in tols.items():
-                pairs = tensors(card[k], cpu[k])
-                ok = all(close_scaled(a, b, t) for _, a, b in pairs)
-                err = max(scaled_error(a, b) for _, a, b in pairs)
-                floor = max(scaled_error(a, b) for _, a, b in tensors(scatter[k], cpu[k]))
-                check(ok or k == "params" or err <= 10 * floor,
-                      f"{what} {k}: card vs CPU {err:.3g} x max|ref|, outside the tolerance "
-                      f"and above 10 x the scatter step's {floor:.3g}")
-                scale = max(float(np.abs(b).max()) for _, _, b in pairs)
-                rows[k] = (err, floor, ok, scale)
-            parity[what] = rows
-            log(f"[mlip] first step, {data} (batch {planned.num_nodes} nodes, "
-                f"{planned.num_edges} edges, {planned.num_graphs} graphs), card vs CPU plain "
-                f"path, {precision}: loss "
-                f"{float(card['loss']):.6g} vs {float(cpu['loss']):.6g}; largest error / "
-                f"max|ref| (card's scatter step), in rtol {tol['rtol']} atol {tol['atol']} "
-                f"x min(max|ref|, 1), max|ref|: "
-                + ", ".join(f"{k} {e:.3g} ({f:.3g}) {'yes' if ok else 'no'} {m:.3g}"
-                            for k, (e, f, ok, m) in rows.items())
-                + f"; K1 {card['launches'][0]}, K2 {card['launches'][1]} launches in the "
-                f"step")
+            parity[f"{data} {precision}"] = hold_mlip_step(
+                "mlip", data, config, trainset, model0, cfg, training, precision, dtype, tol,
+                (2 * per_fwd, 2 * per_fwd))
 
-    # The MLIP train step's time (f32, the first packed train bin).
-    batch = first_batch.to("cuda")
-    timed = copy.deepcopy(model0)
-    opt = select_optimizer(timed.parameters(), training)
-    step = make_train_step(timed, opt, cfg, compute_grad_energy=True)
-    timed_state = TrainState(timed, opt)
-    eager = eager_ms(lambda: step(timed_state, batch), iters=20, warmup=3)
-    prof = device_profile(lambda: step(timed_state, batch),
-                          per_call=(2 * per_fwd, 2 * per_fwd), what="MLIP step")
-    e_valid = int(batch.edge_mask.sum())
-    log(f"[mlip] one f32 MLIP train step on the first packed bin "
-        f"({int(batch.graph_mask.sum())} molecules, {batch.num_nodes} nodes, "
-        f"{e_valid} edges; padded {batch.num_edges}): {eager:.3f} ms issued eagerly, "
-        + profile_note(prof, eager, "step"))
+    timing = mlip_step_timing("mlip", model0, cfg, training, first_batch,
+                              (2 * per_fwd, 2 * per_fwd))
     return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
-            "step_timing": dict(prof, eager_ms=eager, nodes=batch.num_nodes,
-                                edges=batch.num_edges, e_valid=e_valid),
-            "step": (model0, cfg, training)}
+            "step_timing": timing, "step": (model0, cfg, training)}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -1806,11 +1904,16 @@ def zinc_data():
 
 def phase_zinc_kernels(batch):
     """K1 and K2 in the reduce-only flavour at PNA's moment-pass width
-    (F = 128) on the first packed train bin's plan, in f32 and bf16:
-    against their plain versions (same bits on two runs, K2 zero off the
-    plan), the launch shape and shared memory per CTA, and the times
-    beside the bound, the plain version and one library call
-    (index_add_ for K1, index_select of g's rows for K2)."""
+    (F = 128) on the first packed train bin's plan (``reduce_kernel_rows``)."""
+    return reduce_kernel_rows("zinc-kernels", batch, ZINC_WIDTH, 11)
+
+
+def reduce_kernel_rows(tag, batch, f, seed):
+    """K1 and K2 in the reduce-only flavour at width ``f`` on ``batch``'s
+    plan, in f32 and bf16: against their plain versions (same bits on two
+    runs, K2 zero off the plan), the launch shape and shared memory per
+    CTA, and the times beside the bound, the plain version and one
+    library call (index_add_ for K1, index_select of g's rows for K2)."""
     from hydragnn_tpu_torch.ops.cuda_build import load_library
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_bwd_plain,
@@ -1821,16 +1924,16 @@ def phase_zinc_kernels(batch):
 
     lib = load_library()
     dev = batch.seg_perm.device
-    gen = torch.Generator().manual_seed(11)
+    gen = torch.Generator().manual_seed(seed)
     plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
-    n, e, f = batch.num_nodes, batch.num_edges, ZINC_WIDTH
+    n, e = batch.num_nodes, batch.num_edges
     e_valid = int(batch.edge_mask.sum())
     slots, blocks = plan[0].numel(), plan[3].numel()
     covered = torch.zeros(e, dtype=torch.bool, device=dev)
     covered[plan[0][plan[2]].long()] = True
     shapes = {k: launch_shape(lib, k, n, e, f, f, 32, has_b=False, has_w=False)
               for k in ("k1", "k2")}
-    log(f"[zinc-kernels] first packed train bin: n {n}, e {e} ({e_valid} valid), "
+    log(f"[{tag}] first packed train bin: n {n}, e {e} ({e_valid} valid), "
         f"{batch.num_graphs} graph slots, plan {slots} slots in {blocks} blocks; F = {f}: "
         f"K1 {shapes['k1']}; K2 {shapes['k2']}")
     rows = []
@@ -1873,7 +1976,7 @@ def phase_zinc_kernels(batch):
         nbytes, ops, g_dt = k2_work(e, e_valid, n, f, f, slots, blocks, dt, dt, False, False)
         row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
         rows.append(row)
-        log(f"[zinc-kernels] F = {f} {name}: K1 max|err| {row['k1_max_abs_err']:.3g}, "
+        log(f"[{tag}] F = {f} {name}: K1 max|err| {row['k1_max_abs_err']:.3g}, "
             f"{row['k1_ms'] * 1e3:.1f} us, plain {row['k1_plain_ms'] * 1e3:.1f} us, "
             f"index_add_ {row['k1_library_ms'] * 1e3:.1f} us, bound "
             f"{row['k1_bound_ms'] * 1e3:.2f} us ({row['k1_bound_by']}); K2 max|err| "
@@ -1881,7 +1984,7 @@ def phase_zinc_kernels(batch):
             f"{row['k2_plain_ms'] * 1e3:.1f} us, index_select "
             f"{row['k2_library_ms'] * 1e3:.1f} us, bound {row['k2_bound_ms'] * 1e3:.2f} us "
             f"({row['k2_bound_by']})")
-    log(f"[zinc-kernels] K1 and K2, reduce-only, F = {f} in f32 and bf16: 4 comparisons "
+    log(f"[{tag}] K1 and K2, reduce-only, F = {f} in f32 and bf16: 4 comparisons "
         f"passed (identical bits on two runs; K2 zero off the plan)")
     return rows
 
@@ -2406,6 +2509,265 @@ def phase_polymers(config, splits, loader, first_bin):
             "cfg": cfg, "training": training}
 
 
+# ---------------------------------------------------------------- [oc20]
+
+MACE_WIDTH = 288  # MACE's receiver sum: 32 channels x (max_ell + 1)^2 = 9 components
+# examples/LennardJones/LJ_data.py: the fcc(100) lattice constant and the
+# Lennard-Jones parameters of the OC20 stand-in's labels.
+LJ_LATTICE, LJ_EPSILON, LJ_SIGMA = 3.8, 1.0, 2.5
+# examples/common/crystals.py: per-species (epsilon, sigma), combined by
+# Lorentz-Berthelot rules (Ni, Nb, Al, Ti).
+LJ_SPECIES = {28: (1.00, 2.2), 41: (1.35, 2.6), 13: (0.80, 2.5), 22: (1.10, 2.4)}
+
+
+def lj_energy_forces(pos, neighbors):
+    """examples/LennardJones/LJ_data.py's ``lj_energy_forces`` on a given
+    periodic neighbour list (edge_index, shifts): the Lennard-Jones
+    energy summed over directed pairs and halved, and each atom's force."""
+    import numpy as np
+
+    (snd, rcv), shifts = neighbors
+    vec = pos[snd] + shifts - pos[rcv]
+    d = np.maximum(np.linalg.norm(vec, axis=1), 1e-6)
+    sr6 = (LJ_SIGMA / d) ** 6
+    sr12 = sr6 * sr6
+    energy = float(np.sum(4.0 * LJ_EPSILON * (sr12 - sr6)) / 2.0)
+    dedd = 4.0 * LJ_EPSILON * (-12.0 * sr12 + 6.0 * sr6) / d
+    f_pair = -dedd[:, None] * (vec / d[:, None])
+    forces = np.zeros_like(pos)
+    np.add.at(forces, rcv, -f_pair)
+    return energy, forces
+
+
+def synthetic_oc20(n_systems=200, seed=0, cutoff=5.0):
+    """examples/open_catalyst_2020/oc20.py's ``synthetic_oc20``, from the
+    same seeded generator in its order of draws, with the port's
+    ``radius_graph_pbc``: 2-3 x 2-3 x 2 simple-cubic Cu slabs (lattice
+    3.8, 8% vacancies, a cell three slabs tall) with a 1-3 atom H/C/O
+    chain above a surface site, jittered by 0.05, with Lennard-Jones
+    energies and forces under PBC."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph_pbc
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_systems):
+        nx, ny = int(rng.integers(2, 4)), int(rng.integers(2, 4))
+        nz, a = 2, LJ_LATTICE
+        cell = np.diag([nx * a, ny * a, nz * a * 3.0]).astype(np.float64)
+        grid = np.stack(np.meshgrid(np.arange(nx) * a, np.arange(ny) * a,
+                                    np.arange(nz) * a, indexing="ij"), axis=-1).reshape(-1, 3)
+        slab = grid[rng.random(len(grid)) > 0.08]
+        n_ads = int(rng.integers(1, 4))
+        site = slab[rng.integers(0, len(slab))]
+        height = slab[:, 2].max() + rng.uniform(2.6, 3.2)
+        ads = np.stack([site[0] + np.arange(n_ads) * 2.6, np.full(n_ads, site[1]),
+                        np.full(n_ads, height)], axis=1)
+        ads = ads + rng.normal(scale=0.05, size=(n_ads, 3))
+        pos = np.concatenate([slab, ads]) + rng.normal(scale=0.05, size=(len(slab) + n_ads, 3))
+        pos = pos.astype(np.float64)
+        z = np.concatenate([np.full(len(slab), 29.0),
+                            rng.choice([1.0, 6.0, 8.0], n_ads)]).astype(np.float32)
+        ei, shifts = radius_graph_pbc(pos, cell, cutoff)
+        energy, forces = lj_energy_forces(pos, (ei, shifts))
+        out.append(GraphSample(x=z.reshape(-1, 1), pos=pos.astype(np.float32), edge_index=ei,
+                               edge_shifts=shifts.astype(np.float32),
+                               cell=cell.astype(np.float32), energy=energy, forces=forces))
+    return out
+
+
+def lj_multispecies(pos, z, cell, cutoff):
+    """examples/common/crystals.py's ``lj_multispecies_energy_forces``:
+    (energy, forces, per-atom energies, edge_index, shifts) of the
+    species-pair Lennard-Jones potential under PBC."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph_pbc
+
+    ei, shifts = radius_graph_pbc(pos, cell, cutoff)
+    snd, rcv = ei
+    eps_s = np.array([LJ_SPECIES[int(s)][0] for s in z])
+    sig_s = np.array([LJ_SPECIES[int(s)][1] for s in z])
+    eps = np.sqrt(eps_s[snd] * eps_s[rcv])
+    sig = 0.5 * (sig_s[snd] + sig_s[rcv])
+    vec = pos[snd] + shifts - pos[rcv]
+    d = np.maximum(np.linalg.norm(vec, axis=1), 1e-6)
+    sr6 = (sig / d) ** 6
+    sr12 = sr6 * sr6
+    e_edge = 4.0 * eps * (sr12 - sr6)
+    energy = float(e_edge.sum() / 2.0)
+    e_atom = np.zeros(len(pos))
+    np.add.at(e_atom, rcv, e_edge / 2.0)
+    dedd = 4.0 * eps * (-12.0 * sr12 + 6.0 * sr6) / d
+    f_pair = -dedd[:, None] * (vec / d[:, None])
+    forces = np.zeros_like(pos)
+    np.add.at(forces, rcv, -f_pair)
+    return energy, forces, e_atom, ei, shifts
+
+
+def random_crystals(n_structures, species, seed, lattice_constant=3.2, cells_range=(2, 4),
+                    cutoff=5.0, jitter=0.06, vacancy_rate=0.04):
+    """examples/common/crystals.py's ``random_crystals`` (total energies,
+    normalized), from the same seeded generator in its order of draws,
+    with the port's ``radius_graph_pbc``: simple-cubic cells of 2-3
+    lattice constants a side (6.4-9.6 at 3.2, against a 5.0 cutoff: one
+    pair meets in several images), random species, 4% vacancies, thermal
+    jitter redrawn while an atom sits in a repulsive core; energies
+    centred and scaled over the set (forces scaled alike)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_structures):
+        nx, ny, nz = (int(v) for v in rng.integers(*cells_range, 3))
+        a = lattice_constant
+        grid = np.stack(np.meshgrid(np.arange(nx) * a, np.arange(ny) * a,
+                                    np.arange(nz) * a, indexing="ij"), axis=-1).reshape(-1, 3)
+        keep = rng.uniform(size=len(grid)) > vacancy_rate
+        if keep.sum() < 2:
+            keep[:2] = True
+        z = rng.choice(species, keep.sum()).astype(np.int64)
+        cell = np.diag([nx * a, ny * a, nz * a]).astype(np.float64)
+        for _attempt in range(50):
+            pos = grid[keep] + rng.normal(scale=jitter * a, size=(keep.sum(), 3))
+            energy, forces, e_atom, ei, shifts = lj_multispecies(pos, z, cell, cutoff)
+            if e_atom.max() < 2.0 and np.abs(forces).max() < 30.0:
+                break
+        out.append(GraphSample(x=z.reshape(-1, 1).astype(np.float32),
+                               pos=pos.astype(np.float32), edge_index=ei,
+                               edge_shifts=shifts.astype(np.float32),
+                               cell=cell.astype(np.float32), energy=energy,
+                               forces=forces.astype(np.float32),
+                               y_graph=np.array([energy], np.float32)))
+    e = np.array([s.energy for s in out])
+    mu, sd = float(e.mean()), float(max(e.std(), 1e-6))
+    return [dataclasses.replace(s, energy=(s.energy - mu) / sd,
+                                forces=(s.forces / sd).astype(np.float32),
+                                y_graph=np.array([(s.energy - mu) / sd], np.float32))
+            for s in out]
+
+
+def example_json(*parts, epochs=2):
+    """An example config cut to ``epochs`` epochs in f32, verbosity 0."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                           *parts)) as f:
+        config = json.load(f)
+    config["Verbosity"] = {"level": 0}
+    config["NeuralNetwork"]["Training"].update(num_epoch=epochs, precision="fp32")
+    return config
+
+
+def oc20_data():
+    """examples/open_catalyst_2020/oc20.json cut to 2 epochs, and oc20.py's
+    200 systems (seed 0) split 0.8 as its main() splits them."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    config = example_json("open_catalyst_2020", "oc20.json")
+    t0 = time.perf_counter()
+    splits = split_dataset(synthetic_oc20(200), 0.8)
+    nodes = [s.num_nodes for s in splits[0]]
+    edges = [s.num_edges for s in splits[0]]
+    log(f"[oc20] oc20.json's MACE (hidden 32, 2 layers, max_ell 2, node_max_ell 2, "
+        f"correlation 2, num_radial 8, radius 5.0; graph head 1x32 + [32, 32], add "
+        f"pooling; energy weight 1, force weight 25; AdamW 0.002, batch 8), 2 epochs f32; "
+        f"oc20.py's 200 periodic slab + adsorbate systems (seed 0), splits "
+        f"{[len(x) for x in splits]}, train systems of {min(nodes)}-{max(nodes)} atoms and "
+        f"{min(edges)}-{max(edges)} edges, made in {time.perf_counter() - t0:.2f} s")
+    return config, splits
+
+
+def egnn_data():
+    """examples/mptrj/mptrj_forces.json cut to 2 epochs, and
+    examples/mptrj/train.py's crystals (300 structures, species Ni, Nb, Al,
+    Ti, seed 3) split 0.8."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    config = example_json("mptrj", "mptrj_forces.json")
+    t0 = time.perf_counter()
+    samples = random_crystals(300, species=(28, 41, 13, 22), seed=3)
+    splits = split_dataset(samples, 0.8)
+    self_pairs = sum(int((s.edge_index[0] == s.edge_index[1]).sum()) for s in samples)
+    log(f"[egnn] mptrj_forces.json's EGNN (hidden 64, 3 layers, radius 5.0, equivariance "
+        f"off; graph head 1x64 + [64, 64], add pooling; energy weight 1, force weight 10; "
+        f"AdamW 0.001, batch 32), 2 epochs f32; train.py's 300 crystals (seed 3), splits "
+        f"{[len(x) for x in splits]}, {self_pairs} self-image edges, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return config, splits
+
+
+def phase_mace_kernels(batch):
+    """K1 and K2 in the reduce-only flavour at MACE's width (F = 288) on
+    the first packed oc20 train bin's plan in f32 and bf16
+    (``reduce_kernel_rows``), then EdgePipelineBwdFn at F = 288 on the
+    card against the CPU plain path."""
+    rows = reduce_kernel_rows("mace-kernels", batch, MACE_WIDTH, 288)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    bwd_fn_card_vs_cpu("mace-kernels", plan, batch.num_nodes, batch.num_edges, MACE_WIDTH,
+                       MACE_WIDTH, ("a",), torch.Generator().manual_seed(289))
+    return rows
+
+
+def phase_oc20(config, splits, loader, first_bin):
+    """oc20.json's MACE trained by run_training on the card (f32, 2
+    epochs, packing as the runner resolves it), then run_prediction; K1 =
+    K2 = 2 x (forwards + train steps); the first train step on the first
+    packed bin, card against the CPU plain path with 4 K1 and 4 K2
+    launches (hold_mlip_step); the step's eager and device time."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+
+    budgets = loader.pack_budgets
+    stats = loader.packing_stats(0)
+    log(f"[oc20] packing on ('auto' resolved as the JAX package resolves it): train "
+        f"budgets {budget_keys(budgets)}; epoch 0 packs {stats['batches']} bins, node fill "
+        f"{stats['node_fill']:.3f}, edge fill {stats['edge_fill']:.3f}")
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    layers = cfg.num_conv_layers
+    log(f"[oc20] update_config: avg_num_neighbors {cfg.avg_num_neighbors:.6g}; "
+        f"{sum(p.numel() for p in model0.parameters())} parameters")
+    # one K1 per layer's receiver sum (F = 288), K2 as its backward; a
+    # train step doubles both through the force pass's derivative
+    run = mlip_run(config, splits, budgets, tag="oc20", data="OC20 slabs", per_fwd=layers)
+    parity = hold_mlip_step("oc20", "OC20 slabs", config, splits[0], model0, cfg, training,
+                            "fp32", torch.float32, VJP_TOL, (2 * layers, 2 * layers))
+    timing = mlip_step_timing("oc20", model0, cfg, training, first_bin,
+                              (2 * layers, 2 * layers))
+    return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
+            "packing": dict(stats, budgets=budget_keys(budgets)),
+            "avg_num_neighbors": cfg.avg_num_neighbors, "step_timing": timing,
+            "step": (model0, cfg, training)}
+
+
+def phase_egnn(config, splits):
+    """mptrj_forces.json's EGNN trained by run_training on the card (f32,
+    2 epochs), then run_prediction: finite results, no K1/K2 launch (its
+    sums run at the senders, through index_add_); the first train step,
+    card against the CPU plain path (hold_mlip_step, the smallest error
+    of ten card steps); the step's time."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+
+    loader, budgets = train_loader(config, splits[0])
+    log(f"[egnn] packing {'on, train budgets ' + str(budget_keys(budgets)) if budgets else 'off'}"
+        f" ('auto' resolved as the JAX package resolves it)")
+    run = mlip_run(config, splits, budgets, tag="egnn", data="crystals", per_fwd=0)
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    parity = hold_mlip_step("egnn", "crystals", config, splits[0], model0, cfg, training,
+                            "fp32", torch.float32, VJP_TOL, (0, 0), card_runs=2 * N_FLOORS)
+    timing = mlip_step_timing("egnn", model0, cfg, training, next(iter(loader)), (0, 0))
+    return {"run": run, "parity": parity, "step_timing": timing}
+
+
 # ---------------------------------------------------------------- [capture]
 
 def _host(t):
@@ -2890,12 +3252,20 @@ def main():
             "splits": poly_splits, "loader": poly_loader,
             "run_seconds": polymers["run"]["seconds"]}
     zoo = phase_zoo(poly_splits, poly_bin, poly["model0"], poly["cfg"], poly_splits[0])
+    oc20_cfg, oc20_splits = oc20_data()
+    oc20_loader, _ = train_loader(oc20_cfg, oc20_splits[0])
+    check(oc20_loader.packing, "oc20.json's packing 'auto' did not pack the OC20 slabs")
+    oc20_bin = next(iter(oc20_loader))
+    mace_rows = phase_mace_kernels(oc20_bin.to("cuda"))
+    oc20 = phase_oc20(oc20_cfg, oc20_splits, oc20_loader, oc20_bin)
+    egnn = phase_egnn(*egnn_data())
     capture, cap_k1, cap_k2 = phase_capture([
         ("SchNet headline step", *head_step, head_cpu, (4, 4), False, True),
         ("MLIP first packed bin", *mlip.pop("step"), mlip_batch, (12, 12), True, True),
         ("ZINC first packed bin", *zinc.pop("step"), zinc_bin, (3, 3), False, False),
         ("polymer first packed bin", poly["model0"], poly["cfg"], poly["training"],
          poly_bin, (3, 3), False, False),
+        ("MACE first packed oc20 bin", *oc20.pop("step"), oc20_bin, (4, 4), True, False),
     ], poly, head_cpu)
 
     kernels = [{
@@ -2904,13 +3274,14 @@ def main():
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
         "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
-                     + cap_k1),
+                     + oc20["k1"] + cap_k1),
         "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
                              "zinc": zinc["k1"], "polymers": polymers["k1"],
+                             "oc20": oc20["k1"], "egnn": 0,
                              "polymers_superstep": cap_k1},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              if r["dtype"] == "f32"]),
+                              + mace_rows if r["dtype"] == "f32"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -2927,18 +3298,22 @@ def main():
                        for r in zinc_rows],
         "polymer_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                            for r in poly_rows],
+        "mace_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                       for r in mace_rows],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
-        "launches": train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + cap_k2,
+        "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
+                     + cap_k2),
         "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
                              "zinc": zinc["k2"], "polymers": polymers["k2"],
+                             "oc20": oc20["k2"], "egnn": 0,
                              "polymers_superstep": cap_k2},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              if r["dtype"] == "f32"]),
+                              + mace_rows if r["dtype"] == "f32"]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
@@ -2954,6 +3329,8 @@ def main():
                        for r in zinc_rows],
         "polymer_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                            for r in poly_rows],
+        "mace_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                       for r in mace_rows],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
@@ -2961,6 +3338,8 @@ def main():
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] polymers: {json.dumps(polymers)}")
     log(f"[report] zoo: {json.dumps(zoo)}")
+    log(f"[report] oc20: {json.dumps(oc20)}")
+    log(f"[report] egnn: {json.dumps(egnn)}")
     log(f"[report] capture: {json.dumps(dict(capture, served_bin=served_bin))}")
     log(f"[report] card: {card}")
     print(card)

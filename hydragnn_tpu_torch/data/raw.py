@@ -5,8 +5,10 @@ Counterpart of ``hydragnn_tpu/data/raw.py``: ``RawSample``,
 ``process_raw_samples``, copied so that the samples equal the JAX
 package's array for array. A GPS config (``global_attn_engine`` with
 ``pe_dim > 0``) attaches each sample's Laplacian PE and relative PE.
-Periodic boundary conditions raise until the slice that ports them
-(ROADMAP Queue 1 item 3).
+With ``periodic_boundary_conditions``, a sample that carries a cell gets
+the periodic radius graph and its image shifts (the chain edges that
+``ensure_connected`` adds take zero shifts); one without a cell gets the
+plain radius graph, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from hydragnn_tpu_torch.data.graph import GraphSample
-from hydragnn_tpu_torch.ops.neighbors import ensure_connected, radius_graph
+from hydragnn_tpu_torch.ops.neighbors import (
+    ensure_connected,
+    radius_graph,
+    radius_graph_pbc,
+)
 from hydragnn_tpu_torch.ops.pe import laplacian_pe, relative_pe
 
 
@@ -85,20 +91,17 @@ def process_raw_samples(
     raw: Sequence[RawSample], config: dict, *, normalize: bool = True
 ) -> List[GraphSample]:
     """Raw tables -> GraphSamples per the config's variables of interest:
-    radius graph (with connectivity repair), input columns, graph and
-    node targets."""
+    radius graph (periodic where the config and the sample's cell say
+    so; with connectivity repair), input columns, graph and node
+    targets."""
     nn_cfg = config["NeuralNetwork"]
     arch = nn_cfg["Architecture"]
-    if arch.get("periodic_boundary_conditions"):
-        raise NotImplementedError(
-            "periodic boundary conditions (radius_graph_pbc) are not ported "
-            "yet: ROADMAP Queue 1 item 3"
-        )
     if normalize:
         raw = minmax_normalize(raw)
     voi = nn_cfg["Variables_of_interest"]
     radius = float(arch.get("radius") or 5.0)
     max_neigh = arch.get("max_neighbours")
+    pbc = bool(arch.get("periodic_boundary_conditions", False))
     pe_dim = int(arch.get("pe_dim") or 0) if arch.get("global_attn_engine") else 0
     input_cols = voi.get("input_node_features", [0])
     out_types = voi.get("type", [])
@@ -106,8 +109,17 @@ def process_raw_samples(
 
     samples = []
     for s in raw:
-        edge_index = radius_graph(s.positions, radius, max_neighbours=max_neigh)
+        shifts = None
+        if pbc and s.cell is not None:
+            edge_index, shifts = radius_graph_pbc(
+                s.positions, s.cell, radius, max_neighbours=max_neigh
+            )
+        else:
+            edge_index = radius_graph(s.positions, radius, max_neighbours=max_neigh)
         edge_index = ensure_connected(edge_index, s.node_features.shape[0])
+        if shifts is not None and edge_index.shape[1] != shifts.shape[0]:
+            extra = edge_index.shape[1] - shifts.shape[0]
+            shifts = np.concatenate([shifts, np.zeros((extra, 3))], axis=0)
         y_graph_cols = [
             s.graph_features[out_index[i]]
             for i, t in enumerate(out_types)
@@ -127,6 +139,7 @@ def process_raw_samples(
                 x=s.node_features[:, input_cols].astype(np.float32),
                 pos=s.positions.astype(np.float32),
                 edge_index=edge_index.astype(np.int64),
+                edge_shifts=None if shifts is None else shifts.astype(np.float32),
                 y_graph=(
                     np.array(y_graph_cols, dtype=np.float32) if y_graph_cols else None
                 ),

@@ -14,8 +14,11 @@ JAX package's order: conv, GPS layer, graph-attribute conditioning
 (``film``/``concat_node``), feature norm, activation; ``fuse_pool``
 conditions the pooled graph features instead.
 
-Not ported yet, and raising ``NotImplementedError`` that names its
-ROADMAP item: per-layer readouts (MACE, item 9).
+A stack with ``per_layer_readouts`` (MACE) gets one decoder on its
+embedding's ``readout0_input`` (``decoder_0``) and one on each conv
+layer's scalar channel (``decoder_{i+1}``), their outputs summed, as in
+the JAX package; with GPS, the Laplacian PE is lifted by ``gps_pe_lift``
+and added to the scalar channel instead of ``GPSInputEmbed``.
 """
 
 from __future__ import annotations
@@ -152,10 +155,10 @@ class MultiHeadDecoder(nn.Module):
     """Graph and node heads with branch routing. Submodules carry the
     flax names: ``graph_shared_<branch>``, ``head<i>_<branch>``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, in_dim: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        h = cfg.hidden_dim
+        h = cfg.hidden_dim if in_dim is None else in_dim
         self.shared_names = []
         for b in cfg.graph_branches:
             name = f"graph_shared_{b.name}"
@@ -277,23 +280,29 @@ class MultiHeadGraphModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, stack_cls: Type[nn.Module]):
         super().__init__()
-        if getattr(stack_cls, "per_layer_readouts", False):
-            raise NotImplementedError(
-                "per-layer readouts (MACE) are not ported yet: ROADMAP "
-                "Queue 1 item 9"
-            )
         self.cfg = cfg
         self.stack_cls = stack_cls
         self.stack = stack_cls(cfg)
-        self.decoder = MultiHeadDecoder(cfg)
+        self.per_layer_readouts = getattr(stack_cls, "per_layer_readouts", False)
         layers = range(cfg.num_conv_layers)
+        if self.per_layer_readouts:
+            # decoder_0 reads the embedding's readout0_input (MACE: the
+            # 118-wide one-hot), the others a layer's scalar channel
+            self.add_module("decoder_0", MultiHeadDecoder(cfg, self.stack.readout0_dim))
+            for i in layers:
+                self.add_module(f"decoder_{i + 1}", MultiHeadDecoder(cfg))
+        else:
+            self.decoder = MultiHeadDecoder(cfg)
         self.norm_layers = getattr(stack_cls, "norm_kind", "none") == "batch"
         if self.norm_layers:
             for i in layers:
                 self.add_module(f"feature_norm_{i}",
                                 MaskedBatchNorm(self.stack.conv_out_dim(i)))
         if cfg.use_global_attn:
-            self.gps_embed = GPSInputEmbed(cfg)
+            if self.per_layer_readouts:
+                self.gps_pe_lift = Dense(cfg.pe_dim, cfg.hidden_dim, bias=False)
+            else:
+                self.gps_embed = GPSInputEmbed(cfg)
             for i in layers:
                 self.add_module(f"gps_{i}", GPSLayer(cfg))
         self.conditioning = (
@@ -318,18 +327,48 @@ class MultiHeadGraphModel(nn.Module):
         for i in range(cfg.num_conv_layers):
             h, equiv = self.stack.conv(i, inv, equiv, batch, extras)
             inv = getattr(self, f"gps_{i}")(inv, h, batch) if cfg.use_global_attn else h
-            if self.conditioning in ("film", "concat_node") and batch.graph_attr is not None:
-                inv = self.graph_conditioner(inv, batch.graph_attr,
-                                             batch.node_graph_idx.long())
+            inv = self._condition_inv(inv, batch)
             if self.norm_layers:
                 inv = getattr(self, f"feature_norm_{i}")(inv, batch.node_mask)
             if use_act:
                 inv = act(inv)
         return inv, equiv
 
-    def forward(self, batch) -> List[torch.Tensor]:
-        node_repr, _ = self.encode(batch)
+    def _condition_inv(self, inv: torch.Tensor, batch) -> torch.Tensor:
+        if self.conditioning in ("film", "concat_node") and batch.graph_attr is not None:
+            return self.graph_conditioner(inv, batch.graph_attr, batch.node_graph_idx.long())
+        return inv
+
+    def _decode(self, decoder, node_repr: torch.Tensor, batch) -> List[torch.Tensor]:
         pooled = graph_pool(node_repr, batch, self.cfg.graph_pooling)
         if self.conditioning == "fuse_pool" and batch.graph_attr is not None:
             pooled = self.graph_conditioner(pooled, batch.graph_attr, None)
-        return self.decoder(node_repr, pooled, batch)
+        return decoder(node_repr, pooled, batch)
+
+    def _forward_per_layer_readouts(self, batch) -> List[torch.Tensor]:
+        """Decoder 0 on the embedding's ``readout0_input`` plus one
+        decoder per conv layer on its scalar channel, summed."""
+        cfg = self.cfg
+        inv, equiv, extras = self.stack.embed(batch)
+        read0 = extras.get("readout0_input", inv)
+        if cfg.use_global_attn:
+            if batch.pe is None:
+                raise ValueError(
+                    "GPS global attention requires Laplacian PE; set pe_dim>0 so "
+                    "the data pipeline attaches batch.pe"
+                )
+            inv = inv + self.gps_pe_lift(batch.pe)
+        outputs = self._decode(self.decoder_0, read0, batch)
+        for i in range(cfg.num_conv_layers):
+            h, equiv = self.stack.conv(i, inv, equiv, batch, extras)
+            inv = getattr(self, f"gps_{i}")(inv, h, batch) if cfg.use_global_attn else h
+            inv = self._condition_inv(inv, batch)
+            out_i = self._decode(getattr(self, f"decoder_{i + 1}"), inv, batch)
+            outputs = [a + b for a, b in zip(outputs, out_i)]
+        return outputs
+
+    def forward(self, batch) -> List[torch.Tensor]:
+        if self.per_layer_readouts:
+            return self._forward_per_layer_readouts(batch)
+        node_repr, _ = self.encode(batch)
+        return self._decode(self.decoder, node_repr, batch)

@@ -18,8 +18,10 @@ bias) map the same way:
   ``[in, out]`` layout, because the fused edge pipeline takes it as its
   W;
 - ``bias``, batch-norm ``scale``, per-node ``w_{i}``/``b_{i}``, MFC's
-  per-degree ``w_root``/``w_neigh``, GIN's scalar ``eps`` and GAT's
-  ``att`` tensors are copied as they are;
+  per-degree ``w_root``/``w_neigh``, GIN's scalar ``eps``, GAT's
+  ``att`` tensors, and MACE's raw parameters (an ``IrrepsLinear``'s
+  ``w{l}`` [C_in, C_out] and the product basis's ``w{l}_{i}``
+  [118, P, C]) are copied as they are;
 - with ``batch_stats`` (the JAX package's ``batch_stats`` collection),
   each ``MaskedBatchNorm``'s running ``mean`` and ``var`` become the
   buffers of the same name (``stack``-level ``feature_norm_{i}`` and
@@ -43,6 +45,8 @@ import torch
 # neigh_{i}. The match is on the whole module name, so SAGE's plain
 # Dense lin_neigh is not one.
 DENSE_PARAMS = re.compile(r"lin2|neigh_\d+")
+# MACE's raw per-l weights: w{l} (IrrepsLinear), w{l}_{i} (the product).
+RAW_W = re.compile(r"w\d+(_\d+)?")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -81,7 +85,8 @@ def params_from_jax(
                 out[path] = t
             else:
                 out[f"{module}.weight"] = t.t().contiguous()
-        elif leaf in ("bias", "scale", "eps", "att") or leaf.startswith(("w_", "b_")):
+        elif (leaf in ("bias", "scale", "eps", "att") or leaf.startswith(("w_", "b_"))
+              or RAW_W.fullmatch(leaf)):
             out[path] = t
         else:
             raise ValueError(

@@ -4,9 +4,9 @@ Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
 a stack class and wraps it in the multihead core (``create_model``), and
 builds both from a full config (``create_model_config``). The port's
 model carries its parameters, so creation also initializes them (the
-JAX package's ``init_params``). SchNet, PAINN, the invariant stacks
-(GIN, SAGE, MFC, CGCNN, GAT) and PNA/PNAPlus are registered so far; the
-other stacks follow ROADMAP Queue 1.
+JAX package's ``init_params``). SchNet, PAINN, EGNN, MACE, the invariant
+stacks (GIN, SAGE, MFC, CGCNN, GAT) and PNA/PNAPlus are registered so
+far; the other stacks follow ROADMAP Queue 1.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from torch import nn
 
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
-from hydragnn_tpu_torch.models.equivariant import PAINNStack
+from hydragnn_tpu_torch.models.equivariant import EGCLStack, PAINNStack
 from hydragnn_tpu_torch.models.invariant import (
     CGCNNStack,
     GATStack,
@@ -27,6 +27,7 @@ from hydragnn_tpu_torch.models.invariant import (
     SAGEStack,
 )
 from hydragnn_tpu_torch.models.layers import init_flax_
+from hydragnn_tpu_torch.models.mace import MACEStack
 from hydragnn_tpu_torch.models.pna import PNAPlusStack, PNAStack
 from hydragnn_tpu_torch.models.schnet import SchNetStack
 from hydragnn_tpu_torch.models.spec import ModelConfig, model_config_from_dict
@@ -38,7 +39,9 @@ STACKS: Dict[str, Type[nn.Module]] = {
     "MFC": MFCStack,
     "CGCNN": CGCNNStack,
     "GAT": GATStack,
+    "EGNN": EGCLStack,
     "PAINN": PAINNStack,
+    "MACE": MACEStack,
     "PNA": PNAStack,
     "PNAPlus": PNAPlusStack,
 }

@@ -1,8 +1,20 @@
-"""PaiNN: the equivariant stack with scalar and vector node channels.
+"""Equivariant stacks: EGNN and PaiNN.
 
-Counterpart of ``PainnMessage``, ``PainnUpdate``, ``_PainnLayout`` and
-``PAINNStack`` in ``hydragnn_tpu/models/equivariant.py``. Each layer
-holds a scalar channel ``s`` [N, F] and a vector channel ``v`` [N, 3, F]:
+Counterpart of ``E_GCL``, ``EGCLStack``, ``PainnMessage``,
+``PainnUpdate``, ``_PainnLayout`` and ``PAINNStack`` in
+``hydragnn_tpu/models/equivariant.py``.
+
+EGNN (``E_GCL`` per layer): an edge MLP of [x_s, x_r, |d|] (and edge
+attributes), summed at the senders (``segment_sum``, the plain scatter:
+EGNN's sums run at the senders and never reach K1) into a node MLP of
+[x, sum]; under ``equivariance`` every layer but the last also moves the
+positions by the sender-side mean of the unit displacements gated by
+``tanh(coord_gate(relu(coord_dense(edge))))``, the gate's kernel drawn
+from flax's variance_scaling(1e-6, fan_avg, uniform). The positions are
+the stack's equivariant channel.
+
+PaiNN: each layer holds a scalar channel ``s`` [N, F] and a vector
+channel ``v`` [N, 3, F]:
 
 - the message: a sinc radial basis of the edge length times the cosine
   cutoff filters the sender's scalar MLP, split into three gates (the
@@ -16,15 +28,16 @@ holds a scalar channel ``s`` [N, F] and a vector channel ``v`` [N, 3, F]:
 
 The vector-channel Denses have no bias, as in the JAX package: a bias on
 ``[N, 3, F]`` adds a fixed lab-frame direction that does not rotate with
-the input. Submodules carry the flax names (``message_{i}``,
-``update_{i}``, ``node_embed_out_{i}``, ``vec_embed_out_{i}``), so
-``models/convert.params_from_jax`` maps a flax PaiNN tree as it is. EGNN
-and PNAEq, the other stacks of that module, wait for ROADMAP Queue 1
-item 9 (PNAEq with PNA, item 8).
+the input. Submodules carry the flax names (``conv_{i}/edge_mlp``,
+``message_{i}``, ``update_{i}``, ``node_embed_out_{i}``,
+``vec_embed_out_{i}``), so ``models/convert.params_from_jax`` maps a
+flax EGNN or PaiNN tree as it is. PNAEq waits for ROADMAP Queue 1
+item 9.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -37,7 +50,78 @@ from hydragnn_tpu_torch.ops.rbf import (
     edge_vectors_and_lengths,
     sinc_basis,
 )
-from hydragnn_tpu_torch.ops.segment import aggregate_receivers
+from hydragnn_tpu_torch.ops.segment import aggregate_receivers, segment_mean, segment_sum
+
+
+class CoordGate(Dense):
+    """The coordinate gate's Dense (hidden -> 1, no bias), drawn from
+    flax's variance_scaling(1e-6, "fan_avg", "uniform")."""
+
+    def flax_init(self, name: str, p: torch.Tensor, gen: torch.Generator) -> None:
+        fan_out, fan_in = p.shape
+        limit = math.sqrt(3.0 * 1e-6 / ((fan_in + fan_out) / 2.0))
+        p.copy_((torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * limit)
+
+
+class E_GCL(nn.Module):
+    """One E(n)-equivariant graph conv layer: (x [N, in], pos [N, 3]) ->
+    (x [N, out], pos)."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int,
+                 edge_dim: Optional[int] = None, equivariant: bool = False):
+        super().__init__()
+        self.edge_dim = edge_dim
+        self.equivariant = equivariant
+        self.edge_mlp = MLP(2 * in_dim + 1 + (edge_dim or 0), (hidden_dim, hidden_dim),
+                            act="relu", final_activation=True)
+        if equivariant:
+            self.coord_dense = Dense(hidden_dim, hidden_dim)
+            self.coord_gate = CoordGate(hidden_dim, 1, bias=False)
+        self.node_mlp = MLP(in_dim + hidden_dim, (hidden_dim, out_dim), act="relu")
+
+    def forward(self, x, pos, batch):
+        snd, rcv = batch.senders.long(), batch.receivers.long()
+        unit, length = edge_vectors_and_lengths(
+            pos, snd, rcv, batch.edge_shifts, normalize=True, eps=1.0
+        )
+        parts = [x[snd], x[rcv], length[:, None]]
+        if self.edge_dim and batch.edge_attr is not None:
+            parts.append(batch.edge_attr)
+        edge_feat = self.edge_mlp(torch.cat(parts, dim=-1))
+        n = batch.num_nodes
+        if self.equivariant:
+            gate = self.coord_gate(torch.relu(self.coord_dense(edge_feat)))
+            trans = torch.clamp(unit * torch.tanh(gate), -100.0, 100.0)
+            pos = pos + segment_mean(trans, snd, n, mask=batch.edge_mask)
+        agg = segment_sum(edge_feat, snd, n, mask=batch.edge_mask)
+        out = self.node_mlp(torch.cat([x, agg], dim=-1))
+        return out, pos
+
+
+class EGCLStack(nn.Module):
+    """EGNN stack: ``conv_{i}`` E_GCL layers at ``hidden_dim``, the
+    coordinate update on every layer but the last under
+    ``equivariance``."""
+
+    norm_kind = "none"
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        layers = cfg.num_conv_layers
+        for i in range(layers):
+            self.add_module(f"conv_{i}", E_GCL(
+                cfg.input_dim if i == 0 else cfg.hidden_dim, cfg.hidden_dim,
+                cfg.hidden_dim, cfg.edge_dim, cfg.equivariance and i != layers - 1,
+            ))
+
+    def embed(self, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict[str, Any]]:
+        if batch.pos is None:
+            raise ValueError("EGNN requires node positions")
+        return batch.x, batch.pos, {}
+
+    def conv(self, i, inv, equiv, batch, extras):
+        return getattr(self, f"conv_{i}")(inv, equiv, batch)
 
 
 class PainnMessage(nn.Module):

@@ -158,16 +158,22 @@ def init_flax_(module: nn.Module, seed: int = 0) -> nn.Module:
     ``[nodes, in, out]``, MFC's per-degree ``[degrees, in, out]``, GAT's
     ``[heads, width]``) lecun_normal over the fan-in flax gives it (the
     product of every axis but the last), batch-norm ``scale``s one, and
-    a scalar ``eps`` its module's ``eps_init`` (GIN)."""
+    a scalar ``eps`` its module's ``eps_init`` (GIN). A module that
+    defines ``flax_init(leaf, tensor, generator)`` draws its own
+    parameters (MACE's per-l weights, EGNN's coordinate gate) from the
+    distribution the JAX package gives them."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, p in module.named_parameters():
         owner, _, leaf = name.rpartition(".")
-        if leaf == "bias" or leaf.startswith("b_"):
+        owner_mod = module.get_submodule(owner)
+        if hasattr(owner_mod, "flax_init") and leaf != "bias":
+            owner_mod.flax_init(leaf, p, gen)
+        elif leaf == "bias" or leaf.startswith("b_"):
             p.zero_()
         elif leaf == "scale":
             p.fill_(1.0)
         elif leaf == "eps":
-            p.fill_(module.get_submodule(owner).eps_init)
+            p.fill_(owner_mod.eps_init)
         elif leaf == "weight":  # Dense (nn.Linear): [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         elif leaf in ("kernel", "att") or leaf.startswith("w_"):  # [..., in, out]

@@ -1,18 +1,20 @@
-"""Host neighbour lists: radius graphs and connectivity repair.
+"""Host neighbour lists: radius graphs, periodic radius graphs and
+connectivity repair.
 
 Counterpart of the host half of ``hydragnn_tpu/ops/neighbors.py``:
 ``radius_graph`` (its numpy cell list, ``_cell_list_pairs``, and the
-per-receiver cap ``_cap_neighbors``) and ``ensure_connected``, copied so
-that the edge arrays equal the JAX package's numpy path element for
-element. The JAX package may take a native C++ cell list instead, which
-finds the same edges in another order; the port has no native library.
-Periodic graphs (``radius_graph_pbc``) and the in-jit builder come with
-the slices that use them (ROADMAP Queue 1).
+per-receiver cap ``_cap_neighbors``), ``radius_graph_pbc`` (the image
+search over a triclinic cell with mixed periodicity) and
+``ensure_connected``, copied so that the edge arrays equal the JAX
+package's numpy path element for element. The JAX package may take a
+native C++ cell list instead, which finds the same edges in another
+order; the port has no native library. The in-jit builder comes with the
+slice that uses it (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,7 +33,67 @@ def radius_graph(
     if pos.shape[0] == 0:
         return np.zeros((2, 0), dtype=np.int64)
     senders, receivers, _ = _cell_list_pairs(pos, radius, loop=loop)
-    return _cap_neighbors(senders, receivers, pos, max_neighbours)
+    return _cap_neighbors(senders, receivers, pos, None, max_neighbours)[0]
+
+
+def radius_graph_pbc(
+    pos: np.ndarray,
+    cell: np.ndarray,
+    radius: float,
+    *,
+    pbc: Tuple[bool, bool, bool] = (True, True, True),
+    max_neighbours: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Periodic radius graph over a triclinic cell: every (s, r, image)
+    with |pos_s + image @ cell - pos_r| <= radius, the zero image's
+    self pairs left out (a small cell gives self-image edges, s == r with
+    a nonzero shift). Returns (edge_index [2, E], shifts [E, 3]) with
+    displacement = pos[s] - pos[r] + shift against the caller's own
+    (possibly unwrapped) positions."""
+    pos = np.asarray(pos, dtype=np.float64)
+    cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
+    if pos.shape[0] == 0:
+        return np.zeros((2, 0), dtype=np.int64), np.zeros((0, 3))
+
+    # Images per axis: the distance between opposite faces must cover
+    # the cutoff.
+    recip = np.linalg.inv(cell.T)
+    heights = 1.0 / np.linalg.norm(recip, axis=1)
+    n_images = [int(np.ceil(radius / h)) if p else 0 for h, p in zip(heights, pbc)]
+
+    # Search on positions wrapped into the primary cell, keeping each
+    # atom's wrap offset: pos_w[i] = pos[i] - wrap_off[i] @ cell.
+    frac = pos @ np.linalg.inv(cell)
+    wrap_off = np.zeros_like(frac)
+    if any(pbc):
+        wrap = np.array([1.0 if p else 0.0 for p in pbc])
+        wrap_off = np.floor(frac) * wrap
+        pos = (frac - wrap_off) @ cell
+
+    senders_l, receivers_l, shifts_l = [], [], []
+    r2 = radius * radius
+    for ix in range(-n_images[0], n_images[0] + 1):
+        for iy in range(-n_images[1], n_images[1] + 1):
+            for iz in range(-n_images[2], n_images[2] + 1):
+                shift = np.array([ix, iy, iz], dtype=np.float64) @ cell
+                diff = pos[None, :, :] + shift[None, None, :] - pos[:, None, :]
+                mask = np.einsum("ijk,ijk->ij", diff, diff) <= r2
+                if ix == 0 and iy == 0 and iz == 0:
+                    np.fill_diagonal(mask, False)
+                rcv, snd = np.nonzero(mask)
+                if rcv.size:
+                    senders_l.append(snd)
+                    receivers_l.append(rcv)
+                    shifts_l.append(np.tile(shift, (rcv.size, 1)))
+    if not senders_l:
+        return np.zeros((2, 0), dtype=np.int64), np.zeros((0, 3))
+    edge_index, shifts = _cap_neighbors(
+        np.concatenate(senders_l), np.concatenate(receivers_l), pos,
+        np.concatenate(shifts_l), max_neighbours,
+    )
+    # Re-express the shifts against the caller's unwrapped positions.
+    shifts = shifts + (wrap_off[edge_index[1]] - wrap_off[edge_index[0]]) @ cell
+    return edge_index, shifts
 
 
 def ensure_connected(edge_index: np.ndarray, num_nodes: int) -> np.ndarray:
@@ -112,16 +174,22 @@ def _cell_list_pairs(pos: np.ndarray, radius: float, *, loop: bool):
     )
 
 
-def _cap_neighbors(senders, receivers, pos, max_neighbours) -> np.ndarray:
+def _cap_neighbors(senders, receivers, pos, shifts, max_neighbours):
     """Keep at most ``max_neighbours`` nearest senders per receiver (a
-    stable sort by distance), in the input's order."""
+    stable sort by distance, the image ``shifts`` added where given), in
+    the input's order. Returns (edge_index [2, E], the kept shifts or
+    None)."""
     if max_neighbours is None:
-        return np.stack([senders, receivers]).astype(np.int64)
-    d2 = np.sum((pos[senders] - pos[receivers]) ** 2, axis=1)
+        return np.stack([senders, receivers]).astype(np.int64), shifts
+    if shifts is None:
+        d2 = np.sum((pos[senders] - pos[receivers]) ** 2, axis=1)
+    else:
+        d2 = np.sum((pos[senders] + shifts - pos[receivers]) ** 2, axis=1)
     keep = np.zeros(senders.shape[0], dtype=bool)
     for r in np.unique(receivers):
         idx = np.nonzero(receivers == r)[0]
         if idx.size > max_neighbours:
             idx = idx[np.argsort(d2[idx], kind="stable")[:max_neighbours]]
         keep[idx] = True
-    return np.stack([senders[keep], receivers[keep]]).astype(np.int64)
+    edge_index = np.stack([senders[keep], receivers[keep]]).astype(np.int64)
+    return edge_index, None if shifts is None else shifts[keep]

@@ -1,11 +1,15 @@
-"""Radial basis, cutoff and edge geometry for the SchNet, PaiNN and
-PNAPlus paths.
+"""Radial bases, cutoffs, distance transforms and edge geometry.
 
 Counterpart of ``hydragnn_tpu/ops/rbf.py``: ``gaussian_smearing``,
-``sinc_basis``, ``cosine_cutoff``, ``envelope`` (the DimeNet envelope of
-PNAPlus's Bessel basis) and ``edge_vectors_and_lengths``. The other
-bases (Chebyshev, polynomial cutoff, distance transforms) come with the
-stacks that use them (ROADMAP Queue 1).
+``bessel_basis``, ``sinc_basis``, ``chebyshev_basis``, ``cosine_cutoff``,
+``polynomial_cutoff``, ``envelope`` (the DimeNet envelope of PNAPlus's
+Bessel basis), MACE's ``agnesi_transform`` and ``soft_transform``, and
+``edge_vectors_and_lengths``.
+
+An MLIP step differentiates these twice, and a padding edge (the
+padding node to itself, no shift) has a zero displacement, so its length
+is ``sqrt(eps)``. Every clamp is a ``torch.where`` or ``clamp`` whose
+unselected branch stays finite, so no ``0 x inf`` reaches the forces.
 """
 
 from __future__ import annotations
@@ -28,6 +32,15 @@ def gaussian_smearing(
     return torch.exp(coeff * diff**2)
 
 
+def bessel_basis(dist: torch.Tensor, cutoff: float, num_radial: int) -> torch.Tensor:
+    """sqrt(2/c) sin(n pi d / c) / d for n = 1..num_radial (spherical
+    Bessel j0); d / c is clamped at 1e-8 inside."""
+    freq = torch.arange(1, num_radial + 1, dtype=dist.dtype, device=dist.device) * math.pi
+    d = dist[..., None] / cutoff
+    d_safe = torch.where(d < 1e-8, 1e-8, d)
+    return math.sqrt(2.0 / cutoff) * torch.sin(freq * d_safe) / (d_safe * cutoff)
+
+
 def sinc_basis(dist: torch.Tensor, cutoff: float, num_basis: int) -> torch.Tensor:
     """sin(n pi d / c) / d for n = 1..num_basis, PaiNN's radial expansion.
     Lengths below 1e-8 are clamped there first (padding edges have length
@@ -37,10 +50,33 @@ def sinc_basis(dist: torch.Tensor, cutoff: float, num_basis: int) -> torch.Tenso
     return torch.sin(n * math.pi * d_safe / cutoff) / d_safe
 
 
+def chebyshev_basis(dist: torch.Tensor, cutoff: float, num_basis: int) -> torch.Tensor:
+    """cos(n arccos(x)) for n = 1..num_basis on x = 2 d / c - 1, clipped
+    to [-1, 1]."""
+    x = torch.clamp(2.0 * dist / cutoff - 1.0, -1.0, 1.0)[..., None]
+    n = torch.arange(1, num_basis + 1, dtype=dist.dtype, device=dist.device)
+    return torch.cos(n * torch.arccos(x))
+
+
 def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
     """0.5 (cos(pi d/c) + 1) for d < c else 0."""
     out = 0.5 * (torch.cos(math.pi * dist / cutoff) + 1.0)
     return torch.where(dist < cutoff, out, 0.0)
+
+
+def polynomial_cutoff(dist: torch.Tensor, cutoff: float, p: int = 6) -> torch.Tensor:
+    """MACE's polynomial envelope on x = d / c, C^p smooth at the cutoff:
+    1 - (p+1)(p+2)/2 x^p + p(p+2) x^(p+1) - p(p+1)/2 x^(p+2), zero from
+    x = 1."""
+    d = dist / cutoff
+    pf = float(p)
+    out = (
+        1.0
+        - (pf + 1.0) * (pf + 2.0) / 2.0 * d**p
+        + pf * (pf + 2.0) * d ** (p + 1)
+        - pf * (pf + 1.0) / 2.0 * d ** (p + 2)
+    )
+    return torch.where(d < 1.0, out, 0.0)
 
 
 def envelope(dist_scaled: torch.Tensor, exponent: int = 5) -> torch.Tensor:
@@ -54,6 +90,30 @@ def envelope(dist_scaled: torch.Tensor, exponent: int = 5) -> torch.Tensor:
     x_safe = torch.where(x < 1e-8, 1e-8, x)
     out = 1.0 / x_safe + a * x ** (p - 1) + b * x**p + c * x ** (p + 1)
     return torch.where(x < 1.0, out, 0.0)
+
+
+def agnesi_transform(
+    dist: torch.Tensor,
+    r_0: torch.Tensor,
+    a: float = 1.0805,
+    q: float = 0.9183,
+    p: float = 4.5791,
+) -> torch.Tensor:
+    """Agnesi distance transform (1 + a x^q / (1 + x^(q-p)))^-1 on
+    x = d / r_0 (clamped at 1e-12), decreasing from 1 to 0; ``r_0`` is the
+    per-edge mean covalent radius of the endpoints."""
+    x = torch.clamp(dist / r_0, min=1e-12)
+    return 1.0 / (1.0 + a * x**q / (1.0 + x ** (q - p)))
+
+
+def soft_transform(
+    dist: torch.Tensor, r_0: torch.Tensor, a: float = 0.2, b: float = 3.0
+) -> torch.Tensor:
+    """Soft distance transform d + 0.5 tanh(-x - a x^b) + 0.5 on x = d /
+    r_0, ``r_0`` the per-edge quarter-sum of the endpoint covalent
+    radii."""
+    x = dist / r_0
+    return dist + 0.5 * torch.tanh(-x - a * x**b) + 0.5
 
 
 def edge_vectors_and_lengths(

@@ -1,7 +1,8 @@
-"""K1 and K2 on the card: the Hopper kernels against their plain versions;
-and CUDA-graph capture of the train loop's steps (``train/capture.py``):
-replayed train and eval steps, a K = 2 replay and every optimizer's
-captured step against eager ones, bit for bit.
+"""K1 and K2 on the card: the Hopper kernels against their plain versions
+(at MACE's width F = 288 too); and CUDA-graph capture of the train loop's
+steps (``train/capture.py``): replayed train and eval steps, a K = 2
+replay, every optimizer's captured step and MACE's MLIP step against
+eager ones, bit for bit.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -687,3 +688,127 @@ def test_optimizer_captured_step_equals_eager(kind):
             assert graphs.captures == 1 and graphs.replays == 3
     assert all(torch.isfinite(p).all() for p in runs[1][0].parameters())
     _state_equal(torch, runs[0][0], runs[0][1], runs[1][0], runs[1][1])
+
+
+def _mace_case(torch, n_batches=3, seed=0, device="cuda"):
+    """oc20.json's MACE at full width (hidden 32, 2 layers, max_ell 2,
+    node_max_ell 2, correlation 2, num_radial 8; energy + 25 x force
+    loss) on the card, with ``n_batches`` planned batches of 6 periodic
+    crystals each (simple-cubic cells of 2-3 lattice constants of 3.2,
+    cutoff 5.0, so several images of one pair), all padded to one
+    shape."""
+    from hydragnn_tpu_torch.data.graph import GraphSample, PadSpec, collate
+    from hydragnn_tpu_torch.models import spec
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph_pbc
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(6 * n_batches):
+        cells = rng.integers(2, 4, 3)
+        grid = np.stack(np.meshgrid(*(np.arange(c) * 3.2 for c in cells), indexing="ij"),
+                        axis=-1).reshape(-1, 3)
+        pos = grid + rng.normal(scale=0.2, size=grid.shape)
+        cell = np.diag(cells * 3.2)
+        ei, shifts = radius_graph_pbc(pos, cell, 5.0)
+        samples.append(GraphSample(
+            x=rng.choice([13.0, 22.0, 28.0, 41.0], (len(pos), 1)).astype(np.float32),
+            pos=pos.astype(np.float32), edge_index=ei, edge_shifts=shifts.astype(np.float32),
+            cell=cell.astype(np.float32), energy=float(rng.normal()),
+            forces=rng.normal(size=pos.shape).astype(np.float32)))
+    groups = [samples[i:i + 6] for i in range(0, len(samples), 6)]
+    pad = PadSpec(num_nodes=max(sum(s.num_nodes for s in g) for g in groups) + 8,
+                  num_edges=max(sum(s.num_edges for s in g) for g in groups) + 64,
+                  num_graphs=7)
+    batches = [collate(g, pad, with_segment_plan=True) for g in groups]
+    cfg = spec.ModelConfig(
+        mpnn_type="MACE", input_dim=1, hidden_dim=32, num_conv_layers=2,
+        heads=(spec.HeadSpec("energy", "graph", 1),), task_weights=(1.0,),
+        graph_branches=(spec.BranchSpec(num_sharedlayers=1, dim_sharedlayers=32,
+                                        num_headlayers=2, dim_headlayers=(32, 32)),),
+        radius=5.0, num_radial=8, max_ell=2, node_max_ell=2, correlation=2,
+        avg_num_neighbors=20.0, graph_pooling="add", enable_interatomic_potential=True,
+        energy_weight=1.0, force_weight=25.0,
+    )
+    model = create_model(cfg, device, seed=seed)
+    opt = select_optimizer(model.parameters(),
+                           {"Optimizer": {"type": "AdamW", "learning_rate": 0.002}})
+    return model, cfg, opt, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_kernels_mace_width(dt):
+    """K1 and K2 in the reduce-only flavour at MACE's receiver-sum width
+    (F = 288: [C = 32] x [(lmax + 1)^2 = 9]) on a periodic MACE batch's
+    plan: each equals its plain version (same bits on two runs), K2 zero
+    off the plan."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    a_dt = getattr(torch, dt)
+    batch = _mace_case(torch, n_batches=1)[3][0].to("cuda")
+    n, e, f = batch.num_nodes, batch.num_edges, 288
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window, n)
+    gen = torch.Generator().manual_seed(288)
+    a = torch.randn(e, f, generator=gen).to("cuda", a_dt)
+    g = torch.randn(n, f, generator=gen).to("cuda", a_dt)
+    with torch.no_grad():
+        got = edge_pipeline_planned(a, None, None, *plan)
+        again = edge_pipeline_planned(a, None, None, *plan)
+        ref = edge_pipeline_plain(a, None, None, *plan)
+    d_a, d_b, d_w = edge_pipeline_bwd_planned(g, a, None, None, *plan)
+    d_a2 = edge_pipeline_bwd_planned(g, a, None, None, *plan)[0]
+    d_ref = edge_pipeline_bwd_plain(g, a, None, None, *plan)[0]
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and got.dtype == a_dt and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dt])
+    assert d_b is None and d_w is None and torch.equal(d_a, d_a2)
+    torch.testing.assert_close(d_a.float(), d_ref.float(), **VJP_TOL[dt])
+    covered = torch.zeros(e, dtype=torch.bool, device="cuda")
+    covered[batch.seg_perm[batch.seg_valid].long()] = True
+    assert not d_a[~covered].any()
+
+
+@pytest.mark.cuda
+def test_mace_replayed_mlip_step_equals_eager():
+    """Three MACE MLIP train steps through the graph cache (eager,
+    capture and replay, replay) equal three eager steps bit for bit
+    (parameters, optimizer state, loss sums): every sum in the step is
+    K1/K2, a one-hot matmul or a gather's sorted backward. K1 and K2
+    count 4 launches each per step, replays included."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    results = {}
+    for mode in ("eager", "graphs"):
+        model, cfg, opt, batches = _mace_case(torch)
+        graphs = StepGraphs("cuda") if mode == "graphs" else None
+        train = make_superstep_fn(model, opt, cfg, compute_grad_energy=True,
+                                  device=torch.device("cuda"), graphs=graphs)
+        state, acc = TrainState(model, opt, graphs=graphs), None
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        for b in batches:
+            state, acc = train(state, acc, [b])
+        torch.cuda.synchronize()
+        launches = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
+        assert launches == (4 * 3, 4 * 3), (mode, launches)
+        assert all(torch.isfinite(p).all() for p in model.parameters())
+        results[mode] = (model, opt, acc, graphs)
+    (m1, o1, a1, _), (m2, o2, a2, graphs) = results["eager"], results["graphs"]
+    assert (graphs.eager_runs, graphs.captures, graphs.replays) == (1, 1, 2)
+    _state_equal(torch, m1, o1, m2, o2)
+    for x, y in zip(a1, a2):
+        assert torch.equal(x, y)

@@ -105,7 +105,8 @@ def test_sources_import_no_jax():
         "runner.py", "config/config.py", "data/loader.py", "data/raw.py",
         "data/synthetic.py", "ops/neighbors.py", "train/loop.py",
         "train/losses.py", "train/optimizer.py", "train/state.py",
-        "utils/print_utils.py",
+        "utils/print_utils.py", "ops/e3.py", "ops/symmetric_contraction.py",
+        "models/mace.py",
     } <= rel
     for f in files:
         for mod in _imported_modules(f):
