@@ -181,7 +181,39 @@ seconds and graph memory printed.
                card's error the smallest of ten card steps (its own sums
                are atomics, and near a ReLU kink bimodal); the step's
                time.
-18. capture    at each path's step shape (the SchNet headline batch, the
+18. pnaeq-kernels  K1 and K2 in the reduce-only flavour at PNAEq's
+               receiver-sum widths (F = 2 and 3 in layer 0, at the input
+               width 1; 128 and 192, PNA's moment pass [h, h*h] and the
+               folded vector message at hidden 64) on the first packed
+               train bin of the PNAEq run, in f32 and bf16, as
+               [zinc-kernels] holds them; EdgePipelineBwdFn at F = 192.
+19. pnaeq      examples/md17/md17.json with mpnn_type "PNAEq" (what
+               examples/md17/md17.py --mpnn_type PNAEq runs; hidden 64, 3
+               layers, num_radial 20, radius 4.0) trained by run_training
+               on the card (f32, 2 epochs, packing "auto", which packs)
+               on the MD17 stand-in split 0.8, then run_prediction; the
+               checks of [mlip] with K1 = K2 = 6 x (forwards + train
+               steps); the first train step on the first packed bin, card
+               against the CPU plain path (hold_mlip_step); one train step
+               replayed against eager ([capture]'s replay_vs_eager).
+20. dimenet    examples/qm7x/qm7x.json's DimeNet++ (hidden 64, 2 layers,
+               num_radial 6, num_spherical 7, envelope 5, int_emb 64,
+               basis_emb 8, out_emb 16; AdamW 0.001, batch 32) on this
+               script's copy of examples/qm7x/train.py's 400 frames
+               (``qm7x_frames``, seed 7) split 0.8: each train batch's real
+               and padded node, edge and triplet counts (triplets refuse
+               packing, so one worst-case shape) beside the ladder's;
+               run_training on the card (f32, 2 epochs), then
+               run_prediction: finite losses and predictions, one train
+               shape, no K1/K2 launch (its sums are the plain segment_sum,
+               as in the JAX package); the first train step, card against
+               the CPU plain path (hold_zinc_step); one step replayed
+               against eager (within [zinc]'s tolerance: index_add_
+               atomics); the step's eager and device time, kernel count
+               and indexing_backward_kernel time with the port's
+               index_select gathers and with x[idx] in their place, in
+               turns.
+21. capture    at each path's step shape (the SchNet headline batch, the
                first packed MLIP, ZINC, polymer and oc20 bins): one train step
                through the train loop's superstep eager and replayed, the
                replayed step against the eager one (bit for bit for SchNet
@@ -200,14 +232,15 @@ seconds and graph memory printed.
                forms, 4-step dispatches, K1/K2 per forward and per step,
                the plateau scheduler cutting the rate every epoch with no
                capture after epoch 1).
-19. report     the kernels JSON line (with each kernel's times at the
+22. report     the kernels JSON line (with each kernel's times at the
                three SchNet shapes under "by_shape", at PaiNN's widths
                under "mlip_widths", at PNA's under "zinc_width", at the
-               conv node head's under "polymer_widths" and at MACE's under
-               "mace_width"; "launches" sums the serving, SchNet training,
-               MLIP, ZINC, polymer and oc20 runs and the superstep run,
-               "launches_by_path" splits them), the card line, and the
-               final {"ok": true, "device": ...} line.
+               conv node head's under "polymer_widths", at MACE's under
+               "mace_width" and at PNAEq's under "pnaeq_widths";
+               "launches" sums the serving, SchNet training, MLIP, ZINC,
+               polymer, oc20 and PNAEq runs and the superstep run,
+               "launches_by_path" splits them, DimeNet's 0 included), the
+               card line, and the final {"ok": true, "device": ...} line.
 """
 
 import contextlib
@@ -1285,8 +1318,14 @@ def device_profile(fn, per_call, what, n_prof=5):
     k2 = sum(e.time_range.elapsed_us() for e in kernels
              if "edge_pipeline_bwd_kernel<" in e.name or "bwd_finish_kernel<" in e.name
              ) / 1e3 / n_prof
+    # the sorted index_put_ that x[idx]'s backward runs (serial on equal
+    # indices)
+    indexing = [e for e in kernels if "indexing_backward_kernel" in e.name]
     return {"device_ms": busy, "k1_ms": k1, "k2_ms": k2,
-            "kernels_per_call": len(kernels) // n_prof}
+            "kernels_per_call": len(kernels) // n_prof,
+            "indexing_backward_ms": sum(e.time_range.elapsed_us() for e in indexing)
+            / 1e3 / n_prof,
+            "indexing_backward_per_call": len(indexing) // n_prof}
 
 
 def profile_note(prof, eager, unit):
@@ -1391,15 +1430,17 @@ def train_loader(config, trainset, plan=True):
     keep their edges in collation order and carry no block plan
     (aggregation takes the scatter, another summation order)."""
     from hydragnn_tpu_torch.data.loader import GraphLoader
+    from hydragnn_tpu_torch.models.create import needs_triplets
     from hydragnn_tpu_torch.runner import packing_settings, resolve_packing
 
     bs = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    trips = needs_triplets(config["NeuralNetwork"]["Architecture"]["mpnn_type"])
     pk = packing_settings(config)
-    packed, budgets, slack = resolve_packing(pk, bs, trainset, 0)
+    packed, budgets, slack = resolve_packing(pk, bs, trainset, 0, trips=trips)
     loader = GraphLoader(trainset, bs, shuffle=True, seed=0, fixed_pad="auto",
-                         with_segment_plan=plan, packing=packed, pack_budgets=budgets,
-                         pack_max_budgets=pk["max_budgets"], pack_slack=slack,
-                         pack_max_graphs=pk["max_graphs"])
+                         with_triplets=trips, with_segment_plan=plan, packing=packed,
+                         pack_budgets=budgets, pack_max_budgets=pk["max_budgets"],
+                         pack_slack=slack, pack_max_graphs=pk["max_graphs"])
     return loader, budgets
 
 
@@ -2044,10 +2085,10 @@ def hold_zinc_step(card, cpu, tol, lr, what):
                   f"{card['grads'][k][i]:.6g}, CPU {cpu['grads'][k][i]:.6g}; largest |grad| "
                   f"{g_scale:.3g}")
         worst["param"] = max(worst["param"], float(np.abs(got - ref)[same].max(initial=0)))
-    worst["stats"] = max(assert_close_scaled(card["stats"][k], cpu["stats"][k],
-                                             F32_TOL if tol is VJP_TOL else tol,
-                                             f"{what} stat {k}", scale=1.0)[0]
-                         for k in cpu["stats"])
+    worst["stats"] = max((assert_close_scaled(card["stats"][k], cpu["stats"][k],
+                                              F32_TOL if tol is VJP_TOL else tol,
+                                              f"{what} stat {k}", scale=1.0)[0]
+                          for k in cpu["stats"]), default=0.0)  # a model may have none
     worst["scales"] = (g_scale, p_scale)
     return worst
 
@@ -2768,6 +2809,353 @@ def phase_egnn(config, splits):
     return {"run": run, "parity": parity, "step_timing": timing}
 
 
+# ---------------------------------------------------------------- [pnaeq]
+
+# PNAEq's receiver sums: layer 0 runs at the input width 1 (the moment
+# pass [h, h*h] at 2, the folded vector message at 3), layers 1-2 at
+# hidden 64 (2F = 128, 3F = 192).
+PNAEQ_WIDTHS = (2, 3, 128, 192)
+
+
+def pnaeq_config(mlip_config):
+    """examples/md17/md17.json with ``mpnn_type: "PNAEq"`` (what
+    examples/md17/md17.py --mpnn_type PNAEq runs), cut as [mlip] cuts
+    md17.json: 2 epochs in f32."""
+    config = copy.deepcopy(mlip_config)
+    config["NeuralNetwork"]["Architecture"]["mpnn_type"] = "PNAEq"
+    return config
+
+
+def phase_pnaeq_kernels(batch):
+    """K1 and K2 in the reduce-only flavour at PNAEq's widths on the first
+    packed PNAEq train bin's plan in f32 and bf16 (``reduce_kernel_rows``),
+    then EdgePipelineBwdFn at F = 192 on the card against the CPU plain
+    path."""
+    rows = []
+    for f in PNAEQ_WIDTHS:
+        rows += reduce_kernel_rows("pnaeq-kernels", batch, f, 300 + f)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    bwd_fn_card_vs_cpu("pnaeq-kernels", plan, batch.num_nodes, batch.num_edges, 192, 192,
+                       ("a",), torch.Generator().manual_seed(192))
+    return rows
+
+
+def phase_pnaeq(config, splits, loader, first_bin):
+    """md17.json's PNAEq potential trained by run_training on the card
+    (f32, 2 epochs, packing as the runner resolves it) on the MD17
+    stand-in, then run_prediction; K1 = K2 = 6 x (forwards + train
+    steps), so 6 of each per evaluation forward and 12 per train step;
+    the first train step on the first packed bin, card against the CPU
+    plain path (hold_mlip_step); one train step replayed against eager,
+    with its eager, replayed and device time."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+
+    t0 = time.perf_counter()
+    budgets = loader.pack_budgets
+    stats = loader.packing_stats(0)
+    log(f"[pnaeq] md17.json with mpnn_type PNAEq (hidden 64, 3 layers, num_radial 20, "
+        f"radius 4.0, graph head 1x64 + [64, 64], add pooling; energy weight 1, force "
+        f"weight 10; AdamW 0.002, batch 32), 2 epochs f32 on the MD17 stand-in; packing on "
+        f"('auto' resolved as the JAX package resolves it): train budgets "
+        f"{budget_keys(budgets)}; epoch 0 packs {stats['batches']} bins, node fill "
+        f"{stats['node_fill']:.3f}, edge fill {stats['edge_fill']:.3f}")
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    per_fwd = 2 * cfg.num_conv_layers
+    log(f"[pnaeq] update_config: pna_deg {cfg.pna_deg}, max_neighbours "
+        f"{cfg.max_neighbours}; {sum(p.numel() for p in model0.parameters())} parameters")
+    # two receiver sums a layer (PNA's moment pass, the vector message),
+    # each one K1 forward; K2 in the force pass; both again in the loss's
+    # backward
+    run = mlip_run(config, splits, budgets, tag="pnaeq", data="MD17 stand-in",
+                   per_fwd=per_fwd)
+    parity = hold_mlip_step("pnaeq", "MD17 stand-in", config, splits[0], model0, cfg,
+                            training, "fp32", torch.float32, VJP_TOL,
+                            (2 * per_fwd, 2 * per_fwd))
+    step = replay_vs_eager("PNAEq first packed bin", model0, cfg, training, first_bin,
+                           (2 * per_fwd, 2 * per_fwd), mlip=True)
+    seconds = time.perf_counter() - t0
+    log(f"[pnaeq] phase took {seconds:.1f} s")
+    return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
+            "packing": dict(stats, budgets=budget_keys(budgets)), "step": step,
+            "pna_deg": list(cfg.pna_deg), "seconds": seconds}
+
+
+# ---------------------------------------------------------------- [dimenet]
+
+# examples/common/molecules.py: per-element Morse (depth, width, r0),
+# combined by geometric (depth) and arithmetic (width, r0) means.
+QM7X_MORSE = {1: (0.25, 1.6, 1.1), 6: (0.60, 1.2, 1.7), 7: (0.55, 1.3, 1.6),
+              8: (0.50, 1.4, 1.5), 16: (0.45, 1.1, 2.0)}
+
+
+def qm7x_frames(n_frames=400, seed=7):
+    """examples/qm7x/train.py's data: examples/common/molecules.py's
+    ``random_molecule_frames(frames, species=(1, 6, 7, 8, 16),
+    n_atoms_range=(4, 12), n_molecules=14, seed=7, feature="onehot")``,
+    from the same seeded generator in its order of draws, with the
+    port's radius graph (4.0, 24 neighbours): thermal frames (jitter 0.1)
+    of 14 random HCNOS molecules of 4-11 atoms placed at least 1.0
+    apart, species-dependent Morse energies and forces, energies centred
+    and scaled over the set (forces by the same factor)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    species = (1, 6, 7, 8, 16)
+
+    def packed_positions(n, rng, min_dist=1.0, box_scale=1.9):
+        box = box_scale * n ** (1 / 3) + 1.0
+        pts = [rng.uniform(0, box, 3)]
+        attempts = 0
+        while len(pts) < n:
+            cand = rng.uniform(0, box, 3)
+            if min(np.linalg.norm(cand - p) for p in pts) >= min_dist:
+                pts.append(cand)
+            attempts += 1
+            if attempts > 200 * n:
+                box *= 1.1
+                attempts = 0
+        return np.asarray(pts)
+
+    def morse(pos, z):
+        d_i, a_i, r_i = np.array([QM7X_MORSE[int(s)] for s in z], dtype=np.float64).T
+        depth = np.sqrt(d_i[:, None] * d_i[None, :])
+        width = 0.5 * (a_i[:, None] + a_i[None, :])
+        r0 = 0.5 * (r_i[:, None] + r_i[None, :])
+        diff = pos[:, None, :] - pos[None, :, :]
+        d = np.linalg.norm(diff, axis=-1)
+        np.fill_diagonal(d, np.inf)
+        ex = np.exp(-width * (d - r0))
+        energy = float((depth * (1.0 - ex) ** 2).sum() / 2.0)
+        dedr = 2.0 * depth * width * (1.0 - ex) * ex
+        with np.errstate(invalid="ignore"):
+            unit = np.where(np.isfinite(d[..., None]), diff / d[..., None], 0.0)
+        return energy, (-(dedr[..., None] * unit).sum(axis=1)).astype(np.float32)
+
+    rng = np.random.default_rng(seed)
+    mols = []
+    for _ in range(14):
+        n = int(rng.integers(4, 12))
+        z = rng.choice(species, n).astype(np.int64)
+        mols.append((z, packed_positions(n, rng)))
+    out = []
+    for i in range(n_frames):
+        z, base = mols[i % len(mols)]
+        pos = (base + rng.normal(scale=0.10, size=base.shape)).astype(np.float32)
+        energy, forces = morse(pos, z)
+        x = np.zeros((len(z), len(species) + 1), np.float32)
+        for j, sp in enumerate(species):
+            x[z == sp, j] = 1.0
+        x[:, -1] = z
+        out.append(GraphSample(x=x, pos=pos, energy=energy, forces=forces,
+                               edge_index=radius_graph(pos, 4.0, max_neighbours=24),
+                               y_graph=np.array([energy], np.float32)))
+    e = np.array([s.energy for s in out])
+    mu, scale = float(e.mean()), float(max(e.std(), 1e-6))
+    return [dataclasses.replace(s, energy=(s.energy - mu) / scale,
+                                forces=(s.forces / scale).astype(np.float32),
+                                y_graph=np.array([(s.energy - mu) / scale], np.float32))
+            for s in out]
+
+
+def qm7x_data():
+    """examples/qm7x/qm7x.json cut to 2 epochs in f32, and
+    examples/qm7x/train.py's 400 frames (``qm7x_frames``) split 0.8 as its
+    main() splits them, with the config's input_node_features selected
+    (the five one-hot columns) as run_training selects them, so batches
+    made here are the run's."""
+    from hydragnn_tpu_torch.data.graph import select_input_features
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    config = example_json("qm7x", "qm7x.json")
+    cols = config["NeuralNetwork"]["Variables_of_interest"]["input_node_features"]
+    t0 = time.perf_counter()
+    splits = tuple(select_input_features(x, cols)
+                   for x in split_dataset(qm7x_frames(400), 0.8))
+    nodes = [s.num_nodes for s in splits[0]]
+    log(f"[dimenet] qm7x.json's DimeNet++ (hidden 64, 2 layers, radius 4.0, 24 neighbours, "
+        f"num_radial 6, num_spherical 7, envelope 5, int_emb 64, basis_emb 8, out_emb 16, "
+        f"1 residual layer before the skip and 2 after; graph head 1x64 + [64, 64], add "
+        f"pooling; AdamW 0.001, batch 32), 2 epochs f32; train.py's 400 frames of 14 HCNOS "
+        f"molecules of {min(nodes)}-{max(nodes)} atoms (seed 7), splits "
+        f"{[len(x) for x in splits]}, made in {time.perf_counter() - t0:.2f} s")
+    return config, splits
+
+
+def triplet_shapes(loader):
+    """Epoch 0 of a triplet loader, batch by batch: the real (nodes,
+    edges, triplets), the padded shape the loader gives it (nodes, edges,
+    graphs, triplets) and the shape the ladder would give it."""
+    from hydragnn_tpu_torch.data.graph import PadSpec, count_triplets
+
+    rows = []
+    for idx, spec in loader.epoch_plan(0):
+        samples = [loader.dataset[i] for i in idx]
+        ladder = PadSpec.for_samples(samples, with_triplets=True)
+        rows.append({
+            "real": (sum(s.num_nodes for s in samples), sum(s.num_edges for s in samples),
+                     sum(count_triplets(s) for s in samples)),
+            "padded": (spec.num_nodes, spec.num_edges, spec.num_graphs, spec.num_triplets),
+            "ladder": (ladder.num_nodes, ladder.num_edges, ladder.num_graphs,
+                       ladder.num_triplets)})
+    return rows
+
+
+@contextlib.contextmanager
+def indexed_gathers():
+    """While open, DimeNet gathers rows with ``x[idx]`` (whose backward is
+    a sorted, serial ``index_put_``) in place of ``index_select``: the
+    gather the port had before, timed beside it (the port has no such
+    switch)."""
+    from hydragnn_tpu_torch.models import dimenet
+
+    plain = dimenet.gather_rows
+    dimenet.gather_rows = lambda x, idx: x[idx.long()]
+    try:
+        yield
+    finally:
+        dimenet.gather_rows = plain
+
+
+def gather_step_times(model0, cfg, training, host_batch):
+    """The DimeNet train step run eagerly with each gather, in turns
+    (index_select, x[idx], x[idx], index_select): its eager time and,
+    from the profiler, device time, kernels and indexing_backward_kernel
+    time."""
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    batch = host_batch.to("cuda")
+    out = {"index_select": [], "x[idx]": []}
+    for name in ("index_select", "x[idx]", "x[idx]", "index_select"):
+        with indexed_gathers() if name == "x[idx]" else contextlib.nullcontext():
+            model = copy.deepcopy(model0)
+            opt = select_optimizer(model.parameters(), training)
+            step = make_train_step(model, opt, cfg)
+            state = TrainState(model, opt)
+            eager = eager_ms(lambda: step(state, batch), iters=20, warmup=3)
+            prof = device_profile(lambda: step(state, batch), per_call=(0, 0),
+                                  what=f"DimeNet step with {name}")
+        out[name].append(dict(prof, eager_ms=eager))
+    for name, runs in out.items():
+        log(f"[dimenet] the train step with {name} gathers: " + "; ".join(
+            f"{r['eager_ms']:.3f} ms eager, {r.get('device_ms', float('nan')):.3f} ms device "
+            f"({r.get('kernels_per_call', 0)} kernels), indexing_backward_kernel "
+            f"{r.get('indexing_backward_ms', float('nan')):.3f} ms "
+            f"({r.get('indexing_backward_per_call', 0)} launches)" for r in runs))
+    return out
+
+
+def phase_dimenet(config, splits):
+    """qm7x.json's DimeNet++ trained by run_training on the card (f32, 2
+    epochs; triplets refuse packing, so the loaders keep one worst-case
+    shape, as in the JAX package), then run_prediction: finite losses
+    and predictions, one train shape, K1 = K2 = 0 (its sums are the plain
+    segment_sum, as in the JAX package); the batches' real and padded
+    triplet counts; the first train step, card against the CPU plain
+    path ([train]'s tolerance, as hold_zinc_step holds it); one step
+    replayed against eager, with its eager, replayed and device time;
+    the step's time with index_select and with x[idx] gathers."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    t0 = time.perf_counter()
+    loader, budgets = train_loader(config, splits[0])
+    spec = loader.pad_spec
+    check(not loader.packing and budgets is None and spec is not None
+          and spec.num_triplets is not None,
+          f"qm7x's train loader: packing {loader.packing}, pad {spec}")
+    shapes = triplet_shapes(loader)
+    real_t = [r["real"][2] for r in shapes]
+    ladder = sorted({r["ladder"] for r in shapes})
+    log(f"[dimenet] train loader: {len(shapes)} batches an epoch on one worst-case shape "
+        f"(nodes, edges, graphs, triplets) {shapes[0]['padded']}; real nodes "
+        f"{min(r['real'][0] for r in shapes)}-{max(r['real'][0] for r in shapes)}, edges "
+        f"{min(r['real'][1] for r in shapes)}-{max(r['real'][1] for r in shapes)}, triplets "
+        f"{min(real_t)}-{max(real_t)}, so {spec.num_triplets - max(real_t)}-"
+        f"{spec.num_triplets - min(real_t)} padding triplets a batch, all on edge slot "
+        f"{spec.num_edges - 1}; the ladder would pad them to {ladder}")
+
+    with recorded_run() as rec:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t1 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, datasets=splits,
+                                                          device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        k1, k2, n_fwd = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches,
+                         rec["forwards"])
+        steps = torch.cat(rec["losses"]).double().cpu().numpy()
+        train_shapes = set(rec["shapes"])
+        err, tasks, trues, preds = port.run_prediction(full, datasets=splits, state=state,
+                                                       model=model, cfg=cfg)
+        torch.cuda.synchronize()
+        k1 += edge_pipeline_planned.launches
+        k2 += edge_pipeline_bwd_planned.launches
+    eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits,
+                                                         device="cuda"))
+    graphs = graph_report("dimenet", state, hist, train_s, eager_s)
+    losses = hist.train_loss + hist.val_loss + hist.test_loss + [err]
+    check(all(np.isfinite(losses)) and np.isfinite(steps).all(),
+          f"non-finite loss in {losses} or in the steps {steps.tolist()}")
+    want = (spec.num_nodes, spec.num_edges, loader.batch_size + 1)
+    check(train_shapes == {want}, f"train shapes {sorted(train_shapes)}, want {want}")
+    check(k1 == 0 and k2 == 0, f"K1 {k1}, K2 {k2} launches on DimeNet's path (want 0)")
+    n_test = len(splits[2])
+    check(len(preds) == 1 and preds[0].shape == trues[0].shape == (n_test, 1)
+          and np.isfinite(preds[0]).all(),
+          "run_prediction wants finite energies [graphs, 1]")
+    log(f"[dimenet] run_training on the card ({train_s:.2f} s, {state.step} train steps on "
+        f"{sorted(train_shapes)}, {n_fwd} forwards): train loss {hist.train_loss}, val "
+        f"{hist.val_loss}, test {hist.test_loss}; per-step train loss "
+        f"{[float(f'{x:.4g}') for x in steps]}; run_prediction error {err:.6g} over {n_test} "
+        f"samples, finite; K1 {k1}, K2 {k2} launches on the path")
+
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    host_batch = next(iter(loader))
+    card = zinc_step(copy.deepcopy(model0), cfg, training, host_batch.to("cuda"),
+                     torch.float32)
+    cpu = zinc_step(copy.deepcopy(model0).to("cpu"), cfg, training, host_batch,
+                    torch.float32)
+    check(card["launches"] == (0, 0), f"the DimeNet step launched K1/K2 {card['launches']}")
+    lr = float(training["Optimizer"]["learning_rate"])
+    worst = hold_zinc_step(card, cpu, VJP_TOL, lr, "dimenet first step")
+    log(f"[dimenet] first train step (batch {host_batch.num_nodes} nodes, "
+        f"{host_batch.num_edges} edges, {host_batch.t_kj.shape[0]} triplet slots, "
+        f"{int(host_batch.triplet_mask.sum())} real), card vs CPU plain path in f32: loss "
+        f"{card['loss']:.6g} vs {cpu['loss']:.6g}, largest errors loss {worst['loss']:.3g}, "
+        f"gradients {worst['grad']:.3g}, parameters {worst['param']:.3g} (rtol "
+        f"{VJP_TOL['rtol']}, atol {VJP_TOL['atol']} x the largest gradient "
+        f"{worst['scales'][0]:.3g}); all held")
+    step = replay_vs_eager("DimeNet first train batch", model0, cfg, training, host_batch,
+                           (0, 0))
+    gathers = gather_step_times(model0, cfg, training, host_batch)
+    seconds = time.perf_counter() - t0
+    log(f"[dimenet] phase took {seconds:.1f} s")
+    return {"run": {"seconds": train_s, "steps": state.step, "forwards": n_fwd,
+                    "train_loss": hist.train_loss, "val_loss": hist.val_loss,
+                    "test_loss": hist.test_loss, "prediction_error": err,
+                    "step_losses": steps.tolist(), "graphs": graphs, "k1": k1, "k2": k2},
+            "shapes": shapes, "parity": {k: v for k, v in worst.items()}, "step": step,
+            "gathers": gathers, "seconds": seconds}
+
+
 # ---------------------------------------------------------------- [capture]
 
 def _host(t):
@@ -2894,16 +3282,19 @@ def replay_vs_eager(tag, model0, cfg, training, host_batch, per_call, *, mlip=Fa
             f"time, {prof['kernels_per_call']} kernels a step; K1 {prof['k1_ms']:.3f} ms "
             f"({100 * prof['k1_ms'] / busy:.1f}%), K2 {prof['k2_ms']:.3f} ms "
             f"({100 * prof['k2_ms'] / busy:.1f}%), per launch K1 "
-            f"{1e3 * prof['k1_ms'] / per_call[0]:.1f} us, K2 "
-            f"{1e3 * prof['k2_ms'] / per_call[1]:.1f} us; the device idles "
+            f"{1e3 * prof['k1_ms'] / max(per_call[0], 1):.1f} us, K2 "
+            f"{1e3 * prof['k2_ms'] / max(per_call[1], 1):.1f} us; indexing_backward_kernel "
+            f"{prof['indexing_backward_ms']:.3f} ms ({prof['indexing_backward_per_call']} "
+            f"a step); the device idles "
             f"{100 * (1 - busy / timing['replay_ms']):.0f}% of the replayed step")
     else:
         log(f"[capture] {tag}: the profiler recorded no kernels of the replays; K1's and "
             f"K2's time inside the graph not measured")
     return dict(timing, bitwise=bitwise, nodes=host_batch.num_nodes,
                 edges=host_batch.num_edges, replay_profile=prof,
-                per_launch_us={"k1": 1e3 * prof["k1_ms"] / per_call[0],
-                               "k2": 1e3 * prof["k2_ms"] / per_call[1]} if prof else None)
+                per_launch_us={"k1": 1e3 * prof["k1_ms"] / max(per_call[0], 1),
+                               "k2": 1e3 * prof["k2_ms"] / max(per_call[1], 1)}
+                if prof else None)
 
 
 def k_replay_vs_singles(tag, model0, cfg, training, host_batch, k, *, exact):
@@ -3259,6 +3650,14 @@ def main():
     mace_rows = phase_mace_kernels(oc20_bin.to("cuda"))
     oc20 = phase_oc20(oc20_cfg, oc20_splits, oc20_loader, oc20_bin)
     egnn = phase_egnn(*egnn_data())
+    pnaeq_cfg = pnaeq_config(mlip_cfg)
+    pnaeq_loader, _ = train_loader(pnaeq_cfg, md17_splits[0])
+    check(pnaeq_loader.packing, "md17.json's packing 'auto' did not pack the MD17 stand-in "
+          "for PNAEq")
+    pnaeq_bin = next(iter(pnaeq_loader))
+    pnaeq_rows = phase_pnaeq_kernels(pnaeq_bin.to("cuda"))
+    pnaeq = phase_pnaeq(pnaeq_cfg, md17_splits, pnaeq_loader, pnaeq_bin)
+    dimenet = phase_dimenet(*qm7x_data())
     capture, cap_k1, cap_k2 = phase_capture([
         ("SchNet headline step", *head_step, head_cpu, (4, 4), False, True),
         ("MLIP first packed bin", *mlip.pop("step"), mlip_batch, (12, 12), True, True),
@@ -3274,14 +3673,15 @@ def main():
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
         "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
-                     + oc20["k1"] + cap_k1),
+                     + oc20["k1"] + pnaeq["k1"] + cap_k1),
         "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
                              "zinc": zinc["k1"], "polymers": polymers["k1"],
-                             "oc20": oc20["k1"], "egnn": 0,
+                             "oc20": oc20["k1"], "egnn": 0, "pnaeq": pnaeq["k1"],
+                             "dimenet": dimenet["run"]["k1"],
                              "polymers_superstep": cap_k1},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows if r["dtype"] == "f32"]),
+                              + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -3300,20 +3700,23 @@ def main():
                            for r in poly_rows],
         "mace_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                        for r in mace_rows],
+        "pnaeq_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                         for r in pnaeq_rows],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
-                     + cap_k2),
+                     + pnaeq["k2"] + cap_k2),
         "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
                              "zinc": zinc["k2"], "polymers": polymers["k2"],
-                             "oc20": oc20["k2"], "egnn": 0,
+                             "oc20": oc20["k2"], "egnn": 0, "pnaeq": pnaeq["k2"],
+                             "dimenet": dimenet["run"]["k2"],
                              "polymers_superstep": cap_k2},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows if r["dtype"] == "f32"]),
+                              + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
@@ -3331,6 +3734,8 @@ def main():
                            for r in poly_rows],
         "mace_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                        for r in mace_rows],
+        "pnaeq_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                         for r in pnaeq_rows],
     }]
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
@@ -3340,6 +3745,8 @@ def main():
     log(f"[report] zoo: {json.dumps(zoo)}")
     log(f"[report] oc20: {json.dumps(oc20)}")
     log(f"[report] egnn: {json.dumps(egnn)}")
+    log(f"[report] pnaeq: {json.dumps(pnaeq)}")
+    log(f"[report] dimenet: {json.dumps(dimenet)}")
     log(f"[report] capture: {json.dumps(dict(capture, served_bin=served_bin))}")
     log(f"[report] card: {card}")
     print(card)

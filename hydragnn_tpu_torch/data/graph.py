@@ -2,7 +2,8 @@
 
 Counterpart of ``hydragnn_tpu/data/graph.py``: ``GraphSample`` (one host
 graph), ``GraphBatch`` (a padded batch with the same fields, as tensors),
-``select_input_features``, ``bucket_size``, ``PackSpec``, ``PadSpec``,
+``select_input_features``, ``bucket_size``, ``build_triplets``,
+``count_triplets``, ``fill_triplets``, ``PackSpec``, ``PadSpec``,
 ``collate`` and ``apply_segment_plan``. The host work is the JAX package's numpy code,
 copied, so collated arrays match it bit for bit.
 
@@ -72,10 +73,12 @@ class GraphBatch:
     energy: Optional[Array] = None  # [G]
     forces: Optional[Array] = None  # [N, 3]
 
-    # Angular triplets (DimeNet; not built by the port yet)
-    t_kj: Optional[Array] = None
-    t_ji: Optional[Array] = None
-    triplet_mask: Optional[Array] = None
+    # Angular triplets (DimeNet): triplet t feeds edge t_kj[t] = k->j into
+    # edge t_ji[t] = j->i (k != i); padding triplets index the last edge
+    # slot and are masked.
+    t_kj: Optional[Array] = None  # [T] int32
+    t_ji: Optional[Array] = None  # [T] int32
+    triplet_mask: Optional[Array] = None  # [T] bool
 
     # Sorted-segment block plan for receiver aggregation
     # (ops/edge_pipeline.py); edges are sorted by receiver when present.
@@ -183,6 +186,65 @@ def bucket_size(n: int, *, base: int = 8, growth: float = 1.25) -> int:
     return int(int(np.ceil(size / 8.0)) * 8)
 
 
+def build_triplets(
+    senders: np.ndarray, receivers: np.ndarray, num_nodes: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """The angular triplets of a graph: every pair of edges (k->j, j->i)
+    with k != i, as (t_kj, t_ji) edge indices, in order of t_ji."""
+    E = int(len(senders))
+    if E == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    order = np.argsort(receivers, kind="stable")
+    counts_in = np.bincount(receivers, minlength=num_nodes)
+    ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    ptr[1:] = np.cumsum(counts_in)
+    deg = counts_in[senders]  # incoming edges at j for each edge j->i
+    total = int(deg.sum())
+    if total == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    t_ji_all = np.repeat(np.arange(E, dtype=np.int64), deg)
+    seg_off = np.cumsum(deg) - deg
+    local = np.arange(total, dtype=np.int64) - np.repeat(seg_off, deg)
+    t_kj_all = order[ptr[senders[t_ji_all]] + local]
+    valid = senders[t_kj_all] != receivers[t_ji_all]
+    return t_kj_all[valid], t_ji_all[valid]
+
+
+def count_triplets(sample: "GraphSample") -> int:
+    """The number of triplets ``build_triplets`` gives a sample, without
+    building them: each edge j->i pairs with indeg(j) edges, less one
+    where the reciprocal edge i->j exists (k == i)."""
+    if sample.edge_index is None or sample.num_edges == 0:
+        return 0
+    snd = np.asarray(sample.edge_index[0], dtype=np.int64)
+    rcv = np.asarray(sample.edge_index[1], dtype=np.int64)
+    n = int(sample.num_nodes)
+    indeg = np.bincount(rcv, minlength=n)
+    total = int(indeg[snd].sum())
+    keys = snd * n + rcv
+    reciprocal = int(np.isin(rcv * n + snd, keys).sum())
+    return total - reciprocal
+
+
+def fill_triplets(t_kj, t_ji, triplet_mask, senders, receivers, e_real, n_real):
+    """Build a batch's triplets into preallocated ``[T]`` buffers (every
+    slot is written). Padding triplets index the last edge slot (a
+    self-loop at the padding node) and are masked."""
+    T = int(t_kj.shape[0])
+    E = int(senders.shape[0])
+    kj, ji = build_triplets(senders[:e_real], receivers[:e_real], n_real)
+    if len(kj) > T:
+        raise ValueError(f"PadSpec too small: {len(kj)} triplets > {T} slots")
+    t_kj[...] = E - 1
+    t_ji[...] = E - 1
+    triplet_mask[...] = False
+    t_kj[: len(kj)] = kj
+    t_ji[: len(ji)] = ji
+    triplet_mask[: len(kj)] = True
+
+
 def apply_segment_plan(
     senders, receivers, edge_mask, edge_payloads, e_real, N,
     be: int = DEFAULT_BE, bn: int = DEFAULT_BN,
@@ -252,13 +314,20 @@ class PadSpec:
     num_triplets: Optional[int] = None  # None = do not build triplets
 
     @staticmethod
-    def for_samples(samples: Sequence[GraphSample]) -> "PadSpec":
+    def for_samples(
+        samples: Sequence[GraphSample], *, with_triplets: bool = False
+    ) -> "PadSpec":
         """Bucketed sizes for these samples, with the +1 node and graph
-        slots (edge padding targets the padding node)."""
+        slots (edge padding targets the padding node); ``with_triplets``
+        adds the triplet count, bucketed like the edges."""
+        t = None
+        if with_triplets:
+            t = bucket_size(max(sum(count_triplets(s) for s in samples), 1))
         return PadSpec(
             num_nodes=bucket_size(sum(s.num_nodes for s in samples) + 1),
             num_edges=bucket_size(max(sum(s.num_edges for s in samples), 1)),
             num_graphs=len(samples) + 1,
+            num_triplets=t,
         )
 
 
@@ -277,17 +346,14 @@ def collate(
     node slot ``tot_nodes`` (the first padding node). With
     ``with_segment_plan`` the edges are sorted by receiver and the block
     plan for the fused edge pipeline is attached at tiles ``(be, bn)``.
+    A ``pad`` with ``num_triplets`` gets the angular triplets
+    (``fill_triplets``) of the edges in their final order.
     Floating fields are float32. ``as_numpy`` keeps host
     arrays; otherwise the fields are CPU tensors (``GraphBatch.to``
     moves them to a device).
     """
     if pad is None:
         pad = PadSpec.for_samples(samples)
-    if pad.num_triplets is not None:
-        raise NotImplementedError(
-            "angular triplets (DimeNet) are not ported yet: ROADMAP "
-            "Queue 1 item 9"
-        )
     n_real = sum(s.num_nodes for s in samples)
     e_real = sum(s.num_edges for s in samples)
     g_real = len(samples)
@@ -409,6 +475,15 @@ def collate(
         )
         seg_tile = (int(be), int(bn))
 
+    # Triplets index the edges as they lie after the plan's sort.
+    t_kj = t_ji = triplet_mask = None
+    if pad.num_triplets is not None:
+        T = pad.num_triplets
+        t_kj = np.empty((T,), dtype=np.int32)
+        t_ji = np.empty((T,), dtype=np.int32)
+        triplet_mask = np.empty((T,), dtype=bool)
+        fill_triplets(t_kj, t_ji, triplet_mask, senders, receivers, e_real, n_real)
+
     batch = GraphBatch(
         x=x,
         pos=pos,
@@ -430,6 +505,9 @@ def collate(
         cell=cell,
         energy=energy,
         forces=forces,
+        t_kj=t_kj,
+        t_ji=t_ji,
+        triplet_mask=triplet_mask,
         seg_perm=seg_perm,
         seg_ids=seg_ids,
         seg_valid=seg_valid,

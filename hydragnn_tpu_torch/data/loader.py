@@ -13,10 +13,15 @@ and collated arrays equal the JAX package's for the same seed.
 The port's batches carry the block plan at the Hopper tiles by default
 (``with_segment_plan=True``), packed bins included, so every aggregation
 runs K1 forward and K2 backward; ``with_segment_plan=False`` gives the
-``index_add_`` scatter path. There is no crossover table. Spec
-schedules, resampling, triplets and the parallel input pipeline come
-with ROADMAP Queue 1 item 10; the device-coordinated
-packer of the dp scheme with item 11.
+``index_add_`` scatter path. There is no crossover table.
+``with_triplets`` (DimeNet) attaches the angular triplets; as in the JAX
+package it refuses packing (budgets do not count triplets), and
+``fixed_pad="auto"`` then keeps the one worst-case shape, whose triplet
+count is the bucketed sum of the ``batch_size`` largest samples' counts;
+on the ladder (``fixed_pad=False``) each batch's spec is derived from
+its own samples at collate time (a ``None`` plan entry). Spec schedules,
+resampling and the parallel input pipeline come with ROADMAP Queue 1
+item 10; the device-coordinated packer of the dp scheme with item 11.
 
 Where the JAX package stacks a superstep group into one ``[K, ...]``
 host batch, the port keeps its K collated batches side by side
@@ -32,7 +37,14 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from hydragnn_tpu_torch.data.graph import GraphBatch, GraphSample, PadSpec, collate
+from hydragnn_tpu_torch.data.graph import (
+    GraphBatch,
+    GraphSample,
+    PadSpec,
+    bucket_size,
+    collate,
+    count_triplets,
+)
 from hydragnn_tpu_torch.data.padschedule import (
     MAX_PAD_BUCKETS,
     dataset_size_arrays,
@@ -60,7 +72,8 @@ class GraphLoader:
     epoch's order is first-fit-decreasing packed into ``pack_budgets``
     (or budgets fitted from this loader's own size histogram with
     ``pack_max_budgets``, ``pack_slack`` and ``pack_max_graphs``), one
-    batch per bin, padded to its budget's shape."""
+    batch per bin, padded to its budget's shape. ``with_triplets``
+    attaches angular triplets (module docstring) and cannot pack."""
 
     def __init__(
         self,
@@ -70,6 +83,7 @@ class GraphLoader:
         shuffle: bool = False,
         seed: int = 0,
         fixed_pad: "bool | str" = True,
+        with_triplets: bool = False,
         with_segment_plan: bool = True,
         cache_batches: bool = False,
         packing: bool = False,
@@ -81,6 +95,7 @@ class GraphLoader:
         self.dataset = list(dataset)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
+        self.with_triplets = bool(with_triplets)
         self.with_segment_plan = bool(with_segment_plan)
         self._seed = int(seed)
         self._epoch = 0
@@ -90,6 +105,11 @@ class GraphLoader:
         self.pack_budgets: Optional[List] = None
         self._pack_plan_cache: Optional[tuple] = None
         if self.packing:
+            if self.with_triplets:
+                raise ValueError(
+                    "packing budgets do not cover triplet counts; use "
+                    "fixed padding for triplet-bearing models"
+                )
             fixed_pad = False
             if pack_budgets is not None:
                 self.pack_budgets = list(pack_budgets)
@@ -100,8 +120,11 @@ class GraphLoader:
                     max_graphs=pack_max_graphs, seed=self._seed,
                 )
         if fixed_pad == "auto":
+            # Triplet counts need each sample's edges: keep the one
+            # worst-case shape there.
             fixed_pad = (
-                True if not len(self.dataset) else not self._ladder_is_small()
+                True if (self.with_triplets or not len(self.dataset))
+                else not self._ladder_is_small()
             )
             self._auto_selected = not fixed_pad
         self.fixed_pad = fixed_pad
@@ -176,7 +199,13 @@ class GraphLoader:
 
     def _worst_case_spec(self) -> PadSpec:
         nodes, edges = self._size_arrays()
-        return worst_case_spec_from_sizes(nodes, edges, self.batch_size)
+        spec = worst_case_spec_from_sizes(nodes, edges, self.batch_size)
+        if not self.with_triplets:
+            return spec
+        t_sizes = sorted((count_triplets(s) for s in self.dataset), reverse=True)
+        t = bucket_size(max(sum(t_sizes[: self.batch_size]), 1))
+        return PadSpec(num_nodes=spec.num_nodes, num_edges=spec.num_edges,
+                       num_graphs=spec.num_graphs, num_triplets=t)
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -191,14 +220,20 @@ class GraphLoader:
             num_nodes=self.pad_spec.num_nodes,
             num_edges=self.pad_spec.num_edges,
             num_graphs=self.batch_size + 1,
+            num_triplets=self.pad_spec.num_triplets,
         )
 
     def epoch_plan(self, epoch: int) -> Iterator[tuple]:
         """``(idx, spec)`` for every batch of one epoch, from size
-        metadata alone: the packed bins when packing."""
+        metadata alone: the packed bins when packing. On the ladder with
+        triplets the spec is ``None``: each batch's own (its triplet
+        count needs its edges) is derived at collate time."""
         if self.packing:
             for idx, budget in self._packed_plan(epoch):
                 yield idx, budget.pad_spec()
+            return
+        if self.pad_spec is None and self.with_triplets:
+            yield from ((idx, None) for idx in self._epoch_batches(epoch))
             return
         nodes = edges = None
         for idx in self._epoch_batches(epoch):
@@ -220,10 +255,10 @@ class GraphLoader:
 
     def collate_entry(self, idx, spec) -> GraphBatch:
         """One plan entry's batch (CPU tensors)."""
-        return collate(
-            [self.dataset[i] for i in idx], spec,
-            with_segment_plan=self.with_segment_plan,
-        )
+        samples = [self.dataset[i] for i in idx]
+        if spec is None:
+            spec = PadSpec.for_samples(samples, with_triplets=self.with_triplets)
+        return collate(samples, spec, with_segment_plan=self.with_segment_plan)
 
     def __iter__(self) -> Iterator[GraphBatch]:
         if self._batch_cache is not None:

@@ -13,10 +13,10 @@ bias) map the same way:
 
 - a Dense ``kernel`` ``[in, out]`` becomes an ``nn.Linear`` ``weight``
   ``[out, in]`` (transposed);
-- a ``DenseParams`` kernel (SchNet's ``lin2`` and a conv node head's
-  ``neigh_{i}``: the module names ``DENSE_PARAMS`` matches) keeps its
-  ``[in, out]`` layout, because the fused edge pipeline takes it as its
-  W;
+- a ``DenseParams`` kernel (SchNet's ``conv_{i}/lin2`` and a conv node
+  head's ``neigh_{i}``: the module paths ``DENSE_PARAMS`` matches) keeps
+  its ``[in, out]`` layout, because the fused edge pipeline takes it as
+  its W (DimeNet's residual layers' ``lin2`` is a plain Dense);
 - ``bias``, batch-norm ``scale``, per-node ``w_{i}``/``b_{i}``, MFC's
   per-degree ``w_root``/``w_neigh``, GIN's scalar ``eps``, GAT's
   ``att`` tensors, and MACE's raw parameters (an ``IrrepsLinear``'s
@@ -41,10 +41,10 @@ import numpy as np
 import torch
 
 # Modules that are DenseParams twins in the port (their kernel is used
-# as [in, out] by a fused kernel): SchNet's lin2 and a conv node head's
-# neigh_{i}. The match is on the whole module name, so SAGE's plain
-# Dense lin_neigh is not one.
-DENSE_PARAMS = re.compile(r"lin2|neigh_\d+")
+# as [in, out] by a fused kernel): SchNet's conv_{i}/lin2 and a conv node
+# head's neigh_{i}. The match is on whole path components, so SAGE's
+# plain Dense lin_neigh and DimeNet's before_skip_{k}/lin2 are not.
+DENSE_PARAMS = re.compile(r"(?:^|\.)(?:conv_\d+\.lin2|neigh_\d+)$")
 # MACE's raw per-l weights: w{l} (IrrepsLinear), w{l}_{i} (the product).
 RAW_W = re.compile(r"w\d+(_\d+)?")
 
@@ -76,12 +76,11 @@ def params_from_jax(
         out[path] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
     for path, arr in _flatten(params).items():
         module, _, leaf = path.rpartition(".")
-        owner = module.rpartition(".")[2]
         t = torch.from_numpy(np.array(arr, copy=True))
         if leaf == "kernel":
             if arr.ndim != 2:
                 raise ValueError(f"{path}: a Dense kernel must be 2-D, got {arr.shape}")
-            if DENSE_PARAMS.fullmatch(owner):
+            if DENSE_PARAMS.search(module):
                 out[path] = t
             else:
                 out[f"{module}.weight"] = t.t().contiguous()

@@ -4,9 +4,10 @@ Counterpart of ``hydragnn_tpu/models/create.py``: maps ``mpnn_type`` to
 a stack class and wraps it in the multihead core (``create_model``), and
 builds both from a full config (``create_model_config``). The port's
 model carries its parameters, so creation also initializes them (the
-JAX package's ``init_params``). SchNet, PAINN, EGNN, MACE, the invariant
-stacks (GIN, SAGE, MFC, CGCNN, GAT) and PNA/PNAPlus are registered so
-far; the other stacks follow ROADMAP Queue 1.
+JAX package's ``init_params``). All thirteen of the JAX package's stacks
+are registered: SchNet, PAINN, PNAEq, EGNN, MACE, DimeNet, the invariant
+stacks (GIN, SAGE, MFC, CGCNN, GAT) and PNA/PNAPlus. ``needs_triplets``
+names the stacks whose batches carry angular triplets (DimeNet).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from torch import nn
 
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.base import MultiHeadGraphModel
-from hydragnn_tpu_torch.models.equivariant import EGCLStack, PAINNStack
+from hydragnn_tpu_torch.models.dimenet import DIMEStack
+from hydragnn_tpu_torch.models.equivariant import EGCLStack, PAINNStack, PNAEqStack
 from hydragnn_tpu_torch.models.invariant import (
     CGCNNStack,
     GATStack,
@@ -44,7 +46,16 @@ STACKS: Dict[str, Type[nn.Module]] = {
     "MACE": MACEStack,
     "PNA": PNAStack,
     "PNAPlus": PNAPlusStack,
+    "PNAEq": PNAEqStack,
+    "DimeNet": DIMEStack,
 }
+
+#: mpnn types whose batches must carry host-built angular triplets.
+NEEDS_TRIPLETS = frozenset({"DimeNet"})
+
+
+def needs_triplets(mpnn_type: str) -> bool:
+    return mpnn_type in NEEDS_TRIPLETS
 
 
 def create_model(

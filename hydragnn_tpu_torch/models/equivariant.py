@@ -1,8 +1,8 @@
-"""Equivariant stacks: EGNN and PaiNN.
+"""Equivariant stacks: EGNN, PaiNN and PNAEq.
 
 Counterpart of ``E_GCL``, ``EGCLStack``, ``PainnMessage``,
-``PainnUpdate``, ``_PainnLayout`` and ``PAINNStack`` in
-``hydragnn_tpu/models/equivariant.py``.
+``PainnUpdate``, ``_PainnLayout``, ``PAINNStack``, ``PNAEqMessage`` and
+``PNAEqStack`` in ``hydragnn_tpu/models/equivariant.py``.
 
 EGNN (``E_GCL`` per layer): an edge MLP of [x_s, x_r, |d|] (and edge
 attributes), summed at the senders (``segment_sum``, the plain scatter:
@@ -28,11 +28,22 @@ channel ``v`` [N, 3, F]:
 
 The vector-channel Denses have no bias, as in the JAX package: a bias on
 ``[N, 3, F]`` adds a fixed lab-frame direction that does not rotate with
-the input. Submodules carry the flax names (``conv_{i}/edge_mlp``,
+the input.
+
+PNAEq keeps PaiNN's layout (update and resize) and replaces the message
+(``PNAEqMessage``): the scalar message reaches the receivers through
+PNA's four aggregators and five degree scalers (the moment pass one K1
+call of width 2F, min and max one ``segment_min``), the vector message
+as PaiNN's does. Per forward that is two K1 calls a layer, and an MLIP
+train step runs each again as K2 in the force pass and as K1/K2 in the
+loss's backward, as PaiNN's does.
+
+Submodules carry the flax names (``conv_{i}/edge_mlp``,
 ``message_{i}``, ``update_{i}``, ``node_embed_out_{i}``,
-``vec_embed_out_{i}``), so ``models/convert.params_from_jax`` maps a
-flax EGNN or PaiNN tree as it is. PNAEq waits for ROADMAP Queue 1
-item 9.
+``vec_embed_out_{i}``; PNAEq's ``message_{i}/rbf_emb``, ``pre_nn``,
+``scalar_mlp_{0,1,2}``, ``rbf_lin``, ``post_nn``, ``edge_encoder``), so
+``models/convert.params_from_jax`` maps a flax EGNN, PaiNN or PNAEq
+tree as it is.
 """
 
 from __future__ import annotations
@@ -41,9 +52,11 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hydragnn_tpu_torch.models.layers import MLP, Dense
+from hydragnn_tpu_torch.models.pna import _deg_stats, pna_scaled_aggregate
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.ops.rbf import (
     cosine_cutoff,
@@ -204,25 +217,96 @@ class PainnUpdate(nn.Module):
         return s + a_sv * inner + a_ss, v + a_vv[:, None, :] * uv
 
 
-class PAINNStack(nn.Module):
-    """PaiNN stack: message, update and resize per layer (the JAX
-    package's ``_PainnLayout`` with ``PAINNStack``'s message). Layer 0
-    runs at the input width, the others at ``hidden_dim``."""
+class PNAEqMessage(nn.Module):
+    """PaiNN's message with PNA's aggregators on the scalar channel: the
+    edge input [s_snd, s_rcv, tanh(rbf_emb(rbf))] (and the encoded edge
+    attributes) through ``pre_nn`` and a Dense-tanh-Dense-silu-Dense(3F)
+    MLP, gated by ``rbf_lin(rbf)`` into (vector-state gate,
+    edge-direction gate, scalar message). The scalar message goes
+    through ``pna_scaled_aggregate`` (mean, min, max, std times five
+    degree scalers, the moment pass one K1 call of width 2F on a planned
+    batch) into ``post_nn``; the vector message, folded to [E, 3F], is
+    one K1 call."""
+
+    def __init__(
+        self,
+        node_size: int,
+        num_radial: int,
+        cutoff: float,
+        avg_deg_lin: float,
+        avg_deg_log: float,
+        edge_dim: Optional[int] = None,
+    ):
+        super().__init__()
+        f = node_size
+        self.node_size = f
+        self.num_radial = num_radial
+        self.cutoff = float(cutoff)
+        self.avg_deg_lin = avg_deg_lin
+        self.avg_deg_log = avg_deg_log
+        self.rbf_emb = Dense(num_radial, f)
+        self.edge_encoder = Dense(edge_dim, f) if edge_dim else None
+        self.pre_nn = Dense((4 if edge_dim else 3) * f, f)
+        self.scalar_mlp_0 = Dense(f, f)
+        self.scalar_mlp_1 = Dense(f, f)
+        self.scalar_mlp_2 = Dense(f, 3 * f)
+        self.rbf_lin = Dense(num_radial, 3 * f, bias=False)
+        self.post_nn = Dense(f + 20 * f, f)
+
+    def forward(
+        self,
+        s: torch.Tensor,
+        v: torch.Tensor,
+        batch,
+        unit: torch.Tensor,
+        dist: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        snd, rcv = batch.senders, batch.receivers
+        f = self.node_size
+        rbf = sinc_basis(dist, self.cutoff, self.num_radial)
+        rbf = rbf * cosine_cutoff(dist, self.cutoff)[:, None]
+        parts = [s[snd], s[rcv], torch.tanh(self.rbf_emb(rbf))]
+        if self.edge_encoder is not None and batch.edge_attr is not None:
+            parts.append(self.edge_encoder(batch.edge_attr))
+        msg = self.pre_nn(torch.cat(parts, dim=-1))
+        x = torch.tanh(self.scalar_mlp_0(msg))
+        x = F.silu(self.scalar_mlp_1(x))
+        filter_out = self.scalar_mlp_2(x) * self.rbf_lin(rbf)
+        gate_v, gate_e, msg_s = torch.split(filter_out, f, dim=-1)
+        msg_v = v[snd] * gate_v[:, None, :] + gate_e[:, None, :] * unit[:, :, None]
+        scaled = pna_scaled_aggregate(
+            msg_s, batch, self.avg_deg_lin, self.avg_deg_log, inverse_linear=True
+        )
+        s = s + self.post_nn(torch.cat([s, scaled], dim=-1))
+        n = batch.num_nodes
+        e, _, fv = msg_v.shape
+        v = v + aggregate_receivers(msg_v.reshape(e, 3 * fv), batch).reshape(n, 3, fv)
+        return s, v
+
+
+class _PainnLayout(nn.Module):
+    """The PaiNN layout shared by PaiNN and PNAEq: per layer a message
+    (``_make_message``), the update, and a tanh MLP and a linear map
+    resizing both channels to ``hidden_dim``. Layer 0 runs at the input
+    width, the others at ``hidden_dim``; under global attention every
+    layer runs at ``hidden_dim`` and the messages read the GPS
+    embedding's hidden-wide edge attributes."""
 
     norm_kind = "none"
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.radius is None or cfg.num_radial is None:
-            raise ValueError("PAINNStack requires radius and num_radial")
+            raise ValueError(f"{type(self).__name__} requires radius and num_radial")
         self.cfg = cfg
         layers = cfg.num_conv_layers
-        in_dims = [cfg.input_dim] + [cfg.hidden_dim] * (layers - 1)
+        if cfg.use_global_attn:
+            in_dims = [cfg.hidden_dim] * layers
+        else:
+            in_dims = [cfg.input_dim] + [cfg.hidden_dim] * (layers - 1)
+        edge_dim = cfg.hidden_dim if cfg.use_global_attn else cfg.edge_dim
         for i in range(layers):
-            self.add_module(
-                f"message_{i}",
-                PainnMessage(in_dims[i], cfg.num_radial, cfg.radius, cfg.edge_dim),
-            )
+            self.add_module(f"message_{i}", self._make_message(in_dims[i], edge_dim))
             self.add_module(
                 f"update_{i}", PainnUpdate(in_dims[i], last_layer=i == layers - 1)
             )
@@ -239,7 +323,7 @@ class PAINNStack(nn.Module):
         self, batch
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict[str, Any]]:
         if batch.pos is None:
-            raise ValueError("PAINNStack requires node positions")
+            raise ValueError(f"{type(self).__name__} requires node positions")
         unit, dist = edge_vectors_and_lengths(
             batch.pos, batch.senders, batch.receivers, batch.edge_shifts,
             normalize=True,
@@ -264,3 +348,23 @@ class PAINNStack(nn.Module):
         if i < self.cfg.num_conv_layers - 1:
             v = getattr(self, f"vec_embed_out_{i}")(v)
         return s, v
+
+
+class PAINNStack(_PainnLayout):
+    """PaiNN: the layout with ``PainnMessage``."""
+
+    def _make_message(self, node_size: int, edge_dim: Optional[int]) -> nn.Module:
+        cfg = self.cfg
+        return PainnMessage(node_size, cfg.num_radial, cfg.radius, edge_dim)
+
+
+class PNAEqStack(_PainnLayout):
+    """PNAEq: the layout with ``PNAEqMessage``, its degree statistics
+    from the config's ``pna_deg`` histogram."""
+
+    def _make_message(self, node_size: int, edge_dim: Optional[int]) -> nn.Module:
+        cfg = self.cfg
+        if cfg.pna_deg is None:
+            raise ValueError("PNAEq requires the pna_deg degree histogram")
+        avg_lin, avg_log = _deg_stats(cfg.pna_deg)
+        return PNAEqMessage(node_size, cfg.num_radial, cfg.radius, avg_lin, avg_log, edge_dim)

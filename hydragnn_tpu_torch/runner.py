@@ -11,7 +11,11 @@ package resolves it on the single scheme: ``"auto"`` (the default)
 packs when the fitted budgets beat the unpacked ladder's padding waste
 (``padschedule.packing_beats_ladder`` on the train split's sizes and the
 run's seed), ``true`` fits budgets, and eval loaders fit their own
-budgets with the train-tuned slack.
+budgets with the train-tuned slack. Models whose batches carry angular
+triplets (``models/create.needs_triplets``: DimeNet) never pack, as in
+the JAX package: ``"auto"`` falls back to unpacked batches quietly, an
+explicit request with a message; their loaders keep the one worst-case
+shape (``GraphLoader(with_triplets=True)``).
 
 Supersteps (``Training.Parallelism.superstep``) are resolved as the JAX
 runner resolves them on the single scheme (``parallel/runtime.py``: an
@@ -55,7 +59,7 @@ from hydragnn_tpu_torch.data.padschedule import (
 )
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
-from hydragnn_tpu_torch.models.create import create_model_config
+from hydragnn_tpu_torch.models.create import create_model_config, needs_triplets
 from hydragnn_tpu_torch.parallel.runtime import _superstep_from_config, resolve_superstep_k
 from hydragnn_tpu_torch.train.capture import StepGraphs
 from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validate_test
@@ -183,15 +187,29 @@ def packing_settings(config: dict) -> dict:
     }
 
 
-def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0) -> tuple:
+def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0, *,
+                    trips: bool = False, verbosity: int = 0) -> tuple:
     """``(packing_on, train_budgets, slack)`` for the single scheme, as
     the JAX runner's ``_resolve_packing`` decides: ``"auto"`` packs when
     ``packing_beats_ladder`` finds the fitted budgets beat the ladder
     (the run's unpacked baseline, ``fixed_pad="auto"``) on the train
     split's sizes and ``seed``; ``True`` fits the budgets. The slack is
-    the train fit's, which the eval loaders reuse."""
+    the train fit's, which the eval loaders reuse. A triplet-bearing
+    model (``trips``) or an empty train split never packs; an explicit
+    request then says why."""
     mode = pk["enabled"]
-    if not mode or not len(trainset):
+    if not mode:
+        return False, None, None
+    blocked = None
+    if trips:
+        blocked = "packing budgets do not cover triplet counts"
+    elif not len(trainset):
+        blocked = "empty training set"
+    if blocked:
+        if mode != "auto":
+            print_distributed(
+                verbosity, 0, f"Training.Parallelism.packing ignored: {blocked}"
+            )
         return False, None, None
     ns, es = dataset_size_arrays(trainset)
     kw = dict(max_budgets=pk["max_budgets"], slack=pk["slack"],
@@ -262,8 +280,10 @@ def run_training(
     print_distributed(
         verbosity, 1, f"Model parameters: {sum(p.numel() for p in model.parameters())}"
     )
+    trips = needs_triplets(cfg.mpnn_type)
     pk = packing_settings(config)
-    packed, budgets, slack = resolve_packing(pk, batch_size, trainset, seed)
+    packed, budgets, slack = resolve_packing(pk, batch_size, trainset, seed,
+                                             trips=trips, verbosity=verbosity)
     pack_kw = dict(packing=packed, pack_max_budgets=pk["max_budgets"],
                    pack_slack=slack, pack_max_graphs=pk["max_graphs"])
     if packed:
@@ -274,17 +294,18 @@ def run_training(
         )
     train_loader = GraphLoader(
         trainset, batch_size, shuffle=True, seed=seed, fixed_pad="auto",
-        with_segment_plan=seg_plan, pack_budgets=budgets, **pack_kw,
+        with_triplets=trips, with_segment_plan=seg_plan, pack_budgets=budgets,
+        **pack_kw,
     )
     val_loader, test_loader = (
-        GraphLoader(ds, batch_size, fixed_pad="auto", with_segment_plan=seg_plan,
-                    cache_batches=True, **pack_kw)
+        GraphLoader(ds, batch_size, fixed_pad="auto", with_triplets=trips,
+                    with_segment_plan=seg_plan, cache_batches=True, **pack_kw)
         for ds in (valset, testset)
     )
     # The recalibration reads plain unpacked batches of the train split,
     # as eval batches them (the JAX runner's recal_loader).
     recal_loader = (
-        GraphLoader(trainset, batch_size, with_segment_plan=seg_plan)
+        GraphLoader(trainset, batch_size, with_triplets=trips, with_segment_plan=seg_plan)
         if bn_recalibration_epochs(training) else None
     )
     superstep = _superstep_from_config(training.get("Parallelism", {}))
@@ -360,6 +381,7 @@ def run_prediction(
     seg_plan = training.get("use_segment_plan", True)
     test_loader = GraphLoader(
         testset, int(training.get("batch_size", 32)),
+        with_triplets=needs_triplets(cfg.mpnn_type),
         with_segment_plan=True if seg_plan == "auto" else bool(seg_plan),
     )
     return run_test(

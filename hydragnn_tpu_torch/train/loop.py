@@ -180,7 +180,10 @@ def fold_step_metrics(acc, tots, tasks, gs):
 
 
 def _spec_key(batch) -> tuple:
-    return (batch.num_nodes, batch.num_edges, batch.num_graphs)
+    """A batch's padded shape: nodes, edges, graphs and triplets (None
+    without), which the step graphs key on."""
+    t = None if batch.t_kj is None else int(batch.t_kj.shape[0])
+    return (batch.num_nodes, batch.num_edges, batch.num_graphs, t)
 
 
 def _steps_fn(body) -> Callable:

@@ -1,8 +1,8 @@
 """K1 and K2 on the card: the Hopper kernels against their plain versions
-(at MACE's width F = 288 too); and CUDA-graph capture of the train loop's
-steps (``train/capture.py``): replayed train and eval steps, a K = 2
-replay, every optimizer's captured step and MACE's MLIP step against
-eager ones, bit for bit.
+(at MACE's width F = 288 and PNAEq's 2, 3, 128 and 192 too); and
+CUDA-graph capture of the train loop's steps (``train/capture.py``):
+replayed train and eval steps, a K = 2 replay, every optimizer's captured
+step and MACE's and PNAEq's MLIP steps against eager ones, bit for bit.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -805,6 +805,128 @@ def test_mace_replayed_mlip_step_equals_eager():
         torch.cuda.synchronize()
         launches = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
         assert launches == (4 * 3, 4 * 3), (mode, launches)
+        assert all(torch.isfinite(p).all() for p in model.parameters())
+        results[mode] = (model, opt, acc, graphs)
+    (m1, o1, a1, _), (m2, o2, a2, graphs) = results["eager"], results["graphs"]
+    assert (graphs.eager_runs, graphs.captures, graphs.replays) == (1, 1, 2)
+    _state_equal(torch, m1, o1, m2, o2)
+    for x, y in zip(a1, a2):
+        assert torch.equal(x, y)
+
+
+def _pnaeq_case(torch, n_batches=3, seed=0, device="cuda"):
+    """md17.json's PNAEq potential at full width (hidden 64, 3 layers,
+    num_radial 20, radius 4.0; energy + 10 x force loss) on the card,
+    with ``n_batches`` planned batches of 8 random molecules of 17-23
+    atoms (radius graph 4.0, 24 neighbours), all padded to one shape."""
+    from hydragnn_tpu_torch.config.config import gather_deg
+    from hydragnn_tpu_torch.data.graph import GraphSample, PadSpec, collate
+    from hydragnn_tpu_torch.models import spec
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(8 * n_batches):
+        n = int(rng.integers(17, 24))
+        pos = rng.uniform(0, 2.2 * n ** (1 / 3), (n, 3)).astype(np.float32)
+        samples.append(GraphSample(
+            x=rng.choice([1.0, 6.0, 8.0], (n, 1)).astype(np.float32), pos=pos,
+            edge_index=radius_graph(pos, 4.0, max_neighbours=24),
+            energy=float(rng.normal()), forces=rng.normal(size=pos.shape).astype(np.float32)))
+    groups = [samples[i:i + 8] for i in range(0, len(samples), 8)]
+    pad = PadSpec(num_nodes=max(sum(s.num_nodes for s in g) for g in groups) + 8,
+                  num_edges=max(sum(s.num_edges for s in g) for g in groups) + 64,
+                  num_graphs=9)
+    batches = [collate(g, pad, with_segment_plan=True) for g in groups]
+    deg = tuple(int(v) for v in gather_deg(samples))
+    cfg = spec.ModelConfig(
+        mpnn_type="PNAEq", input_dim=1, hidden_dim=64, num_conv_layers=3,
+        heads=(spec.HeadSpec("energy", "graph", 1),), task_weights=(1.0,),
+        graph_branches=(spec.BranchSpec(num_sharedlayers=1, dim_sharedlayers=64,
+                                        num_headlayers=2, dim_headlayers=(64, 64)),),
+        radius=4.0, num_radial=20, pna_deg=deg, max_neighbours=len(deg) - 1,
+        graph_pooling="add", enable_interatomic_potential=True, energy_weight=1.0,
+        force_weight=10.0,
+    )
+    model = create_model(cfg, device, seed=seed)
+    opt = select_optimizer(model.parameters(),
+                           {"Optimizer": {"type": "AdamW", "learning_rate": 0.002}})
+    return model, cfg, opt, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 3, 128, 192])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_kernels_pnaeq_widths(f, dt):
+    """K1 and K2 in the reduce-only flavour at PNAEq's receiver-sum
+    widths (layer 0's moment pass 2 and vector sum 3 at the input width
+    1; then 2F = 128 and 3F = 192 at hidden 64) on a PNAEq batch's plan:
+    each equals its plain version (same bits on two runs), K2 zero off
+    the plan."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    a_dt = getattr(torch, dt)
+    batch = _pnaeq_case(torch, n_batches=1)[3][0].to("cuda")
+    n, e = batch.num_nodes, batch.num_edges
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window, n)
+    gen = torch.Generator().manual_seed(f)
+    a = torch.randn(e, f, generator=gen).to("cuda", a_dt)
+    g = torch.randn(n, f, generator=gen).to("cuda", a_dt)
+    with torch.no_grad():
+        got = edge_pipeline_planned(a, None, None, *plan)
+        again = edge_pipeline_planned(a, None, None, *plan)
+        ref = edge_pipeline_plain(a, None, None, *plan)
+    d_a, d_b, d_w = edge_pipeline_bwd_planned(g, a, None, None, *plan)
+    d_a2 = edge_pipeline_bwd_planned(g, a, None, None, *plan)[0]
+    d_ref = edge_pipeline_bwd_plain(g, a, None, None, *plan)[0]
+    torch.cuda.synchronize()
+    assert got.shape == (n, f) and got.dtype == a_dt and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dt])
+    assert d_b is None and d_w is None and torch.equal(d_a, d_a2)
+    torch.testing.assert_close(d_a.float(), d_ref.float(), **VJP_TOL[dt])
+    covered = torch.zeros(e, dtype=torch.bool, device="cuda")
+    covered[batch.seg_perm[batch.seg_valid].long()] = True
+    assert not d_a[~covered].any()
+
+
+@pytest.mark.cuda
+def test_pnaeq_replayed_mlip_step_equals_eager():
+    """Three PNAEq MLIP train steps through the graph cache (eager,
+    capture and replay, replay) against three eager steps: 12 K1 and 12
+    K2 launches per step (two receiver sums a layer: 6 K1 forward, 6 K2
+    in the force pass, 6 of each in the loss's backward), replays
+    included; the same parameters, optimizer state and loss sums bit for
+    bit (PNA's min is order-free and its degree an exact count)."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    results = {}
+    for mode in ("eager", "graphs"):
+        model, cfg, opt, batches = _pnaeq_case(torch)
+        graphs = StepGraphs("cuda") if mode == "graphs" else None
+        train = make_superstep_fn(model, opt, cfg, compute_grad_energy=True,
+                                  device=torch.device("cuda"), graphs=graphs)
+        state, acc = TrainState(model, opt, graphs=graphs), None
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        for b in batches:
+            state, acc = train(state, acc, [b])
+        torch.cuda.synchronize()
+        launches = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
+        assert launches == (12 * 3, 12 * 3), (mode, launches)
         assert all(torch.isfinite(p).all() for p in model.parameters())
         results[mode] = (model, opt, acc, graphs)
     (m1, o1, a1, _), (m2, o2, a2, graphs) = results["eager"], results["graphs"]
