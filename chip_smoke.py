@@ -10,7 +10,9 @@ K1's and K2's launch counts come from replays (a replay adds the
 launches its capture recorded). Each run_training is timed beside the
 same call with every step eager (eager_steps(), which keeps the port
 from building its graph cache), with its captures, replays, capture
-seconds and graph memory printed.
+seconds and graph memory printed. The exceptions are the schemes whose
+steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
+([multibranch]), whose graph_report line says why.
 
 1. device      torch/CUDA versions and the card's name and power limit;
                exits 2 without a CUDA device.
@@ -171,6 +173,26 @@ seconds and graph memory printed.
                first train step on the first packed bin, card against the
                CPU plain path by [mlip]'s rule, with 4 K1 and 4 K2 launches;
                the step's eager and device time and K1 + K2's share.
+16a. dp        (PR 10) the same MACE under Parallelism {"scheme": "dp",
+               "data": 1} over NCCL at world 1, the group made by the port's
+               rendezvous (HYDRAGNN_TPU_COORDINATOR=localhost:<free port>):
+               the first dp step on the first packed bin equals the single
+               step bit for bit (loss, every parameter, the AdamW state)
+               with 4 K1 and 4 K2 launches; three dp steps through a graph
+               cache (1 eager, 1 capture, 2 replays) equal three eager dp
+               steps bit for bit, and a replay's kernels include NCCL's
+               all-reduce; replayed dp and single steps timed in turns, and
+               the all-reduce of the flat gradient buffer alone in a graph;
+               run_training 2 epochs and run_prediction with [oc20]'s checks.
+16b. fsdp      (PR 10) the same under "zero": true (FSDP2 fully_shard over
+               the data group): the first step against dp's within the f32
+               gradient tolerance (whether bit for bit printed);
+               run_training with every step eager by the scheme's decision
+               (printed on its graph_report line) and run_prediction with
+               [oc20]'s checks; run_prediction(config) alone restores the
+               checkpoint's full tensors bit for bit in one process and
+               predicts within the f32 forward tolerance of the in-process
+               pass.
 17. egnn       examples/mptrj/mptrj_forces.json's EGNN (hidden 64, 3 layers,
                force weight 10, AdamW 0.001, batch 32) on this script's copy
                of examples/common/crystals.py's crystals (300, species Ni,
@@ -213,6 +235,22 @@ seconds and graph memory printed.
                and indexing_backward_kernel time with the port's
                index_select gathers and with x[idx] in their place, in
                turns.
+20a. multibranch  (PR 10) examples/multibranch/train.py's configuration
+               (SchNet, hidden 32, 3 layers, radius 2.5, 16 Gaussians, batch
+               8, AdamW 2e-3; branches of 300/120/80 molecules from this
+               script's copy of its make_branch_dataset, seeds 0, 1, 2,
+               split 0.8) through run_training under "multibranch" on three
+               ranks sharing the card: three processes of this script
+               (--multibranch-rank R DIR), each on cuda:0, in a gloo group
+               (NCCL refuses two ranks on one device; gloo's collectives are
+               not captured, so the steps run eagerly). Checks: the split
+               [1, 1, 1]; the ranks' parameters equal bit for bit after
+               every step and their histories equal; rank 0's first step's
+               gradients within the f32 gradient tolerance of a one-process
+               reference on the card (the mean of the three sub-batches'
+               losses, decoders rescaled by D / D_b); K1 = 3 x forwards and
+               K2 = 3 x train steps on every rank; run_prediction's rows;
+               each rank's step time. A failing rank fails the phase.
 21. capture    at each path's step shape (the SchNet headline batch, the
                first packed MLIP, ZINC, polymer and oc20 bins): one train step
                through the train loop's superstep eager and replayed, the
@@ -238,7 +276,8 @@ seconds and graph memory printed.
                conv node head's under "polymer_widths", at MACE's under
                "mace_width" and at PNAEq's under "pnaeq_widths";
                "launches" sums the serving, SchNet training, MLIP, ZINC,
-               polymer, oc20 and PNAEq runs and the superstep run,
+               polymer, oc20, PNAEq, dp, fsdp and multibranch runs and the
+               superstep run,
                "launches_by_path" splits them, DimeNet's 0 included), the
                card line, and the final {"ok": true, "device": ...} line.
 """
@@ -989,17 +1028,19 @@ def recorded_run():
     pass (``train.loop._dispatch``, eager or replayed) is recorded: its
     model forwards (one a step, ``rec["forwards"]``), each train step's
     loss kept on the card (``rec["losses"]``, [K] per dispatch, read
-    after the run) and each train batch's shape (nodes, edges, graphs;
-    ``rec["shapes"]``)."""
+    after the run), each train batch's shape (nodes, edges, graphs;
+    ``rec["shapes"]``) and the steps' kinds (their graph-cache keys'
+    first two entries, ``rec["keys"]``)."""
     from hydragnn_tpu_torch.train import loop
 
-    rec = {"forwards": 0, "losses": [], "shapes": []}
+    rec = {"forwards": 0, "losses": [], "shapes": [], "keys": set()}
     plain_dispatch = loop._dispatch
 
     def recorded(run, graphs, key, batches, device):
         out = plain_dispatch(run, graphs, key, batches, device)
         rec["forwards"] += len(batches)
-        if key[0] == "train":
+        rec["keys"].add(tuple(key[:2]))
+        if "train" in key[:2]:  # the single scheme's ("train", ...), dp's ("dp", "train", ...)
             rec["losses"].append(out[0].clone())
             rec["shapes"] += [(b.num_nodes, b.num_edges, b.num_graphs) for b in batches]
         return out
@@ -1066,9 +1107,17 @@ def eager_seconds(fn):
 def graph_report(tag, state, hist, train_s, eager_s, steady=None):
     """Hold and print what a run's graph cache did: every step went
     through it (replays, one capture per key, none twice), and with
-    ``steady`` the epochs from that one on captured nothing new. Returns
-    the numbers for the report line."""
+    ``steady`` the epochs from that one on captured nothing new. A run
+    whose plan keeps its steps eager (``state.eager_reason``: FSDP2, gloo)
+    prints that decision instead. Returns the numbers for the report
+    line."""
     graphs = state.graphs
+    if graphs is None and state.eager_reason:
+        log(f"[{tag}] run_training {train_s:.2f} s with every step eager by the scheme's "
+            f"decision ({state.eager_reason}); epochs "
+            f"{[round(x, 3) for x in hist.epoch_seconds]} s")
+        return {"seconds": train_s, "eager": state.eager_reason,
+                "epoch_seconds": hist.epoch_seconds}
     check(graphs is not None and graphs.replays > 0 and graphs.captures > 0,
           f"{tag}: the run's steps were not replayed from CUDA graphs")
     check(graphs.captures == len(graphs.graphs),
@@ -1643,7 +1692,8 @@ def mlip_step_timing(tag, model0, cfg, training, host_batch, per_step):
                 e_valid=e_valid)
 
 
-def mlip_run(config, splits, budgets, tag="mlip", data="bench's molecules", per_fwd=None):
+def mlip_run(config, splits, budgets, tag="mlip", data="bench's molecules", per_fwd=None,
+             eager_baseline=True, keep=None):
     """run_training of an MLIP config on the card, then run_prediction on
     the test split: finite losses, energies and forces, every train batch
     a packed bin of ``budgets``, and K1/K2 launch counts: ``per_fwd`` of
@@ -1653,7 +1703,9 @@ def mlip_run(config, splits, budgets, tag="mlip", data="bench's molecules", per_
     force targets of ~0.1, atoms closer than half an angstrom, initial
     forces orders of magnitude larger than the targets) this config's
     loss does not fall within 2 epochs from every initialisation, in the
-    JAX package either (PERF.md, PR 4)."""
+    JAX package either (PERF.md, PR 4). ``eager_baseline`` False skips
+    the timing of the same run with every step eager; ``keep`` (a dict)
+    receives the run's state, model, cfg, config and predictions."""
     import numpy as np
 
     import hydragnn_tpu_torch as port
@@ -1680,8 +1732,13 @@ def mlip_run(config, splits, budgets, tag="mlip", data="bench's molecules", per_
         torch.cuda.synchronize()
         k1_pred, k2_pred, n_fwd_pred = (edge_pipeline_planned.launches,
                                         edge_pipeline_bwd_planned.launches, rec["forwards"])
-    eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits,
-                                                         device="cuda"))
+    if keep is not None:
+        keep.update(state=state, model=model, cfg=cfg, full=full, preds=preds, err=err,
+                    keys=rec["keys"])
+    eager_s = None
+    if eager_baseline:
+        eager_s, _ = eager_seconds(lambda: port.run_training(config, datasets=splits,
+                                                             device="cuda"))
     graphs = graph_report(tag, state, hist, train_s, eager_s)
     check(budgets is None or shapes <= set(budget_keys(budgets)),
           f"{data} train batches {sorted(shapes)} are not all packed bins "
@@ -3590,7 +3647,596 @@ def train_bins(trainset):
     return out
 
 
+# ----------------------------------------------------------------------
+# PR 10: data parallelism, ZeRO/FSDP2 and multibranch (ROADMAP item 11)
+# ----------------------------------------------------------------------
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world_one():
+    """A one-rank NCCL group through the port's own rendezvous
+    (``HYDRAGNN_TPU_COORDINATOR=localhost:<free port>``), torn down on
+    exit so the other phases run without one."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.parallel import runtime
+
+    env = {"HYDRAGNN_TPU_COORDINATOR": f"localhost:{free_port()}",
+           "HYDRAGNN_TPU_NUM_PROCESSES": "1", "HYDRAGNN_TPU_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        check(runtime.maybe_initialize_distributed(), "no process group was made")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"backend {dist.get_backend()} at world {dist.get_world_size()}")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def dp_config(config, **par):
+    """``config`` (an example's) with ``Training.Parallelism`` set to dp
+    over ``data`` 1 and ``par``."""
+    config = copy.deepcopy(config)
+    config["NeuralNetwork"]["Training"]["Parallelism"] = dict({"scheme": "dp", "data": 1},
+                                                              **par)
+    return config
+
+
+def dp_step_fn(model, opt, cfg, plan, graphs=None, mlip=True):
+    """The dp train superstep over ``model`` (through ``graphs`` on the
+    card where given)."""
+    from hydragnn_tpu_torch.parallel.dp import make_dp_superstep_fn
+
+    return make_dp_superstep_fn(model, opt, cfg, plan, compute_grad_energy=mlip,
+                                device=torch.device("cuda"), graphs=graphs)
+
+
+def full_state(model, opt):
+    """A model's parameters, buffers and optimizer state as whole tensors
+    (FSDP2's DTensors gathered)."""
+    from hydragnn_tpu_torch.parallel.runtime import gather_to_host
+
+    out = {k: gather_to_host(v) for k, v in model.state_dict().items()}
+    for i, st in opt.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": gather_to_host(v) for k, v in st.items()})
+    return out
+
+
+def max_gap(a, b):
+    """Largest |a - b| over two full states, scaled by the largest |b|."""
+    gaps = [float((a[k].double() - b[k].double()).abs().max()) for k in b if b[k].numel()]
+    top = max(float(b[k].double().abs().max()) for k in b if b[k].numel())
+    return max(gaps) / max(top, 1e-30)
+
+
+def flat_bytes(model):
+    from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
+
+    n = sum(p.numel() for p in model.parameters()) + sum(
+        2 * m.mean.numel() for m in model.modules() if isinstance(m, MaskedBatchNorm))
+    return 4 * (n + 1 + 3)  # + the loss and the MLIP's 3 per-task terms
+
+
+def phase_dp(config, splits, first_bin, budgets):
+    """[dp] oc20.json's MACE under ``Parallelism: {"scheme": "dp", "data":
+    1}`` over NCCL at world 1 (the port's rendezvous): the first dp step
+    against the single scheme's on the first packed bin, bit for bit
+    (loss, every parameter, the optimizer state), with 4 K1 and 4 K2
+    launches; three dp steps through a graph cache (eager, capture +
+    replay, replay) against three eager dp steps, bit for bit, the
+    replay's kernels holding NCCL's all-reduce; the replayed dp and
+    single steps timed in turns; the all-reduce of the flat gradient
+    buffer alone, in a graph; then run_training 2 epochs and
+    run_prediction through ``mlip_run``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.parallel import runtime
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    config = dp_config(config)
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    out = {}
+    with nccl_world_one():
+        plan = runtime.plan_from_config(full)
+        check(plan.scheme == "dp" and plan.mesh.size == 1 and not plan.fsdp, f"plan {plan}")
+        model0, cfg = create_model_config(full, "cuda", seed=0)
+        log(f"[dp] NCCL group of world 1 through HYDRAGNN_TPU_COORDINATOR; plan {plan.scheme} "
+            f"mesh {plan.mesh.shape}; the flat all-reduce buffer {flat_bytes(model0)} bytes "
+            f"({sum(p.numel() for p in model0.parameters())} parameters + the loss terms)")
+
+        def path(dp, graphs=None):
+            model = copy.deepcopy(model0)
+            opt = select_optimizer(model.parameters(), training)
+            if dp:
+                fn = dp_step_fn(model, opt, cfg, plan, graphs)
+            else:
+                fn = make_superstep_fn(model, opt, cfg, compute_grad_energy=True,
+                                       device=torch.device("cuda"), graphs=graphs)
+            return model, opt, fn, TrainState(model, opt, graphs=graphs)
+
+        single, dp = path(False), path(True)
+        _, acc_s = single[2](single[3], None, [first_bin])
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        _, acc_d = dp[2](dp[3], None, [first_bin])
+        torch.cuda.synchronize()
+        launches = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+        check(launches == (4, 4), f"dp step K1/K2 launches {launches}, want (4, 4)")
+        check(all(torch.equal(a, b) for a, b in zip(acc_s, acc_d))
+              and same_bits(single[:2], dp[:2]),
+              "the first dp step at world 1 is not the single step bit for bit")
+        log(f"[dp] first dp step on the first packed bin ({first_bin.num_nodes} nodes) equals "
+            f"the single step bit for bit: loss {float(acc_d[0]):.9g}, every parameter and "
+            f"the AdamW state; K1 {launches[0]}, K2 {launches[1]} launches")
+        # replay vs eager over three steps from the same state; the
+        # collectives the dp step issues while it is being captured
+        cache = StepGraphs("cuda")
+        rep, eag = path(True, cache), path(True)
+        issued = []
+        plain_all_reduce = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            issued.append((torch.cuda.is_current_stream_capturing(), tensor.numel()))
+            return plain_all_reduce(tensor, *args, **kwargs)
+
+        dist.all_reduce = counted
+        try:
+            for _ in range(3):
+                rep[2](rep[3], None, [first_bin])
+                eag[2](eag[3], None, [first_bin])
+        finally:
+            dist.all_reduce = plain_all_reduce
+        torch.cuda.synchronize()
+        check((cache.eager_runs, cache.captures, cache.replays) == (1, 1, 2),
+              f"cache {cache.eager_runs} eager, {cache.captures} captures, {cache.replays} "
+              "replays")
+        check(same_bits(rep[:2], eag[:2]), "replayed dp steps differ from eager ones")
+        captured = [n for cap, n in issued if cap]
+        check(len(captured) == 2 and captured[1] == flat_bytes(model0) // 4,
+              f"all-reduces issued while capturing the dp step: {captured}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rep[2](rep[3], None, [first_bin])
+            torch.cuda.synchronize()
+        names = {e.name for e in device_kernels(prof)}
+        nccl = sorted(n for n in names if "nccl" in n.lower())
+        log(f"[dp] three dp steps through the graph cache (1 eager, 1 capture, 2 replays) "
+            f"equal three eager dp steps bit for bit; the capture recorded {len(captured)} "
+            f"NCCL all-reduces ({captured} elements: the graph count, then the flat buffer); "
+            f"NCCL kernels in a replay's profile: {nccl or 'none (one rank: NCCL has '}"
+            f"{'' if nccl else 'nothing to move)'}")
+        # replayed dp step against the replayed single step, in turns
+        cache_s = StepGraphs("cuda")
+        rep_s = path(False, cache_s)
+        for _ in range(3):
+            rep_s[2](rep_s[3], None, [first_bin])
+
+        def replayed_ms(p, iters=20):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(iters):
+                p[2](p[3], None, [first_bin])
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        times = {"single": [], "dp": []}
+        for _ in range(2):
+            times["single"].append(replayed_ms(rep_s))
+            times["dp"].append(replayed_ms(rep))
+        n = flat_bytes(model0) // 4
+        buf = torch.zeros(n, device="cuda")
+        ar_ms = eager_ms(lambda: dist.all_reduce(buf))
+        log(f"[dp] replayed step (host pack + copy + replay, 20 back to back, in turns): dp "
+            f"{times['dp']} ms against single {times['single']} ms; the all-reduce of the "
+            f"{4 * n}-byte flat buffer alone, issued eagerly back to back: "
+            f"{1000 * ar_ms:.2f} us (captured at one rank it records no device work)")
+        out.update(first_step="bit for bit", launches_per_step=launches,
+                   replayed_ms=times, allreduce_us=1000 * ar_ms, allreduce_bytes=4 * n,
+                   nccl_kernels=nccl, allreduces_captured=captured)
+        keep = {}
+        out["run"] = mlip_run(config, splits, budgets, tag="dp",
+                              data="OC20 slabs (dp, world 1)", per_fwd=cfg.num_conv_layers,
+                              keep=keep)
+        check(keep["state"].graphs is not None and keep["state"].eager_reason is None,
+              "the dp run's steps were not captured")
+        check(("dp", "test") in keep["keys"], f"run_prediction under dp did not take the dp "
+              f"test pass: step keys {sorted(keep['keys'])}")
+        log(f"[dp] run_prediction took the dp test pass (its steps "
+            f"{sorted(k for k in keep['keys'] if k[0] == 'dp')}; the slots gathered)")
+    return out
+
+
+def phase_fsdp(config, splits, first_bin, budgets):
+    """[fsdp] the same MACE under ``"zero": true`` (FSDP2 over the one
+    rank's data group, NCCL): the first step against dp's (within the
+    f32 gradient tolerance; whether bit for bit printed); run_training
+    (eager by the scheme's decision, printed on its graph_report line)
+    and run_prediction through ``mlip_run``; the checkpoint's full
+    tensors restored by ``run_prediction(config)`` alone, bit for bit
+    against the run's gathered state, and its predictions against the
+    in-process ones."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.parallel import runtime
+    from hydragnn_tpu_torch.parallel.dp import replicate_state
+    from hydragnn_tpu_torch.runner import restore_checkpoint_state
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    config = dp_config(config, zero=True)
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    out = {}
+    with nccl_world_one():
+        plan = runtime.plan_from_config(full)
+        check(plan.fsdp and plan.fsdp_axis == "data", f"plan {plan}")
+        model0, cfg = create_model_config(full, "cuda", seed=0)
+        steps = {}
+        for name, p in (("dp", runtime.plan_from_config(dp_config(config))), ("zero", plan)):
+            model = replicate_state(copy.deepcopy(model0), p, "cuda")
+            opt = select_optimizer(model.parameters(), training)
+            state = TrainState(model, opt)
+            fn = dp_step_fn(model, opt, cfg, p)
+            _, acc = fn(state, None, [first_bin])
+            torch.cuda.synchronize()
+            first = (full_state(model, opt), float(acc[0]))
+            # then the eager step's time (both paths eager here, in turns)
+            steps[name] = first + (eager_ms(lambda: fn(state, None, [first_bin]), iters=10,
+                                            warmup=2),)
+        kinds = {type(p).__name__ for p in model.parameters()}
+        check(kinds == {"DTensor"}, f"zero's parameters are {kinds}, not FSDP2 shards")
+        gap = max_gap(steps["zero"][0], steps["dp"][0])
+        exact = all(torch.equal(steps["zero"][0][k], v) for k, v in steps["dp"][0].items())
+        check(gap <= VJP_TOL["atol"], f"zero's first step is {gap:.3g} of the largest off dp's")
+        log(f"[fsdp] FSDP2 fully_shard over the data group (parameters {sorted(kinds)}); the "
+            f"first step on the first packed bin against dp's: loss {steps['zero'][1]:.9g} vs "
+            f"{steps['dp'][1]:.9g}, state within {gap:.3g} of the largest "
+            f"({'bit for bit' if exact else 'not bit for bit'}); the eager step (10 back to "
+            f"back, CUDA events): zero {steps['zero'][2]:.3f} ms, dp {steps['dp'][2]:.3f} ms")
+        keep = {}
+        out["run"] = mlip_run(config, splits, budgets, tag="fsdp", per_fwd=cfg.num_conv_layers,
+                              data="OC20 slabs (zero, world 1)", eager_baseline=False,
+                              keep=keep)
+        state = keep["state"]
+        check(state.graphs is None and state.eager_reason, "the zero run was not eager")
+        check(("dp", "test") in keep["keys"], f"run_prediction under zero did not take the dp "
+              f"test pass: step keys {sorted(keep['keys'])}")
+        trained = {k: v for k, v in full_state(state.model, state.optimizer).items()}
+        t0 = time.perf_counter()
+        err, _, _, preds = port.run_prediction(keep["full"], datasets=splits)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        fresh, _ = create_model_config(keep["full"], "cuda")
+        restored = restore_checkpoint_state(keep["full"], fresh)
+        back = full_state(restored.model, restored.optimizer)
+        check(set(back) == set(trained) and all(torch.equal(back[k], trained[k])
+                                                for k in trained),
+              "run_prediction(config) did not restore the zero run's full tensors bit for bit")
+        gaps = [float(np.abs(a - b).max()) for a, b in zip(preds, keep["preds"])]
+        check(all(np.isclose(a, b, **F32_TOL).all() for a, b in zip(preds, keep["preds"])),
+              f"run_prediction(config) predictions off the in-process ones by {gaps}")
+        log(f"[fsdp] run_prediction(config) alone ({pred_s:.2f} s) restored {len(trained)} "
+            f"full tensors bit for bit (unsharded, in one process); error {err:.6g} against "
+            f"{keep['err']:.6g} in process, predictions within {max(gaps):.3g}")
+        out.update(first_step_gap=gap, first_step_exact=exact, eager=state.eager_reason,
+                   eager_step_ms={k: v[2] for k, v in steps.items()})
+    return out
+
+
+MB_SIZES = (300, 120, 80)  # examples/multibranch/train.py --sizes
+MB_RANKS = 3
+
+
+def make_branch_dataset(n, scale, seed):
+    """examples/multibranch/train.py's ``make_branch_dataset`` on the
+    port's ``radius_graph``: ``n`` molecules of 6-15 atoms in a 3 A box,
+    edges within 2.5 A (16 nearest), one node feature, the target
+    ``scale`` x its mean."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(6, 16))
+        pos = rng.uniform(0, 3.0, (k, 3)).astype(np.float32)
+        x = rng.normal(size=(k, 1)).astype(np.float32)
+        y = scale * float(x.mean())
+        out.append(GraphSample(x=x, pos=pos,
+                               edge_index=radius_graph(pos, 2.5, max_neighbours=16),
+                               y_graph=np.array([y], np.float32)))
+    return out
+
+
+def multibranch_config(epochs=2):
+    """examples/multibranch/train.py's model as a run_training config:
+    SchNet, hidden 32, 3 conv layers, radius 2.5, 16 Gaussians, 32
+    filters, one graph head "y" on three branches (BranchSpec's
+    defaults), batch 8, AdamW 2e-3, ``scheme: "multibranch"``."""
+    branch = {"num_sharedlayers": 1, "dim_sharedlayers": 16, "num_headlayers": 1,
+              "dim_headlayers": [16]}
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": "multibranch"},
+        "NeuralNetwork": {
+            "Architecture": {
+                "mpnn_type": "SchNet", "hidden_dim": 32, "num_conv_layers": 3,
+                "radius": 2.5, "max_neighbours": 16, "num_gaussians": 16, "num_filters": 32,
+                "output_heads": {"graph": [{"type": f"branch-{i}", "architecture": branch}
+                                           for i in range(len(MB_SIZES))]},
+                "task_weights": [1.0],
+            },
+            "Variables_of_interest": {"input_node_features": [0], "output_names": ["y"],
+                                      "output_index": [0], "type": ["graph"],
+                                      "output_dim": [1]},
+            "Training": {"num_epoch": epochs, "batch_size": 8, "precision": "fp32",
+                         "Optimizer": {"type": "AdamW", "learning_rate": 2e-3},
+                         "Parallelism": {"scheme": "multibranch"}},
+        },
+    }
+
+
+def multibranch_sets():
+    """The three branches (seeds 0, 1, 2; scales 1, 2, 3), each split 0.8
+    as the port's split_dataset splits."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    return [split_dataset(make_branch_dataset(n, 1.0 + bi, seed=bi), 0.8)
+            for bi, n in enumerate(MB_SIZES)]
+
+
+def multibranch_rank(rank, work):
+    """One rank of [multibranch] (``chip_smoke.py --multibranch-rank R
+    DIR``): a gloo group of three through a FileStore in DIR, every rank
+    on cuda:0; run_training under ``scheme: "multibranch"`` with a digest
+    of every parameter after every train step, the first step's
+    sub-batch, starting parameters and reduced gradients, K1/K2 launches
+    against the forwards and train steps; run_prediction; then ten more
+    steps timed with CUDA events. Writes DIR/rank<R>.pt."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.parallel import dp as dp_mod
+
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"),
+                                                         MB_RANKS),
+                            rank=rank, world_size=MB_RANKS)
+    sets = multibranch_sets()
+    rec = {"digests": [], "train_steps": 0, "forwards": 0, "first": None}
+    plain = dp_mod.make_dp_superstep_fn
+
+    def recorded(model, optimizer, cfg, plan, *, train=True, **kw):
+        fn = plain(model, optimizer, cfg, plan, train=train, **kw)
+
+        def step(state, acc, batches):
+            rec["forwards"] += len(batches)
+            if not train:
+                return fn(state, acc, batches)
+            before = None
+            if rec["first"] is None:
+                before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            out = fn(state, acc, batches)
+            rec["train_steps"] += len(batches)
+            flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+            rec["digests"].append(hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest())
+            if before is not None:
+                rec["first"] = {"params": before, "batch": batches[0],
+                                "grads": {k: p.grad.detach().cpu().clone()
+                                          for k, p in model.named_parameters()}}
+            return out
+
+        return step
+
+    dp_mod.make_dp_superstep_fn = recorded
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, model, cfg, hist, full = port.run_training(multibranch_config(), datasets=sets,
+                                                          device="cuda:0")
+    finally:
+        dp_mod.make_dp_superstep_fn = plain
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    edge_pipeline_planned.launches = 0
+    err, _, trues, preds = port.run_prediction(full, datasets=sets, state=state, model=model,
+                                               cfg=cfg)
+    torch.cuda.synchronize()
+    k1_pred = edge_pipeline_planned.launches
+    pred_rows = sum(len(t[0]) for t in trues)
+    # ten more multibranch steps on the first batch, every rank in step
+    from hydragnn_tpu_torch.parallel.multibranch import decoder_grad_scales
+
+    scales = decoder_grad_scales(model, cfg, 3, (1, 1, 1))
+    plan = runtime_plan(full)
+    fn = plain(model, state.optimizer, cfg, plan, train=True, kind="multibranch",
+               decoder_scales=scales, device=torch.device("cuda:0"))
+    batch = rec["first"]["batch"]
+    fn(state, None, [batch])
+    torch.cuda.synchronize()
+    dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        fn(state, None, [batch])
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+    torch.save({"rank": rank, "digests": rec["digests"], "first": rec["first"],
+                "train_steps": rec["train_steps"], "forwards": rec["forwards"], "k1": k1,
+                "k2": k2, "k1_pred": k1_pred, "pred_rows": pred_rows,
+                "pred_samples": [len(b[2]) for b in sets], "err": float(err),
+                "hist": (hist.train_loss, hist.val_loss, hist.test_loss), "seconds": train_s,
+                "step_ms": step_ms, "eager": state.eager_reason, "slot": plan.mesh.slot(),
+                "config": full, "mem": torch.cuda.max_memory_allocated()},
+               os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def runtime_plan(full):
+    import dataclasses
+
+    from hydragnn_tpu_torch.parallel import runtime
+
+    return dataclasses.replace(runtime.plan_from_config(full), devices_per_branch=(1, 1, 1))
+
+
+def phase_multibranch():
+    """[multibranch] examples/multibranch/train.py's configuration
+    (``multibranch_config``, ``multibranch_sets``) through run_training on
+    three ranks sharing the one card: three processes of this script
+    (``multibranch_rank``), each on cuda:0, in a gloo group (NCCL refuses
+    two ranks on one device). Checks: the split [1, 1, 1]; after every
+    step the three ranks' parameters equal bit for bit; rank 0's first
+    step's gradients within the f32 gradient tolerance of a one-process
+    reference on the card (the equal mean of the three sub-batches'
+    losses, then the D / D_b rescale); K1 = 3 x forwards and K2 = 3 x
+    train steps on every rank; every rank's history equal; each rank's
+    step time. A failing rank fails the phase."""
+    import shutil
+    import tempfile
+
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.parallel.multibranch import proportional_branch_split
+    from hydragnn_tpu_torch.train.losses import multihead_loss
+
+    split = proportional_branch_split([int(0.8 * n) for n in MB_SIZES], MB_RANKS)
+    check(split == [1, 1, 1], f"proportional_branch_split gives {split}")
+    log(f"[multibranch] examples/multibranch/train.py's SchNet (hidden 32, 3 layers, radius "
+        f"2.5, 16 Gaussians, 32 filters; one graph head on branches branch-0..2; batch 8, "
+        f"AdamW 2e-3), 2 epochs f32 on {MB_SIZES} molecules (seeds 0, 1, 2) split 0.8; "
+        f"{MB_RANKS} ranks on cuda:0 in a gloo group (NCCL refuses two ranks on one "
+        f"device); devices per branch {split}")
+    work = tempfile.mkdtemp(prefix="multibranch_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multibranch-rank",
+                               str(r), work], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(MB_RANKS)]
+    try:
+        logs = [p.communicate(timeout=420)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"multibranch rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(MB_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    steps = ranks[0]["train_steps"]
+    check(steps > 0 and all(r["train_steps"] == steps for r in ranks),
+          f"train steps per rank {[r['train_steps'] for r in ranks]}")
+    check(all(r["digests"] == ranks[0]["digests"] for r in ranks),
+          "the ranks' parameters differ after some step")
+    check(all(r["hist"] == ranks[0]["hist"] for r in ranks), "the ranks' histories differ")
+    for r in ranks:
+        want_k1 = 3 * (r["forwards"])
+        check(r["k1"] == want_k1 and r["k2"] == 3 * r["train_steps"],
+              f"rank {r['rank']}: K1 {r['k1']}, K2 {r['k2']} for {r['forwards']} "
+              f"dispatches and {r['train_steps']} train steps")
+        check(r["k1_pred"] > 0 and r["pred_rows"] == sum(r["pred_samples"]),
+              f"rank {r['rank']}: run_prediction returned {r['pred_rows']} rows")
+        check(r["eager"] and "gloo" in r["eager"], f"rank {r['rank']}: eager {r['eager']}")
+    # the one-process reference of rank 0's first step, on the card
+    model, cfg = create_model_config(ranks[0]["config"], "cuda", seed=0)
+    model.load_state_dict(ranks[0]["first"]["params"])
+    model.train()
+    total = None
+    for r in ranks:
+        b = r["first"]["batch"].to("cuda")
+        tot, _ = multihead_loss(model(b), b, cfg)
+        total = tot / MB_RANKS if total is None else total + tot / MB_RANKS
+    total.backward()
+    # D / D_b = 3 / 1 on every module of a branch's decoder, found here
+    # from the config's branch names, apart from the port's own matcher
+    heads = ranks[0]["config"]["NeuralNetwork"]["Architecture"]["output_heads"]["graph"]
+    branches = [h["type"] for h in heads]
+
+    def in_branch_decoder(name):
+        keys = name.split(".")
+        return keys[0].startswith("decoder") and any(
+            k == f"graph_shared_{b}" or (k.startswith("head") and k.endswith(f"_{b}"))
+            for k in keys[1:] for b in branches)
+
+    scales = {p: float(MB_RANKS) for name, p in model.named_parameters()
+              if in_branch_decoder(name)}
+    check(len(scales) > 0 and len(scales) % len(branches) == 0,
+          f"{len(scales)} decoder tensors over branches {branches}")
+    got = ranks[0]["first"]["grads"]
+    top = max(float(p.grad.abs().max()) for p in model.parameters())
+    worst = 0.0
+    for name, p in model.named_parameters():
+        ref = (p.grad * scales.get(p, 1.0)).cpu()
+        gap = float((got[name] - ref).abs().max())
+        worst = max(worst, gap / top)
+        check(torch.allclose(got[name], ref, rtol=VJP_TOL["rtol"],
+                             atol=VJP_TOL["atol"] * min(top, 1.0)),
+              f"rank 0's first-step gradient {name} off the one-process reference by {gap:.3g}")
+    n_dec = len(scales)
+    log(f"[multibranch] {MB_RANKS} ranks ran {steps} train steps each ({wall:.1f} s for the "
+        f"three processes, run_training {[round(r['seconds'], 2) for r in ranks]} s); the "
+        f"ranks' parameters equal bit for bit after every step ({len(ranks[0]['digests'])} "
+        f"digests); histories equal: train {ranks[0]['hist'][0]}")
+    log(f"[multibranch] rank 0's first step against the one-process reference on the card "
+        f"(the mean of the three sub-batches' losses, {n_dec} decoder tensors x 3 / 1): "
+        f"gradients within {worst:.3g} of the largest ({top:.3g})")
+    log(f"[multibranch] K1 launches {[r['k1'] for r in ranks]} = 3 x "
+        f"{[r['forwards'] for r in ranks]} forwards, K2 {[r['k2'] for r in ranks]} = 3 x "
+        f"{steps} train steps; steps eager ({ranks[0]['eager']}); step time per rank "
+        f"{[round(r['step_ms'], 3) for r in ranks]} ms (10 steps, CUDA events); peak "
+        f"memory per rank {[round(r['mem'] / 2**20, 1) for r in ranks]} MiB; "
+        f"run_prediction error {ranks[0]['err']:.6g}")
+    return {"k1": sum(r["k1"] + r["k1_pred"] for r in ranks),
+            "k2": sum(r["k2"] for r in ranks), "steps": steps,
+            "step_ms": [r["step_ms"] for r in ranks], "first_step_gap": worst,
+            "seconds": [r["seconds"] for r in ranks], "wall_seconds": wall,
+            "train_loss": ranks[0]["hist"][0]}
+
+
 def main():
+    if sys.argv[1:2] == ["--multibranch-rank"]:
+        multibranch_rank(int(sys.argv[2]), sys.argv[3])
+        return
     card = phase_device()
     # The port lives next to this script; a copy of the script alone
     # fails here with ModuleNotFoundError.
@@ -3649,6 +4295,8 @@ def main():
     oc20_bin = next(iter(oc20_loader))
     mace_rows = phase_mace_kernels(oc20_bin.to("cuda"))
     oc20 = phase_oc20(oc20_cfg, oc20_splits, oc20_loader, oc20_bin)
+    dp = phase_dp(oc20_cfg, oc20_splits, oc20_bin, oc20_loader.pack_budgets)
+    fsdp = phase_fsdp(oc20_cfg, oc20_splits, oc20_bin, oc20_loader.pack_budgets)
     egnn = phase_egnn(*egnn_data())
     pnaeq_cfg = pnaeq_config(mlip_cfg)
     pnaeq_loader, _ = train_loader(pnaeq_cfg, md17_splits[0])
@@ -3658,6 +4306,7 @@ def main():
     pnaeq_rows = phase_pnaeq_kernels(pnaeq_bin.to("cuda"))
     pnaeq = phase_pnaeq(pnaeq_cfg, md17_splits, pnaeq_loader, pnaeq_bin)
     dimenet = phase_dimenet(*qm7x_data())
+    multibranch = phase_multibranch()
     capture, cap_k1, cap_k2 = phase_capture([
         ("SchNet headline step", *head_step, head_cpu, (4, 4), False, True),
         ("MLIP first packed bin", *mlip.pop("step"), mlip_batch, (12, 12), True, True),
@@ -3673,12 +4322,14 @@ def main():
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
         "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
-                     + oc20["k1"] + pnaeq["k1"] + cap_k1),
+                     + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
+                     + fsdp["run"]["k1"] + multibranch["k1"]),
         "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
                              "zinc": zinc["k1"], "polymers": polymers["k1"],
                              "oc20": oc20["k1"], "egnn": 0, "pnaeq": pnaeq["k1"],
                              "dimenet": dimenet["run"]["k1"],
-                             "polymers_superstep": cap_k1},
+                             "polymers_superstep": cap_k1, "dp": dp["run"]["k1"],
+                             "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -3708,12 +4359,14 @@ def main():
         "source": "hydragnn_tpu_torch/csrc/edge_pipeline_bwd.cu",
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
-                     + pnaeq["k2"] + cap_k2),
+                     + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
+                     + multibranch["k2"]),
         "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
                              "zinc": zinc["k2"], "polymers": polymers["k2"],
                              "oc20": oc20["k2"], "egnn": 0, "pnaeq": pnaeq["k2"],
                              "dimenet": dimenet["run"]["k2"],
-                             "polymers_superstep": cap_k2},
+                             "polymers_superstep": cap_k2, "dp": dp["run"]["k2"],
+                             "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -3747,6 +4400,9 @@ def main():
     log(f"[report] egnn: {json.dumps(egnn)}")
     log(f"[report] pnaeq: {json.dumps(pnaeq)}")
     log(f"[report] dimenet: {json.dumps(dimenet)}")
+    log(f"[report] dp: {json.dumps(dp)}")
+    log(f"[report] fsdp: {json.dumps(fsdp)}")
+    log(f"[report] multibranch: {json.dumps(multibranch)}")
     log(f"[report] capture: {json.dumps(dict(capture, served_bin=served_bin))}")
     log(f"[report] card: {card}")
     print(card)

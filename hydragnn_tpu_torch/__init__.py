@@ -8,7 +8,7 @@ its docstring. It imports ``torch`` and numpy only — never ``jax``,
 the host logic it needs (config defaulting, the synthetic data, collate,
 the block planner, the packer, the request generator).
 
-What runs today on one device:
+What runs today:
 
 - training: ``run_training(config)`` then ``run_prediction(...)`` for
   SchNet, PaiNN potentials, GIN, SAGE, MFC, CGCNN, GAT and PNA/PNAPlus
@@ -21,9 +21,14 @@ What runs today on one device:
   ``Parallelism.superstep`` groups them;
 - serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
   ``export.make_forward`` -> ``MultiHeadGraphModel``, one captured
-  forward per budget on the card.
+  forward per budget on the card;
+- parallel training (``parallel/``): ``Training.Parallelism`` schemes
+  ``dp`` (with ZeRO/HSDP on FSDP2) and ``multibranch``, one process per
+  card under ``torch.distributed``, every rank calling the same entry
+  points.
 
-The other stacks and schemes are later work (ROADMAP.md).
+Graph sharding, durability, telemetry and the rest are later work
+(ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

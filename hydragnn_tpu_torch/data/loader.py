@@ -19,9 +19,13 @@ package it refuses packing (budgets do not count triplets), and
 ``fixed_pad="auto"`` then keeps the one worst-case shape, whose triplet
 count is the bucketed sum of the ``batch_size`` largest samples' counts;
 on the ladder (``fixed_pad=False``) each batch's spec is derived from
-its own samples at collate time (a ``None`` plan entry). Spec schedules,
-resampling and the parallel input pipeline come with ROADMAP Queue 1
-item 10; the device-coordinated packer of the dp scheme with item 11.
+its own samples at collate time (a ``None`` plan entry). Under the dp
+and multibranch schemes a loader takes a shared ``spec_schedule``
+(``padschedule.dp_spec_schedule``/``slot_spec_schedule``: every rank's
+batch of a step padded to the step's one spec) or packs
+device-coordinated (``pack_dp_shards``: ``padschedule.pack_epoch_ffd_dp``),
+as in the JAX package. Resampling and the parallel input pipeline come
+with ROADMAP Queue 1 item 10.
 
 Where the JAX package stacks a superstep group into one ``[K, ...]``
 host batch, the port keeps its K collated batches side by side
@@ -47,12 +51,15 @@ from hydragnn_tpu_torch.data.graph import (
 )
 from hydragnn_tpu_torch.data.padschedule import (
     MAX_PAD_BUCKETS,
+    PadSpecSchedule,
+    batch_size_rows,
     dataset_size_arrays,
     epoch_batch_indices,
     fit_pack_budgets,
     ladder_spec,
     ladder_spec_keys,
     pack_epoch_ffd,
+    pack_epoch_ffd_dp,
     superstep_groups,
     worst_case_spec_from_sizes,
 )
@@ -72,8 +79,11 @@ class GraphLoader:
     epoch's order is first-fit-decreasing packed into ``pack_budgets``
     (or budgets fitted from this loader's own size histogram with
     ``pack_max_budgets``, ``pack_slack`` and ``pack_max_graphs``), one
-    batch per bin, padded to its budget's shape. ``with_triplets``
-    attaches angular triplets (module docstring) and cannot pack."""
+    batch per bin, padded to its budget's shape; ``pack_dp_shards`` > 1
+    packs device-coordinated for that many data slots. ``spec_schedule``
+    pads batch j of epoch e to ``spec_schedule.spec(e, j)``.
+    ``with_triplets`` attaches angular triplets (module docstring) and
+    can neither pack nor follow a schedule."""
 
     def __init__(
         self,
@@ -91,6 +101,8 @@ class GraphLoader:
         pack_max_budgets: int = 2,
         pack_slack: Optional[float] = None,
         pack_max_graphs: Optional[int] = None,
+        pack_dp_shards: int = 0,
+        spec_schedule: Optional[PadSpecSchedule] = None,
     ):
         self.dataset = list(dataset)
         self.batch_size = int(batch_size)
@@ -101,10 +113,24 @@ class GraphLoader:
         self._epoch = 0
         self._auto_selected = False
         self._seen_specs: set = set()
+        self.spec_schedule = spec_schedule
+        if spec_schedule is not None:
+            if self.with_triplets:
+                raise ValueError(
+                    "spec_schedule does not cover triplet counts; use fixed "
+                    "padding for triplet-bearing models"
+                )
+            fixed_pad = False
         self.packing = bool(packing)
+        self.pack_dp_shards = max(int(pack_dp_shards), 0)
         self.pack_budgets: Optional[List] = None
         self._pack_plan_cache: Optional[tuple] = None
         if self.packing:
+            if spec_schedule is not None:
+                raise ValueError(
+                    "packing is incompatible with a shared spec_schedule (a packed "
+                    "dp run coordinates shapes through pack_dp_shards)"
+                )
             if self.with_triplets:
                 raise ValueError(
                     "packing budgets do not cover triplet counts; use "
@@ -155,7 +181,11 @@ class GraphLoader:
         nodes, edges = self._size_arrays()
         batches = list(self._epoch_batches(epoch))
         order = np.concatenate(batches) if batches else np.zeros(0, np.int64)
-        bins = pack_epoch_ffd(order, nodes, edges, self.pack_budgets)
+        if self.pack_dp_shards > 1:
+            bins = pack_epoch_ffd_dp(order, nodes, edges, self.pack_budgets,
+                                     self.pack_dp_shards)
+        else:
+            bins = pack_epoch_ffd(order, nodes, edges, self.pack_budgets)
         self._pack_plan_cache = (epoch, bins)
         return bins
 
@@ -180,6 +210,15 @@ class GraphLoader:
             "edge_fill": real_e / max(exe_e, 1),
             "pad_ratio": (exe_n + exe_e) / max(real_n + real_e, 1),
         }
+
+    def epoch_size_rows(self, epoch: int) -> np.ndarray:
+        """``[n_batches, 3]`` size rows of one epoch's batches
+        (``padschedule.batch_size_rows``): the loader's side of the spec
+        schedules."""
+        nodes, edges = self._size_arrays()
+        if self.packing:
+            return batch_size_rows(nodes, edges, (idx for idx, _ in self._packed_plan(epoch)))
+        return batch_size_rows(nodes, edges, self._epoch_batches(epoch))
 
     def planned_spec_keys(self, epochs: int = 2) -> set:
         """Distinct (nodes, edges, graphs) keys of the first ``epochs``
@@ -231,6 +270,20 @@ class GraphLoader:
         if self.packing:
             for idx, budget in self._packed_plan(epoch):
                 yield idx, budget.pad_spec()
+            return
+        if self.spec_schedule is not None:
+            nodes, edges = self._size_arrays()
+            for j, idx in enumerate(self._epoch_batches(epoch)):
+                spec = self.spec_schedule.spec(epoch, j)
+                need = (int(nodes[idx].sum()) + 1, int(edges[idx].sum()), len(idx) + 1)
+                if (need[0] > spec.num_nodes or need[1] > spec.num_edges
+                        or need[2] > spec.num_graphs):
+                    raise ValueError(
+                        f"spec schedule out of sync with loader: batch {j} of epoch "
+                        f"{epoch} needs {need} but the schedule allows "
+                        f"({spec.num_nodes}, {spec.num_edges}, {spec.num_graphs})"
+                    )
+                yield idx, spec
             return
         if self.pad_spec is None and self.with_triplets:
             yield from ((idx, None) for idx in self._epoch_batches(epoch))

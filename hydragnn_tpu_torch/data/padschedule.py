@@ -1,20 +1,28 @@
-"""Bin-packed batch forming: budget fitting and the first-fit planner.
+"""Bin-packed batch forming, the shared spec schedules of the stacked
+schemes, and the superstep grouping.
 
-Counterpart of the packing half of ``hydragnn_tpu/data/padschedule.py``
+Counterpart of ``hydragnn_tpu/data/padschedule.py``: the packing half
 (``OpenBin``, ``PackPlanner``, ``pack_epoch_ffd``, ``fit_pack_budgets``
-and their helpers) and the unpacked specs the loader pads to
-(``ladder_spec``, ``worst_case_spec_from_sizes``), and the ``packing:
-"auto"`` decision (``packing_beats_ladder``), and the superstep
-grouping (``superstep_groups``, ``auto_superstep_k``). Device-free size
-arithmetic, copied so that fitted budgets, packed bins, pad specs, the
-decision and the groups match the JAX package's bit for bit. The per-device
-schedules and the device-coordinated packer of the dp schemes come with
-the data fast path (ROADMAP Queue 1 items 10 and 11).
+and their helpers), the unpacked specs the loader pads to
+(``ladder_spec``, ``worst_case_spec_from_sizes``), the ``packing:
+"auto"`` decisions (``packing_beats_ladder`` and the dp scheme's
+``dp_packing_beats_schedule``), the superstep grouping
+(``superstep_groups``, ``auto_superstep_k``), and the dp half: the
+per-step shared specs of the dp and multibranch schemes
+(``PadSpecSchedule``, ``dp_spec_schedule``, ``slot_spec_schedule``), the
+device-coordinated packer (``pack_epoch_ffd_dp``) and the step-level
+fold of a plan (``dp_step_plan``). Device-free size arithmetic, copied
+so that fitted budgets, packed bins, pad specs, schedules, decisions and
+groups match the JAX package's bit for bit. Where the JAX package stacks
+one step's sub-batches into a ``[D, ...]`` array, the port's ranks each
+take their own slot of the step (``parallel/dp.DPLoader``), so the
+shared spec keeps every rank's step at one shape and the ranks' steps
+in lockstep.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -95,6 +103,154 @@ def worst_case_spec_from_sizes(
         num_edges=bucket_size(max(sum(edge_top[:batch_size]), 1)),
         num_graphs=batch_size + 1,
     )
+
+
+def batch_size_rows(
+    node_sizes: np.ndarray, edge_sizes: np.ndarray, index_batches
+) -> np.ndarray:
+    """``[n_batches, 3]`` int rows of (nodes with one pad slot, edges,
+    graphs with one pad slot) per batch: the row every schedule and
+    loader shares."""
+    rows = [
+        (int(node_sizes[idx].sum()) + 1, int(edge_sizes[idx].sum()), len(idx) + 1)
+        for idx in index_batches
+    ]
+    return np.asarray(rows, np.int64).reshape(-1, 3)
+
+
+def shard_for_process(n_total: int, process_index: int, process_count: int) -> range:
+    """Contiguous block partition of sample indices per process (the JAX
+    package's ``data/diststore.shard_for_process``)."""
+    base = n_total // process_count
+    rem = n_total % process_count
+    start = process_index * base + min(process_index, rem)
+    stop = start + base + (1 if process_index < rem else 0)
+    return range(start, stop)
+
+
+class PadSpecSchedule:
+    """Per-(epoch, batch index) shared PadSpecs with a deterministic
+    clamp. ``rows_fn(epoch)`` gives ``[n_batches, 3]`` targets already
+    maxed over the sub-batches that share a step; the schedule buckets
+    them up the ladder, counts the distinct keys, and clamps to
+    ``worst_spec`` for good once the count exceeds ``2 * bucket_limit``,
+    replayed in epoch order so every rank clamps at the same step."""
+
+    def __init__(self, rows_fn: Callable[[int], np.ndarray], worst_spec: PadSpec,
+                 bucket_limit: int):
+        self._rows_fn = rows_fn
+        self.worst_spec = worst_spec
+        self._limit = int(bucket_limit)
+        self._epochs: List[List[PadSpec]] = []
+        self._seen: set = set()
+        self._clamped = False
+
+    @staticmethod
+    def _key(row) -> tuple:
+        n, e, g = (int(v) for v in row)
+        return (bucket_size(n), bucket_size(max(e, 1)), g)
+
+    def _extend_through(self, epoch: int) -> None:
+        while len(self._epochs) <= epoch:
+            specs: List[PadSpec] = []
+            for row in self._rows_fn(len(self._epochs)):
+                if not self._clamped:
+                    key = self._key(row)
+                    self._seen.add(key)
+                    if len(self._seen) > 2 * self._limit:
+                        self._clamped = True
+                if self._clamped:
+                    specs.append(self.worst_spec)
+                else:
+                    specs.append(PadSpec(num_nodes=key[0], num_edges=key[1],
+                                         num_graphs=key[2]))
+            self._epochs.append(specs)
+
+    def spec(self, epoch: int, batch_index: int) -> PadSpec:
+        self._extend_through(epoch)
+        specs = self._epochs[epoch]
+        if batch_index >= len(specs):
+            # only past the shared step count: the worst spec is safe
+            return self.worst_spec
+        return specs[batch_index]
+
+    def distinct_keys(self, epochs: int = 4) -> set:
+        """The distinct bucketed keys of the first ``epochs`` epochs, by
+        simulation (the clamp state is untouched)."""
+        return {self._key(row) for e in range(epochs) for row in self._rows_fn(e)}
+
+    def ladder_is_small(self, epochs: int = 4) -> bool:
+        return len(self.distinct_keys(epochs)) <= self._limit
+
+    def fingerprint(self, epochs: int = 2) -> List[int]:
+        """A small integer summary that ranks compare to agree."""
+        keys = self.distinct_keys(epochs)
+        return [len(keys), sum(k[0] + k[1] + k[2] for k in keys)]
+
+
+def dp_spec_schedule(
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    *,
+    batch_size: int,
+    n_procs: int,
+    steps_group: int,
+    seed: int,
+    shuffle: bool,
+    bucket_limit: Optional[int] = None,
+) -> PadSpecSchedule:
+    """The dp scheme's schedule, from the FULL dataset's sizes so every
+    rank computes the same one: contiguous equal-size process shards
+    (``shard_for_process`` truncated to equal length), each process's
+    epoch order (one seed everywhere), and ``steps_group`` consecutive
+    local batches per step. Step t's spec covers batches ``[t *
+    steps_group, (t + 1) * steps_group)`` of every process."""
+    node_sizes = np.asarray(node_sizes, dtype=np.int64)
+    edge_sizes = np.asarray(edge_sizes, dtype=np.int64)
+    n_total = len(node_sizes)
+    if n_procs > 1:
+        equal = n_total // n_procs
+        shards = []
+        for p in range(n_procs):
+            idx = np.fromiter(shard_for_process(n_total, p, n_procs), dtype=np.int64)[:equal]
+            shards.append((node_sizes[idx], edge_sizes[idx]))
+    else:
+        shards = [(node_sizes, edge_sizes)]
+
+    def rows_fn(epoch: int) -> np.ndarray:
+        per_proc = [
+            batch_size_rows(ns, es, epoch_batch_indices(
+                len(ns), batch_size, shuffle=shuffle, seed=seed, epoch=epoch))
+            for ns, es in shards
+        ]
+        gmax = np.stack(per_proc).max(axis=0)
+        for t0 in range(0, len(gmax), steps_group):
+            gmax[t0 : t0 + steps_group] = gmax[t0 : t0 + steps_group].max(axis=0)
+        return gmax
+
+    worst = worst_case_spec_from_sizes(node_sizes, edge_sizes, batch_size)
+    return PadSpecSchedule(rows_fn, worst,
+                           MAX_PAD_BUCKETS if bucket_limit is None else bucket_limit)
+
+
+def slot_spec_schedule(loaders: Sequence, bucket_limit: Optional[int] = None
+                       ) -> PadSpecSchedule:
+    """The multibranch scheme's schedule: one batch per device slot per
+    step, so step t's spec is the max over every slot's t-th batch.
+    Every rank builds all slot loaders, so the schedule agrees."""
+
+    def rows_fn(epoch: int) -> np.ndarray:
+        per_slot = [ld.epoch_size_rows(epoch) for ld in loaders]
+        n_steps = min(len(r) for r in per_slot)
+        return np.stack([r[:n_steps] for r in per_slot]).max(axis=0)
+
+    worsts = [worst_case_spec_from_sizes(*dataset_size_arrays(ld.dataset), ld.batch_size)
+              for ld in loaders]
+    worst = PadSpec(num_nodes=max(w.num_nodes for w in worsts),
+                    num_edges=max(w.num_edges for w in worsts),
+                    num_graphs=max(w.num_graphs for w in worsts))
+    return PadSpecSchedule(rows_fn, worst,
+                           MAX_PAD_BUCKETS if bucket_limit is None else bucket_limit)
 
 
 def dataset_size_arrays(dataset) -> tuple:
@@ -424,6 +580,195 @@ def packing_beats_ladder(
             baseline_exe += spec.num_nodes + spec.num_edges
             real += float(tot_n + tot_e)
     if meta["waste"] <= (baseline_exe / max(real, 1.0)) * PACK_MARGIN:
+        return budgets, meta["slack"]
+    return None
+
+
+def pack_epoch_ffd_dp(
+    order: np.ndarray,
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    budgets: Sequence[PackSpec],
+    n_shards: int,
+    open_window: int = 256,
+) -> List[tuple]:
+    """Device-coordinated FFD pack for the dp scheme: one epoch packed
+    into budget bins arranged so every consecutive ``n_shards`` bins
+    (one optimizer step, one bin per data slot) share one budget and the
+    plan's length is a multiple of ``n_shards``; no sample is dropped or
+    repeated. As in the JAX package: the positions are packed in the
+    canonical (-nodes, -edges, position) order (so the bins' size
+    structure, and the balance's feasibility, depend on the size
+    multiset only); budget groups too small to fill a step merge into
+    the largest budget's group; a group's bin count is balanced up to a
+    multiple of ``n_shards`` by splitting its largest-membership bin;
+    steps are emitted largest budget first, each group's bins by their
+    earliest member's epoch position. Raises ``ValueError`` when the
+    epoch holds fewer graphs than ``n_shards`` or no split can balance
+    a group."""
+    n_shards = int(n_shards)
+    if n_shards <= 1:
+        return pack_epoch_ffd(order, node_sizes, edge_sizes, budgets, open_window)
+    order = np.asarray(order, dtype=np.int64)
+    if len(order) < n_shards:
+        raise ValueError(
+            f"cannot coordinate packed bins across {n_shards} devices: "
+            f"the epoch holds only {len(order)} graphs"
+        )
+    n_of = np.asarray(node_sizes, dtype=np.int64)[order]
+    e_of = np.asarray(edge_sizes, dtype=np.int64)[order]
+    canon = np.lexsort((np.arange(len(order)), -e_of, -n_of)).astype(np.int64)
+    bins = pack_epoch_ffd(canon, n_of, e_of, budgets, open_window)
+    big = sorted(budgets, key=lambda b: (b.num_nodes, b.num_edges), reverse=True)[0]
+    groups: dict = {}
+    for idx, spec in bins:
+        key = (spec.num_nodes, spec.num_edges, spec.num_graphs)
+        groups.setdefault(key, {"spec": spec, "bins": []})["bins"].append(list(idx))
+    big_key = (big.num_nodes, big.num_edges, big.num_graphs)
+
+    def _graphs(g) -> int:
+        return sum(len(b) for b in g["bins"])
+
+    def _target(g) -> int:
+        return -(-len(g["bins"]) // n_shards) * n_shards
+
+    for key in sorted(k for k in groups if k != big_key):
+        g = groups[key]
+        if _graphs(g) < max(_target(g), n_shards):
+            groups.setdefault(big_key, {"spec": big, "bins": []})["bins"].extend(g["bins"])
+            del groups[key]
+    bg = groups.get(big_key)
+    if bg is not None and _graphs(bg) < max(_target(bg), n_shards):
+        for key in sorted((k for k in groups if k != big_key), reverse=True):
+            bg["bins"].extend(groups[key]["bins"])
+            del groups[key]
+            if _graphs(bg) >= max(_target(bg), n_shards):
+                break
+
+    def _split(members: List[int]) -> tuple:
+        by_size = sorted(members, key=lambda p: (-int(n_of[p]), p))
+        return by_size[0::2], by_size[1::2]
+
+    for key in sorted(groups):
+        g = groups[key]
+        while len(g["bins"]) % n_shards:
+            splittable = [j for j, b in enumerate(g["bins"]) if len(b) >= 2]
+            if not splittable:
+                raise ValueError(
+                    f"cannot balance packed bins across {n_shards} devices: every "
+                    "remaining bin holds a single graph (graphs near budget capacity) "
+                    "- use the spec-schedule former for this dataset"
+                )
+            j = max(splittable, key=lambda j: len(g["bins"][j]))
+            a, b = _split(g["bins"].pop(j))
+            g["bins"].extend([a, b])
+
+    out: List[tuple] = []
+    for key in sorted(groups, reverse=True):
+        g = groups[key]
+        for members in sorted(g["bins"], key=min):
+            out.append((order[sorted(members)], g["spec"]))
+    return out
+
+
+def dp_step_plan(plan, n_shards: int) -> tuple:
+    """Fold a flat epoch plan into step-level entries for ``n_shards``
+    data slots: step t covers entries ``[t*D, (t+1)*D)``. Returns
+    ``(steps, tail)``: one ``(t, spec)`` per full step (``spec`` when
+    all D entries share one spec key, else None), and the trailing
+    ``len(plan) % D`` flat entries (the masked remainder step)."""
+
+    def _key(s):  # PadSpec or PackSpec (budgets carry no triplet dim)
+        if s is None:
+            return None
+        return (s.num_nodes, s.num_edges, s.num_graphs, getattr(s, "num_triplets", None))
+
+    plan = list(plan)
+    d = max(int(n_shards), 1)
+    n_full = len(plan) // d
+    steps: List[tuple] = []
+    for t in range(n_full):
+        specs = [s for _, s in plan[t * d : (t + 1) * d]]
+        key = _key(specs[0])
+        same = key is not None and all(_key(s) == key for s in specs)
+        steps.append((t, specs[0] if same else None))
+    return steps, plan[n_full * d :]
+
+
+def dp_packing_beats_schedule(
+    node_sizes: np.ndarray,
+    edge_sizes: np.ndarray,
+    batch_size: int,
+    n_shards: int,
+    *,
+    seed: int = 0,
+    baseline: str = "auto",
+    **fit_kw,
+) -> Optional[tuple]:
+    """The dp scheme's ``packing: "auto"`` decision: fit budgets and
+    return ``(budgets, slack)`` when the coordinated packed plan
+    (``pack_epoch_ffd_dp``, its balancing splits included) executes at
+    most ``PACK_MARGIN`` times what the unpacked dp run would: every
+    batch of a step padded to the step's shared bucketed spec, the
+    remainder step completed with masked copies, and the whole schedule
+    clamped to the worst case past twice ``MAX_PAD_BUCKETS`` distinct
+    shapes (``baseline="auto"``; ``"ladder"``/``"worst"`` force a
+    side). None when it does not, or when coordination is infeasible.
+    The waste runs over the fit's bounded subsample, the clamp decision
+    over the full arrays, as in the JAX package."""
+    node_sizes = np.asarray(node_sizes, dtype=np.int64)
+    edge_sizes = np.asarray(edge_sizes, dtype=np.int64)
+    n_shards = max(int(n_shards), 1)
+    if len(node_sizes) < n_shards:
+        return None
+    budgets, meta = fit_pack_budgets(
+        node_sizes, edge_sizes, batch_size, seed=seed, with_meta=True, **fit_kw
+    )
+    ns, es = _fit_sample(node_sizes, edge_sizes, seed)
+    n = len(ns)
+    if n < n_shards:
+        return None
+
+    def _rows(ep, nodes, edges):
+        rows = batch_size_rows(nodes, edges, epoch_batch_indices(
+            len(nodes), batch_size, shuffle=True, seed=seed, epoch=ep))
+        for t0 in range(0, len(rows), n_shards):
+            rows[t0 : t0 + n_shards] = rows[t0 : t0 + n_shards].max(axis=0)
+        return rows
+
+    if baseline == "ladder":
+        ladder_ok = True
+    elif baseline == "worst":
+        ladder_ok = False
+    else:
+        keys = {PadSpecSchedule._key(row) for ep in range(4)
+                for row in _rows(ep, node_sizes, edge_sizes)}
+        ladder_ok = len(keys) <= 2 * MAX_PAD_BUCKETS
+    worst = worst_case_spec_from_sizes(ns, es, batch_size)
+    base_exe = pack_exe = 0.0
+    for ep in range(SIM_EPOCHS):
+        rows = _rows(ep, ns, es)
+        for gn, ge, _ in rows:
+            if ladder_ok:
+                base_exe += bucket_size(int(gn)) + bucket_size(max(int(ge), 1))
+            else:
+                base_exe += worst.num_nodes + worst.num_edges
+        rem = (-len(rows)) % n_shards
+        if rem:  # the masked copies completing the last step execute too
+            gn, ge, _ = rows[-1]
+            if ladder_ok:
+                base_exe += rem * (bucket_size(int(gn)) + bucket_size(max(int(ge), 1)))
+            else:
+                base_exe += rem * (worst.num_nodes + worst.num_edges)
+        order = np.concatenate(list(epoch_batch_indices(
+            n, batch_size, shuffle=True, seed=seed, epoch=ep)))
+        try:
+            dp_plan = pack_epoch_ffd_dp(order, ns, es, budgets, n_shards)
+        except ValueError:
+            return None  # coordination infeasible: keep the schedule
+        for _, spec in dp_plan:
+            pack_exe += spec.num_nodes + spec.num_edges
+    if pack_exe <= base_exe * PACK_MARGIN:
         return budgets, meta["slack"]
     return None
 

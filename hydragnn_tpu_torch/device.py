@@ -3,7 +3,8 @@
 No JAX counterpart: the JAX package lets the backend choose. The port's
 entry points (``create_model``, ``ServingEngine``) run on the card unless
 the caller names another device, and never fall back to the CPU on
-their own.
+their own. Under several ranks on a node, ``None`` is the rank's own
+card, ``cuda:LOCAL_RANK`` (``parallel/runtime.local_rank``).
 """
 
 from __future__ import annotations
@@ -14,9 +15,14 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
-    """``None`` means ``"cuda"``. A CUDA device without a visible card
-    raises instead of quietly running on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` means ``"cuda:<LOCAL_RANK>"`` (``cuda:0`` without a
+    launcher). A CUDA device without a visible card raises instead of
+    quietly running on the CPU."""
+    if device is None:
+        from hydragnn_tpu_torch.parallel.runtime import local_rank
+
+        device = f"cuda:{local_rank()}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available (torch.cuda.is_available() is "

@@ -1,10 +1,29 @@
 """End-to-end orchestration: ``run_training`` and ``run_prediction``.
 
-Counterpart of ``hydragnn_tpu/runner.py`` on one device (``scheme:
-single``): config loading, raw ingestion and splitting, ``update_config``,
-model and optimizer construction, the epoch loop, and a test pass that
-collects per-sample predictions. Both entry points run on ``"cuda"``
-unless the caller passes another ``device`` (the tests pass ``"cpu"``).
+Counterpart of ``hydragnn_tpu/runner.py``: config loading, raw ingestion
+and splitting, ``update_config``, model and optimizer construction, the
+epoch loop, and a test pass that collects per-sample predictions. Both
+entry points run on the rank's card (``cuda:LOCAL_RANK``) unless the
+caller passes another ``device`` (the tests pass ``"cpu"``).
+
+Parallelism (``Training.Parallelism``, ``parallel/runtime.py``): every
+rank of the default process group calls the same entry point
+(``torchrun --nproc_per_node N``, or the ``HYDRAGNN_TPU_*`` rendezvous
+variables, which ``maybe_initialize_distributed`` reads). ``scheme``
+``"single"`` trains one device; ``"dp"`` (with ``data``, ``fsdp``,
+``zero``; what ``"auto"`` resolves to when the world holds more than
+one rank) gives every rank the same datasets and seed, the same
+coordinated epoch plan (device-coordinated packing, or the cross-rank
+spec schedules) and its own slot of each step (``parallel/dp.py``:
+the graph-weighted gradient sum, FSDP2 sharding under ``zero``/``fsdp``);
+``"multibranch"`` takes ``datasets`` as per-branch (train, val, test)
+triples and trains one shared encoder with per-branch decoders
+(``parallel/multibranch.py``). Under several nodes each node gets its
+equal shard of the data (the JAX package's multi-host form). Each
+rank's step is the single scheme's with the collectives added, so K1/K2
+run inside every rank's step (the segment plan is attached under every
+scheme, where the JAX package attaches it on the single scheme only: its
+planned ``pallas_call`` does not run under the dp step's ``vmap``).
 
 Bin packing (``Training.Parallelism.packing``) is resolved as the JAX
 package resolves it on the single scheme: ``"auto"`` (the default)
@@ -35,8 +54,7 @@ the running statistics at the end of training from an eval-shaped,
 unpacked loader over the train split.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: data-parallel and multibranch schemes (Queue 1 item 11), the
-parallel input pipeline (item 10), ``continue``
+it: the parallel input pipeline (Queue 1 item 10), ``continue``
 (resume) and the divergence guard (item 12), and dataset formats other
 than the raw LSMS text files (item 10). An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
@@ -45,21 +63,40 @@ and ``run_prediction`` then returns graph energies and forces.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from hydragnn_tpu_torch.config import load_config, save_config, update_config
-from hydragnn_tpu_torch.data.graph import GraphSample, select_input_features
+from hydragnn_tpu_torch.data.graph import (
+    GraphSample,
+    PadSpec,
+    bucket_size,
+    count_triplets,
+    select_input_features,
+)
 from hydragnn_tpu_torch.data.loader import GraphLoader, SuperstepLoader, split_dataset
 from hydragnn_tpu_torch.data.padschedule import (
     dataset_size_arrays,
+    dp_packing_beats_schedule,
+    dp_spec_schedule,
     fit_pack_budgets,
     packing_beats_ladder,
+    worst_case_spec_from_sizes,
 )
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config, needs_triplets
+from hydragnn_tpu_torch.parallel import runtime
+from hydragnn_tpu_torch.parallel.dp import capturable, eager_reason
+from hydragnn_tpu_torch.parallel.multibranch import (
+    MultiBranchLoader,
+    dual_optimizer,
+    proportional_branch_split,
+)
 from hydragnn_tpu_torch.parallel.runtime import _superstep_from_config, resolve_superstep_k
 from hydragnn_tpu_torch.train.capture import StepGraphs
 from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validate_test
@@ -131,15 +168,9 @@ def _check_num_nodes_bound(config: dict, *datasets) -> None:
 
 
 def _refuse_unported(config: dict) -> None:
-    """Raise on every configured feature this slice does not port."""
+    """Raise on every configured feature the port does not port yet."""
     training = config["NeuralNetwork"].get("Training", {})
     par = training.get("Parallelism", {})
-    scheme = par.get("scheme", "auto")
-    if scheme not in ("auto", "single"):
-        raise NotImplementedError(
-            f"Parallelism scheme {scheme!r} is not ported yet (the port trains "
-            "on one device): ROADMAP Queue 1 item 11"
-        )
     if int(par.get("pipeline", {}).get("workers", 0) or 0) > 0:
         raise NotImplementedError(
             "the parallel input pipeline is not ported yet (the port collates "
@@ -159,52 +190,44 @@ def _refuse_unported(config: dict) -> None:
 
 def packing_settings(config: dict) -> dict:
     """The ``Training.Parallelism.packing`` block resolved with the JAX
-    package's strict grammar: ``enabled`` is ``"auto"`` (the default),
-    ``True`` or ``False`` (boolean spellings accepted, anything else
-    raises), plus ``max_budgets``, ``slack`` and ``max_graphs``."""
+    package's strict grammar (``parallel/runtime._packing_from_config``,
+    its environment overrides included): ``enabled`` is ``"auto"`` (the
+    default), ``True`` or ``False``, plus ``max_budgets``, ``slack`` and
+    ``max_graphs``."""
     par = config["NeuralNetwork"].get("Training", {}).get("Parallelism", {})
-    pk = dict(par.get("packing", {}))
-    enabled = pk.get("enabled", "auto")
-    if isinstance(enabled, str):
-        word = enabled.strip().lower()
-        if word == "auto":
-            enabled = "auto"
-        elif word in ("1", "true", "yes", "on"):
-            enabled = True
-        elif word in ("", "0", "false", "no", "off"):
-            enabled = False
-        else:
-            raise ValueError(
-                f"Parallelism.packing.enabled: {enabled!r} not recognized "
-                '(use true/false/"auto")'
-            )
-    slack, max_graphs = pk.get("slack"), pk.get("max_graphs")
-    return {
-        "enabled": enabled if enabled == "auto" else bool(enabled),
-        "max_budgets": max(1, int(pk.get("max_budgets", 2))),
-        "slack": None if slack is None else float(slack),
-        "max_graphs": None if max_graphs is None else int(max_graphs),
-    }
+    pk = runtime._packing_from_config(par)
+    return {"enabled": pk["packing"], "max_budgets": pk["packing_max_budgets"],
+            "slack": pk["packing_slack"], "max_graphs": pk["packing_max_graphs"]}
 
 
 def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0, *,
-                    trips: bool = False, verbosity: int = 0) -> tuple:
-    """``(packing_on, train_budgets, slack)`` for the single scheme, as
-    the JAX runner's ``_resolve_packing`` decides: ``"auto"`` packs when
-    ``packing_beats_ladder`` finds the fitted budgets beat the ladder
-    (the run's unpacked baseline, ``fixed_pad="auto"``) on the train
-    split's sizes and ``seed``; ``True`` fits the budgets. The slack is
-    the train fit's, which the eval loaders reuse. A triplet-bearing
-    model (``trips``) or an empty train split never packs; an explicit
+                    trips: bool = False, verbosity: int = 0, n_shards: int = 0,
+                    multinode: bool = False) -> tuple:
+    """``(packing_on, train_budgets, slack)``, as the JAX runner's
+    ``_resolve_packing`` decides: ``"auto"`` packs when
+    ``packing_beats_ladder`` (or, for a dp run over ``n_shards`` > 1
+    slots, ``dp_packing_beats_schedule``, which packs device-coordinated)
+    finds the fitted budgets beat the run's unpacked baseline on the
+    train split's sizes and ``seed``; ``True`` fits the budgets. The
+    slack is the train fit's, which the eval loaders reuse. A
+    triplet-bearing model (``trips``), an empty train split, fewer
+    graphs than slots, or a dp run across nodes (``multinode``: the
+    nodes' shards would pack different plans) never packs; an explicit
     request then says why."""
     mode = pk["enabled"]
     if not mode:
         return False, None, None
     blocked = None
-    if trips:
+    if multinode:
+        blocked = ("multi-node dp shards would pack divergent per-node plans; the "
+                   "cross-node spec schedules coordinate shapes there")
+    elif trips:
         blocked = "packing budgets do not cover triplet counts"
     elif not len(trainset):
         blocked = "empty training set"
+    elif n_shards > 1 and len(trainset) < n_shards:
+        blocked = (f"{len(trainset)} training graphs cannot feed {n_shards} devices a "
+                   "coordinated packed plan")
     if blocked:
         if mode != "auto":
             print_distributed(
@@ -215,12 +238,79 @@ def resolve_packing(pk: dict, batch_size: int, trainset, seed: int = 0, *,
     kw = dict(max_budgets=pk["max_budgets"], slack=pk["slack"],
               max_graphs=pk["max_graphs"], seed=int(seed))
     if mode == "auto":
-        won = packing_beats_ladder(ns, es, batch_size, **kw)
+        if n_shards > 1:
+            won = dp_packing_beats_schedule(ns, es, batch_size, n_shards, **kw)
+        else:
+            won = packing_beats_ladder(ns, es, batch_size, **kw)
         return (False, None, None) if won is None else (True, won[0], won[1])
     if pk["slack"] is not None:
         return True, fit_pack_budgets(ns, es, batch_size, **kw), pk["slack"]
     budgets, meta = fit_pack_budgets(ns, es, batch_size, with_meta=True, **kw)
     return True, budgets, meta["slack"]
+
+
+def _dp_pad_schedules(plan, batch_size: int, seed: int, trips: bool, datasets) -> tuple:
+    """Per-split spec schedules of an unpacked dp run (train, val,
+    test), or three None for the fixed worst-case spec: built from the
+    FULL datasets so every rank computes the same per-step specs; taken
+    when the train schedule's ladder stays within the bucket limit (the
+    JAX package's ``_dp_pad_schedules`` in its default "auto" mode).
+    Triplet-bearing models keep the worst case."""
+    fixed = (None, None, None)
+    if trips:
+        return fixed
+    n_procs = runtime.process_count()
+    n_local = max(plan.data_parallel_size // n_procs, 1)
+
+    def _sched(ds, shuffle, sched_seed):
+        ns, es = dataset_size_arrays(ds)
+        return dp_spec_schedule(ns, es, batch_size=batch_size, n_procs=n_procs,
+                                steps_group=n_local, seed=sched_seed, shuffle=shuffle)
+
+    trainset, valset, testset = datasets
+    cand = _sched(trainset, True, seed)
+    if not cand.ladder_is_small():
+        return fixed
+    return cand, _sched(valset, False, 0), _sched(testset, False, 0)
+
+
+def _pin_full_worst_specs(loaders_and_datasets, batch_size: int, trips: bool) -> None:
+    """Across nodes, pad every node's fixed-shape batches to the worst
+    case of the FULL dataset (not of its shard), so the ranks' steps
+    agree."""
+    for loader, full in loaders_and_datasets:
+        spec = worst_case_spec_from_sizes(*dataset_size_arrays(full), batch_size)
+        if trips:
+            t_sizes = sorted((count_triplets(s) for s in full), reverse=True)
+            spec = PadSpec(num_nodes=spec.num_nodes, num_edges=spec.num_edges,
+                           num_graphs=spec.num_graphs,
+                           num_triplets=bucket_size(max(sum(t_sizes[:batch_size]), 1)))
+        loader.pad_spec = spec
+
+
+def _branch_sets(config: dict, datasets) -> list:
+    """The multibranch scheme's per-branch (train, val, test) lists."""
+    if datasets is None or not all(
+        isinstance(d, (tuple, list)) and len(d) == 3 for d in datasets
+    ):
+        raise ValueError(
+            "multibranch scheme needs datasets=[(train,val,test), ...] per branch"
+        )
+    in_cols = _input_cols(config)
+    return [tuple(select_input_features(list(x), in_cols) for x in d) for d in datasets]
+
+
+def _devices_per_branch(plan, branch_sets) -> List[int]:
+    """Slots per branch: proportional to the train splits' sizes, or
+    uniform with ``HYDRAGNN_TPU_TASK_PARALLEL_PROPORTIONAL_SPLIT=0``."""
+    d = plan.data_parallel_size
+    if os.environ.get("HYDRAGNN_TPU_TASK_PARALLEL_PROPORTIONAL_SPLIT", "1") in ("0", "false"):
+        k = len(branch_sets)
+        if d < k:
+            raise ValueError(f"{d} devices < {k} branches")
+        base, rem = divmod(d, k)
+        return [base + (1 if i < rem else 0) for i in range(k)]
+    return proportional_branch_split([len(b[0]) for b in branch_sets], d)
 
 
 def _with_supersteps(settings: dict, loader):
@@ -235,52 +325,59 @@ def _step_graphs(dev: torch.device) -> Optional[StepGraphs]:
     return StepGraphs(dev) if dev.type == "cuda" else None
 
 
-def run_training(
-    config_source,
-    datasets: Optional[Tuple[Sequence[GraphSample], ...]] = None,
-    *,
-    seed: int = 0,
-    device: Optional[Union[str, torch.device]] = None,
-):
-    """Train end to end from a JSON config (path or dict) on one device
-    (``None`` means ``"cuda"``). ``datasets`` may give (train, val, test)
-    sample lists instead of ``Dataset.path``. Every batch carries the
-    block plan at the Hopper tiles unless ``Training.use_segment_plan``
-    is false, so each aggregation runs K1 forward and K2 backward;
-    batches are bin-packed where ``resolve_packing`` says so, and
-    grouped into supersteps where ``Parallelism.superstep`` resolves to
-    K > 1. On the card every step replays a captured CUDA graph
-    (``state.graphs``).
+def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbosity):
+    """The dp scheme's (train, val, test) loaders, wrapped to this
+    rank's slot: as the JAX runner forms them (the node's shards;
+    device-coordinated packing where ``resolve_packing`` says so, with a
+    per-split fallback when a split cannot feed every slot; else the
+    cross-rank spec schedules or the worst case)."""
+    trainset, valset, testset = datasets
+    splits = tuple(runtime.shard_dataset_for_process(d) for d in datasets)
+    multinode = runtime.process_count() > 1
+    pk = packing_settings(config)
+    packed, budgets, slack = resolve_packing(
+        pk, batch_size, splits[0], seed, trips=trips, verbosity=verbosity,
+        n_shards=plan.data_parallel_size, multinode=multinode)
+    scheds: list = []
 
-    Returns (state, model, cfg, history, config)."""
-    config = load_config(config_source)
-    _refuse_unported(config)
-    dev = resolve_device(device)
-    verbosity = int(config.get("Verbosity", {}).get("level", 0))
-    if datasets is None:
-        trainset, valset, testset = _ingest_datasets(config)
-    else:
-        in_cols = _input_cols(config)
-        trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
-    config = update_config(config, trainset, valset, testset)
-    _check_num_nodes_bound(config, trainset, valset, testset)
-    log_name = get_log_name_config(config)
-    if verbosity > 0:
-        setup_log(log_name)
-    save_config(config, log_name)
-    config["_log_name"] = log_name
+    def _build(which, ds, pack):
+        sched = None
+        if not pack:
+            if not scheds:
+                scheds.append(_dp_pad_schedules(plan, batch_size, seed, trips, datasets))
+            sched = scheds[0][which]
+        kw = dict(with_triplets=trips, with_segment_plan=seg_plan, fixed_pad=True,
+                  spec_schedule=sched, packing=pack, pack_max_budgets=pk["max_budgets"],
+                  pack_slack=pk["slack"] if pk["slack"] is not None else slack,
+                  pack_max_graphs=pk["max_graphs"],
+                  pack_dp_shards=plan.data_parallel_size if pack else 0)
+        if which == 0:
+            return GraphLoader(ds, batch_size, shuffle=True, seed=seed,
+                               pack_budgets=budgets if pack else None, **kw)
+        return GraphLoader(ds, batch_size, cache_batches=True, **kw)
 
-    training = config["NeuralNetwork"]["Training"]
-    param_dtype, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
-    batch_size = int(training.get("batch_size", 32))
-    seg_plan = training.get("use_segment_plan", True)
-    seg_plan = True if seg_plan == "auto" else bool(seg_plan)
-    model, cfg = create_model_config(config, dev, seed=seed)
-    model.to(param_dtype)
-    print_distributed(
-        verbosity, 1, f"Model parameters: {sum(p.numel() for p in model.parameters())}"
-    )
-    trips = needs_triplets(cfg.mpnn_type)
+    loaders = [_build(i, ds, packed) for i, ds in enumerate(splits)]
+    if packed:
+        print_distributed(
+            verbosity, 2, "packing: on (device-coordinated), train budgets "
+            f"{[(b.num_nodes, b.num_edges, b.num_graphs) for b in budgets]}")
+        for i, ds in enumerate(splits):
+            try:
+                len(loaders[i])
+            except ValueError as e:
+                print_distributed(verbosity, 0, "Training.Parallelism.packing disabled "
+                                  f"for the {('train', 'val', 'test')[i]} split: {e}")
+                loaders[i] = _build(i, ds, False)
+    if multinode and not (scheds and scheds[0][0] is not None):
+        _pin_full_worst_specs(list(zip(loaders, datasets)), batch_size, trips)
+    return tuple(runtime.wrap_loader(plan, ld) for ld in loaders)
+
+
+def _single_loaders(config, training, datasets, batch_size, seed, trips, seg_plan, verbosity):
+    """The single scheme's (train, val, test) loaders (superstep groups
+    where K > 1) and the batch-norm recalibration feed (None when
+    ``Training.bn_recalibration`` is off)."""
+    trainset, valset, testset = datasets
     pk = packing_settings(config)
     packed, budgets, slack = resolve_packing(pk, batch_size, trainset, seed,
                                              trips=trips, verbosity=verbosity)
@@ -313,31 +410,215 @@ def run_training(
         _with_supersteps(superstep, ld) for ld in (train_loader, val_loader, test_loader))
     if isinstance(train_loader, SuperstepLoader):
         print_distributed(verbosity, 2, f"supersteps: K = {train_loader.k}")
-    state = TrainState(model, select_optimizer(model.parameters(), training),
-                       graphs=_step_graphs(dev))
+    return train_loader, val_loader, test_loader, recal_loader
+
+
+def _multibranch_loaders(plan, branch_sets, batch_size, seed, trips, seg_plan):
+    """The multibranch scheme's (train, val, test) ``MultiBranchLoader``s
+    over this rank's slot (variable padding "auto", as the JAX runner's
+    default; triplet-bearing models keep the worst case)."""
+    dpb = plan.devices_per_branch
+    slot = plan.mesh.slot()
+    return tuple(
+        MultiBranchLoader([d[i] for d in branch_sets], dpb, batch_size, slot,
+                          shuffle=i == 0, seed=seed, with_triplets=trips,
+                          variable_pad=False if trips else "auto",
+                          with_segment_plan=seg_plan)
+        for i in range(3)
+    )
+
+
+def _plan_for_world(config: dict):
+    """The run's ``ParallelPlan``, checked against the world: a dp or
+    multibranch mesh uses every rank."""
+    plan = runtime.plan_from_config(config)
+    if plan.mesh is not None and plan.mesh.size != runtime.world_size():
+        raise ValueError(
+            f"Parallelism {plan.mesh.shape} needs {plan.mesh.size} ranks; the world "
+            f"holds {runtime.world_size()} (launch one rank per device slot)"
+        )
+    return plan
+
+
+def _run_state(plan, model, optimizer, dev) -> TrainState:
+    """A ``TrainState`` with the run's graph cache where the plan's steps
+    can be captured (``parallel/dp.capturable``), else none and the
+    reason."""
+    if capturable(plan):
+        return TrainState(model, optimizer, graphs=_step_graphs(dev))
+    return TrainState(model, optimizer, eager_reason=eager_reason(plan))
+
+
+def run_training(
+    config_source,
+    datasets: Optional[Tuple[Sequence[GraphSample], ...]] = None,
+    *,
+    seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+):
+    """Train end to end from a JSON config (path or dict) on this rank's
+    device (``None`` means ``cuda:LOCAL_RANK``). ``datasets`` may give
+    (train, val, test) sample lists instead of ``Dataset.path`` (under
+    the multibranch scheme: one such triple per branch). Every rank of a
+    dp or multibranch run calls this together (module docstring). Every
+    batch carries the block plan at the Hopper tiles unless
+    ``Training.use_segment_plan`` is false, so each aggregation runs K1
+    forward and K2 backward; batches are bin-packed where
+    ``resolve_packing`` says so, and grouped into supersteps where
+    ``Parallelism.superstep`` resolves to K > 1. On the card every step
+    replays a captured CUDA graph (``state.graphs``), except where the
+    plan's steps cannot be captured (``state.eager_reason``).
+
+    Returns (state, model, cfg, history, config)."""
+    config = load_config(config_source)
+    _refuse_unported(config)
+    runtime.maybe_initialize_distributed()
+    dev = resolve_device(device)
+    verbosity = int(config.get("Verbosity", {}).get("level", 0))
+    plan = _plan_for_world(config)
+    multibranch = plan.scheme == "multibranch"
+    branch_sets = None
+    if multibranch:
+        branch_sets = _branch_sets(config, datasets)
+        trainset, valset, testset = ([s for b in branch_sets for s in b[i]] for i in range(3))
+    elif datasets is None:
+        trainset, valset, testset = _ingest_datasets(config)
+    else:
+        in_cols = _input_cols(config)
+        trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
+    config = update_config(config, trainset, valset, testset)
+    _check_num_nodes_bound(config, trainset, valset, testset)
+    log_name = get_log_name_config(config)
+    if verbosity > 0:
+        setup_log(log_name)
+    if runtime.rank() == 0:
+        save_config(config, log_name)
+    config["_log_name"] = log_name
+
+    training = config["NeuralNetwork"]["Training"]
+    param_dtype, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
+    batch_size = int(training.get("batch_size", 32))
+    seg_plan = training.get("use_segment_plan", True)
+    seg_plan = True if seg_plan == "auto" else bool(seg_plan)
+    model, cfg = create_model_config(config, dev, seed=seed)
+    model.to(param_dtype)
+    print_distributed(
+        verbosity, 1, f"Model parameters: {sum(p.numel() for p in model.parameters())}"
+    )
+    trips = needs_triplets(cfg.mpnn_type)
+    recal_loader = None
+    if multibranch:
+        plan = dataclasses.replace(
+            plan, devices_per_branch=tuple(_devices_per_branch(plan, branch_sets)))
+        print_distributed(verbosity, 2, f"multibranch: devices per branch "
+                          f"{list(plan.devices_per_branch)}")
+        train_loader, val_loader, test_loader = _multibranch_loaders(
+            plan, branch_sets, batch_size, seed, trips, seg_plan)
+    elif plan.scheme == "dp":
+        print_distributed(verbosity, 2, f"dp: mesh {plan.mesh.shape}, "
+                          f"{'FSDP2 ' + plan.fsdp_axis if plan.fsdp else 'replicated'}")
+        train_loader, val_loader, test_loader = _dp_loaders(
+            config, plan, (trainset, valset, testset), batch_size, seed, trips, seg_plan,
+            verbosity)
+    else:
+        train_loader, val_loader, test_loader, recal_loader = _single_loaders(
+            config, training, (trainset, valset, testset), batch_size, seed, trips,
+            seg_plan, verbosity)
+    model = runtime.prepare_state(plan, model, dev)
+    optimizer = (dual_optimizer(model, training) if multibranch
+                 else select_optimizer(model.parameters(), training))
+    state = _run_state(plan, model, optimizer, dev)
+    if state.eager_reason:
+        print_distributed(verbosity, 1, f"steps run eagerly: {state.eager_reason}")
     state, hist = train_validate_test(
         model, cfg, state, train_loader, val_loader, test_loader, config,
         device=dev, compute_dtype=compute_dtype,
         clip_norm=grad_clip_norm(training), verbosity=verbosity,
         log_name=log_name, recal_loader=recal_loader,
+        plan=None if plan.scheme == "single" else plan,
     )
     return state, model, cfg, hist, config
 
 
 def restore_checkpoint_state(config: dict, model) -> TrainState:
     """A ``TrainState`` for ``model`` with the optimizer ``Training``
-    names, loaded from the run's ``latest`` checkpoint (or its newest
-    restorable epoch file). A config that came back from
-    ``run_training`` names its run directory (``_log_name``); a fresh
-    one derives it, and when that directory holds no checkpoint
-    (``num_epoch`` changed since training), ``find_continue_log_name``
-    finds the run that does."""
+    names (the dual optimizer under the multibranch scheme), loaded from
+    the run's ``latest`` checkpoint (or its newest restorable epoch
+    file). A config that came back from ``run_training`` names its run
+    directory (``_log_name``); a fresh one derives it, and when that
+    directory holds no checkpoint (``num_epoch`` changed since
+    training), ``find_continue_log_name`` finds the run that does."""
     training = config["NeuralNetwork"]["Training"]
-    state = TrainState(model, select_optimizer(model.parameters(), training))
+    if training.get("Parallelism", {}).get("scheme") == "multibranch":
+        optimizer = dual_optimizer(model, training)
+    else:
+        optimizer = select_optimizer(model.parameters(), training)
+    state = TrainState(model, optimizer)
     log_name = config.get("_log_name") or find_continue_log_name(
         get_log_name_config(config)
     )
     return load_checkpoint(log_name, state)
+
+
+def _prediction_state(state: TrainState, plan, dev) -> TrainState:
+    """The state a test pass runs with: the run's own graph cache, else a
+    new one where the pass can be captured (``capturable(plan)``, and
+    not an FSDP2-sharded model, whose hooks run eagerly), without
+    changing the caller's state."""
+    if state.graphs is not None or state.eager_reason or hasattr(state.model, "reshard"):
+        return state
+    graphs = _step_graphs(dev) if capturable(plan) else None
+    return dataclasses.replace(state, graphs=graphs)
+
+
+def _prediction_model(config, training, model, cfg, device):
+    if model is None or cfg is None:
+        dev = resolve_device(device)
+        model, cfg = create_model_config(config, dev)
+        model.to(resolve_precision(training.get("precision", "fp32"), dev)[0])
+    return model, cfg
+
+
+def _multibranch_prediction(config, datasets, *, state=None, model=None, cfg=None,
+                            device=None):
+    """Prediction under the multibranch scheme: every branch's test split
+    through the trained state, each sample's ``dataset_id`` routing it to
+    its branch's heads, on every rank alike. Returns (error, per-task
+    error, trues, preds) with trues/preds lists over branches of
+    per-head arrays."""
+    branch_sets = _branch_sets(config, datasets)
+    trainset, valset, testset = ([s for b in branch_sets for s in b[i]] for i in range(3))
+    config = update_config(config, trainset, valset, testset)
+    _check_num_nodes_bound(config, trainset, valset, testset)
+    training = config["NeuralNetwork"]["Training"]
+    batch_size = int(training.get("batch_size", 32))
+    model, cfg = _prediction_model(config, training, model, cfg, device)
+    dev = next(model.parameters()).device
+    _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
+    if state is None:
+        state = restore_checkpoint_state(config, model)
+    seg_plan = training.get("use_segment_plan", True)
+    trips = needs_triplets(cfg.mpnn_type)
+    state = _prediction_state(state, None, dev)
+    total, n_graphs, tasks_total = 0.0, 0, None
+    trues_b, preds_b = [], []
+    for bi, b in enumerate(branch_sets):
+        loader = GraphLoader(
+            [dataclasses.replace(x, dataset_id=bi) for x in b[2]], batch_size,
+            with_triplets=trips,
+            with_segment_plan=True if seg_plan == "auto" else bool(seg_plan))
+        err, tasks, trues, preds = run_test(
+            model, cfg, state, loader, device=dev,
+            compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential)
+        ng = len(loader.dataset)
+        total += float(err) * ng
+        n_graphs += ng
+        t = np.asarray(tasks)
+        tasks_total = t * ng if tasks_total is None else tasks_total + t * ng
+        trues_b.append(trues)
+        preds_b.append(preds)
+    denom = max(n_graphs, 1)
+    return total / denom, tasks_total / denom, trues_b, preds_b
 
 
 def run_prediction(
@@ -354,12 +635,25 @@ def run_prediction(
     values, predicted values), one array per head (for an interatomic
     potential: graph energies, then forces). ``state``, ``model`` and
     ``cfg`` may come from ``run_training``; without a model one is built
-    from the config on ``device`` (``None`` means ``"cuda"``), and
-    without a state the run's checkpoint is restored into the model
-    (``restore_checkpoint_state``). The pass runs on the model's
-    device."""
+    from the config on ``device`` (``None`` means ``cuda:LOCAL_RANK``),
+    and without a state the run's checkpoint is restored into the model
+    (``restore_checkpoint_state``). The pass runs on the model's device.
+
+    Under the multibranch scheme ``datasets`` holds per-branch triples and
+    trues/preds are keyed by branch. Under dp across several ranks every
+    rank calls this together: the test split runs as one lockstep dp pass
+    (each rank its slot, the node's shard across nodes), every rank
+    returns every slot's samples in the JAX package's order, and across
+    nodes the samples the equal shards leave out follow, evaluated on
+    every rank. A dp plan takes that pass wherever a process group
+    exists, at one rank too, as training does."""
     config = load_config(config_source)
     _refuse_unported(config)
+    grouped = runtime.maybe_initialize_distributed()
+    scheme = config["NeuralNetwork"].get("Training", {}).get("Parallelism", {}).get("scheme")
+    if scheme == "multibranch":
+        return _multibranch_prediction(config, datasets, state=state, model=model, cfg=cfg,
+                                       device=device)
     if datasets is None:
         trainset, valset, testset = _ingest_datasets(config)
     else:
@@ -368,23 +662,48 @@ def run_prediction(
     config = update_config(config, trainset, valset, testset)
     _check_num_nodes_bound(config, trainset, valset, testset)
     training = config["NeuralNetwork"]["Training"]
-    if model is None or cfg is None:
-        dev = resolve_device(device)
-        model, cfg = create_model_config(config, dev)
-        model.to(resolve_precision(training.get("precision", "fp32"), dev)[0])
+    model, cfg = _prediction_model(config, training, model, cfg, device)
     dev = next(model.parameters()).device
     if state is None:
         state = restore_checkpoint_state(config, model)
-    if state.graphs is None:
-        state.graphs = _step_graphs(dev)
     _, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
     seg_plan = training.get("use_segment_plan", True)
-    test_loader = GraphLoader(
-        testset, int(training.get("batch_size", 32)),
-        with_triplets=needs_triplets(cfg.mpnn_type),
-        with_segment_plan=True if seg_plan == "auto" else bool(seg_plan),
-    )
-    return run_test(
-        model, cfg, state, test_loader, device=dev, compute_dtype=compute_dtype,
-        compute_grad_energy=cfg.enable_interatomic_potential,
+    seg_plan = True if seg_plan == "auto" else bool(seg_plan)
+    batch_size = int(training.get("batch_size", 32))
+    trips = needs_triplets(cfg.mpnn_type)
+    plan = _plan_for_world(config) if grouped else None
+    if plan is not None and plan.scheme != "dp":
+        plan = None
+    state = _prediction_state(state, plan, dev)
+    kw = dict(device=dev, compute_dtype=compute_dtype,
+              compute_grad_energy=cfg.enable_interatomic_potential)
+    if plan is None:
+        test_loader = GraphLoader(testset, batch_size, with_triplets=trips,
+                                  with_segment_plan=seg_plan)
+        return run_test(model, cfg, state, test_loader, **kw)
+    _, _, sched = _dp_pad_schedules(plan, batch_size, 0, trips, (testset,) * 3)
+    base = GraphLoader(runtime.shard_dataset_for_process(testset), batch_size,
+                       with_triplets=trips, with_segment_plan=seg_plan, fixed_pad=True,
+                       spec_schedule=sched)
+    p = runtime.process_count()
+    if sched is None and p > 1:
+        _pin_full_worst_specs([(base, testset)], batch_size, trips)
+    result = run_test(model, cfg, state, runtime.wrap_loader(plan, base, superstep=False),
+                      plan=plan, **kw)
+    leftover = list(testset[(len(testset) // p) * p :])
+    if not leftover:
+        return result
+    # the samples the equal node shards leave out, on every rank alike
+    err_l, tasks_l, trues_l, preds_l = run_test(
+        model, cfg, dataclasses.replace(state, graphs=None),
+        GraphLoader(leftover, batch_size, with_triplets=trips, with_segment_plan=seg_plan),
+        **kw)
+    err_m, tasks_m, trues_m, preds_m = result
+    n_m, n_l = len(testset) - len(leftover), len(leftover)
+    tot = n_m + n_l
+    return (
+        (err_m * n_m + err_l * n_l) / tot,
+        (np.asarray(tasks_m) * n_m + np.asarray(tasks_l) * n_l) / tot,
+        [np.concatenate([a, b], axis=0) for a, b in zip(trues_m, trues_l)],
+        [np.concatenate([a, b], axis=0) for a, b in zip(preds_m, preds_l)],
     )

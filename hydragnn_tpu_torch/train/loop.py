@@ -29,6 +29,14 @@ the newest ``checkpoint_keep`` (5); every run saves ``latest`` at its
 end, after the end-of-training batch-norm recalibration
 (``recalibrate_batch_stats``, ``Training.bn_recalibration``).
 
+Under a dp or multibranch ``plan`` (``parallel/runtime.ParallelPlan``)
+the epoch loop runs ``parallel/dp.make_dp_superstep_fn``'s steps (the
+JAX loop's scheme dispatch, ``build_steps``): each rank's step on its
+slot, reduced over the ranks, so every rank holds the same history; the
+end-of-training batch-norm recalibration is skipped there with a
+message, as in the JAX package, and ``test`` gathers the slots' per-
+sample outputs in the JAX package's order.
+
 Not ported yet, and refused by the runner: resume (``continue``), the
 divergence guard, the pipeline feed and telemetry (ROADMAP Queue 1
 items 12, 10, 13).
@@ -64,41 +72,70 @@ from hydragnn_tpu_torch.utils.checkpoint import checkpoint_settings, save_checkp
 from hydragnn_tpu_torch.utils.print_utils import print_distributed
 
 
-def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy):
-    """``body(batch) -> (loss, per_task)``: one optimizer step on a batch
-    already on the model's device, with no host sync (so it can be
-    captured). The gradients stay in ``.grad`` until the next step."""
+def _graph_count(batch) -> torch.Tensor:
+    return batch.graph_mask.sum().to(torch.float32)
+
+
+def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
+                red=None, *, clip_groups: bool = False):
+    """``body(batch) -> (loss, per_task, n_graphs)``: one optimizer step
+    on a batch already on the model's device, with no host sync (so it
+    can be captured). The gradients stay in ``.grad`` until the next
+    step. With ``red`` (a ``parallel/dp.Reduction``) it is one rank's
+    step of a dp or multibranch plan: the loss weighted before the
+    backward; the gradients, running statistics and loss terms reduced
+    over the ranks after it; ``n_graphs`` the global count.
+    ``clip_groups`` clips each optimizer group on its own (the dual
+    optimizer's two optax chains)."""
     params = list(model.parameters())
+    scale = float(red.n_slots) if red is not None and red.fsdp else 1.0
 
     def body(batch):
         b = cast_batch(batch, compute_dtype)
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if red is not None:
+            w, n_graphs = red.weight(b)
         if compute_grad_energy:
             tot, tasks = energy_force_loss(model, b, cfg)
         else:
             tot, tasks = multihead_loss(model(b), b, cfg)
-        tot.backward()
+        if red is None:
+            tot.backward()
+            live, n_graphs = params, _graph_count(b)
+        else:
+            (tot * (w * scale).to(tot.dtype).reshape(())).backward()
+            red.after_forward()
+            live = list(model.parameters())  # FSDP2's shards, once resharded
         # A parameter the loss does not reach takes a zero gradient, as in
         # optax, so AdamW's weight decay still moves it.
-        for p in params:
+        for p in live:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if red is not None:
+            tot, tasks = red.reduce_train(live, tot, tasks, w.reshape(()))
         if clip_norm > 0:
-            clip_by_global_norm_(params, clip_norm)
+            groups = [g["params"] for g in optimizer.param_groups] if clip_groups else [live]
+            for group in groups:
+                clip_by_global_norm_(group, clip_norm)
         optimizer.step()
-        return tot.detach(), tasks.detach()
+        return tot.detach(), tasks.detach(), n_graphs.reshape(())
 
     return body
 
 
-def _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy):
-    """``body(batch) -> (loss, per_task[, *outputs])`` in eval mode
-    without parameter gradients (no host sync)."""
+def _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy, red=None):
+    """``body(batch) -> (loss, per_task, n_graphs[, *outputs])`` in eval
+    mode without parameter gradients (no host sync). With ``red`` the
+    loss is the graph-weighted mean over the plan's slots
+    (``_weighted_eval_over_devices``) and ``outputs`` are this rank's
+    own."""
 
     def body(batch):
         b = cast_batch(batch, compute_dtype)
         model.eval()
+        if red is not None:
+            w, n_graphs = red.weight(b)
         if compute_grad_energy:
             with torch.enable_grad():
                 ge, forces = energy_and_forces(model, b, cfg, create_graph=False)
@@ -109,9 +146,21 @@ def _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy):
             with torch.no_grad():
                 outputs = tuple(model(b))
                 tot, tasks = multihead_loss(outputs, b, cfg)
-        return (tot, tasks) + (outputs if collect_outputs else ())
+        if red is None:
+            n_graphs = _graph_count(b)
+        else:
+            red.after_forward()
+            tot, tasks = red.reduce_eval(tot.detach(), tasks.detach(),
+                                         w.reshape(()).to(tot.dtype))
+        return (tot, tasks, n_graphs.reshape(())) + (outputs if collect_outputs else ())
 
     return body
+
+
+def _step_key(red, *key) -> tuple:
+    """A step's graph-cache key: a plan's steps are keyed apart by its
+    reduction kind (``("dp", "train", ...)``)."""
+    return key if red is None else (red.kind,) + key
 
 
 def make_train_step(
@@ -121,17 +170,20 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.float32,
     clip_norm: float = 0.0,
     compute_grad_energy: bool = False,
+    red=None,
+    clip_groups: bool = False,
 ) -> Callable:
     """``step(state, batch) -> (state, loss, per_task)``: one eager
     optimizer step on a batch already on the model's device. The losses
     come back as device tensors (no host sync); the gradients stay in
     ``.grad`` until the next step. ``compute_grad_energy`` trains on the
     MLIP energy + force loss, whose backward differentiates the force
-    pass."""
-    body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy)
+    pass. ``red`` and ``clip_groups``: ``_train_body``."""
+    body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
+                       red, clip_groups=clip_groups)
 
     def step(state: TrainState, batch):
-        tot, tasks = body(batch)
+        tot, tasks, _ = body(batch)
         state.step += 1
         return state, tot, tasks
 
@@ -144,18 +196,19 @@ def make_eval_step(
     compute_dtype: torch.dtype = torch.float32,
     collect_outputs: bool = False,
     compute_grad_energy: bool = False,
+    red=None,
 ) -> Callable:
     """``step(state, batch) -> (loss, per_task[, outputs])`` in eval mode
     without parameter gradients, run eagerly. With
     ``compute_grad_energy`` the forces take a gradient with respect to
     the positions only (no graph is kept), and the outputs are [graph
-    energies [G, 1], forces [N, 3]]."""
-    body = _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy)
+    energies [G, 1], forces [N, 3]]. ``red``: ``_eval_body``."""
+    body = _eval_body(model, cfg, compute_dtype, collect_outputs, compute_grad_energy, red)
 
     def step(state: TrainState, batch):
         del state
         out = body(batch)
-        return (out[0], out[1], list(out[2:])) if collect_outputs else out
+        return (out[0], out[1], list(out[3:])) if collect_outputs else out[:2]
 
     return step
 
@@ -188,16 +241,13 @@ def _spec_key(batch) -> tuple:
 
 def _steps_fn(body) -> Callable:
     """K steps of ``body`` over K device batches: ``(loss [K], per_task
-    [K, T], graphs [K], *each step's extra outputs)``."""
+    [K, T], graphs [K], *each step's extra outputs)``. The graph count is
+    the body's (the global one under dp)."""
 
     def run(batches):
         rows = [body(b) for b in batches]
-        out = (
-            torch.stack([r[0] for r in rows]),
-            torch.stack([r[1] for r in rows]),
-            torch.stack([b.graph_mask.sum().to(torch.float32) for b in batches]),
-        )
-        return out + tuple(x for r in rows for x in r[2:])
+        out = tuple(torch.stack([r[i] for r in rows]) for i in range(3))
+        return out + tuple(x for r in rows for x in r[3:])
 
     return run
 
@@ -221,11 +271,15 @@ def make_superstep_fn(
     compute_grad_energy: bool = False,
     device: Optional[torch.device] = None,
     graphs=None,
+    red=None,
+    clip_groups: bool = False,
 ) -> Callable:
     """The superstep: K train (or eval) steps over a list of K batches of
     one shape in one dispatch. With ``graphs`` (a ``StepGraphs``, on the
     card) it is one captured graph of K steps over K static buffers that
     the host fills with one copy; without, K eager steps on ``device``.
+    ``red`` and ``clip_groups`` make them a plan's steps (``_train_body``;
+    ``parallel/dp.make_dp_superstep_fn``).
 
     Train signature ``(state, acc, batches) -> (state, acc)``; eval
     ``(state, acc, batches) -> acc``, where ``acc = (loss_sum, tasks_sum,
@@ -234,11 +288,11 @@ def make_superstep_fn(
     dispatch gives the bits of K single-step dispatches."""
     if train:
         body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm,
-                           compute_grad_energy)
+                           compute_grad_energy, red, clip_groups=clip_groups)
     else:
-        body = _eval_body(model, cfg, compute_dtype, False, compute_grad_energy)
+        body = _eval_body(model, cfg, compute_dtype, False, compute_grad_energy, red)
     run = _steps_fn(body)
-    key = ("train" if train else "eval", compute_dtype)
+    key = _step_key(red, "train" if train else "eval", compute_dtype)
 
     def superstep(state, acc, batches):
         tots, tasks, gs = _dispatch(run, graphs, key, batches, device)
@@ -387,6 +441,7 @@ def train_validate_test(
     verbosity: int = 0,
     log_name: Optional[str] = None,
     recal_loader=None,
+    plan=None,
 ) -> Tuple[TrainState, History]:
     """The epoch loop: train, validate, test, step the plateau scheduler
     on the validation loss, stop early after ``patience`` epochs without
@@ -396,7 +451,8 @@ def train_validate_test(
     With a ``log_name`` the run saves checkpoints under
     ``./logs/<log_name>/`` (module docstring); ``recal_loader`` is the
     feed of the end-of-training batch-norm recalibration (the train
-    loader when None)."""
+    loader when None). ``plan`` selects the dp or multibranch steps
+    (module docstring)."""
     training = config["NeuralNetwork"]["Training"]
     num_epoch = int(training.get("num_epoch", 1))
     patience = int(training.get("patience", 10))
@@ -407,9 +463,21 @@ def train_validate_test(
     graphs = state.graphs
     kw = dict(compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential,
               device=device, graphs=graphs)
-    train_step = make_superstep_fn(model, state.optimizer, cfg, train=True,
-                                   clip_norm=clip_norm, **kw)
-    eval_step = make_superstep_fn(model, None, cfg, train=False, **kw)
+    if plan is None or plan.scheme == "single":
+        train_step = make_superstep_fn(model, state.optimizer, cfg, train=True,
+                                       clip_norm=clip_norm, **kw)
+        eval_step = make_superstep_fn(model, None, cfg, train=False, **kw)
+    else:
+        from hydragnn_tpu_torch.parallel.dp import make_dp_superstep_fn
+        from hydragnn_tpu_torch.parallel.multibranch import decoder_grad_scales
+
+        scales = (decoder_grad_scales(model, cfg, plan.data_parallel_size,
+                                      plan.devices_per_branch)
+                  if plan.scheme == "multibranch" else None)
+        train_step = make_dp_superstep_fn(model, state.optimizer, cfg, plan, train=True,
+                                          clip_norm=clip_norm, kind=plan.scheme,
+                                          decoder_scales=scales, **kw)
+        eval_step = make_dp_superstep_fn(model, None, cfg, plan, train=False, **kw)
     sched_cfg = training.get("ReduceLROnPlateau", {})
     scheduler = ReduceLROnPlateau(
         factor=float(sched_cfg.get("factor", 0.5)),
@@ -461,6 +529,13 @@ def train_validate_test(
                 print_distributed(verbosity, 1, f"Early stopping at epoch {epoch}")
                 break
     recal = bn_recalibration_epochs(training)
+    if recal and plan is not None and plan.scheme != "single":
+        print_distributed(
+            verbosity, 0,
+            "Training.bn_recalibration ignored: supported on the single scheme only "
+            "(dp-stacked batches have no sequential-EMA path)",
+        )
+        recal = 0
     if recal:
         state = recalibrate_batch_stats(
             model, state, train_loader if recal_loader is None else recal_loader,
@@ -469,6 +544,29 @@ def train_validate_test(
     if log_name is not None:
         save_checkpoint(log_name, state)
     return state, hist
+
+
+def _gather_slots(per_batch: List[List[np.ndarray]], plan) -> List[List[np.ndarray]]:
+    """Every rank's per-batch collections, in the JAX package's order:
+    node by node, batch by batch, and the node's slots in order within a
+    batch (its ``[D, ...]`` device axis flattened into the samples, then
+    the processes' sets concatenated). The ranks of one slot hold the
+    same rows (HSDP), so each slot's first rank speaks for it."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.parallel.runtime import process_count
+
+    gathered: list = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, per_batch)
+    k = plan.mesh.fsdp
+    n = plan.mesh.data // process_count()
+    out: List[List[np.ndarray]] = [[] for _ in per_batch]
+    for p in range(process_count()):
+        for t in range(len(per_batch[0]) if per_batch else 0):
+            for slot in range(p * n, (p + 1) * n):
+                for h, rows in enumerate(gathered[slot * k]):
+                    out[h].append(rows[t])
+    return out
 
 
 def test(
@@ -480,6 +578,8 @@ def test(
     device: torch.device,
     compute_dtype: torch.dtype = torch.float32,
     compute_grad_energy: bool = False,
+    plan=None,
+    gather: bool = True,
 ) -> Tuple[float, np.ndarray, List[np.ndarray], List[np.ndarray]]:
     """A full test pass collecting per-sample true/pred per head. Returns
     (error, per-task error, trues, preds); trues/preds hold one
@@ -488,34 +588,45 @@ def test(
     Each batch's step runs through ``state.graphs`` where there is one
     (its outputs are fetched right after the replay); the loss sums stay
     on the device until the end, and only the per-sample collections
-    cross to the host per batch."""
-    run = _steps_fn(_eval_body(model, cfg, compute_dtype, True, compute_grad_energy))
+    cross to the host per batch. Under a dp ``plan`` the loader gives
+    this rank's slot (``parallel/dp.DPLoader``), the loss is the dp eval
+    step's, and with ``gather`` every rank returns every slot's samples
+    (``_gather_slots``)."""
+    red = None
+    if plan is not None and plan.scheme == "dp" and plan.mesh is not None:
+        from hydragnn_tpu_torch.parallel.dp import Reduction
+
+        red = Reduction(model, plan)
+    run = _steps_fn(_eval_body(model, cfg, compute_dtype, True, compute_grad_energy, red))
+    key = _step_key(red, "test", compute_dtype)
     n_coll = 2 if compute_grad_energy else len(cfg.heads)
     acc = None
     trues: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
     preds: List[List[np.ndarray]] = [[] for _ in range(n_coll)]
     for batch in loader:
-        tots, tasks, gs, *outputs = _dispatch(
-            run, state.graphs, ("test", compute_dtype), [batch], device)
+        tots, tasks, gs, *outputs = _dispatch(run, state.graphs, key, [batch], device)
         acc = fold_step_metrics(acc, tots, tasks, gs)
-        gm = batch.graph_mask.cpu().numpy()
-        nm = batch.node_mask.cpu().numpy()
+        gm = np.asarray(batch.graph_mask)
+        nm = np.asarray(batch.node_mask)
         if compute_grad_energy:
             ge, forces = (o.float().cpu().numpy() for o in outputs)
-            trues[0].append(batch.energy.cpu().numpy()[gm, None])
+            trues[0].append(np.asarray(batch.energy)[gm, None])
             preds[0].append(ge[gm])
-            trues[1].append(batch.forces.cpu().numpy()[nm])
+            trues[1].append(np.asarray(batch.forces)[nm])
             preds[1].append(forces[nm])
             continue
         for hi, (level, start, end) in enumerate(cfg.head_offsets()):
             out = outputs[hi][:, : cfg.heads[hi].dim].float().cpu().numpy()
             if level == "graph":
-                y, m = batch.y_graph[:, start:end].cpu().numpy(), gm
+                y, m = np.asarray(batch.y_graph)[:, start:end], gm
             else:
-                y, m = batch.y_node[:, start:end].cpu().numpy(), nm
+                y, m = np.asarray(batch.y_node)[:, start:end], nm
             trues[hi].append(y[m])
             preds[hi].append(out[m])
     error, tasks_avg = (0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
+    if red is not None and gather and red.active:
+        both = _gather_slots(trues + preds, plan)
+        trues, preds = both[:n_coll], both[n_coll:]
     return (
         error,
         tasks_avg,

@@ -50,6 +50,19 @@ def _moment_(m: List[torch.Tensor], g: List[torch.Tensor], decay: float) -> None
     torch._foreach_add_(m, new)
 
 
+def copy_into(live: torch.Tensor, saved: torch.Tensor) -> None:
+    """Copy a whole saved tensor into a live one in place; a live DTensor
+    (an FSDP2 shard) takes its own shard of it."""
+    if hasattr(live, "full_tensor"):
+        from torch.distributed.tensor import distribute_tensor
+
+        full = torch.as_tensor(saved).to(device=live.device, dtype=live.dtype)
+        live.to_local().copy_(distribute_tensor(full, live.device_mesh,
+                                                live.placements).to_local())
+        return
+    live.copy_(torch.as_tensor(saved))
+
+
 class OptaxOptimizer:
     """One optax optimizer over a list of parameters.
 
@@ -145,7 +158,7 @@ class OptaxOptimizer:
                     f"this optimizer keeps {sorted(live)}"
                 )
             for k, v in saved.items():
-                live[k].copy_(v)
+                copy_into(live[k], v)
 
 
 class SGD(OptaxOptimizer):

@@ -26,12 +26,14 @@ class TrainState:
     """What a run trains: the model (which holds the parameters), its
     optimizer, the number of optimizer steps taken, and, on the card,
     the run's CUDA-graph cache of its steps (``train/capture.StepGraphs``;
-    None runs them eagerly)."""
+    None runs them eagerly, and ``eager_reason`` then says why where a
+    plan decided it: ``parallel/dp.eager_reason``)."""
 
     model: torch.nn.Module
     optimizer: OptaxOptimizer
     step: int = 0
     graphs: Optional[object] = None
+    eager_reason: Optional[str] = None
 
 
 def resolve_precision(

@@ -25,6 +25,13 @@ module's ``load_state_dict`` copies parameters in place, the port's
 optimizers do the same for their state), so CUDA graphs captured before
 a restore replay with the restored values. The asynchronous writer, the
 resume manifest and ``continue`` are ROADMAP Queue 1 item 12.
+
+Under several ranks every rank calls ``save_checkpoint`` together: an
+FSDP2-sharded model's parameters and optimizer state are all-gathered
+into full tensors (``parallel/runtime.gather_to_host``), so the file is
+PR 6's format and ``run_prediction(config)`` restores it in one
+process; rank 0 writes, and every rank waits at a barrier until the file
+is in place. A restore into sharded tensors copies each rank's shard.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from hydragnn_tpu_torch.parallel.runtime import gather_to_host, rank, world_size
 
 CHECKPOINT_DIR = "./logs"
 _LATEST = "checkpoint.pt"
@@ -93,11 +103,27 @@ def _atomic_write_bytes(path: str, blob: bytes) -> None:
     os.replace(tmp, path)
 
 
+def _full(tree):
+    """``tree`` with every tensor whole on the host (module docstring)."""
+    if isinstance(tree, torch.Tensor):
+        return gather_to_host(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _full(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_full(v) for v in tree)
+    return tree
+
+
+def _barrier() -> None:
+    if world_size() > 1:
+        dist.barrier()
+
+
 def _state_bytes(state) -> bytes:
-    """A ``TrainState``'s checkpoint blob."""
+    """A ``TrainState``'s checkpoint blob (whole tensors on the host)."""
     buf = io.BytesIO()
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+    torch.save({"model": _full(state.model.state_dict()),
+                "optimizer": _full(state.optimizer.state_dict()),
                 "step": int(state.step)}, buf)
     return buf.getvalue()
 
@@ -106,13 +132,17 @@ def save_checkpoint(log_name: str, state, *, epoch: Optional[int] = None,
                     keep: int = 0) -> str:
     """Write ``state`` (a ``TrainState``): the epoch file and ``latest``
     with ``epoch``, else ``latest`` alone; then prune to the newest
-    ``keep`` epoch files (0 keeps them all). Returns the path written."""
+    ``keep`` epoch files (0 keeps them all). Returns the path written.
+    Every rank calls this; rank 0 writes (module docstring)."""
     blob = _state_bytes(state)
-    path = _ckpt_path(log_name, epoch)
-    _atomic_write_bytes(path, blob)
-    if epoch is not None:
-        _atomic_write_bytes(_ckpt_path(log_name, None), blob)
-        _prune_old_epochs(log_name, keep)
+    writer = rank() == 0
+    path = _ckpt_path(log_name, epoch, make=writer)
+    if writer:
+        _atomic_write_bytes(path, blob)
+        if epoch is not None:
+            _atomic_write_bytes(_ckpt_path(log_name, None), blob)
+            _prune_old_epochs(log_name, keep)
+    _barrier()
     return path
 
 
@@ -121,7 +151,17 @@ def _restore(state, path: str) -> None:
     each tensor is copied into the live one on its device (module
     docstring)."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(blob["model"])
+    live = state.model.state_dict()
+    if any(hasattr(t, "full_tensor") for t in live.values()):
+        from hydragnn_tpu_torch.train.optimizer import copy_into
+
+        if set(live) != set(blob["model"]):
+            raise ValueError("checkpoint holds another model's tensors")
+        with torch.no_grad():
+            for k, t in live.items():
+                copy_into(t, blob["model"][k])
+    else:
+        state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.step = int(blob["step"])
 

@@ -1,0 +1,221 @@
+"""One rank of tests/test_torch_dp.py's process group, and the model
+configurations both sides build.
+
+Run as a script (the test starts one process per rank):
+
+    python tests/_torch_dp_worker.py RANK WORLD DIR
+
+Each rank joins a gloo group through a FileStore in DIR, reads the
+inputs the test wrote there (``inputs.pt``: numpy parameters from the
+JAX package, port GraphSamples and batches), runs the port's dp, ZeRO
+and multibranch steps and the dp ``run_training``/``run_prediction``
+(on one node, then as two nodes), and writes what it saw to ``out<RANK>.pt``. It imports torch and the
+port only (never jax, the JAX package or the tests' conftest).
+"""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# The small models of the dp cases: PNA with its MaskedBatchNorm stack,
+# and SchNet with two graph branches for the multibranch step.
+DP_TRAINING = {"Optimizer": {"type": "SGD", "learning_rate": 0.1}}
+MB_TRAINING = {"Optimizer": {"type": "AdamW", "learning_rate": 2e-3}}
+
+
+def pna_cfg(spec, deg):
+    """PNA, 2 layers at hidden 8, one graph head."""
+    return spec.ModelConfig(
+        mpnn_type="PNA", input_dim=1, hidden_dim=8, num_conv_layers=2,
+        heads=(spec.HeadSpec("y", "graph", 1),),
+        graph_branches=(spec.BranchSpec(num_sharedlayers=1, dim_sharedlayers=8,
+                                        num_headlayers=1, dim_headlayers=(8,)),),
+        task_weights=(1.0,), radius=2.0, pna_deg=tuple(int(d) for d in deg),
+        max_neighbours=len(deg) - 1,
+    )
+
+
+def schnet_mb_cfg(spec, n_branches=2):
+    """SchNet, 2 layers at hidden 8, one graph head on ``n_branches``
+    decoder branches."""
+    return spec.ModelConfig(
+        mpnn_type="SchNet", input_dim=1, hidden_dim=8, num_conv_layers=2,
+        heads=(spec.HeadSpec("y", "graph", 1),),
+        graph_branches=tuple(spec.BranchSpec(name=f"branch-{i}", dim_sharedlayers=8,
+                                             dim_headlayers=(8,))
+                             for i in range(n_branches)),
+        task_weights=(1.0,), radius=2.0, num_gaussians=8, num_filters=8,
+    )
+
+
+def _full(t):
+    from hydragnn_tpu_torch.parallel.runtime import gather_to_host
+
+    return gather_to_host(t).numpy().copy()
+
+
+def _snapshot(model) -> dict:
+    """Every parameter, gradient and running statistic, whole."""
+    out = {"params": {}, "grads": {}, "stats": {}}
+    for name, p in model.named_parameters():
+        out["params"][name] = _full(p)
+        out["grads"][name] = None if p.grad is None else _full(p.grad)
+    for name, b in model.named_buffers():
+        if name.endswith((".mean", ".var")):
+            out["stats"][name] = _full(b)
+    return out
+
+
+def case_dp(inp, rank, zero):
+    """(d)/(e): the eval step, then two train steps (unequal real graph
+    counts, then slot 1 fully masked) on this rank's slot."""
+    import torch
+
+    from hydragnn_tpu_torch.models import convert, create, spec
+    from hydragnn_tpu_torch.parallel import dp
+    from hydragnn_tpu_torch.parallel.mesh import DataMesh
+    from hydragnn_tpu_torch.parallel.runtime import ParallelPlan
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    cfg = pna_cfg(spec, inp["deg"])
+    model = create.create_model(cfg, "cpu")
+    model.load_state_dict(convert.params_from_jax(inp["pna_params"], inp["pna_stats"]))
+    plan = ParallelPlan(scheme="dp", mesh=DataMesh(data=2), fsdp=zero, fsdp_axis="data")
+    model = dp.replicate_state(model, plan, "cpu")
+    opt = select_optimizer(model.parameters(), DP_TRAINING)
+    state = TrainState(model, opt)
+    a, b = inp["dp_batches"]
+    own = a if rank == 0 else b
+    ev = dp.make_dp_eval_step(model, cfg, plan)(state, own)
+    step = dp.make_dp_train_step(model, opt, cfg, plan)
+    _, loss1, tasks1 = step(state, own)
+    snap1 = _snapshot(model)
+    second = a if rank == 0 else dp._masked_out(b)
+    _, loss2, tasks2 = step(state, second)
+    snap2 = _snapshot(model)
+    return {"eval": (float(ev[0]), ev[1].numpy().copy()),
+            "step1": (float(loss1), tasks1.numpy().copy(), snap1),
+            "step2": (float(loss2), tasks2.numpy().copy(), snap2),
+            "sharded": [type(p).__name__ for p in model.parameters()][:1]}
+
+
+def case_hsdp(inp, rank):
+    """HSDP (``{data: 1, fsdp: 2}``): both ranks hold the one slot and
+    shard the parameters; one train step on batch a, and the single
+    scheme's step on the same batch without collectives."""
+    from hydragnn_tpu_torch.models import convert, create, spec
+    from hydragnn_tpu_torch.parallel import dp
+    from hydragnn_tpu_torch.parallel.runtime import plan_from_config
+    from hydragnn_tpu_torch.train.loop import make_train_step
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    cfg = pna_cfg(spec, inp["deg"])
+    plan = plan_from_config({"NeuralNetwork": {"Training": {"Parallelism": {
+        "scheme": "dp", "data": 1, "fsdp": 2}}}})
+    out = {"slot": plan.mesh.slot()}
+    for name in ("hsdp", "single"):
+        model = create.create_model(cfg, "cpu")
+        model.load_state_dict(convert.params_from_jax(inp["pna_params"], inp["pna_stats"]))
+        if name == "hsdp":
+            model = dp.replicate_state(model, plan, "cpu")
+            opt = select_optimizer(model.parameters(), DP_TRAINING)
+            step = dp.make_dp_train_step(model, opt, cfg, plan)
+        else:
+            opt = select_optimizer(model.parameters(), DP_TRAINING)
+            step = make_train_step(model, opt, cfg)
+        _, loss, _ = step(TrainState(model, opt), inp["dp_batches"][0])
+        out[name] = (float(loss), _snapshot(model))
+    return out
+
+
+def case_multibranch(inp, rank):
+    """(f): one multibranch step with the dual optimizer at devices per
+    branch [1, 1]: slot r holds branch r's batch."""
+    from hydragnn_tpu_torch.models import convert, create, spec
+    from hydragnn_tpu_torch.parallel.mesh import DataMesh
+    from hydragnn_tpu_torch.parallel.multibranch import dual_optimizer, make_multibranch_train_step
+    from hydragnn_tpu_torch.parallel.runtime import ParallelPlan
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    cfg = schnet_mb_cfg(spec)
+    model = create.create_model(cfg, "cpu")
+    model.load_state_dict(convert.params_from_jax(inp["mb_params"]))
+    plan = ParallelPlan(scheme="multibranch", mesh=DataMesh(data=2), devices_per_branch=(1, 1))
+    opt = dual_optimizer(model, MB_TRAINING)
+    step = make_multibranch_train_step(model, opt, cfg, plan, (1, 1))
+    _, loss, tasks = step(TrainState(model, opt), inp["mb_batches"][rank])
+    return {"loss": float(loss), "tasks": tasks.numpy().copy(), "snap": _snapshot(model),
+            "groups": [len(g["params"]) for g in opt.param_groups]}
+
+
+def case_run(inp, rank):
+    """(g): run_training under {"scheme": "dp", "data": 2} from the JAX
+    run's initial parameters, then run_prediction."""
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.models import convert
+
+    sd = convert.params_from_jax(inp["run_params"])
+    make = runner.create_model_config
+
+    def with_jax_params(config, device=None, *, seed=0):
+        model, cfg = make(config, device, seed=seed)
+        model.load_state_dict(sd)
+        return model, cfg
+
+    runner.create_model_config = with_jax_params
+    try:
+        state, model, cfg, hist, full = runner.run_training(
+            inp["run_config"], datasets=inp["run_splits"], device="cpu")
+    finally:
+        runner.create_model_config = make
+    err, _, trues, preds = runner.run_prediction(
+        full, datasets=inp["run_splits"], state=state, model=model, cfg=cfg)
+    return {"train_loss": hist.train_loss, "val_loss": hist.val_loss,
+            "test_loss": hist.test_loss, "error": float(err), "trues": trues,
+            "preds": preds, "ckpt": os.path.exists(
+                os.path.join("logs", full["_log_name"], "checkpoint.pt"))}
+
+
+def case_nodes(inp, rank):
+    """The multi-node form: with ``LOCAL_WORLD_SIZE=1`` each rank counts
+    as a node of its own, so each trains on its equal shard of every
+    split (unpacked: packing across nodes is refused) and
+    run_prediction runs the lockstep pass over the shards, then the
+    samples the equal shards leave out."""
+    from hydragnn_tpu_torch import runner
+
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    try:
+        state, model, cfg, hist, full = runner.run_training(
+            inp["run_config"], datasets=inp["run_splits"], device="cpu")
+        err, _, trues, preds = runner.run_prediction(
+            full, datasets=inp["run_splits"], state=state, model=model, cfg=cfg)
+    finally:
+        del os.environ["LOCAL_WORLD_SIZE"]
+    return {"train_loss": hist.train_loss, "test_loss": hist.test_loss, "error": float(err),
+            "trues": trues, "preds": preds}
+
+
+def main(rank: int, world: int, work: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.dirname(HERE))
+    import torch.distributed as dist
+
+    store = dist.FileStore(os.path.join(work, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    os.chdir(work)
+    out = {"dp": case_dp(inp, rank, zero=False), "zero": case_dp(inp, rank, zero=True),
+           "mb": case_multibranch(inp, rank), "run": case_run(inp, rank),
+           "nodes": case_nodes(inp, rank), "hsdp": case_hsdp(inp, rank)}
+    torch.save(out, os.path.join(work, f"out{rank}.pt"))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -934,3 +934,107 @@ def test_pnaeq_replayed_mlip_step_equals_eager():
     _state_equal(torch, m1, o1, m2, o2)
     for x, y in zip(a1, a2):
         assert torch.equal(x, y)
+
+
+def _nccl_world_one(torch, tmp_path):
+    """A one-rank NCCL process group (destroyed by the caller)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    from hydragnn_tpu_torch.parallel.runtime import plan_from_config
+
+    return plan_from_config({"NeuralNetwork": {"Training": {"Parallelism": {"scheme": "dp"}}}})
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_dp_step_equals_single(tmp_path):
+    """At world 1 over NCCL the dp train step (the count and flat
+    gradient all-reduces, the weight n/n = 1) equals the single scheme's
+    step bit for bit: parameters, optimizer state, loss sums."""
+    torch = _need_card()
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.parallel.dp import make_dp_superstep_fn
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    plan = _nccl_world_one(torch, tmp_path)
+    try:
+        results = []
+        for scheme in ("single", "dp"):
+            model, cfg, opt, batches = _capture_case(torch, n_batches=2)
+            if scheme == "dp":
+                train = make_dp_superstep_fn(model, opt, cfg, plan, device=torch.device("cuda"))
+            else:
+                train = _supersteps(torch, model, cfg, opt, None)[0]
+            state, acc = TrainState(model, opt), None
+            for b in batches:
+                state, acc = train(state, acc, [b])
+            torch.cuda.synchronize()
+            results.append((model, opt, acc))
+    finally:
+        dist.destroy_process_group()
+    (m1, o1, a1), (m2, o2, a2) = results
+    _state_equal(torch, m1, o1, m2, o2)
+    for x, y in zip(a1, a2):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dp", "multibranch"])
+def test_nccl_dp_replay_equals_eager(tmp_path, kind):
+    """Four dp train steps through the graph cache (eager, capture and
+    replay, replays; the NCCL all-reduces inside the graph) equal four
+    eager dp steps bit for bit, and K1/K2 count the replays' launches.
+    The multibranch step (the equal mean over slots, the D / D_b decoder
+    rescale, the dual optimizer clipped per group) is captured alike."""
+    torch = _need_card()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.parallel.dp import capturable, make_dp_superstep_fn
+    from hydragnn_tpu_torch.parallel.multibranch import decoder_grad_scales, dual_optimizer
+    from hydragnn_tpu_torch.parallel.runtime import plan_from_config
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    plan = _nccl_world_one(torch, tmp_path)
+    try:
+        if kind == "multibranch":
+            plan = dataclasses.replace(plan_from_config({"NeuralNetwork": {"Training": {
+                "Parallelism": {"scheme": "multibranch"}}}}), devices_per_branch=(1,))
+        assert capturable(plan)
+        results = {}
+        for mode in ("eager", "graphs"):
+            model, cfg, opt, batches = _capture_case(torch)
+            kw = {}
+            if kind == "multibranch":
+                opt = dual_optimizer(model, {"Optimizer": {"type": "AdamW",
+                                                           "learning_rate": 0.01}})
+                kw = dict(kind=kind, decoder_scales=decoder_grad_scales(model, cfg, 1, (1,)),
+                          clip_norm=1.0)
+                assert kw["decoder_scales"], "no decoder parameter found for branch-0"
+            graphs = StepGraphs("cuda") if mode == "graphs" else None
+            train = make_dp_superstep_fn(model, opt, cfg, plan, device=torch.device("cuda"),
+                                         graphs=graphs, **kw)
+            state, acc = TrainState(model, opt, graphs=graphs), None
+            k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+            for b in batches[:4]:
+                state, acc = train(state, acc, [b])
+            torch.cuda.synchronize()
+            assert (edge_pipeline_planned.launches - k1,
+                    edge_pipeline_bwd_planned.launches - k2) == (2 * 4, 2 * 4), mode
+            results[mode] = (model, opt, acc, graphs)
+    finally:
+        dist.destroy_process_group()
+    (m1, o1, a1, _), (m2, o2, a2, graphs) = results["eager"], results["graphs"]
+    assert (graphs.eager_runs, graphs.captures, graphs.replays) == (1, 1, 3)
+    _state_equal(torch, m1, o1, m2, o2)
+    for x, y in zip(a1, a2):
+        assert torch.equal(x, y)
