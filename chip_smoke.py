@@ -57,6 +57,37 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                served outputs equal a direct make_forward call on the same
                collated batch bit for bit; one bin matches the same model
                on the CPU's plain path.
+6a. export     the same SchNet exported per served budget
+               (export_inference: a program for the card and one for the
+               CPU in each artifact; bytes and seconds printed), loaded
+               into a fresh engine (ServingEngine.from_exported ->
+               install_executables, one capture per budget) that serves
+               the 256 requests: the same bins as the live engine, every
+               output equal to the live engine's bit for bit, K1 launched
+               4 x bins through the loaded programs; a bin served from the
+               live graph and from the loaded program's, in turns (served
+               ms and device ms); the CPU program of one artifact within
+               the CPU tolerance of the card.
+6b. loadbench  serve/loadgen.run_load_bench on the same SchNet
+               (qm9 histogram, 256 requests, deadline 25 ms, batch 32, 4
+               open bins, offered at 2 x the calibrated rate): every gate
+               held (recompiles: no capture after warm-up; tail;
+               keeps_up; complete); p50/p99, graphs/s, slot waste.
+6c. fleet      serve/loadgen.run_fleet_bench as
+               __graft_entry__.py's fleet_serving_drill sets it up
+               (zinc_skew, 60 requests, deadline 30 ms, batch 6, 3
+               replicas sharing the card, spec_affinity, replica 1 killed
+               at 0.4 of the stream, per-replica telemetry shards) on the
+               same SchNet: every gate held (no capture after warm-up, no
+               in-deadline request dropped, p99 recovered, replica 1
+               detected); tools/graftboard.py's fleet view of the shards
+               finds replica 1 dead and covered by a reroute row. Then
+               __graft_entry__.py's rollover drill: a 2-replica tier
+               rolls over to the same snapshot while a stream of 40
+               requests is served (the shadow engines capture while the
+               old ones replay), nothing lost, outputs bit for bit across
+               the swap, and a NaN snapshot refused with the old outputs
+               bit for bit.
 7. train       the same SchNet trained by run_training on the card (f32,
                batch 32, 2 epochs, packing named off so the run keeps the
                ladder batches the checks below take) on the BCC set of
@@ -79,7 +110,7 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                against their plain versions in f32 and bf16 (same bits on
                two runs, K2 zero off the plan), each width's launch shape,
                and the times at F = 64 and 192 beside the bound, the plain
-               version and index_add_; then EdgePipelineBwdFn (K2 forward,
+               version and index_add_; then K2's operator (K2 forward,
                K1/K2 backward) on the card against the CPU plain path in
                every flavour.
 9. mlip        examples/md17/md17.json's PaiNN interatomic potential at
@@ -107,6 +138,20 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                order; all five printed); 12 K1 and 12 K2 launches in the
                step. Then the step's eager and device
                time on bench's first packed bin.
+9a. serve-forces  md17.json's PaiNN (random weights, seed 0)
+               served with forces (ServingEngine(with_forces=True)) over
+               96 MD17 stand-in frames, budgets fitted from their sizes
+               (batch 32): K1 = K2 = 6 launches a bin; every served energy
+               and force equals a direct energy_and_forces(create_graph=
+               False) at its bin bit for bit; the first bin card vs the CPU
+               plain path by [mlip]'s rule (energies at the f32 forward
+               tolerance, forces at the gradient tolerance, or within 10 x
+               the median of five card passes with index_add_ in place of
+               K1/K2); the exported MLIP artifact per
+               budget served through a fresh engine equals the live one
+               bit for bit with K1 = K2 = 6 a bin; a full bin's and a
+               one-request bin's device time (profiler over replays) with
+               the indexing_backward_kernel share of each.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
                run, in f32 and bf16: against their plain versions (same
@@ -158,7 +203,7 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                against their plain versions (same bits on two runs, K2 zero
                off the plan), the launch shape and shared memory per CTA,
                the times beside the bound, the plain version, index_add_
-               (K1) and index_select (K2); EdgePipelineBwdFn at F = 288,
+               (K1) and index_select (K2); K2's operator at F = 288,
                card against the CPU plain path.
 16. oc20       examples/open_catalyst_2020/oc20.json's MACE potential at
                full width (hidden 32, 2 layers, max_ell 2, node_max_ell 2,
@@ -208,7 +253,7 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                width 1; 128 and 192, PNA's moment pass [h, h*h] and the
                folded vector message at hidden 64) on the first packed
                train bin of the PNAEq run, in f32 and bf16, as
-               [zinc-kernels] holds them; EdgePipelineBwdFn at F = 192.
+               [zinc-kernels] holds them; K2's operator at F = 192.
 19. pnaeq      examples/md17/md17.json with mpnn_type "PNAEq" (what
                examples/md17/md17.py --mpnn_type PNAEq runs; hidden 64, 3
                layers, num_radial 20, radius 4.0) trained by run_training
@@ -275,7 +320,8 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                under "mlip_widths", at PNA's under "zinc_width", at the
                conv node head's under "polymer_widths", at MACE's under
                "mace_width" and at PNAEq's under "pnaeq_widths";
-               "launches" sums the serving, SchNet training, MLIP, ZINC,
+               "launches" sums the serving (slice, export, loadbench,
+               fleet, serve-forces), SchNet training, MLIP, ZINC,
                polymer, oc20, PNAEq, dp, fsdp and multibranch runs and the
                superstep run,
                "launches_by_path" splits them, DimeNet's 0 included), the
@@ -962,6 +1008,324 @@ def phase_slice(samples, budgets, settings):
     return launches, len(records), served_bin
 
 
+# ------------------------------------------- [export], [loadbench], [fleet]
+
+
+def serve_all(engine, samples, budgets, settings):
+    """Every sample through ``engine`` in one closed burst (the same bins
+    for the same samples and budgets). Returns (requests, bin records)."""
+    from hydragnn_tpu_torch.serve.batcher import DynamicBatcher
+
+    batcher = DynamicBatcher(budgets, deadline_ms=settings.deadline_ms,
+                             max_open_bins=settings.max_open_bins)
+    reqs = [batcher.submit(s) for s in samples]
+    batcher.close()
+    records = engine.process(batcher)
+    torch.cuda.synchronize()
+    return reqs, records
+
+
+def same_results(reqs_a, reqs_b, what):
+    import numpy as np
+
+    check(len(reqs_a) == len(reqs_b), f"{what}: {len(reqs_a)} vs {len(reqs_b)} requests")
+    for a, b in zip(reqs_a, reqs_b):
+        check(a.result is not None and b.result is not None
+              and all(np.array_equal(x, y) for x, y in zip(a.result, b.result)),
+              f"{what}: request {a.req_id} differs")
+
+
+def phase_export(samples, budgets, settings):
+    """The headline SchNet exported per served budget (a program for the
+    card and one for the CPU in each artifact), loaded into a fresh
+    engine (from_exported -> install_executables) that serves the
+    slice's requests: outputs equal the live engine's bit for bit, K1
+    launched 4 x bins through the loaded programs, the CPU program within
+    the CPU tolerance of the card."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.export import export_inference, load_exported
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.edge_pipeline import edge_pipeline_planned
+    from hydragnn_tpu_torch.serve.engine import ServingEngine
+
+    cfg = full_width_config()
+    model = create_model(cfg, device="cuda", seed=0)
+    live = ServingEngine(model, cfg, None, budgets, example=samples[0], settings=settings,
+                         device="cuda")
+    artifacts, info = {}, {}
+    for b in budgets:
+        key = (b.num_nodes, b.num_edges, b.num_graphs)
+        t0 = time.perf_counter()
+        blob = export_inference(model, cfg, None, live.collate_bin([samples[0]], b),
+                                devices=["cuda", "cpu"])
+        info[f"n{b.num_nodes}_e{b.num_edges}"] = {
+            "bytes": len(blob), "export_s": time.perf_counter() - t0}
+        artifacts[key] = blob
+    t0 = time.perf_counter()
+    execs = ServingEngine.from_exported(artifacts, device="cuda")
+    load_s = time.perf_counter() - t0
+    offline = ServingEngine(model, cfg, None, budgets, example=samples[0], settings=settings,
+                            warm=False, device="cuda")
+    t0 = time.perf_counter()
+    offline.install_executables(execs)
+    install_s = time.perf_counter() - t0
+    check(offline.graphs.captures == len(budgets) and offline.warm_runs == len(budgets),
+          f"install captured {offline.graphs.captures} graphs for {len(budgets)} budgets")
+    log(f"[export] artifacts (a card and a CPU program each): {json.dumps(info)}; loaded "
+        f"in {load_s:.2f} s, installed (one eager run and one capture per budget) in "
+        f"{install_s:.2f} s")
+    reqs_live, recs_live = serve_all(live, samples, budgets, settings)
+    edge_pipeline_planned.launches = 0
+    reqs, records = serve_all(offline, samples, budgets, settings)
+    launches = edge_pipeline_planned.launches
+    check(launches == cfg.num_conv_layers * len(records),
+          f"[export] K1 launched {launches} times through the loaded programs for "
+          f"{len(records)} bins (want {cfg.num_conv_layers} per bin)")
+    check([r["key"] for r in records] == [r["key"] for r in recs_live],
+          "[export] the two engines formed different bins")
+    same_results(reqs_live, reqs, "[export] loaded programs vs the live engine")
+    log(f"[export] {len(reqs)} requests in {len(records)} bins through the loaded programs "
+        f"(each bin a replay of its captured program): K1 launches {launches} = "
+        f"{cfg.num_conv_layers} x {len(records)}; every output equals the live engine's bit "
+        f"for bit")
+    # installs again: each keeps one graph a budget and releases the one it
+    # replaces (device memory steady); one whose last warm-up fails
+    # releases what it captured and leaves the engine serving as before
+    allocated = []
+    for _ in range(2):
+        offline.install_executables(execs)
+        torch.cuda.synchronize()
+        check(sorted(offline.graphs.graphs) == sorted(artifacts),
+              f"[export] {len(offline.graphs.graphs)} graphs kept after a second install")
+        allocated.append(torch.cuda.memory_allocated())
+    check(allocated[1] == allocated[0],
+          f"[export] device memory moved across repeated installs: {allocated} bytes")
+    steps, runs = dict(offline.graphs.graphs), offline.warm_runs
+
+    def refused(batch):
+        raise RuntimeError("warm-up refused")
+
+    last = list(execs)[-1]
+    try:
+        offline.install_executables({**execs, last: refused})
+    except RuntimeError as e:
+        check("warm-up refused" in str(e), f"[export] the failed install raised {e!r}")
+    else:
+        raise RuntimeError("check failed: [export] an install with a failing warm-up passed")
+    torch.cuda.synchronize()
+    check(all(offline.graphs.graphs[k] is steps[k] for k in steps)
+          and len(offline.graphs.graphs) == len(steps) and offline.warm_runs == runs
+          and torch.cuda.memory_allocated() == allocated[1],
+          f"[export] a failed install changed the engine ({len(offline.graphs.graphs)} graphs, "
+          f"{torch.cuda.memory_allocated()} bytes allocated against {allocated[1]})")
+    reqs_again, _ = serve_all(offline, samples, budgets, settings)
+    same_results(reqs_live, reqs_again, "[export] after the failed install")
+    log(f"[export] two more installs kept {len(steps)} graphs with {allocated[1]} bytes "
+        f"allocated each time; an install whose last warm-up failed released its "
+        f"{len(steps) - 1} new graph(s) and left the outputs bit for bit")
+    # a bin served from the live forward's graph and from the loaded
+    # program's, in turns: host pack + one copy + replay + output copy,
+    # and the replay's device time (profiler)
+    timing = {}
+    for spec in budgets:
+        key = (spec.num_nodes, spec.num_edges, spec.num_graphs)
+        host = live.collate_bin(samples[:4], spec)
+        row = {}
+        for name, eng in (("live", live), ("loaded", offline), ("live_again", live),
+                          ("loaded_again", offline)):
+            serve_bin = lambda: [o.clone() for o in eng.graphs.replay(key, [host])]  # noqa: E731
+            row[f"{name}_served_ms"] = eager_ms(serve_bin)
+            row[f"{name}_device_ms"] = device_profile(
+                serve_bin, (cfg.num_conv_layers, 0), f"[export] {name} bin").get("device_ms")
+        timing[f"n{spec.num_nodes}_e{spec.num_edges}"] = row
+        log(f"[export] a bin at {key}, live forward vs loaded program in turns: served "
+            + ", ".join(f"{row[f'{n}_served_ms']:.3f}" for n in ("live", "loaded", "live_again",
+                                                                    "loaded_again"))
+            + " ms; device " + ", ".join(
+                "not measured" if row[f"{n}_device_ms"] is None else f"{row[f'{n}_device_ms']:.3f}"
+                for n in ("live", "loaded", "live_again", "loaded_again")) + " ms")
+    rec = records[0]
+    host = offline.collate_bin([q.sample for q in rec["reqs"]], rec["spec"])
+    cpu_fn = load_exported(artifacts[rec["key"]], device="cpu")
+    cpu_out = cpu_fn(host.to("cpu"))[0].numpy()[: len(rec["reqs"])]
+    served = np.stack([q.result[0] for q in rec["reqs"]])
+    scale = float(np.abs(cpu_out).max())
+    np.testing.assert_allclose(served, cpu_out, **CPU_TOL)
+    np.testing.assert_allclose(served, cpu_out, rtol=1e-4, atol=1e-4 * scale)
+    log(f"[export] the artifact's CPU program on bin {rec['key']} vs the card: max|err| "
+        f"{float(np.abs(served - cpu_out).max()):.3g}, max|ref| {scale:.3g}")
+    live.close()
+    offline.close()
+    return {"k1": launches, "bins": len(records), "artifacts": info, "load_s": load_s,
+            "install_s": install_s, "bin_timing": timing}
+
+
+def phase_loadbench(samples):
+    """run_load_bench on the headline SchNet (qm9 histogram, 256 requests,
+    the slice's serving settings) on the card: every gate held, no
+    capture after warm-up."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.edge_pipeline import edge_pipeline_planned
+    from hydragnn_tpu_torch.serve.loadgen import run_load_bench
+
+    cfg = full_width_config()
+    model = create_model(cfg, device="cuda", seed=0)
+    edge_pipeline_planned.launches = 0
+    rep = run_load_bench(histogram="qm9", n_requests=N_REQUESTS, deadline_ms=25.0,
+                         batch_size=32, max_open_bins=4, seed=0,
+                         model_bits=(model, cfg, None), device="cuda")
+    launches = edge_pipeline_planned.launches
+    check(rep["ok"], f"[loadbench] gates failed: {rep['gates']} (p99 {rep['p99_ms']} ms vs "
+          f"{rep['tail_budget_ms']} ms, captures after warm-up {rep['post_warmup_compiles']})")
+    check(launches > 0 and launches % cfg.num_conv_layers == 0,
+          f"[loadbench] K1 launched {launches} times (want {cfg.num_conv_layers} per bin)")
+    log(f"[loadbench] {rep['requests']} qm9 requests offered at {rep['offered_rate_hz']} /s "
+        f"(2 x the calibrated rate), budgets {rep['budgets']}: p50 {rep['p50_ms']} ms, p99 "
+        f"{rep['p99_ms']} ms (tail budget {rep['tail_budget_ms']} ms), "
+        f"{rep['graphs_per_sec']} graphs/s, slot waste {rep['slot_waste']}, node fill "
+        f"{rep['node_fill']}, edge fill {rep['edge_fill']}, dispatch reasons "
+        f"{rep['dispatch_reasons']}; captures after warm-up "
+        f"{rep['post_warmup_compiles']}; gates {rep['gates']}; K1 launches {launches} "
+        f"(warm-up probe and stream, {cfg.num_conv_layers} a bin)")
+    rep["k1"] = launches
+    return rep
+
+
+def graftboard_fleet(path):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    try:
+        import graftboard
+    finally:
+        sys.path.pop(0)
+    return graftboard.build_fleet(path)
+
+
+def rollover_drill(model, cfg):
+    """__graft_entry__.py's serving_rollover_drill on the card with the
+    headline SchNet: a 2-replica tier rolls over to the same snapshot
+    while a stream is served (the shadows capture while the old engines
+    replay), then refuses a NaN snapshot."""
+    import threading
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.padschedule import dataset_size_arrays
+    from hydragnn_tpu_torch.serve import AdmissionError, ServingTier
+    from hydragnn_tpu_torch.serve.engine import ServingSettings, fit_serving_budgets
+    from hydragnn_tpu_torch.serve.fleet import FleetSettings
+    from hydragnn_tpu_torch.serve.loadgen import synthetic_request_samples
+
+    samples = synthetic_request_samples("qm9", 64, seed=5)
+    settings = ServingSettings(enabled=True, deadline_ms=15.0, max_open_bins=2, batch_size=4)
+    budgets = fit_serving_budgets(*dataset_size_arrays(samples), settings, seed=0)
+    tier = ServingTier(model, cfg, None, budgets, example=samples[0], settings=settings,
+                       fleet=FleetSettings(replicas=2), device="cuda")
+    try:
+        def probe(batch):
+            out = []
+            for s in batch:
+                fr = tier.submit(s)
+                t_limit = time.monotonic() + 20.0
+                while not fr.done and time.monotonic() < t_limit:
+                    time.sleep(0.002)
+                check(fr.result is not None, f"[fleet] probe request {fr.fleet_id} never "
+                      f"resolved (shed={fr.shed}, reason={fr.shed_reason})")
+                out.append(np.asarray(fr.result[0]).copy())
+            return out
+
+        before = probe(samples[:8])
+        stream = []
+
+        def drive():
+            for s in samples[8:48]:
+                stream.append(tier.submit(s))
+                time.sleep(0.004)
+
+        feeder = threading.Thread(target=drive, daemon=True)
+        feeder.start()
+        time.sleep(0.02)
+        row = tier.rollover(model.state_dict())
+        feeder.join(timeout=60)
+        t_limit = time.monotonic() + 30.0
+        while not all(r.done for r in stream) and time.monotonic() < t_limit:
+            time.sleep(0.005)
+        lost = [r.fleet_id for r in stream if r.result is None]
+        check(not lost and len(stream) == 40,
+              f"[fleet] {len(lost)}/{len(stream)} requests lost across the swap")
+        check(row["drained"], f"[fleet] old generation(s) {row['undrained']} never drained")
+        after = probe(samples[:8])
+        check(all(np.array_equal(a, b) for a, b in zip(before, after)),
+              "[fleet] outputs changed across the rollover (same snapshot)")
+        bad = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v
+               for k, v in model.state_dict().items()}
+        try:
+            tier.rollover(bad)
+        except AdmissionError:
+            pass
+        else:
+            raise RuntimeError("check failed: [fleet] a NaN snapshot was admitted")
+        check(tier.rollovers == 1, f"[fleet] {tier.rollovers} rollovers after a refusal")
+        untouched = probe(samples[:8])
+        check(all(np.array_equal(a, b) for a, b in zip(before, untouched)),
+              "[fleet] outputs changed after a refused rollover")
+    finally:
+        tier.close()
+    log(f"[fleet] rollover drill: {len(stream)} requests served across the swap (0 lost; the "
+        f"shadows warmed and captured in {row['warm_ms']} ms while the old engines served, "
+        f"total {row['total_ms']} ms), outputs bit for bit across the swap, a NaN snapshot "
+        f"refused with the old outputs bit for bit")
+    return row
+
+
+def phase_fleet():
+    """run_fleet_bench as __graft_entry__.py's fleet_serving_drill sets it
+    up (zinc_skew, 60 requests, 3 replicas, spec_affinity, replica 1
+    killed at 0.4 of the stream) on the headline SchNet on the card, with
+    per-replica telemetry shards read back by graftboard's fleet view;
+    then the rollover drill."""
+    import tempfile
+
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.edge_pipeline import edge_pipeline_planned
+    from hydragnn_tpu_torch.serve.loadgen import run_fleet_bench
+
+    cfg = full_width_config()
+    model = create_model(cfg, device="cuda", seed=0)
+    with tempfile.TemporaryDirectory(prefix="fleet_shards_") as tdir:
+        edge_pipeline_planned.launches = 0
+        rep = run_fleet_bench(histogram="zinc_skew", n_requests=60, deadline_ms=30.0,
+                              batch_size=6, replicas=3, policy="spec_affinity", seed=2,
+                              kill_replica=1, kill_after_frac=0.4,
+                              telemetry_base=os.path.join(tdir, "telemetry.jsonl"),
+                              model_bits=(model, cfg, None), device="cuda")
+        launches = edge_pipeline_planned.launches
+        check(rep["ok"], f"[fleet] gates failed: {rep['gates']} (p99_recovery "
+              f"{rep['p99_recovery_ms']} ms vs {rep['tail_budget_ms']} ms, router "
+              f"{rep['router']})")
+        fl = graftboard_fleet(tdir)
+    sv = fl.get("serving")
+    check(sv is not None, "[fleet] graftboard rendered no serving section from the shards")
+    check(1 in [int(d) for d in fl["heartbeats"]["dead"]],
+          f"[fleet] graftboard did not find replica 1 dead (dead={fl['heartbeats']['dead']})")
+    check(not sv["dead_without_reroute"],
+          f"[fleet] dead replica(s) {sv['dead_without_reroute']} have no reroute row")
+    check(launches > 0 and launches % cfg.num_conv_layers == 0,
+          f"[fleet] K1 launched {launches} times (want {cfg.num_conv_layers} per bin)")
+    log(f"[fleet] 3 replicas (threads sharing the card), spec_affinity, {rep['requests']} "
+        f"zinc_skew requests at {rep['offered_rate_hz']} /s, replica 1 killed at 0.4: gates "
+        f"{rep['gates']}; p50 {rep['p50_ms']} ms, p99 {rep['p99_ms']} ms, p99 after "
+        f"detection {rep['p99_recovery_ms']} ms (tail budget {rep['tail_budget_ms']} ms); "
+        f"router {json.dumps(rep['router'])}; captures after warm-up "
+        f"{rep['post_warmup_compiles']}; graftboard: dead {fl['heartbeats']['dead']}, "
+        f"reroutes {sv['reroutes']}, dead without reroute {sv['dead_without_reroute']}; "
+        f"K1 launches {launches}")
+    drill = rollover_drill(model, cfg)
+    return {"k1": launches, "report": {k: rep[k] for k in (
+        "offered_rate_hz", "wall_s", "p50_ms", "p99_ms", "p99_recovery_ms", "tail_budget_ms",
+        "gates", "router", "post_warmup_compiles")}, "rollover": drill}
+
+
 def bcc_config(path, precision="fp32"):
     """tests/inputs/ci.json's data, targets and training settings (batch 32,
     AdamW at 0.01) with bench.py's full-width SchNet, for two epochs."""
@@ -1498,13 +1862,12 @@ def budget_keys(budgets):
 
 
 def bwd_fn_card_vs_cpu(tag, plan, n, e, f_in, f_out, flavours, gen):
-    """EdgePipelineBwdFn (K2 forward, K1/K2 backward: the force pass and
+    """K2's operator (K2 forward, K1/K2 backward: the force pass and
     its derivative in an MLIP step) on the card against the CPU plain
     path on ``plan``, in each flavour: its first derivatives and their
     gradients with respect to g, a, b and W, each within VJP_TOL scaled
     by its largest |ref|; its backward launches K1."""
     from hydragnn_tpu_torch.ops.edge_pipeline import (
-        EdgePipelineBwdFn,
         edge_pipeline_bwd_planned,
         edge_pipeline_planned,
     )
@@ -1520,7 +1883,7 @@ def bwd_fn_card_vs_cpu(tag, plan, n, e, f_in, f_out, flavours, gen):
         for where in ("cuda", "cpu"):
             ins = {k: prim[k].to(where).requires_grad_(True) for k in names}
             where_plan = [t.to(where) for t in plan]
-            outs = [o for o in EdgePipelineBwdFn.apply(
+            outs = [o for o in edge_pipeline_bwd_planned(
                 ins["g"], ins["a"], ins.get("b"), ins.get("w"), *where_plan, n, 32, 64)
                 if o is not None]
             cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)).to(where)
@@ -1541,7 +1904,7 @@ def bwd_fn_card_vs_cpu(tag, plan, n, e, f_in, f_out, flavours, gen):
                 err = max(err, assert_close_scaled(x.numpy(), y.numpy(), VJP_TOL,
                                                    f"double backward {stages} {i}")[0])
         check(counts[0] > 0, f"double backward {stages}: no K1 launch")
-        log(f"[{tag}] EdgePipelineBwdFn {stages}, F {f_in} -> {f_out}: the first "
+        log(f"[{tag}] K2's operator {stages}, F {f_in} -> {f_out}: the first "
             f"derivatives and their gradients (g, a, b, W) card vs CPU plain path, max|err| "
             f"{err:.3g}; its backward launched K1 {counts[0]}, K2 {counts[1]}")
 
@@ -1551,7 +1914,7 @@ def phase_mlip_kernels(batch):
     packed MLIP train bin's plan: against their plain versions in f32 and bf16
     (same bits on two runs, zero rows off the plan), each width's launch
     shape, and the times at F = 64 and 192 (f32) beside the bound, the
-    plain version and, for K1, index_add_. Then EdgePipelineBwdFn (K2
+    plain version and, for K1, index_add_. Then K2's operator (K2
     forward, K1/K2 backward) on the card against the CPU plain path in
     every flavour."""
     from hydragnn_tpu_torch.ops.cuda_build import load_library
@@ -1929,6 +2292,155 @@ def phase_mlip(config, splits, md17_splits, budgets, first_batch):
                               (2 * per_fwd, 2 * per_fwd))
     return {"k1": run["k1"], "k2": run["k2"], "run": run, "parity": parity,
             "step_timing": timing, "step": (model0, cfg, training)}
+
+
+# --------------------------------------------------------- [serve-forces]
+
+
+def phase_serve_forces(mlip_config, md17_splits):
+    """md17.json's PaiNN served with forces on the card over the MD17
+    stand-in's frames (budgets fitted from their sizes): 6 K1 and 6 K2
+    launches a bin; served energies and forces equal a direct
+    energy_and_forces(create_graph=False) at each bin bit for bit, and
+    the CPU plain path by [mlip]'s rule; the exported MLIP
+    artifact per budget served through a fresh engine equals the live
+    engine bit for bit; a full bin's and a one-request bin's device time
+    with the indexing_backward_kernel share of each."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.data.graph import collate
+    from hydragnn_tpu_torch.data.padschedule import dataset_size_arrays
+    from hydragnn_tpu_torch.export import export_inference
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.serve.engine import (
+        ServingEngine,
+        ServingSettings,
+        fit_serving_budgets,
+    )
+    from hydragnn_tpu_torch.train.mlip import energy_and_forces
+
+    config = update_config(copy.deepcopy(mlip_config), *md17_splits)
+    model, cfg = create_model_config(config, "cuda", seed=0)
+    frames = [s for split in md17_splits for s in split][:96]
+    settings = ServingSettings(enabled=True, batch_size=32)
+    budgets = fit_serving_budgets(*dataset_size_arrays(frames), settings)
+    per_bin = 2 * cfg.num_conv_layers
+    live = ServingEngine(model, cfg, None, budgets, example=frames[0], settings=settings,
+                         with_forces=True, device="cuda")
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    reqs, records = serve_all(live, frames, budgets, settings)
+    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    check(k1 == k2 == per_bin * len(records),
+          f"[serve-forces] K1 {k1}, K2 {k2} for {len(records)} bins (want {per_bin} each a bin)")
+    for q, s in zip(reqs, frames):
+        check(q.result[0].shape == () and q.result[1].shape == (s.num_nodes, 3)
+              and all(bool(np.isfinite(r).all()) for r in q.result),
+              f"[serve-forces] request {q.req_id}: bad result")
+    for rec in records:
+        batch = live.collate_bin([q.sample for q in rec["reqs"]], rec["spec"]).to("cuda")
+        ge, forces = energy_and_forces(live.model, batch, cfg, create_graph=False)
+        ge, forces = ge.detach().cpu().numpy(), forces.cpu().numpy()
+        for gi, q in enumerate(rec["reqs"]):
+            off, n = rec["offsets"][gi]
+            check(np.array_equal(q.result[0], ge[gi])
+                  and np.array_equal(q.result[1], forces[off:off + n]),
+                  f"[serve-forces] bin {rec['key']}: served output differs from a direct "
+                  f"energy_and_forces")
+    log(f"[serve-forces] md17.json's PaiNN (hidden {cfg.hidden_dim}, {cfg.num_conv_layers} "
+        f"layers) served with forces: {len(reqs)} MD17 stand-in frames in {len(records)} bins "
+        f"of budgets {budget_keys(budgets)}, K1 {k1} = K2 {k2} = {per_bin} x {len(records)}; "
+        f"every energy and force equals a direct energy_and_forces(create_graph=False) at "
+        f"its bin bit for bit")
+    # The first bin, card vs the CPU plain path. Close atoms give forces
+    # far above the energies' scale, and then the card's other ops alone
+    # move them past the tolerance: held by [mlip]'s rule, within the
+    # tolerance or within 10 x the card's own floor (the median over
+    # N_FLOORS card passes with index_add_ in place of K1/K2, each its
+    # own atomic order, of the largest error over the largest |ref|).
+    rec = records[0]
+    group = [q.sample for q in rec["reqs"]]
+    host = live.collate_bin(group, rec["spec"])
+    cpu_model = copy.deepcopy(live.model).to("cpu")
+    ge_c, f_c = energy_and_forces(cpu_model, host.to("cpu"), cfg, create_graph=False)
+    k, n_real = len(group), sum(g.num_nodes for g in group)
+    cpu = {"energies": ge_c.detach().numpy()[:k], "forces": f_c.numpy()[:n_real]}
+    card = {"energies": np.stack([q.result[0] for q in rec["reqs"]]),
+            "forces": np.concatenate([q.result[1] for q in rec["reqs"]])}
+    unplanned = collate(group, rec["spec"].pad_spec()).to("cuda")
+    floors = {"energies": [], "forces": []}
+    for _ in range(N_FLOORS):
+        ge_s, f_s = energy_and_forces(live.model, unplanned, cfg, create_graph=False)
+        for name, got in (("energies", ge_s.detach().cpu().numpy()[:k]),
+                          ("forces", f_s.cpu().numpy()[:n_real])):
+            floors[name].append(scaled_error(got, cpu[name]))
+    parity = {}
+    for name, tol in (("energies", F32_TOL), ("forces", VJP_TOL)):
+        err = scaled_error(card[name], cpu[name])
+        ok = close_scaled(card[name], cpu[name], tol)
+        floor = float(np.median(floors[name]))
+        check(ok or err <= 10 * floor,
+              f"[serve-forces] {name}: card vs CPU {err:.3g} x max|ref|, outside the "
+              f"tolerance and above 10 x the median scatter floor {floor:.3g}")
+        scale = float(np.abs(cpu[name]).max())
+        parity[name] = {"error": err, "floor": floor, "in_tolerance": ok, "max_ref": scale}
+        log(f"[serve-forces] bin {rec['key']} {name}, card vs CPU plain path: largest error "
+            f"{err:.3g} x max|ref| ({scale:.3g}); in rtol {tol['rtol']:g} atol {tol['atol']:g} "
+            f"x min(max|ref|, 1): {'yes' if ok else 'no'}; median scatter floor {floor:.3g} "
+            f"(floors {[float(f'{x:.3g}') for x in floors[name]]})")
+    # the MLIP artifact per budget
+    arts = {}
+    t0 = time.perf_counter()
+    for b in budgets:
+        arts[(b.num_nodes, b.num_edges, b.num_graphs)] = export_inference(
+            model, cfg, None, live.collate_bin([frames[0]], b), with_forces=True,
+            devices=["cuda"])
+    export_s = time.perf_counter() - t0
+    offline = ServingEngine(model, cfg, None, budgets, example=frames[0], settings=settings,
+                            with_forces=True, warm=False, device="cuda")
+    offline.install_executables(ServingEngine.from_exported(arts, device="cuda"))
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    reqs2, records2 = serve_all(offline, frames, budgets, settings)
+    k1_art, k2_art = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    check(k1_art == k2_art == per_bin * len(records2),
+          f"[serve-forces] artifact engine: K1 {k1_art}, K2 {k2_art} for {len(records2)} bins")
+    same_results(reqs, reqs2, "[serve-forces] the exported MLIP artifact vs the live engine")
+    log(f"[serve-forces] the exported MLIP artifacts ({[len(b) for b in arts.values()]} bytes, "
+        f"exported in {export_s:.2f} s) served through from_exported -> "
+        f"install_executables: K1 {k1_art} = K2 {k2_art}, energies and forces equal the live "
+        f"engine's bit for bit (the loaded energy program differentiated at call time)")
+    # a full bin against a one-request bin of the same budget
+    spec = max(budgets, key=lambda b: b.num_nodes)
+    key = (spec.num_nodes, spec.num_edges, spec.num_graphs)
+    cap = max(i for i in range(1, len(frames) + 1)
+              if spec.fits(int(sum(s.num_nodes for s in frames[:i])),
+                           int(sum(s.num_edges for s in frames[:i])), i))
+    shapes = {}
+    for name, group in (("full", frames[:cap]), ("one_request", frames[:1])):
+        host = live.collate_bin(group, spec)
+        prof = device_profile(lambda: live.graphs.replay(key, [host]), (per_bin, per_bin),
+                              f"[serve-forces] {name} bin")
+        padded = spec.num_edges - int(host.edge_mask.sum())
+        shapes[name] = dict(prof, molecules=len(group), padded_edges=padded)
+        if prof:
+            log(f"[serve-forces] {name} bin at {key} ({len(group)} molecules, {padded} "
+                f"padded edges): {prof['device_ms']:.3f} ms of device time a replay "
+                f"(profiler), indexing_backward_kernel {prof['indexing_backward_ms']:.3f} ms "
+                f"({100 * prof['indexing_backward_ms'] / prof['device_ms']:.1f}%, "
+                f"{prof['indexing_backward_per_call']} launches), K1 {prof['k1_ms']:.3f} ms, "
+                f"K2 {prof['k2_ms']:.3f} ms, {prof['kernels_per_call']} kernels")
+        else:
+            log(f"[serve-forces] {name} bin: device time not measured (the profiler "
+                f"recorded no kernels)")
+    live.close()
+    offline.close()
+    return {"k1": k1 + k1_art, "k2": k2 + k2_art, "bins": len(records),
+            "budgets": budget_keys(budgets), "parity": parity, "bins_by_shape": shapes,
+            "export_s": export_s}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -2802,7 +3314,7 @@ def egnn_data():
 def phase_mace_kernels(batch):
     """K1 and K2 in the reduce-only flavour at MACE's width (F = 288) on
     the first packed oc20 train bin's plan in f32 and bf16
-    (``reduce_kernel_rows``), then EdgePipelineBwdFn at F = 288 on the
+    (``reduce_kernel_rows``), then K2's operator at F = 288 on the
     card against the CPU plain path."""
     rows = reduce_kernel_rows("mace-kernels", batch, MACE_WIDTH, 288)
     plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
@@ -2886,7 +3398,7 @@ def pnaeq_config(mlip_config):
 def phase_pnaeq_kernels(batch):
     """K1 and K2 in the reduce-only flavour at PNAEq's widths on the first
     packed PNAEq train bin's plan in f32 and bf16 (``reduce_kernel_rows``),
-    then EdgePipelineBwdFn at F = 192 on the card against the CPU plain
+    then K2's operator at F = 192 on the card against the CPU plain
     path."""
     rows = []
     for f in PNAEQ_WIDTHS:
@@ -4259,6 +4771,9 @@ def main():
     shape_rows = phase_shapes([max(served, key=lambda kb: kb[1].num_nodes), bins[0], head],
                               prior_path)
     launches, n_bins, served_bin = phase_slice(samples, budgets, settings)
+    export = phase_export(samples, budgets, settings)
+    loadbench = phase_loadbench(samples)
+    fleet = phase_fleet()
     train = phase_train(config, splits)
     headline, head_step = phase_train_timing(head_cpu)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
@@ -4271,6 +4786,7 @@ def main():
         f"{int(mlip_batch.edge_mask.sum())} edges (padded {mlip_batch.num_edges})")
     mlip_rows = phase_mlip_kernels(mlip_batch.to("cuda"))
     mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_budgets, mlip_batch)
+    serve_forces = phase_serve_forces(mlip_cfg, md17_splits)
     widths = [r for r in mlip_rows if "k1_ms" in r]
     zinc_cfgs, zinc_splits = zinc_data()
     zinc_loader, _ = train_loader(zinc_cfgs["fp32"], zinc_splits[0])
@@ -4323,8 +4839,12 @@ def main():
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:337",
         "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
                      + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
-                     + fsdp["run"]["k1"] + multibranch["k1"]),
-        "launches_by_path": {"serve": launches, "train": train["k1"], "mlip": mlip["k1"],
+                     + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
+                     + loadbench["k1"] + fleet["k1"] + serve_forces["k1"]),
+        "launches_by_path": {"serve": launches, "export": export["k1"],
+                             "loadbench": loadbench["k1"], "fleet": fleet["k1"],
+                             "serve_forces": serve_forces["k1"],
+                             "train": train["k1"], "mlip": mlip["k1"],
                              "zinc": zinc["k1"], "polymers": polymers["k1"],
                              "oc20": oc20["k1"], "egnn": 0, "pnaeq": pnaeq["k1"],
                              "dimenet": dimenet["run"]["k1"],
@@ -4360,8 +4880,10 @@ def main():
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
-                     + multibranch["k2"]),
-        "launches_by_path": {"serve": 0, "train": train["k2"], "mlip": mlip["k2"],
+                     + multibranch["k2"] + serve_forces["k2"]),
+        "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
+                             "serve_forces": serve_forces["k2"],
+                             "train": train["k2"], "mlip": mlip["k2"],
                              "zinc": zinc["k2"], "polymers": polymers["k2"],
                              "oc20": oc20["k2"], "egnn": 0, "pnaeq": pnaeq["k2"],
                              "dimenet": dimenet["run"]["k2"],
@@ -4390,6 +4912,10 @@ def main():
         "pnaeq_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                          for r in pnaeq_rows],
     }]
+    log(f"[report] export: {json.dumps(export)}")
+    log(f"[report] loadbench: {json.dumps(loadbench)}")
+    log(f"[report] fleet: {json.dumps(fleet)}")
+    log(f"[report] serve-forces: {json.dumps(serve_forces)}")
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] mlip: {json.dumps(mlip)}")

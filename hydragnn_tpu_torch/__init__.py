@@ -21,27 +21,36 @@ What runs today:
   ``Parallelism.superstep`` groups them;
 - serving: ``DynamicBatcher`` -> ``ServingEngine`` ->
   ``export.make_forward`` -> ``MultiHeadGraphModel``, one captured
-  forward per budget on the card;
+  forward per budget on the card, the MLIP form (energies and forces)
+  included; the fleet tier (``serve/fleet.ServingTier`` behind
+  ``serve/router.Router``) and the load benches (``serve/loadgen.py``);
+  export to a file (``export_inference``/``load_exported``, on
+  ``torch.export``);
 - parallel training (``parallel/``): ``Training.Parallelism`` schemes
   ``dp`` (with ZeRO/HSDP on FSDP2) and ``multibranch``, one process per
   card under ``torch.distributed``, every rank calling the same entry
   points.
 
-Graph sharding, durability, telemetry and the rest are later work
-(ROADMAP.md).
+Graph sharding, durability, observability beyond the telemetry stream
+core and the rest are later work (ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load
-the runner on first access). The kernels are compiled with ``nvcc`` at
+the runner, ``export_inference``/``load_exported`` the export module, on
+first access). The kernels are compiled with ``nvcc`` at
 their first launch (``ops/cuda_build.py``).
 """
 
-__all__ = ["run_training", "run_prediction"]
+__all__ = ["run_training", "run_prediction", "export_inference", "load_exported"]
 
 
 def __getattr__(name):
-    if name in __all__:
+    if name in ("run_training", "run_prediction"):
         from hydragnn_tpu_torch import runner
 
         return getattr(runner, name)
+    if name in ("export_inference", "load_exported"):
+        from hydragnn_tpu_torch import export
+
+        return getattr(export, name)
     raise AttributeError(f"module 'hydragnn_tpu_torch' has no attribute {name!r}")

@@ -338,6 +338,7 @@ def collate(
     with_segment_plan: bool = False,
     be: int = DEFAULT_BE,
     bn: int = DEFAULT_BN,
+    ensure_fields: Optional[dict] = None,
     as_numpy: bool = False,
 ) -> GraphBatch:
     """Concatenate and pad host graphs into a static-shape GraphBatch.
@@ -348,6 +349,10 @@ def collate(
     plan for the fused edge pipeline is attached at tiles ``(be, bn)``.
     A ``pad`` with ``num_triplets`` gets the angular triplets
     (``fill_triplets``) of the edges in their final order.
+    ``ensure_fields`` maps optional field names to last-dim widths that
+    materialize (zero-filled) even when every sample of the batch lacks
+    them, so every batch of a mixed dataset has one structure (``cell``
+    is membership-tested only), as in the JAX package.
     Floating fields are float32. ``as_numpy`` keeps host
     arrays; otherwise the fields are CPU tensors (``GraphBatch.to``
     moves them to a device).
@@ -385,6 +390,8 @@ def collate(
     def _opt(field: str, width_of) -> Optional[np.ndarray]:
         vals = [getattr(s, field) for s in samples]
         if all(v is None for v in vals):
+            if ensure_fields and field in ensure_fields:
+                return np.zeros((width_of, int(ensure_fields[field])), dtype=dtype)
             return None
         dims = {np.atleast_2d(v).shape[-1] for v in vals if v is not None}
         if len(dims) != 1:
@@ -406,7 +413,9 @@ def collate(
     y_graph = _opt("y_graph", G)
     graph_attr = _opt("graph_attr", G)
     cell = None
-    if any(s.cell is not None for s in samples):
+    if any(s.cell is not None for s in samples) or (
+        ensure_fields and "cell" in ensure_fields
+    ):
         cell = np.tile(np.eye(3, dtype=dtype), (G, 1, 1))
     energy = None
     if any(s.energy is not None for s in samples):

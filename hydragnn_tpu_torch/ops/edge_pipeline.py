@@ -19,11 +19,13 @@ parts:
   route and no fallback between the two;
 - kernel K2, ``edge_pipeline_bwd_planned``, K1's pullback (d_a, d_b,
   d_W for a cotangent of the output): ``csrc/edge_pipeline_bwd.cu`` on
-  CUDA tensors, ``edge_pipeline_bwd_plain`` on CPU tensors. Autograd
-  reaches it through ``EdgePipelineFn``, which ``edge_pipeline_planned``
-  takes whenever an operand needs a gradient, and differentiates it
-  again (forces of an interatomic potential) through
-  ``EdgePipelineBwdFn``, whose backward is K1 and K2 once more.
+  CUDA tensors, ``edge_pipeline_bwd_plain`` on CPU tensors.
+
+Both are dispatcher operators (``torch.ops.hydragnn.edge_pipeline`` and
+``torch.ops.hydragnn.edge_pipeline_bwd``) with fake implementations, so
+``torch.export`` records them as nodes of an exported program. K1's
+derivative is K2, and K2's derivative (forces of an interatomic
+potential differentiated again) is written with K1 and K2 once more.
 
 The JAX kernel's tiles (be=512, bn=256) were sized for the TPU's VMEM and
 its 128x128 matrix unit. On Hopper one CTA owns one node window and one
@@ -256,54 +258,100 @@ def edge_pipeline_bwd_plain(
     return scatter(d_h * b_s).to(a.dtype), scatter(d_h * a_s).to(b.dtype), d_w
 
 
-def _pullback(g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be):
-    """K2 (``edge_pipeline_bwd_planned``), through ``EdgePipelineBwdFn``
-    when a graph is being built over it, so its own gradient exists."""
-    args = (g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be)
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (g, a, b, w)
-    ):
-        return EdgePipelineBwdFn.apply(*args)
-    return edge_pipeline_bwd_planned(*args)
+# ----------------------------------------------------------------------
+# K1 and K2 as dispatcher operators
+# ----------------------------------------------------------------------
+#
+# Both kernels are operators, ``torch.ops.hydragnn.edge_pipeline`` (K1)
+# and ``torch.ops.hydragnn.edge_pipeline_bwd`` (K2), each with a CPU
+# implementation (the plain version), a CUDA one (the kernel), a fake one
+# (output shapes only) and a derivative. A trace on fake tensors
+# (``torch.export``) records each call as one node of the program instead
+# of entering the ctypes launch, and a loaded program differentiates
+# through K2 as the live model does. An operator cannot return None, so
+# K2 returns an empty tensor where b or W is absent; the Python wrappers
+# below turn it back into None. The registration uses the low-level
+# ``torch.library.Library`` API, whose dispatch does not import
+# ``torch._dynamo`` (``torch.library.custom_op`` does, at the first call).
+
+_LIB = torch.library.Library("hydragnn", "DEF")
+_LIB.define(
+    "edge_pipeline(Tensor a, Tensor? b, Tensor? w, Tensor perm, Tensor seg_padded, "
+    "Tensor valid, Tensor window_id, int num_segments, int bn, int be) -> Tensor"
+)
+_LIB.define(
+    "edge_pipeline_bwd(Tensor g, Tensor a, Tensor? b, Tensor? w, Tensor perm, "
+    "Tensor seg_padded, Tensor valid, Tensor window_id, int num_segments, int bn, "
+    "int be) -> (Tensor, Tensor, Tensor)"
+)
 
 
-class EdgePipelineFn(torch.autograd.Function):
-    """``edge_pipeline_planned`` with a gradient: K1 forward and K2
-    backward on CUDA tensors, ``edge_pipeline_plain`` and
-    ``edge_pipeline_bwd_plain`` on CPU tensors. A backward asked to build
-    a graph (``create_graph=True``, as forces of an interatomic potential
-    need) runs K2 through ``EdgePipelineBwdFn``, whose own backward is K1
-    and K2 again."""
+def _absent(a: torch.Tensor) -> torch.Tensor:
+    """K2's stand-in for the gradient of an absent operand."""
+    return a.new_empty(0)
 
-    @staticmethod
-    def forward(ctx, a, b, w, perm, seg_padded, valid, window_id,
-                num_segments, bn, be):
-        ctx.save_for_backward(a, b, w, perm, seg_padded, valid, window_id)
-        ctx.plan_sizes = (num_segments, bn, be)
-        return _edge_pipeline_fwd(
-            a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
-        )
 
-    @staticmethod
-    def backward(ctx, g):
-        a, b, w, perm, seg_padded, valid, window_id = ctx.saved_tensors
-        grads = _pullback(
-            g, a, b, w, perm, seg_padded, valid, window_id, *ctx.plan_sizes
-        )
-        need = ctx.needs_input_grad
-        return tuple(d if n else None for d, n in zip(grads, need)) + (None,) * 7
+def _k2_impl(g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be):
+    d_a, d_b, d_w = _edge_pipeline_bwd(
+        g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+    )
+    return d_a, _absent(a) if d_b is None else d_b, _absent(a) if d_w is None else d_w
+
+
+def _k1_fake(a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be):
+    f_out = w.shape[1] if w is not None else a.shape[1]
+    return a.new_empty((num_segments, f_out), dtype=_out_dtype(a, w))
+
+
+def _k2_fake(g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be):
+    return (
+        torch.empty_like(a),
+        _absent(a) if b is None else torch.empty_like(b),
+        _absent(a) if w is None else torch.empty_like(w),
+    )
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("edge_pipeline", lambda *args: _edge_pipeline_fwd(*args), _key)
+    _LIB.impl("edge_pipeline_bwd", lambda *args: _k2_impl(*args), _key)
+torch.library.register_fake("hydragnn::edge_pipeline", _k1_fake, lib=_LIB)
+torch.library.register_fake("hydragnn::edge_pipeline_bwd", _k2_fake, lib=_LIB)
+
+
+def _k1_setup(ctx, inputs, output):
+    a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be = inputs
+    ctx.save_for_backward(a, b, w, perm, seg_padded, valid, window_id)
+    ctx.plan_sizes = (num_segments, bn, be)
+
+
+def _k1_backward(ctx, g):
+    """K1's derivative is K2 (through its operator, so a backward that
+    builds a graph records K2 and can differentiate it again)."""
+    a, b, w, perm, seg_padded, valid, window_id = ctx.saved_tensors
+    grads = edge_pipeline_bwd_planned(
+        g, a, b, w, perm, seg_padded, valid, window_id, *ctx.plan_sizes
+    )
+    need = ctx.needs_input_grad
+    return tuple(d if n else None for d, n in zip(grads, need)) + (None,) * 7
 
 
 def _add(x: Optional[torch.Tensor], y: Optional[torch.Tensor]):
     return y if x is None else x if y is None else x + y
 
 
-class EdgePipelineBwdFn(torch.autograd.Function):
-    """K2 with a gradient: ``(d_a, d_b, d_W) = K2(g, a, b, W)`` forward,
-    and a backward written with K1 and K2 themselves plus elementwise
-    ops, so every second-order launch is one of the two kernels. The
-    JAX package has no kernel here: its pullback is differentiable XLA
-    ops (``_edge_pipeline_bwd_xla``), and this is their derivative.
+def _k2_setup(ctx, inputs, output):
+    g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be = inputs
+    ctx.save_for_backward(g, a, b, w, perm, seg_padded, valid, window_id)
+    ctx.plan_sizes = (num_segments, bn, be)
+    ctx.set_materialize_grads(False)
+
+
+def _k2_backward(ctx, u_a, u_b, u_w):
+    """K2's derivative, written with K1 and K2 themselves plus
+    elementwise ops, so every second-order launch is one of the two
+    kernels. The JAX package has no kernel here: its pullback is
+    differentiable XLA ops (``_edge_pipeline_bwd_xla``), and this is
+    their derivative.
 
     With ``sg = g[seg]`` at valid slots, ``d_h = sg @ W^T`` and
     ``(u_a, u_b, u_W)`` the cotangents of ``(d_a, d_b, d_W)``, and
@@ -320,59 +368,57 @@ class EdgePipelineBwdFn(torch.autograd.Function):
     by b and a go; in the reduce-only flavour ``g_bar = K1(u_a)`` and
     nothing else. Every row no valid slot covers gets exactly zero, as
     in the first order."""
+    g, a, b, w, *plan = ctx.saved_tensors
+    plan = (*plan, *ctx.plan_sizes)
+    need_g, need_a, need_b, need_w = ctx.needs_input_grad[:4]
+    # The empty stand-ins of absent operands carry no cotangent.
+    u_b = None if b is None else u_b
+    u_w = None if w is None else u_w
+    # Cotangents arrive in any layout (an expanded zero, a view);
+    # the kernels take contiguous rows of the primal's type.
+    u_a, u_b, u_w = (
+        None if u is None else u.to(x.dtype).contiguous()
+        for u, x in ((u_a, a), (u_b, b), (u_w, w))
+    )
+    # Elementwise products in f32 (f64 for f64), one cast each.
+    ct = _acc_dtype(a.dtype)
 
-    @staticmethod
-    def forward(ctx, g, a, b, w, perm, seg_padded, valid, window_id,
-                num_segments, bn, be):
-        ctx.save_for_backward(g, a, b, w, perm, seg_padded, valid, window_id)
-        ctx.plan_sizes = (num_segments, bn, be)
-        ctx.set_materialize_grads(False)
-        return edge_pipeline_bwd_planned(
-            g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
-        )
+    def mul(x, y):
+        return None if x is None or y is None else x.to(ct) * y.to(ct)
 
-    @staticmethod
-    def backward(ctx, u_a, u_b, u_w):
-        g, a, b, w, *plan = ctx.saved_tensors
-        plan = (*plan, *ctx.plan_sizes)
-        need_g, need_a, need_b, need_w = ctx.needs_input_grad[:4]
-        # Cotangents arrive in any layout (an expanded zero, a view);
-        # the kernels take contiguous rows of the primal's type.
-        u_a, u_b, u_w = (
-            None if u is None else u.to(x.dtype).contiguous()
-            for u, x in ((u_a, a), (u_b, b), (u_w, w))
-        )
-        # Elementwise products in f32 (f64 for f64), one cast each.
-        ct = _acc_dtype(a.dtype)
+    def cast(x, dtype):
+        return None if x is None else x.to(dtype)
 
-        def mul(x, y):
-            return None if x is None or y is None else x.to(ct) * y.to(ct)
+    c = u_a if b is None else cast(_add(mul(u_a, b), mul(u_b, a)), a.dtype)
+    g_bar = a_bar = b_bar = w_bar = None
+    if need_g:
+        if c is not None:
+            g_bar = edge_pipeline_planned(c, None, w, *plan)
+        if u_w is not None:
+            g_bar = _add(g_bar, edge_pipeline_planned(a, b, u_w, *plan))
+    d_h = sg_uw = None
+    if c is not None and (
+        (need_a and u_b is not None) or (need_b and u_a is not None)
+        or (need_w and w is not None)
+    ):
+        d_h, _, w_bar = edge_pipeline_bwd_planned(g, c, None, w, *plan)
+    if u_w is not None and (need_a or need_b):
+        sg_uw = edge_pipeline_bwd_planned(g, a, None, u_w, *plan)[0]
+    if need_a:
+        # without b, d_W = sum a^T sg: a's share of u_W is sg @ u_W^T
+        from_w = sg_uw if b is None else mul(b, sg_uw)
+        a_bar = cast(_add(mul(u_b, d_h), from_w), a.dtype)
+    if need_b and b is not None:
+        b_bar = cast(_add(mul(u_a, d_h), mul(a, sg_uw)), b.dtype)
+    return (g_bar, a_bar, b_bar, w_bar if need_w else None) + (None,) * 7
 
-        def cast(x, dtype):
-            return None if x is None else x.to(dtype)
 
-        c = u_a if b is None else cast(_add(mul(u_a, b), mul(u_b, a)), a.dtype)
-        g_bar = a_bar = b_bar = w_bar = None
-        if need_g:
-            if c is not None:
-                g_bar = edge_pipeline_planned(c, None, w, *plan)
-            if u_w is not None:
-                g_bar = _add(g_bar, edge_pipeline_planned(a, b, u_w, *plan))
-        d_h = sg_uw = None
-        if c is not None and (
-            (need_a and u_b is not None) or (need_b and u_a is not None)
-            or (need_w and w is not None)
-        ):
-            d_h, _, w_bar = _pullback(g, c, None, w, *plan)
-        if u_w is not None and (need_a or need_b):
-            sg_uw = _pullback(g, a, None, u_w, *plan)[0]
-        if need_a:
-            # without b, d_W = sum a^T sg: a's share of u_W is sg @ u_W^T
-            from_w = sg_uw if b is None else mul(b, sg_uw)
-            a_bar = cast(_add(mul(u_b, d_h), from_w), a.dtype)
-        if need_b and b is not None:
-            b_bar = cast(_add(mul(u_a, d_h), mul(a, sg_uw)), b.dtype)
-        return (g_bar, a_bar, b_bar, w_bar if need_w else None) + (None,) * 7
+torch.library.register_autograd(
+    "hydragnn::edge_pipeline", _k1_backward, setup_context=_k1_setup, lib=_LIB
+)
+torch.library.register_autograd(
+    "hydragnn::edge_pipeline_bwd", _k2_backward, setup_context=_k2_setup, lib=_LIB
+)
 
 
 def edge_pipeline_planned(
@@ -388,23 +434,16 @@ def edge_pipeline_planned(
     be: int = DEFAULT_BE,
 ) -> torch.Tensor:
     """``segment_sum((a * b) @ w)`` over a block plan: ``[N, F_out]`` in
-    ``promote(a, W)``.
+    ``promote(a, W)``, through K1's operator.
 
     A CUDA ``a`` launches the Hopper kernel K1 (and counts the launch in
     ``edge_pipeline_planned.launches``); a CPU ``a`` runs
-    ``edge_pipeline_plain``. Anything else raises. When an operand needs
-    a gradient the call goes through ``EdgePipelineFn``, whose backward
-    is K2 (``edge_pipeline_bwd_planned``). E=0 returns zeros without a
-    launch. Padding edges are invalid plan slots
+    ``edge_pipeline_plain``. Anything else raises. The operator's
+    derivative is K2 (``edge_pipeline_bwd_planned``). E=0 returns zeros
+    without a launch. Padding edges are invalid plan slots
     (``plan_sorted_blocks(edge_valid=...)``), so callers must not
     pre-mask the operands."""
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (a, b, w)
-    ):
-        return EdgePipelineFn.apply(
-            a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
-        )
-    return _edge_pipeline_fwd(
+    return torch.ops.hydragnn.edge_pipeline(
         a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
     )
 
@@ -426,12 +465,27 @@ def edge_pipeline_bwd_planned(
     be: int = DEFAULT_BE,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The pullback of ``edge_pipeline_planned`` for the cotangent ``g``
-    ``[N, F_out]``: ``(d_a, d_b, d_W)``, None for an absent operand.
+    ``[N, F_out]``: ``(d_a, d_b, d_W)``, None for an absent operand,
+    through K2's operator.
 
     A CUDA ``a`` launches the Hopper kernel K2 (counted in
     ``edge_pipeline_bwd_planned.launches``); a CPU ``a`` runs
     ``edge_pipeline_bwd_plain``. Anything else raises. E=0 returns empty
     d_a/d_b and a zero d_W without a launch."""
+    d_a, d_b, d_w = torch.ops.hydragnn.edge_pipeline_bwd(
+        g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+    )
+    return d_a, None if b is None else d_b, None if w is None else d_w
+
+
+edge_pipeline_bwd_planned.launches = 0
+
+
+def _edge_pipeline_bwd(
+    g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
+):
+    """K2 without autograd: zeros for E=0, the plain version on the CPU,
+    the kernel on CUDA."""
     if a.shape[0] == 0:
         return (
             torch.zeros_like(a),
@@ -450,9 +504,6 @@ def edge_pipeline_bwd_planned(
     return _edge_pipeline_bwd_cuda(
         g, a, b, w, perm, seg_padded, valid, window_id, num_segments, bn, be
     )
-
-
-edge_pipeline_bwd_planned.launches = 0
 
 
 def segment_sum_planned(

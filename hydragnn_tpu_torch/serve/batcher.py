@@ -30,24 +30,33 @@ from hydragnn_tpu_torch.data.padschedule import OpenBin, PackPlanner
 
 class ServeRequest:
     """One in-flight request: the sample, its enqueue timestamp (the
-    latency zero point), and the slots the engine fills at response
-    time (the fleet router's deadline classes come with the fleet). Plain attributes, no
-    locking — a request is owned by the submitting thread until
+    latency zero point), its deadline class (0 = best-effort batch, 1 =
+    standard, 2 = interactive: the fleet router's shed order; a bare
+    batcher ignores it), and the slots the engine fills at response
+    time. Plain attributes, no locking — a request is owned by the submitting thread until
     ``submit`` and by the dispatch loop after."""
 
     __slots__ = (
         "sample",
         "req_id",
         "t_enqueue",
+        "deadline_class",
         "result",
         "t_done",
         "latency_ms",
     )
 
-    def __init__(self, sample: GraphSample, req_id: int, t_enqueue: float):
+    def __init__(
+        self,
+        sample: GraphSample,
+        req_id: int,
+        t_enqueue: float,
+        deadline_class: int = 1,
+    ):
         self.sample = sample
         self.req_id = int(req_id)
         self.t_enqueue = float(t_enqueue)
+        self.deadline_class = int(deadline_class)
         self.result = None
         self.t_done: Optional[float] = None
         self.latency_ms: Optional[float] = None
@@ -79,11 +88,15 @@ class DynamicBatcher:
 
     # -- frontend side -------------------------------------------------
 
-    def submit(self, sample: GraphSample) -> ServeRequest:
+    def submit(
+        self, sample: GraphSample, *, deadline_class: int = 1
+    ) -> ServeRequest:
         """Enqueue one graph; returns its request handle (the engine
         fills ``result``/``latency_ms``). Thread-safe; never blocks.
         Raises when the graph exceeds the largest budget — an
-        unservable request must fail at the door, not poison a bin."""
+        unservable request must fail at the door, not poison a bin.
+        ``deadline_class`` is carried for the fleet router's shed
+        accounting; the batcher batches all classes alike."""
         if self._closed:
             raise RuntimeError("batcher is closed")
         if not self.planner.fits(sample.num_nodes, sample.num_edges):
@@ -93,7 +106,9 @@ class DynamicBatcher:
                 f"budget {self.planner.big} — refit budgets "
                 "(fit_pack_budgets) over a histogram that covers it"
             )
-        req = ServeRequest(sample, next(self._ids), self.clock())
+        req = ServeRequest(
+            sample, next(self._ids), self.clock(), deadline_class
+        )
         # put_nowait, structurally: the queue is unbounded today, but
         # the never-blocks contract must survive someone adding a
         # maxsize — overflow policy is the front door's fits() check,
@@ -112,6 +127,22 @@ class DynamicBatcher:
         return self._q.qsize() + sum(
             len(b.tags) for b in self.planner.open_bins
         )
+
+    def oldest_anchor_age_s(self, now: Optional[float] = None) -> float:
+        """Age of the oldest open bin's deadline anchor (``b.meta["t0"]``,
+        the stamp the deadline trigger fires on). Past the dispatch
+        deadline, bins expire faster than they dispatch: the fleet
+        router's shed policy reads this. 0.0 with no open bin. Safe from
+        a frontend thread: it reads a snapshot of the open bins."""
+        anchors = [
+            b.meta["t0"]
+            for b in list(self.planner.open_bins)
+            if "t0" in b.meta
+        ]
+        if not anchors:
+            return 0.0
+        t = self.clock() if now is None else float(now)
+        return max(t - min(anchors), 0.0)
 
     # -- dispatch side (single consumer: the engine loop) --------------
 

@@ -3,21 +3,31 @@
 Counterpart of ``hydragnn_tpu/serve/engine.py``: ``ServingSettings``,
 ``serving_settings``, ``fit_serving_budgets`` and ``ServingEngine``.
 
-The engine holds one inference forward (``export.make_forward``: eval
-mode, no gradients, the raw head tuple) on one device and runs one
-warm-up forward per fitted ``PackSpec`` budget at start, so the kernel
-library is built and every budget shape has run once before traffic.
-On a card the warm-up then captures the forward at each budget as a
+The engine holds one executable per fitted ``PackSpec`` budget: the
+inference forward (``export.make_forward``: eval mode, the raw head
+tuple, or with ``with_forces`` the MLIP pair (graph energies, forces)),
+or a program loaded from an exported artifact (``from_exported`` ->
+``install_executables``). It runs each once at start (``warm_all``), so
+the kernel library is built and every budget shape has run before
+traffic. On a card it then captures each executable at its budget as a
 CUDA graph (``train/capture.StepGraphs``), the counterpart of the JAX
-engine's one compiled executable per budget, and each dispatch copies
-its bin into that budget's static buffers (one pinned copy) and replays
-the graph; the outputs are copied out of the graph's buffers at once, so
-a later replay cannot overwrite a bin that is still in flight. Served
+engine's one compiled executable per budget; each dispatch copies its
+bin into that budget's static buffers (one pinned copy) and replays the
+graph, and the outputs are copied out of the graph's buffers at once,
+so a later replay cannot overwrite a bin still in flight. No dispatch
+ever captures: a bin whose shape has no executable raises. Served
 outputs equal a direct forward's on the same batch.
+
 Every bin is collated WITH the sorted-segment block plan, so on a CUDA
-device each CFConv layer's edge pipeline runs the hand-written K1
-kernel (the JAX engine collates without a plan and stays on XLA's
-scatter).
+device each receiver sum runs the hand-written K1 kernel, and the force
+pass of a served potential runs K2 (the JAX engine collates without a
+plan and stays on XLA's scatter).
+
+Each engine serves its own copy of the module, made from the admitted
+snapshot on its device; the caller's model is never changed. A captured
+graph holds its parameters' addresses, so engines that shared a module
+(the tier's replicas, a rollover's new generation beside the old) would
+change each other's weights.
 
 Dispatch is double-buffered as in the JAX engine: bin t+1 is collated,
 copied to the device and launched before bin t's outputs are fetched,
@@ -25,19 +35,20 @@ so the host's collate overlaps the device's work. The fetch is the one
 host sync of the loop.
 
 A snapshot must pass the admission gate (``serve/admission.py``) before
-the engine warms. Not ported yet: telemetry rows (the engine keeps its
-running totals and ``rollup()`` returns them, but emits nothing until
-telemetry is ported, ROADMAP Queue 1 item 13), the fleet wiring and
-its hooks, executables installed from exported artifacts, the MLIP
-``with_forces`` form and ``ensure_fields`` for mixed datasets (item 14).
+the engine warms. Every resolved bin emits a ``serve`` telemetry row and
+``rollup`` a ``serve_rollup`` row (docs/OBSERVABILITY.md's serving
+schema): to the replica's own stream when the fleet tier wires one
+(``stream=``, ``replica=``), else to the process's active stream
+(``utils/telemetry.emit``, a no-op when none is installed).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,7 +58,8 @@ from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.export import make_forward
 from hydragnn_tpu_torch.serve.admission import admit_state
 from hydragnn_tpu_torch.serve.batcher import DynamicBatcher, ServeRequest
-from hydragnn_tpu_torch.train.capture import StepGraphs
+from hydragnn_tpu_torch.train.capture import GRAPH_LOCK, StepGraphs
+from hydragnn_tpu_torch.utils import telemetry
 
 
 @dataclass(frozen=True)
@@ -118,10 +130,15 @@ class ServingEngine:
     """Warm inference over dynamic bins (module docstring).
 
     ``model`` is the port's model and ``state`` a ``state_dict`` to
-    serve (``None`` serves the model's own weights). ``example`` is one
-    representative GraphSample: its optional fields define the batch
-    structure and it is the warm-up payload. ``device=None`` means
-    ``"cuda"``; without a card that raises.
+    serve (``None`` serves the model's own weights); the engine serves a
+    copy of it. ``example`` is one representative GraphSample: its
+    optional fields define the batch structure (requests must carry the
+    same fields, or ``ensure_fields`` names the ones to zero-fill, as the
+    training loaders do) and it is the warm-up payload. ``with_forces``
+    serves (graph energies, forces). ``warm=False`` builds no executable
+    (for ``install_executables``). ``stream``/``replica`` are the fleet
+    tier's wiring. ``device=None`` means ``"cuda"``; without a card that
+    raises.
     """
 
     def __init__(
@@ -133,14 +150,26 @@ class ServingEngine:
         *,
         example: GraphSample,
         settings: Optional[ServingSettings] = None,
+        ensure_fields: Optional[dict] = None,
+        with_forces: bool = False,
+        warm: bool = True,
+        stream=None,
+        replica: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
     ):
         self.device = resolve_device(device)
         self.settings = settings or ServingSettings(enabled=True)
         self.cfg = cfg
+        self.with_forces = bool(with_forces)
+        # Fleet wiring: ``stream`` is the replica's own shard (replicas
+        # are threads of one process), ``replica`` tags every row.
+        self._stream = stream
+        self.replica = None if replica is None else int(replica)
+        self._closed = False
         self.budgets = list(budgets)
         if not self.budgets:
             raise ValueError("ServingEngine needs at least one budget")
+        self._ensure_fields = dict(ensure_fields or {})
         self._example = example
         if self.settings.validate_snapshot:
             # A non-finite snapshot never warms a single shape.
@@ -148,19 +177,38 @@ class ServingEngine:
                 model.state_dict() if state is None else state,
                 source="serving snapshot",
             )
+        self.model = copy.deepcopy(model)
         if state is not None:
-            model.load_state_dict(state)
-        model.to(self.device)
-        self._forward = make_forward(model, cfg)
+            self.model.load_state_dict(state)
+        self.model.to(self.device)
+        self._forward = make_forward(self.model, cfg, with_forces=self.with_forces)
         self.graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
-        self._warm: Dict[Tuple[int, int, int], bool] = {}
+        # Executable per budget shape; on a card its graph is kept under
+        # the same key.
+        self._exec: Dict[Tuple[int, int, int], Callable] = {}
         self.warmup_ms: Dict[Tuple[int, int, int], float] = {}
-        self._closed = False
-        # Bounded latency reservoir; running totals carry the full-run
-        # aggregates.
+        # Executables warmed (on a card: graphs captured); a dispatch
+        # never adds one.
+        self.warm_runs = 0
+        self.dispatches = 0
+        self.served_requests = 0
+        # Bounded retention: the per-bin records and the latency
+        # reservoir are windows; running totals carry the full run.
+        self._records: deque = deque(maxlen=4096)
         self._lat: deque = deque(maxlen=65536)
         self._agg = self._fresh_agg()
-        self.warm_all()
+        if warm:
+            self.warm_all()
+
+    def _emit(self, row: dict) -> None:
+        """One telemetry row to the replica's stream when fleet-wired,
+        else to the process's active stream; tagged with the replica."""
+        if self.replica is not None:
+            row["replica"] = self.replica
+        if self._stream is not None:
+            self._stream.emit(row)
+        else:
+            telemetry.emit(row)
 
     @staticmethod
     def _fresh_agg() -> dict:
@@ -177,6 +225,16 @@ class ServingEngine:
             "t_last": None,
         }
 
+    def reset_stats(self) -> None:
+        """Drop every retained record, latency sample and running total
+        (the load bench separates its calibration probe from the
+        measured stream with this)."""
+        self._records.clear()
+        self._lat.clear()
+        self._agg = self._fresh_agg()
+        self.served_requests = 0
+        self.dispatches = 0
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -190,30 +248,101 @@ class ServingEngine:
             samples,
             spec.pad_spec(),
             with_segment_plan=True,
+            ensure_fields=self._ensure_fields,
             as_numpy=True,
         )
 
-    def _graph_forward(self, batches):
-        return self._forward(batches[0])
+    def _warm(self, spec: PackSpec, fn: Callable):
+        """Run ``fn`` once at ``spec`` (building the kernel library on
+        the first), then on a card record its graph, which the caller
+        keeps (``_adopt``) or releases. A capture that fails raises.
+        Returns the graph (None on the CPU) and the milliseconds."""
+        t0 = time.perf_counter()
+        host = [self.collate_bin([self._example], spec)]
+        captured = None
+        if self.graphs is None:
+            fn(host[0].to(self.device))
+        else:
+            step = lambda batches: fn(batches[0])  # noqa: E731
+            self.graphs.eager(step, host)
+            captured = self.graphs.record(step, host)
+        self._sync()
+        return captured, round(1e3 * (time.perf_counter() - t0), 3)
+
+    def _adopt(self, key, fn: Callable, captured, ms: float) -> None:
+        """Serve ``fn`` (and its graph) for the budget shape ``key``."""
+        if captured is not None:
+            self.graphs.put(key, captured)
+        self._exec[key] = fn
+        self.warm_runs += 1
+        self.warmup_ms[key] = ms
 
     def warm_all(self) -> None:
-        """Run one forward per budget shape (building the kernel library
-        on the first), then on a card capture it, so no shape is first
-        seen under traffic. A capture that fails raises."""
+        """Run the inference forward once per budget shape, then on a
+        card capture it, so no shape is first seen under traffic."""
         for b in self.budgets:
             key = _spec_key(b)
-            if key in self._warm:
-                continue
-            t0 = time.perf_counter()
-            host = [self.collate_bin([self._example], b)]
-            if self.graphs is None:
-                self._forward(host[0].to(self.device))
-            else:
-                self.graphs.eager(self._graph_forward, host)
-                self.graphs.capture(key, self._graph_forward, host)
-            self._sync()
-            self._warm[key] = True
-            self.warmup_ms[key] = round(1e3 * (time.perf_counter() - t0), 3)
+            if key not in self._exec:
+                self._adopt(key, self._forward, *self._warm(b, self._forward))
+
+    @staticmethod
+    def from_exported(
+        artifacts: Dict[Tuple[int, int, int], Union[bytes, str]],
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> Dict[Tuple[int, int, int], Callable]:
+        """Load one exported artifact per budget shape into the
+        executable-map form ``{(N, E, G): fn(batch)}`` on ``device``
+        (``export.load_exported``; ``None`` means ``"cuda"``): the
+        offline deployment, which needs no checkpoint. The map plugs
+        into ``install_executables``."""
+        from hydragnn_tpu_torch.export import load_exported
+
+        return {
+            tuple(key): load_exported(src, device=device)
+            for key, src in artifacts.items()
+        }
+
+    def install_executables(
+        self, execs: Dict[Tuple[int, int, int], Callable]
+    ) -> None:
+        """Replace or extend the executable map (exported-artifact
+        deployments). Every budget shape, the smaller downshift targets
+        included, must have an executable after the merge, or this
+        raises before anything changes. Each new executable is then run
+        once at its shape and, on a card, captured; only when all of
+        them warmed does the engine serve them, releasing the graphs they
+        replace. A failure releases the graphs already captured and
+        leaves the engine as it was: its executables, graphs, warm-up
+        counts and device memory."""
+        if self._closed:
+            raise RuntimeError(
+                "ServingEngine is closed — installing executables into a "
+                "torn-down engine would resurrect it half-alive"
+            )
+        merged = dict(self._exec)
+        merged.update({tuple(k): v for k, v in execs.items()})
+        missing = [
+            _spec_key(b) for b in self.budgets if _spec_key(b) not in merged
+        ]
+        if missing:
+            raise ValueError(
+                f"executable map does not cover budget shape(s) {missing} — a "
+                "bin downshifted to any of them would fail at dispatch; export "
+                "one artifact per budget shape"
+            )
+        by_key = {_spec_key(b): b for b in self.budgets}
+        warmed = []
+        try:
+            for key, fn in execs.items():
+                key = tuple(key)
+                warmed.append((key, fn, *self._warm(by_key.get(key) or PackSpec(*key), fn)))
+        except BaseException:
+            if self.graphs is not None:
+                self.graphs.release(*(w[2] for w in warmed))
+            raise
+        for w in warmed:
+            self._adopt(*w)
 
     # -- the dispatch loop (the serving hot path) ----------------------
 
@@ -223,16 +352,17 @@ class ServingEngine:
         if self._closed:
             raise RuntimeError(
                 "ServingEngine is closed — a closed engine must never "
-                "dispatch"
+                "dispatch (the fleet tier's rollover relies on this being loud)"
             )
         reqs = batcher.bin_requests(b)
         spec = batcher.bin_spec(b)
         key = _spec_key(spec)
-        if key not in self._warm:
+        ex = self._exec.get(key)
+        if ex is None:
             raise RuntimeError(
-                f"no warm shape {key} for the dispatched bin — the "
+                f"no warm executable for dispatched shape {key} — the "
                 "batcher's budget set must equal the engine's; warm "
-                f"shapes: {sorted(self._warm)}"
+                f"shapes: {sorted(self._exec)}"
             )
         t_start = batcher.clock()
         t0 = time.perf_counter()
@@ -244,10 +374,12 @@ class ServingEngine:
             offsets.append((off, s.num_nodes))
             off += s.num_nodes
         if self.graphs is None:
-            outs = self._forward(batch.to(self.device))
+            outs = ex(batch.to(self.device))
         else:
-            outs = tuple(o.clone() for o in self.graphs.replay(key, [batch]))
+            with GRAPH_LOCK:
+                outs = tuple(o.clone() for o in self.graphs.replay(key, [batch]))
         t1 = time.perf_counter()
+        self.dispatches += 1
         return {
             "reqs": reqs,
             "offsets": offsets,
@@ -266,33 +398,61 @@ class ServingEngine:
         }
 
     def _split_outputs(self, outs_host, rec) -> None:
-        """Per-request slices of the padded head outputs: graph heads
-        index the request's graph slot, node heads its node rows."""
-        levels = [(h.type, h.dim) for h in self.cfg.heads]
+        """Per-request slices of the padded outputs: graph-level outputs
+        index the request's graph slot, node-level ones its node rows
+        (the MLIP pair: energies by graph, forces by node)."""
+        if self.with_forces:
+            levels = [("graph", None), ("node", None)]
+        else:
+            levels = [(h.type, h.dim) for h in self.cfg.heads]
         for gi, req in enumerate(rec["reqs"]):
             off, n = rec["offsets"][gi]
             result = []
             for hi, (level, dim) in enumerate(levels):
-                out = outs_host[hi][..., :dim]
+                out = outs_host[hi]
+                if dim is not None:
+                    out = out[..., :dim]
                 result.append(out[gi] if level == "graph" else out[off : off + n])
             req.result = result
 
     def _resolve(self, rec: dict) -> dict:
         """Fetch one in-flight bin's outputs and complete its requests —
-        the one host sync of the loop."""
+        the one host sync of the loop, made under ``GRAPH_LOCK`` as every
+        CUDA call that may meet another thread's capture is
+        (``train/capture.py``)."""
         t0 = time.perf_counter()
-        outs_host = [o.cpu().numpy() for o in rec["outs"]]
+        with GRAPH_LOCK:
+            outs_host = [o.cpu().numpy() for o in rec["outs"]]
         t_done = rec["clock"]()
-        fetch_ms = 1e3 * (time.perf_counter() - t0)
+        fetch_ms = round(1e3 * (time.perf_counter() - t0), 4)
         self._split_outputs(outs_host, rec)
         for req in rec["reqs"]:
             req.t_done = t_done
             req.latency_ms = round(1e3 * (t_done - req.t_enqueue), 4)
+        self.served_requests += len(rec["reqs"])
+        spec = rec["spec"]
+        row = {
+            "t": "serve",
+            "spec": f"n{spec.num_nodes}_e{spec.num_edges}_g{spec.num_graphs}",
+            "reason": rec["reason"],
+            "graphs": len(rec["reqs"]),
+            "nodes": rec["tot_nodes"],
+            "edges": rec["tot_edges"],
+            "nodes_pad": spec.num_nodes,
+            "edges_pad": spec.num_edges,
+            "graphs_pad": spec.num_graphs,
+            "queue_depth": rec["queue_depth"],
+            "dispatch_ms": round(1e3 * (rec["t_dispatch"] - rec["t_collate"]), 4),
+            "fetch_ms": fetch_ms,
+        }
+        if rec["t_bin0"] is not None:
+            row["bin_wait_ms"] = round(1e3 * (t_done - rec["t_bin0"]), 4)
+        self._emit(row)
         done = dict(rec)
         done["t_done"] = t_done
         done["fetch_ms"] = fetch_ms
         done.pop("outs")  # device tensors are never retained past the fetch
-        spec = rec["spec"]
+        self._records.append(done)
         agg = self._agg
         agg["graphs"] += len(rec["reqs"])
         agg["requests"] += len(rec["reqs"])
@@ -310,16 +470,27 @@ class ServingEngine:
         return done
 
     def process(
-        self, batcher: DynamicBatcher, *, timeout: float = 0.2
+        self,
+        batcher: DynamicBatcher,
+        *,
+        timeout: float = 0.2,
+        stop: Optional[Callable[[], bool]] = None,
     ) -> List[dict]:
         """Drive the dispatch loop: pull bins from the batcher, dispatch
         double-buffered, resolve responses. Returns the resolved bin
-        records. Exits when the batcher is closed and drained; an idle
-        wait of ``timeout`` resolves a pending bin, so a lone request
-        never waits for a successor."""
+        records. Exits when the batcher is closed and drained; an idle wait of ``timeout`` resolves a pending
+        bin, so a lone request never waits for a successor.
+
+        ``stop`` is the fleet tier's kill hook: checked between bins, a
+        True return abandons the loop at once, any in-flight bin dropped
+        unresolved, as a killed process would; the tier's re-route then
+        recovers the abandoned requests. Graceful teardown never passes
+        ``stop`` (it closes the batcher and lets the loop drain)."""
         pending: Optional[dict] = None
         done: List[dict] = []
         while True:
+            if stop is not None and stop():
+                return done
             item = batcher.next_bin(timeout=timeout)
             if item is None:
                 if pending is not None:
@@ -342,40 +513,64 @@ class ServingEngine:
 
     # -- lifecycle -----------------------------------------------------
 
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def drain(self, batcher: DynamicBatcher, *, timeout: float = 0.05) -> List[dict]:
+        """Close the batcher and serve everything still queued or in open
+        bins: every accepted request gets its response before the engine
+        goes away (the rollover's drain of the old generation).
+        Idempotent; returns [] on a closed engine."""
+        batcher.close()
+        if self._closed:
+            return []
+        return self.process(batcher, timeout=timeout)
+
     def close(self) -> None:
-        """Tear down: forget the warm shapes; any later dispatch raises.
-        Idempotent; aggregates survive."""
+        """Tear down: drop the executables, their graphs and the retained
+        records; any later dispatch raises. Idempotent; aggregates survive
+        so ``rollup(emit=False)`` still reports a closed engine's run."""
+        if self._closed:
+            return
         self._closed = True
-        self._warm = {}
+        self._exec = {}
+        if self.graphs is not None:
+            self.graphs.clear()
         self.graphs = None
+        self._records.clear()
 
     # -- reporting -----------------------------------------------------
 
-    def rollup(self) -> dict:
-        """Aggregate the run: p50/p99 request latency (over the recent
-        latency reservoir), graphs/s over the busy window, per-dimension
-        fill and slot waste."""
+    def rollup(self, *, emit: bool = True) -> dict:
+        """The serving report row (``serve_rollup``): p50/p99 request
+        latency over the recent latency reservoir, graphs/s over the busy
+        window, per-dimension fill and slot waste from the run's running
+        totals. ``emit`` sends it to the telemetry stream too."""
         agg = self._agg
         lat = np.asarray(self._lat, dtype=np.float64)
         row = {
+            "t": "serve_rollup",
             "requests": int(agg["requests"]),
             "graphs": int(agg["graphs"]),
             "dispatches": int(agg["dispatches"]),
-            "shapes": len(self._warm),
+            "shapes": len(self._exec),
         }
         if lat.size:
-            row["p50_ms"] = float(np.percentile(lat, 50))
-            row["p99_ms"] = float(np.percentile(lat, 99))
-            row["max_ms"] = float(lat.max())
-            row["mean_ms"] = float(lat.mean())
+            row["p50_ms"] = round(float(np.percentile(lat, 50)), 4)
+            row["p99_ms"] = round(float(np.percentile(lat, 99)), 4)
+            row["max_ms"] = round(float(lat.max()), 4)
+            row["mean_ms"] = round(float(lat.mean()), 4)
         if agg["dispatches"]:
             busy = agg["t_last"] - agg["t_first"]
             if busy > 0:
-                row["graphs_per_sec"] = agg["graphs"] / busy
+                row["graphs_per_sec"] = round(agg["graphs"] / busy, 3)
             exe_n, exe_e = agg["exe_nodes"], agg["exe_edges"]
             real_n, real_e = agg["real_nodes"], agg["real_edges"]
-            row["node_fill"] = real_n / max(exe_n, 1)
-            row["edge_fill"] = real_e / max(exe_e, 1)
-            row["slot_waste"] = 1.0 - (real_n + real_e) / max(exe_n + exe_e, 1)
+            row["node_fill"] = round(real_n / max(exe_n, 1), 4)
+            row["edge_fill"] = round(real_e / max(exe_e, 1), 4)
+            row["slot_waste"] = round(1.0 - (real_n + real_e) / max(exe_n + exe_e, 1), 4)
             row["dispatch_reasons"] = dict(agg["reasons"])
+        if emit:
+            self._emit(row)
         return row

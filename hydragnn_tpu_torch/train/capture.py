@@ -30,17 +30,37 @@ the next replay of the same graph overwrites.
 K1 and K2 count their launches on the host (``ops/edge_pipeline.py``),
 and a replay makes no host call: so a capture takes back the counts its
 recording added, and each replay adds them once more.
+
+Threads (the serving tier's replicas share one card, and a rollover
+warms its new engines while the old ones serve) follow one rule: every
+CUDA call a thread makes while another thread may be capturing is made
+under one process-wide lock, ``GRAPH_LOCK``. Every eager run, capture,
+replay and release of every ``StepGraphs`` holds it, and so does the
+serving engine's fetch of its outputs to the host; so nothing is issued
+to the card while a capture is live, and the launch counts a capture
+records are its own. Captures keep torch's default
+``capture_error_mode="global"``, so a CUDA call from another thread that
+escaped the lock fails the capture loudly instead of corrupting it.
+
+``record`` captures without keeping the graph and ``put`` keeps it under
+a key, releasing the graph it replaces: a caller that must capture
+several graphs all or nothing (``ServingEngine.install_executables``)
+records them all, then puts them, or ``release``s what it recorded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
 _ALIGN = 256  # bytes between fields in the static buffer
+
+# Held by every eager run, capture and replay (module docstring).
+GRAPH_LOCK = threading.RLock()
 
 
 def _launch_counters() -> tuple:
@@ -161,21 +181,35 @@ class StepGraphs:
 
     def eager(self, fn: Callable, batches: Sequence) -> tuple:
         """``fn`` run eagerly on the batches, on the side stream."""
-        dev = [b.to(self.device) for b in batches]
-        cur = torch.cuda.current_stream(self.device)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            out = fn(dev)
-        cur.wait_stream(self._side)
-        self.eager_runs += 1
-        return out
+        with GRAPH_LOCK:
+            dev = [b.to(self.device) for b in batches]
+            cur = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(cur)
+            with torch.cuda.stream(self._side):
+                out = fn(dev)
+            cur.wait_stream(self._side)
+            self.eager_runs += 1
+            return out
 
     def capture(self, key: Hashable, fn: Callable, batches: Sequence) -> CapturedStep:
         """Capture ``fn`` on static buffers shaped like ``batches`` into a
-        graph with its own memory pool. Executes nothing; raises if the
-        capture fails (a host sync in ``fn``, for one)."""
-        if key in self.graphs:
-            raise RuntimeError(f"step {key} is captured already")
+        graph with its own memory pool, kept under ``key``. Executes
+        nothing; raises if the capture fails (a host sync in ``fn``, for
+        one)."""
+        with GRAPH_LOCK:
+            if key in self.graphs:
+                raise RuntimeError(f"step {key} is captured already")
+            step = self.record(fn, batches)
+            self.put(key, step)
+            return step
+
+    def record(self, fn: Callable, batches: Sequence) -> CapturedStep:
+        """Capture ``fn`` as ``capture`` does, without keeping the graph:
+        the caller ``put``s or ``release``s it."""
+        with GRAPH_LOCK:
+            return self._record(fn, batches)
+
+    def _record(self, fn: Callable, batches: Sequence) -> CapturedStep:
         t0 = time.perf_counter()
         static = StaticBatches(batches, self.device)
         counters = _launch_counters()
@@ -193,21 +227,47 @@ class StepGraphs:
         seconds = time.perf_counter() - t0
         step = CapturedStep(graph, static, tuple(outputs), recorded, seconds,
                             torch.cuda.memory_reserved(self.device) - reserved)
-        self.graphs[key] = step
-        self._seen.add(key)
         self.captures += 1
         self.capture_seconds += seconds
         return step
 
+    def put(self, key: Hashable, step: CapturedStep) -> None:
+        """Keep ``step`` under ``key``, releasing the graph it replaces."""
+        with GRAPH_LOCK:
+            old = self.graphs.get(key)
+            self.graphs[key] = step
+            self._seen.add(key)
+            if old is not None:
+                self.release(old)
+
+    def release(self, *steps: CapturedStep) -> None:
+        """Free graphs no key holds any more: each graph and its memory
+        pool, static buffers and outputs. The caller keeps no reference
+        to a released step's outputs."""
+        with GRAPH_LOCK:
+            for step in steps:
+                step.graph.reset()
+                step.static = step.outputs = None
+            torch.cuda.empty_cache()
+
+    def clear(self) -> None:
+        """Release every graph (the owner's teardown)."""
+        with GRAPH_LOCK:
+            steps = list(self.graphs.values())
+            self.graphs.clear()
+            self._seen.clear()
+            self.release(*steps)
+
     def replay(self, key: Hashable, batches: Sequence) -> tuple:
         """Copy ``batches`` into ``key``'s static buffers and replay it."""
-        step = self.graphs[key]
-        step.static.load(batches)
-        step.graph.replay()
-        for c, n in zip(_launch_counters(), step.launches):
-            c.launches += n
-        self.replays += 1
-        return step.outputs
+        with GRAPH_LOCK:
+            step = self.graphs[key]
+            step.static.load(batches)
+            step.graph.replay()
+            for c, n in zip(_launch_counters(), step.launches):
+                c.launches += n
+            self.replays += 1
+            return step.outputs
 
     def memory(self) -> dict:
         """Graphs, the bytes their pools reserved at capture, and the

@@ -7,7 +7,7 @@ JAX package nests ``jax.grad`` inside the loss, the port takes
 ``torch.autograd.grad(create_graph=True)``, so the loss's backward
 differentiates the force pass a second time: every receiver aggregation
 then runs K1 forward, K2 in the force pass and K1/K2 again in the loss's
-backward (``ops/edge_pipeline.EdgePipelineBwdFn``).
+backward (K2's operator in ``ops/edge_pipeline.py``).
 
 Loss terms (weights ``Architecture.{energy,energy_peratom,force}_weight``):
   1. graph energy loss

@@ -360,13 +360,12 @@ def test_kernels_painn_widths(f, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw"])
 def test_double_backward_matches_cpu(stages):
-    """``EdgePipelineBwdFn`` on the card (K2 forward; K1 and K2 in its
-    backward, counted) against the same function on the CPU plain path:
+    """K2's operator on the card (K2 forward; K1 and K2 in its
+    derivative, counted) against the same function on the CPU plain path:
     the first derivatives with a graph, then the gradients of a scalar
     of them with respect to a, b, W and the cotangent."""
     torch = _need_card()
     from hydragnn_tpu_torch.ops.edge_pipeline import (
-        EdgePipelineBwdFn,
         edge_pipeline_bwd_planned,
         edge_pipeline_planned,
     )
@@ -383,7 +382,7 @@ def test_double_backward_matches_cpu(stages):
                for k, x in (("g", g), ("a", a), ("b", b), ("w", w))}
         plan = [t.to(dev) for t in (perm, seg_p, valid, window)]
         k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
-        outs = EdgePipelineBwdFn.apply(
+        outs = edge_pipeline_bwd_planned(
             ins["g"], ins["a"], ins["b"] if has_b else None,
             ins["w"] if has_w else None, *plan, n, 32, 64,
         )
@@ -1038,3 +1037,309 @@ def test_nccl_dp_replay_equals_eager(tmp_path, kind):
     _state_equal(torch, m1, o1, m2, o2)
     for x, y in zip(a1, a2):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw"])
+def test_dispatcher_ops_match_plain(stages):
+    """K1's and K2's operators (``torch.ops.hydragnn.*``) on the card:
+    each call launches its kernel once, equals the plain version at the
+    fused kernels' tolerances, returns an empty tensor for the gradient
+    of an absent operand, and its fake implementation gives the real
+    output's shapes and types."""
+    torch = _need_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    e_real, e_pad, n, f = SHAPES[0]
+    a, b, w, *plan = _case(torch, 5, e_real, e_pad, n, f, f, torch.float32)
+    b = b if "b" in stages else None
+    w = w if "w" in stages else None
+    g = torch.randn(n, f, device="cuda")
+    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    out = torch.ops.hydragnn.edge_pipeline(a, b, w, *plan, n, 32, 64)
+    grads = torch.ops.hydragnn.edge_pipeline_bwd(g, a, b, w, *plan, n, 32, 64)
+    torch.cuda.synchronize()
+    assert (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2) == (1, 1)
+    torch.testing.assert_close(out, edge_pipeline_plain(a, b, w, *plan, n), **TOL["float32"])
+    refs = edge_pipeline_bwd_plain(g, a, b, w, *plan, n)
+    for got, ref in zip(grads, refs):
+        if ref is None:
+            assert got.numel() == 0
+        else:
+            torch.testing.assert_close(got, ref, **VJP_TOL["float32"])
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fa, fb, fw, fg = (None if t is None else mode.from_tensor(t) for t in (a, b, w, g))
+        fplan = [mode.from_tensor(p) for p in plan]
+        fout = torch.ops.hydragnn.edge_pipeline(fa, fb, fw, *fplan, n, 32, 64)
+        fgrads = torch.ops.hydragnn.edge_pipeline_bwd(fg, fa, fb, fw, *fplan, n, 32, 64)
+    assert (fout.shape, fout.dtype) == (out.shape, out.dtype)
+    assert [(x.shape, x.dtype) for x in fgrads] == [(x.shape, x.dtype) for x in grads]
+
+
+def _painn_serving(torch):
+    """A small PaiNN potential (graph energy head, sum pooling) and
+    twelve molecules with positions."""
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.models.spec import BranchSpec, HeadSpec, ModelConfig
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    cfg = ModelConfig(
+        mpnn_type="PAINN", input_dim=1, hidden_dim=32, num_conv_layers=3,
+        heads=(HeadSpec("energy", "graph", 1),), graph_branches=(BranchSpec(),),
+        node_branches=(BranchSpec(),), task_weights=(1.0,), radius=2.5,
+        num_radial=6, graph_pooling="add", enable_interatomic_potential=True,
+    )
+    rng = np.random.default_rng(3)
+    samples = []
+    for _ in range(12):
+        k = int(rng.integers(6, 14))
+        pos = rng.uniform(0, 3.0, (k, 3)).astype(np.float32)
+        samples.append(GraphSample(
+            x=rng.integers(1, 10, (k, 1)).astype(np.float32), pos=pos,
+            edge_index=radius_graph(pos, 2.5, max_neighbours=16)))
+    return create_model(cfg, "cuda", seed=1), cfg, samples
+
+
+@pytest.mark.cuda
+def test_served_forces_and_exported_mlip_on_card():
+    """A ``with_forces`` engine on the card: 6 K1 and 6 K2 launches a
+    bin (PaiNN's two receiver sums a layer, forward and force pass), served
+    energies and forces equal a direct ``energy_and_forces`` at the bin
+    bit for bit, and an engine serving the exported MLIP artifact equals
+    the live one bit for bit."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.data.padschedule import dataset_size_arrays
+    from hydragnn_tpu_torch.export import export_inference
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.serve.batcher import DynamicBatcher
+    from hydragnn_tpu_torch.serve.engine import (
+        ServingEngine,
+        ServingSettings,
+        fit_serving_budgets,
+    )
+    from hydragnn_tpu_torch.train.mlip import energy_and_forces
+
+    model, cfg, samples = _painn_serving(torch)
+    st = ServingSettings(enabled=True, batch_size=4)
+    budgets = fit_serving_budgets(*dataset_size_arrays(samples), st)
+    live = ServingEngine(model, cfg, None, budgets, example=samples[0], settings=st,
+                         with_forces=True, device="cuda")
+    arts = {(b.num_nodes, b.num_edges, b.num_graphs): export_inference(
+        model, cfg, None, live.collate_bin([samples[0]], b), with_forces=True,
+        devices=["cuda"]) for b in budgets}
+    offline = ServingEngine(model, cfg, None, budgets, example=samples[0], settings=st,
+                            with_forces=True, warm=False, device="cuda")
+    offline.install_executables(ServingEngine.from_exported(arts, device="cuda"))
+    served = []
+    for eng in (live, offline):
+        bat = DynamicBatcher(budgets, deadline_ms=1e3, max_open_bins=2)
+        reqs = [bat.submit(s) for s in samples]
+        bat.close()
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        records = eng.process(bat)
+        torch.cuda.synchronize()
+        assert edge_pipeline_planned.launches - k1 == 2 * 3 * len(records)
+        assert edge_pipeline_bwd_planned.launches - k2 == 2 * 3 * len(records)
+        served.append((reqs, records))
+    (reqs, records), (reqs2, _) = served
+    for rec in records:
+        batch = live.collate_bin([q.sample for q in rec["reqs"]], rec["spec"]).to("cuda")
+        ge, forces = energy_and_forces(live.model, batch, cfg, create_graph=False)
+        ge, forces = ge.detach().cpu().numpy(), forces.cpu().numpy()
+        for gi, q in enumerate(rec["reqs"]):
+            off, n = rec["offsets"][gi]
+            np.testing.assert_array_equal(q.result[0], ge[gi])
+            np.testing.assert_array_equal(q.result[1], forces[off:off + n])
+    for a, b in zip(reqs, reqs2):
+        for x, y in zip(a.result, b.result):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_rollover_captures_while_replicas_serve():
+    """A two-replica tier on the card rolls over while a stream is served:
+    the shadow engines capture their graphs while the old ones replay and
+    fetch (``GRAPH_LOCK``, captures in torch's global mode, which fails
+    on any CUDA call another thread makes meanwhile); every request is
+    served, the
+    outputs equal across the swap bit for bit (same snapshot), and a NaN
+    snapshot is refused with the old outputs unchanged."""
+    import threading
+    import time
+
+    torch = _need_card()
+    from hydragnn_tpu_torch.data.padschedule import dataset_size_arrays
+    from hydragnn_tpu_torch.serve.admission import AdmissionError
+    from hydragnn_tpu_torch.serve.engine import ServingSettings, fit_serving_budgets
+    from hydragnn_tpu_torch.serve.fleet import FleetSettings, ServingTier
+    from hydragnn_tpu_torch.serve.loadgen import _tiny_serving_model, synthetic_request_samples
+
+    samples = synthetic_request_samples("qm9", 64, seed=5)
+    st = ServingSettings(enabled=True, deadline_ms=15.0, max_open_bins=2, batch_size=4)
+    budgets = fit_serving_budgets(*dataset_size_arrays(samples), st)
+    model, cfg, _ = _tiny_serving_model("cuda")
+    tier = ServingTier(model, cfg, None, budgets, example=samples[0], settings=st,
+                       fleet=FleetSettings(replicas=2), device="cuda")
+
+    def probe(batch):
+        out = []
+        for s in batch:
+            fr = tier.submit(s)
+            t0 = time.monotonic()
+            while not fr.done:
+                assert time.monotonic() - t0 < 20.0
+                time.sleep(0.002)
+            out.append(np.asarray(fr.result[0]).copy())
+        return out
+
+    try:
+        before = probe(samples[:8])
+        stream = []
+
+        def drive():
+            for s in samples[8:48]:
+                stream.append(tier.submit(s))
+                time.sleep(0.004)
+
+        feeder = threading.Thread(target=drive, daemon=True)
+        feeder.start()
+        time.sleep(0.02)
+        row = tier.rollover(model.state_dict())
+        feeder.join(timeout=60)
+        t0 = time.monotonic()
+        while not all(r.done for r in stream):
+            assert time.monotonic() - t0 < 30.0
+            time.sleep(0.005)
+        assert row["drained"] and len(stream) == 40
+        assert all(r.result is not None for r in stream)
+        for a, b in zip(before, probe(samples[:8])):
+            np.testing.assert_array_equal(a, b)
+        bad = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v
+               for k, v in model.state_dict().items()}
+        with pytest.raises(AdmissionError):
+            tier.rollover(bad)
+        assert tier.rollovers == 1
+        for a, b in zip(before, probe(samples[:8])):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        tier.close()
+
+
+def _tiny_engine_case(torch):
+    from hydragnn_tpu_torch.data.padschedule import dataset_size_arrays
+    from hydragnn_tpu_torch.serve.engine import ServingSettings, fit_serving_budgets
+    from hydragnn_tpu_torch.serve.loadgen import _tiny_serving_model, synthetic_request_samples
+
+    samples = synthetic_request_samples("qm9", 24, seed=6)
+    st = ServingSettings(enabled=True, batch_size=4)
+    budgets = fit_serving_budgets(*dataset_size_arrays(samples), st)
+    model, cfg, _ = _tiny_serving_model("cuda")
+    return model, cfg, samples, st, budgets
+
+
+def _serve_all(eng, samples, budgets):
+    from hydragnn_tpu_torch.serve.batcher import DynamicBatcher
+
+    bat = DynamicBatcher(budgets, deadline_ms=1e3, max_open_bins=2)
+    reqs = [bat.submit(s) for s in samples]
+    bat.close()
+    eng.process(bat)
+    return [r.result for r in reqs]
+
+
+@pytest.mark.cuda
+def test_install_releases_replaced_and_failed_graphs():
+    """Each install on the card keeps one graph a budget and releases the
+    graphs it replaces, so repeated installs hold the device memory
+    steady; an install whose last warm-up fails releases the graphs it
+    had captured and leaves the engine's graphs, counts, memory and
+    outputs as they were."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.export import make_forward
+    from hydragnn_tpu_torch.serve.engine import ServingEngine
+
+    model, cfg, samples, st, budgets = _tiny_engine_case(torch)
+    keys = [(b.num_nodes, b.num_edges, b.num_graphs) for b in budgets]
+    eng = ServingEngine(model, cfg, None, budgets, example=samples[0], settings=st,
+                        device="cuda")
+    want = _serve_all(eng, samples, budgets)
+    fwd = make_forward(eng.model, cfg)
+    allocated = []
+    for _ in range(3):
+        eng.install_executables({k: fwd for k in keys})
+        torch.cuda.synchronize()
+        assert sorted(eng.graphs.graphs) == sorted(keys)
+        allocated.append(torch.cuda.memory_allocated())
+    assert allocated[2] == allocated[1], allocated
+    steps = dict(eng.graphs.graphs)
+    runs, captures = eng.warm_runs, eng.graphs.captures
+
+    def broken(batch):
+        raise RuntimeError("warm-up refused")
+
+    with pytest.raises(RuntimeError, match="warm-up refused"):
+        eng.install_executables({**{k: fwd for k in keys[:-1]}, keys[-1]: broken})
+    torch.cuda.synchronize()
+    assert all(eng.graphs.graphs[k] is steps[k] for k in keys) and eng.warm_runs == runs
+    assert len(eng.graphs.graphs) == len(keys)
+    assert eng.graphs.captures == captures + len(keys) - 1
+    assert torch.cuda.memory_allocated() == allocated[2]
+    for got, ref in zip(_serve_all(eng, samples, budgets), want):
+        for x, y in zip(got, ref):
+            np.testing.assert_array_equal(x, y)
+    eng.close()
+
+
+@pytest.mark.cuda
+def test_ensure_fields_engine_on_card():
+    """A periodic example (a cell, edge shifts) fixes the captured batch
+    structure: bare molecules fail at the static buffers without
+    ``ensure_fields`` and are served with it, equal to a direct forward
+    on the same bin bit for bit."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.export import make_forward
+    from hydragnn_tpu_torch.serve.batcher import DynamicBatcher
+    from hydragnn_tpu_torch.serve.engine import ServingEngine
+
+    model, cfg, samples, st, budgets = _tiny_engine_case(torch)
+    rng = np.random.default_rng(4)
+    base = samples[0]
+    example = GraphSample(
+        x=base.x, pos=base.pos, edge_index=base.edge_index, cell=np.eye(3, dtype=np.float32),
+        edge_shifts=rng.integers(-1, 2, size=(base.num_edges, 3)).astype(np.float32))
+    bare = [GraphSample(x=s.x, pos=s.pos, edge_index=s.edge_index) for s in samples[1:]]
+    strict = ServingEngine(model, cfg, None, budgets, example=example, settings=st,
+                           device="cuda")
+    bat = DynamicBatcher(budgets, deadline_ms=1e3, max_open_bins=2)
+    bat.submit(bare[0])
+    bat.close()
+    with pytest.raises(ValueError, match="static batch fields"):
+        strict.process(bat)
+    strict.close()
+    eng = ServingEngine(model, cfg, None, budgets, example=example, settings=st,
+                        ensure_fields={"edge_shifts": 3, "cell": 9}, device="cuda")
+    bat = DynamicBatcher(budgets, deadline_ms=1e3, max_open_bins=2)
+    reqs = [bat.submit(s) for s in bare]
+    bat.close()
+    records = eng.process(bat)
+    fwd = make_forward(eng.model, cfg)
+    for rec in records:
+        batch = eng.collate_bin([q.sample for q in rec["reqs"]], rec["spec"])
+        assert {"edge_shifts", "cell"} <= set(batch.arrays())
+        out = fwd(batch.to("cuda"))[0].cpu().numpy()
+        for gi, q in enumerate(rec["reqs"]):
+            np.testing.assert_array_equal(q.result[0], out[gi])
+    assert all(r.result is not None for r in reqs)
+    eng.close()

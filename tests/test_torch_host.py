@@ -66,6 +66,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, hydragnn_tpu_torch\n"
         "import hydragnn_tpu_torch.serve.engine, hydragnn_tpu_torch.models.create\n"
+        "import hydragnn_tpu_torch.serve, hydragnn_tpu_torch.serve.loadgen\n"
+        "import hydragnn_tpu_torch.export, hydragnn_tpu_torch.utils.telemetry\n"
         "import hydragnn_tpu_torch.models.convert, hydragnn_tpu_torch.runner\n"
         "import hydragnn_tpu_torch.data.synthetic, hydragnn_tpu_torch.ops.neighbors\n"
         "assert callable(hydragnn_tpu_torch.run_training)\n"
@@ -106,7 +108,8 @@ def test_sources_import_no_jax():
         "data/synthetic.py", "ops/neighbors.py", "train/loop.py",
         "train/losses.py", "train/optimizer.py", "train/state.py",
         "utils/print_utils.py", "ops/e3.py", "ops/symmetric_contraction.py",
-        "models/mace.py",
+        "models/mace.py", "export.py", "serve/router.py", "serve/fleet.py",
+        "serve/loadgen.py", "utils/telemetry.py",
     } <= rel
     for f in files:
         for mod in _imported_modules(f):

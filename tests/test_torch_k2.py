@@ -6,11 +6,11 @@
   Hopper tiles: every flavour (a; a,b; a,W; a,b,W) in f32 on one plan
   with masked edges, an empty node window and static padding blocks,
   bf16 a/b with an f32 master W, a single block, and E=0;
-- ``EdgePipelineFn`` (K1 forward, K2 backward) under
+- ``edge_pipeline_planned``'s operator (K1 forward, K2 backward) under
   ``torch.autograd.gradcheck`` in f64, and differentiated twice: a
   backward with ``create_graph=True`` gives K2's plain result with a
-  graph, ``torch.autograd.gradgradcheck`` holds ``EdgePipelineBwdFn``
-  (K2 forward, K1/K2 backward) in every flavour, with invalid slots and
+  graph, ``torch.autograd.gradgradcheck`` holds K2's operator
+  (``edge_pipeline_bwd_planned``: K2 forward, K1/K2 backward) in every flavour, with invalid slots and
   at E=0, and its backward equals JAX's derivative of the XLA pullback
   (``_edge_pipeline_bwd_xla``) in every flavour;
 - K1's plain version with bf16 a/b and an f32 W against the Pallas K1.
@@ -220,7 +220,7 @@ def test_edge_pipeline_fn_gradcheck(port, stages):
 
     def fn(*xs):
         ops = dict(zip(used, xs))
-        return ep.EdgePipelineFn.apply(
+        return ep.edge_pipeline_planned(
             ops["a"], ops.get("b"), ops.get("w"), *plan, n, bn, be
         )
 
@@ -243,8 +243,8 @@ def _small_plan(port, rng, n=12, e=40, be=8, bn=4):
 
 @pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw", "abw_E0"])
 def test_edge_pipeline_fn_gradgradcheck(port, stages):
-    """Second derivatives of ``EdgePipelineFn`` (their analytic side is
-    ``EdgePipelineBwdFn``'s backward, written with K1 and K2) against
+    """Second derivatives of K1's operator (their analytic side is K2's
+    operator's derivative, written with K1 and K2) against
     finite differences of its first derivatives, in f64 on the CPU path
     (E=40, N=12, F 3 -> 2; masked edges, an empty window, static
     padding), and at E=0."""
@@ -261,7 +261,7 @@ def test_edge_pipeline_fn_gradgradcheck(port, stages):
 
     def fn(*xs):
         ops = dict(zip(used, xs))
-        return port.ep.EdgePipelineFn.apply(
+        return port.ep.edge_pipeline_planned(
             ops["a"], ops.get("b"), ops.get("w"), *plan, *sizes
         )
 
@@ -270,7 +270,7 @@ def test_edge_pipeline_fn_gradgradcheck(port, stages):
 
 @pytest.mark.parametrize("stages", ["a", "ab", "aw", "abw"])
 def test_edge_pipeline_bwd_fn_matches_jax_vjp(port, case, stages):
-    """``EdgePipelineBwdFn``'s backward (K1 and K2 plain versions plus
+    """K2's operator's derivative (K1 and K2 plain versions plus
     elementwise ops) equals JAX's derivative of its XLA pullback
     ``_edge_pipeline_bwd_xla`` for the same cotangents of (d_a, d_b,
     d_W), in f32: the gradients with respect to g, a, b and W."""
@@ -299,7 +299,7 @@ def test_edge_pipeline_bwd_fn_matches_jax_vjp(port, case, stages):
     _, vjp = jax.vjp(jfn, *(jnp.asarray(prim[k]) for k in names))
     want = vjp(tuple(jnp.asarray(c) for c in cot))
     tins = {k: torch.from_numpy(prim[k]).requires_grad_(True) for k in names}
-    outs = port.ep.EdgePipelineBwdFn.apply(
+    outs = port.ep.edge_pipeline_bwd_planned(
         tins["g"], tins["a"], tins.get("b"), tins.get("w"),
         *(torch.from_numpy(p) for p in plan), n, bn, be,
     )

@@ -5,8 +5,8 @@ Small models as in tests/test_interatomic_potential.py (2 layers, hidden
 molecules of 6-10 atoms with energies and forces), collated by both
 packages from the same numpy arrays with the block plan attached. The
 JAX side runs as its own tests run it on the CPU (the XLA scatter), the
-port through K1/K2's plain versions: ``EdgePipelineFn`` forward and
-backward and ``EdgePipelineBwdFn`` for the force pass's derivative.
+port through K1/K2's plain versions: K1's operator forward and
+backward and K2's operator for the force pass's derivative.
 Parameters are the JAX package's, carried over with ``params_from_jax``.
 
 - ``sinc_basis`` against JAX, padding lengths included;

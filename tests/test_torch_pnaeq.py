@@ -7,8 +7,8 @@ from ``gather_deg`` of the data) on tests/test_interatomic_potential.py's
 forces), collated by both packages from the same numpy arrays into one
 padded batch with spare nodes, edges and a spare graph slot, the block
 plan attached. The JAX side runs as its own tests run it on the CPU, the
-port through K1/K2's plain versions (``EdgePipelineFn``,
-``EdgePipelineBwdFn``): both of PNAEq's receiver sums (the moment pass of
+port through K1/K2's plain versions (K1's and K2's
+operators): both of PNAEq's receiver sums (the moment pass of
 width 2F, the vector message of width 3F) take the plan. Parameters are
 drawn in numpy on ``jax.eval_shape``'s tree (no initializer compiles) and
 carried over with ``params_from_jax``; one compiled JAX call gives every

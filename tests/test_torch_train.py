@@ -9,7 +9,7 @@
   parameters) against JAX's ``make_train_step`` from the same
   parameters (``params_from_jax``), on a planned batch (JAX: the Pallas
   kernels, interpreted, forced with HYDRAGNN_TPU_SEGMENT_IMPL=
-  pallas_fused; port: K1/K2's plain versions through ``EdgePipelineFn``)
+  pallas_fused; port: K1/K2's plain versions through K1's operator)
   and on a scatter batch;
 - ``run_training(config, device="cpu")`` for two epochs against JAX's
   ``run_training`` from the same initial parameters: per-epoch losses;
