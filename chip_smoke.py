@@ -104,6 +104,28 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                atoms, radius 4.0, 32 neighbours): card against the CPU's
                plain path (loss, gradients, updated parameters), then
                eager and device time and K1's and K2's share of it.
+7a. guard      the divergence guard on the same SchNet and BCC
+               train split (batch 32, one worst-case shape, 2 epochs of 7
+               steps), every step through a graph cache: healthy, guard on
+               equals guard off bit for bit (losses, parameters, AdamW
+               state, step counts, learning rates) with single steps and
+               supersteps of 4, K1 and K2 4 per step; nan:loss@3,9 and
+               nan:batch@3,9 guarded (step 9 inside a replayed 4-step
+               graph) equal bit for bit to the run that never takes steps
+               3 and 9; the unguarded control goes non-finite;
+               run_training under the rollback policy (max_bad_steps 1,
+               max_rollbacks 1, containers every 2 steps) with
+               nan:batch@3,4,10,11 rolls back once, then raises GuardHalt
+               with its report; the replayed headline step's ms and graph
+               pool bytes, guard on against off.
+7b. preempt    three child processes of this script on the card
+               (--preempt-child) run the BCC SchNet of [train] with the
+               asynchronous writer saving every 3 steps: uninterrupted;
+               killed by kill:train_step:14 (SIGKILL, return code -9,
+               with a mid-epoch container of epoch 2 on disk); continued
+               (Training.continue): parameters, AdamW state and the loss
+               and lr history equal the uninterrupted run's bit for bit;
+               the writer's snapshot ms, saves and bytes.
 8. mlip-kernels  K1 and K2 in the reduce-only flavour at PaiNN's widths
                (F = 1, 3, 64, 192) on the plan of the first packed bin
                that md17.json's run_training trains on,
@@ -228,7 +250,9 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                steps bit for bit, and a replay's kernels include NCCL's
                all-reduce; replayed dp and single steps timed in turns, and
                the all-reduce of the flat gradient buffer alone in a graph;
-               run_training 2 epochs and run_prediction with [oc20]'s checks.
+               run_training 2 epochs and run_prediction with [oc20]'s checks;
+               then run_training again with Training.Guard on: losses,
+               parameters and the AdamW state equal bit for bit.
 16b. fsdp      (PR 10) the same under "zero": true (FSDP2 fully_shard over
                the data group): the first step against dp's within the f32
                gradient tolerance (whether bit for bit printed);
@@ -321,9 +345,9 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                conv node head's under "polymer_widths", at MACE's under
                "mace_width" and at PNAEq's under "pnaeq_widths";
                "launches" sums the serving (slice, export, loadbench,
-               fleet, serve-forces), SchNet training, MLIP, ZINC,
-               polymer, oc20, PNAEq, dp, fsdp and multibranch runs and the
-               superstep run,
+               fleet, serve-forces), SchNet training, guard and preempt,
+               MLIP, ZINC, polymer, oc20, PNAEq, dp (its guarded run too),
+               fsdp and multibranch runs and the superstep run,
                "launches_by_path" splits them, DimeNet's 0 included), the
                card line, and the final {"ok": true, "device": ...} line.
 """
@@ -4254,6 +4278,7 @@ def phase_dp(config, splits, first_bin, budgets):
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
+    import hydragnn_tpu_torch as port
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.models.create import create_model_config
     from hydragnn_tpu_torch.ops.edge_pipeline import (
@@ -4378,6 +4403,28 @@ def phase_dp(config, splits, first_bin, budgets):
               f"test pass: step keys {sorted(keep['keys'])}")
         log(f"[dp] run_prediction took the dp test pass (its steps "
             f"{sorted(k for k in keep['keys'] if k[0] == 'dp')}; the slots gathered)")
+        guarded = copy.deepcopy(config)
+        guarded["NeuralNetwork"]["Training"]["Guard"] = {"enabled": True}
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        t0 = time.perf_counter()
+        g_state, g_model, _, g_hist, _ = port.run_training(guarded, datasets=splits,
+                                                           device="cuda")
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        out["guard"] = {"k1": edge_pipeline_planned.launches,
+                        "k2": edge_pipeline_bwd_planned.launches, "seconds": g_s}
+        run = out["run"]
+        check([g_hist.train_loss, g_hist.val_loss, g_hist.test_loss]
+              == [run["train_loss"], run["val_loss"], run["test_loss"]]
+              and guard_same((g_model, g_state.optimizer),
+                             (keep["model"], keep["state"].optimizer)),
+              f"[dp] the guarded dp run differs from the unguarded one: train loss "
+              f"{g_hist.train_loss} vs {run['train_loss']}")
+        check(g_state.graphs is not None and g_state.graphs.replays > 0,
+              "[dp] the guarded dp run's steps were not replayed")
+        log(f"[dp] run_training again with Guard on ({g_s:.2f} s, {g_state.graphs.replays} "
+            f"replays): losses, parameters and the AdamW state equal the guard-off run's "
+            f"bit for bit; K1 {out['guard']['k1']}, K2 {out['guard']['k2']}")
     return out
 
 
@@ -4745,9 +4792,400 @@ def phase_multibranch():
             "train_loss": ranks[0]["hist"][0]}
 
 
+# ----------------------------------------------------------------------
+# Durability (ROADMAP item 12): the divergence guard, the
+# asynchronous checkpoint writer and continue
+# ----------------------------------------------------------------------
+
+GUARD_POISON = (3, 9)  # global steps: 3 in epoch 0's first group, 9 in a replayed K = 4 graph
+
+
+def guard_same(a, b):
+    """Two (model, optimizer) pairs hold the same bits, the optimizer's
+    0-d step counts and learning rates included."""
+    return same_bits(a, b) and all(
+        torch.equal(ga[k], gb[k]) for ga, gb in zip(a[1].param_groups, b[1].param_groups)
+        for k in ("step", "lr"))
+
+
+def guard_run(model0, cfg, training, trainset, *, guard, k=1, spec=None, skip=(), epochs=2):
+    """Two epochs of the BCC train split (batch 32, one worst-case shape,
+    shuffled with seed 0) from a copy of ``model0`` through a graph cache
+    of its own: the train loop's superstep, guarded or not, with the
+    ``spec`` fault rules armed while it is built, over supersteps of
+    ``k``; with ``skip``, single unguarded steps that never take those
+    global steps (their counters still advance). Returns the epochs'
+    losses, the (model, optimizer), the monitor and the cache."""
+    from hydragnn_tpu_torch.data.loader import GraphLoader, SuperstepLoader
+    from hydragnn_tpu_torch.train import guard as guard_mod
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import _fetch_epoch, _run_epoch, make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+    from hydragnn_tpu_torch.utils import faults
+
+    model = copy.deepcopy(model0)
+    opt = select_optimizer(model.parameters(), training)
+    graphs = StepGraphs("cuda")
+    state = TrainState(model, opt, graphs=graphs)
+    if spec:
+        faults.install(spec)
+    try:
+        step = make_superstep_fn(model, opt, cfg, device=torch.device("cuda"), graphs=graphs,
+                                 guard=guard)
+    finally:
+        faults.reset()
+    monitor = guard_mod.GuardMonitor(guard_mod.guard_settings({"Guard": True})) if guard \
+        else None
+    losses = []
+    for ep in range(epochs):
+        base = GraphLoader(trainset, 32, shuffle=True, seed=0, fixed_pad=True)
+        base.set_epoch(ep)
+        if skip:
+            acc = None
+            for batch in base:
+                if state.step in skip:
+                    state.step += 1
+                    state.step_t += 1
+                    continue
+                state, acc = step(state, acc, [batch])
+            losses.append(_fetch_epoch(*acc)[0])
+            continue
+        if monitor is not None:
+            monitor.note_epoch(ep)
+        state, loss, _ = _run_epoch(step, state, SuperstepLoader(base, k) if k > 1 else base,
+                                    train=True, guard=monitor)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return {"losses": losses, "pair": (model, opt), "monitor": monitor, "graphs": graphs,
+            "steps": state.step}
+
+
+def guard_step_cost(model0, cfg, training, host_batch, iters=20):
+    """The replayed train step at bench.py's headline shape with the
+    guard off and on (each its own graph cache; CUDA events over
+    ``iters`` back-to-back steps from the host batch, in turns off, on,
+    off, on), and each graph's pool bytes; K1 and K2 per replayed step."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    paths = {}
+    for name, guard in (("off", False), ("on", True)):
+        model = copy.deepcopy(model0)
+        opt = select_optimizer(model.parameters(), training)
+        cache = StepGraphs("cuda")
+        fn = make_superstep_fn(model, opt, cfg, device=torch.device("cuda"), graphs=cache,
+                               guard=guard)
+        state = TrainState(model, opt, graphs=cache)
+        for _ in range(3):  # eager, capture + replay, replay
+            fn(state, None, [host_batch])
+        paths[name] = (fn, state, cache)
+    per = {}
+    for name, (fn, state, _) in paths.items():
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        fn(state, None, [host_batch])
+        per[name] = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
+        check(per[name] == (4, 4), f"guard {name}: K1/K2 per replayed step {per[name]}")
+    times = {"off": [], "on": []}
+    for _ in range(2):
+        for name, (fn, state, _) in paths.items():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(iters):
+                fn(state, None, [host_batch])
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    pools = {name: cache.memory()["pool_bytes"] for name, (_, _, cache) in paths.items()}
+    return {"replayed_ms": times, "pool_bytes": pools, "k1_k2_per_step": per,
+            "nodes": host_batch.num_nodes, "edges": host_batch.num_edges}
+
+
+def phase_guard(config, splits, head_step, head_cpu):
+    """[guard] the divergence guard on bench.py's headline SchNet (full
+    width) on the BCC train split, every step through a graph cache
+    (eager on a shape's first sight, captured on its second, replayed
+    after), two epochs of 7 steps each:
+    - healthy, guard on against off, single steps and supersteps of 4:
+      losses, parameters and optimizer state bit for bit; K1 4 per
+      forward and K2 4 per train step on the guarded run;
+    - ``nan:loss@3;nan:loss@9`` and the same at the ``batch`` site,
+      guarded, single steps and supersteps of 4 (step 9 inside a
+      replayed 4-step graph) against the unguarded run that never takes
+      steps 3 and 9, bit for bit; the monitor saw exactly those steps;
+    - the unguarded control with ``nan:loss@3`` goes non-finite;
+    - run_training with ``policy: "rollback"``, ``max_bad_steps: 1``,
+      ``max_rollbacks: 1``, containers every 2 steps and
+      ``nan:batch@3,4,10,11``: one rollback (epoch 0), then
+      ``GuardHalt`` (epoch 1) with its report printed;
+    - the guard's cost at the headline shape: the replayed step's ms and
+      the graph pool's bytes, guard on against off."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.train.guard import GuardHalt
+    from hydragnn_tpu_torch.utils import faults
+
+    t0 = time.perf_counter()
+    full = update_config(config, *splits)
+    training = full["NeuralNetwork"]["Training"]
+    model0, cfg = create_model_config(full, "cuda", seed=0)
+    trainset = splits[0]
+    out = {"k1": 0, "k2": 0}
+
+    def counted(**kw):
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        res = guard_run(model0, cfg, training, trainset, **kw)
+        out["k1"] += edge_pipeline_planned.launches
+        out["k2"] += edge_pipeline_bwd_planned.launches
+        res["launches"] = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+        return res
+
+    healthy = {}
+    for k in (1, 4):
+        off, on = counted(guard=False, k=k), counted(guard=True, k=k)
+        check(on["losses"] == off["losses"] and guard_same(on["pair"], off["pair"]),
+              f"K = {k}: the healthy guarded run differs from the unguarded one: losses "
+              f"{on['losses']} vs {off['losses']}")
+        check(on["monitor"].skipped_total == 0, f"K = {k}: healthy run had bad steps")
+        layers = cfg.num_conv_layers
+        check(on["launches"] == (layers * on["steps"], layers * on["steps"]),
+              f"K = {k}: guarded run K1/K2 {on['launches']} for {on['steps']} train steps")
+        healthy[k] = {"losses": on["losses"], "steps": on["steps"],
+                      "launches": on["launches"], "graphs": on["graphs"].captures,
+                      "replays": on["graphs"].replays}
+    log(f"[guard] healthy, guard on == off bit for bit (losses, parameters, AdamW state, "
+        f"step counts, learning rates): single steps {healthy[1]['losses']} "
+        f"({healthy[1]['steps']} steps, {healthy[1]['replays']} replays) and supersteps "
+        f"of 4 ({healthy[4]['replays']} replays); K1 {healthy[1]['launches'][0]} = 4 x "
+        f"{healthy[1]['steps']} forwards, K2 {healthy[1]['launches'][1]} = 4 x "
+        f"{healthy[1]['steps']} train steps")
+    per_epoch = healthy[1]["steps"] // 2
+    spec_steps = [divmod(s, per_epoch) for s in GUARD_POISON]
+    base = counted(guard=False, skip=GUARD_POISON)
+    skips = {}
+    for site in ("loss", "batch"):
+        spec = ";".join(f"nan:{site}@{s}" for s in GUARD_POISON)
+        for k in (1, 4):
+            got = counted(guard=True, k=k, spec=spec)
+            check(got["losses"] == base["losses"] and guard_same(got["pair"], base["pair"]),
+                  f"{spec}, K = {k}: guarded run differs from the run skipping steps "
+                  f"{GUARD_POISON}: losses {got['losses']} vs {base['losses']}")
+            check(got["monitor"].bad_steps_all == spec_steps,
+                  f"{spec}, K = {k}: the monitor saw {got['monitor'].bad_steps_all}")
+            skips[f"{site}_k{k}"] = got["losses"]
+    log(f"[guard] nan:loss@3;nan:loss@9 and nan:batch@3;nan:batch@9 guarded, single steps "
+        f"and supersteps of 4 (step 9 inside a replayed 4-step graph), each equal bit for "
+        f"bit to the run that never takes steps 3 and 9: losses {base['losses']}; bad steps "
+        f"seen {spec_steps} (epoch, step)")
+    ctrl = counted(guard=False, spec="nan:loss@3", epochs=1)
+    check(not np.isfinite(ctrl["losses"][0]), f"unguarded control stayed finite: {ctrl}")
+    log(f"[guard] the unguarded control with nan:loss@3: epoch loss {ctrl['losses'][0]}")
+
+    # the ladder through run_training: a rollback, then a halt
+    ladder = copy.deepcopy(config)
+    ladder["Dataset"]["name"] = "chip_smoke_guard"
+    ladder["NeuralNetwork"]["Training"].update(
+        Guard={"enabled": True, "policy": "rollback", "max_bad_steps": 1, "max_rollbacks": 1},
+        Checkpoint={"enabled": True, "interval_steps": 2})
+    faults.install("nan:batch@3;nan:batch@4;nan:batch@10;nan:batch@11")
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    buf = []
+    try:
+        with contextlib.redirect_stdout(_Tee(buf)):
+            port.run_training(ladder, datasets=splits, device="cuda")
+        halted = None
+    except GuardHalt as e:
+        halted = str(e)
+    finally:
+        faults.reset()
+    out["k1"] += edge_pipeline_planned.launches
+    out["k2"] += edge_pipeline_bwd_planned.launches
+    text = "".join(buf)
+    check(halted is not None and "ROLLBACK #1" in text and text.count("ROLLBACK") == 1,
+          f"the ladder did not roll back once and then halt (halt: {halted!r})")
+    log(f"[guard] rollback policy (max_bad_steps 1, max_rollbacks 1, containers every 2 "
+        f"steps), nan:batch@3,4,10,11 through run_training: "
+        + " | ".join(line for line in text.splitlines() if line.startswith("[guard]")))
+    log(f"[guard] GuardHalt raised: {halted}")
+    cost = guard_step_cost(*head_step, head_cpu)
+    off, on = (min(cost["replayed_ms"][k]) for k in ("off", "on"))
+    log(f"[guard] the cost at the headline shape ({cost['nodes']} nodes, {cost['edges']} "
+        f"edges; 20 back-to-back replayed steps from the host batch, in turns): guard off "
+        f"{cost['replayed_ms']['off']} ms, on {cost['replayed_ms']['on']} ms "
+        f"({100 * (on - off) / off:+.1f}% best against best); graph pool off "
+        f"{cost['pool_bytes']['off']} bytes, on {cost['pool_bytes']['on']} bytes; K1/K2 "
+        f"per replayed step {cost['k1_k2_per_step']}")
+    out.update(healthy=healthy, skip_losses=base["losses"], skips=skips,
+               control_loss=ctrl["losses"][0], halt=halted, cost=cost,
+               seconds=time.perf_counter() - t0)
+    log(f"[guard] {out['seconds']:.1f} s; K1 {out['k1']}, K2 {out['k2']} launches in the phase")
+    return out
+
+
+class _Tee:
+    """A stdout that also keeps what it is written."""
+
+    def __init__(self, buf):
+        self.buf = buf
+        self.out = sys.stdout
+
+    def write(self, s):
+        self.buf.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+# The 14th train step, the 7th (last) of epoch 2 (7 steps an epoch): its
+# cursor-6 save waited for the cursor-3 write, so a mid-epoch container is
+# durable when the kill lands.
+PREEMPT_KILL = 14
+
+
+def preempt_config(config, data_path):
+    """The BCC run of [train] (2 epochs, batch 32, ladder batches) with
+    the asynchronous writer saving a resume container every 3 steps."""
+    config = copy.deepcopy(config)
+    config["Dataset"]["path"] = {"total": os.path.abspath(data_path)}
+    config["Dataset"]["name"] = "chip_smoke_preempt"
+    config["NeuralNetwork"]["Training"]["Checkpoint"] = {
+        "enabled": True, "async": True, "interval_steps": 3}
+    return config
+
+
+def preempt_child(work, mode):
+    """One child of [preempt] on the card: run_training of
+    ``work/config.json`` from ``work/<base|drill>`` (``continue`` when
+    ``mode`` is ``resume``), then its parameters, optimizer state,
+    history, writer counts and K1/K2 launches to ``work/<mode>.pt``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    with open(os.path.join(work, "config.json")) as f:
+        config = json.load(f)
+    if mode == "resume":
+        config["NeuralNetwork"]["Training"]["continue"] = 1
+    stats = []
+    plain = runner.CheckpointWriter
+
+    class Counted(plain):
+        def close(self, barrier=True):
+            super().close(barrier)
+            stats.append(self.stats())
+
+    runner.CheckpointWriter = Counted
+    os.chdir(os.path.join(work, "base" if mode == "base" else "drill"))
+    t0 = time.perf_counter()
+    state, model, _, hist, _ = runner.run_training(config, device="cuda")
+    torch.cuda.synchronize()
+    torch.save({"params": {k: v.cpu() for k, v in model.state_dict().items()},
+                "opt": [v.cpu() for s in state.optimizer.state.values() for v in s.values()],
+                "hist": [hist.train_loss, hist.val_loss, hist.test_loss, hist.lr],
+                "steps": state.step, "step_t": int(state.step_t), "writer": stats[0],
+                "k1": edge_pipeline_planned.launches, "k2": edge_pipeline_bwd_planned.launches,
+                "seconds": time.perf_counter() - t0},
+               os.path.join(work, f"{mode}.pt"))
+
+
+def phase_preempt(config):
+    """[preempt] a real preemption on the card: three child processes of
+    this script (``preempt_child``) run the BCC SchNet of [train] with
+    resume containers every 3 steps: uninterrupted; the same run with
+    ``HYDRAGNN_TPU_FAULTS=kill:train_step:14``, which must die by SIGKILL
+    (return code -9) in epoch 2 with a mid-epoch container on disk; and
+    ``continue`` of the killed run. The
+    resumed run's parameters, AdamW state and train/val/test loss and
+    learning-rate history equal the uninterrupted run's bit for bit.
+    Prints the writer's snapshot ms, saves and bytes."""
+    import shutil
+    import signal
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="preempt_")
+    for d in ("base", "drill"):
+        os.makedirs(os.path.join(work, d))
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump(preempt_config(config, config["Dataset"]["path"]["total"]), f)
+
+    def child(mode, env=None):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--preempt-child", work,
+                            mode], env=dict(os.environ, **(env or {})),
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=420)
+        return p.returncode, p.stdout.decode(errors="replace")
+
+    rc, text = child("base")
+    check(rc == 0, f"[preempt] the uninterrupted child exited {rc}:\n{text[-3000:]}")
+    rc, text = child("kill", {"HYDRAGNN_TPU_FAULTS": f"kill:train_step:{PREEMPT_KILL}"})
+    check(rc == -signal.SIGKILL, f"[preempt] the killed child exited {rc}, want "
+          f"{-signal.SIGKILL}:\n{text[-3000:]}")
+    run = os.listdir(os.path.join(work, "drill", "logs"))[0]
+    container = torch.load(os.path.join(work, "drill", "logs", run, "resume.pt"),
+                           weights_only=True)["manifest"]
+    check(container["epoch"] == 1 and container["step"] in (3, 6),
+          f"[preempt] the killed run's newest container is at {container['epoch']}, "
+          f"{container['step']}, not mid epoch 2")
+    rc, text = child("resume")
+    check(rc == 0, f"[preempt] the resumed child exited {rc}:\n{text[-3000:]}")
+    base, res = (torch.load(os.path.join(work, f"{m}.pt"), weights_only=False)
+                 for m in ("base", "resume"))
+    shutil.rmtree(work, ignore_errors=True)
+    check(base["hist"] == res["hist"], f"[preempt] history differs: {base['hist']} vs "
+          f"{res['hist']}")
+    check(set(base["params"]) == set(res["params"]) and all(
+        torch.equal(v, res["params"][k]) for k, v in base["params"].items()),
+        "[preempt] the resumed run's parameters differ from the uninterrupted run's")
+    check(len(base["opt"]) == len(res["opt"]) and all(
+        torch.equal(a, b) for a, b in zip(base["opt"], res["opt"])),
+        "[preempt] the resumed run's AdamW state differs")
+    check(base["steps"] == res["steps"] == res["step_t"], "[preempt] step counts differ")
+    w = base["writer"]
+    log(f"[preempt] uninterrupted child: {base['steps']} steps, train loss "
+        f"{base['hist'][0]}, val {base['hist'][1]}, test {base['hist'][2]}; writer "
+        f"{w['saves']} saves, {w['bytes']} bytes written, {w['retries']} retries, snapshot "
+        f"ms {[round(x, 3) for x in w['snapshot_ms']]}, write ms "
+        f"{[round(x, 3) for x in w['write_ms']]}")
+    log(f"[preempt] the child armed with kill:train_step:{PREEMPT_KILL} died by SIGKILL "
+        f"(rc {-signal.SIGKILL}); its newest durable container: cursor (epoch "
+        f"{container['epoch']}, step {container['step']})")
+    log(f"[preempt] continue of the killed run: parameters, AdamW state and the "
+        f"train/val/test loss and lr history equal the uninterrupted run's bit for bit "
+        f"({res['steps']} steps; the resumed child's writer {res['writer']['saves']} saves, "
+        f"{res['writer']['bytes']} bytes); children's K1 {base['k1']} + {res['k1']}, K2 "
+        f"{base['k2']} + {res['k2']}")
+    out = {"k1": base["k1"] + res["k1"], "k2": base["k2"] + res["k2"],
+           "cursor": [container["epoch"], container["step"]], "writer": w,
+           "resume_writer": res["writer"], "hist": base["hist"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[preempt] {out['seconds']:.1f} s for the three children")
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--multibranch-rank"]:
         multibranch_rank(int(sys.argv[2]), sys.argv[3])
+        return
+    if sys.argv[1:2] == ["--preempt-child"]:
+        preempt_child(sys.argv[2], sys.argv[3])
         return
     card = phase_device()
     # The port lives next to this script; a copy of the script alone
@@ -4776,6 +5214,8 @@ def main():
     fleet = phase_fleet()
     train = phase_train(config, splits)
     headline, head_step = phase_train_timing(head_cpu)
+    guard = phase_guard(config, splits, head_step, head_cpu)
+    preempt = phase_preempt(config)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
     mlip_loader, mlip_budgets = train_loader(mlip_cfg, mlip_splits[0])
     check(mlip_loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
@@ -4840,7 +5280,8 @@ def main():
         "launches": (launches + train["k1"] + mlip["k1"] + zinc["k1"] + polymers["k1"]
                      + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
-                     + loadbench["k1"] + fleet["k1"] + serve_forces["k1"]),
+                     + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
+                     + preempt["k1"] + dp["guard"]["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -4849,7 +5290,9 @@ def main():
                              "oc20": oc20["k1"], "egnn": 0, "pnaeq": pnaeq["k1"],
                              "dimenet": dimenet["run"]["k1"],
                              "polymers_superstep": cap_k1, "dp": dp["run"]["k1"],
-                             "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"]},
+                             "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"],
+                             "guard": guard["k1"], "preempt": preempt["k1"],
+                             "dp_guard": dp["guard"]["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -4880,7 +5323,8 @@ def main():
         "replaces": "hydragnn_tpu/ops/pallas_segment.py:490",
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
-                     + multibranch["k2"] + serve_forces["k2"]),
+                     + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
+                     + dp["guard"]["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -4888,7 +5332,9 @@ def main():
                              "oc20": oc20["k2"], "egnn": 0, "pnaeq": pnaeq["k2"],
                              "dimenet": dimenet["run"]["k2"],
                              "polymers_superstep": cap_k2, "dp": dp["run"]["k2"],
-                             "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"]},
+                             "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"],
+                             "guard": guard["k2"], "preempt": preempt["k2"],
+                             "dp_guard": dp["guard"]["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -4918,6 +5364,8 @@ def main():
     log(f"[report] serve-forces: {json.dumps(serve_forces)}")
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
+    log(f"[report] guard: {json.dumps({k: v for k, v in guard.items() if k != 'halt'})}")
+    log(f"[report] preempt: {json.dumps(preempt)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] polymers: {json.dumps(polymers)}")

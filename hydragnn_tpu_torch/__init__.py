@@ -31,8 +31,13 @@ What runs today:
   card under ``torch.distributed``, every rank calling the same entry
   points.
 
-Graph sharding, durability, observability beyond the telemetry stream
-core and the rest are later work (ROADMAP.md).
+- durability: the asynchronous checkpoint writer with its resume
+  manifest, ``Training.continue`` with exact mid-epoch resume, and the
+  divergence guard inside the (captured) train step
+  (``utils/checkpoint.py``, ``train/guard.py``, ``utils/faults.py``).
+
+Graph sharding, observability beyond the telemetry stream core and the
+rest are later work (ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

@@ -27,6 +27,13 @@ device-coordinated (``pack_dp_shards``: ``padschedule.pack_epoch_ffd_dp``),
 as in the JAX package. Resampling and the parallel input pipeline come
 with ROADMAP Queue 1 item 10.
 
+Mid-epoch resume: ``skip_to(step)`` on a loader (and on
+``SuperstepLoader`` and ``parallel/dp.DPLoader``) makes its next
+iteration start at optimizer step ``step`` of the current epoch,
+replaying the deterministic epoch plan without collating the consumed
+entries; ``set_epoch`` drops an unused cursor. A partial epoch never
+fills a replay cache.
+
 Where the JAX package stacks a superstep group into one ``[K, ...]``
 host batch, the port keeps its K collated batches side by side
 (``MacroBatch``): on the card the step cache packs them into one pinned
@@ -36,6 +43,7 @@ them one by one.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
@@ -156,6 +164,7 @@ class GraphLoader:
         self.fixed_pad = fixed_pad
         self.cache_batches = cache_batches and not shuffle
         self._batch_cache: Optional[List[GraphBatch]] = None
+        self._skip_next = 0
         self.pad_spec: Optional[PadSpec] = None
         if fixed_pad and len(self.dataset):
             self.pad_spec = self._worst_case_spec()
@@ -248,6 +257,13 @@ class GraphLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
+        self._skip_next = 0  # a cursor never outlives its epoch
+
+    def skip_to(self, step: int) -> None:
+        """The next iteration starts at plan entry ``step`` of the
+        current epoch; the consumed entries are planned (so the ladder's
+        bookkeeping runs as in a whole epoch) but not collated."""
+        self._skip_next = max(0, int(step))
 
     def __len__(self) -> int:
         if self.packing:
@@ -314,11 +330,12 @@ class GraphLoader:
         return collate(samples, spec, with_segment_plan=self.with_segment_plan)
 
     def __iter__(self) -> Iterator[GraphBatch]:
+        skip, self._skip_next = self._skip_next, 0
         if self._batch_cache is not None:
-            yield from self._batch_cache
+            yield from self._batch_cache[skip:]
             return
-        cache: Optional[List[GraphBatch]] = [] if self.cache_batches else None
-        for idx, spec in self.epoch_plan(self._epoch):
+        cache: Optional[List[GraphBatch]] = [] if self.cache_batches and not skip else None
+        for idx, spec in itertools.islice(self.epoch_plan(self._epoch), skip, None):
             batch = self.collate_entry(idx, spec)
             if cache is not None:
                 cache.append(batch)
@@ -356,21 +373,31 @@ class SuperstepLoader:
         self.loader = loader
         self.k = int(k)
         self._cache: Optional[list] = None
+        self._skip_next = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
+        self._skip_next = 0
+
+    def skip_to(self, step: int) -> None:
+        """The next iteration drops the groups a cursor of ``step``
+        optimizer steps covers, the groups cut from the whole epoch plan,
+        so the rest are the uninterrupted run's deliveries
+        (``drop_consumed_groups``)."""
+        self._skip_next = max(0, int(step))
 
     def __len__(self) -> int:
         """Deliveries (dispatches) this epoch: groups, not steps."""
         return len(superstep_groups(self.loader.epoch_plan(self.loader._epoch), self.k))
 
     def __iter__(self):
+        skip, self._skip_next = self._skip_next, 0
         if self._cache is not None:
-            yield from self._cache
+            yield from skip_delivered_items(self._cache, skip)
             return
-        cache: Optional[list] = [] if self.loader.cache_batches else None
+        cache: Optional[list] = [] if self.loader.cache_batches and not skip else None
         plan = list(self.loader.epoch_plan(self.loader._epoch))
-        for group in superstep_groups(plan, self.k):
+        for group in drop_consumed_groups(superstep_groups(plan, self.k), skip):
             batches = [self.loader.collate_entry(idx, spec) for idx, spec in group]
             item = MacroBatch(batches) if len(batches) > 1 else batches[0]
             if cache is not None:
@@ -378,6 +405,55 @@ class SuperstepLoader:
             yield item
         if cache is not None:
             self._cache = cache
+
+
+def drop_consumed_groups(groups: list, skip_steps: int) -> list:
+    """The groups left after a cursor of ``skip_steps`` steps: whole
+    groups it covers are dropped. A cursor inside a group (the grouping
+    changed between the save and the resume) delivers the group's rest
+    as single steps, with a message: no step is run twice or dropped."""
+    if skip_steps <= 0:
+        return list(groups)
+    out, remaining = [], skip_steps
+    for g in groups:
+        if remaining >= len(g):
+            remaining -= len(g)
+        elif remaining > 0:
+            print("[resume] step cursor lands inside a superstep group "
+                  f"(group of {len(g)}, {remaining} consumed) — delivering the "
+                  "remainder as per-step batches", flush=True)
+            out.extend([e] for e in g[remaining:])
+            remaining = 0
+        else:
+            out.append(g)
+    return out
+
+
+def skip_delivered_items(items: list, skip_steps: int):
+    """Deliveries (``MacroBatch`` of k steps, or a batch) after a cursor
+    of ``skip_steps`` steps, over a replay cache; a cursor inside an item
+    skips the whole item, with a message."""
+    remaining = skip_steps
+    for item in items:
+        k = item.k if isinstance(item, MacroBatch) else 1
+        if remaining >= k:
+            remaining -= k
+            continue
+        if remaining > 0:
+            print("[resume] step cursor lands inside a cached superstep delivery "
+                  f"(k={k}, {remaining} consumed) — skipping the whole item", flush=True)
+            remaining = 0
+            continue
+        yield item
+
+
+def feed_supports_skip(loader) -> bool:
+    """Whether a feed can fast-forward to a mid-epoch cursor: a wrapper
+    marked ``_skip_to_delegates`` hands ``skip_to`` to its ``.loader``,
+    so the probe asks the loader at the end of such a chain."""
+    while getattr(loader, "_skip_to_delegates", False):
+        loader = loader.loader
+    return hasattr(loader, "skip_to")
 
 
 def split_dataset(

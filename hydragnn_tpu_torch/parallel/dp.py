@@ -247,7 +247,9 @@ class DPLoader:
     of K same-spec steps (``padschedule.dp_step_plan`` +
     ``superstep_groups``) into one ``MacroBatch`` of this slot's K
     batches. A fixed-order loader with ``cache_batches`` replays its
-    first epoch's deliveries."""
+    first epoch's deliveries. ``skip_to(step)`` starts the next
+    iteration at dp step ``step`` (the last short step counts as one),
+    collating none of the consumed entries."""
 
     def __init__(self, loader, mesh, superstep_k: int = 1):
         from hydragnn_tpu_torch.parallel.runtime import process_count, process_index
@@ -261,6 +263,7 @@ class DPLoader:
         self.n = mesh.data // p
         self.slot = mesh.slot() - process_index() * self.n
         self._cache: Optional[list] = None
+        self._skip_next = 0
 
     @property
     def dataset(self):
@@ -268,6 +271,13 @@ class DPLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
+        self._skip_next = 0
+
+    def skip_to(self, step: int) -> None:
+        """The next iteration drops the dp steps a cursor of ``step``
+        covers (groups cut from the whole plan:
+        ``data/loader.drop_consumed_groups``)."""
+        self._skip_next = max(0, int(step))
 
     def _plan(self) -> list:
         return list(self.loader.epoch_plan(self.loader._epoch))
@@ -286,27 +296,37 @@ class DPLoader:
         plan = self._plan()
         return len(self._groups(plan)) + (1 if len(plan) % self.n else 0)
 
-    def _deliveries(self):
+    def _deliveries(self, skip: int = 0):
+        from hydragnn_tpu_torch.data.loader import drop_consumed_groups
+
         plan = self._plan()
         collate = self.loader.collate_entry
-        t = 0
+        groups, t = [], 0
         for k in self._groups(plan):
-            batches = [collate(*plan[(t + i) * self.n + self.slot]) for i in range(k)]
+            groups.append(list(range(t, t + k)))
             t += k
-            yield MacroBatch(batches) if k > 1 else batches[0]
         tail = plan[t * self.n :]
         if tail:
-            if self.slot < len(tail):
-                yield collate(*tail[self.slot])
-            else:
-                yield _masked_out(collate(*tail[(self.slot - len(tail)) % len(tail)]))
+            groups.append([t])
+        for steps in drop_consumed_groups(groups, skip):
+            if steps[0] == t:  # the short last step
+                if self.slot < len(tail):
+                    yield collate(*tail[self.slot])
+                else:
+                    yield _masked_out(collate(*tail[(self.slot - len(tail)) % len(tail)]))
+                continue
+            batches = [collate(*plan[s * self.n + self.slot]) for s in steps]
+            yield MacroBatch(batches) if len(batches) > 1 else batches[0]
 
     def __iter__(self):
+        from hydragnn_tpu_torch.data.loader import skip_delivered_items
+
+        skip, self._skip_next = self._skip_next, 0
         if self._cache is not None:
-            yield from self._cache
+            yield from skip_delivered_items(self._cache, skip)
             return
-        cache = [] if getattr(self.loader, "cache_batches", False) else None
-        for item in self._deliveries():
+        cache = [] if getattr(self.loader, "cache_batches", False) and not skip else None
+        for item in self._deliveries(skip):
             if cache is not None:
                 cache.append(item)
             yield item

@@ -45,18 +45,29 @@ every train, eval and test step runs through the run's CUDA-graph cache
 package runs every step through ``jax.jit``; a capture that fails
 raises.
 
-Checkpoints: every run saves its final state under
-``./logs/<log_name>/`` (``utils/checkpoint.py``; ``Training.Checkpoint``
-adds a save on every improving epoch), and ``run_prediction(config)``
-given no state restores the run's ``latest`` checkpoint
-(``restore_checkpoint_state``). ``Training.bn_recalibration`` refreshes
-the running statistics at the end of training from an eval-shaped,
-unpacked loader over the train split.
+Checkpoints: every run saves through its ``CheckpointWriter``
+(``utils/checkpoint.py``, asynchronous unless ``Checkpoint.async`` is
+false; closed before ``run_training`` returns) under
+``./logs/<log_name>/``: its final state, and with ``Training.Checkpoint``
+every improving epoch and every ``interval_steps`` steps, each save with
+the resume manifest. ``run_prediction(config)`` given no state restores
+the run's ``latest`` checkpoint (``restore_checkpoint_state``).
+``Training.continue`` restores the newest resume container of the run
+(``find_continue_log_name``: the derived name, the caller's in-flight
+run, or a sibling differing in ``num_epoch`` whose fingerprint matches)
+and continues at its cursor, bit for bit; a container written under
+another config fingerprint or plan seed, or a checkpoint without a
+manifest, restarts from epoch 0 with the restored weights, loudly.
+``Training.Guard`` turns on the divergence guard (``train/guard.py``).
+``Training.bn_recalibration`` refreshes the running statistics at the
+end of training from an eval-shaped, unpacked loader over the train
+split.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: the parallel input pipeline (Queue 1 item 10), ``continue``
-(resume) and the divergence guard (item 12), and dataset formats other
-than the raw LSMS text files (item 10). An interatomic-potential config
+it: the parallel input pipeline (Queue 1 item 10), dataset formats
+other than the raw LSMS text files (item 10), and (item 12b) the guard
+or a mid-epoch ``continue`` under the multibranch scheme and
+``checkpoint_format: "orbax"``. An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
 and ``run_prediction`` then returns graph energies and forces.
 """
@@ -103,7 +114,14 @@ from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validat
 from hydragnn_tpu_torch.train.loop import test as run_test
 from hydragnn_tpu_torch.train.optimizer import grad_clip_norm, select_optimizer
 from hydragnn_tpu_torch.train.state import TrainState, resolve_precision
-from hydragnn_tpu_torch.utils.checkpoint import find_continue_log_name, load_checkpoint
+from hydragnn_tpu_torch.utils.checkpoint import (
+    CheckpointWriter,
+    checkpoint_settings,
+    config_fingerprint,
+    find_continue_log_name,
+    load_checkpoint,
+    load_resume_checkpoint,
+)
 from hydragnn_tpu_torch.utils.print_utils import (
     get_log_name_config,
     print_distributed,
@@ -176,16 +194,46 @@ def _refuse_unported(config: dict) -> None:
             "the parallel input pipeline is not ported yet (the port collates "
             "serially): ROADMAP Queue 1 item 10"
         )
-    if training.get("continue"):
+    if str(training.get("checkpoint_format", "pt")) == "orbax":
         raise NotImplementedError(
-            "continue (resuming a run from its checkpoint) is not ported yet: "
-            "ROADMAP Queue 1 item 12"
+            "checkpoint_format 'orbax' (sharded checkpoints) is not ported yet (the port "
+            "writes its .pt format): ROADMAP Queue 1 item 12b"
         )
     guard = training.get("Guard", False)
-    if guard.get("enabled", True) if isinstance(guard, dict) else guard:
+    if par.get("scheme") == "multibranch" and (
+            guard.get("enabled", False) if isinstance(guard, dict) else guard):
         raise NotImplementedError(
-            "the divergence guard is not ported yet: ROADMAP Queue 1 item 12"
+            "the divergence guard under the multibranch scheme (per-branch windows) is "
+            "not ported yet: ROADMAP Queue 1 item 12b"
         )
+
+
+def _resume(config: dict, log_name: str, state: TrainState, seed: int, multibranch: bool,
+            verbosity: int) -> Optional[dict]:
+    """``Training.continue``: restore the run's newest durable state into
+    ``state`` and return its manifest, or None where the cursor does not
+    hold (module docstring)."""
+    state, manifest = load_resume_checkpoint(log_name, state)
+    if manifest is None:
+        print_distributed(verbosity, 0, f"continue: '{log_name}' holds a checkpoint without a "
+                          "resume manifest; restarting from epoch 0 with its weights")
+        return None
+    mf, ms = manifest.get("config_fingerprint"), manifest.get("plan_seed")
+    fingerprint = config_fingerprint(config)
+    if (mf is not None and mf != fingerprint) or (ms is not None and int(ms) != int(seed)):
+        print_distributed(
+            verbosity, 0,
+            "resume manifest ignored: config fingerprint or plan seed changed since the "
+            f"checkpoint (saved {mf}/{ms}, now {fingerprint}/{seed}) — the (epoch, step) "
+            "cursor no longer addresses the same batch sequence; restarting from epoch 0 "
+            "with the restored weights")
+        return None
+    if multibranch and int(manifest.get("step", 0)) > 0:
+        raise NotImplementedError(
+            f"continue from a mid-epoch cursor (step {manifest['step']} of epoch "
+            f"{manifest['epoch']}) under the multibranch scheme is not ported yet: "
+            "ROADMAP Queue 1 item 12b")
+    return manifest
 
 
 def packing_settings(config: dict) -> dict:
@@ -488,14 +536,17 @@ def run_training(
         trainset, valset, testset = (select_input_features(d, in_cols) for d in datasets)
     config = update_config(config, trainset, valset, testset)
     _check_num_nodes_bound(config, trainset, valset, testset)
+    training = config["NeuralNetwork"]["Training"]
     log_name = get_log_name_config(config)
+    if training.get("continue"):
+        log_name = find_continue_log_name(log_name, preferred=config.get("_log_name"),
+                                          fingerprint=config_fingerprint(config))
     if verbosity > 0:
         setup_log(log_name)
     if runtime.rank() == 0:
         save_config(config, log_name)
     config["_log_name"] = log_name
 
-    training = config["NeuralNetwork"]["Training"]
     param_dtype, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
     batch_size = int(training.get("batch_size", 32))
     seg_plan = training.get("use_segment_plan", True)
@@ -530,13 +581,27 @@ def run_training(
     state = _run_state(plan, model, optimizer, dev)
     if state.eager_reason:
         print_distributed(verbosity, 1, f"steps run eagerly: {state.eager_reason}")
-    state, hist = train_validate_test(
-        model, cfg, state, train_loader, val_loader, test_loader, config,
-        device=dev, compute_dtype=compute_dtype,
-        clip_norm=grad_clip_norm(training), verbosity=verbosity,
-        log_name=log_name, recal_loader=recal_loader,
-        plan=None if plan.scheme == "single" else plan,
-    )
+    manifest = (_resume(config, log_name, state, seed, multibranch, verbosity)
+                if training.get("continue") else None)
+    ckpt = checkpoint_settings(training)
+    writer = CheckpointWriter(
+        log_name, keep=int(training.get("checkpoint_keep", 5)), retries=ckpt.retries,
+        backoff_s=ckpt.backoff_s, async_enabled=ckpt.async_enabled, plan_seed=int(seed),
+        fingerprint=config_fingerprint(config), validate_finite=ckpt.validate_finite)
+    done = False
+    try:
+        state, hist = train_validate_test(
+            model, cfg, state, train_loader, val_loader, test_loader, config,
+            device=dev, compute_dtype=compute_dtype,
+            clip_norm=grad_clip_norm(training), verbosity=verbosity,
+            writer=writer, resume=manifest, recal_loader=recal_loader,
+            plan=None if plan.scheme == "single" else plan,
+        )
+        done = True
+    finally:
+        # every rank meets the others once the final save is durable; a
+        # rank leaving on an error does not wait for ranks it left behind
+        writer.close(barrier=done)
     return state, model, cfg, hist, config
 
 

@@ -1,0 +1,396 @@
+"""The divergence guard: a non-finite train step contained on the device,
+and the host's skip -> rollback -> halt ladder.
+
+Counterpart of ``hydragnn_tpu/train/guard.py``:
+
+- ``guarded_commit`` is the step's predicate and containment:
+  ``ok = isfinite(loss) & isfinite(global gradient norm)``, the norm
+  taken from the gradients before ``clip_grad_norm`` scales them (as
+  optax's chain hands ``guarded_commit`` raw gradients). The JAX step
+  selects between two immutable trees; the port's optimizers and batch
+  norms update their tensors in place, so a guarded step first copies
+  every tensor the step writes (parameters, running statistics, the
+  optimizer's moments, step counts and learning rates: ``StateShadow``)
+  into buffers made once, and after the update writes back
+  ``torch.where(ok, new, saved)`` into each. A select passes the taken
+  side through exactly, so a healthy guarded run equals the unguarded
+  run bit for bit, and a bad step leaves the state as it was. The loss,
+  the per-task terms and the graph weight are zeroed on a bad step, so
+  the epoch's sums equal those of a run that never saw the batch. The
+  train state's device step counter advances on every step, skipped or
+  not, so an armed ``nan`` rule fires once.
+- ``poison_scalar``/``poison_grads``/``poison_batch`` are the drills'
+  ``nan:<site>@<step>`` injections (``utils/faults.py``), read once when
+  a step is built and compared against the device step counter, so they
+  land inside a captured graph as they do in an eager step. They select
+  NaN, never add it.
+- ``GuardMonitor`` holds each dispatch's predicate and norm as device
+  tensors and fetches them in one copy at the end of the epoch (or every
+  ``check_interval_steps``), then escalates by ``Guard.policy``:
+  ``skip`` reports, ``rollback`` raises ``GuardRollback`` once more than
+  ``max_bad_steps`` fall within ``window_steps`` (the loop restores the
+  last good checkpoint, backs the learning rate off and skips past the
+  bad steps), ``halt`` (or a spent ``max_rollbacks``) raises
+  ``GuardHalt`` with a report. The JAX monitor's ``health`` telemetry
+  row comes with run telemetry (ROADMAP item 13); its per-branch windows
+  with the multibranch guard (item 12b).
+
+Under dp the predicate reads the loss and gradients after the
+all-reduce, so every rank decides alike with no collective added (under
+ZeRO the norm of the sharded gradients is one all-reduce).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils.print_utils import print_distributed
+
+_POLICIES = ("skip", "rollback", "halt")
+
+
+@dataclass(frozen=True)
+class GuardSettings:
+    """The resolved ``Training.Guard`` block (``Guard: true`` is
+    ``{"enabled": true}``: the skip policy, checked at epoch end)."""
+
+    enabled: bool = False
+    policy: str = "skip"
+    max_bad_steps: int = 3
+    window_steps: int = 100
+    check_interval_steps: int = 0
+    lr_backoff: float = 0.5
+    max_rollbacks: int = 2
+
+
+def guard_settings(training: dict) -> GuardSettings:
+    """``Training.Guard`` resolved as the JAX package resolves it (its
+    unknown keys are refused by ``config.update_config``)."""
+    raw = training.get("Guard") or {}
+    if isinstance(raw, bool):
+        raw = {"enabled": raw}
+    elif not isinstance(raw, dict):
+        raise ValueError(
+            "Training.Guard must be a bool or an object "
+            '{"enabled", "policy", "max_bad_steps", "window_steps", '
+            '"check_interval_steps", "lr_backoff", "max_rollbacks"}'
+        )
+    policy = str(raw.get("policy", "skip"))
+    if policy not in _POLICIES:
+        raise ValueError(f"Training.Guard.policy {policy!r} not in {_POLICIES}")
+    backoff = float(raw.get("lr_backoff", 0.5))
+    if not 0.0 < backoff <= 1.0:
+        raise ValueError(f"Training.Guard.lr_backoff must be in (0, 1], got {backoff}")
+    return GuardSettings(
+        enabled=bool(raw.get("enabled", False)),
+        policy=policy,
+        max_bad_steps=max(0, int(raw.get("max_bad_steps", 3))),
+        window_steps=max(1, int(raw.get("window_steps", 100))),
+        check_interval_steps=max(0, int(raw.get("check_interval_steps", 0))),
+        lr_backoff=backoff,
+        max_rollbacks=max(0, int(raw.get("max_rollbacks", 2))),
+    )
+
+
+class GuardRollback(Exception):
+    """The window holds too many bad steps under the ``rollback``
+    policy; ``bad_steps`` are this epoch's, the loop's cursor domain."""
+
+    def __init__(self, bad_steps: List[int], message: str):
+        super().__init__(message)
+        self.bad_steps = list(bad_steps)
+
+
+class GuardHalt(RuntimeError):
+    """Training cannot safely continue; the message is the report."""
+
+
+# ---------------------------------------------------------------- injection
+
+
+def nan_injections() -> Dict[str, List[int]]:
+    """The armed ``nan`` rules, read when a step is built."""
+    return faults.nan_rules()
+
+
+def _trigger(steps: Sequence[int], counter: torch.Tensor) -> torch.Tensor:
+    hit = counter == int(steps[0])
+    for s in steps[1:]:
+        hit = hit | (counter == int(s))
+    return hit
+
+
+def poison_scalar(rules: dict, site: str, counter, x: torch.Tensor) -> torch.Tensor:
+    """``x`` with NaN selected in at the armed steps (``x`` itself when
+    no rule names ``site``)."""
+    steps = rules.get(site) if rules else None
+    if not steps:
+        return x
+    return torch.where(_trigger(steps, counter), torch.full_like(x, float("nan")), x)
+
+
+def poison_grads(rules: dict, counter, params: Sequence[torch.Tensor]) -> None:
+    """Every floating gradient of ``params`` replaced by NaN at the armed
+    ``grad`` steps."""
+    steps = rules.get("grad") if rules else None
+    if not steps:
+        return
+    hit = _trigger(steps, counter)
+    for p in params:
+        if p.grad is not None and p.grad.is_floating_point():
+            p.grad = torch.where(hit, torch.full_like(p.grad, float("nan")), p.grad)
+
+
+def poison_batch(rules: dict, counter, batch):
+    """The batch with its node features NaN at the armed ``batch``
+    steps (loss and gradients both go non-finite)."""
+    steps = rules.get("batch") if rules else None
+    if not steps:
+        return batch
+    x = torch.where(_trigger(steps, counter), torch.full_like(batch.x, float("nan")), batch.x)
+    return dataclasses.replace(batch, x=x)
+
+
+def rules_key(rules: dict) -> tuple:
+    """The armed rules as a hashable part of a step's graph-cache key:
+    an armed and an unarmed build never share a graph."""
+    return tuple(sorted((site, tuple(steps)) for site, steps in (rules or {}).items()))
+
+
+# ---------------------------------------------------------------- containment
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (FSDP2), else the tensor."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+class StateShadow:
+    """A flat buffer per dtype holding, for the length of one step, every
+    tensor the step writes: the model's parameters and floating buffers
+    (running statistics), and the optimizer's per-parameter state and its
+    groups' 0-d step counts and learning rates. Made once when a step is
+    built, so a captured step copies into the same addresses on every
+    replay; saving is one ``cat`` per dtype, selecting one ``cat``, one
+    ``where`` and one multi-tensor copy, whatever the tensor count."""
+
+    def __init__(self, model: torch.nn.Module, optimizer):
+        live = [p.detach() for p in model.parameters()]
+        live += [b for b in model.buffers() if b.is_floating_point()]
+        for group in optimizer.param_groups:
+            live += [v for v in group.values() if isinstance(v, torch.Tensor)]
+        for st in optimizer.state.values():
+            live += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        by_kind: dict = {}
+        for t in (_local(t) for t in live):
+            by_kind.setdefault((t.dtype, t.device), []).append(t)
+        self.groups = [(ts, torch.empty(sum(t.numel() for t in ts), dtype=dt, device=dev))
+                       for (dt, dev), ts in by_kind.items()]
+
+    @staticmethod
+    def _flat(ts, out=None):
+        return torch.cat([t.reshape(-1) for t in ts], out=out)
+
+    def save(self) -> None:
+        with torch.no_grad():
+            for ts, saved in self.groups:
+                self._flat(ts, out=saved)
+
+    def select(self, ok: torch.Tensor) -> None:
+        """Keep each tensor's new value where ``ok``, else its saved one."""
+        with torch.no_grad():
+            for ts, saved in self.groups:
+                new = self._flat(ts)
+                torch.where(ok, new, saved, out=new)
+                views, at = [], 0
+                for t in ts:
+                    views.append(new[at:at + t.numel()].view(t.shape))
+                    at += t.numel()
+                torch._foreach_copy_(ts, views)
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the 2-norm over every gradient (f32),
+    whole over the ranks for ZeRO's sharded gradients."""
+    grads = list(grads)
+    if not grads:
+        return torch.zeros(())
+    if any(hasattr(g, "full_tensor") for g in grads):
+        norms = []
+        for g in grads:
+            n = torch.linalg.vector_norm(g.float())
+            full = getattr(n, "full_tensor", None)
+            norms.append(full() if callable(full) else n)
+    else:
+        norms = torch._foreach_norm([g.float() if g.dtype != torch.float32 else g
+                                     for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def guarded_commit(shadow: StateShadow, tot, tasks, n_graphs, gnorm):
+    """The predicate and the containment after the update (module
+    docstring): returns ``(tot, tasks, n_graphs)`` zeroed on a bad step,
+    the predicate ``ok`` and ``gnorm``."""
+    ok = torch.isfinite(tot) & torch.isfinite(gnorm)
+    shadow.select(ok)
+    zero = torch.zeros((), dtype=tot.dtype, device=tot.device)
+    return (torch.where(ok, tot, zero), torch.where(ok, tasks, torch.zeros_like(tasks)),
+            torch.where(ok, n_graphs, torch.zeros_like(n_graphs)), ok, gnorm)
+
+
+# ---------------------------------------------------------------- the ladder
+
+
+class GuardMonitor:
+    """Drives the policy ladder from the per-step predicates the guarded
+    steps return (module docstring). ``observe`` runs after every
+    dispatch and only appends, unless the sampled cadence is due;
+    ``epoch_end`` fetches the epoch's predicates in one copy and
+    escalates. Bad steps are windowed in run-global step numbers."""
+
+    def __init__(self, settings: GuardSettings, verbosity: int = 0):
+        self.settings = settings
+        self.verbosity = verbosity
+        self.epoch = 0
+        self.skipped_total = 0
+        self.rollbacks = 0
+        # (global step, epoch, epoch step) of the bad steps in the window
+        self.bad_steps_recent: List[tuple] = []
+        self.bad_steps_all: List[tuple] = []  # (epoch, epoch step)
+        self._last_gstep = 0
+        self._epoch_base = 0
+        self._epoch_max_step = 0
+        self.epoch_bad: List[int] = []
+        self._gn_min = float("inf")
+        self._gn_max = 0.0
+        self._gn_sum = 0.0
+        self._gn_count = 0
+        self._pending: List[tuple] = []  # (first_step, k, ok_ref, gnorm_ref)
+        self._since_check = 0
+
+    def note_epoch(self, epoch: int) -> None:
+        self._epoch_base += self._epoch_max_step
+        self._epoch_max_step = 0
+        self.epoch = int(epoch)
+        self.epoch_bad = []
+        self._gn_min, self._gn_max = float("inf"), 0.0
+        self._gn_sum, self._gn_count = 0.0, 0
+        self._pending = []
+        self._since_check = 0
+
+    def observe(self, *, step: int, k: int, ok_ref, gnorm_ref) -> None:
+        """One dispatch: ``step`` is this epoch's step count after it,
+        ``k`` the steps it covered, the refs its ``[k]`` (or scalar)
+        predicate and norm, held unfetched."""
+        self._pending.append((int(step) - int(k), int(k), ok_ref, gnorm_ref))
+        if self.settings.check_interval_steps > 0:
+            self._since_check += int(k)
+            if self._since_check >= self.settings.check_interval_steps:
+                self._since_check = 0
+                self.check()
+
+    def epoch_end(self) -> None:
+        self.check()
+
+    def _fetch(self, pending) -> List[tuple]:
+        parts = []
+        for _, k, ok, gn in pending:
+            parts.append(torch.as_tensor(ok).reshape(-1).to(torch.float64))
+            parts.append(torch.as_tensor(gn).reshape(-1).to(torch.float64))
+        flat = torch.cat([p.to(parts[0].device) for p in parts]).cpu().numpy()
+        out, at = [], 0
+        for _, k, _, _ in pending:
+            out.append((flat[at:at + k] != 0, flat[at + k:at + 2 * k]))
+            at += 2 * k
+        return out
+
+    def check(self) -> None:
+        """Fetch the pending predicates (one copy) and run the ladder;
+        raises ``GuardRollback``/``GuardHalt`` by policy."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        new_bad: List[int] = []
+        for (first_step, k, _, _), (oks, gns) in zip(pending, self._fetch(pending)):
+            finite = gns[np.isfinite(gns)]
+            if finite.size:
+                self._gn_min = min(self._gn_min, float(finite.min()))
+                self._gn_max = max(self._gn_max, float(finite.max()))
+                self._gn_sum += float(finite.sum())
+                self._gn_count += int(finite.size)
+            new_bad += [first_step + j for j in range(k) if not oks[j]]
+            self._epoch_max_step = max(self._epoch_max_step, first_step + k)
+            self._last_gstep = max(self._last_gstep, self._epoch_base + first_step + k)
+        if not new_bad:
+            return
+        self.skipped_total += len(new_bad)
+        self.epoch_bad.extend(new_bad)
+        self.bad_steps_recent.extend((self._epoch_base + b, self.epoch, b) for b in new_bad)
+        self.bad_steps_all.extend((self.epoch, b) for b in new_bad)
+        self._warn(
+            f"non-finite step(s) SKIPPED on-device at optimizer step(s) {new_bad} "
+            f"(epoch {self.epoch}) — loss/grad-norm predicate failed; the affected "
+            "params/optimizer state untouched"
+        )
+        self._escalate()
+
+    def _escalate(self) -> None:
+        s = self.settings
+        lo = self._last_gstep - s.window_steps
+        self.bad_steps_recent = [b for b in self.bad_steps_recent if b[0] > lo]
+        window_bad = len(self.bad_steps_recent)
+        if s.policy == "skip" or window_bad <= s.max_bad_steps:
+            return
+        if s.policy == "halt" or self.rollbacks >= s.max_rollbacks:
+            raise GuardHalt(self.report(window_bad))
+        raise GuardRollback(
+            [es for _, ep, es in self.bad_steps_recent if ep == self.epoch],
+            f"{window_bad} bad step(s) within the last {s.window_steps} steps "
+            f"(> max_bad_steps={s.max_bad_steps}) — rolling back to the last-known-good "
+            "checkpoint",
+        )
+
+    def note_rollback(self, cursor_step: int, new_lr: float) -> None:
+        """After the loop restored a checkpoint: count the rollback and
+        clear the window."""
+        self.rollbacks += 1
+        self.bad_steps_recent = []
+        self._pending = []
+        self._since_check = 0
+        self._warn(
+            f"ROLLBACK #{self.rollbacks}: restored last-known-good cursor step "
+            f"{cursor_step} of epoch {self.epoch}, lr backed off to {new_lr:.3e}"
+        )
+
+    def report(self, window_bad: Optional[int] = None) -> str:
+        """The halt report."""
+        recent = [f"e{ep}:s{es}" for ep, es in self.bad_steps_all[-16:]]
+        n = window_bad if window_bad is not None else len(self.bad_steps_recent)
+        return (
+            "training HALTED by the divergence guard: "
+            f"{self.skipped_total} non-finite step(s) total ({n} in the last "
+            f"{self.settings.window_steps}-step window, threshold "
+            f"{self.settings.max_bad_steps}), {self.rollbacks}/{self.settings.max_rollbacks} "
+            f"rollback(s) spent; recent bad optimizer steps {recent} (epoch {self.epoch}); "
+            f"injected fault plan: {faults.plan_spec()!r}. The last-known-good checkpoint "
+            "is the newest artifact under logs/<run>/ (the writer's validate-finite gate "
+            "never published a non-finite state). Likely causes: corrupted/outlier input "
+            "data around those steps, an LR too hot for this precision, or bf16 "
+            "activation overflow — lower Training.Optimizer.learning_rate or set "
+            "Training.Optimizer.clip_grad_norm, then `continue` from the checkpoint."
+        )
+
+    def gnorm_stats(self) -> Optional[dict]:
+        if not self._gn_count:
+            return None
+        return {"gnorm_min": self._gn_min, "gnorm_max": self._gn_max,
+                "gnorm_mean": self._gn_sum / self._gn_count, "gnorm_steps": self._gn_count}
+
+    def _warn(self, msg: str) -> None:
+        print_distributed(self.verbosity, 0, f"[guard] {msg}")

@@ -22,12 +22,29 @@ on the card, and K eager steps on the CPU; either way its per-step
 losses fold into the epoch's sums as K single steps would
 (``fold_step_metrics``), so K does not change a result.
 
-Checkpoints (``utils/checkpoint.py``): with ``Training.Checkpoint`` on,
-every epoch that improves the validation loss (from epoch
-``checkpoint_warmup`` on) saves its epoch file and ``latest``, keeping
-the newest ``checkpoint_keep`` (5); every run saves ``latest`` at its
-end, after the end-of-training batch-norm recalibration
-(``recalibrate_batch_stats``, ``Training.bn_recalibration``).
+Checkpoints go through the run's ``utils/checkpoint.CheckpointWriter``:
+with ``Training.Checkpoint`` on, every epoch that improves the
+validation loss (from epoch ``checkpoint_warmup`` on) saves its epoch
+file and ``latest``, keeping the newest ``checkpoint_keep`` (5), and
+``Checkpoint.interval_steps`` adds a resume container every that many
+steps (between dispatches) and at each epoch's end; every run saves
+``latest`` at its end, after the end-of-training batch-norm
+recalibration (``recalibrate_batch_stats``,
+``Training.bn_recalibration``). Each save carries the resume manifest
+(the cursor, the epoch's partial sums bit for bit, the scheduler's,
+early stopping's and the history's host state); a ``resume`` manifest
+restores them and fast-forwards the train loader (``skip_to``), so a
+resumed run continues the interrupted one bit for bit. The walltime
+stop (``utils/runtime.check_remaining``) saves and ends the loop.
+
+The divergence guard (``train/guard.py``, ``Training.Guard``): the
+guarded train body saves the state it writes, checks the loss and the
+gradient norm, and selects the old state back on a non-finite step,
+inside the step (and its captured graph); ``GuardMonitor`` reads the
+predicates at the epoch's end and escalates: a rollback restores the
+writer's newest container in place, backs the learning rate off and
+skips past the bad steps. Armed ``nan`` fault rules are read when a
+step is built and key its graph.
 
 Under a dp or multibranch ``plan`` (``parallel/runtime.ParallelPlan``)
 the epoch loop runs ``parallel/dp.make_dp_superstep_fn``'s steps (the
@@ -37,13 +54,14 @@ end-of-training batch-norm recalibration is skipped there with a
 message, as in the JAX package, and ``test`` gathers the slots' per-
 sample outputs in the JAX package's order.
 
-Not ported yet, and refused by the runner: resume (``continue``), the
-divergence guard, the pipeline feed and telemetry (ROADMAP Queue 1
-items 12, 10, 13).
+Not ported yet, and refused by the runner: the pipeline feed, run
+telemetry, and the multibranch guard and mid-epoch resume (ROADMAP
+items 10, 13, 12b).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
@@ -51,9 +69,10 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hydragnn_tpu_torch.data.loader import MacroBatch
+from hydragnn_tpu_torch.data.loader import MacroBatch, feed_supports_skip
 from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
 from hydragnn_tpu_torch.models.spec import ModelConfig
+from hydragnn_tpu_torch.train import guard as guard_mod
 from hydragnn_tpu_torch.train.losses import multihead_loss
 from hydragnn_tpu_torch.train.mlip import (
     energy_and_forces,
@@ -68,8 +87,14 @@ from hydragnn_tpu_torch.train.optimizer import (
     set_learning_rate,
 )
 from hydragnn_tpu_torch.train.state import TrainState, cast_batch
-from hydragnn_tpu_torch.utils.checkpoint import checkpoint_settings, save_checkpoint
+from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils.checkpoint import (
+    checkpoint_settings,
+    decode_acc,
+    load_resume_checkpoint,
+)
 from hydragnn_tpu_torch.utils.print_utils import print_distributed
+from hydragnn_tpu_torch.utils.runtime import check_remaining
 
 
 def _graph_count(batch) -> torch.Tensor:
@@ -77,23 +102,36 @@ def _graph_count(batch) -> torch.Tensor:
 
 
 def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
-                red=None, *, clip_groups: bool = False):
-    """``body(batch) -> (loss, per_task, n_graphs)``: one optimizer step
-    on a batch already on the model's device, with no host sync (so it
-    can be captured). The gradients stay in ``.grad`` until the next
-    step. With ``red`` (a ``parallel/dp.Reduction``) it is one rank's
-    step of a dp or multibranch plan: the loss weighted before the
-    backward; the gradients, running statistics and loss terms reduced
-    over the ranks after it; ``n_graphs`` the global count.
-    ``clip_groups`` clips each optimizer group on its own (the dual
-    optimizer's two optax chains)."""
+                red=None, *, clip_groups: bool = False, guard: bool = False,
+                rules: Optional[dict] = None):
+    """``body(batch, counter) -> (loss, per_task, n_graphs)``: one
+    optimizer step on a batch already on the model's device, with no
+    host sync (so it can be captured); ``counter`` is the train state's
+    device step counter, which it advances. The gradients stay in
+    ``.grad`` until the next step. With ``red`` (a
+    ``parallel/dp.Reduction``) it is one rank's step of a dp or
+    multibranch plan: the loss weighted before the backward; the
+    gradients, running statistics and loss terms reduced over the ranks
+    after it; ``n_graphs`` the global count. ``clip_groups`` clips each
+    optimizer group on its own (the dual optimizer's two optax chains).
+
+    ``guard`` adds the divergence guard (``train/guard.py``): the body
+    saves what it writes first, and returns ``(loss, per_task,
+    n_graphs, ok, gnorm)``, the first three zeroed and the state kept on
+    a non-finite step. ``rules`` are the armed ``nan`` fault rules
+    (``guard.nan_injections()``), selected in against ``counter``."""
     params = list(model.parameters())
     scale = float(red.n_slots) if red is not None and red.fsdp else 1.0
+    shadow = guard_mod.StateShadow(model, optimizer) if guard else None
+    rules = rules or {}
 
-    def body(batch):
+    def body(batch, counter):
+        batch = guard_mod.poison_batch(rules, counter, batch)
         b = cast_batch(batch, compute_dtype)
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        if shadow is not None:
+            shadow.save()
         if red is not None:
             w, n_graphs = red.weight(b)
         if compute_grad_energy:
@@ -107,19 +145,27 @@ def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_en
             (tot * (w * scale).to(tot.dtype).reshape(())).backward()
             red.after_forward()
             live = list(model.parameters())  # FSDP2's shards, once resharded
+        tot = guard_mod.poison_scalar(rules, "loss", counter, tot.detach())
         # A parameter the loss does not reach takes a zero gradient, as in
         # optax, so AdamW's weight decay still moves it.
         for p in live:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        guard_mod.poison_grads(rules, counter, live)
         if red is not None:
             tot, tasks = red.reduce_train(live, tot, tasks, w.reshape(()))
+        if guard:
+            gnorm = guard_mod.global_norm([p.grad for p in live])
         if clip_norm > 0:
             groups = [g["params"] for g in optimizer.param_groups] if clip_groups else [live]
             for group in groups:
                 clip_by_global_norm_(group, clip_norm)
         optimizer.step()
-        return tot.detach(), tasks.detach(), n_graphs.reshape(())
+        counter.add_(1)
+        if guard:
+            return guard_mod.guarded_commit(shadow, tot, tasks.detach(),
+                                            n_graphs.reshape(()), gnorm)
+        return tot, tasks.detach(), n_graphs.reshape(())
 
     return body
 
@@ -163,6 +209,17 @@ def _step_key(red, *key) -> tuple:
     return key if red is None else (red.kind,) + key
 
 
+def _train_key(red, compute_dtype, guard: bool, rules: dict) -> tuple:
+    """A train step's key: a guarded build, and a build with armed
+    ``nan`` rules, never share an unguarded or unarmed build's graph."""
+    key = _step_key(red, "train", compute_dtype)
+    if guard:
+        key += ("guard",)
+    if rules:
+        key += (("nan",) + guard_mod.rules_key(rules),)
+    return key
+
+
 def make_train_step(
     model: torch.nn.Module,
     optimizer: OptaxOptimizer,
@@ -172,20 +229,24 @@ def make_train_step(
     compute_grad_energy: bool = False,
     red=None,
     clip_groups: bool = False,
+    guard: bool = False,
 ) -> Callable:
     """``step(state, batch) -> (state, loss, per_task)``: one eager
     optimizer step on a batch already on the model's device. The losses
     come back as device tensors (no host sync); the gradients stay in
     ``.grad`` until the next step. ``compute_grad_energy`` trains on the
     MLIP energy + force loss, whose backward differentiates the force
-    pass. ``red`` and ``clip_groups``: ``_train_body``."""
+    pass. ``red`` and ``clip_groups``: ``_train_body``. ``guard`` returns
+    ``(state, loss, per_task, n_graphs, ok, gnorm)``, as the JAX
+    package's guarded step does; armed ``nan`` rules are read here."""
     body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
-                       red, clip_groups=clip_groups)
+                       red, clip_groups=clip_groups, guard=guard,
+                       rules=guard_mod.nan_injections())
 
     def step(state: TrainState, batch):
-        tot, tasks, _ = body(batch)
+        out = body(batch, state.step_t)
         state.step += 1
-        return state, tot, tasks
+        return (state,) + tuple(out if guard else out[:2])
 
     return step
 
@@ -239,15 +300,17 @@ def _spec_key(batch) -> tuple:
     return (batch.num_nodes, batch.num_edges, batch.num_graphs, t)
 
 
-def _steps_fn(body) -> Callable:
-    """K steps of ``body`` over K device batches: ``(loss [K], per_task
-    [K, T], graphs [K], *each step's extra outputs)``. The graph count is
-    the body's (the global one under dp)."""
+def _steps_fn(body, rows: int = 3) -> Callable:
+    """K steps of ``body`` over K device batches: ``rows`` stacked
+    outputs (``(loss [K], per_task [K, T], graphs [K])``, and a guarded
+    step's ``ok [K], gnorm [K]``), then each step's extra outputs. A
+    train body takes the device step counter (``counter``). The graph
+    count is the body's (the global one under dp)."""
 
-    def run(batches):
-        rows = [body(b) for b in batches]
-        out = tuple(torch.stack([r[i] for r in rows]) for i in range(3))
-        return out + tuple(x for r in rows for x in r[3:])
+    def run(batches, counter=None):
+        outs = [body(b) if counter is None else body(b, counter) for b in batches]
+        out = tuple(torch.stack([r[i] for r in outs]) for i in range(rows))
+        return out + tuple(x for r in outs for x in r[rows:])
 
     return run
 
@@ -273,6 +336,7 @@ def make_superstep_fn(
     graphs=None,
     red=None,
     clip_groups: bool = False,
+    guard: bool = False,
 ) -> Callable:
     """The superstep: K train (or eval) steps over a list of K batches of
     one shape in one dispatch. With ``graphs`` (a ``StepGraphs``, on the
@@ -285,22 +349,33 @@ def make_superstep_fn(
     ``(state, acc, batches) -> acc``, where ``acc = (loss_sum, tasks_sum,
     n_graphs)`` are the f32 weighted partial sums of the epoch (None
     before its first step), folded by ``fold_step_metrics``: one K-step
-    dispatch gives the bits of K single-step dispatches."""
+    dispatch gives the bits of K single-step dispatches. ``guard``
+    (train only) runs the guarded body per inner step, so a poisoned
+    batch inside a K-step graph is skipped alone, and returns ``(state,
+    acc, oks [K], gnorms [K])`` (copies of the graph's outputs, which
+    the guard's monitor holds to the epoch's end). The armed ``nan``
+    rules are read here and join the graph's key."""
     if train:
+        rules = guard_mod.nan_injections()
         body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm,
-                           compute_grad_energy, red, clip_groups=clip_groups)
+                           compute_grad_energy, red, clip_groups=clip_groups, guard=guard,
+                           rules=rules)
+        key = _train_key(red, compute_dtype, guard, rules)
     else:
         body = _eval_body(model, cfg, compute_dtype, False, compute_grad_energy, red)
-    run = _steps_fn(body)
-    key = _step_key(red, "train" if train else "eval", compute_dtype)
+        key = _step_key(red, "eval", compute_dtype)
+    run = _steps_fn(body, 5 if train and guard else 3)
 
     def superstep(state, acc, batches):
-        tots, tasks, gs = _dispatch(run, graphs, key, batches, device)
-        acc = fold_step_metrics(acc, tots, tasks, gs)
-        if train:
-            state.step += len(batches)
-            return state, acc
-        return acc
+        fn = functools.partial(run, counter=state.step_t) if train else run
+        out = _dispatch(fn, graphs, key, batches, device)
+        acc = fold_step_metrics(acc, *out[:3])
+        if not train:
+            return acc
+        state.step += len(batches)
+        if guard:
+            return state, acc, out[3].clone(), out[4].clone()
+        return state, acc
 
     return superstep
 
@@ -335,20 +410,45 @@ def _fetch_epoch(loss_sum, tasks_sum, n_graphs) -> Tuple[float, np.ndarray]:
     return float(vals[0]) / denom, vals[1:-1] / denom
 
 
-def _run_epoch(superstep, state, loader, *, train: bool):
+def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int = 0,
+               step_hook=None, guard=None):
     """One pass over the loader: each delivery (a batch, or a
     ``MacroBatch`` of K) is one superstep dispatch; the weighted partial
-    sums accumulate on the device and are fetched once at the end."""
+    sums accumulate on the device and are fetched once at the end.
+
+    Mid-epoch resume: ``acc0`` (``checkpoint.decode_acc``'s float32
+    values) seeds the sums and ``step0`` the epoch's step count, the
+    loader having been fast-forwarded to the same cursor.
+    ``step_hook(state, steps_done, acc)`` runs after every dispatch (the
+    writer's interval saves, so cursors fall between dispatches). Each
+    train step ticks the ``train_step`` fault site. ``guard`` (a
+    ``GuardMonitor``; the superstep must be guarded) gets each
+    dispatch's predicates and reads them after the sums' fetch; it may
+    raise ``GuardRollback`` or ``GuardHalt``."""
     acc = None
+    if acc0 is not None:
+        dev = state.step_t.device
+        acc = tuple(torch.as_tensor(np.asarray(a, np.float32)).to(dev) for a in acc0)
+    n = step0
     for item in loader:
         batches = item.batches if isinstance(item, MacroBatch) else [item]
-        if train:
-            state, acc = superstep(state, acc, batches)
-        else:
+        n += len(batches)
+        if not train:
             acc = superstep(state, acc, batches)
-    if acc is None:
-        return state, 0.0, np.zeros(1)
-    loss, tasks = _fetch_epoch(*acc)
+        elif guard is not None:
+            state, acc, oks, gnorms = superstep(state, acc, batches)
+        else:
+            state, acc = superstep(state, acc, batches)
+        if train:
+            for _ in batches:
+                faults.tick("train_step")
+            if guard is not None:
+                guard.observe(step=n, k=len(batches), ok_ref=oks, gnorm_ref=gnorms)
+        if step_hook is not None:
+            step_hook(state, n, acc)
+    loss, tasks = (0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
+    if guard is not None:
+        guard.epoch_end()
     return state, loss, tasks
 
 
@@ -426,6 +526,88 @@ def bn_recalibration_epochs(training: dict) -> int:
     return max(0, int(raw))
 
 
+def _loop_state(hist: History, best_val: float, bad_epochs: int, scheduler) -> dict:
+    """The loop's host state for the resume manifest (Python floats,
+    which a checkpoint keeps exactly)."""
+    return {
+        "best_val": best_val,
+        "bad_epochs": bad_epochs,
+        "scheduler": {"best": scheduler.best, "bad_epochs": scheduler.bad_epochs},
+        "hist": {
+            "train_loss": list(hist.train_loss), "val_loss": list(hist.val_loss),
+            "test_loss": list(hist.test_loss), "lr": list(hist.lr),
+            "epoch_seconds": list(hist.epoch_seconds),
+            "epoch_captures": list(hist.epoch_captures),
+            **{name: [np.asarray(t, np.float64).reshape(-1).tolist()
+                      for t in getattr(hist, name)]
+               for name in ("train_tasks", "val_tasks", "test_tasks")},
+        },
+    }
+
+
+def _restore_loop_state(ls: dict, hist: History, scheduler) -> Tuple[float, int]:
+    """Load a manifest's loop state into ``hist`` and ``scheduler``;
+    returns ``(best_val, bad_epochs)``."""
+    sched = ls.get("scheduler") or {}
+    scheduler.best = float(sched.get("best", scheduler.best))
+    scheduler.bad_epochs = int(sched.get("bad_epochs", 0))
+    h = ls.get("hist") or {}
+    for name in ("train_loss", "val_loss", "test_loss", "lr", "epoch_seconds"):
+        setattr(hist, name, [float(x) for x in h.get(name, [])])
+    hist.epoch_captures = [int(x) for x in h.get("epoch_captures", [])]
+    for name in ("train_tasks", "val_tasks", "test_tasks"):
+        setattr(hist, name, [np.asarray(v, np.float64) for v in h.get(name, [])])
+    return float(ls.get("best_val", float("inf"))), int(ls.get("bad_epochs", 0))
+
+
+def _guard_rollback(rb, monitor, state, epoch, train_loader, writer, scheduler, verbosity):
+    """After a ``GuardRollback``: restore the writer's newest resume
+    container into ``state`` in place (the validate-finite gate kept
+    every durable file finite), back the learning rate off in its
+    tensor, and skip the train loader past the bad steps. Returns
+    ``(state, acc0, step0)`` for the epoch's retry; raises ``GuardHalt``
+    where there is nothing to roll back to. The device step counter is
+    restored with the state, so it then lags the plan's cursor by the
+    skipped steps (as in the JAX package)."""
+    if writer is None:
+        raise guard_mod.GuardHalt(
+            "Guard.policy=rollback needs checkpointing: no CheckpointWriter is attached "
+            "to this loop, so there is no last-known-good state to restore. "
+            + monitor.report())
+    writer.wait()
+    try:
+        state, manifest = load_resume_checkpoint(writer.log_name, state)
+    except FileNotFoundError as e:
+        raise guard_mod.GuardHalt(
+            f"Guard rollback found no restorable checkpoint ({e}) — the divergence landed "
+            "before the first durable save; lower Training.Checkpoint.interval_steps. "
+            + monitor.report())
+    if manifest is None:
+        raise guard_mod.GuardHalt(
+            "Guard rollback needs a resume manifest but only a checkpoint without a "
+            "cursor was restorable. " + monitor.report())
+    me, ms = int(manifest.get("epoch", 0)), int(manifest.get("step", 0))
+    if me != epoch:
+        raise guard_mod.GuardHalt(
+            f"Guard rollback: the newest container's cursor (epoch {me}, step {ms}) is not "
+            f"in the current epoch {epoch}; refusing a cross-epoch restore. "
+            + monitor.report())
+    lr = get_learning_rate(state.optimizer)
+    new_lr = max(lr * monitor.settings.lr_backoff, float(scheduler.min_lr))
+    set_learning_rate(state.optimizer, new_lr)
+    target = max(ms, max(rb.bad_steps) + 1) if rb.bad_steps else ms
+    train_loader.set_epoch(epoch)
+    if target > 0:
+        train_loader.skip_to(target)
+    acc0 = decode_acc(manifest.get("acc")) if ms > 0 else None
+    monitor.note_rollback(target, new_lr)
+    print_distributed(
+        verbosity, 0,
+        f"[guard] rollback: epoch {epoch} resumes at step {target} (container cursor "
+        f"{ms}, bad steps {rb.bad_steps[-8:]}), lr {lr:.3e} -> {new_lr:.3e}")
+    return state, acc0, target
+
+
 def train_validate_test(
     model: torch.nn.Module,
     cfg: ModelConfig,
@@ -439,7 +621,8 @@ def train_validate_test(
     compute_dtype: torch.dtype = torch.float32,
     clip_norm: float = 0.0,
     verbosity: int = 0,
-    log_name: Optional[str] = None,
+    writer=None,
+    resume: Optional[dict] = None,
     recal_loader=None,
     plan=None,
 ) -> Tuple[TrainState, History]:
@@ -448,24 +631,28 @@ def train_validate_test(
     improvement when ``EarlyStopping`` is set. The loaders may deliver
     ``MacroBatch`` groups (``data/loader.SuperstepLoader``); the steps
     run through ``state.graphs`` where the run has one (on the card).
-    With a ``log_name`` the run saves checkpoints under
-    ``./logs/<log_name>/`` (module docstring); ``recal_loader`` is the
-    feed of the end-of-training batch-norm recalibration (the train
-    loader when None). ``plan`` selects the dp or multibranch steps
-    (module docstring)."""
+    With a ``writer`` (``utils/checkpoint.CheckpointWriter``) the loop
+    saves as the module docstring says; ``resume`` (a manifest of
+    ``load_resume_checkpoint``, its state already restored) continues
+    at its cursor. ``recal_loader`` is the feed of the end-of-training
+    batch-norm recalibration (the train loader when None). ``plan``
+    selects the dp or multibranch steps (module docstring).
+    ``Training.Guard`` turns the guard on (module docstring)."""
     training = config["NeuralNetwork"]["Training"]
     num_epoch = int(training.get("num_epoch", 1))
     patience = int(training.get("patience", 10))
     early_stop = bool(training.get("EarlyStopping", False))
-    save_on_best = log_name is not None and checkpoint_settings(training).enabled
+    ckpt = checkpoint_settings(training)
+    use_ckpt = writer is not None and ckpt.enabled
     warmup = int(training.get("checkpoint_warmup", 0))
-    keep = int(training.get("checkpoint_keep", 5))
+    gset = guard_mod.guard_settings(training)
+    monitor = guard_mod.GuardMonitor(gset, verbosity=verbosity) if gset.enabled else None
     graphs = state.graphs
     kw = dict(compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential,
               device=device, graphs=graphs)
     if plan is None or plan.scheme == "single":
         train_step = make_superstep_fn(model, state.optimizer, cfg, train=True,
-                                       clip_norm=clip_norm, **kw)
+                                       clip_norm=clip_norm, guard=gset.enabled, **kw)
         eval_step = make_superstep_fn(model, None, cfg, train=False, **kw)
     else:
         from hydragnn_tpu_torch.parallel.dp import make_dp_superstep_fn
@@ -476,7 +663,7 @@ def train_validate_test(
                   if plan.scheme == "multibranch" else None)
         train_step = make_dp_superstep_fn(model, state.optimizer, cfg, plan, train=True,
                                           clip_norm=clip_norm, kind=plan.scheme,
-                                          decoder_scales=scales, **kw)
+                                          decoder_scales=scales, guard=gset.enabled, **kw)
         eval_step = make_dp_superstep_fn(model, None, cfg, plan, train=False, **kw)
     sched_cfg = training.get("ReduceLROnPlateau", {})
     scheduler = ReduceLROnPlateau(
@@ -488,13 +675,57 @@ def train_validate_test(
     hist = History()
     best_val = float("inf")
     bad_epochs = 0
-    for epoch in range(num_epoch):
+    can_skip = feed_supports_skip(train_loader)
+    if resume is not None and int(resume.get("step", 0)) > 0 and not can_skip:
+        print_distributed(
+            verbosity, 0,
+            f"resume container ignored: its cursor is mid-epoch (step {resume.get('step')} "
+            f"of epoch {resume.get('epoch')}) but this feed has no skip_to fast-forward; "
+            "restarting from epoch 0 with the restored weights")
+        resume = None
+    epoch_start = resume_step = 0
+    resume_acc = None
+    if resume is not None:
+        epoch_start, resume_step = int(resume.get("epoch", 0)), int(resume.get("step", 0))
+        resume_acc = decode_acc(resume.get("acc"))
+        best_val, bad_epochs = _restore_loop_state(resume.get("loop") or {}, hist, scheduler)
+    interval = ckpt.interval_steps if use_ckpt and can_skip else 0
+    walltime_left = float(training.get("walltime_min_seconds_left", 300.0))
+
+    def loop_state():
+        return _loop_state(hist, best_val, bad_epochs, scheduler)
+
+    next_epoch = epoch_start
+    for epoch in range(epoch_start, num_epoch):
+        next_epoch = epoch + 1
         t0 = time.time()
         captures = graphs.captures if graphs is not None else 0
         train_loader.set_epoch(epoch)
-        state, train_loss, train_tasks = _run_epoch(
-            train_step, state, train_loader, train=True
-        )
+        if monitor is not None:
+            monitor.note_epoch(epoch)
+        acc0, step0 = None, 0
+        if epoch == epoch_start and resume_step > 0:
+            train_loader.skip_to(resume_step)
+            acc0, step0 = resume_acc, resume_step
+        while True:
+            step_hook = None
+            if interval > 0:
+                last = {"step": step0}
+
+                def step_hook(st, steps_done, acc, _epoch=epoch, _last=last):
+                    if steps_done - _last["step"] >= interval:
+                        _last["step"] = steps_done
+                        writer.save(st, kind="auto", epoch=_epoch, step=steps_done,
+                                    acc=acc, loop=loop_state())
+
+            try:
+                state, train_loss, train_tasks = _run_epoch(
+                    train_step, state, train_loader, train=True, acc0=acc0, step0=step0,
+                    step_hook=step_hook, guard=monitor)
+                break
+            except guard_mod.GuardRollback as rb:
+                state, acc0, step0 = _guard_rollback(rb, monitor, state, epoch, train_loader,
+                                                     writer, scheduler, verbosity)
         _, val_loss, val_tasks = _run_epoch(eval_step, state, val_loader, train=False)
         _, test_loss, test_tasks = _run_epoch(eval_step, state, test_loader, train=False)
         lr = get_learning_rate(state.optimizer)
@@ -518,16 +749,31 @@ def train_validate_test(
             f"| test {test_loss:.6f} | lr {new_lr:.2e} "
             f"| {time.time() - t0:.2f}s",
         )
-        if val_loss < best_val:
+        improved = val_loss < best_val
+        saved = False
+        if improved:
             best_val = val_loss
             bad_epochs = 0
-            if save_on_best and epoch >= warmup:
-                save_checkpoint(log_name, state, epoch=epoch, keep=keep)
+            if use_ckpt and epoch >= warmup:
+                writer.save(state, kind="epoch", epoch=epoch + 1, step=0, label_epoch=epoch,
+                            loop=loop_state())
+                saved = True
         else:
             bad_epochs += 1
             if early_stop and bad_epochs >= patience:
                 print_distributed(verbosity, 1, f"Early stopping at epoch {epoch}")
                 break
+        if interval > 0 and not saved:
+            # the epoch's end as a cursor: a kill early in the next epoch
+            # keeps this epoch's bookkeeping
+            writer.save(state, kind="auto", epoch=epoch + 1, step=0, loop=loop_state())
+        if not check_remaining(walltime_left):
+            print_distributed(verbosity, 1,
+                              f"Stopping at epoch {epoch}: job walltime nearly exhausted")
+            if use_ckpt:
+                writer.save(state, kind="epoch", epoch=epoch + 1, step=0, label_epoch=epoch,
+                            loop=loop_state())
+            break
     recal = bn_recalibration_epochs(training)
     if recal and plan is not None and plan.scheme != "single":
         print_distributed(
@@ -541,8 +787,8 @@ def train_validate_test(
             model, state, train_loader if recal_loader is None else recal_loader,
             device=device, compute_dtype=compute_dtype, epochs=recal,
         )
-    if log_name is not None:
-        save_checkpoint(log_name, state)
+    if writer is not None:
+        writer.save(state, kind="final", epoch=next_epoch, step=0, loop=loop_state())
     return state, hist
 
 

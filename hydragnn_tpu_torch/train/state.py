@@ -27,13 +27,32 @@ class TrainState:
     optimizer, the number of optimizer steps taken, and, on the card,
     the run's CUDA-graph cache of its steps (``train/capture.StepGraphs``;
     None runs them eagerly, and ``eager_reason`` then says why where a
-    plan decided it: ``parallel/dp.eager_reason``)."""
+    plan decided it: ``parallel/dp.eager_reason``).
+
+    ``step`` is the host's count, which the loop's cursors use;
+    ``step_t`` the same count as a 0-d int64 tensor on the model's
+    device, which every train step advances inside its body (a skipped
+    step too) and the ``nan`` fault rules compare against: a captured
+    graph would bake a host int in."""
 
     model: torch.nn.Module
     optimizer: OptaxOptimizer
     step: int = 0
     graphs: Optional[object] = None
     eager_reason: Optional[str] = None
+    step_t: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.step_t is None:
+            p = next(self.model.parameters(), None)
+            dev = p.device if p is not None else torch.device("cpu")
+            self.step_t = torch.full((), int(self.step), dtype=torch.int64, device=dev)
+
+    def set_step(self, step: int) -> None:
+        """Set both counts (a restore): the device one in place, so
+        captured steps keep advancing it."""
+        self.step = int(step)
+        self.step_t.fill_(int(step))
 
 
 def resolve_precision(

@@ -1,14 +1,15 @@
-"""Synchronous checkpoints of a training run.
+"""Checkpoints of a training run: synchronous saves, the asynchronous
+writer and the resume manifest.
 
-Counterpart of the synchronous part of ``hydragnn_tpu/utils/checkpoint.py``:
-``save_checkpoint``, ``load_checkpoint``, ``checkpoint_exists``,
-``find_continue_log_name`` and ``checkpoint_settings``. The files keep
-the JAX package's layout and semantics:
+Counterpart of ``hydragnn_tpu/utils/checkpoint.py`` (its msgpack path;
+the sharded ``orbax`` format is ROADMAP item 12b). The files keep the
+JAX package's layout and semantics:
 
 - a run's files live in ``./logs/<log_name>/``;
 - ``checkpoint.pt`` is the latest state, ``checkpoint_epoch<N>.pt`` the
-  state saved on epoch ``N`` (written with ``latest`` refreshed to the
-  same bytes, then pruned to the newest ``keep``);
+  state saved on epoch ``N`` (``latest`` refreshed to the same bytes,
+  then pruned to the newest ``keep``), ``resume.pt`` the writer's resume
+  container;
 - every file is written to ``<path>.tmp`` and moved into place with
   ``os.replace``, so a kill mid-write never leaves a truncated file;
 - a load with no epoch reads ``latest`` and, when it is missing or
@@ -23,34 +24,55 @@ optimizer's state holds its learning rate and step count as device
 tensors; a load copies every saved tensor into the live one (the
 module's ``load_state_dict`` copies parameters in place, the port's
 optimizers do the same for their state), so CUDA graphs captured before
-a restore replay with the restored values. The asynchronous writer, the
-resume manifest and ``continue`` are ROADMAP Queue 1 item 12.
+a restore replay with the restored values.
 
-Under several ranks every rank calls ``save_checkpoint`` together: an
-FSDP2-sharded model's parameters and optimizer state are all-gathered
-into full tensors (``parallel/runtime.gather_to_host``), so the file is
-PR 6's format and ``run_prediction(config)`` restores it in one
+The writer's files (``CheckpointWriter``) are the same dict with a
+``"manifest"`` key added: the resume cursor ``(epoch, step)``, the plan
+seed and ``config_fingerprint`` that guard it, the epoch's partial
+metric sums as float32 bit patterns (``encode_acc``) and the loop's
+host state (scheduler, early stopping, history). ``run_prediction``
+and ``load_checkpoint`` ignore the key, and a file without it (a
+synchronous save) restores as a checkpoint without a cursor
+(``load_resume_checkpoint``).
+
+Under several ranks every rank calls ``save_checkpoint`` (and the
+writer's ``save``) together: an FSDP2-sharded model's parameters and
+optimizer state are all-gathered into full tensors
+(``parallel/runtime.gather_to_host``), so the file restores in one
 process; rank 0 writes, and every rank waits at a barrier until the file
 is in place. A restore into sharded tensors copies each rank's shard.
+
+Fault points (``utils/faults.py``) sit inside the write and the
+publish, where the drills land their failures and kills.
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
 import io
+import json
 import os
+import queue
 import re
+import threading
+import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from hydragnn_tpu_torch.parallel.runtime import gather_to_host, rank, world_size
+from hydragnn_tpu_torch.utils import faults
 
 CHECKPOINT_DIR = "./logs"
+MANIFEST_VERSION = 1
 _LATEST = "checkpoint.pt"
+_RESUME = "resume.pt"
 _EPOCH_RE = re.compile(r"checkpoint_epoch(\d+)\.pt$")
+_BACKOFF_CAP_S = 30.0
 
 
 def _warn(msg: str) -> None:
@@ -60,28 +82,45 @@ def _warn(msg: str) -> None:
 @dataclass
 class CheckpointSettings:
     """The resolved ``Training.Checkpoint`` block: ``true`` means
-    save-on-best; the object form's ``enabled`` says the same (its
-    durability knobs belong to the asynchronous writer, item 12)."""
+    save-on-best with the defaults; the object form adds the writer's
+    knobs ``{"enabled", "async", "interval_steps", "retries", "backoff",
+    "validate_finite"}``."""
 
     enabled: bool = False
+    async_enabled: bool = True
+    interval_steps: int = 0
+    retries: int = 3
+    backoff_s: float = 0.25
+    validate_finite: bool = True
 
 
 def checkpoint_settings(training: dict) -> CheckpointSettings:
     raw = training.get("Checkpoint", False)
     if isinstance(raw, dict):
-        return CheckpointSettings(enabled=bool(raw.get("enabled", True)))
+        return CheckpointSettings(
+            enabled=bool(raw.get("enabled", True)),
+            async_enabled=bool(raw.get("async", True)),
+            interval_steps=max(0, int(raw.get("interval_steps", 0))),
+            retries=max(0, int(raw.get("retries", 3))),
+            backoff_s=float(raw.get("backoff", 0.25)),
+            validate_finite=bool(raw.get("validate_finite", True)),
+        )
     return CheckpointSettings(enabled=bool(raw))
 
 
+def _run_dir(log_name: str) -> str:
+    return os.path.join(CHECKPOINT_DIR, log_name)
+
+
 def _ckpt_path(log_name: str, epoch: Optional[int] = None, *, make: bool = True) -> str:
-    d = os.path.join(CHECKPOINT_DIR, log_name)
+    d = _run_dir(log_name)
     if make:
         os.makedirs(d, exist_ok=True)
     return os.path.join(d, _LATEST if epoch is None else f"checkpoint_epoch{epoch}.pt")
 
 
 def _epoch_files_newest_first(log_name: str) -> list:
-    files = glob.glob(os.path.join(CHECKPOINT_DIR, log_name, "checkpoint_epoch*.pt"))
+    files = glob.glob(os.path.join(_run_dir(log_name), "checkpoint_epoch*.pt"))
     return sorted(files, key=lambda p: int(_EPOCH_RE.search(p).group(1)), reverse=True)
 
 
@@ -95,12 +134,36 @@ def _prune_old_epochs(log_name: str, keep: int) -> None:
 
 
 def _atomic_write_bytes(path: str, blob: bytes) -> None:
+    """``blob`` at ``path`` through ``<path>.tmp`` and ``os.replace``.
+    Half the bytes go out before the fault point, so an injected failure
+    or crash leaves a truncated temporary file and ``path`` untouched,
+    as a real one would."""
     tmp = path + ".tmp"
+    half = max(len(blob) // 2, 1)
     with open(tmp, "wb") as f:
-        f.write(blob)
+        f.write(blob[:half])
+        faults.on_write(path)
+        faults.crash_point("write_tmp")
+        f.write(blob[half:])
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def _publish_linked(src: str, dst: str, blob: bytes) -> None:
+    """``dst`` with the bytes of the just-written ``src``: a hard link
+    moved into place (no second write), else a full atomic write."""
+    tmp = dst + ".lnk"
+    try:
+        try:
+            os.remove(tmp)
+        except FileNotFoundError:
+            pass
+        os.link(src, tmp)
+        faults.crash_point("publish_link")
+        os.replace(tmp, dst)
+    except OSError:
+        _atomic_write_bytes(dst, blob)
 
 
 def _full(tree):
@@ -119,22 +182,25 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def _state_bytes(state) -> bytes:
-    """A ``TrainState``'s checkpoint blob (whole tensors on the host)."""
+def _state_tree(state) -> dict:
+    """A ``TrainState``'s checkpoint dict over its live tensors."""
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step)}
+
+
+def _blob(tree: dict) -> bytes:
     buf = io.BytesIO()
-    torch.save({"model": _full(state.model.state_dict()),
-                "optimizer": _full(state.optimizer.state_dict()),
-                "step": int(state.step)}, buf)
+    torch.save(tree, buf)
     return buf.getvalue()
 
 
 def save_checkpoint(log_name: str, state, *, epoch: Optional[int] = None,
                     keep: int = 0) -> str:
-    """Write ``state`` (a ``TrainState``): the epoch file and ``latest``
-    with ``epoch``, else ``latest`` alone; then prune to the newest
-    ``keep`` epoch files (0 keeps them all). Returns the path written.
-    Every rank calls this; rank 0 writes (module docstring)."""
-    blob = _state_bytes(state)
+    """Write ``state`` (a ``TrainState``) now: the epoch file and
+    ``latest`` with ``epoch``, else ``latest`` alone; then prune to the
+    newest ``keep`` epoch files (0 keeps them all). Returns the path
+    written. Every rank calls this; rank 0 writes (module docstring)."""
+    blob = _blob(_full(_state_tree(state)))
     writer = rank() == 0
     path = _ckpt_path(log_name, epoch, make=writer)
     if writer:
@@ -146,11 +212,9 @@ def save_checkpoint(log_name: str, state, *, epoch: Optional[int] = None,
     return path
 
 
-def _restore(state, path: str) -> None:
-    """Load the blob at ``path`` into ``state`` in place, bit for bit:
-    each tensor is copied into the live one on its device (module
-    docstring)."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+def _restore_blob(state, blob: dict) -> None:
+    """Copy a loaded checkpoint dict into ``state`` in place, bit for
+    bit (module docstring); a ``"manifest"`` key is not read."""
     live = state.model.state_dict()
     if any(hasattr(t, "full_tensor") for t in live.values()):
         from hydragnn_tpu_torch.train.optimizer import copy_into
@@ -163,7 +227,11 @@ def _restore(state, path: str) -> None:
     else:
         state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
-    state.step = int(blob["step"])
+    state.set_step(int(blob["step"]))
+
+
+def _load(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _try_restore(state, path: str) -> bool:
@@ -172,7 +240,7 @@ def _try_restore(state, path: str) -> bool:
     if not os.path.exists(path):
         return False
     try:
-        _restore(state, path)
+        _restore_blob(state, _load(path))
         return True
     except Exception as e:  # a truncated or foreign file
         _warn(f"checkpoint at {path} is not restorable ({type(e).__name__}: {e}) "
@@ -181,16 +249,16 @@ def _try_restore(state, path: str) -> bool:
 
 
 def load_checkpoint(log_name: str, state, *, epoch: Optional[int] = None):
-    """Restore a ``TrainState`` written by ``save_checkpoint`` into
-    ``state`` (whose model and optimizer give the structure) and return
-    it. With ``epoch`` that file is read and any failure raises; without,
-    ``latest``, else the newest restorable epoch file (with a
-    warning)."""
+    """Restore a ``TrainState`` written by ``save_checkpoint`` or the
+    writer into ``state`` (whose model and optimizer give the structure)
+    and return it. With ``epoch`` that file is read and any failure
+    raises; without, ``latest``, else the newest restorable epoch file
+    (with a warning)."""
     path = _ckpt_path(log_name, epoch, make=False)
     if epoch is not None:
         if not os.path.exists(path):
             raise FileNotFoundError(f"No checkpoint at {path}")
-        _restore(state, path)
+        _restore_blob(state, _load(path))
         return state
     if _try_restore(state, path):
         return state
@@ -206,19 +274,53 @@ def checkpoint_exists(log_name: str, *, epoch: Optional[int] = None) -> bool:
 
 
 def _has_artifacts(log_name: str) -> bool:
-    return checkpoint_exists(log_name) or bool(_epoch_files_newest_first(log_name))
+    return (os.path.exists(os.path.join(_run_dir(log_name), _RESUME))
+            or checkpoint_exists(log_name) or bool(_epoch_files_newest_first(log_name)))
 
 
-def find_continue_log_name(log_name: str) -> str:
-    """The run directory holding this config's checkpoints. The derived
-    name encodes ``num_epoch``, so a config whose ``num_epoch`` changed
-    since training points at an empty directory: then the newest sibling
-    that differs only in the ``_e<N>`` suffix and has checkpoints, with a
-    warning; else ``log_name`` itself. (The JAX package also takes the
-    caller's in-flight run name and compares a sibling's stored config
-    fingerprint, for ``continue``; both come with item 12.)"""
+# ---------------------------------------------------------------- the manifest
+
+
+def _peek_fingerprint(log_name: str) -> Optional[str]:
+    """The ``config_fingerprint`` of ``log_name``'s resume container
+    (its tensors memory-mapped, not read), or None."""
+    path = os.path.join(_run_dir(log_name), _RESUME)
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        return (blob.get("manifest") or {}).get("config_fingerprint")
+    except Exception:
+        return None
+
+
+def find_continue_log_name(log_name: str, preferred: Optional[str] = None,
+                           fingerprint: Optional[str] = None) -> str:
+    """The run directory a ``continue`` (or a restore) reads. The
+    derived name encodes ``num_epoch``, which a continue may extend, so:
+    ``log_name`` when it has checkpoints; else the caller's in-flight
+    ``preferred`` run; else the newest sibling differing only in the
+    ``_e<N>`` suffix that has checkpoints, with a warning; else
+    ``log_name``. With a ``fingerprint`` (this config's
+    ``config_fingerprint``) a candidate whose resume container was
+    written under another configuration is not adopted (it would become
+    this run's write target), with a warning."""
+
+    def adoptable(cand: str) -> bool:
+        if fingerprint is None:
+            return True
+        stored = _peek_fingerprint(cand)
+        if stored == fingerprint:
+            return True
+        _warn(f"Training.continue: not adopting '{cand}' — its stored config fingerprint "
+              f"({stored}) does not match this config ({fingerprint}); continuing would "
+              "overwrite a different run's artifacts")
+        return False
+
     if _has_artifacts(log_name):
         return log_name
+    if preferred and preferred != log_name and _has_artifacts(preferred) and adoptable(preferred):
+        _warn(f"Training.continue: no checkpoint under '{log_name}' — continuing "
+              f"'{preferred}' (this config's previous run)")
+        return preferred
     m = re.match(r"^(.*_e)\d+$", log_name)
     if not m:
         return log_name
@@ -229,9 +331,364 @@ def find_continue_log_name(log_name: str) -> str:
         if re.fullmatch(r"\d+", os.path.basename(p)[len(stem):])
         and _has_artifacts(os.path.basename(p))
     ]
-    if not cands:
-        return log_name
-    cand = max(cands, key=lambda n: os.path.getmtime(os.path.join(CHECKPOINT_DIR, n)))
-    _warn(f"no checkpoint under '{log_name}' — using '{cand}' (same run name up to "
-          "num_epoch)")
-    return cand
+    cands.sort(key=lambda n: os.path.getmtime(_run_dir(n)), reverse=True)
+    for cand in cands:
+        if adoptable(cand):
+            _warn(f"no checkpoint under '{log_name}' — using '{cand}' (same run name up to "
+                  "num_epoch)")
+            return cand
+    return log_name
+
+
+# Keys a resume may change without moving the batch plan the cursor
+# addresses (the JAX package's list).
+_FINGERPRINT_VOLATILE = frozenset({
+    "continue", "num_epoch", "Checkpoint", "checkpoint_warmup", "checkpoint_keep",
+    "walltime_min_seconds_left",
+})
+
+
+def config_fingerprint(config: dict) -> str:
+    """A stable hash of the run's config, without ``_``-prefixed and
+    resume-volatile keys at every depth: the JAX package's hex for the
+    same config."""
+
+    def strip(doc):
+        if isinstance(doc, dict):
+            return {k: strip(v) for k, v in sorted(doc.items())
+                    if not str(k).startswith("_") and k not in _FINGERPRINT_VOLATILE}
+        if isinstance(doc, (list, tuple)):
+            return [strip(v) for v in doc]
+        return doc
+
+    canon = json.dumps(strip(config), sort_keys=True, default=str)
+    return hashlib.sha256(canon.encode()).hexdigest()[:16]
+
+
+def encode_acc(acc) -> Optional[dict]:
+    """The epoch's partial sums ``(loss_sum, tasks_sum, n_graphs)`` as
+    float32 bit patterns (one host copy), so a resumed epoch adds on from
+    the interrupted run's exact values."""
+    if acc is None or acc[0] is None:
+        return None
+    loss_sum, tasks_sum, n_graphs = (torch.as_tensor(a) for a in acc)
+    flat = torch.cat([loss_sum.reshape(1).float(), tasks_sum.reshape(-1).float(),
+                      n_graphs.to(loss_sum.device).reshape(1).float()])
+    bits = flat.detach().cpu().numpy().astype(np.float32).view(np.uint32)
+    return {"loss_sum": int(bits[0]), "tasks_sum": [int(v) for v in bits[1:-1]],
+            "n_graphs": int(bits[-1])}
+
+
+def decode_acc(enc: Optional[dict]) -> Optional[tuple]:
+    """Inverse of ``encode_acc``: numpy float32 values."""
+    if not enc:
+        return None
+
+    def val(bits: int):
+        return np.asarray([bits], np.uint32).view(np.float32)[0]
+
+    tasks = np.asarray(enc["tasks_sum"], np.uint32).view(np.float32)
+    return val(enc["loss_sum"]), tasks, val(enc["n_graphs"])
+
+
+def build_manifest(*, epoch: int, step: int = 0, plan_seed: Optional[int] = None,
+                   fingerprint: Optional[str] = None, acc=None, loop: Optional[dict] = None,
+                   fmt: str = "pt") -> dict:
+    """The resume cursor: training continues at ``(epoch, step)``, the
+    first ``step`` optimizer steps of ``epoch`` being inside the saved
+    state; ``plan_seed`` and ``fingerprint`` guard it, ``acc``
+    (``encode_acc``) carries the epoch's partial sums, ``loop`` the
+    loop's host state."""
+    return {"version": MANIFEST_VERSION, "epoch": int(epoch), "step": int(step),
+            "plan_seed": None if plan_seed is None else int(plan_seed),
+            "config_fingerprint": fingerprint, "acc": acc, "loop": loop, "format": fmt,
+            "branch_steps": None, "unix_time": time.time()}
+
+
+def load_resume_checkpoint(log_name: str, state):
+    """Restore the newest durable state for ``Training.continue`` into
+    ``state``: the writer's resume container (state and manifest in one
+    file), else ``latest`` or an epoch file with no cursor. Returns
+    ``(state, manifest or None)``."""
+    path = os.path.join(_run_dir(log_name), _RESUME)
+    if os.path.exists(path):
+        try:
+            blob = _load(path)
+            _restore_blob(state, blob)
+            return state, blob.get("manifest")
+        except Exception as e:
+            _warn(f"resume container {path} unreadable ({type(e).__name__}: {e}) — "
+                  "falling back to the latest plain checkpoint (epoch-boundary resume)")
+    return load_checkpoint(log_name, state), None
+
+
+# ---------------------------------------------------------------- the writer
+
+
+def nonfinite_leaves(host, path: str = "") -> list:
+    """``[(path, bad_count, size), ...]`` for every floating host tensor
+    of a nested dict/list holding NaN or Inf."""
+    if isinstance(host, torch.Tensor):
+        if not host.is_floating_point():
+            return []
+        bad = int(host.numel() - int(torch.isfinite(host).sum()))
+        return [(path, bad, int(host.numel()))] if bad else []
+    if isinstance(host, dict):
+        items = host.items()
+    elif isinstance(host, (list, tuple)):
+        items = enumerate(host)
+    else:
+        return []
+    return [leaf for k, v in items for leaf in nonfinite_leaves(v, f"{path}[{k!r}]")]
+
+
+class _Slot(int):
+    """A leaf's index in ``_host_snapshot``'s list (apart from the ints
+    a checkpoint dict holds)."""
+
+
+def _host_snapshot(tree):
+    """``tree`` (a checkpoint dict over live tensors) on the host: the
+    tensors of each dtype on one device gathered into one buffer and
+    copied in one transfer (an FSDP2 shard all-gathered first), then
+    split into tensors of their own. Returns only after the copies
+    landed, so the next step may overwrite the live tensors."""
+    leaves = []
+
+    def walk(t, leaf):
+        if isinstance(t, dict):
+            return type(t)((k, walk(v, leaf)) for k, v in t.items())
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, leaf) for v in t)
+        return leaf(t)
+
+    def collect(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        leaves.append(t)
+        return _Slot(len(leaves) - 1)
+
+    shape = walk(tree, collect)
+    host: list = [None] * len(leaves)
+    groups: dict = {}
+    for i, t in enumerate(leaves):
+        t = gather_to_host(t) if hasattr(t, "full_tensor") else t.detach()
+        if t.device.type == "cpu":
+            host[i] = t.clone()
+        else:
+            groups.setdefault((t.device, t.dtype), []).append((i, t))
+    for members in groups.values():
+        flat = torch.cat([t.reshape(-1) for _, t in members]).cpu()
+        at = 0
+        for i, t in members:
+            host[i] = flat[at:at + t.numel()].view(t.shape).clone()
+            at += t.numel()
+    return walk(shape, lambda t: host[t] if type(t) is _Slot else t)
+
+
+def _processes_agree_finite(local_ok: bool) -> bool:
+    """Every rank's validate-finite verdict, AND-ed (a MIN all-reduce
+    on the loop thread); one rank's own verdict at world 1."""
+    if world_size() == 1:
+        return local_ok
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == dist.Backend.NCCL else torch.device("cpu"))
+    flag = torch.tensor([1 if local_ok else 0], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+class CheckpointWriter:
+    """Asynchronous, crash-safe checkpoint saves (the JAX package's
+    ``CheckpointWriter``).
+
+    ``save`` has two phases. On the caller's (the loop's) thread, under
+    ``train/capture.GRAPH_LOCK``: the state's tensors are copied to the
+    host (``_host_snapshot``: one transfer per dtype, finished before
+    ``save`` returns, so the next step's in-place update cannot reach
+    the copy), and, under several ranks, an FSDP2 model gathered and
+    the ranks' validate-finite verdicts agreed (both collectives). On
+    one worker thread, which touches host memory only (no CUDA call, no
+    collective): the validate-finite gate (a state holding NaN or Inf is
+    never written, ``rejected_saves`` counts it), ``torch.save`` and the
+    atomic writes, with transient ``OSError``s retried ``retries`` times
+    at a doubling ``backoff_s``; a failure past them is printed and kept
+    on ``last_error``, never raised into training. One write is in
+    flight at a time: a ``save`` arriving while one is pending waits for
+    it (the next snapshot waits, not the steps between saves). Rank 0
+    writes; ``wait`` and ``close`` end at a barrier of every rank.
+
+    ``kind``: ``"auto"`` writes the resume container (``resume.pt``)
+    alone; ``"epoch"`` the container, the epoch file and ``latest`` (a
+    hard link of the epoch file), pruning epoch files to ``keep``;
+    ``"final"`` the container and ``latest``. Every file holds the same
+    bytes: the checkpoint dict with the manifest.
+
+    Counts: ``saves``, ``bytes_written``, ``retries``,
+    ``snapshot_ms`` (each save's caller-thread time), ``write_ms``.
+    """
+
+    def __init__(self, log_name: str, *, keep: int = 0, retries: int = 3,
+                 backoff_s: float = 0.25, async_enabled: bool = True,
+                 plan_seed: Optional[int] = None, fingerprint: Optional[str] = None,
+                 validate_finite: bool = True):
+        self.log_name = log_name
+        self.keep = int(keep)
+        self.retries = max(0, int(retries))
+        self.backoff_s = max(0.0, float(backoff_s))
+        self.async_enabled = bool(async_enabled)
+        self.plan_seed = plan_seed
+        self.fingerprint = fingerprint
+        self.validate_finite = bool(validate_finite)
+        self.rejected_saves = 0
+        self.last_error: Optional[BaseException] = None
+        self.saves = 0
+        self.bytes_written = 0
+        self.retried = 0
+        self.snapshot_ms: list = []
+        self.write_ms: list = []
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._thread: Optional[threading.Thread] = None
+        self._inflight = 0
+        self._cv = threading.Condition()
+
+    def save(self, state, *, kind: str = "auto", epoch: int = 0, step: int = 0,
+             label_epoch: Optional[int] = None, acc=None, loop: Optional[dict] = None) -> None:
+        """``(epoch, step)`` is the resume cursor, the next step to run
+        (an end-of-epoch save of epoch e carries ``(e + 1, 0)``);
+        ``label_epoch`` names the epoch file (``kind="epoch"``),
+        defaulting to ``epoch``."""
+        from hydragnn_tpu_torch.train.capture import GRAPH_LOCK
+
+        self._drain()
+        t0 = time.perf_counter()
+        with GRAPH_LOCK:
+            host = _host_snapshot(_state_tree(state))
+            manifest = build_manifest(epoch=epoch, step=step, plan_seed=self.plan_seed,
+                                      fingerprint=self.fingerprint, acc=encode_acc(acc),
+                                      loop=loop)
+        finite = None
+        if world_size() > 1 and self.validate_finite:
+            finite = _processes_agree_finite(not nonfinite_leaves(host))
+        self.snapshot_ms.append(1e3 * (time.perf_counter() - t0))
+        host["manifest"] = manifest
+        job = (host, kind, epoch if label_epoch is None else int(label_epoch), finite)
+        if rank() != 0:
+            if finite is False:
+                self.rejected_saves += 1
+            return
+        if not self.async_enabled:
+            self._run_job(job)
+            return
+        with self._cv:
+            self._inflight += 1
+        self._ensure_thread()
+        self._queue.put_nowait(job)
+
+    def _ensure_thread(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._thread = threading.Thread(target=self._worker_main, daemon=True,
+                                        name="hgtpu-ckpt-writer")
+        self._thread.start()
+
+    def _worker_main(self) -> None:
+        while True:
+            job = self._queue.get()
+            if job is None:
+                return
+            try:
+                self._run_job(job)
+            finally:
+                with self._cv:
+                    self._inflight -= 1
+                    self._cv.notify_all()
+
+    def _run_job(self, job) -> None:
+        host, kind, epoch, finite = job
+        if finite is None and self.validate_finite:
+            finite = not nonfinite_leaves(host)
+        if self.validate_finite and not finite:
+            self.rejected_saves += 1
+            _warn(f"checkpoint save REJECTED (kind={kind}, epoch={epoch}): the state "
+                  "contains non-finite values — refusing to publish a corrupt artifact; "
+                  "the last durable checkpoint remains the resume/rollback point "
+                  "(Training.Checkpoint.validate_finite disables this gate)")
+            return
+        t0 = time.perf_counter()
+        delay = self.backoff_s
+        blob = None
+        for attempt in range(self.retries + 1):
+            try:
+                if blob is None:
+                    blob = _blob(host)
+                self.bytes_written += self._emit(kind, epoch, blob)
+                self.saves += 1
+                self.last_error = None
+                break
+            except OSError as e:
+                if attempt == self.retries:
+                    self.last_error = e
+                    _warn(f"checkpoint write FAILED after {attempt + 1} attempt(s): {e} — "
+                          "training continues; the last durable checkpoint remains the "
+                          "resume point")
+                    break
+                self.retried += 1
+                _warn(f"transient checkpoint write failure ({e}); retrying in {delay:.2f}s")
+                time.sleep(delay)
+                delay = min(delay * 2.0, _BACKOFF_CAP_S)
+            except BaseException as e:
+                # an injected crash included: a real kill ends the process
+                # anyway, and the tests read what it left on disk
+                if (isinstance(e, (KeyboardInterrupt, SystemExit))
+                        and threading.current_thread() is not self._thread):
+                    raise
+                self.last_error = e
+                _warn(f"checkpoint write FAILED (non-retryable): {e!r}")
+                break
+        self.write_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def _emit(self, kind: str, epoch: int, blob: bytes) -> int:
+        d = _run_dir(self.log_name)
+        os.makedirs(d, exist_ok=True)
+        _atomic_write_bytes(os.path.join(d, _RESUME), blob)
+        n = len(blob)
+        if kind == "epoch":
+            epoch_path = _ckpt_path(self.log_name, epoch)
+            _atomic_write_bytes(epoch_path, blob)
+            _publish_linked(epoch_path, _ckpt_path(self.log_name, None), blob)
+            _prune_old_epochs(self.log_name, self.keep)
+            n += len(blob)
+        elif kind == "final":
+            _atomic_write_bytes(_ckpt_path(self.log_name, None), blob)
+            n += len(blob)
+        return n
+
+    def _drain(self) -> None:
+        with self._cv:
+            while self._inflight:
+                self._cv.wait()
+
+    def wait(self) -> None:
+        """Block until no write is in flight, on every rank."""
+        self._drain()
+        _barrier()
+
+    def close(self, barrier: bool = True) -> None:
+        """Drain, stop the worker and, with ``barrier``, meet the other
+        ranks (a rank leaving on an error skips it). Never raises on a
+        write failure (see ``last_error``)."""
+        self._drain()
+        if self._thread is not None and self._thread.is_alive():
+            self._queue.put(None)
+            self._thread.join(timeout=30.0)
+        self._thread = None
+        if barrier:
+            _barrier()
+
+    def stats(self) -> dict:
+        """The counts (class docstring) as one dict."""
+        return {"saves": self.saves, "bytes": self.bytes_written, "retries": self.retried,
+                "rejected": self.rejected_saves, "snapshot_ms": list(self.snapshot_ms),
+                "write_ms": list(self.write_ms),
+                "last_error": None if self.last_error is None else repr(self.last_error)}

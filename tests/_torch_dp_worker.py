@@ -9,8 +9,11 @@ Each rank joins a gloo group through a FileStore in DIR, reads the
 inputs the test wrote there (``inputs.pt``: numpy parameters from the
 JAX package, port GraphSamples and batches), runs the port's dp, ZeRO
 and multibranch steps and the dp ``run_training``/``run_prediction``
-(on one node, then as two nodes), and writes what it saw to ``out<RANK>.pt``. It imports torch and the
-port only (never jax, the JAX package or the tests' conftest).
+(on one node, then as two nodes), then the dp durability cases (the
+guard on a healthy run and on an injected NaN, and a run stopped
+mid-epoch then continued), and writes what it saw to ``out<RANK>.pt``.
+It imports torch and the port only (never jax, the JAX package or the
+tests' conftest).
 """
 
 import os
@@ -69,35 +72,47 @@ def _snapshot(model) -> dict:
 
 def case_dp(inp, rank, zero):
     """(d)/(e): the eval step, then two train steps (unequal real graph
-    counts, then slot 1 fully masked) on this rank's slot."""
-    import torch
-
+    counts, then slot 1 fully masked) on this rank's slot; and the same
+    two steps with the divergence guard on (``guarded``: losses and
+    parameters after each)."""
     from hydragnn_tpu_torch.models import convert, create, spec
     from hydragnn_tpu_torch.parallel import dp
     from hydragnn_tpu_torch.parallel.mesh import DataMesh
     from hydragnn_tpu_torch.parallel.runtime import ParallelPlan
+    from hydragnn_tpu_torch.train.loop import make_train_step
     from hydragnn_tpu_torch.train.optimizer import select_optimizer
     from hydragnn_tpu_torch.train.state import TrainState
 
     cfg = pna_cfg(spec, inp["deg"])
-    model = create.create_model(cfg, "cpu")
-    model.load_state_dict(convert.params_from_jax(inp["pna_params"], inp["pna_stats"]))
     plan = ParallelPlan(scheme="dp", mesh=DataMesh(data=2), fsdp=zero, fsdp_axis="data")
-    model = dp.replicate_state(model, plan, "cpu")
-    opt = select_optimizer(model.parameters(), DP_TRAINING)
-    state = TrainState(model, opt)
+
+    def build():
+        model = create.create_model(cfg, "cpu")
+        model.load_state_dict(convert.params_from_jax(inp["pna_params"], inp["pna_stats"]))
+        model = dp.replicate_state(model, plan, "cpu")
+        opt = select_optimizer(model.parameters(), DP_TRAINING)
+        return model, opt, TrainState(model, opt)
+
+    model, opt, state = build()
     a, b = inp["dp_batches"]
     own = a if rank == 0 else b
+    second = a if rank == 0 else dp._masked_out(b)
     ev = dp.make_dp_eval_step(model, cfg, plan)(state, own)
     step = dp.make_dp_train_step(model, opt, cfg, plan)
     _, loss1, tasks1 = step(state, own)
     snap1 = _snapshot(model)
-    second = a if rank == 0 else dp._masked_out(b)
     _, loss2, tasks2 = step(state, second)
     snap2 = _snapshot(model)
+    g_model, g_opt, g_state = build()
+    g_step = make_train_step(g_model, g_opt, cfg, red=dp.Reduction(g_model, plan), guard=True)
+    guarded = []
+    for batch in (own, second):
+        _, loss, _, _, ok, _ = g_step(g_state, batch)
+        guarded.append((float(loss), bool(ok), _snapshot(g_model)["params"]))
     return {"eval": (float(ev[0]), ev[1].numpy().copy()),
             "step1": (float(loss1), tasks1.numpy().copy(), snap1),
             "step2": (float(loss2), tasks2.numpy().copy(), snap2),
+            "guarded": guarded,
             "sharded": [type(p).__name__ for p in model.parameters()][:1]}
 
 
@@ -151,9 +166,9 @@ def case_multibranch(inp, rank):
             "groups": [len(g["params"]) for g in opt.param_groups]}
 
 
-def case_run(inp, rank):
-    """(g): run_training under {"scheme": "dp", "data": 2} from the JAX
-    run's initial parameters, then run_prediction."""
+def _train_from_jax(inp, config):
+    """run_training of ``config`` on the run's splits from the JAX run's
+    initial parameters."""
     from hydragnn_tpu_torch import runner
     from hydragnn_tpu_torch.models import convert
 
@@ -167,16 +182,97 @@ def case_run(inp, rank):
 
     runner.create_model_config = with_jax_params
     try:
-        state, model, cfg, hist, full = runner.run_training(
-            inp["run_config"], datasets=inp["run_splits"], device="cpu")
+        return runner.run_training(config, datasets=inp["run_splits"], device="cpu")
     finally:
         runner.create_model_config = make
+
+
+def _history(hist, model) -> dict:
+    return {"train_loss": hist.train_loss, "val_loss": hist.val_loss,
+            "test_loss": hist.test_loss,
+            "params": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+
+
+def case_run(inp, rank):
+    """(g): run_training under {"scheme": "dp", "data": 2} from the JAX
+    run's initial parameters, then run_prediction."""
+    from hydragnn_tpu_torch import runner
+
+    state, model, cfg, hist, full = _train_from_jax(inp, inp["run_config"])
     err, _, trues, preds = runner.run_prediction(
         full, datasets=inp["run_splits"], state=state, model=model, cfg=cfg)
-    return {"train_loss": hist.train_loss, "val_loss": hist.val_loss,
-            "test_loss": hist.test_loss, "error": float(err), "trues": trues,
-            "preds": preds, "ckpt": os.path.exists(
-                os.path.join("logs", full["_log_name"], "checkpoint.pt"))}
+    return dict(_history(hist, model), error=float(err), trues=trues, preds=preds,
+                ckpt=os.path.exists(os.path.join("logs", full["_log_name"], "checkpoint.pt")))
+
+
+class _Stop(BaseException):
+    """Ends a run at a train step, on every rank alike (the in-process
+    stand-in for a preemption: the ranks leave between steps)."""
+
+
+def case_durability(inp, rank):
+    """The dp run of case_run at batch 4 (more steps an epoch): with
+    ``Training.Guard`` on and resume containers every 2 steps
+    (``guard``) and with neither (``plain``); the guarded run stopped
+    after its 6th step then continued (``resumed``); and with
+    ``nan:loss@2`` armed, guarded (``nan``, with the bad steps its
+    monitor saw) and not (``nan_off``)."""
+    import copy
+
+    from hydragnn_tpu_torch.train import guard
+    from hydragnn_tpu_torch.utils import faults
+
+    def config(name, **training):
+        c = copy.deepcopy(inp["run_config"])
+        c["Dataset"]["name"] = name
+        c["NeuralNetwork"]["Training"].update(batch_size=4, **training)
+        return c
+
+    durable = {"Guard": {"enabled": True},
+               "Checkpoint": {"enabled": True, "interval_steps": 2}}
+    out = {}
+    state, model, _, hist, _ = _train_from_jax(inp, config("guarded", **durable))
+    out["guard"] = dict(_history(hist, model), steps=state.step)
+    _, model, _, hist, _ = _train_from_jax(inp, config("plain"))
+    out["plain"] = _history(hist, model)
+
+    tick = faults.tick
+    seen = []
+
+    def stop_at_6(site):
+        seen.append(site)
+        if len(seen) == 6:
+            raise _Stop()
+
+    faults.tick = stop_at_6
+    try:
+        _train_from_jax(inp, config("stopped", **durable))
+    except _Stop:
+        out["stopped_at"] = len(seen)
+    finally:
+        faults.tick = tick
+    _, model, _, hist, _ = _train_from_jax(inp, config("stopped", **durable, **{"continue": 1}))
+    out["resumed"] = _history(hist, model)
+
+    monitors = []
+    plain = guard.GuardMonitor
+
+    class Recorded(plain):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            monitors.append(self)
+
+    guard.GuardMonitor = Recorded
+    faults.install("nan:loss@2")
+    try:
+        _, model, _, hist, _ = _train_from_jax(inp, config("nan", Guard={"enabled": True}))
+        out["nan"] = dict(_history(hist, model), bad=monitors[0].bad_steps_all)
+        _, _, _, hist, _ = _train_from_jax(inp, config("nan_off"))
+        out["nan_off"] = {"train_loss": hist.train_loss}
+    finally:
+        faults.reset()
+        guard.GuardMonitor = plain
+    return out
 
 
 def case_nodes(inp, rank):
@@ -212,7 +308,8 @@ def main(rank: int, world: int, work: str) -> None:
     os.chdir(work)
     out = {"dp": case_dp(inp, rank, zero=False), "zero": case_dp(inp, rank, zero=True),
            "mb": case_multibranch(inp, rank), "run": case_run(inp, rank),
-           "nodes": case_nodes(inp, rank), "hsdp": case_hsdp(inp, rank)}
+           "nodes": case_nodes(inp, rank), "hsdp": case_hsdp(inp, rank),
+           "durability": case_durability(inp, rank)}
     torch.save(out, os.path.join(work, f"out{rank}.pt"))
     dist.destroy_process_group()
 

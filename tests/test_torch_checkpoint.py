@@ -11,7 +11,9 @@
   head, full width, on 48 of the example's chains, ``Training.
   Checkpoint`` on), then ``run_prediction(config)`` with nothing else
   given equals the in-process prediction bit for bit;
-- ``continue`` still raises, naming ROADMAP item 12.
+- ``continue`` into the sharded ``orbax`` format still raises, naming
+  ROADMAP item 12b (the writer, the manifest and ``continue`` itself are
+  tests/test_torch_durability.py's).
 """
 
 import os
@@ -207,7 +209,8 @@ def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     config = _config(1)
     config["NeuralNetwork"]["Training"]["continue"] = 1
-    with pytest.raises(NotImplementedError, match="item 12"):
+    config["NeuralNetwork"]["Training"]["checkpoint_format"] = "orbax"
+    with pytest.raises(NotImplementedError, match="item 12b"):
         port.runner.run_training(config, datasets=splits, device="cpu")
 
 

@@ -2,7 +2,9 @@
 (at MACE's width F = 288 and PNAEq's 2, 3, 128 and 192 too); and
 CUDA-graph capture of the train loop's steps (``train/capture.py``):
 replayed train and eval steps, a K = 2 replay, every optimizer's captured
-step and MACE's and PNAEq's MLIP steps against eager ones, bit for bit.
+step and MACE's and PNAEq's MLIP steps against eager ones, bit for bit;
+the divergence guard's step replayed against eager and unguarded, and a
+poisoned step inside a replayed K = 2 graph skipped bit for bit.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -658,6 +660,78 @@ def test_k_step_replay_equals_single_replays():
         runs.append((model, opt, acc))
     _state_equal(torch, runs[0][0], runs[0][1], runs[1][0], runs[1][1])
     for x, y in zip(runs[0][2], runs[1][2]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_guarded_replayed_steps_equal_eager():
+    """The divergence guard's train step (``guard=True``) through the
+    graph cache equals it eager and the unguarded replayed step, bit for
+    bit, over four steps: parameters, optimizer state, loss sums; every
+    step's predicate true and the device step counter at 4."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    runs = {}
+    for mode, guard in (("eager", True), ("graphs", True), ("unguarded", False)):
+        model, cfg, opt, batches = _capture_case(torch)
+        graphs = None if mode == "eager" else StepGraphs("cuda")
+        train = make_superstep_fn(model, opt, cfg, device=torch.device("cuda"),
+                                  graphs=graphs, guard=guard)
+        state, acc, oks = TrainState(model, opt, graphs=graphs), None, []
+        for b in batches[:4]:
+            out = train(state, acc, [b])
+            state, acc = out[:2]
+            oks += out[2].tolist() if guard else []
+        torch.cuda.synchronize()
+        assert int(state.step_t) == 4 and (not guard or oks == [True] * 4), (mode, oks)
+        runs[mode] = (model, opt, acc)
+    for other in ("graphs", "unguarded"):
+        _state_equal(torch, runs["eager"][0], runs["eager"][1], runs[other][0], runs[other][1])
+        for x, y in zip(runs["eager"][2], runs[other][2]):
+            assert torch.equal(x, y), other
+
+
+@pytest.mark.cuda
+def test_poisoned_step_inside_captured_superstep_is_skipped():
+    """``nan:loss@5`` armed, guarded K = 2 graphs (eager, capture, then
+    replays: step 5 falls inside a replayed graph): equal bit for bit to
+    single replayed steps that never take step 5, with step 5's predicate
+    false."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.state import TrainState
+    from hydragnn_tpu_torch.utils import faults
+
+    def run(k, guard, skip=None):
+        model, cfg, opt, batches = _capture_case(torch, n_batches=8)
+        graphs = StepGraphs("cuda")
+        train = make_superstep_fn(model, opt, cfg, device=torch.device("cuda"),
+                                  graphs=graphs, guard=guard)
+        state, acc, oks = TrainState(model, opt, graphs=graphs), None, []
+        for i in range(0, 8, k):
+            if i == skip:
+                state.step += 1
+                state.step_t += 1
+                continue
+            out = train(state, acc, batches[i:i + k])
+            state, acc = out[:2]
+            oks += out[2].tolist() if guard else []
+        torch.cuda.synchronize()
+        return model, opt, acc, oks, graphs
+
+    faults.install("nan:loss@5")
+    try:
+        model, opt, acc, oks, graphs = run(2, True)
+    finally:
+        faults.reset()
+    assert oks == [True] * 5 + [False] + [True] * 2 and graphs.replays == 3
+    base = run(1, False, skip=5)
+    _state_equal(torch, model, opt, base[0], base[1])
+    for x, y in zip(acc, base[2]):
         assert torch.equal(x, y)
 
 

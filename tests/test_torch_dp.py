@@ -31,7 +31,7 @@ every two-rank case while this process computes the JAX side:
   same initial parameters: per-epoch losses; then ``run_prediction``'s
   lockstep pass against the JAX package's prediction, sample by sample.
 
-Also: a config with ``pipeline.workers``, ``continue`` or ``Guard``
+Also: a config with ``pipeline.workers``, the multibranch ``Guard`` or ``orbax``
 still raises with its ROADMAP item.
 
 Tolerances: f32 forward rtol 1e-5 / atol 1e-4, f32 gradients and
@@ -716,13 +716,14 @@ def test_accumulate_matches_optax_multisteps(port):
 
 
 def test_unported_features_still_raise(port):
-    """The input pipeline, ``continue`` and the divergence guard still
-    raise with their ROADMAP items; item 11's schemes no longer do."""
+    """The input pipeline, the multibranch guard and the sharded
+    checkpoint format still raise with their ROADMAP items; item 11's
+    schemes, and ``continue`` and the guard elsewhere, no longer do."""
     base = {"NeuralNetwork": {"Training": {}}}
     cases = {
         "item 10": {"Parallelism": {"pipeline": {"workers": 2}}},
-        "item 12": {"continue": 1},
-        "item 12 ": {"Guard": {"enabled": True}},
+        "item 12b": {"Parallelism": {"scheme": "multibranch"}, "Guard": {"enabled": True}},
+        "item 12b ": {"checkpoint_format": "orbax"},
     }
     for item, training in cases.items():
         config = copy.deepcopy(base)
@@ -732,3 +733,63 @@ def test_unported_features_still_raise(port):
     for scheme in ("dp", "multibranch", "auto", "single"):
         port.runner._refuse_unported(
             {"NeuralNetwork": {"Training": {"Parallelism": {"scheme": scheme}}}})
+    for scheme in ("dp", "single"):
+        port.runner._refuse_unported({"NeuralNetwork": {"Training": {
+            "Parallelism": {"scheme": scheme}, "continue": 1, "Guard": {"enabled": True}}}})
+
+
+def _same_history(a, b, what):
+    for name in ("train_loss", "val_loss", "test_loss"):
+        assert a[name] == b[name], f"{what}: {name} {a[name]} != {b[name]}"
+    assert set(a["params"]) == set(b["params"])
+    for k, v in a["params"].items():
+        assert torch_equal(v, b["params"][k]), f"{what}: {k}"
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def test_two_rank_guard_identity_and_resume(two_ranks):
+    """The dp durability cases on both ranks: the guarded run with resume
+    containers equals the plain run bit for bit (losses and every tensor
+    of the model), and the run stopped mid-epoch after 6 of its steps
+    then continued equals the uninterrupted one bit for bit."""
+    got, _ = two_ranks
+    for r in range(2):
+        d = got[r]["durability"]
+        assert d["stopped_at"] == 6 and d["guard"]["steps"] > 8
+        _same_history(d["guard"], d["plain"], f"rank {r} guard on vs off")
+        _same_history(d["resumed"], d["guard"], f"rank {r} stopped + continued")
+
+
+@pytest.mark.parametrize("scheme", ["dp", "zero"])
+def test_two_rank_guarded_steps_equal_unguarded(two_ranks, scheme):
+    """The two dp (and ZeRO: the guard saves and selects each rank's
+    shards, and the gradient norm is whole over the ranks) train steps
+    with the guard on: the same losses and parameters bit for bit, every
+    step's predicate true."""
+    got, _ = two_ranks
+    for r in range(2):
+        g = got[r][scheme]
+        for (loss, ok, params), want in zip(g["guarded"], (g["step1"], g["step2"])):
+            assert ok and loss == want[0]
+            assert set(params) == set(want[2]["params"])
+            for k, v in params.items():
+                np.testing.assert_array_equal(v, want[2]["params"][k], err_msg=k)
+
+
+def test_two_rank_guard_skips_injected_nan(two_ranks):
+    """``nan:loss@2`` under dp: every rank's guard skips global step 2
+    alone (the predicate reads the reduced loss, so the ranks agree) and
+    both keep the same finite history and parameters; unguarded, the
+    first epoch's loss goes non-finite."""
+    got, _ = two_ranks
+    a, b = (got[r]["durability"] for r in range(2))
+    assert a["nan"]["bad"] == b["nan"]["bad"] == [(0, 2)]
+    assert np.isfinite(a["nan"]["train_loss"]).all()
+    _same_history(a["nan"], b["nan"], "ranks 0 and 1")
+    assert a["nan"]["train_loss"] != a["guard"]["train_loss"]
+    assert not np.isfinite(a["nan_off"]["train_loss"][0])
