@@ -436,10 +436,6 @@ def eager_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def _size(dtype):
-    return torch.tensor([], dtype=dtype).element_size()
-
-
 def bound(nbytes, ops, dtype):
     """Least time for the work: ``nbytes`` over the HBM rate or ``ops``
     over the peak rate of ``dtype``, whichever is larger."""
@@ -448,38 +444,19 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_work(e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
-    """K1's bytes (valid edge rows of a and b, W, the plan read once; the
-    output written once) and operations (the multiply, the reduce adds,
-    one [N, F_in] @ [F_in, F_out])."""
-    out_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
-    nbytes = (
-        e_valid * f_in * _size(a_dt) * (2 if has_b else 1)
-        + (f_in * f_out * _size(w_dt) if has_w else 0)
-        + slots * (4 + 4 + 1) + blocks * 4
-        + n * f_out * _size(out_dt)
-    )
-    ops = e_valid * f_in * (2 if has_b else 1) + (2 * n * f_in * f_out if has_w else 0)
-    return nbytes, ops, out_dt
+def k1_work(*args):
+    """K1's (bytes, ops, output dtype): ``ops/edge_pipeline.k1_work``,
+    the count the telemetry's executable rows read too."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import k1_work as work
+
+    return work(*args)
 
 
-def k2_work(e, e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
-    """K2's bytes (g, the plan, W and the valid edge rows of whichever of
-    a and b the outputs need, read once; d_a, d_b and d_W written once)
-    and operations (g @ W^T and msg_sum^T @ g per node, the per-edge
-    products and message sums)."""
-    g_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
-    reads_a = has_b or has_w
-    nbytes = (
-        n * f_out * _size(g_dt) + slots * (4 + 4 + 1) + blocks * 4
-        + e_valid * f_in * _size(a_dt) * (int(reads_a) + int(has_b))
-        + (2 * f_in * f_out * _size(w_dt) if has_w else 0)
-        + e * f_in * _size(a_dt) * (2 if has_b else 1)
-    )
-    ops = e_valid * f_in * ((2 if has_b else 0) + (2 if has_w else 0))
-    if has_w:
-        ops += 4 * n * f_in * f_out
-    return nbytes, ops, g_dt
+def k2_work(*args):
+    """K2's (bytes, ops, cotangent dtype): ``ops/edge_pipeline.k2_work``."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import k2_work as work
+
+    return work(*args)
 
 
 # dtype mixes (a/b, W) and the flavours each takes: bf16 a/b with an f32
@@ -1424,8 +1401,8 @@ def recorded_run():
     rec = {"forwards": 0, "losses": [], "shapes": [], "keys": set()}
     plain_dispatch = loop._dispatch
 
-    def recorded(run, graphs, key, batches, device):
-        out = plain_dispatch(run, graphs, key, batches, device)
+    def recorded(run, graphs, key, batches, device, **kw):
+        out = plain_dispatch(run, graphs, key, batches, device, **kw)
         rec["forwards"] += len(batches)
         rec["keys"].add(tuple(key[:2]))
         if "train" in key[:2]:  # the single scheme's ("train", ...), dp's ("dp", "train", ...)
@@ -4606,14 +4583,14 @@ def multibranch_rank(rank, work):
     def recorded(model, optimizer, cfg, plan, *, train=True, **kw):
         fn = plain(model, optimizer, cfg, plan, train=train, **kw)
 
-        def step(state, acc, batches):
+        def step(state, acc, batches, **probe):
             rec["forwards"] += len(batches)
             if not train:
-                return fn(state, acc, batches)
+                return fn(state, acc, batches, **probe)
             before = None
             if rec["first"] is None:
                 before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-            out = fn(state, acc, batches)
+            out = fn(state, acc, batches, **probe)
             rec["train_steps"] += len(batches)
             flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
             rec["digests"].append(hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest())
@@ -4628,8 +4605,12 @@ def multibranch_rank(rank, work):
     dp_mod.make_dp_superstep_fn = recorded
     edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
     t0 = time.perf_counter()
+    config = multibranch_config()
+    config["NeuralNetwork"]["Training"]["Telemetry"] = {
+        "enabled": True, "stream_path": os.path.join(work, "telemetry.jsonl"),
+        "heartbeat_interval_s": 1.0}
     try:
-        state, model, cfg, hist, full = port.run_training(multibranch_config(), datasets=sets,
+        state, model, cfg, hist, full = port.run_training(config, datasets=sets,
                                                           device="cuda:0")
     finally:
         dp_mod.make_dp_superstep_fn = plain
@@ -4721,7 +4702,23 @@ def phase_multibranch():
         check(p.returncode == 0, f"multibranch rank {r} exited {p.returncode}:\n{text[-3000:]}")
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(MB_RANKS)]
+    res = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools", "graftboard.py"), "fleet", work, "--json"],
+        capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"graftboard fleet exited {res.returncode}: {res.stderr}")
+    fleet = json.loads(res.stdout)
     shutil.rmtree(work, ignore_errors=True)
+    check(fleet["present"] == list(range(MB_RANKS)) and not fleet["missing"]
+          and sorted(fleet["processes"]) == [str(r) for r in range(MB_RANKS)]
+          and all(p["clean_exit"] for p in fleet["processes"].values())
+          and not fleet["heartbeats"]["dead"],
+          f"graftboard fleet on the three shards: present {fleet['present']}, missing "
+          f"{fleet['missing']}, warnings {fleet['warnings']}")
+    log(f"[multibranch] telemetry on every rank: graftboard fleet exits 0 and names "
+        f"processes {sorted(fleet['processes'])} (rows "
+        f"{[fleet['processes'][str(r)]['rows'] for r in range(MB_RANKS)]}, clean exits, no "
+        f"dead process; barrier sites {sorted(fleet['barrier_sites'])}); warnings "
+        f"{fleet['warnings']}")
     steps = ranks[0]["train_steps"]
     check(steps > 0 and all(r["train_steps"] == steps for r in ranks),
           f"train steps per rank {[r['train_steps'] for r in ranks]}")
@@ -5180,6 +5177,343 @@ def phase_preempt(config):
     return out
 
 
+# ----------------------------------------------------------------------
+# Run observability (ROADMAP item 13)
+# ----------------------------------------------------------------------
+
+
+def telemetry_config(config, name, on):
+    """The [train] BCC run (two epochs, ladder batches) with the guard and
+    resume containers every 3 steps; with ``on`` the telemetry stream
+    (a device fence every 5 dispatches, counted executables) and a
+    profiler window on epoch 1's first 10 dispatches."""
+    config = copy.deepcopy(config)
+    config["Dataset"]["name"] = name
+    training = config["NeuralNetwork"]["Training"]
+    training.update(Guard={"enabled": True},
+                    Checkpoint={"enabled": True, "interval_steps": 3})
+    if on:
+        training.update(
+            Telemetry={"enabled": True, "sync_interval_steps": 5, "cost_analysis": True,
+                       "heartbeat_interval_s": 2.0},
+            Profiling={"epoch": 1, "steps": 10,
+                       "trace_dir": os.path.join("logs", name, "trace")})
+    return config
+
+
+def trace_kernels_in_steps(path):
+    """K1 and K2 kernel events of a chrome trace, and those inside a
+    ``train_step`` range: on the card's timeline (a GPU annotation range
+    holding the kernel) or through the launch (the kernel's runtime call,
+    matched by its correlation id, inside the host's range)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cpu_ranges, gpu_ranges, launches = [], [], {}
+    for e in events:
+        if e.get("name") == "train_step" and "dur" in e:
+            span = (e["ts"], e["ts"] + e["dur"])
+            (gpu_ranges if e.get("cat") == "gpu_user_annotation" else cpu_ranges).append(span)
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = e["ts"]
+
+    def inside(ts, ranges):
+        return any(a <= ts <= b for a, b in ranges)
+
+    out = {}
+    for tag, name in (("k1", "edge_pipeline_kernel"), ("k2", "edge_pipeline_bwd_kernel")):
+        kernels = [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+        hits = 0
+        for e in kernels:
+            launch = launches.get(e.get("args", {}).get("correlation"))
+            if inside(e["ts"], gpu_ranges) or (launch is not None
+                                                and inside(launch, cpu_ranges)):
+                hits += 1
+        out[tag] = {"events": len(kernels), "in_train_step": hits}
+    out["train_step_ranges"] = len(cpu_ranges)
+    return out
+
+
+def counted_kernels_match(row, cfg, dtype=torch.float32):
+    """The executable row's K1/K2 counts against ``k1_work``/``k2_work``
+    at the plan sizes the row recorded and the model's own widths (a
+    CFConv's K1 is the a*b@W flavour, F_in = filters, F_out = hidden):
+    (K1 flops, want), (K2 flops, want)."""
+    layers = cfg.num_conv_layers
+    f_in, f_out = cfg.num_filters or cfg.hidden_dim, cfg.hidden_dim
+    k1 = row["kernels"]["hydragnn::edge_pipeline"]
+    check(k1["calls"] == layers and (k1["f_in"], k1["f_out"]) == (f_in, f_out),
+          f"{row['spec']}: K1 counted {k1}")
+    args = (k1["n"], f_in, f_out, k1["slots"], k1["blocks"], dtype, dtype, True, True)
+    want1 = layers * k1_work(k1["e_valid"], *args)[1]
+    check(k1["flops"] == want1, f"{row['spec']}: K1 flops {k1['flops']} != {want1}")
+    if row["region"] != "train":
+        check("hydragnn::edge_pipeline_bwd" not in row["kernels"],
+              f"{row['spec']}: K2 counted in an eval step")
+        return (k1["flops"], want1), None
+    k2 = row["kernels"]["hydragnn::edge_pipeline_bwd"]
+    check(k2["calls"] == layers, f"{row['spec']}: K2 counted {k2}")
+    want2 = layers * k2_work(k2["e"], k2["e_valid"], *args)[1]
+    check(k2["flops"] == want2, f"{row['spec']}: K2 flops {k2['flops']} != {want2}")
+    return (k1["flops"], want1), (k2["flops"], want2)
+
+
+def telemetry_step_cost(model0, cfg, training, host_batch, work, iters=20):
+    """The replayed train step at bench.py's headline shape with the step
+    clock off and on (each its own graph cache; on: a stream to
+    ``work``, the clock's probe and record around every dispatch, its
+    finish after the timed run), CUDA events over ``iters`` back-to-back
+    steps from the host batch, in turns off, on, off, on. The first
+    dispatch of the on path is counted: its K1/K2 counts are held to
+    ``k1_work``/``k2_work`` at the headline batch."""
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.loop import make_superstep_fn
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+    from hydragnn_tpu_torch.utils import telemetry
+
+    stream = telemetry.TelemetryStream(os.path.join(work, "telemetry.jsonl"),
+                                       device=torch.device("cuda"))
+    telemetry.install(stream)
+    try:
+        clock = telemetry.StepClock(stream, region="train", model_cfg=cfg)
+        paths = {}
+        for name in ("off", "on"):
+            model = copy.deepcopy(model0)
+            opt = select_optimizer(model.parameters(), training)
+            cache = StepGraphs("cuda")
+            fn = make_superstep_fn(model, opt, cfg, device=torch.device("cuda"), graphs=cache)
+            paths[name] = (fn, TrainState(model, opt, graphs=cache))
+        step_no = [0]
+
+        def on_step(fn, state):
+            probe = clock.probe(host_batch, 1)
+            t0 = time.perf_counter()
+            state, acc = fn(state, None, [host_batch], probe=probe)
+            t1 = time.perf_counter()
+            step_no[0] += 1
+            clock.record(probe, step=step_no[0], k=1, batch=host_batch, is_macro=False,
+                         t_fetch_start=t0, t_fetch_end=t0, t_dispatch_start=t0,
+                         t_dispatch_end=t1, acc=acc)
+
+        for _ in range(3):  # eager (counted), capture + replay, replay
+            paths["off"][0](paths["off"][1], None, [host_batch])
+            on_step(*paths["on"])
+        clock.finish()
+        times = {"off": [], "on": []}
+        finish_ms = []
+        for _ in range(2):
+            for name, (fn, state) in paths.items():
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(iters):
+                    if name == "on":
+                        on_step(fn, state)
+                    else:
+                        fn(state, None, [host_batch])
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end) / iters)
+                if name == "on":
+                    t0 = time.perf_counter()
+                    clock.finish()
+                    finish_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        telemetry.install(None)
+        stream.close()
+    with open(os.path.join(work, "telemetry.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    execs = [r for r in rows if r["t"] == "executable"]
+    check(len(execs) == 1 and "capture_error" not in execs[0],
+          f"headline step: executable rows {execs}")
+    k1, k2 = counted_kernels_match(execs[0], cfg)
+    e_valid = int(host_batch.edge_mask.sum())
+    check(execs[0]["kernels"]["hydragnn::edge_pipeline"]["e_valid"] == e_valid,
+          "headline step: the counted plan's valid slots differ from the batch's valid edges")
+    return {"replayed_ms": times, "finish_ms": finish_ms, "k1_flops": k1, "k2_flops": k2,
+            "hw_flops": execs[0]["flops"], "bytes_accessed": execs[0]["bytes_accessed"],
+            "temp_bytes": execs[0].get("temp_bytes"),
+            "nodes": host_batch.num_nodes, "edges": host_batch.num_edges}
+
+
+def phase_telemetry(config, splits, head_step, head_cpu):
+    """[telemetry] run_training of [train]'s full-width SchNet on the BCC
+    split (``telemetry_config``: guard on, containers every 3 steps)
+    with the telemetry stream and a profiler window, against the same
+    run with both off. Fails unless: the header names the card with
+    ``peak_basis`` "device"; every ``spec_rollup`` has 0 < mfu <= 1,
+    reproduced from its own fields to 1e-9; every (region, spec, k) has
+    an executable row with flops and bytes and none has a
+    ``capture_error``; the counted K1/K2 flops equal ``k1_work``/
+    ``k2_work`` at the counted batch; the ``epoch`` rows equal History
+    bit for bit; ``health``, ``checkpoint``, ``compile`` and ``memory``
+    rows are there; the run equals the off run bit for bit (history,
+    parameters, optimizer state) with K1 4 per forward and K2 4 per
+    train step in both; graftboard's report and roofline exit 0 on the
+    stream; the chrome trace holds K1 and K2 kernels inside
+    ``train_step`` ranges. Then the clock's cost on the replayed
+    headline step."""
+    import tempfile
+
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.utils.flops import model_flops_per_graph
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name, on in (("on", True), ("off", False)):
+        cfg_run = telemetry_config(config, f"chip_smoke_telemetry_{name}", on)
+        with recorded_run() as rec:
+            edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+            state, model, cfg, hist, full = port.run_training(cfg_run, datasets=splits,
+                                                              device="cuda")
+            torch.cuda.synchronize()
+            k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        runs[name] = {"state": state, "cfg": cfg, "hist": hist, "full": full, "k1": k1,
+                      "k2": k2, "forwards": rec["forwards"], "steps": state.step,
+                      "params": {k: v.detach().clone() for k, v in model.state_dict().items()},
+                      "opt": [v.detach().clone() if isinstance(v, torch.Tensor) else v
+                              for st in state.optimizer.state.values() for v in st.values()]}
+    on, off = runs["on"], runs["off"]
+    layers = on["cfg"].num_conv_layers
+    for name, r in runs.items():
+        check(r["k1"] == layers * r["forwards"] and r["k2"] == layers * r["steps"]
+              and r["steps"] > 0,
+              f"telemetry {name}: K1 {r['k1']} for {r['forwards']} forwards, K2 {r['k2']} "
+              f"for {r['steps']} train steps")
+    same_hist = all(getattr(on["hist"], f) == getattr(off["hist"], f)
+                    for f in ("train_loss", "val_loss", "test_loss", "lr"))
+    same_params = all(torch.equal(on["params"][k], off["params"][k]) for k in off["params"])
+    same_opt = len(on["opt"]) == len(off["opt"]) > 0 and all(
+        (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+        for a, b in zip(on["opt"], off["opt"]))
+    check(same_hist and same_params and same_opt,
+          f"telemetry on differs from off: history {same_hist}, parameters {same_params}, "
+          f"optimizer state {same_opt}; train loss {on['hist'].train_loss} vs "
+          f"{off['hist'].train_loss}")
+    log(f"[telemetry] run_training with the stream, the profiler window, the guard and "
+        f"containers every 3 steps == the same run without the stream and window, bit for "
+        f"bit (history, parameters, AdamW state): train loss {on['hist'].train_loss}; K1 "
+        f"{on['k1']} = {layers} x {on['forwards']} forwards, K2 {on['k2']} = {layers} x "
+        f"{on['steps']} train steps (off: {off['k1']}, {off['k2']})")
+
+    log_dir = os.path.join("logs", on["full"]["_log_name"])
+    stream_path = os.path.join(log_dir, "telemetry.jsonl")
+    with open(stream_path) as f:
+        rows = [json.loads(line) for line in f]
+    by_type = {}
+    for r in rows:
+        by_type.setdefault(r["t"], []).append(r)
+    header = rows[0]
+    kind = torch.cuda.get_device_name(0)
+    check(header["t"] == "header" and header.get("device_kind") == kind
+          and header.get("peak_basis") == "device" and header.get("platform") == "gpu",
+          f"header {header}")
+    cfg = on["cfg"]
+    rollups = by_type.get("spec_rollup", [])
+    check(rollups, "no spec_rollup rows")
+    mfus = []
+    for r in rollups:
+        mf = model_flops_per_graph(cfg, r["mean_nodes"], r["mean_edges"])
+        want = mf * r["graphs"] / (r["wall_ms"] / 1e3) / r["peak_flops"]
+        check(0 < r["mfu"] <= 1 and abs(r["mfu"] - want) <= 1e-9 * want,
+              f"{r['region']} {r['spec']} epoch {r['epoch']}: mfu {r['mfu']} (from the "
+              f"row's fields {want})")
+        check("hw_mfu" in r and "intensity" in r, f"{r['spec']}: no counted side {r}")
+        mfus.append({"region": r["region"], "epoch": r["epoch"], "spec": r["spec"],
+                     "dispatches": r["dispatches"], "mfu": r["mfu"], "hw_mfu": r["hw_mfu"],
+                     "intensity": r["intensity"],
+                     "hw_over_model_flops": r["hw_over_model_flops"],
+                     "wall_ms": r["wall_ms"]})
+    execs = by_type.get("executable", [])
+    check(not [r for r in execs if "capture_error" in r],
+          f"capture_error rows: {[r for r in execs if 'capture_error' in r]}")
+    exec_keys = {(r["region"], r["spec"], r["k"]) for r in execs}
+    step_keys = {(r["region"], r["spec"], r["k"]) for r in by_type["step"]}
+    check(step_keys == exec_keys and all(r["flops"] > 0 and r["bytes_accessed"] > 0
+                                         for r in execs),
+          f"executables {sorted(exec_keys)} for steps {sorted(step_keys)}")
+    counted = [counted_kernels_match(r, cfg) for r in execs]
+    epochs = by_type.get("epoch", [])
+    check([r["train_loss"] for r in epochs] == on["hist"].train_loss
+          and [r["val_loss"] for r in epochs] == on["hist"].val_loss
+          and [r["test_loss"] for r in epochs] == on["hist"].test_loss
+          and [r["lr"] for r in epochs] == on["hist"].lr
+          and [r["seconds"] for r in epochs] == on["hist"].epoch_seconds,
+          f"epoch rows {epochs} differ from History {on['hist']}")
+    check(len(by_type.get("health", [])) == 2 and
+          {"save", "write"} <= {r["event"] for r in by_type.get("checkpoint", [])},
+          f"health {by_type.get('health')}, checkpoint events "
+          f"{[r['event'] for r in by_type.get('checkpoint', [])]}")
+    mem = by_type.get("memory", [])
+    check(mem and all("bytes_in_use" in r for r in mem)
+          and {"run_start", "epoch", "compile"} <= {r["tag"] for r in mem},
+          f"memory rows {mem}")
+    compiles = by_type.get("compile", [])
+    check(len(compiles) == on["state"].graphs.captures,
+          f"{len(compiles)} compile rows for {on['state'].graphs.captures} captures")
+    summary = by_type.get("compile_summary", [{}])[0]
+    log(f"[telemetry] header: {header['device_kind']}, peak {header['peak_flops']:.4g} "
+        f"FLOP/s ({header['peak_basis']}), HBM {header['peak_hbm_bytes_per_sec']:.4g} B/s; "
+        f"rows {{{', '.join(f'{t}: {len(v)}' for t, v in sorted(by_type.items()))}}}; "
+        f"{len(compiles)} captures ({sum(r['retrace_leak'] for r in compiles)} at epoch >= "
+        f"1), summary {summary}")
+    for m in mfus:
+        log(f"[telemetry] {m['region']} epoch {m['epoch']} {m['spec']} ({m['dispatches']} "
+            f"dispatches, {m['wall_ms']:.3f} ms): mfu {m['mfu']:.4g}, hw_mfu "
+            f"{m['hw_mfu']:.4g}, intensity {m['intensity']:.4g} flop/B, hw/model "
+            f"{m['hw_over_model_flops']:.4g}")
+    log(f"[telemetry] counted K1/K2 flops == k1_work/k2_work at each counted batch "
+        f"({len(execs)} executables): "
+        + "; ".join(f"{r['region']} {r['spec']} K1 {c[0][0]:.6g}"
+                    + (f" K2 {c[1][0]:.6g}" if c[1] else "") for r, c in zip(execs, counted)))
+    reports = {}
+    for cmd in ("report", "roofline"):
+        res = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                           "graftboard.py"),
+                              cmd, log_dir, "--json"], capture_output=True, text=True,
+                             timeout=120)
+        check(res.returncode == 0, f"graftboard {cmd} exited {res.returncode}: {res.stderr}")
+        reports[cmd] = json.loads(res.stdout)
+    verdicts = [(s["region"], s["spec"], s["verdict"]) for s in reports["roofline"]["specs"]]
+    log(f"[telemetry] graftboard report and roofline exit 0 on the stream; roofline "
+        f"verdicts {verdicts}")
+    prof = by_type.get("profile", [])
+    check([r["event"] for r in prof] == ["start", "stop"], f"profile rows {prof}")
+    trace_file = os.path.join(prof[0]["trace_dir"], "trace.p0.json")
+    trace = trace_kernels_in_steps(trace_file)
+    check(trace["k1"]["in_train_step"] > 0 and trace["k2"]["in_train_step"] > 0,
+          f"the profiler trace has no K1/K2 kernel inside a train_step range: {trace}")
+    log(f"[telemetry] profiler window ({prof[1].get('reason')}): {trace_file}, "
+        f"{os.path.getsize(trace_file)} bytes; {trace['train_step_ranges']} train_step "
+        f"ranges; K1 kernels {trace['k1']['events']} ({trace['k1']['in_train_step']} inside "
+        f"train_step), K2 {trace['k2']['events']} ({trace['k2']['in_train_step']} inside)")
+    work = tempfile.mkdtemp(prefix="telemetry_cost_")
+    cost = telemetry_step_cost(*head_step, head_cpu, work)
+    best_off, best_on = (min(cost["replayed_ms"][k]) for k in ("off", "on"))
+    log(f"[telemetry] the clock's cost at the headline shape ({cost['nodes']} nodes, "
+        f"{cost['edges']} edges; 20 back-to-back replayed steps from the host batch, in "
+        f"turns): off {cost['replayed_ms']['off']} ms, on {cost['replayed_ms']['on']} ms "
+        f"({100 * (best_on - best_off) / best_off:+.2f}% best against best); the epoch-end "
+        f"finish of 20 rows {cost['finish_ms']} ms; the headline step counted {cost['hw_flops']:.6g} "
+        f"flops, {cost['bytes_accessed']:.6g} bytes (K1 {cost['k1_flops'][0]:.6g} == "
+        f"k1_work x 4, K2 {cost['k2_flops'][0]:.6g} == k2_work x 4), graph pool "
+        f"{cost['temp_bytes']} bytes")
+    out = {"k1": on["k1"] + off["k1"], "k2": on["k2"] + off["k2"],
+           "train_loss": on["hist"].train_loss, "mfu": mfus, "cost": cost,
+           "trace": trace, "rows": {t: len(v) for t, v in by_type.items()},
+           "captures": len(compiles), "seconds": time.perf_counter() - t0}
+    check(np.isfinite(on["hist"].train_loss).all(), "non-finite train loss")
+    log(f"[telemetry] {out['seconds']:.1f} s; K1 {out['k1']}, K2 {out['k2']} launches in "
+        f"the phase")
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--multibranch-rank"]:
         multibranch_rank(int(sys.argv[2]), sys.argv[3])
@@ -5216,6 +5550,7 @@ def main():
     headline, head_step = phase_train_timing(head_cpu)
     guard = phase_guard(config, splits, head_step, head_cpu)
     preempt = phase_preempt(config)
+    tele = phase_telemetry(config, splits, head_step, head_cpu)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
     mlip_loader, mlip_budgets = train_loader(mlip_cfg, mlip_splits[0])
     check(mlip_loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
@@ -5281,7 +5616,7 @@ def main():
                      + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
-                     + preempt["k1"] + dp["guard"]["k1"]),
+                     + preempt["k1"] + dp["guard"]["k1"] + tele["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -5292,7 +5627,7 @@ def main():
                              "polymers_superstep": cap_k1, "dp": dp["run"]["k1"],
                              "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"],
                              "guard": guard["k1"], "preempt": preempt["k1"],
-                             "dp_guard": dp["guard"]["k1"]},
+                             "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -5324,7 +5659,7 @@ def main():
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
-                     + dp["guard"]["k2"]),
+                     + dp["guard"]["k2"] + tele["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -5334,7 +5669,7 @@ def main():
                              "polymers_superstep": cap_k2, "dp": dp["run"]["k2"],
                              "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"],
                              "guard": guard["k2"], "preempt": preempt["k2"],
-                             "dp_guard": dp["guard"]["k2"]},
+                             "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -5366,6 +5701,7 @@ def main():
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] guard: {json.dumps({k: v for k, v in guard.items() if k != 'halt'})}")
     log(f"[report] preempt: {json.dumps(preempt)}")
+    log(f"[report] telemetry: {json.dumps(tele)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] polymers: {json.dumps(polymers)}")

@@ -47,6 +47,9 @@ _lock = threading.Lock()
 _lib = None
 # The last build in this process: {"seconds", "ptxas", "path"}.
 build_report: dict = {}
+# The build cache's answers in this process: a library found built (hit)
+# or compiled now (miss); the compile observer reports them.
+cache_stats = {"hits": 0, "misses": 0}
 
 
 def nvcc_path() -> str:
@@ -122,6 +125,9 @@ def build(force: bool = False) -> str:
     with _lock:
         if force or not os.path.exists(out):
             build_report.update(compile_library(SOURCES, out))
+            cache_stats["misses"] += 1
+        else:
+            cache_stats["hits"] += 1
     return out
 
 

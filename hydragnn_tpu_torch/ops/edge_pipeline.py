@@ -259,6 +259,83 @@ def edge_pipeline_bwd_plain(
 
 
 # ----------------------------------------------------------------------
+# The work K1 and K2 do: the bytes they must move and the operations
+# they must do, the count behind both the kernel table's bound column
+# (chip_smoke.py) and the counted executables (utils/telemetry.py)
+# ----------------------------------------------------------------------
+
+
+def _size(dtype: torch.dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def k1_work(e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
+    """K1's bytes (valid edge rows of a and b, W, the plan read once; the
+    output written once) and operations (the multiply, the reduce adds,
+    one [N, F_in] @ [F_in, F_out]); returns (bytes, ops, output dtype)."""
+    out_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
+    nbytes = (
+        e_valid * f_in * _size(a_dt) * (2 if has_b else 1)
+        + (f_in * f_out * _size(w_dt) if has_w else 0)
+        + slots * (4 + 4 + 1) + blocks * 4
+        + n * f_out * _size(out_dt)
+    )
+    ops = e_valid * f_in * (2 if has_b else 1) + (2 * n * f_in * f_out if has_w else 0)
+    return nbytes, ops, out_dt
+
+
+def k2_work(e, e_valid, n, f_in, f_out, slots, blocks, a_dt, w_dt, has_b, has_w):
+    """K2's bytes (g, the plan, W and the valid edge rows of whichever of
+    a and b the outputs need, read once; d_a, d_b and d_W written once)
+    and operations (g @ W^T and msg_sum^T @ g per node, the per-edge
+    products and message sums); returns (bytes, ops, cotangent dtype)."""
+    g_dt = torch.promote_types(a_dt, w_dt) if has_w else a_dt
+    reads_a = has_b or has_w
+    nbytes = (
+        n * f_out * _size(g_dt) + slots * (4 + 4 + 1) + blocks * 4
+        + e_valid * f_in * _size(a_dt) * (int(reads_a) + int(has_b))
+        + (2 * f_in * f_out * _size(w_dt) if has_w else 0)
+        + e * f_in * _size(a_dt) * (2 if has_b else 1)
+    )
+    ops = e_valid * f_in * ((2 if has_b else 0) + (2 if has_w else 0))
+    if has_w:
+        ops += 4 * n * f_in * f_out
+    return nbytes, ops, g_dt
+
+
+def kernel_work(func, args) -> Optional[tuple]:
+    """``(name, bytes, ops, plan sizes)`` of one call of K1's or K2's
+    operator with ``args`` (``k1_work``/``k2_work`` on its operands; the
+    valid slot count is read from the plan), None for any other op. A
+    call with no edges launches nothing and counts nothing."""
+    if func is torch.ops.hydragnn.edge_pipeline.default:
+        a, b, w, perm, _, valid, window_id, n = args[:8]
+        bwd = False
+    elif func is torch.ops.hydragnn.edge_pipeline_bwd.default:
+        _, a, b, w, perm, _, valid, window_id, n = args[:9]
+        bwd = True
+    else:
+        return None
+    e, f_in = a.shape
+    f_out = w.shape[1] if w is not None else f_in
+    w_dt = w.dtype if w is not None else a.dtype
+    slots, blocks = perm.numel(), window_id.numel()
+    e_valid = int(valid.sum()) if e else 0
+    sizes = {"e": int(e), "e_valid": e_valid, "n": int(n), "f_in": int(f_in),
+             "f_out": int(f_out), "slots": slots, "blocks": blocks}
+    if not e:
+        return ("hydragnn::edge_pipeline_bwd" if bwd else "hydragnn::edge_pipeline",
+                0, 0, sizes)
+    if bwd:
+        nbytes, ops, _ = k2_work(e, e_valid, n, f_in, f_out, slots, blocks, a.dtype, w_dt,
+                                 b is not None, w is not None)
+        return "hydragnn::edge_pipeline_bwd", nbytes, ops, sizes
+    nbytes, ops, _ = k1_work(e_valid, n, f_in, f_out, slots, blocks, a.dtype, w_dt,
+                             b is not None, w is not None)
+    return "hydragnn::edge_pipeline", nbytes, ops, sizes
+
+
+# ----------------------------------------------------------------------
 # K1 and K2 as dispatcher operators
 # ----------------------------------------------------------------------
 #

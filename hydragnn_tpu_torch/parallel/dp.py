@@ -49,6 +49,7 @@ from hydragnn_tpu_torch.data.graph import GraphBatch
 from hydragnn_tpu_torch.data.loader import MacroBatch
 from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
 from hydragnn_tpu_torch.train.loop import make_eval_step, make_superstep_fn, make_train_step
+from hydragnn_tpu_torch.utils import telemetry
 
 
 def replicate_state(model: torch.nn.Module, plan, device) -> torch.nn.Module:
@@ -319,6 +320,11 @@ class DPLoader:
             yield MacroBatch(batches) if len(batches) > 1 else batches[0]
 
     def __iter__(self):
+        for item in self._iter_items():
+            telemetry.bump("dp_batches", len(item.batches) if isinstance(item, MacroBatch) else 1)
+            yield item
+
+    def _iter_items(self):
         from hydragnn_tpu_torch.data.loader import skip_delivered_items
 
         skip, self._skip_next = self._skip_next, 0

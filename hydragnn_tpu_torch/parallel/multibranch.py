@@ -34,6 +34,7 @@ from hydragnn_tpu_torch.data.graph import GraphSample, PadSpec
 from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train.optimizer import OptaxOptimizer, select_optimizer
+from hydragnn_tpu_torch.utils import telemetry
 
 
 def proportional_branch_split(dataset_sizes: Sequence[int], n_devices: int) -> List[int]:
@@ -180,6 +181,7 @@ class MultiBranchLoader:
     def __iter__(self):
         it = iter(self.loaders[self.slot])
         for _ in range(len(self)):
+            telemetry.bump("mb_batches")
             yield next(it)
 
 

@@ -59,6 +59,14 @@ and continues at its cursor, bit for bit; a container written under
 another config fingerprint or plan seed, or a checkpoint without a
 manifest, restarts from epoch 0 with the restored weights, loudly.
 ``Training.Guard`` turns on the divergence guard (``train/guard.py``).
+``Training.Telemetry`` opens the run's telemetry stream
+(``utils/telemetry.py``: ``logs/<log_name>/telemetry.jsonl``, one shard
+per rank), configured once the model is on its device so the header
+names the card and its peaks, and closed also on the error path;
+``Training.Profiling`` opens a ``torch.profiler`` window over one epoch
+(``utils/tracer.Profiler``); ``HYDRAGNN_TPU_TRACE_LEVEL`` > 0 installs
+the region timer and device counters, whose CSV lands in the run's
+directory.
 ``Training.bn_recalibration`` refreshes the running statistics at the
 end of training from an eval-shaped, unpacked loader over the train
 split.
@@ -122,6 +130,8 @@ from hydragnn_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_resume_checkpoint,
 )
+from hydragnn_tpu_torch.utils import telemetry
+from hydragnn_tpu_torch.utils import tracer as tr
 from hydragnn_tpu_torch.utils.print_utils import (
     get_log_name_config,
     print_distributed,
@@ -546,6 +556,9 @@ def run_training(
     if runtime.rank() == 0:
         save_config(config, log_name)
     config["_log_name"] = log_name
+    trace_env = os.environ.get("HYDRAGNN_TPU_TRACE_LEVEL", "").strip()
+    if trace_env.isdigit() and int(trace_env) > 0 and not tr.has("RegionTimer"):
+        tr.initialize(["RegionTimer", "DeviceMetricsTracer"])
 
     param_dtype, compute_dtype = resolve_precision(training.get("precision", "fp32"), dev)
     batch_size = int(training.get("batch_size", 32))
@@ -588,6 +601,13 @@ def run_training(
         log_name, keep=int(training.get("checkpoint_keep", 5)), retries=ckpt.retries,
         backoff_s=ckpt.backoff_s, async_enabled=ckpt.async_enabled, plan_seed=int(seed),
         fingerprint=config_fingerprint(config), validate_finite=ckpt.validate_finite)
+    # Configured here, with the model on its device (the header names the
+    # card), right before the try whose finally closes it.
+    tel_stream = telemetry.configure(training, log_name=log_name, device=dev,
+                                     meta={"log_name": log_name, "scheme": plan.scheme})
+    if tel_stream is not None:
+        telemetry.set_context(model_cfg=cfg, scheme=plan.scheme, epoch=0)
+        telemetry.emit_memory("run_start")
     done = False
     try:
         state, hist = train_validate_test(
@@ -602,6 +622,10 @@ def run_training(
         # every rank meets the others once the final save is durable; a
         # rank leaving on an error does not wait for ranks it left behind
         writer.close(barrier=done)
+        tr.close_window()
+        telemetry.close_run(tel_stream)
+    if tr.has("RegionTimer"):
+        tr.save(log_name)
     return state, model, cfg, hist, config
 
 

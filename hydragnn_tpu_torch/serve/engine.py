@@ -265,7 +265,9 @@ class ServingEngine:
         else:
             step = lambda batches: fn(batches[0])  # noqa: E731
             self.graphs.eager(step, host)
-            captured = self.graphs.record(step, host)
+            # a warm-up capture is deliberate: never a retrace leak
+            with telemetry.suppress_compile_events():
+                captured = self.graphs.record(step, host)
         self._sync()
         return captured, round(1e3 * (time.perf_counter() - t0), 3)
 

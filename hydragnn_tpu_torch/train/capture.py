@@ -42,6 +42,11 @@ records are its own. Captures keep torch's default
 ``capture_error_mode="global"``, so a CUDA call from another thread that
 escaped the lock fails the capture loudly instead of corrupting it.
 
+Each capture is a compile to the run's telemetry
+(``utils/telemetry.note_capture``: host bookkeeping, no CUDA call), and
+a key's first eager run may be counted (``utils/telemetry.ExecCounter``:
+the flops and bytes of its ``executable`` row).
+
 ``record`` captures without keeping the graph and ``put`` keeps it under
 a key, releasing the graph it replaces: a caller that must capture
 several graphs all or nothing (``ServingEngine.install_executables``)
@@ -56,6 +61,8 @@ import time
 from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
+
+from hydragnn_tpu_torch.utils import telemetry
 
 _ALIGN = 256  # bytes between fields in the static buffer
 
@@ -171,22 +178,29 @@ class StepGraphs:
         self.replays = 0
         self.capture_seconds = 0.0
 
-    def run(self, key: Hashable, fn: Callable, batches: Sequence) -> tuple:
+    def run(self, key: Hashable, fn: Callable, batches: Sequence, counter=None) -> tuple:
+        """``counter`` (a ``utils/telemetry.ExecCounter``) counts the
+        key's first, eager run; a key seen before leaves it unrun."""
         if key not in self.graphs:
             if key not in self._seen:
                 self._seen.add(key)
-                return self.eager(fn, batches)
+                return self.eager(fn, batches, counter=counter, key=key)
             self.capture(key, fn, batches)
         return self.replay(key, batches)
 
-    def eager(self, fn: Callable, batches: Sequence) -> tuple:
-        """``fn`` run eagerly on the batches, on the side stream."""
+    def eager(self, fn: Callable, batches: Sequence, counter=None, key=None) -> tuple:
+        """``fn`` run eagerly on the batches, on the side stream (under
+        ``counter``'s count when one is given, for the graph of ``key``)."""
         with GRAPH_LOCK:
             dev = [b.to(self.device) for b in batches]
             cur = torch.cuda.current_stream(self.device)
             self._side.wait_stream(cur)
             with torch.cuda.stream(self._side):
-                out = fn(dev)
+                if counter is None:
+                    out = fn(dev)
+                else:
+                    counter.graphs, counter.graph_key = self, key
+                    out = counter.run(fn, dev)
             cur.wait_stream(self._side)
             self.eager_runs += 1
             return out
@@ -229,6 +243,7 @@ class StepGraphs:
                             torch.cuda.memory_reserved(self.device) - reserved)
         self.captures += 1
         self.capture_seconds += seconds
+        telemetry.note_capture(seconds)
         return step
 
     def put(self, key: Hashable, step: CapturedStep) -> None:

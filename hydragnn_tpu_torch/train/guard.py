@@ -296,7 +296,12 @@ class GuardMonitor:
                 self.check()
 
     def epoch_end(self) -> None:
-        self.check()
+        """Resolve the epoch's pending predicates, escalate, and emit the
+        epoch's ``health`` row (also when escalating)."""
+        try:
+            self.check()
+        finally:
+            self._emit_health("epoch")
 
     def _fetch(self, pending) -> List[tuple]:
         parts = []
@@ -348,7 +353,9 @@ class GuardMonitor:
         if s.policy == "skip" or window_bad <= s.max_bad_steps:
             return
         if s.policy == "halt" or self.rollbacks >= s.max_rollbacks:
+            self._emit_health("halt")
             raise GuardHalt(self.report(window_bad))
+        self._emit_health("rollback")
         raise GuardRollback(
             [es for _, ep, es in self.bad_steps_recent if ep == self.epoch],
             f"{window_bad} bad step(s) within the last {s.window_steps} steps "
@@ -391,6 +398,34 @@ class GuardMonitor:
             return None
         return {"gnorm_min": self._gn_min, "gnorm_max": self._gn_max,
                 "gnorm_mean": self._gn_sum / self._gn_count, "gnorm_steps": self._gn_count}
+
+    def _emit_health(self, action: str) -> None:
+        """One ``health`` row onto the run's telemetry stream (a no-op
+        with the stream off), as docs/OBSERVABILITY.md gives it. The
+        multibranch guard's per-branch windows are not ported (ROADMAP
+        item 12b), so there is no ``window_bad_by_branch``."""
+        from hydragnn_tpu_torch.utils import telemetry
+
+        if not telemetry.active():
+            return
+        row = {
+            "t": "health",
+            "action": action,
+            "epoch": self.epoch,
+            "bad_steps": self.epoch_bad[-64:],
+            "bad_count": len(self.epoch_bad),
+            "window_bad": len(self.bad_steps_recent),
+            "skipped_total": self.skipped_total,
+            "rollbacks": self.rollbacks,
+            "policy": self.settings.policy,
+        }
+        gn = self.gnorm_stats()
+        if gn:
+            row.update(gn)
+        spec = faults.plan_spec()
+        if spec:
+            row["fault_plan"] = spec
+        telemetry.emit(row)
 
     def _warn(self, msg: str) -> None:
         print_distributed(self.verbosity, 0, f"[guard] {msg}")

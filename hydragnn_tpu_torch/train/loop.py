@@ -54,14 +54,26 @@ end-of-training batch-norm recalibration is skipped there with a
 message, as in the JAX package, and ``test`` gathers the slots' per-
 sample outputs in the JAX package's order.
 
-Not ported yet, and refused by the runner: the pipeline feed, run
-telemetry, and the multibranch guard and mid-epoch resume (ROADMAP
-items 10, 13, 12b).
+Run telemetry (``utils/telemetry.py``, ``Training.Telemetry``): each
+epoch pass builds a ``StepClock`` off the active stream (None with the
+stream off, so the loop pays one ``is None`` test per dispatch); it
+gets one ``step`` row per dispatch and per-spec ``spec_rollup`` rows
+with the live MFU, and counts each key's first dispatch into an
+``executable`` row. Every epoch emits an ``epoch`` row carrying the
+``History`` floats verbatim and a ``memory`` row. The tracer
+(``utils/tracer.py``) times the ``{region}/dataload``, ``/step`` and
+``/dispatch_gap`` regions when installed, and ``Training.Profiling``
+opens a ``torch.profiler`` window over one epoch, each dispatch inside a
+``train_step``/``eval_step`` range.
+
+Not ported yet, and refused by the runner: the pipeline feed, and the
+multibranch guard and mid-epoch resume (ROADMAP items 10, 12b).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
@@ -87,7 +99,8 @@ from hydragnn_tpu_torch.train.optimizer import (
     set_learning_rate,
 )
 from hydragnn_tpu_torch.train.state import TrainState, cast_batch
-from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils import faults, telemetry
+from hydragnn_tpu_torch.utils import tracer as tr
 from hydragnn_tpu_torch.utils.checkpoint import (
     checkpoint_settings,
     decode_acc,
@@ -315,12 +328,15 @@ def _steps_fn(body, rows: int = 3) -> Callable:
     return run
 
 
-def _dispatch(run, graphs, key, batches, device):
+def _dispatch(run, graphs, key, batches, device, counter=None):
     """``run`` over host batches: through the graph cache on the card,
-    eagerly on ``device`` otherwise."""
+    eagerly on ``device`` otherwise. ``counter`` (a telemetry
+    ``ExecCounter``) counts the key's first eager run."""
     if graphs is None:
-        return run([b.to(device) for b in batches])
-    return graphs.run(key + (len(batches),) + _spec_key(batches[0]), run, batches)
+        dev = [b.to(device) for b in batches]
+        return run(dev) if counter is None else counter.run(run, dev)
+    return graphs.run(key + (len(batches),) + _spec_key(batches[0]), run, batches,
+                      counter=counter)
 
 
 def make_superstep_fn(
@@ -354,7 +370,9 @@ def make_superstep_fn(
     batch inside a K-step graph is skipped alone, and returns ``(state,
     acc, oks [K], gnorms [K])`` (copies of the graph's outputs, which
     the guard's monitor holds to the epoch's end). The armed ``nan``
-    rules are read here and join the graph's key."""
+    rules are read here and join the graph's key. ``probe`` (the step
+    clock's, ``utils/telemetry``) takes the dispatch's raw outputs and
+    may carry a counter for its first run."""
     if train:
         rules = guard_mod.nan_injections()
         body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm,
@@ -366,9 +384,14 @@ def make_superstep_fn(
         key = _step_key(red, "eval", compute_dtype)
     run = _steps_fn(body, 5 if train and guard else 3)
 
-    def superstep(state, acc, batches):
+    def superstep(state, acc, batches, probe=None):
         fn = functools.partial(run, counter=state.step_t) if train else run
-        out = _dispatch(fn, graphs, key, batches, device)
+        if probe is None or probe.counter is None:
+            out = _dispatch(fn, graphs, key, batches, device)
+        else:
+            out = _dispatch(fn, graphs, key, batches, device, counter=probe.counter)
+        if probe is not None:
+            probe.out = out
         acc = fold_step_metrics(acc, *out[:3])
         if not train:
             return acc
@@ -424,32 +447,92 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
     train step ticks the ``train_step`` fault site. ``guard`` (a
     ``GuardMonitor``; the superstep must be guarded) gets each
     dispatch's predicates and reads them after the sums' fetch; it may
-    raise ``GuardRollback`` or ``GuardHalt``."""
+    raise ``GuardRollback`` or ``GuardHalt``.
+
+    Telemetry (module docstring): the epoch's ``StepClock`` times each
+    dispatch and takes its outputs through a probe; it is finished after
+    the sums' fetch. ``HYDRAGNN_TPU_TRACE_LEVEL`` > 0 synchronizes the
+    card after each dispatch, so the tracer's step regions time the
+    device (at the cost of the host running ahead)."""
     acc = None
+    dev = state.step_t.device
     if acc0 is not None:
-        dev = state.step_t.device
         acc = tuple(torch.as_tensor(np.asarray(a, np.float32)).to(dev) for a in acc0)
+    region = "train" if train else "eval"
+    trace_env = os.environ.get("HYDRAGNN_TPU_TRACE_LEVEL", "").strip()
+    trace_sync = trace_env.isdigit() and int(trace_env) > 0 and dev.type == "cuda"
+    clock = telemetry.epoch_clock(loader, region, step0=step0)
+    telemetry.note_phase(region)
     n = step0
-    for item in loader:
-        batches = item.batches if isinstance(item, MacroBatch) else [item]
-        n += len(batches)
-        if not train:
-            acc = superstep(state, acc, batches)
-        elif guard is not None:
-            state, acc, oks, gnorms = superstep(state, acc, batches)
-        else:
-            state, acc = superstep(state, acc, batches)
+    max_k = 0
+    prev_end = None
+    it = iter(loader)
+    while True:
+        tr.start(f"{region}/dataload")
+        t_fetch = time.perf_counter() if clock is not None else 0.0
+        item = next(it, None)
+        t_fetched = time.perf_counter() if clock is not None else 0.0
+        tr.stop(f"{region}/dataload")
+        if item is None:
+            break
+        is_macro = isinstance(item, MacroBatch)
+        batches = item.batches if is_macro else [item]
+        k = len(batches)
+        n += k
+        max_k = max(max_k, k)
+        t_dispatch = time.perf_counter()
+        if prev_end is not None:
+            tr.sample(f"{region}/dispatch_gap", t_dispatch - prev_end)
+        probe = None if clock is None else clock.probe(batches[0], k)
+        kw = {} if probe is None else {"probe": probe}
+        tr.start(f"{region}/step")
+        with tr.step_annotation(f"{region}_step", n, batches[0], k):
+            if not train:
+                acc = superstep(state, acc, batches, **kw)
+            elif guard is not None:
+                state, acc, oks, gnorms = superstep(state, acc, batches, **kw)
+            else:
+                state, acc = superstep(state, acc, batches, **kw)
+            if trace_sync:
+                torch.cuda.synchronize(dev)
+        tr.stop(f"{region}/step")
+        tr.note_trace_step()
+        prev_end = time.perf_counter()
+        tr.sample(f"{region}/steps_per_dispatch", float(k))
+        if clock is not None:
+            clock.record(probe, step=n, k=k, batch=batches[0], is_macro=is_macro,
+                         t_fetch_start=t_fetch, t_fetch_end=t_fetched,
+                         t_dispatch_start=t_dispatch, t_dispatch_end=prev_end, acc=acc)
         if train:
             for _ in batches:
                 faults.tick("train_step")
             if guard is not None:
-                guard.observe(step=n, k=len(batches), ok_ref=oks, gnorm_ref=gnorms)
+                guard.observe(step=n, k=k, ok_ref=oks, gnorm_ref=gnorms)
         if step_hook is not None:
             step_hook(state, n, acc)
+    pack = _packing_stats(loader)
+    if pack is not None:
+        tr.sample(f"{region}/pack_pad_ratio", float(pack["pad_ratio"]))
+        tr.sample(f"{region}/pack_node_fill", float(pack["node_fill"]))
+    if max_k > 1:
+        tr.sample(f"{region}/superstep_k", float(max_k))
     loss, tasks = (0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
+    if clock is not None:
+        clock.finish()
     if guard is not None:
         guard.epoch_end()
     return state, loss, tasks
+
+
+def _packing_stats(loader) -> Optional[dict]:
+    """The current epoch's ``packing_stats`` of the packing loader in a
+    wrapper chain (None when nothing in it packs)."""
+    while loader is not None:
+        fn = getattr(loader, "packing_stats", None)
+        if callable(fn):
+            return fn()
+        loader = getattr(loader, "loader", None)
+    return None
 
 
 @torch.no_grad()
@@ -691,6 +774,11 @@ def train_validate_test(
         best_val, bad_epochs = _restore_loop_state(resume.get("loop") or {}, hist, scheduler)
     interval = ckpt.interval_steps if use_ckpt and can_skip else 0
     walltime_left = float(training.get("walltime_min_seconds_left", 300.0))
+    profiler = tr.Profiler(config)
+    obs = telemetry.observer()
+    if obs is not None and epoch_start > 0:
+        # a resumed run's first epoch captures its graphs anew
+        obs.warmup_phase = max(obs.warmup_phase, epoch_start + 1)
 
     def loop_state():
         return _loop_state(hist, best_val, bad_epochs, scheduler)
@@ -700,6 +788,11 @@ def train_validate_test(
         next_epoch = epoch + 1
         t0 = time.time()
         captures = graphs.captures if graphs is not None else 0
+        profiler.on_epoch_start(epoch)
+        if telemetry.active():
+            telemetry.note_epoch(epoch, lr=get_learning_rate(state.optimizer))
+        elif telemetry.observer() is not None:
+            telemetry.note_epoch(epoch)
         train_loader.set_epoch(epoch)
         if monitor is not None:
             monitor.note_epoch(epoch)
@@ -732,6 +825,7 @@ def train_validate_test(
         new_lr = scheduler.step(val_loss, lr)
         if new_lr != lr:
             set_learning_rate(state.optimizer, new_lr)
+        profiler.on_epoch_end(epoch)
         hist.train_loss.append(train_loss)
         hist.val_loss.append(val_loss)
         hist.test_loss.append(test_loss)
@@ -742,6 +836,19 @@ def train_validate_test(
         hist.epoch_seconds.append(time.time() - t0)
         hist.epoch_captures.append(
             (graphs.captures if graphs is not None else 0) - captures)
+        if telemetry.active():
+            # the exact floats History holds (JSON round-trips them)
+            telemetry.emit({
+                "t": "epoch",
+                "epoch": epoch,
+                "train_loss": train_loss,
+                "val_loss": val_loss,
+                "test_loss": test_loss,
+                "train_tasks": np.asarray(train_tasks).reshape(-1).tolist(),
+                "lr": new_lr,
+                "seconds": hist.epoch_seconds[-1],
+            })
+            telemetry.emit_memory("epoch", epoch=epoch)
         print_distributed(
             verbosity,
             1,
@@ -774,6 +881,7 @@ def train_validate_test(
                 writer.save(state, kind="epoch", epoch=epoch + 1, step=0, label_epoch=epoch,
                             loop=loop_state())
             break
+    telemetry.end_of_training()
     recal = bn_recalibration_epochs(training)
     if recal and plan is not None and plan.scheme != "single":
         print_distributed(

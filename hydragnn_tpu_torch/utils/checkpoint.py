@@ -65,7 +65,8 @@ import torch
 import torch.distributed as dist
 
 from hydragnn_tpu_torch.parallel.runtime import gather_to_host, rank, world_size
-from hydragnn_tpu_torch.utils import faults
+from hydragnn_tpu_torch.utils import faults, telemetry
+from hydragnn_tpu_torch.utils import tracer as tr
 
 CHECKPOINT_DIR = "./logs"
 MANIFEST_VERSION = 1
@@ -177,9 +178,27 @@ def _full(tree):
     return tree
 
 
-def _barrier() -> None:
-    if world_size() > 1:
-        dist.barrier()
+_BARRIER_SEQ: dict = {}
+
+
+def _barrier(site: str = "save") -> None:
+    """Meet every rank (a no-op at world 1). Each crossing is a telemetry
+    ``barrier`` row (its whole wait, also when the barrier raises) and a
+    ``waiting_on`` site for the heartbeats; ``seq`` counts the site's
+    crossings, which every rank makes alike."""
+    if world_size() <= 1:
+        return
+    seq = _BARRIER_SEQ[site] = _BARRIER_SEQ.get(site, 0) + 1
+    with telemetry.waiting_on(f"barrier:{site}"):
+        t0 = time.perf_counter()
+        try:
+            dist.barrier()
+        except BaseException:
+            dt = time.perf_counter() - t0
+            telemetry.emit_barrier(site, seq, dt, dt, timed_out=True)
+            raise
+        dt = time.perf_counter() - t0
+    telemetry.emit_barrier(site, seq, dt, dt)
 
 
 def _state_tree(state) -> dict:
@@ -486,16 +505,27 @@ def _host_snapshot(tree):
     return walk(shape, lambda t: host[t] if type(t) is _Slot else t)
 
 
-def _processes_agree_finite(local_ok: bool) -> bool:
+def _processes_agree_finite(local_ok: bool, site: str = "finite", seq: int = 0) -> bool:
     """Every rank's validate-finite verdict, AND-ed (a MIN all-reduce
-    on the loop thread); one rank's own verdict at world 1."""
+    on the loop thread); one rank's own verdict at world 1. The
+    agreement is a telemetry ``barrier`` row at ``site``."""
     if world_size() == 1:
         return local_ok
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend() == dist.Backend.NCCL else torch.device("cpu"))
     flag = torch.tensor([1 if local_ok else 0], dtype=torch.int32, device=dev)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-    return bool(flag.item())
+    with telemetry.waiting_on(site):
+        t0 = time.perf_counter()
+        try:
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            ok = bool(flag.item())
+        except BaseException:
+            dt = time.perf_counter() - t0
+            telemetry.emit_barrier(site, seq, dt, dt, timed_out=True)
+            raise
+        dt = time.perf_counter() - t0
+    telemetry.emit_barrier(site, seq, dt, dt)
+    return ok
 
 
 class CheckpointWriter:
@@ -551,6 +581,7 @@ class CheckpointWriter:
         self._thread: Optional[threading.Thread] = None
         self._inflight = 0
         self._cv = threading.Condition()
+        self._job_seq = 0
 
     def save(self, state, *, kind: str = "auto", epoch: int = 0, step: int = 0,
              label_epoch: Optional[int] = None, acc=None, loop: Optional[dict] = None) -> None:
@@ -560,17 +591,30 @@ class CheckpointWriter:
         defaulting to ``epoch``."""
         from hydragnn_tpu_torch.train.capture import GRAPH_LOCK
 
+        tw = time.perf_counter()
         self._drain()
         t0 = time.perf_counter()
+        waited = t0 - tw
+        if waited > 1e-4:
+            tr.sample("checkpoint/backpressure_ms", 1e3 * waited)
         with GRAPH_LOCK:
             host = _host_snapshot(_state_tree(state))
             manifest = build_manifest(epoch=epoch, step=step, plan_seed=self.plan_seed,
                                       fingerprint=self.fingerprint, acc=encode_acc(acc),
                                       loop=loop)
         finite = None
+        self._job_seq += 1
         if world_size() > 1 and self.validate_finite:
-            finite = _processes_agree_finite(not nonfinite_leaves(host))
-        self.snapshot_ms.append(1e3 * (time.perf_counter() - t0))
+            finite = _processes_agree_finite(not nonfinite_leaves(host),
+                                             f"finite:{self.log_name}", self._job_seq)
+        snap_ms = 1e3 * (time.perf_counter() - t0)
+        self.snapshot_ms.append(snap_ms)
+        tr.sample("checkpoint/snapshot_block_ms", snap_ms)
+        telemetry.emit({"t": "checkpoint", "event": "save", "kind": kind,
+                        "epoch": int(epoch), "step": int(step),
+                        "snapshot_block_ms": round(snap_ms, 3),
+                        "backpressure_ms": round(1e3 * waited, 3),
+                        "async": self.async_enabled})
         host["manifest"] = manifest
         job = (host, kind, epoch if label_epoch is None else int(label_epoch), finite)
         if rank() != 0:
@@ -614,15 +658,20 @@ class CheckpointWriter:
                   "contains non-finite values — refusing to publish a corrupt artifact; "
                   "the last durable checkpoint remains the resume/rollback point "
                   "(Training.Checkpoint.validate_finite disables this gate)")
+            tr.sample("checkpoint/rejected_saves", 1.0)
+            telemetry.emit({"t": "checkpoint", "event": "rejected", "kind": kind,
+                            "epoch": int(epoch), "reason": "non_finite_state"})
             return
         t0 = time.perf_counter()
         delay = self.backoff_s
         blob = None
+        n_bytes = 0
         for attempt in range(self.retries + 1):
             try:
                 if blob is None:
                     blob = _blob(host)
-                self.bytes_written += self._emit(kind, epoch, blob)
+                n_bytes = self._emit(kind, epoch, blob)
+                self.bytes_written += n_bytes
                 self.saves += 1
                 self.last_error = None
                 break
@@ -646,7 +695,14 @@ class CheckpointWriter:
                 self.last_error = e
                 _warn(f"checkpoint write FAILED (non-retryable): {e!r}")
                 break
-        self.write_ms.append(1e3 * (time.perf_counter() - t0))
+        write_ms = 1e3 * (time.perf_counter() - t0)
+        self.write_ms.append(write_ms)
+        tr.sample("checkpoint/serialize_write_ms", write_ms)
+        if n_bytes:
+            tr.sample("checkpoint/bytes", float(n_bytes))
+        telemetry.emit({"t": "checkpoint", "event": "write", "kind": kind,
+                        "epoch": int(epoch), "serialize_write_ms": round(write_ms, 3),
+                        "bytes": int(n_bytes), "failed": self.last_error is not None})
 
     def _emit(self, kind: str, epoch: int, blob: bytes) -> int:
         d = _run_dir(self.log_name)
@@ -672,7 +728,7 @@ class CheckpointWriter:
     def wait(self) -> None:
         """Block until no write is in flight, on every rank."""
         self._drain()
-        _barrier()
+        _barrier(f"publish:{self.log_name}")
 
     def close(self, barrier: bool = True) -> None:
         """Drain, stop the worker and, with ``barrier``, meet the other
@@ -684,7 +740,7 @@ class CheckpointWriter:
             self._thread.join(timeout=30.0)
         self._thread = None
         if barrier:
-            _barrier()
+            _barrier("final_checkpoint")
 
     def stats(self) -> dict:
         """The counts (class docstring) as one dict."""

@@ -4,7 +4,10 @@ CUDA-graph capture of the train loop's steps (``train/capture.py``):
 replayed train and eval steps, a K = 2 replay, every optimizer's captured
 step and MACE's and PNAEq's MLIP steps against eager ones, bit for bit;
 the divergence guard's step replayed against eager and unguarded, and a
-poisoned step inside a replayed K = 2 graph skipped bit for bit.
+poisoned step inside a replayed K = 2 graph skipped bit for bit; the
+run telemetry: a run with the stream on equals it off, every step
+replayed, and the dispatch-mode counter's K1/K2 counts equal
+``k1_work``/``k2_work``.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -1417,3 +1420,117 @@ def test_ensure_fields_engine_on_card():
             np.testing.assert_array_equal(q.result[0], out[gi])
     assert all(r.result is not None for r in reqs)
     eng.close()
+
+
+def _telemetry_run(torch, tmp_path, name, telemetry):
+    """ci.json's SchNet (24 BCC configurations, batches of 4, two epochs,
+    the guard on) through run_training on the card, every step through
+    the graph cache; with ``telemetry`` the stream on (a fence every 3
+    dispatches). Returns (state, history, stream rows or None)."""
+    import copy
+    import json
+    import os
+
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "inputs", "ci.json")) as f:
+        config = json.load(f)
+    data = str(tmp_path / "data")
+    if not os.path.isdir(data):
+        deterministic_graph_data(data, number_configurations=24, seed=5)
+    config = copy.deepcopy(config)
+    config["Dataset"]["path"] = {"total": data}
+    config["Dataset"]["name"] = name
+    t = config["NeuralNetwork"]["Training"]
+    t.update(num_epoch=2, batch_size=4, Guard={"enabled": True},
+             Parallelism={"scheme": "single", "packing": {"enabled": False}})
+    if telemetry:
+        t["Telemetry"] = {"enabled": True, "sync_interval_steps": 3,
+                          "heartbeat_interval_s": 600}
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        state, _, _, hist, full = runner.run_training(config, device="cuda")
+        torch.cuda.synchronize()
+        rows = None
+        if telemetry:
+            with open(os.path.join("logs", full["_log_name"], "telemetry.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+    finally:
+        os.chdir(cwd)
+    return state, hist, rows
+
+
+@pytest.mark.cuda
+def test_telemetry_on_equals_off_replayed(tmp_path):
+    """run_training with the telemetry stream on equals the run with it
+    off bit for bit on the card (history, parameters, optimizer state),
+    every step replayed after its shape's first sight; the stream has a
+    counted executable per (region, spec, k), no capture_error, one
+    compile row per capture and the card's name in its header."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    launches = {}
+    runs = {}
+    for name, on in (("on", True), ("off", False)):
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        runs[name] = _telemetry_run(torch, tmp_path, f"tel_{name}", on)
+        launches[name] = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+    (s_on, h_on, rows), (s_off, h_off, _) = runs["on"], runs["off"]
+    assert launches["on"] == launches["off"]
+    assert h_on.train_loss == h_off.train_loss and h_on.val_loss == h_off.val_loss
+    _state_equal(torch, s_on.model, s_on.optimizer, s_off.model, s_off.optimizer)
+    assert s_on.graphs.replays > 0
+    assert rows[0]["device_kind"] == torch.cuda.get_device_name(0)
+    execs = [r for r in rows if r["t"] == "executable"]
+    assert execs and not [r for r in execs if "capture_error" in r]
+    steps = {(r["region"], r["spec"], r["k"]) for r in rows if r["t"] == "step"}
+    assert {(r["region"], r["spec"], r["k"]) for r in execs} == steps
+    assert len([r for r in rows if r["t"] == "compile"]) == s_on.graphs.captures
+
+
+@pytest.mark.cuda
+def test_counter_k1_k2_equal_work_on_card():
+    """The dispatch-mode counter around K1 and its backward (K2) on the
+    card counts what ``k1_work``/``k2_work`` say, with the valid slots
+    read from the plan."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops import edge_pipeline as ep
+    from hydragnn_tpu_torch.utils.telemetry import ExecCounter
+
+    rng, plan = _plan(11, 900, 1024, 300)
+    dev = torch.device("cuda")
+    plan = tuple(torch.from_numpy(p).to(dev) for p in plan)
+    f_in, f_out = 128, 128
+    a, b = (torch.tensor(rng.normal(size=(1024, f_in)), dtype=torch.float32, device=dev,
+                         requires_grad=True) for _ in range(2))
+    w = torch.tensor(rng.normal(size=(f_in, f_out)) / f_in ** 0.5, dtype=torch.float32,
+                     device=dev, requires_grad=True)
+
+    def step(batches):
+        out = ep.edge_pipeline_planned(a, b, w, *plan, 300)
+        out.square().sum().backward()
+        return (out.detach(),)
+
+    ctr = ExecCounter()
+    k1_before, k2_before = ep.edge_pipeline_planned.launches, ep.edge_pipeline_bwd_planned.launches
+    ctr.run(step, [])
+    torch.cuda.synchronize()
+    assert (ep.edge_pipeline_planned.launches - k1_before,
+            ep.edge_pipeline_bwd_planned.launches - k2_before) == (1, 1)
+    e_valid = int(plan[2].sum())
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    k1 = ep.k1_work(e_valid, 300, f_in, f_out, slots, blocks, a.dtype, w.dtype, True, True)
+    k2 = ep.k2_work(1024, e_valid, 300, f_in, f_out, slots, blocks, a.dtype, w.dtype,
+                    True, True)
+    got1 = ctr.kernels["hydragnn::edge_pipeline"]
+    got2 = ctr.kernels["hydragnn::edge_pipeline_bwd"]
+    assert ctr.error is None
+    assert (got1["calls"], got1["flops"], got1["bytes_accessed"]) == (1, k1[1], k1[0])
+    assert (got2["calls"], got2["flops"], got2["bytes_accessed"]) == (1, k2[1], k2[0])

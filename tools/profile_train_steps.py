@@ -18,8 +18,18 @@ For each step it prints the batch's size, the eager time (CUDA events
 around 20 back-to-back steps), the device time and kernel count
 (``torch.profiler`` over 5 steps, user-annotation ranges left out as
 chip_smoke.py leaves them out), and the kernels that take the most
-device time, grouped by name. Needs one CUDA device; exits 2 without
-one.
+device time, grouped by name.
+
+Then it attributes the step's device time by module: one more profiled
+eager step with a ``record_function`` range around every module's
+forward (``fwd:<module path>``, opened and closed by forward hooks).
+Each kernel counts under the innermost range of the op that launched
+it; a backward kernel under the range of the forward op whose autograd
+node it runs (matched by the profiler's sequence numbers) as
+``bwd:<module path>``; the optimizer's under ``optimizer``. It prints
+the modules that take the most device time and, for the row reductions
+(kernels named ``reduce_kernel``), which modules launch them. The replay
+runs the same kernels. Needs one CUDA device; exits 2 without one.
 """
 
 import copy
@@ -33,6 +43,105 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 TOP = 8
+# reduction kernels (torch's ``at::native::reduce_kernel`` and its kin)
+REDUCE = "reduce_kernel"
+
+
+def module_ranges(model):
+    """Forward hooks opening ``fwd:<name>`` profiler ranges around every
+    module's forward; returns the hook handles."""
+    handles = []
+    for name, mod in model.named_modules():
+        label = f"fwd:{name or type(mod).__name__}"
+
+        def pre(m, args, _label=label):
+            m._profile_range = torch.profiler.record_function(_label)
+            m._profile_range.__enter__()
+
+        def post(m, args, out):
+            rng = getattr(m, "_profile_range", None)
+            if rng is not None:
+                m._profile_range = None
+                rng.__exit__(None, None, None)
+
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    return handles
+
+
+def _scope_of(evt):
+    """The innermost ``fwd:`` range above a profiler event, or the
+    optimizer's annotation; None when neither encloses it."""
+    while evt is not None:
+        if evt.name.startswith("fwd:"):
+            return evt.name[4:]
+        if evt.name.startswith("Optimizer."):
+            return "optimizer"
+        evt = evt.cpu_parent
+    return None
+
+
+def attribute_by_module(step, model, n_prof=1):
+    """Device ms per module scope of ``n_prof`` profiled eager steps
+    (module docstring): ``{scope: [ms, kernels, reduce ms, reduce
+    kernels]}`` per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    handles = module_ranges(model)
+    try:
+        step()  # warm: the ranges' first use
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    events = prof.events()
+    fwd_scope = {}
+    for e in events:
+        if getattr(e, "sequence_nr", -1) >= 0 and not e.name.startswith("autograd::"):
+            scope = _scope_of(e)
+            if scope is not None:
+                fwd_scope.setdefault(e.sequence_nr, scope)
+    out = defaultdict(lambda: [0.0, 0, 0.0, 0])
+    for e in events:
+        if getattr(e, "is_user_annotation", False):
+            continue  # a range's own span on the device is not a kernel
+        for k in getattr(e, "kernels", ()):
+            scope, up = _scope_of(e), e
+            while up is not None and scope is None:
+                if up.name.startswith("autograd::engine::evaluate_function"):
+                    fwd = fwd_scope.get(getattr(up, "sequence_nr", -1))
+                    scope = None if fwd is None else f"bwd:{fwd}"
+                    break
+                up = up.cpu_parent
+            ms = k.duration / 1e3 / n_prof
+            row = out[scope or "(no module range)"]
+            row[0] += ms
+            row[1] += 1
+            if REDUCE in k.name:
+                row[2] += ms
+                row[3] += 1
+    for row in out.values():
+        row[1] //= n_prof
+        row[3] //= n_prof
+    return dict(out)
+
+
+def report_modules(what, scopes):
+    total = sum(v[0] for v in scopes.values())
+    red = sum(v[2] for v in scopes.values())
+    n_red = sum(v[3] for v in scopes.values())
+    print(f"{what} by module: {total:.3f} ms of device time; row reductions ({REDUCE}) "
+          f"{n_red} kernels, {red:.3f} ms ({100 * red / max(total, 1e-9):.1f}%)", flush=True)
+    for scope, (ms, n, rms, rn) in sorted(scopes.items(), key=lambda kv: -kv[1][0])[:2 * TOP]:
+        print(f"    {ms:8.4f} ms {100 * ms / total:5.1f}%  x{n:<4d} reductions x{rn:<3d} "
+              f"{rms:7.4f} ms  {scope[:90]}", flush=True)
+    print(f"  {what} row reductions by module:", flush=True)
+    for scope, (_, _, rms, rn) in sorted(scopes.items(), key=lambda kv: -kv[1][2]):
+        if rn:
+            print(f"    x{rn:<3d} {rms:7.4f} ms  {scope[:100]}", flush=True)
 
 
 def step_profile(model0, cfg, training, batch, mlip, n_prof=5):
@@ -61,11 +170,12 @@ def step_profile(model0, cfg, training, batch, mlip, n_prof=5):
         by_name[e.name][1] += 1
     device = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
-    return eager, device, len(kernels) // n_prof, top
+    scopes = attribute_by_module(lambda: step(state, batch), model)
+    return eager, device, len(kernels) // n_prof, top, scopes
 
 
 def report(what, batch, result):
-    eager, device, n, top = result
+    eager, device, n, top, scopes = result
     idle = 100 * (1 - device / eager) if device else float("nan")
     print(f"{what}: {batch.num_nodes} nodes, {int(batch.edge_mask.sum())} valid of "
           f"{batch.num_edges} edge slots, {batch.num_graphs} graph slots; {eager:.3f} ms "
@@ -73,6 +183,7 @@ def report(what, batch, result):
     for name, (ms, count) in top:
         print(f"    {ms:8.4f} ms {100 * ms / device:5.1f}%  x{count // 5:<4d} {name[:110]}",
               flush=True)
+    report_modules(what, scopes)
 
 
 def main():
