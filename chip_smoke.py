@@ -261,7 +261,13 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                [oc20]'s checks; run_prediction(config) alone restores the
                checkpoint's full tensors bit for bit in one process and
                predicts within the f32 forward tolerance of the in-process
-               pass.
+               pass. The run writes the sharded format
+               (checkpoint_format "orbax": improving epochs, every 10 steps
+               through the writer, final; each rank its own shards, no
+               gather), which run_prediction(config) restores; a save with
+               crash:orbax_between_replaces leaves final.old, restored bit
+               for bit; the writer's snapshot and write ms and bytes in
+               both formats for the same state.
 17. egnn       examples/mptrj/mptrj_forces.json's EGNN (hidden 64, 3 layers,
                force weight 10, AdamW 0.001, batch 32) on this script's copy
                of examples/common/crystals.py's crystals (300, species Ni,
@@ -319,7 +325,18 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                reference on the card (the mean of the three sub-batches'
                losses, decoders rescaled by D / D_b); K1 = 3 x forwards and
                K2 = 3 x train steps on every rank; run_prediction's rows;
-               each rank's step time. A failing rank fails the phase.
+               each rank's step time, unguarded and guarded (the
+               multibranch guard, per slot, eager as the step). Then, in
+               the same processes: the run with Guard on and resume
+               containers every 2 steps equal to it bit for bit; an epoch
+               with NaN labels on branch 1's rank at one step, contained
+               (branch 1's decoder and the encoder as before, branches 0
+               and 2 as the clean step left them, bit for bit;
+               window_bad_by_branch {"branch-1": 1, "encoder": 1}); the
+               guarded run killed by SIGKILL mid-epoch, its container's
+               branch_steps [s, s, s], and three continue processes equal
+               to the uninterrupted run bit for bit. A failing rank fails
+               the phase.
 21. capture    at each path's step shape (the SchNet headline batch, the
                first packed MLIP, ZINC, polymer and oc20 bins): one train step
                through the train loop's superstep eager and replayed, the
@@ -4456,6 +4473,10 @@ def phase_fsdp(config, splits, first_bin, budgets):
             f"({'bit for bit' if exact else 'not bit for bit'}); the eager step (10 back to "
             f"back, CUDA events): zero {steps['zero'][2]:.3f} ms, dp {steps['dp'][2]:.3f} ms")
         keep = {}
+        # the sharded format: every epoch that improves and every 10 steps
+        # through the writer, and the final save
+        config["NeuralNetwork"]["Training"].update(
+            checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 10})
         out["run"] = mlip_run(config, splits, budgets, tag="fsdp", per_fwd=cfg.num_conv_layers,
                               data="OC20 slabs (zero, world 1)", eager_baseline=False,
                               keep=keep)
@@ -4478,11 +4499,85 @@ def phase_fsdp(config, splits, first_bin, budgets):
         check(all(np.isclose(a, b, **F32_TOL).all() for a, b in zip(preds, keep["preds"])),
               f"run_prediction(config) predictions off the in-process ones by {gaps}")
         log(f"[fsdp] run_prediction(config) alone ({pred_s:.2f} s) restored {len(trained)} "
-            f"full tensors bit for bit (unsharded, in one process); error {err:.6g} against "
-            f"{keep['err']:.6g} in process, predictions within {max(gaps):.3g}")
+            f"full tensors bit for bit from the sharded format (unsharded, in one process); "
+            f"error {err:.6g} against {keep['err']:.6g} in process, predictions within "
+            f"{max(gaps):.3g}")
+        out["sharded"] = sharded_checks(keep["full"]["_log_name"], state, trained,
+                                        lambda: create_model_config(keep["full"], "cuda")[0],
+                                        training)
         out.update(first_step_gap=gap, first_step_exact=exact, eager=state.eager_reason,
                    eager_step_ms={k: v[2] for k, v in steps.items()})
     return out
+
+
+def sharded_checks(log_name, state, trained, fresh_model, training):
+    """[fsdp]'s sharded format (``checkpoint_format: "orbax"``) around the
+    zero run's state: what the run wrote under ``orbax/``; a save with
+    ``crash:orbax_between_replaces`` armed (the fault raised between the
+    two renames, as a kill there would stop it) leaves ``final.old``,
+    from which a fresh unsharded model restores the state bit for bit;
+    and the writer's snapshot and write ms and bytes for this state in
+    the sharded format against the .pt format (three saves each, in
+    turns)."""
+    import shutil
+
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+    from hydragnn_tpu_torch.utils import checkpoint as ck
+    from hydragnn_tpu_torch.utils import faults
+
+    base = os.path.join("logs", log_name, "orbax")
+    names = sorted(os.listdir(base))
+    check({"LATEST", "RESUME", "final", "autosave"} <= set(names)
+          and any(n.startswith("epoch_") for n in names),
+          f"[fsdp] orbax/ holds {names}")
+    files = sorted(os.listdir(os.path.join(base, "final")))
+    check(files == ["manifest.json", "meta.json", "rank0.pt"], f"[fsdp] final/ holds {files}")
+
+    def restored():
+        model = fresh_model()
+        return TrainState(model, select_optimizer(model.parameters(), training))
+
+    faults.install("crash:orbax_between_replaces:1")
+    try:
+        ck.save_checkpoint_sharded(log_name, state)
+        check(False, "[fsdp] crash:orbax_between_replaces did not fire")
+    except faults.InjectedCrash:
+        pass
+    finally:
+        faults.reset()
+    left = sorted(os.listdir(base))
+    check("final" not in left and "final.old" in left, f"[fsdp] after the crash: {left}")
+    back = ck.load_checkpoint_sharded(log_name, restored())
+    got = full_state(back.model, back.optimizer)
+    check(set(got) == set(trained) and all(torch.equal(got[k], trained[k]) for k in trained),
+          "[fsdp] the state restored from final.old differs from the run's")
+    stats = {}
+    for rep in range(2):
+        for fmt in ("orbax", "pt"):
+            name = f"{log_name}_writer_{fmt}"
+            w = ck.CheckpointWriter(name, fmt=fmt)
+            for step in range(3):
+                w.save(state, kind="auto", epoch=9, step=step)
+            w.close()
+            stats.setdefault(fmt, []).append(w.stats())
+            shutil.rmtree(os.path.join("logs", name), ignore_errors=True)
+    ms = {fmt: {"snapshot_ms": [x for st in v for x in st["snapshot_ms"]],
+                "write_ms": [x for st in v for x in st["write_ms"]],
+                "bytes_per_save": v[0]["bytes"] // max(v[0]["saves"], 1)}
+          for fmt, v in stats.items()}
+    check(all(st["saves"] == 3 and st["last_error"] is None for v in stats.values()
+              for st in v), f"[fsdp] writer stats {stats}")
+    log(f"[fsdp] sharded format: orbax/ holds {names}, final/ {files}; a save with "
+        f"crash:orbax_between_replaces left {left} and a fresh model restored "
+        f"{len(trained)} tensors from final.old bit for bit")
+    for fmt in ("orbax", "pt"):
+        log(f"[fsdp] writer, {fmt} format, the zero state at world 1 (rank 0: "
+            f"{ms[fmt]['bytes_per_save']} bytes a save): snapshot ms "
+            f"{[round(x, 3) for x in ms[fmt]['snapshot_ms']]}, write ms "
+            f"{[round(x, 3) for x in ms[fmt]['write_ms']]} (2 rounds of 3 saves, formats in "
+            f"turns)")
+    return {"dirs": names, "after_crash": left, "writer": ms}
 
 
 MB_SIZES = (300, 120, 80)  # examples/multibranch/train.py --sizes
@@ -4549,23 +4644,44 @@ def multibranch_sets():
             for bi, n in enumerate(MB_SIZES)]
 
 
-def multibranch_rank(rank, work):
-    """One rank of [multibranch] (``chip_smoke.py --multibranch-rank R
-    DIR``): a gloo group of three through a FileStore in DIR, every rank
-    on cuda:0; run_training under ``scheme: "multibranch"`` with a digest
-    of every parameter after every train step, the first step's
-    sub-batch, starting parameters and reduced gradients, K1/K2 launches
-    against the forwards and train steps; run_prediction; then ten more
-    steps timed with CUDA events. Writes DIR/rank<R>.pt."""
-    import hashlib
+MB_POISON_STEP = 3  # [multibranch]: the train step whose branch-1 labels are NaN
+MB_KILL = 13  # [multibranch]: the train step tick that kills the drill (epoch 1, step 5)
+
+
+def mb_state(model, opt):
+    """Every tensor a multibranch train step writes, on the host, by name:
+    the model's, each parameter's optimizer state, each group's step
+    count and rate."""
+    name = {id(p): n for n, p in model.named_parameters()}
+    out = {f"model/{k}": v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    out.update({f"opt/{name[id(p)]}/{k}": v.detach().cpu().clone()
+                for p, st in opt.state.items() for k, v in st.items()})
+    out.update({f"group/{i}/{k}": g[k].detach().cpu().clone()
+                for i, g in enumerate(opt.param_groups) for k in ("step", "lr")})
+    return out
+
+
+def mb_poisoned(batch):
+    """``batch`` with its real graphs' targets NaN (a host-side label
+    poison: only this slot's branch reads them)."""
+    import dataclasses
 
     import numpy as np
-    import torch.distributed as dist
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    torch.set_num_threads(2)
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    y = np.array(batch.y_graph, copy=True)
+    y[np.asarray(batch.graph_mask)] = np.nan
+    return dataclasses.replace(batch, y_graph=y)
+
+
+def mb_training(rank, config, sets, *, snap_at=None, poison_rank=None, first=False):
+    """run_training of ``config`` on this rank with every train step
+    recorded: a digest of the parameters after each, the forwards and
+    train steps, the K1/K2 launches (counted from 0 here); with
+    ``snap_at`` the state before and after that train step (whose
+    sub-batch is label-poisoned on ``poison_rank``); with ``first`` the
+    first step's sub-batch, starting parameters and reduced gradients."""
+    import hashlib
+
     import hydragnn_tpu_torch as port
     from hydragnn_tpu_torch.ops.edge_pipeline import (
         edge_pipeline_bwd_planned,
@@ -4573,11 +4689,8 @@ def multibranch_rank(rank, work):
     )
     from hydragnn_tpu_torch.parallel import dp as dp_mod
 
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"),
-                                                         MB_RANKS),
-                            rank=rank, world_size=MB_RANKS)
-    sets = multibranch_sets()
-    rec = {"digests": [], "train_steps": 0, "forwards": 0, "first": None}
+    rec = {"digests": [], "train_steps": 0, "forwards": 0, "first": None, "snap": None,
+           "oks": []}
     plain = dp_mod.make_dp_superstep_fn
 
     def recorded(model, optimizer, cfg, plan, *, train=True, **kw):
@@ -4588,12 +4701,21 @@ def multibranch_rank(rank, work):
             if not train:
                 return fn(state, acc, batches, **probe)
             before = None
-            if rec["first"] is None:
+            if first and rec["first"] is None:
                 before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            at = rec["train_steps"] == snap_at
+            if at:
+                snap_before = mb_state(model, optimizer)
+                if rank == poison_rank:
+                    batches = [mb_poisoned(batches[0])] + list(batches[1:])
             out = fn(state, acc, batches, **probe)
             rec["train_steps"] += len(batches)
             flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
             rec["digests"].append(hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest())
+            if len(out) == 4:
+                rec["oks"].append(out[2].cpu().tolist())
+            if at:
+                rec["snap"] = {"before": snap_before, "after": mb_state(model, optimizer)}
             if before is not None:
                 rec["first"] = {"params": before, "batch": batches[0],
                                 "grads": {k: p.grad.detach().cpu().clone()
@@ -4605,51 +4727,171 @@ def multibranch_rank(rank, work):
     dp_mod.make_dp_superstep_fn = recorded
     edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
     t0 = time.perf_counter()
+    try:
+        out = port.run_training(config, datasets=sets, device="cuda:0")
+    finally:
+        dp_mod.make_dp_superstep_fn = plain
+    torch.cuda.synchronize()
+    rec.update(k1=edge_pipeline_planned.launches, k2=edge_pipeline_bwd_planned.launches,
+               seconds=time.perf_counter() - t0)
+    return out, rec
+
+
+def mb_drill_config(name, epochs=2, **training):
+    config = multibranch_config(epochs)
+    config["Dataset"]["name"] = name
+    config["NeuralNetwork"]["Training"].update(training)
+    return config
+
+
+MB_DURABLE = {"Guard": {"enabled": True}, "Checkpoint": {"enabled": True, "interval_steps": 2}}
+
+
+def multibranch_rank(rank, work, mode="run"):
+    """One rank of [multibranch] (``chip_smoke.py --multibranch-rank R
+    DIR [resume]``): a gloo group of three through a FileStore in DIR,
+    every rank on cuda:0. ``run``: run_training under ``scheme:
+    "multibranch"`` (``mb_training``: every step's digest, the first
+    step's sub-batch, parameters and gradients, K1/K2 against forwards
+    and train steps); run_prediction; ten more steps timed with CUDA
+    events, unguarded and guarded; then the guard: the same run with
+    ``Guard`` on and resume containers every 2 steps (``guard``), and a
+    guarded epoch whose step ``MB_POISON_STEP`` has NaN labels on branch
+    1's rank (``poison``: the state before and after it, the telemetry
+    ``health`` row); writes DIR/rank<R>.pt; then the guarded run again
+    with ``kill:train_step:MB_KILL`` armed, which ends the process by
+    SIGKILL mid-epoch. ``resume``: ``continue`` of the killed run,
+    written to DIR/resume<R>.pt."""
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import edge_pipeline_planned
+    from hydragnn_tpu_torch.parallel import dp as dp_mod
+    from hydragnn_tpu_torch.parallel.multibranch import (
+        decoder_branch_of_name,
+        decoder_grad_scales,
+        guard_slots,
+    )
+    from hydragnn_tpu_torch.utils import faults
+    from hydragnn_tpu_torch.utils.telemetry import shard_path
+
+    store_dir = os.path.join(work, "store" if mode == "run" else "store_resume")
+    dist.init_process_group("gloo", store=dist.FileStore(store_dir, MB_RANKS),
+                            rank=rank, world_size=MB_RANKS)
+    sets = multibranch_sets()
+    drill = os.path.join(work, "drill")
+    os.makedirs(drill, exist_ok=True)
+    os.chdir(drill)
+    if mode == "resume":
+        (state, model, _, hist, _), rec = mb_training(
+            rank, mb_drill_config("multibranch_drill", **MB_DURABLE, **{"continue": 1}), sets)
+        run = [d for d in os.listdir("logs") if d.startswith("multibranch_drill")][0]
+        manifest = torch.load(os.path.join("logs", run, "resume.pt"),
+                              weights_only=True)["manifest"]
+        torch.save({"rank": rank, "digests": rec["digests"], "k1": rec["k1"], "k2": rec["k2"],
+                    "forwards": rec["forwards"], "train_steps": rec["train_steps"],
+                    "hist": (hist.train_loss, hist.val_loss, hist.test_loss),
+                    "steps": state.step, "seconds": rec["seconds"],
+                    "params": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   os.path.join(work, f"resume{rank}.pt"))
+        dist.destroy_process_group()
+        return
     config = multibranch_config()
     config["NeuralNetwork"]["Training"]["Telemetry"] = {
         "enabled": True, "stream_path": os.path.join(work, "telemetry.jsonl"),
         "heartbeat_interval_s": 1.0}
-    try:
-        state, model, cfg, hist, full = port.run_training(config, datasets=sets,
-                                                          device="cuda:0")
-    finally:
-        dp_mod.make_dp_superstep_fn = plain
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+    (state, model, cfg, hist, full), rec = mb_training(rank, config, sets, first=True)
+    k1, k2, train_s = rec["k1"], rec["k2"], rec["seconds"]
     edge_pipeline_planned.launches = 0
     err, _, trues, preds = port.run_prediction(full, datasets=sets, state=state, model=model,
                                                cfg=cfg)
     torch.cuda.synchronize()
     k1_pred = edge_pipeline_planned.launches
     pred_rows = sum(len(t[0]) for t in trues)
-    # ten more multibranch steps on the first batch, every rank in step
-    from hydragnn_tpu_torch.parallel.multibranch import decoder_grad_scales
-
+    # ten more multibranch steps on the first batch, every rank in step,
+    # unguarded and then guarded (the per-slot predicate and select)
     scales = decoder_grad_scales(model, cfg, 3, (1, 1, 1))
     plan = runtime_plan(full)
-    fn = plain(model, state.optimizer, cfg, plan, train=True, kind="multibranch",
-               decoder_scales=scales, device=torch.device("cuda:0"))
     batch = rec["first"]["batch"]
-    fn(state, None, [batch])
-    torch.cuda.synchronize()
-    dist.barrier()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
+    step_ms = {}
+    for guard in (False, True):
+        fn = dp_mod.make_dp_superstep_fn(
+            model, state.optimizer, cfg, plan, train=True, kind="multibranch",
+            decoder_scales=scales, device=torch.device("cuda:0"), guard=guard,
+            slots=guard_slots(model, cfg, 3) if guard else None)
         fn(state, None, [batch])
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / 10
+        torch.cuda.synchronize()
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn(state, None, [batch])
+        end.record()
+        torch.cuda.synchronize()
+        step_ms["guard" if guard else "plain"] = start.elapsed_time(end) / 10
+    # the guard: the same run guarded (bit for bit), then a poisoned epoch
+    (g_state, _, _, g_hist, _), g_rec = mb_training(
+        rank, mb_drill_config("multibranch_guard", **MB_DURABLE), sets, snap_at=MB_POISON_STEP)
+    os.makedirs(os.path.join(work, "poison"), exist_ok=True)
+    tel = os.path.join(work, "poison", "telemetry.jsonl")
+    (_, p_model, _, p_hist, _), p_rec = mb_training(
+        rank, mb_drill_config("multibranch_poison", epochs=1, Guard={"enabled": True},
+                              Telemetry={"enabled": True, "stream_path": tel}),
+        sets, snap_at=MB_POISON_STEP, poison_rank=1)
+    with open(shard_path(tel, rank)) as f:
+        health = [r for r in map(json.loads, f) if r.get("t") == "health"]
+    clean, bad = g_rec["snap"], p_rec["snap"]
+    params = {n for n, _ in p_model.named_parameters()}
+
+    def branch_of(k):
+        """A state tensor's decoder branch (None: the encoder's slot)."""
+        kind, rest = k.split("/", 1)
+        name = rest.rsplit("/", 1)[0] if kind == "opt" else rest
+        return decoder_branch_of_name(name, cfg) if name in params else None
+
+    held, moved = [], 0
+    for k, before in bad["before"].items():
+        b = branch_of(k)
+        after = bad["after"][k]
+        if b in (0, 2):
+            if not torch.equal(after, clean["after"][k]):
+                held.append(f"{k} (branch {b}) != the clean step's")
+            moved += not torch.equal(after, before)
+        elif not torch.equal(after, before):
+            held.append(f"{k} ({'encoder' if b is None else 'branch 1'}) moved")
     torch.save({"rank": rank, "digests": rec["digests"], "first": rec["first"],
                 "train_steps": rec["train_steps"], "forwards": rec["forwards"], "k1": k1,
                 "k2": k2, "k1_pred": k1_pred, "pred_rows": pred_rows,
                 "pred_samples": [len(b[2]) for b in sets], "err": float(err),
                 "hist": (hist.train_loss, hist.val_loss, hist.test_loss), "seconds": train_s,
-                "step_ms": step_ms, "eager": state.eager_reason, "slot": plan.mesh.slot(),
-                "config": full, "mem": torch.cuda.max_memory_allocated()},
+                "step_ms": step_ms["plain"], "guard_step_ms": step_ms["guard"],
+                "eager": state.eager_reason, "slot": plan.mesh.slot(), "config": full,
+                "mem": torch.cuda.max_memory_allocated(),
+                "guard": {"digests": g_rec["digests"], "oks": g_rec["oks"], "k1": g_rec["k1"],
+                          "k2": g_rec["k2"], "forwards": g_rec["forwards"],
+                          "train_steps": g_rec["train_steps"], "seconds": g_rec["seconds"],
+                          "hist": (g_hist.train_loss, g_hist.val_loss, g_hist.test_loss),
+                          "steps": g_state.step,
+                          "params": {k: v.cpu() for k, v in g_state.model.state_dict().items()}},
+                "poison": {"oks": p_rec["oks"], "held": held, "moved": moved,
+                           "n_tensors": len(bad["before"]), "health": health,
+                           "k1": p_rec["k1"], "k2": p_rec["k2"], "forwards": p_rec["forwards"],
+                           "train_steps": p_rec["train_steps"], "seconds": p_rec["seconds"],
+                           "train_loss": p_hist.train_loss,
+                           "finite": bool(all(np.isfinite(p_hist.train_loss)) and all(
+                               bool(torch.isfinite(v).all()) for v in
+                               p_model.state_dict().values()))}},
                os.path.join(work, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+    # the preemption: the guarded run again, killed mid-epoch by SIGKILL
+    dist.barrier()
+    faults.install(f"kill:train_step:{MB_KILL}")
+    mb_training(rank, mb_drill_config("multibranch_drill", **MB_DURABLE), sets)
+    raise SystemExit(f"rank {rank}: kill:train_step:{MB_KILL} did not end the process")
 
 
 def runtime_plan(full):
@@ -4671,8 +4913,10 @@ def phase_multibranch():
     reference on the card (the equal mean of the three sub-batches'
     losses, then the D / D_b rescale); K1 = 3 x forwards and K2 = 3 x
     train steps on every rank; every rank's history equal; each rank's
-    step time. A failing rank fails the phase."""
+    step time, unguarded and guarded. Then the guard and resume
+    (``multibranch_drills``). A failing rank fails the phase."""
     import shutil
+    import signal
     import tempfile
 
     from hydragnn_tpu_torch.models.create import create_model_config
@@ -4688,26 +4932,21 @@ def phase_multibranch():
         f"device); devices per branch {split}")
     work = tempfile.mkdtemp(prefix="multibranch_")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multibranch-rank",
-                               str(r), work], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT) for r in range(MB_RANKS)]
-    try:
-        logs = [p.communicate(timeout=420)[0].decode(errors="replace") for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    rcs, logs = mb_spawn(work)
     wall = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"multibranch rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    for r, (rc, text) in enumerate(zip(rcs, logs)):
+        # each rank ends in the preemption drill, killed by SIGKILL
+        check(rc == -signal.SIGKILL and os.path.exists(os.path.join(work, f"rank{r}.pt")),
+              f"multibranch rank {r} exited {rc}, want {-signal.SIGKILL} after its "
+              f"results:\n{text[-3000:]}")
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(MB_RANKS)]
+    drills = multibranch_drills(work, ranks)
     res = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tools", "graftboard.py"), "fleet", work, "--json"],
         capture_output=True, text=True, timeout=120)
     check(res.returncode == 0, f"graftboard fleet exited {res.returncode}: {res.stderr}")
     fleet = json.loads(res.stdout)
-    shutil.rmtree(work, ignore_errors=True)
     check(fleet["present"] == list(range(MB_RANKS)) and not fleet["missing"]
           and sorted(fleet["processes"]) == [str(r) for r in range(MB_RANKS)]
           and all(p["clean_exit"] for p in fleet["processes"].values())
@@ -4779,14 +5018,114 @@ def phase_multibranch():
     log(f"[multibranch] K1 launches {[r['k1'] for r in ranks]} = 3 x "
         f"{[r['forwards'] for r in ranks]} forwards, K2 {[r['k2'] for r in ranks]} = 3 x "
         f"{steps} train steps; steps eager ({ranks[0]['eager']}); step time per rank "
-        f"{[round(r['step_ms'], 3) for r in ranks]} ms (10 steps, CUDA events); peak "
-        f"memory per rank {[round(r['mem'] / 2**20, 1) for r in ranks]} MiB; "
-        f"run_prediction error {ranks[0]['err']:.6g}")
-    return {"k1": sum(r["k1"] + r["k1_pred"] for r in ranks),
-            "k2": sum(r["k2"] for r in ranks), "steps": steps,
-            "step_ms": [r["step_ms"] for r in ranks], "first_step_gap": worst,
+        f"{[round(r['step_ms'], 3) for r in ranks]} ms unguarded, "
+        f"{[round(r['guard_step_ms'], 3) for r in ranks]} ms guarded (10 steps each, CUDA "
+        f"events, the guard eager as the step); peak memory per rank "
+        f"{[round(r['mem'] / 2**20, 1) for r in ranks]} MiB; run_prediction error "
+        f"{ranks[0]['err']:.6g}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"k1": sum(r["k1"] + r["k1_pred"] for r in ranks) + drills["k1"],
+            "k2": sum(r["k2"] for r in ranks) + drills["k2"], "steps": steps,
+            "step_ms": [r["step_ms"] for r in ranks],
+            "guard_step_ms": [r["guard_step_ms"] for r in ranks], "first_step_gap": worst,
             "seconds": [r["seconds"] for r in ranks], "wall_seconds": wall,
-            "train_loss": ranks[0]["hist"][0]}
+            "train_loss": ranks[0]["hist"][0], "drills": drills}
+
+
+def mb_spawn(work, *extra):
+    """The three ranks of ``multibranch_rank`` as processes of this
+    script; returns their return codes and output."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multibranch-rank",
+                               str(r), work, *extra], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(MB_RANKS)]
+    try:
+        logs = [p.communicate(timeout=420)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return [p.returncode for p in procs], logs
+
+
+def multibranch_drills(work, ranks):
+    """[multibranch]'s guard and preemption, from what the ranks wrote:
+    the guarded run equals the unguarded one bit for bit on every rank
+    (every step's digest, the history; every slot's predicate true);
+    the epoch whose step MB_POISON_STEP had NaN labels on branch 1's rank
+    read [branch-0 ok, branch-1 bad, branch-2 ok, encoder bad] there,
+    left branch 1's decoder and the encoder as before the step and
+    branches 0 and 2 as the clean step left them, bit for bit, with
+    ``window_bad_by_branch`` {"branch-1": 1, "encoder": 1} in the epoch's
+    ``health`` row; the killed drill's newest container is mid-epoch with
+    per-branch cursors [s, s, s]; and three ``continue`` processes end
+    equal to the guarded run bit for bit. K1 = 3 x forwards, K2 = 3 x
+    train steps in every run."""
+    drill = os.path.join(work, "drill", "logs")
+    runs = [d for d in os.listdir(drill) if d.startswith("multibranch_drill")]
+    check(len(runs) == 1, f"[multibranch] drill runs {runs}")
+    manifest = torch.load(os.path.join(drill, runs[0], "resume.pt"),
+                          weights_only=True)["manifest"]
+    s = manifest["step"]
+    check(manifest["epoch"] == 1 and s in (2, 4) and manifest["branch_steps"] == [s] * MB_RANKS,
+          f"[multibranch] the killed drill's container: epoch {manifest['epoch']}, step {s}, "
+          f"branch_steps {manifest['branch_steps']}")
+    t0 = time.perf_counter()
+    rcs, logs = mb_spawn(work, "resume")
+    resume_s = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(zip(rcs, logs)):
+        check(rc == 0, f"multibranch continue rank {r} exited {rc}:\n{text[-3000:]}")
+    resumed = [torch.load(os.path.join(work, f"resume{r}.pt"), weights_only=False)
+               for r in range(MB_RANKS)]
+    k1 = k2 = 0
+    for r, res in zip(ranks, resumed):
+        g, p = r["guard"], r["poison"]
+        check(g["digests"] == r["digests"] and g["hist"] == r["hist"],
+              f"rank {r['rank']}: the guarded run differs from the unguarded one")
+        check(g["oks"] == [[[True] * (MB_RANKS + 1)]] * g["train_steps"],
+              f"rank {r['rank']}: guarded predicates {g['oks']}")
+        bad = [[[True, False, True, False]]]
+        check(p["oks"] == [[[True] * (MB_RANKS + 1)]] * MB_POISON_STEP + bad + [
+            [[True] * (MB_RANKS + 1)]] * (p["train_steps"] - MB_POISON_STEP - 1),
+            f"rank {r['rank']}: poisoned epoch's predicates {p['oks']}")
+        check(not p["held"] and p["moved"] > 0 and p["finite"],
+              f"rank {r['rank']}: containment {p['held'][:6]}, {p['moved']} branch-0/2 "
+              f"tensors moved, finite {p['finite']}")
+        rows = [h.get("window_bad_by_branch") for h in p["health"]]
+        check(rows[-1:] == [{"branch-1": 1, "encoder": 1}],
+              f"rank {r['rank']}: health rows' window_bad_by_branch {rows}")
+        check(res["hist"] == g["hist"] and res["steps"] == g["steps"]
+              and res["digests"] == g["digests"][-len(res["digests"]):] and all(
+                  torch.equal(v, g["params"][k]) for k, v in res["params"].items()),
+              f"rank {r['rank']}: the continued run differs from the uninterrupted one")
+        for tag, run in (("guard", g), ("poison", p), ("continue", res)):
+            check(run["k1"] == 3 * run["forwards"] and run["k2"] == 3 * run["train_steps"],
+                  f"rank {r['rank']} {tag}: K1 {run['k1']}, K2 {run['k2']} for "
+                  f"{run['forwards']} forwards, {run['train_steps']} train steps")
+            k1, k2 = k1 + run["k1"], k2 + run["k2"]
+    g0, p0 = ranks[0]["guard"], ranks[0]["poison"]
+    log(f"[multibranch] Guard on with resume containers every 2 steps: every rank's "
+        f"{g0['train_steps']} step digests and history equal the unguarded run's bit for bit, "
+        f"every slot true (run_training {[round(r['guard']['seconds'], 2) for r in ranks]} s); "
+        f"K1 {[r['guard']['k1'] for r in ranks]} = 3 x {g0['forwards']} forwards, K2 "
+        f"{[r['guard']['k2'] for r in ranks]} = 3 x {g0['train_steps']} train steps")
+    log(f"[multibranch] NaN labels on branch 1's rank at step {MB_POISON_STEP} (the dual "
+        f"optimizer, no clip): predicates {p0['oks'][MB_POISON_STEP]} "
+        f"(branch-0, branch-1, branch-2, encoder) on every rank; of the state's "
+        f"{p0['n_tensors']} tensors, branch 1's decoder's and the encoder's as before the "
+        f"step and branches 0's and 2's as the clean step left them ({p0['moved']} of these "
+        f"moved), bit for bit; "
+        f"the epoch's health row: window_bad_by_branch "
+        f"{p0['health'][-1]['window_bad_by_branch']}; train loss {p0['train_loss']}")
+    log(f"[multibranch] preemption: the guarded run with kill:train_step:{MB_KILL} died by "
+        f"SIGKILL on every rank; newest container (epoch {manifest['epoch']}, step {s}, "
+        f"branch_steps {manifest['branch_steps']}); three continue processes ({resume_s:.1f} "
+        f"s) end equal to the uninterrupted guarded run bit for bit (history, "
+        f"{len(resumed[0]['digests'])} step digests, every model tensor); K1 "
+        f"{[x['k1'] for x in resumed]}, K2 {[x['k2'] for x in resumed]}")
+    return {"k1": k1, "k2": k2, "cursor": [manifest["epoch"], s],
+            "branch_steps": manifest["branch_steps"], "resume_seconds": resume_s,
+            "poison_oks": p0["oks"][MB_POISON_STEP],
+            "window_bad_by_branch": p0["health"][-1]["window_bad_by_branch"]}
 
 
 # ----------------------------------------------------------------------
@@ -5516,7 +5855,7 @@ def phase_telemetry(config, splits, head_step, head_cpu):
 
 def main():
     if sys.argv[1:2] == ["--multibranch-rank"]:
-        multibranch_rank(int(sys.argv[2]), sys.argv[3])
+        multibranch_rank(int(sys.argv[2]), sys.argv[3], *sys.argv[4:5])
         return
     if sys.argv[1:2] == ["--preempt-child"]:
         preempt_child(sys.argv[2], sys.argv[3])

@@ -147,7 +147,8 @@ class Reduction:
     def reduce_train(self, params, tot, tasks, w) -> tuple:
         """After the backward: sum the gradients (unless FSDP2 did),
         average the running statistics, sum the weighted loss terms;
-        returns the reduced ``(loss, per_task)``."""
+        returns the reduced ``(loss, per_task)``. The multibranch
+        rescale follows in ``rescale``."""
         grads = [] if self.fsdp else [p.grad for p in params]
         bufs = self._bn_views()
         terms = [(tot.detach() * w).reshape(1), (tasks.detach() * w).reshape(-1)]
@@ -179,11 +180,15 @@ class Reduction:
         # copies: the next step rewrites the buffer
         loss = flat[off].to(tot.dtype, copy=True)
         per_task = flat[off + 1 :].view_as(tasks).to(tasks.dtype, copy=True)
+        return loss, per_task
+
+    def rescale(self) -> None:
+        """After ``reduce_train``: each branch decoder's gradients times
+        D / D_b (multibranch; nothing otherwise)."""
         if self.decoder_scales:
             with torch.no_grad():
                 for p, s in self.decoder_scales.items():
                     p.grad.mul_(s)
-        return loss, per_task
 
     def reduce_eval(self, tot, tasks, w) -> tuple:
         """The graph-weighted eval loss over the slots."""

@@ -20,6 +20,18 @@ Decoder parameters are found by name as in the JAX package: a path with
 a component starting ``decoder`` (the port's ``decoder``/``decoder_<i>``
 modules), and within it a module ``graph_shared_<branch>`` or
 ``head<i>_<branch>``, longest branch name first.
+
+The divergence guard (``Training.Guard``) contains a bad step per
+branch: the guarded step's predicate is a vector over
+``branch_guard_labels`` (each branch decoder, then the encoder), read off
+each slot's gradients after the all-reduce and before the D / D_b
+rescale, and the commit selects each slot's tensors on its own
+(``train/guard.BranchSlots``), so one branch's poison never holds back
+another branch's update. The steps run eagerly over gloo
+(``parallel/dp.capturable``), so the guard lives in the eager step.
+``MultiBranchLoader.skip_to`` fast-forwards every slot's plan to a
+mid-epoch cursor, which the resume manifest records per branch
+(``branch_steps``).
 """
 
 from __future__ import annotations
@@ -81,6 +93,26 @@ def decoder_branch_of_name(name: str, cfg: ModelConfig) -> Optional[int]:
     return None
 
 
+def branch_guard_labels(n_branches: int) -> List[str]:
+    """The multibranch guard's slot labels, in its predicate's order: one
+    per branch decoder, then the shared encoder."""
+    return [f"branch-{i}" for i in range(n_branches)] + ["encoder"]
+
+
+def guard_slots(model: torch.nn.Module, cfg: ModelConfig, n_branches: int):
+    """The guard's ``BranchSlots`` for ``model``: each branch decoder
+    parameter in its branch's slot, by the name rule of
+    ``decoder_grad_scales``."""
+    from hydragnn_tpu_torch.train.guard import BranchSlots
+
+    of = {}
+    for name, p in model.named_parameters():
+        bi = decoder_branch_of_name(name, cfg)
+        if bi is not None:
+            of[p] = bi
+    return BranchSlots(labels=tuple(branch_guard_labels(n_branches)), of=of)
+
+
 def decoder_grad_scales(model: torch.nn.Module, cfg: ModelConfig, n_devices: int,
                         devices_per_branch: Sequence[int]) -> Dict[torch.nn.Parameter, float]:
     """``{parameter: D / D_b}`` for every branch decoder parameter
@@ -107,16 +139,19 @@ def rescale_decoder_grads(grads: Dict[str, torch.Tensor], cfg: ModelConfig, n_de
 def make_multibranch_train_step(model, optimizer, cfg: ModelConfig, plan,
                                 devices_per_branch: Sequence[int],
                                 compute_dtype=torch.float32, clip_norm: float = 0.0,
-                                compute_grad_energy: bool = False):
+                                compute_grad_energy: bool = False, guard: bool = False):
     """``step(state, batch) -> (state, loss, per_task)``: one eager
-    multibranch step on this rank's slot (module docstring)."""
+    multibranch step on this rank's slot (module docstring). ``guard``
+    returns ``(state, loss, per_task, n_graphs, ok, gnorm)`` with ``ok``
+    and ``gnorm`` over ``branch_guard_labels``."""
     from hydragnn_tpu_torch.parallel.dp import Reduction
     from hydragnn_tpu_torch.train.loop import make_train_step
 
     scales = decoder_grad_scales(model, cfg, plan.data_parallel_size, devices_per_branch)
+    slots = guard_slots(model, cfg, len(devices_per_branch)) if guard else None
     return make_train_step(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
                            red=Reduction(model, plan, kind="multibranch", decoder_scales=scales),
-                           clip_groups=True)
+                           clip_groups=True, guard=guard, slots=slots)
 
 
 class MultiBranchLoader:
@@ -127,7 +162,8 @@ class MultiBranchLoader:
     all slots) and the shared shapes agree with no collective. Every
     slot's t-th batch pads to one spec: the step's ``slot_spec_schedule``
     entry (``variable_pad``; ``"auto"`` when its ladder stays within the
-    bucket limit), else the worst case over all slots."""
+    bucket limit), else the worst case over all slots. ``skip_to``
+    starts the next iteration at a mid-epoch step."""
 
     def __init__(self, branch_datasets: Sequence[Sequence[GraphSample]],
                  devices_per_branch: Sequence[int], batch_size: int, slot: int, *,
@@ -136,6 +172,7 @@ class MultiBranchLoader:
         from hydragnn_tpu_torch.data.padschedule import slot_spec_schedule
 
         self.slot = int(slot)
+        self._skip_next = 0
         self.loaders: List[GraphLoader] = []
         for bi, n_dev in enumerate(devices_per_branch):
             samples = [dataclasses.replace(s, dataset_id=bi) for s in branch_datasets[bi]]
@@ -174,13 +211,34 @@ class MultiBranchLoader:
     def set_epoch(self, epoch: int) -> None:
         for ld in self.loaders:
             ld.set_epoch(epoch)
+        self._skip_next = 0  # a cursor never outlives its epoch
+
+    def skip_to(self, step) -> None:
+        """The next iteration starts at step ``step`` of the epoch: every
+        slot's loader skips the plan entries the cursor covers (plan
+        arithmetic only; ``GraphLoader.skip_to``), so the deliveries are
+        the uninterrupted run's suffix. ``step`` may be the manifest's
+        per-branch cursors (``branch_steps``), which must agree: the
+        branches run in lockstep."""
+        if isinstance(step, (list, tuple)):
+            vals = {int(s) for s in step}
+            if len(vals) > 1:
+                raise ValueError(
+                    f"multibranch per-branch cursors disagree ({list(step)}): the feed "
+                    "consumes branches in lockstep and cannot fast-forward them unequally")
+            step = vals.pop() if vals else 0
+        step = max(0, int(step))
+        for ld in self.loaders:
+            ld.skip_to(step)
+        self._skip_next = step
 
     def __len__(self) -> int:
         return min(len(ld) for ld in self.loaders)
 
     def __iter__(self):
+        skip, self._skip_next = self._skip_next, 0
         it = iter(self.loaders[self.slot])
-        for _ in range(len(self)):
+        for _ in range(len(self) - min(skip, len(self))):
             telemetry.bump("mb_batches")
             yield next(it)
 

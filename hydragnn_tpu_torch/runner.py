@@ -56,9 +56,14 @@ the run's ``latest`` checkpoint (``restore_checkpoint_state``).
 (``find_continue_log_name``: the derived name, the caller's in-flight
 run, or a sibling differing in ``num_epoch`` whose fingerprint matches)
 and continues at its cursor, bit for bit; a container written under
-another config fingerprint or plan seed, or a checkpoint without a
+another config fingerprint or plan seed, a multibranch container whose
+per-branch cursors disagree with its step, or a checkpoint without a
 manifest, restarts from epoch 0 with the restored weights, loudly.
-``Training.Guard`` turns on the divergence guard (``train/guard.py``).
+``Training.checkpoint_format: "orbax"`` writes and reads the sharded
+format instead (``utils/checkpoint.py``: each rank its own shards, no
+gather), in every save, ``continue`` and ``run_prediction(config)``.
+``Training.Guard`` turns on the divergence guard (``train/guard.py``;
+per branch under the multibranch scheme).
 ``Training.Telemetry`` opens the run's telemetry stream
 (``utils/telemetry.py``: ``logs/<log_name>/telemetry.jsonl``, one shard
 per rank), configured once the model is on its device so the header
@@ -72,10 +77,8 @@ end of training from an eval-shaped, unpacked loader over the train
 split.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: the parallel input pipeline (Queue 1 item 10), dataset formats
-other than the raw LSMS text files (item 10), and (item 12b) the guard
-or a mid-epoch ``continue`` under the multibranch scheme and
-``checkpoint_format: "orbax"``. An interatomic-potential config
+it: the parallel input pipeline and dataset formats other than the raw
+LSMS text files (Queue 1 item 10). An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
 and ``run_prediction`` then returns graph energies and forces.
 """
@@ -124,6 +127,7 @@ from hydragnn_tpu_torch.train.optimizer import grad_clip_norm, select_optimizer
 from hydragnn_tpu_torch.train.state import TrainState, resolve_precision
 from hydragnn_tpu_torch.utils.checkpoint import (
     CheckpointWriter,
+    checkpoint_format,
     checkpoint_settings,
     config_fingerprint,
     find_continue_log_name,
@@ -204,18 +208,6 @@ def _refuse_unported(config: dict) -> None:
             "the parallel input pipeline is not ported yet (the port collates "
             "serially): ROADMAP Queue 1 item 10"
         )
-    if str(training.get("checkpoint_format", "pt")) == "orbax":
-        raise NotImplementedError(
-            "checkpoint_format 'orbax' (sharded checkpoints) is not ported yet (the port "
-            "writes its .pt format): ROADMAP Queue 1 item 12b"
-        )
-    guard = training.get("Guard", False)
-    if par.get("scheme") == "multibranch" and (
-            guard.get("enabled", False) if isinstance(guard, dict) else guard):
-        raise NotImplementedError(
-            "the divergence guard under the multibranch scheme (per-branch windows) is "
-            "not ported yet: ROADMAP Queue 1 item 12b"
-        )
 
 
 def _resume(config: dict, log_name: str, state: TrainState, seed: int, multibranch: bool,
@@ -223,7 +215,8 @@ def _resume(config: dict, log_name: str, state: TrainState, seed: int, multibran
     """``Training.continue``: restore the run's newest durable state into
     ``state`` and return its manifest, or None where the cursor does not
     hold (module docstring)."""
-    state, manifest = load_resume_checkpoint(log_name, state)
+    fmt = checkpoint_format(config["NeuralNetwork"]["Training"])
+    state, manifest = load_resume_checkpoint(log_name, state, fmt=fmt)
     if manifest is None:
         print_distributed(verbosity, 0, f"continue: '{log_name}' holds a checkpoint without a "
                           "resume manifest; restarting from epoch 0 with its weights")
@@ -238,11 +231,14 @@ def _resume(config: dict, log_name: str, state: TrainState, seed: int, multibran
             "cursor no longer addresses the same batch sequence; restarting from epoch 0 "
             "with the restored weights")
         return None
-    if multibranch and int(manifest.get("step", 0)) > 0:
-        raise NotImplementedError(
-            f"continue from a mid-epoch cursor (step {manifest['step']} of epoch "
-            f"{manifest['epoch']}) under the multibranch scheme is not ported yet: "
-            "ROADMAP Queue 1 item 12b")
+    bs, step = manifest.get("branch_steps"), int(manifest.get("step", 0))
+    if multibranch and bs is not None and any(int(b) != step for b in bs):
+        print_distributed(
+            verbosity, 0,
+            f"resume manifest ignored: per-branch cursors {bs} disagree with the global step "
+            f"{step} — the multibranch feed consumes branches in lockstep and cannot honor a "
+            "drifted container; restarting from epoch 0 with the restored weights")
+        return None
     return manifest
 
 
@@ -600,7 +596,8 @@ def run_training(
     writer = CheckpointWriter(
         log_name, keep=int(training.get("checkpoint_keep", 5)), retries=ckpt.retries,
         backoff_s=ckpt.backoff_s, async_enabled=ckpt.async_enabled, plan_seed=int(seed),
-        fingerprint=config_fingerprint(config), validate_finite=ckpt.validate_finite)
+        fingerprint=config_fingerprint(config), validate_finite=ckpt.validate_finite,
+        fmt=checkpoint_format(training))
     # Configured here, with the model on its device (the header names the
     # card), right before the try whose finally closes it.
     tel_stream = telemetry.configure(training, log_name=log_name, device=dev,
@@ -633,7 +630,9 @@ def restore_checkpoint_state(config: dict, model) -> TrainState:
     """A ``TrainState`` for ``model`` with the optimizer ``Training``
     names (the dual optimizer under the multibranch scheme), loaded from
     the run's ``latest`` checkpoint (or its newest restorable epoch
-    file). A config that came back from ``run_training`` names its run
+    file), in ``Training.checkpoint_format``'s format (the sharded one
+    assembled whole where the model is not sharded as it was). A config
+    that came back from ``run_training`` names its run
     directory (``_log_name``); a fresh one derives it, and when that
     directory holds no checkpoint (``num_epoch`` changed since
     training), ``find_continue_log_name`` finds the run that does."""
@@ -646,7 +645,7 @@ def restore_checkpoint_state(config: dict, model) -> TrainState:
     log_name = config.get("_log_name") or find_continue_log_name(
         get_log_name_config(config)
     )
-    return load_checkpoint(log_name, state)
+    return load_checkpoint(log_name, state, fmt=checkpoint_format(training))
 
 
 def _prediction_state(state: TrainState, plan, dev) -> TrainState:

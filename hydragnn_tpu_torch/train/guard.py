@@ -31,20 +31,33 @@ Counterpart of ``hydragnn_tpu/train/guard.py``:
   ``max_bad_steps`` fall within ``window_steps`` (the loop restores the
   last good checkpoint, backs the learning rate off and skips past the
   bad steps), ``halt`` (or a spent ``max_rollbacks``) raises
-  ``GuardHalt`` with a report. The JAX monitor's ``health`` telemetry
-  row comes with run telemetry (ROADMAP item 13); its per-branch windows
-  with the multibranch guard (item 12b).
+  ``GuardHalt`` with a report. Each epoch (and each escalation) emits a
+  ``health`` row onto the run's telemetry stream.
 
 Under dp the predicate reads the loss and gradients after the
 all-reduce, so every rank decides alike with no collective added (under
 ZeRO the norm of the sharded gradients is one all-reduce).
+
+Under the multibranch scheme (``parallel/multibranch.py``) the predicate
+is a vector over ``BranchSlots``: one slot per branch decoder, then the
+encoder (``branch_guard_labels``' order). Each tensor of the shadow
+belongs to one slot: a branch decoder's parameters and their optimizer
+state to that branch's, everything else (encoder parameters, floating
+buffers, every group's step count and learning rate) to the encoder's.
+Slot ``b`` commits iff the norm of its gradients (after the all-reduce,
+before the D / D_b rescale) is finite, the encoder slot iff the mean
+loss and its norm are, so one branch's poison never holds back another
+branch's update; a clip group spanning several slots joins their
+predicates, since its scale carries a non-finite gradient to all of
+them. The loss terms are zeroed when any slot fails, and the monitor
+keeps a bad-step window per slot (``window_bad_by_branch``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +184,24 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+@dataclass(frozen=True)
+class BranchSlots:
+    """The multibranch guard's slots (module docstring): ``labels`` in
+    ``branch_guard_labels`` order, ``of`` each branch decoder
+    parameter's slot (a parameter absent from it is the encoder's, the
+    last slot)."""
+
+    labels: Tuple[str, ...]
+    of: Dict[torch.Tensor, int]
+
+    @property
+    def encoder(self) -> int:
+        return len(self.labels) - 1
+
+    def slot(self, p) -> int:
+        return self.of.get(p, self.encoder)
+
+
 class StateShadow:
     """A flat buffer per dtype holding, for the length of one step, every
     tensor the step writes: the model's parameters and floating buffers
@@ -178,20 +209,36 @@ class StateShadow:
     groups' 0-d step counts and learning rates. Made once when a step is
     built, so a captured step copies into the same addresses on every
     replay; saving is one ``cat`` per dtype, selecting one ``cat``, one
-    ``where`` and one multi-tensor copy, whatever the tensor count."""
+    ``where`` and one multi-tensor copy, whatever the tensor count. With
+    ``slots`` each buffer holds its tensors slot by slot, and a select
+    over a per-slot predicate adds one ``repeat_interleave`` that spreads
+    it over the elements."""
 
-    def __init__(self, model: torch.nn.Module, optimizer):
-        live = [p.detach() for p in model.parameters()]
-        live += [b for b in model.buffers() if b.is_floating_point()]
+    def __init__(self, model: torch.nn.Module, optimizer, slots: Optional[BranchSlots] = None):
+        enc = 0 if slots is None else slots.encoder
+        slot = (lambda p: enc) if slots is None else slots.slot
+        live = [(p.detach(), slot(p)) for p in model.parameters()]
+        live += [(b, enc) for b in model.buffers() if b.is_floating_point()]
         for group in optimizer.param_groups:
-            live += [v for v in group.values() if isinstance(v, torch.Tensor)]
-        for st in optimizer.state.values():
-            live += [v for v in st.values() if isinstance(v, torch.Tensor)]
+            live += [(v, enc) for v in group.values() if isinstance(v, torch.Tensor)]
+        for p, st in optimizer.state.items():
+            live += [(v, slot(p)) for v in st.values() if isinstance(v, torch.Tensor)]
         by_kind: dict = {}
-        for t in (_local(t) for t in live):
-            by_kind.setdefault((t.dtype, t.device), []).append(t)
-        self.groups = [(ts, torch.empty(sum(t.numel() for t in ts), dtype=dt, device=dev))
-                       for (dt, dev), ts in by_kind.items()]
+        for t, s in live:
+            t = _local(t)
+            by_kind.setdefault((t.dtype, t.device), []).append((s, t))
+        self.groups = []
+        for (dt, dev), members in by_kind.items():
+            counts = None
+            if slots is not None:
+                members.sort(key=lambda m: m[0])  # stable: slot by slot
+                per = [0] * len(slots.labels)
+                for s, t in members:
+                    per[s] += t.numel()
+                counts = torch.tensor(per, dtype=torch.int64, device=dev)
+            ts = [t for _, t in members]
+            self.groups.append((ts, torch.empty(sum(t.numel() for t in ts), dtype=dt,
+                                                device=dev), counts))
 
     @staticmethod
     def _flat(ts, out=None):
@@ -199,15 +246,20 @@ class StateShadow:
 
     def save(self) -> None:
         with torch.no_grad():
-            for ts, saved in self.groups:
+            for ts, saved, _ in self.groups:
                 self._flat(ts, out=saved)
 
     def select(self, ok: torch.Tensor) -> None:
-        """Keep each tensor's new value where ``ok``, else its saved one."""
+        """Keep each tensor's new value where ``ok`` (a scalar, or a
+        vector over the slots), else its saved one."""
         with torch.no_grad():
-            for ts, saved in self.groups:
+            for ts, saved, counts in self.groups:
                 new = self._flat(ts)
-                torch.where(ok, new, saved, out=new)
+                if counts is not None:
+                    ok_t = torch.repeat_interleave(ok, counts, output_size=saved.numel())
+                else:
+                    ok_t = ok
+                torch.where(ok_t, new, saved, out=new)
                 views, at = [], 0
                 for t in ts:
                     views.append(new[at:at + t.numel()].view(t.shape))
@@ -233,15 +285,41 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def guarded_commit(shadow: StateShadow, tot, tasks, n_graphs, gnorm):
+def slot_norms(grads: Sequence[torch.Tensor], slot_of: Sequence[int],
+               n_slots: int) -> torch.Tensor:
+    """``[n_slots]``: ``global_norm`` of each slot's gradients (0 for a
+    slot without any); ``slot_of[i]`` is ``grads[i]``'s slot."""
+    by_slot: List[list] = [[] for _ in range(n_slots)]
+    for g, s in zip(grads, slot_of):
+        by_slot[s].append(g)
+    dev = grads[0].device if grads else None
+    return torch.stack([global_norm(gs) if gs else torch.zeros((), device=dev)
+                        for gs in by_slot])
+
+
+def guarded_commit(shadow: StateShadow, tot, tasks, n_graphs, gnorm,
+                   joined: Sequence[torch.Tensor] = ()):
     """The predicate and the containment after the update (module
     docstring): returns ``(tot, tasks, n_graphs)`` zeroed on a bad step,
-    the predicate ``ok`` and ``gnorm``."""
-    ok = torch.isfinite(tot) & torch.isfinite(gnorm)
-    shadow.select(ok)
+    the predicate ``ok`` and ``gnorm``. A ``[n_slots]`` ``gnorm`` (the
+    multibranch guard's ``slot_norms``) gives a ``[n_slots]`` ``ok``, the
+    encoder's (last) slot also reading the loss; ``joined`` holds, as
+    index tensors, the slot sets that one clip group spans, each
+    committing only whole."""
+    if gnorm.dim() == 0:
+        ok = torch.isfinite(tot) & torch.isfinite(gnorm)
+        shadow.select(ok)
+        every = ok
+    else:
+        ok = torch.isfinite(gnorm)
+        ok[-1] = ok[-1] & torch.isfinite(tot)
+        for members in joined:
+            ok[members] = ok[members].all()
+        shadow.select(ok)
+        every = ok.all()
     zero = torch.zeros((), dtype=tot.dtype, device=tot.device)
-    return (torch.where(ok, tot, zero), torch.where(ok, tasks, torch.zeros_like(tasks)),
-            torch.where(ok, n_graphs, torch.zeros_like(n_graphs)), ok, gnorm)
+    return (torch.where(every, tot, zero), torch.where(every, tasks, torch.zeros_like(tasks)),
+            torch.where(every, n_graphs, torch.zeros_like(n_graphs)), ok, gnorm)
 
 
 # ---------------------------------------------------------------- the ladder
@@ -252,15 +330,23 @@ class GuardMonitor:
     steps return (module docstring). ``observe`` runs after every
     dispatch and only appends, unless the sampled cadence is due;
     ``epoch_end`` fetches the epoch's predicates in one copy and
-    escalates. Bad steps are windowed in run-global step numbers."""
+    escalates. Bad steps are windowed in run-global step numbers.
 
-    def __init__(self, settings: GuardSettings, verbosity: int = 0):
+    ``branches`` (the multibranch guard's slot labels) makes the window
+    per slot: the steps' predicates are ``[n_slots]`` vectors, each bad
+    step keeps its bad slots, escalation counts the worst single slot
+    (one branch's bad steps never add to another's), the warning names
+    the slots, and the ``health`` row gains ``window_bad_by_branch``."""
+
+    def __init__(self, settings: GuardSettings, verbosity: int = 0,
+                 branches: Optional[Sequence[str]] = None):
         self.settings = settings
         self.verbosity = verbosity
+        self.branches = list(branches) if branches else None
         self.epoch = 0
         self.skipped_total = 0
         self.rollbacks = 0
-        # (global step, epoch, epoch step) of the bad steps in the window
+        # (global step, epoch, epoch step, bad slots) of the window's bad steps
         self.bad_steps_recent: List[tuple] = []
         self.bad_steps_all: List[tuple] = []  # (epoch, epoch step)
         self._last_gstep = 0
@@ -286,8 +372,9 @@ class GuardMonitor:
 
     def observe(self, *, step: int, k: int, ok_ref, gnorm_ref) -> None:
         """One dispatch: ``step`` is this epoch's step count after it,
-        ``k`` the steps it covered, the refs its ``[k]`` (or scalar)
-        predicate and norm, held unfetched."""
+        ``k`` the steps it covered, the refs its ``[k]`` (or scalar;
+        ``[k, n_slots]`` with ``branches``) predicate and norm, held
+        unfetched."""
         self._pending.append((int(step) - int(k), int(k), ok_ref, gnorm_ref))
         if self.settings.check_interval_steps > 0:
             self._since_check += int(k)
@@ -304,15 +391,19 @@ class GuardMonitor:
             self._emit_health("epoch")
 
     def _fetch(self, pending) -> List[tuple]:
+        """Each dispatch's ``([k, n_slots] oks, [k, n_slots] norms)``
+        (one slot for a scalar predicate), in one copy."""
         parts = []
         for _, k, ok, gn in pending:
             parts.append(torch.as_tensor(ok).reshape(-1).to(torch.float64))
             parts.append(torch.as_tensor(gn).reshape(-1).to(torch.float64))
         flat = torch.cat([p.to(parts[0].device) for p in parts]).cpu().numpy()
         out, at = [], 0
-        for _, k, _, _ in pending:
-            out.append((flat[at:at + k] != 0, flat[at + k:at + 2 * k]))
-            at += 2 * k
+        for i, (_, k, _, _) in enumerate(pending):
+            n = parts[2 * i].numel()
+            out.append(((flat[at:at + n] != 0).reshape(k, -1),
+                        flat[at + n:at + 2 * n].reshape(k, -1)))
+            at += 2 * n
         return out
 
     def check(self) -> None:
@@ -321,35 +412,58 @@ class GuardMonitor:
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        new_bad: List[int] = []
+        new_bad: List[tuple] = []  # (epoch step, bad slots)
         for (first_step, k, _, _), (oks, gns) in zip(pending, self._fetch(pending)):
+            # the slots partition the gradients: their root-sum-square is
+            # the step's whole norm, which the statistics keep
+            gns = np.sqrt((gns ** 2).sum(axis=1)) if gns.shape[1] > 1 else gns.reshape(-1)
             finite = gns[np.isfinite(gns)]
             if finite.size:
                 self._gn_min = min(self._gn_min, float(finite.min()))
                 self._gn_max = max(self._gn_max, float(finite.max()))
                 self._gn_sum += float(finite.sum())
                 self._gn_count += int(finite.size)
-            new_bad += [first_step + j for j in range(k) if not oks[j]]
+            new_bad += [(first_step + j, tuple(int(s) for s in np.flatnonzero(~oks[j])))
+                        for j in range(k) if not oks[j].all()]
             self._epoch_max_step = max(self._epoch_max_step, first_step + k)
             self._last_gstep = max(self._last_gstep, self._epoch_base + first_step + k)
         if not new_bad:
             return
         self.skipped_total += len(new_bad)
-        self.epoch_bad.extend(new_bad)
-        self.bad_steps_recent.extend((self._epoch_base + b, self.epoch, b) for b in new_bad)
-        self.bad_steps_all.extend((self.epoch, b) for b in new_bad)
+        self.epoch_bad.extend(b for b, _ in new_bad)
+        self.bad_steps_recent.extend((self._epoch_base + b, self.epoch, b, slots)
+                                     for b, slots in new_bad)
+        self.bad_steps_all.extend((self.epoch, b) for b, _ in new_bad)
+        where = ""
+        if self.branches:
+            names = sorted({self._label(s) for _, slots in new_bad for s in slots})
+            where = f" [slots: {', '.join(names)}]"
         self._warn(
-            f"non-finite step(s) SKIPPED on-device at optimizer step(s) {new_bad} "
-            f"(epoch {self.epoch}) — loss/grad-norm predicate failed; the affected "
-            "params/optimizer state untouched"
+            f"non-finite step(s) SKIPPED on-device at optimizer step(s) "
+            f"{[b for b, _ in new_bad]} (epoch {self.epoch}){where} — loss/grad-norm "
+            "predicate failed; the affected params/optimizer state untouched"
         )
         self._escalate()
+
+    def _label(self, slot: int) -> str:
+        return self.branches[slot] if slot < len(self.branches) else f"slot{slot}"
+
+    def _window_bad(self) -> int:
+        """The window's bad steps, or under ``branches`` the worst single
+        slot's."""
+        if self.branches is None:
+            return len(self.bad_steps_recent)
+        per: Dict[int, int] = {}
+        for *_, slots in self.bad_steps_recent:
+            for s in slots:
+                per[s] = per.get(s, 0) + 1
+        return max(per.values(), default=0)
 
     def _escalate(self) -> None:
         s = self.settings
         lo = self._last_gstep - s.window_steps
         self.bad_steps_recent = [b for b in self.bad_steps_recent if b[0] > lo]
-        window_bad = len(self.bad_steps_recent)
+        window_bad = self._window_bad()
         if s.policy == "skip" or window_bad <= s.max_bad_steps:
             return
         if s.policy == "halt" or self.rollbacks >= s.max_rollbacks:
@@ -357,7 +471,7 @@ class GuardMonitor:
             raise GuardHalt(self.report(window_bad))
         self._emit_health("rollback")
         raise GuardRollback(
-            [es for _, ep, es in self.bad_steps_recent if ep == self.epoch],
+            [es for _, ep, es, _ in self.bad_steps_recent if ep == self.epoch],
             f"{window_bad} bad step(s) within the last {s.window_steps} steps "
             f"(> max_bad_steps={s.max_bad_steps}) — rolling back to the last-known-good "
             "checkpoint",
@@ -401,9 +515,9 @@ class GuardMonitor:
 
     def _emit_health(self, action: str) -> None:
         """One ``health`` row onto the run's telemetry stream (a no-op
-        with the stream off), as docs/OBSERVABILITY.md gives it. The
-        multibranch guard's per-branch windows are not ported (ROADMAP
-        item 12b), so there is no ``window_bad_by_branch``."""
+        with the stream off), as docs/OBSERVABILITY.md gives it; under
+        ``branches`` with the window's bad steps per slot label
+        (``window_bad_by_branch``)."""
         from hydragnn_tpu_torch.utils import telemetry
 
         if not telemetry.active():
@@ -419,6 +533,12 @@ class GuardMonitor:
             "rollbacks": self.rollbacks,
             "policy": self.settings.policy,
         }
+        if self.branches:
+            counts: Dict[str, int] = {}
+            for *_, slots in self.bad_steps_recent:
+                for s in slots:
+                    counts[self._label(s)] = counts.get(self._label(s), 0) + 1
+            row["window_bad_by_branch"] = counts
         gn = self.gnorm_stats()
         if gn:
             row.update(gn)

@@ -43,8 +43,10 @@ gradient norm, and selects the old state back on a non-finite step,
 inside the step (and its captured graph); ``GuardMonitor`` reads the
 predicates at the epoch's end and escalates: a rollback restores the
 writer's newest container in place, backs the learning rate off and
-skips past the bad steps. Armed ``nan`` fault rules are read when a
-step is built and key its graph.
+skips past the bad steps. Under the multibranch scheme the predicate
+and the monitor's windows are per slot (each branch decoder, then the
+encoder: ``guard.BranchSlots``). Armed ``nan`` fault rules are read when
+a step is built and key its graph.
 
 Under a dp or multibranch ``plan`` (``parallel/runtime.ParallelPlan``)
 the epoch loop runs ``parallel/dp.make_dp_superstep_fn``'s steps (the
@@ -66,8 +68,8 @@ with the live MFU, and counts each key's first dispatch into an
 opens a ``torch.profiler`` window over one epoch, each dispatch inside a
 ``train_step``/``eval_step`` range.
 
-Not ported yet, and refused by the runner: the pipeline feed, and the
-multibranch guard and mid-epoch resume (ROADMAP items 10, 12b).
+Not ported yet, and refused by the runner: the pipeline feed (ROADMAP
+item 10).
 """
 
 from __future__ import annotations
@@ -116,7 +118,7 @@ def _graph_count(batch) -> torch.Tensor:
 
 def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
                 red=None, *, clip_groups: bool = False, guard: bool = False,
-                rules: Optional[dict] = None):
+                rules: Optional[dict] = None, slots=None):
     """``body(batch, counter) -> (loss, per_task, n_graphs)``: one
     optimizer step on a batch already on the model's device, with no
     host sync (so it can be captured); ``counter`` is the train state's
@@ -132,11 +134,22 @@ def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_en
     saves what it writes first, and returns ``(loss, per_task,
     n_graphs, ok, gnorm)``, the first three zeroed and the state kept on
     a non-finite step. ``rules`` are the armed ``nan`` fault rules
-    (``guard.nan_injections()``), selected in against ``counter``."""
+    (``guard.nan_injections()``), selected in against ``counter``.
+    ``slots`` (a ``guard.BranchSlots``, the multibranch guard) makes
+    ``ok`` and ``gnorm`` vectors over the slots, the norms taken before
+    the decoder rescale."""
     params = list(model.parameters())
     scale = float(red.n_slots) if red is not None and red.fsdp else 1.0
-    shadow = guard_mod.StateShadow(model, optimizer) if guard else None
+    shadow = guard_mod.StateShadow(model, optimizer, slots) if guard else None
     rules = rules or {}
+    joined = ()
+    if guard and slots is not None:
+        slot_of = [slots.slot(p) for p in params]
+        if clip_norm > 0:
+            groups = [g["params"] for g in optimizer.param_groups] if clip_groups else [params]
+            spans = ({slots.slot(p) for p in group} for group in groups)
+            joined = tuple(torch.tensor(sorted(s), device=params[0].device)
+                           for s in spans if len(s) > 1)
 
     def body(batch, counter):
         batch = guard_mod.poison_batch(rules, counter, batch)
@@ -167,8 +180,12 @@ def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_en
         guard_mod.poison_grads(rules, counter, live)
         if red is not None:
             tot, tasks = red.reduce_train(live, tot, tasks, w.reshape(()))
-        if guard:
+        if guard and slots is not None:
+            gnorm = guard_mod.slot_norms([p.grad for p in live], slot_of, len(slots.labels))
+        elif guard:
             gnorm = guard_mod.global_norm([p.grad for p in live])
+        if red is not None:
+            red.rescale()
         if clip_norm > 0:
             groups = [g["params"] for g in optimizer.param_groups] if clip_groups else [live]
             for group in groups:
@@ -177,7 +194,7 @@ def _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_en
         counter.add_(1)
         if guard:
             return guard_mod.guarded_commit(shadow, tot, tasks.detach(),
-                                            n_graphs.reshape(()), gnorm)
+                                            n_graphs.reshape(()), gnorm, joined)
         return tot, tasks.detach(), n_graphs.reshape(())
 
     return body
@@ -243,6 +260,7 @@ def make_train_step(
     red=None,
     clip_groups: bool = False,
     guard: bool = False,
+    slots=None,
 ) -> Callable:
     """``step(state, batch) -> (state, loss, per_task)``: one eager
     optimizer step on a batch already on the model's device. The losses
@@ -251,10 +269,11 @@ def make_train_step(
     MLIP energy + force loss, whose backward differentiates the force
     pass. ``red`` and ``clip_groups``: ``_train_body``. ``guard`` returns
     ``(state, loss, per_task, n_graphs, ok, gnorm)``, as the JAX
-    package's guarded step does; armed ``nan`` rules are read here."""
+    package's guarded step does; armed ``nan`` rules are read here.
+    ``slots``: ``_train_body``."""
     body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm, compute_grad_energy,
                        red, clip_groups=clip_groups, guard=guard,
-                       rules=guard_mod.nan_injections())
+                       rules=guard_mod.nan_injections(), slots=slots)
 
     def step(state: TrainState, batch):
         out = body(batch, state.step_t)
@@ -353,6 +372,7 @@ def make_superstep_fn(
     red=None,
     clip_groups: bool = False,
     guard: bool = False,
+    slots=None,
 ) -> Callable:
     """The superstep: K train (or eval) steps over a list of K batches of
     one shape in one dispatch. With ``graphs`` (a ``StepGraphs``, on the
@@ -370,14 +390,15 @@ def make_superstep_fn(
     batch inside a K-step graph is skipped alone, and returns ``(state,
     acc, oks [K], gnorms [K])`` (copies of the graph's outputs, which
     the guard's monitor holds to the epoch's end). The armed ``nan``
-    rules are read here and join the graph's key. ``probe`` (the step
+    rules are read here and join the graph's key; ``slots`` makes the
+    predicates per slot (``_train_body``). ``probe`` (the step
     clock's, ``utils/telemetry``) takes the dispatch's raw outputs and
     may carry a counter for its first run."""
     if train:
         rules = guard_mod.nan_injections()
         body = _train_body(model, optimizer, cfg, compute_dtype, clip_norm,
                            compute_grad_energy, red, clip_groups=clip_groups, guard=guard,
-                           rules=rules)
+                           rules=rules, slots=slots)
         key = _train_key(red, compute_dtype, guard, rules)
     else:
         body = _eval_body(model, cfg, compute_dtype, False, compute_grad_energy, red)
@@ -659,7 +680,7 @@ def _guard_rollback(rb, monitor, state, epoch, train_loader, writer, scheduler, 
             + monitor.report())
     writer.wait()
     try:
-        state, manifest = load_resume_checkpoint(writer.log_name, state)
+        state, manifest = load_resume_checkpoint(writer.log_name, state, fmt=writer.fmt)
     except FileNotFoundError as e:
         raise guard_mod.GuardHalt(
             f"Guard rollback found no restorable checkpoint ({e}) — the divergence landed "
@@ -729,7 +750,16 @@ def train_validate_test(
     use_ckpt = writer is not None and ckpt.enabled
     warmup = int(training.get("checkpoint_warmup", 0))
     gset = guard_mod.guard_settings(training)
-    monitor = guard_mod.GuardMonitor(gset, verbosity=verbosity) if gset.enabled else None
+    multibranch = plan is not None and plan.scheme == "multibranch"
+    n_branches = len(plan.devices_per_branch) if multibranch else 0
+    slots = None
+    if multibranch and gset.enabled:
+        from hydragnn_tpu_torch.parallel.multibranch import guard_slots
+
+        slots = guard_slots(model, cfg, n_branches)
+    monitor = (guard_mod.GuardMonitor(gset, verbosity=verbosity,
+                                      branches=slots.labels if slots else None)
+               if gset.enabled else None)
     graphs = state.graphs
     kw = dict(compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential,
               device=device, graphs=graphs)
@@ -743,10 +773,11 @@ def train_validate_test(
 
         scales = (decoder_grad_scales(model, cfg, plan.data_parallel_size,
                                       plan.devices_per_branch)
-                  if plan.scheme == "multibranch" else None)
+                  if multibranch else None)
         train_step = make_dp_superstep_fn(model, state.optimizer, cfg, plan, train=True,
                                           clip_norm=clip_norm, kind=plan.scheme,
-                                          decoder_scales=scales, guard=gset.enabled, **kw)
+                                          decoder_scales=scales, guard=gset.enabled,
+                                          slots=slots, **kw)
         eval_step = make_dp_superstep_fn(model, None, cfg, plan, train=False, **kw)
     sched_cfg = training.get("ReduceLROnPlateau", {})
     scheduler = ReduceLROnPlateau(
@@ -767,10 +798,12 @@ def train_validate_test(
             "restarting from epoch 0 with the restored weights")
         resume = None
     epoch_start = resume_step = 0
-    resume_acc = None
+    resume_acc = resume_cursor = None
     if resume is not None:
         epoch_start, resume_step = int(resume.get("epoch", 0)), int(resume.get("step", 0))
         resume_acc = decode_acc(resume.get("acc"))
+        # a multibranch feed checks the per-branch cursors' lockstep itself
+        resume_cursor = resume.get("branch_steps") or resume_step
         best_val, bad_epochs = _restore_loop_state(resume.get("loop") or {}, hist, scheduler)
     interval = ckpt.interval_steps if use_ckpt and can_skip else 0
     walltime_left = float(training.get("walltime_min_seconds_left", 300.0))
@@ -782,6 +815,10 @@ def train_validate_test(
 
     def loop_state():
         return _loop_state(hist, best_val, bad_epochs, scheduler)
+
+    def branch_steps(step: int):
+        """The per-branch cursors a multibranch save records (lockstep)."""
+        return [int(step)] * n_branches if multibranch else None
 
     next_epoch = epoch_start
     for epoch in range(epoch_start, num_epoch):
@@ -798,7 +835,7 @@ def train_validate_test(
             monitor.note_epoch(epoch)
         acc0, step0 = None, 0
         if epoch == epoch_start and resume_step > 0:
-            train_loader.skip_to(resume_step)
+            train_loader.skip_to(resume_cursor)
             acc0, step0 = resume_acc, resume_step
         while True:
             step_hook = None
@@ -809,7 +846,8 @@ def train_validate_test(
                     if steps_done - _last["step"] >= interval:
                         _last["step"] = steps_done
                         writer.save(st, kind="auto", epoch=_epoch, step=steps_done,
-                                    acc=acc, loop=loop_state())
+                                    acc=acc, loop=loop_state(),
+                                    branch_steps=branch_steps(steps_done))
 
             try:
                 state, train_loss, train_tasks = _run_epoch(
@@ -863,7 +901,7 @@ def train_validate_test(
             bad_epochs = 0
             if use_ckpt and epoch >= warmup:
                 writer.save(state, kind="epoch", epoch=epoch + 1, step=0, label_epoch=epoch,
-                            loop=loop_state())
+                            loop=loop_state(), branch_steps=branch_steps(0))
                 saved = True
         else:
             bad_epochs += 1
@@ -873,13 +911,14 @@ def train_validate_test(
         if interval > 0 and not saved:
             # the epoch's end as a cursor: a kill early in the next epoch
             # keeps this epoch's bookkeeping
-            writer.save(state, kind="auto", epoch=epoch + 1, step=0, loop=loop_state())
+            writer.save(state, kind="auto", epoch=epoch + 1, step=0, loop=loop_state(),
+                        branch_steps=branch_steps(0))
         if not check_remaining(walltime_left):
             print_distributed(verbosity, 1,
                               f"Stopping at epoch {epoch}: job walltime nearly exhausted")
             if use_ckpt:
                 writer.save(state, kind="epoch", epoch=epoch + 1, step=0, label_epoch=epoch,
-                            loop=loop_state())
+                            loop=loop_state(), branch_steps=branch_steps(0))
             break
     telemetry.end_of_training()
     recal = bn_recalibration_epochs(training)
@@ -896,7 +935,8 @@ def train_validate_test(
             device=device, compute_dtype=compute_dtype, epochs=recal,
         )
     if writer is not None:
-        writer.save(state, kind="final", epoch=next_epoch, step=0, loop=loop_state())
+        writer.save(state, kind="final", epoch=next_epoch, step=0, loop=loop_state(),
+                    branch_steps=branch_steps(0))
     return state, hist
 
 

@@ -1,8 +1,7 @@
 """Checkpoints of a training run: synchronous saves, the asynchronous
-writer and the resume manifest.
+writer, the resume manifest, and the sharded format.
 
-Counterpart of ``hydragnn_tpu/utils/checkpoint.py`` (its msgpack path;
-the sharded ``orbax`` format is ROADMAP item 12b). The files keep the
+Counterpart of ``hydragnn_tpu/utils/checkpoint.py``. The files keep the
 JAX package's layout and semantics:
 
 - a run's files live in ``./logs/<log_name>/``;
@@ -42,8 +41,39 @@ optimizer state are all-gathered into full tensors
 process; rank 0 writes, and every rank waits at a barrier until the file
 is in place. A restore into sharded tensors copies each rank's shard.
 
+The sharded format (``Training.checkpoint_format: "orbax"``, the JAX
+package's key) writes the port's own files in the layout and with the
+crash semantics of the JAX package's orbax directories, with no gather:
+
+- ``logs/<log_name>/orbax/`` holds the directories ``epoch_<N>``,
+  ``final`` and ``autosave`` (the writer's resume container), and the
+  pointer files ``LATEST`` (the newest epoch or final directory) and
+  ``RESUME`` (the writer's newest), each written to a tmp file and
+  moved into place;
+- a directory holds ``rank<r>.pt`` per rank: that rank's local shard of
+  each FSDP2 DTensor with its global offset (the first replica of a
+  shard writes it), and on rank 0 every plain (replicated) tensor;
+  ``meta.json``, each tensor's global shape, dtype and placements, the
+  world size and the step count; and, for the writer,
+  ``manifest.json``;
+- a save writes ``.tmp_<name>``, renames the old directory to
+  ``<name>.old``, renames the tmp into place, and then removes each
+  ``.old`` whose stem exists again; a load falls back from a stale or
+  corrupt ``LATEST`` to the newest restorable directory, and a resume
+  from a missing ``RESUME`` target to ``<target>.old`` with its manifest;
+- a restore at the saved world size and placements reads each shard
+  from this rank's file; at another world size (``run_prediction(config)``
+  in one process after a multi-rank run) it assembles each tensor from
+  every rank's file;
+- the ranks meet, and agree that the state is finite, on the process
+  group's store (``store.add``/``set``/``wait`` under keys named by the
+  writer and its job's enqueue-time sequence), never with a collective,
+  so the writer's thread can save while the loop thread runs the
+  step's collectives; at world 1 no store is touched.
+
 Fault points (``utils/faults.py``) sit inside the write and the
-publish, where the drills land their failures and kills.
+publish, where the drills land their failures and kills
+(``orbax_between_replaces`` between the sharded format's two renames).
 """
 
 from __future__ import annotations
@@ -51,10 +81,12 @@ from __future__ import annotations
 import glob
 import hashlib
 import io
+import itertools
 import json
 import os
 import queue
 import re
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -267,12 +299,14 @@ def _try_restore(state, path: str) -> bool:
         return False
 
 
-def load_checkpoint(log_name: str, state, *, epoch: Optional[int] = None):
+def load_checkpoint(log_name: str, state, *, epoch: Optional[int] = None, fmt: str = "pt"):
     """Restore a ``TrainState`` written by ``save_checkpoint`` or the
     writer into ``state`` (whose model and optimizer give the structure)
     and return it. With ``epoch`` that file is read and any failure
     raises; without, ``latest``, else the newest restorable epoch file
-    (with a warning)."""
+    (with a warning). ``fmt="orbax"``: ``load_checkpoint_sharded``."""
+    if fmt == "orbax":
+        return load_checkpoint_sharded(log_name, state, epoch=epoch)
     path = _ckpt_path(log_name, epoch, make=False)
     if epoch is not None:
         if not os.path.exists(path):
@@ -293,8 +327,11 @@ def checkpoint_exists(log_name: str, *, epoch: Optional[int] = None) -> bool:
 
 
 def _has_artifacts(log_name: str) -> bool:
-    return (os.path.exists(os.path.join(_run_dir(log_name), _RESUME))
-            or checkpoint_exists(log_name) or bool(_epoch_files_newest_first(log_name)))
+    if (os.path.exists(os.path.join(_run_dir(log_name), _RESUME))
+            or checkpoint_exists(log_name) or bool(_epoch_files_newest_first(log_name))):
+        return True
+    base = _orbax_base(log_name, make=False)
+    return os.path.isdir(base) and any(os.scandir(base))
 
 
 # ---------------------------------------------------------------- the manifest
@@ -302,7 +339,12 @@ def _has_artifacts(log_name: str) -> bool:
 
 def _peek_fingerprint(log_name: str) -> Optional[str]:
     """The ``config_fingerprint`` of ``log_name``'s resume container
-    (its tensors memory-mapped, not read), or None."""
+    (its tensors memory-mapped, not read; the sharded format's ``RESUME``
+    manifest), or None."""
+    base = _orbax_base(log_name, make=False)
+    target = _read_pointer(base, "RESUME")
+    if target is not None:
+        return (_read_manifest(os.path.join(base, target)) or {}).get("config_fingerprint")
     path = os.path.join(_run_dir(log_name), _RESUME)
     try:
         blob = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
@@ -412,23 +454,29 @@ def decode_acc(enc: Optional[dict]) -> Optional[tuple]:
 
 def build_manifest(*, epoch: int, step: int = 0, plan_seed: Optional[int] = None,
                    fingerprint: Optional[str] = None, acc=None, loop: Optional[dict] = None,
-                   fmt: str = "pt") -> dict:
+                   fmt: str = "pt", branch_steps: Optional[list] = None) -> dict:
     """The resume cursor: training continues at ``(epoch, step)``, the
     first ``step`` optimizer steps of ``epoch`` being inside the saved
     state; ``plan_seed`` and ``fingerprint`` guard it, ``acc``
     (``encode_acc``) carries the epoch's partial sums, ``loop`` the
-    loop's host state."""
+    loop's host state. ``branch_steps`` (multibranch) are the per-branch
+    cursors, all ``step`` since the branches run in lockstep; a restore
+    checks them rather than assume it."""
     return {"version": MANIFEST_VERSION, "epoch": int(epoch), "step": int(step),
             "plan_seed": None if plan_seed is None else int(plan_seed),
             "config_fingerprint": fingerprint, "acc": acc, "loop": loop, "format": fmt,
-            "branch_steps": None, "unix_time": time.time()}
+            "branch_steps": None if branch_steps is None else [int(b) for b in branch_steps],
+            "unix_time": time.time()}
 
 
-def load_resume_checkpoint(log_name: str, state):
+def load_resume_checkpoint(log_name: str, state, *, fmt: str = "pt"):
     """Restore the newest durable state for ``Training.continue`` into
     ``state``: the writer's resume container (state and manifest in one
     file), else ``latest`` or an epoch file with no cursor. Returns
-    ``(state, manifest or None)``."""
+    ``(state, manifest or None)``. ``fmt="orbax"``:
+    ``load_resume_checkpoint_sharded``."""
+    if fmt == "orbax":
+        return load_resume_checkpoint_sharded(log_name, state)
     path = os.path.join(_run_dir(log_name), _RESUME)
     if os.path.exists(path):
         try:
@@ -439,6 +487,393 @@ def load_resume_checkpoint(log_name: str, state):
             _warn(f"resume container {path} unreadable ({type(e).__name__}: {e}) — "
                   "falling back to the latest plain checkpoint (epoch-boundary resume)")
     return load_checkpoint(log_name, state), None
+
+
+# ---------------------------------------------------------------- the sharded format
+
+
+# ``Training.checkpoint_format: "orbax"`` under the JAX package's key:
+# the port's own files in orbax's layout and with its crash semantics.
+ORBAX_DIR = "orbax"
+_META = "meta.json"
+_MANIFEST = "manifest.json"
+_STORE_TIMEOUT_S = 600.0
+# numbers for store keys; every rank makes the same writers and sync
+# saves in the same order, so the numbers agree with no exchange
+_WRITERS = itertools.count(1)
+_SYNC_SAVES = itertools.count(1)
+
+
+def checkpoint_format(training: dict) -> str:
+    """``Training.checkpoint_format``: ``"orbax"`` (the sharded format)
+    or the ``.pt`` format (the default; the JAX package's
+    ``"msgpack"`` names it too)."""
+    fmt = str(training.get("checkpoint_format", "pt"))
+    return "orbax" if fmt == "orbax" else "pt"
+
+
+def _orbax_base(log_name: str, make: bool = True) -> str:
+    d = os.path.abspath(os.path.join(_run_dir(log_name), ORBAX_DIR))
+    if make:
+        os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _read_pointer(base: str, name: str) -> Optional[str]:
+    try:
+        with open(os.path.join(base, name)) as f:
+            return f.read().strip() or None
+    except OSError:
+        return None
+
+
+def _write_pointer(base: str, name: str, target: str) -> None:
+    """``base/name`` holding ``target``, through a tmp file and
+    ``os.replace``."""
+    pointer = os.path.join(base, name)
+    with open(pointer + ".tmp", "w") as f:
+        f.write(target)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(pointer + ".tmp", pointer)
+
+
+def _orbax_candidates(base: str, primary: str) -> list:
+    """Restore order: ``primary``, then every other checkpoint directory
+    (``final``, ``epoch_*``, ``autosave`` and their ``.old`` crash
+    leftovers), newest first."""
+    try:
+        names = os.listdir(base)
+    except OSError:
+        return [primary]
+    dirs = []
+    for n in names:
+        p = os.path.join(base, n)
+        stem = n[:-4] if n.endswith(".old") else n
+        if (p != primary and os.path.isdir(p) and not n.startswith(".tmp")
+                and (stem in ("final", "autosave") or stem.startswith("epoch_"))):
+            dirs.append(p)
+    dirs.sort(key=os.path.getmtime, reverse=True)
+    return [primary] + dirs
+
+
+def _sweep_stale_old_dirs(base: str) -> None:
+    """Remove each ``<name>.old`` whose ``<name>`` exists again; a
+    ``.old`` whose stem is missing is the only copy of its artifact."""
+    for n in os.listdir(base):
+        if n.endswith(".old") and os.path.isdir(os.path.join(base, n[:-4])):
+            shutil.rmtree(os.path.join(base, n), ignore_errors=True)
+
+
+def _prune_orbax_epochs(base: str, keep: int) -> None:
+    """Keep the newest ``keep`` ``epoch_*`` directories (``.old``
+    leftovers are the sweep's)."""
+    if keep <= 0:
+        return
+    eps = sorted(int(n.split("_")[1]) for n in os.listdir(base)
+                 if re.fullmatch(r"epoch_\d+", n))
+    for e in eps[:-keep]:
+        shutil.rmtree(os.path.join(base, f"epoch_{e}"), ignore_errors=True)
+
+
+def _tensor_leaves(tree, path: str = ""):
+    """``(path, tensor)`` for every tensor of a nested dict/list, the
+    path joining the keys with ``/``."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensor_leaves(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensor_leaves(v, f"{path}/{i}" if path else str(i))
+
+
+def _placement_names(t) -> Optional[list]:
+    """A DTensor's placements as strings (None for a plain tensor)."""
+    return [str(p) for p in t.placements] if hasattr(t, "placements") else None
+
+
+def _shard_offsets(t) -> list:
+    """The global offset of a DTensor's local shard, dim by dim: each
+    sharded mesh dimension splits what is left of its tensor dimension
+    as ``torch.chunk`` does (DTensor's ``Shard``)."""
+    offsets, lengths = [0] * t.dim(), list(t.shape)
+    coord = t.device_mesh.get_coordinate()
+    for i, p in enumerate(t.placements):
+        if not p.is_shard():
+            continue
+        d, n = p.dim, t.device_mesh.size(i)
+        chunk = -(-lengths[d] // n)
+        start = min(coord[i] * chunk, lengths[d])
+        offsets[d] += start
+        lengths[d] = max(0, min(chunk, lengths[d] - start))
+    if lengths != list(t.to_local().shape):
+        raise ValueError(f"DTensor shard {list(t.to_local().shape)} is not the chunk "
+                         f"{lengths} of {list(t.shape)} over {t.placements}")
+    return offsets
+
+
+def _sharded_snapshot(tree) -> dict:
+    """This rank's part of a checkpoint dict over live tensors, on the
+    host: each DTensor's local shard (where this rank is the first of its
+    replicas) with its global offset, and, on rank 0 alone, every plain
+    (replicated) tensor; ``info`` gives every tensor's global shape,
+    dtype and placements, ``step`` the step count. No collective."""
+    r = rank()
+    pieces, offsets, info = {}, {}, {}
+    for key, t in _tensor_leaves(tree):
+        names = _placement_names(t)
+        info[key] = {"shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", ""),
+                     "placements": names}
+        if names is None:
+            if r == 0:
+                pieces[key], offsets[key] = t.detach(), [0] * t.dim()
+            continue
+        coord = t.device_mesh.get_coordinate()
+        if all(c == 0 for c, p in zip(coord, t.placements) if not p.is_shard()):
+            pieces[key], offsets[key] = t.to_local().detach(), _shard_offsets(t)
+    return {"pieces": _host_snapshot(pieces), "offsets": offsets, "info": info,
+            "step": int(tree["step"])}
+
+
+def _store():
+    return dist.distributed_c10d._get_default_store()
+
+
+def _store_meet(site: str, key: str, seq: int, bad: bool = False) -> int:
+    """Meet every rank on the process group's store (never a collective,
+    so a writer thread may call it while the loop thread runs the
+    step's), adding ``bad`` to a count every rank reads after the
+    meeting; returns the count (0 at world 1, where no store is
+    touched). ``key`` names the meeting uniquely across jobs. A
+    telemetry ``barrier`` row times it, also when it raises."""
+    if world_size() <= 1:
+        return int(bad)
+    from datetime import timedelta
+
+    store = _store()
+    with telemetry.waiting_on(f"barrier:{site}"):
+        t0 = time.perf_counter()
+        try:
+            store.add(f"{key}/bad", int(bad))
+            if store.add(f"{key}/arrived", 1) == world_size():
+                store.set(f"{key}/open", "1")
+            store.wait([f"{key}/open"], timedelta(seconds=_STORE_TIMEOUT_S))
+            total = int(store.add(f"{key}/bad", 0))
+        except BaseException:
+            dt = time.perf_counter() - t0
+            telemetry.emit_barrier(site, seq, dt, dt, timed_out=True)
+            raise
+        dt = time.perf_counter() - t0
+    telemetry.emit_barrier(site, seq, dt, dt)
+    return total
+
+
+def _write_sharded_dir(base: str, name: str, snap: dict, manifest: Optional[dict],
+                       key: str, seq: int, site: str) -> int:
+    """Every rank's shards of ``snap`` into ``base/name``, crash-safely:
+    rank 0 opens ``.tmp_<name>``; each rank writes its file there; rank 0
+    adds the metadata (and the manifest), renames the old directory to
+    ``<name>.old``, the tmp into place, and sweeps the ``.old``
+    directories whose stem exists again. The ranks meet on the store
+    (``_store_meet``) after the opening, after the shard writes (a rank
+    that failed its write stops the publish on every rank) and after the
+    publish. Returns the bytes this rank wrote."""
+    final_path = os.path.join(base, name)
+    tmp = os.path.join(base, f".tmp_{name}")
+    r = rank()
+    err: Optional[BaseException] = None
+    n_bytes = 0
+
+    def phase(fn):
+        nonlocal err
+        if err is None:
+            try:
+                fn()
+            except BaseException as e:  # the peers still meet this rank
+                err = e
+
+    def open_tmp():
+        if r == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+
+    def write_shards():
+        nonlocal n_bytes
+        blob = _blob({"pieces": snap["pieces"], "offsets": snap["offsets"]})
+        _atomic_write_bytes(os.path.join(tmp, f"rank{r}.pt"), blob)
+        n_bytes += len(blob)
+
+    def publish():
+        nonlocal n_bytes
+        if r != 0:
+            return
+        meta = json.dumps({"version": MANIFEST_VERSION, "world_size": world_size(),
+                           "step": snap["step"], "tensors": snap["info"]}).encode()
+        _atomic_write_bytes(os.path.join(tmp, _META), meta)
+        n_bytes += len(meta)
+        if manifest is not None:
+            mj = json.dumps(manifest).encode()
+            _atomic_write_bytes(os.path.join(tmp, _MANIFEST), mj)
+            n_bytes += len(mj)
+        if os.path.exists(final_path):
+            os.replace(final_path, final_path + ".old")
+        faults.crash_point("orbax_between_replaces")
+        os.replace(tmp, final_path)
+        _sweep_stale_old_dirs(base)
+
+    phase(open_tmp)
+    _store_meet(f"open:{site}", f"{key}/open", seq, err is not None)
+    phase(write_shards)
+    if _store_meet(f"shards:{site}", f"{key}/shards", seq, err is not None) and err is None:
+        err = OSError(f"a peer rank failed its shard write into {tmp}; not published")
+    phase(publish)
+    _store_meet(f"publish:{site}", f"{key}/publish", seq, err is not None)
+    if err is not None:
+        raise err
+    return n_bytes
+
+
+def save_checkpoint_sharded(log_name: str, state, *, epoch: Optional[int] = None,
+                            keep: int = 0) -> str:
+    """Write ``state`` now in the sharded format: every rank its own
+    shards, no gather, into ``orbax/final`` (or ``orbax/epoch_<N>``), then
+    the ``LATEST`` pointer and pruning to ``keep`` epoch directories.
+    Every rank calls this; returns the directory."""
+    base = _orbax_base(log_name)
+    name = "final" if epoch is None else f"epoch_{epoch}"
+    seq = next(_SYNC_SAVES)
+    snap = _sharded_snapshot(_state_tree(state))
+    _write_sharded_dir(base, name, snap, None, f"hgtpu_ckpt/sync/{seq}", seq,
+                       f"save:{log_name}")
+    if rank() == 0:
+        _write_pointer(base, "LATEST", name)
+        _prune_orbax_epochs(base, keep)
+    return os.path.join(base, name)
+
+
+def _restore_sharded_dir(state, path: str) -> None:
+    """Copy a sharded directory into ``state`` in place, bit for bit.
+    Under the world size and placements it was written with, each
+    DTensor takes its shard from this rank's file alone (the replicated
+    tensors from rank 0's); otherwise each tensor is assembled whole from
+    every rank's file and copied in (an unsharded model takes it whole,
+    a sharded one its own shard)."""
+    from hydragnn_tpu_torch.train.optimizer import copy_into
+
+    with open(os.path.join(path, _META)) as f:
+        meta = json.load(f)
+    live = dict(_tensor_leaves(_state_tree(state)))
+    saved = meta["tensors"]
+    if set(live) != set(saved):
+        raise ValueError(f"{path} holds another state's tensors")
+    for k, t in live.items():
+        want = (saved[k]["shape"], saved[k]["dtype"])
+        if want != (list(t.shape), str(t.dtype).replace("torch.", "")):
+            raise ValueError(f"{path}: {k} is {want}, the live tensor {list(t.shape)} {t.dtype}")
+    files: dict = {}
+
+    def rank_file(r: int) -> dict:
+        if r not in files:
+            files[r] = torch.load(os.path.join(path, f"rank{r}.pt"), map_location="cpu",
+                                  weights_only=True, mmap=True)
+        return files[r]
+
+    same_world = int(meta["world_size"]) == world_size()
+    mine = rank_file(rank()) if same_world else None
+    with torch.no_grad():
+        for k, t in live.items():
+            names = saved[k]["placements"]
+            if same_world and names is not None and names == _placement_names(t) \
+                    and k in mine["pieces"]:
+                t.to_local().copy_(mine["pieces"][k])
+            elif names is None:
+                copy_into(t, rank_file(0)["pieces"][k])
+            else:
+                full = torch.empty(saved[k]["shape"], dtype=t.dtype)
+                for r in range(int(meta["world_size"])):
+                    f = rank_file(r)
+                    if k in f["pieces"]:
+                        piece = f["pieces"][k]
+                        at = tuple(slice(o, o + n)
+                                   for o, n in zip(f["offsets"][k], piece.shape))
+                        full[at] = piece
+                copy_into(t, full)
+    state.set_step(int(meta["step"]))
+
+
+def _orbax_target(base: str, epoch: Optional[int]) -> str:
+    if epoch is not None:
+        return os.path.join(base, f"epoch_{epoch}")
+    return os.path.join(base, _read_pointer(base, "LATEST") or "final")
+
+
+def load_checkpoint_sharded(log_name: str, state, *, epoch: Optional[int] = None):
+    """Restore a sharded checkpoint into ``state`` and return it: with
+    ``epoch`` that directory, raising on any failure; without, the
+    ``LATEST`` pointer's, and where it is stale or not restorable the
+    newest restorable directory, with a warning."""
+    base = _orbax_base(log_name, make=False)
+    path = _orbax_target(base, epoch)
+    if epoch is not None:
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"No sharded checkpoint at {path}")
+        _restore_sharded_dir(state, path)
+        return state
+    for cand in _orbax_candidates(base, path):
+        if not os.path.isdir(cand):
+            if cand == path:
+                _warn(f"LATEST pointer targets missing dir {path} — falling back to the "
+                      "newest restorable checkpoint")
+            continue
+        try:
+            _restore_sharded_dir(state, cand)
+        except Exception as e:
+            _warn(f"sharded checkpoint at {cand} is not restorable ({type(e).__name__}: {e}) "
+                  "— skipping it")
+            continue
+        if cand != path:
+            _warn(f"falling back to sharded checkpoint {cand}")
+        return state
+    raise FileNotFoundError(f"No restorable sharded checkpoint under {base}")
+
+
+def _read_manifest(path: str) -> Optional[dict]:
+    try:
+        with open(os.path.join(path, _MANIFEST)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def load_resume_checkpoint_sharded(log_name: str, state):
+    """The sharded format's ``load_resume_checkpoint``: the ``RESUME``
+    pointer's directory with its manifest (and, where a kill between the
+    two renames left it missing, ``<target>.old`` with its own), else
+    ``load_checkpoint_sharded`` without a cursor. Returns ``(state,
+    manifest or None)``."""
+    base = _orbax_base(log_name, make=False)
+    target = _read_pointer(base, "RESUME")
+    if target is not None:
+        for cand in (target, target + ".old"):
+            path = os.path.join(base, cand)
+            manifest = _read_manifest(path)
+            if manifest is None:
+                continue
+            try:
+                _restore_sharded_dir(state, path)
+            except Exception as e:
+                _warn(f"resume checkpoint {path} unrestorable ({type(e).__name__}: {e}) — "
+                      "trying older artifacts")
+                continue
+            if cand != target:
+                _warn(f"RESUME pointer targets missing {target} — resuming from {cand} (a "
+                      "kill landed between the swap renames), cursor intact")
+            return state, manifest
+        _warn(f"RESUME pointer targets {target} with no restorable manifest — falling back "
+              "(epoch-boundary resume)")
+    return load_checkpoint_sharded(log_name, state), None
 
 
 # ---------------------------------------------------------------- the writer
@@ -548,11 +983,20 @@ class CheckpointWriter:
     it (the next snapshot waits, not the steps between saves). Rank 0
     writes; ``wait`` and ``close`` end at a barrier of every rank.
 
+    ``fmt="orbax"`` writes the sharded format (module docstring): the
+    snapshot copies this rank's shards alone (no gather, no collective),
+    and every rank's worker thread writes its file, the ranks agreeing
+    on the validate-finite verdict and meeting around the publish on the
+    store; a write across ranks is tried once (its meetings are named by
+    the job), one rank's alone takes the retries.
+
     ``kind``: ``"auto"`` writes the resume container (``resume.pt``)
     alone; ``"epoch"`` the container, the epoch file and ``latest`` (a
     hard link of the epoch file), pruning epoch files to ``keep``;
     ``"final"`` the container and ``latest``. Every file holds the same
-    bytes: the checkpoint dict with the manifest.
+    bytes: the checkpoint dict with the manifest. The sharded format
+    writes the directory ``autosave``, ``epoch_<N>`` or ``final`` and
+    points ``RESUME`` at it (and ``LATEST`` for the latter two).
 
     Counts: ``saves``, ``bytes_written``, ``retries``,
     ``snapshot_ms`` (each save's caller-thread time), ``write_ms``.
@@ -561,8 +1005,10 @@ class CheckpointWriter:
     def __init__(self, log_name: str, *, keep: int = 0, retries: int = 3,
                  backoff_s: float = 0.25, async_enabled: bool = True,
                  plan_seed: Optional[int] = None, fingerprint: Optional[str] = None,
-                 validate_finite: bool = True):
+                 validate_finite: bool = True, fmt: str = "pt"):
         self.log_name = log_name
+        self.fmt = fmt
+        self._gen = next(_WRITERS)  # names this writer's store keys apart
         self.keep = int(keep)
         self.retries = max(0, int(retries))
         self.backoff_s = max(0.0, float(backoff_s))
@@ -584,11 +1030,13 @@ class CheckpointWriter:
         self._job_seq = 0
 
     def save(self, state, *, kind: str = "auto", epoch: int = 0, step: int = 0,
-             label_epoch: Optional[int] = None, acc=None, loop: Optional[dict] = None) -> None:
+             label_epoch: Optional[int] = None, acc=None, loop: Optional[dict] = None,
+             branch_steps: Optional[list] = None) -> None:
         """``(epoch, step)`` is the resume cursor, the next step to run
         (an end-of-epoch save of epoch e carries ``(e + 1, 0)``);
         ``label_epoch`` names the epoch file (``kind="epoch"``),
-        defaulting to ``epoch``."""
+        defaulting to ``epoch``; ``branch_steps`` the multibranch
+        per-branch cursors (``build_manifest``)."""
         from hydragnn_tpu_torch.train.capture import GRAPH_LOCK
 
         tw = time.perf_counter()
@@ -597,14 +1045,16 @@ class CheckpointWriter:
         waited = t0 - tw
         if waited > 1e-4:
             tr.sample("checkpoint/backpressure_ms", 1e3 * waited)
+        sharded = self.fmt == "orbax"
         with GRAPH_LOCK:
-            host = _host_snapshot(_state_tree(state))
+            tree = _state_tree(state)
+            host = _sharded_snapshot(tree) if sharded else _host_snapshot(tree)
             manifest = build_manifest(epoch=epoch, step=step, plan_seed=self.plan_seed,
                                       fingerprint=self.fingerprint, acc=encode_acc(acc),
-                                      loop=loop)
+                                      loop=loop, fmt=self.fmt, branch_steps=branch_steps)
         finite = None
         self._job_seq += 1
-        if world_size() > 1 and self.validate_finite:
+        if world_size() > 1 and self.validate_finite and not sharded:
             finite = _processes_agree_finite(not nonfinite_leaves(host),
                                              f"finite:{self.log_name}", self._job_seq)
         snap_ms = 1e3 * (time.perf_counter() - t0)
@@ -616,8 +1066,9 @@ class CheckpointWriter:
                         "backpressure_ms": round(1e3 * waited, 3),
                         "async": self.async_enabled})
         host["manifest"] = manifest
-        job = (host, kind, epoch if label_epoch is None else int(label_epoch), finite)
-        if rank() != 0:
+        job = (host, kind, epoch if label_epoch is None else int(label_epoch), finite,
+               self._job_seq)
+        if rank() != 0 and not sharded:
             if finite is False:
                 self.rejected_saves += 1
             return
@@ -649,9 +1100,13 @@ class CheckpointWriter:
                     self._cv.notify_all()
 
     def _run_job(self, job) -> None:
-        host, kind, epoch, finite = job
+        host, kind, epoch, finite, seq = job
+        sharded = self.fmt == "orbax"
         if finite is None and self.validate_finite:
-            finite = not nonfinite_leaves(host)
+            finite = not nonfinite_leaves(host["pieces"] if sharded else host)
+            if sharded:  # every rank scanned its own shards: agree
+                finite = _store_meet(f"finite:{self.log_name}", self._key(seq, "finite"),
+                                     seq, bad=not finite) == 0
         if self.validate_finite and not finite:
             self.rejected_saves += 1
             _warn(f"checkpoint save REJECTED (kind={kind}, epoch={epoch}): the state "
@@ -666,17 +1121,22 @@ class CheckpointWriter:
         delay = self.backoff_s
         blob = None
         n_bytes = 0
-        for attempt in range(self.retries + 1):
+        # a write across ranks meets them under this job's names once
+        retries = 0 if sharded and world_size() > 1 else self.retries
+        for attempt in range(retries + 1):
             try:
-                if blob is None:
-                    blob = _blob(host)
-                n_bytes = self._emit(kind, epoch, blob)
+                if sharded:
+                    n_bytes = self._emit_sharded(host, kind, epoch, seq)
+                else:
+                    if blob is None:
+                        blob = _blob(host)
+                    n_bytes = self._emit(kind, epoch, blob)
                 self.bytes_written += n_bytes
                 self.saves += 1
                 self.last_error = None
                 break
             except OSError as e:
-                if attempt == self.retries:
+                if attempt == retries:
                     self.last_error = e
                     _warn(f"checkpoint write FAILED after {attempt + 1} attempt(s): {e} — "
                           "training continues; the last durable checkpoint remains the "
@@ -718,6 +1178,25 @@ class CheckpointWriter:
         elif kind == "final":
             _atomic_write_bytes(_ckpt_path(self.log_name, None), blob)
             n += len(blob)
+        return n
+
+    def _key(self, seq: int, what: str) -> str:
+        """A store key of job ``seq``: every rank makes the same writers
+        and enqueues the same saves in the same order, so the names
+        agree with no exchange and no job reuses another's."""
+        return f"hgtpu_ckpt/{self._gen}/{seq}/{what}"
+
+    def _emit_sharded(self, host: dict, kind: str, epoch: int, seq: int) -> int:
+        base = _orbax_base(self.log_name)
+        name = {"auto": "autosave", "epoch": f"epoch_{epoch}", "final": "final"}[kind]
+        n = _write_sharded_dir(base, name, host, host["manifest"], self._key(seq, name), seq,
+                               self.log_name)
+        if rank() == 0:
+            _write_pointer(base, "RESUME", name)
+            if kind in ("epoch", "final"):
+                _write_pointer(base, "LATEST", name)
+            if kind == "epoch":
+                _prune_orbax_epochs(base, self.keep)
         return n
 
     def _drain(self) -> None:

@@ -12,8 +12,10 @@ grammar (``;``-separated rules):
 - ``crash:<point>:<nth>``: the ``nth`` arrival at ``crash_point(point)``
   raises ``InjectedCrash`` (a ``BaseException``, so no ``except
   Exception`` absorbs it), a kill landing mid-operation: the points sit
-  inside the atomic write (``write_tmp``) and the hard-link publish
-  (``publish_link``);
+  inside the atomic write (``write_tmp``), the hard-link publish
+  (``publish_link``) and between the sharded format's two renames
+  (``orbax_between_replaces``: the old directory moved aside, the new
+  one not yet in place);
 - ``kill:<site>[@proc<i>]:<at>``: the ``at``-th ``tick(site)`` sends
   this process a real ``SIGKILL`` (the preemption drill's mid-epoch
   kill). ``train_step`` ticks once per optimizer step, so a K-step

@@ -11,7 +11,11 @@ JAX package, port GraphSamples and batches), runs the port's dp, ZeRO
 and multibranch steps and the dp ``run_training``/``run_prediction``
 (on one node, then as two nodes), then the dp durability cases (the
 guard on a healthy run and on an injected NaN, and a run stopped
-mid-epoch then continued), and writes what it saw to ``out<RANK>.pt``.
+mid-epoch then continued), the multibranch guard (guarded steps, a
+label poison on one branch) and a multibranch run stopped mid-epoch
+then continued, and the sharded checkpoint format under ZeRO (a state
+saved and restored, and a ZeRO run in both formats), and writes what it
+saw to ``out<RANK>.pt``.
 It imports torch and the port only (never jax, the JAX package or the
 tests' conftest).
 """
@@ -166,6 +170,233 @@ def case_multibranch(inp, rank):
             "groups": [len(g["params"]) for g in opt.param_groups]}
 
 
+def _poison_labels(batch):
+    """``batch`` with its real graphs' targets NaN (a host-side label
+    poison: only this slot's branch reads them)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    y, real = batch.y_graph, np.asarray(batch.graph_mask)
+    if isinstance(y, torch.Tensor):
+        y = y.clone()
+        y[torch.as_tensor(real)] = float("nan")
+    else:
+        y = np.array(y, copy=True)
+        y[real] = np.nan
+    return dataclasses.replace(batch, y_graph=y)
+
+
+def case_mb_guard(inp, rank):
+    """The multibranch guard on the step of case_multibranch (the dual
+    optimizer, no clip): two unguarded and two guarded steps from the
+    same parameters (losses, predicates, parameters after each); then,
+    from those parameters again, a clean guarded step and one whose
+    rank-1 sub-batch (branch 1's) has NaN labels: the predicates, and
+    every tensor of the state before and after each."""
+    from hydragnn_tpu_torch.models import convert, create, spec
+    from hydragnn_tpu_torch.parallel import multibranch as mb
+    from hydragnn_tpu_torch.parallel.mesh import DataMesh
+    from hydragnn_tpu_torch.parallel.runtime import ParallelPlan
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    cfg = schnet_mb_cfg(spec)
+    plan = ParallelPlan(scheme="multibranch", mesh=DataMesh(data=2), devices_per_branch=(1, 1))
+
+    def build(guard):
+        model = create.create_model(cfg, "cpu")
+        model.load_state_dict(convert.params_from_jax(inp["mb_params"]))
+        opt = mb.dual_optimizer(model, MB_TRAINING)
+        return model, opt, mb.make_multibranch_train_step(model, opt, cfg, plan, (1, 1),
+                                                          guard=guard)
+
+    def state_of(model, opt):
+        """Every tensor of the state by name: the model's, each
+        parameter's optimizer state, each group's step count and rate."""
+        name = {id(p): n for n, p in model.named_parameters()}
+        out = {f"model/{k}": v.detach().clone() for k, v in model.state_dict().items()}
+        out.update({f"opt/{name[id(p)]}/{k}": v.clone() for p, st in opt.state.items()
+                    for k, v in st.items()})
+        out.update({f"group/{i}/{k}": v.clone() for i, g in enumerate(opt.param_groups)
+                    for k, v in g.items() if k != "params" and hasattr(v, "clone")})
+        return out
+
+    batch = inp["mb_batches"][rank]
+    out = {"plain": [], "guarded": []}
+    for name in ("plain", "guarded"):
+        model, opt, step = build(name == "guarded")
+        st = TrainState(model, opt)
+        for _ in range(2):
+            res = step(st, batch)
+            ok = res[4].tolist() if name == "guarded" else None
+            out[name].append((float(res[1]), ok, state_of(model, opt)))
+    for name, b in (("clean", batch), ("poisoned", _poison_labels(batch) if rank == 1 else batch)):
+        model, opt, step = build(True)
+        before = state_of(model, opt)
+        res = step(TrainState(model, opt), b)
+        out[name] = {"before": before, "after": state_of(model, opt), "ok": res[4].tolist(),
+                     "loss": float(res[1]), "graphs": float(res[3])}
+    out["slots"] = {f"model/{n}": mb.decoder_branch_of_name(n, cfg)
+                    for n, _ in model.named_parameters()}
+    out["labels"] = mb.branch_guard_labels(2)
+    return out
+
+
+def mb_run_config(name, **training):
+    """A multibranch run_training config: SchNet at hidden 8, one graph
+    head on two branches, batch 4, AdamW (the dual optimizer)."""
+    branch = {"num_sharedlayers": 1, "dim_sharedlayers": 8, "num_headlayers": 1,
+              "dim_headlayers": [8]}
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": name},
+        "NeuralNetwork": {
+            "Architecture": {
+                "mpnn_type": "SchNet", "hidden_dim": 8, "num_conv_layers": 2, "radius": 2.0,
+                "max_neighbours": 16, "num_gaussians": 8, "num_filters": 8,
+                "output_heads": {"graph": [{"type": f"branch-{i}", "architecture": branch}
+                                           for i in range(2)]},
+                "task_weights": [1.0],
+            },
+            "Variables_of_interest": {"input_node_features": [0], "output_names": ["y"],
+                                      "output_index": [0], "type": ["graph"],
+                                      "output_dim": [1]},
+            "Training": dict({"num_epoch": 2, "batch_size": 4, "precision": "fp32",
+                              "Optimizer": {"type": "AdamW", "learning_rate": 2e-3},
+                              "Parallelism": {"scheme": "multibranch"}}, **training),
+        },
+    }
+
+
+def case_mb_resume(inp, rank):
+    """run_training under the multibranch scheme with Guard on and resume
+    containers every 2 steps (8 steps an epoch): uninterrupted, stopped
+    after its 6th step (``resumed`` continues it), and the stopped run's
+    newest container manifest."""
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.utils import faults
+
+    durable = {"Guard": {"enabled": True},
+               "Checkpoint": {"enabled": True, "interval_steps": 2}}
+    sets = inp["mb_sets"]
+    out = {}
+    state, model, _, hist, _ = runner.run_training(mb_run_config("mb_whole", **durable),
+                                                   datasets=sets, device="cpu")
+    out["whole"] = dict(_history(hist, model), steps=state.step)
+    tick = faults.tick
+    seen = []
+
+    def stop_at_6(site):
+        seen.append(site)
+        if len(seen) == 6:
+            raise _Stop()
+
+    faults.tick = stop_at_6
+    try:
+        runner.run_training(mb_run_config("mb_stopped", **durable), datasets=sets,
+                            device="cpu")
+    except _Stop:
+        out["stopped_at"] = len(seen)
+    finally:
+        faults.tick = tick
+    out["manifest"] = torch_load(os.path.join(
+        "logs", _only_run("mb_stopped"), "resume.pt"))["manifest"]
+    state, model, _, hist, _ = runner.run_training(
+        mb_run_config("mb_stopped", **durable, **{"continue": 1}), datasets=sets,
+        device="cpu")
+    out["resumed"] = dict(_history(hist, model), steps=state.step)
+    return out
+
+
+def _only_run(prefix):
+    """The one run directory under logs/ named from ``prefix``."""
+    runs = [d for d in os.listdir("logs") if d.startswith(prefix)]
+    assert len(runs) == 1, runs
+    return runs[0]
+
+
+def torch_load(path):
+    import torch
+
+    return torch.load(path, weights_only=True)
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def case_sharded(inp, rank):
+    """The sharded format under ZeRO (FSDP2 over both ranks): PNA with
+    AdamW after one step, saved with ``save_checkpoint_sharded``; what
+    each rank's file holds; the state restored into a fresh ZeRO model
+    (each rank from its own file) against the live one bit for bit, and
+    the full tensors for the test's world-1 restore. Then the ZeRO dp
+    run of case_run (one epoch) with ``checkpoint_format`` "orbax" and
+    with ".pt", and run_prediction(config) from the orbax run's
+    directory."""
+    import copy
+
+    import torch
+
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.models import convert, create, spec
+    from hydragnn_tpu_torch.parallel import dp
+    from hydragnn_tpu_torch.parallel.mesh import DataMesh
+    from hydragnn_tpu_torch.parallel.runtime import ParallelPlan
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.state import TrainState
+    from hydragnn_tpu_torch.utils import checkpoint as ck
+
+    cfg = pna_cfg(spec, inp["deg"])
+    plan = ParallelPlan(scheme="dp", mesh=DataMesh(data=2), fsdp=True, fsdp_axis="data")
+
+    def build():
+        model = create.create_model(cfg, "cpu")
+        model.load_state_dict(convert.params_from_jax(inp["pna_params"], inp["pna_stats"]))
+        model = dp.replicate_state(model, plan, "cpu")
+        opt = select_optimizer(model.parameters(), MB_TRAINING)
+        return TrainState(model, opt)
+
+    def leaves(st):
+        return dict(ck._tensor_leaves(ck._state_tree(st)))
+
+    live = build()
+    dp.make_dp_train_step(live.model, live.optimizer, cfg, plan)(live, inp["dp_batches"][rank])
+    ck.save_checkpoint_sharded("zero_ckpt", live, epoch=3)
+    path = os.path.join("logs", "zero_ckpt", "orbax", "epoch_3")
+    mine = torch.load(os.path.join(path, f"rank{rank}.pt"), weights_only=True)
+    fresh = build()
+    ck.load_checkpoint_sharded("zero_ckpt", fresh)
+    got, want = leaves(fresh), leaves(live)
+    out = {"local_equal": set(got) == set(want) and all(
+        torch.equal(_local(got[k]), _local(want[k])) for k in want),
+        "steps": (fresh.step, live.step),
+        "file": {k: (list(v.shape), mine["offsets"][k]) for k, v in mine["pieces"].items()},
+        "local": {k: list(_local(v).shape) for k, v in want.items()},
+        "plain": sorted(k for k, v in want.items() if not hasattr(v, "to_local")),
+        "full": {k: _full(v) for k, v in want.items()}, "path": os.path.abspath(path)}
+
+    runs = {}
+    for fmt in ("orbax", "pt"):
+        config = copy.deepcopy(inp["run_config"])
+        config["Dataset"]["name"] = f"zero_{fmt}"
+        training = config["NeuralNetwork"]["Training"]
+        training.update(num_epoch=1, checkpoint_format=fmt)
+        training["Parallelism"]["zero"] = True
+        state, model, _, hist, full = _train_from_jax(inp, config)
+        runs[fmt] = dict(_history(hist, model), params={
+            k: torch.as_tensor(_full(v)) for k, v in model.state_dict().items()})
+        if fmt == "orbax":
+            err, _, _, preds = runner.run_prediction(full, datasets=inp["run_splits"],
+                                                     device="cpu")
+            runs["orbax_pred"] = (float(err), preds)
+            runs["orbax_dir"] = sorted(os.listdir(os.path.join("logs", full["_log_name"],
+                                                               "orbax")))
+    out["runs"] = runs
+    return out
+
+
 def _train_from_jax(inp, config):
     """run_training of ``config`` on the run's splits from the JAX run's
     initial parameters."""
@@ -309,7 +540,8 @@ def main(rank: int, world: int, work: str) -> None:
     out = {"dp": case_dp(inp, rank, zero=False), "zero": case_dp(inp, rank, zero=True),
            "mb": case_multibranch(inp, rank), "run": case_run(inp, rank),
            "nodes": case_nodes(inp, rank), "hsdp": case_hsdp(inp, rank),
-           "durability": case_durability(inp, rank)}
+           "durability": case_durability(inp, rank), "mb_guard": case_mb_guard(inp, rank),
+           "mb_resume": case_mb_resume(inp, rank), "sharded": case_sharded(inp, rank)}
     torch.save(out, os.path.join(work, f"out{rank}.pt"))
     dist.destroy_process_group()
 

@@ -11,8 +11,17 @@
   head, full width, on 48 of the example's chains, ``Training.
   Checkpoint`` on), then ``run_prediction(config)`` with nothing else
   given equals the in-process prediction bit for bit;
-- ``continue`` into the sharded ``orbax`` format still raises, naming
-  ROADMAP item 12b (the writer, the manifest and ``continue`` itself are
+- the sharded format (``checkpoint_format: "orbax"``), in one process,
+  as the JAX package's drills run it (tests/test_durability.py): a crash
+  between the two renames leaves ``final.old``, which the load falls
+  back to and the next save sweeps; a stale ``LATEST`` falls back, an
+  explicit missing epoch raises; the writer's ``autosave`` behind
+  ``RESUME`` with its manifest, its ``.old`` after a crash between the
+  renames, and a non-finite state refused with the pointers kept;
+  ``keep`` pruning ``epoch_*``;
+- ``continue`` is no longer refused for the sharded format: a run
+  writing it, continued, and ``run_prediction(config)`` restoring it
+  (the writer, the manifest and ``continue`` itself are
   tests/test_torch_durability.py's).
 """
 
@@ -206,12 +215,141 @@ def test_run_prediction_restores_checkpoint(port, splits, tmp_path, monkeypatch)
 
 
 def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
+    """Only the parallel input pipeline is still refused; a ``continue``
+    in the sharded format runs: polymers.json for one epoch writing
+    ``orbax/`` (every epoch through the writer), continued to two, and
+    ``run_prediction(config)`` restoring ``final`` equal to the
+    in-process prediction bit for bit."""
     monkeypatch.chdir(tmp_path)
+    refused = _config(1)
+    refused["NeuralNetwork"]["Training"].update(
+        {"continue": 1, "Parallelism": {"pipeline": {"workers": 2}}})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port.runner.run_training(refused, datasets=splits, device="cpu")
     config = _config(1)
-    config["NeuralNetwork"]["Training"]["continue"] = 1
-    config["NeuralNetwork"]["Training"]["checkpoint_format"] = "orbax"
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        port.runner.run_training(config, datasets=splits, device="cpu")
+    config["NeuralNetwork"]["Training"].update(
+        checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 2})
+    _, _, _, _, full = port.runner.run_training(config, datasets=splits, device="cpu")
+    base = os.path.join("logs", full["_log_name"], "orbax")
+    assert {"LATEST", "RESUME", "final", "epoch_0"} <= set(os.listdir(base))
+    assert not os.path.exists(os.path.join("logs", full["_log_name"], "checkpoint.pt"))
+    config = _config(2)
+    config["NeuralNetwork"]["Training"].update(
+        checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 2},
+        **{"continue": 1})
+    state, model, cfg, hist, full = port.runner.run_training(config, datasets=splits,
+                                                             device="cpu")
+    assert len(hist.train_loss) == 2 and state.step > 0
+    want = port.runner.run_prediction(full, datasets=splits, state=state, model=model,
+                                      cfg=cfg)
+    got = port.runner.run_prediction(full, datasets=splits, device="cpu")
+    assert got[0] == want[0]
+    for a, b in zip(got[2] + got[3], want[2] + want[3]):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------- the sharded format
+
+
+def _small_state(port, seed, nan=False):
+    """A two-layer model after one AdamW step, at step count ``seed``."""
+    torch = port.torch
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Linear(8, 1))
+    opt = port.optimizer.select_optimizer(model.parameters(), {"type": "AdamW"})
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    opt.step()
+    if nan:
+        with torch.no_grad():
+            model[0].weight[1, 1] = float("nan")
+    return port.loop.TrainState(model, opt, step=seed)
+
+
+def test_sharded_crash_between_replaces_falls_back_to_old(port, tmp_path, monkeypatch,
+                                                           capsys):
+    """A kill between the two renames (``crash:orbax_between_replaces``)
+    leaves no ``final`` and a ``final.old``: the load restores it, with a
+    warning, and the next save sweeps it (tests/test_durability.py:163)."""
+    from hydragnn_tpu_torch.utils import faults
+
+    monkeypatch.chdir(tmp_path)
+    a, b = _small_state(port, 1), _small_state(port, 2)
+    port.ckpt.save_checkpoint_sharded("run", a)
+    faults.install("crash:orbax_between_replaces:1")
+    try:
+        with pytest.raises(faults.InjectedCrash):
+            port.ckpt.save_checkpoint_sharded("run", b)
+    finally:
+        faults.reset()
+    base = os.path.join("logs", "run", "orbax")
+    assert not os.path.isdir(os.path.join(base, "final"))
+    assert os.path.isdir(os.path.join(base, "final.old"))
+    _assert_same_state(port, port.ckpt.load_checkpoint_sharded("run", _small_state(port, 9)),
+                       a)
+    assert "falling back" in capsys.readouterr().out
+    port.ckpt.save_checkpoint_sharded("run", b)
+    assert not os.path.isdir(os.path.join(base, "final.old"))
+    _assert_same_state(port, port.ckpt.load_checkpoint("run", _small_state(port, 9),
+                                                       fmt="orbax"), b)
+    assert sorted(os.listdir(os.path.join(base, "final"))) == ["meta.json", "rank0.pt"]
+
+
+def test_sharded_stale_latest_and_keep(port, tmp_path, monkeypatch, capsys):
+    """A ``LATEST`` naming a directory a crash never wrote falls back to
+    the newest restorable one, with a warning; a corrupt one is skipped;
+    an explicit missing epoch raises (tests/test_durability.py:186);
+    ``keep`` prunes ``epoch_*`` to the newest."""
+    monkeypatch.chdir(tmp_path)
+    states = [_small_state(port, s) for s in (1, 2, 3)]
+    for e, st in zip((2, 9, 10), states):
+        port.ckpt.save_checkpoint_sharded("run", st, epoch=e, keep=2)
+    base = os.path.join("logs", "run", "orbax")
+    assert sorted(os.listdir(base)) == ["LATEST", "epoch_10", "epoch_9"]
+    port.ckpt._write_pointer(base, "LATEST", "epoch_99")
+    with open(os.path.join(base, "epoch_10", "rank0.pt"), "wb") as f:
+        f.write(b"not a shard")
+    os.utime(os.path.join(base, "epoch_9"), (1, 1))
+    got = port.ckpt.load_checkpoint_sharded("run", _small_state(port, 8))
+    _assert_same_state(port, got, states[1])
+    out = capsys.readouterr().out
+    assert "LATEST pointer targets missing dir" in out and "not restorable" in out
+    with pytest.raises(FileNotFoundError):
+        port.ckpt.load_checkpoint_sharded("run", _small_state(port, 8), epoch=4)
+
+
+def test_sharded_writer_resume_pointer_and_finite_gate(port, tmp_path, monkeypatch, capsys):
+    """The writer in the sharded format: ``autosave`` behind ``RESUME``
+    restores with its manifest (tests/test_durability.py:352); after a
+    crash between the renames the resume takes ``autosave.old`` with its
+    cursor intact; a non-finite state is refused and the pointers keep
+    naming the good directory (:453)."""
+    from hydragnn_tpu_torch.utils import faults
+
+    monkeypatch.chdir(tmp_path)
+    a = _small_state(port, 1)
+    w = port.ckpt.CheckpointWriter("run", fmt="orbax", async_enabled=False)
+    w.save(a, kind="auto", epoch=3, step=2, branch_steps=[2, 2, 2])
+    st, manifest = port.ckpt.load_resume_checkpoint_sharded("run", _small_state(port, 9))
+    assert (manifest["epoch"], manifest["step"], manifest["branch_steps"]) == (3, 2, [2, 2, 2])
+    assert manifest["format"] == "orbax"
+    _assert_same_state(port, st, a)
+    faults.install("crash:orbax_between_replaces:1")
+    w.save(_small_state(port, 2), kind="auto", epoch=3, step=4)
+    faults.reset()
+    assert isinstance(w.last_error, faults.InjectedCrash)
+    st, manifest = port.ckpt.load_resume_checkpoint("run", _small_state(port, 9), fmt="orbax")
+    assert manifest["step"] == 2 and "autosave.old" in capsys.readouterr().out
+    _assert_same_state(port, st, a)
+    w.save(_small_state(port, 3, nan=True), kind="final", epoch=4)
+    w.close()
+    assert w.rejected_saves == 1 and "REJECTED" in capsys.readouterr().out
+    base = os.path.join("logs", "run", "orbax")
+    assert not os.path.exists(os.path.join(base, "final"))
+    assert not os.path.exists(os.path.join(base, "LATEST"))
+    st, manifest = port.ckpt.load_resume_checkpoint_sharded("run", _small_state(port, 9))
+    assert manifest["step"] == 2
+    _assert_same_state(port, st, a)
 
 
 def test_checkpoint_settings(port):

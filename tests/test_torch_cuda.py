@@ -5,6 +5,8 @@ replayed train and eval steps, a K = 2 replay, every optimizer's captured
 step and MACE's and PNAEq's MLIP steps against eager ones, bit for bit;
 the divergence guard's step replayed against eager and unguarded, and a
 poisoned step inside a replayed K = 2 graph skipped bit for bit; the
+multibranch guard's per-slot step (world 1 over NCCL) eager and replayed
+against the unguarded one, and a label poison contained; the
 run telemetry: a run with the stream on equals it off, every step
 replayed, and the dispatch-mode counter's K1/K2 counts equal
 ``k1_work``/``k2_work``.
@@ -1114,6 +1116,87 @@ def test_nccl_dp_replay_equals_eager(tmp_path, kind):
     _state_equal(torch, m1, o1, m2, o2)
     for x, y in zip(a1, a2):
         assert torch.equal(x, y)
+
+
+def _state_tensors(model, opt):
+    """Every tensor a train step writes, cloned."""
+    return [t.clone() for t in list(model.state_dict().values()) + [
+        v for s in opt.state.values() for v in s.values()] + [
+        g[k] for g in opt.param_groups for k in ("step", "lr")]]
+
+
+@pytest.mark.cuda
+def test_nccl_multibranch_guarded_step_on_card(tmp_path):
+    """The multibranch guard on the card (world 1 over NCCL, the dual
+    optimizer clipped per group): four guarded steps, eager and through
+    the graph cache, equal four unguarded ones bit for bit with every
+    slot's predicate true ([branch-0, encoder]); then a replayed guarded
+    step on a batch with NaN labels reads both slots bad and leaves every
+    tensor of the state as it was. K1/K2 count 2 a step."""
+    torch = _need_card()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.parallel.dp import make_dp_superstep_fn
+    from hydragnn_tpu_torch.parallel.multibranch import (
+        decoder_grad_scales,
+        dual_optimizer,
+        guard_slots,
+    )
+    from hydragnn_tpu_torch.parallel.runtime import plan_from_config
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.train.state import TrainState
+
+    _nccl_world_one(torch, tmp_path)
+    try:
+        plan = dataclasses.replace(plan_from_config({"NeuralNetwork": {"Training": {
+            "Parallelism": {"scheme": "multibranch"}}}}), devices_per_branch=(1,))
+        results = {}
+        for mode in ("eager", "graphs"):
+            for guard in (False, True):
+                model, cfg, opt, batches = _capture_case(torch)
+                opt = dual_optimizer(model, {"Optimizer": {"type": "AdamW",
+                                                           "learning_rate": 0.01}})
+                graphs = StepGraphs("cuda") if mode == "graphs" else None
+                train = make_dp_superstep_fn(
+                    model, opt, cfg, plan, device=torch.device("cuda"), graphs=graphs,
+                    kind="multibranch", decoder_scales=decoder_grad_scales(model, cfg, 1, (1,)),
+                    clip_norm=1.0, guard=guard,
+                    slots=guard_slots(model, cfg, 1) if guard else None)
+                state, acc, oks = TrainState(model, opt, graphs=graphs), None, []
+                k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+                for b in batches[:4]:
+                    out = train(state, acc, [b])
+                    state, acc = out[:2]
+                    if guard:
+                        oks.append(out[2].cpu().tolist())
+                torch.cuda.synchronize()
+                assert (edge_pipeline_planned.launches - k1,
+                        edge_pipeline_bwd_planned.launches - k2) == (2 * 4, 2 * 4)
+                results[mode, guard] = (model, opt, acc, oks, train, state, batches)
+        for mode in ("eager", "graphs"):
+            (m1, o1, a1, *_), (m2, o2, a2, oks, *_) = results[mode, False], results[mode, True]
+            assert oks == [[[True, True]]] * 4, (mode, oks)
+            _state_equal(torch, m1, o1, m2, o2)
+            for x, y in zip(a1, a2):
+                assert torch.equal(x, y)
+        model, opt, acc, _, train, state, batches = results["graphs", True]
+        before = _state_tensors(model, opt)
+        poisoned = batches[4]
+        y = np.array(poisoned.y_graph, copy=True)
+        y[np.asarray(poisoned.graph_mask)] = np.nan
+        out = train(state, acc, [dataclasses.replace(poisoned, y_graph=y)])
+        torch.cuda.synchronize()
+        assert out[2].cpu().tolist() == [[False, False]]
+        assert all(torch.equal(a, b) for a, b in zip(before, _state_tensors(model, opt)))
+        assert state.graphs.replays > 0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.cuda

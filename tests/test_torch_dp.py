@@ -31,8 +31,20 @@ every two-rank case while this process computes the JAX side:
   same initial parameters: per-epoch losses; then ``run_prediction``'s
   lockstep pass against the JAX package's prediction, sample by sample.
 
-Also: a config with ``pipeline.workers``, the multibranch ``Guard`` or ``orbax``
-still raises with its ROADMAP item.
+- (h) the multibranch guard on the two ranks: guarded steps equal the
+  unguarded ones bit for bit, and NaN labels on branch 1's slot leave
+  branch 1's decoder and the encoder as they were and branch 0's
+  decoder as a clean step leaves it, bit for bit (the JAX package's
+  containment contract, tests/test_guard.py); a multibranch
+  ``run_training`` with the guard and resume containers, stopped after
+  6 steps and continued, equals the uninterrupted run bit for bit;
+- (i) the sharded checkpoint format under ZeRO: each rank's file holds
+  its shard alone, the state restores bit for bit at world 2 (each rank
+  from its file) and at world 1 here (from both files), and a ZeRO run
+  writing it equals the same run writing ``.pt`` bit for bit.
+
+Also: a config with ``pipeline.workers`` still raises with its ROADMAP
+item; the multibranch guard and the sharded format no longer do.
 
 Tolerances: f32 forward rtol 1e-5 / atol 1e-4, f32 gradients and
 updated parameters rtol 1e-4 / atol 1e-3, each atol scaled by the
@@ -405,7 +417,9 @@ def two_ranks(port, tmp_path_factory):
         mb_params = jax.device_get(jax.jit(lambda b: init_params(schnet, b, seed=0)[0])(
             mb_jbs[0]))
         config, jsplits, tsplits, run_params = _run_inputs(port, work)
-        torch.save({"deg": deg, "pna_params": _plain(p_params),
+        mb_sets = [tuple(_to_port(port, part) for part in (ms[:32], ms[32:40], ms[40:]))
+                   for ms in (_molecules(48, seed=10 + b) for b in range(2))]
+        torch.save({"deg": deg, "pna_params": _plain(p_params), "mb_sets": mb_sets,
                     "pna_stats": _plain(p_stats), "dp_batches": tbs,
                     "mb_params": _plain(mb_params), "mb_batches": mb_tbs,
                     "run_params": _plain(run_params), "run_config": config, "run_splits": tsplits},
@@ -421,7 +435,7 @@ def two_ranks(port, tmp_path_factory):
                     "mb": _mb_reference((mb_params, mb_jbs)),
                     "run": _jax_run(config, jsplits, run_params, mp),
                     "run_test_y": np.stack([s.y_graph for s in tsplits[2]]),
-                    "mb_params": mb_params}
+                    "mb_params": mb_params, "deg": deg}
             logs = [p.communicate(timeout=240)[0].decode() for p in procs]
         finally:
             for p in procs:
@@ -716,20 +730,19 @@ def test_accumulate_matches_optax_multisteps(port):
 
 
 def test_unported_features_still_raise(port):
-    """The input pipeline, the multibranch guard and the sharded
-    checkpoint format still raise with their ROADMAP items; item 11's
-    schemes, and ``continue`` and the guard elsewhere, no longer do."""
+    """The input pipeline still raises with its ROADMAP item; item 11's
+    schemes, ``continue`` and the guard elsewhere, and item 12b's two
+    configurations (the multibranch guard with a ``continue``, and the
+    sharded checkpoint format) no longer do."""
     base = {"NeuralNetwork": {"Training": {}}}
-    cases = {
-        "item 10": {"Parallelism": {"pipeline": {"workers": 2}}},
-        "item 12b": {"Parallelism": {"scheme": "multibranch"}, "Guard": {"enabled": True}},
-        "item 12b ": {"checkpoint_format": "orbax"},
-    }
-    for item, training in cases.items():
-        config = copy.deepcopy(base)
-        config["NeuralNetwork"]["Training"].update(training)
-        with pytest.raises(NotImplementedError, match=item.strip()):
-            port.runner.run_training(config, device="cpu")
+    config = copy.deepcopy(base)
+    config["NeuralNetwork"]["Training"].update({"Parallelism": {"pipeline": {"workers": 2}}})
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port.runner.run_training(config, device="cpu")
+    for training in ({"Parallelism": {"scheme": "multibranch"}, "Guard": {"enabled": True},
+                      "continue": 1},
+                     {"checkpoint_format": "orbax", "continue": 1}):
+        port.runner._refuse_unported({"NeuralNetwork": {"Training": training}})
     for scheme in ("dp", "multibranch", "auto", "single"):
         port.runner._refuse_unported(
             {"NeuralNetwork": {"Training": {"Parallelism": {"scheme": scheme}}}})
@@ -793,3 +806,136 @@ def test_two_rank_guard_skips_injected_nan(two_ranks):
     _same_history(a["nan"], b["nan"], "ranks 0 and 1")
     assert a["nan"]["train_loss"] != a["guard"]["train_loss"]
     assert not np.isfinite(a["nan_off"]["train_loss"][0])
+
+
+# ----------------------------------------------------------------------
+# (h) the multibranch guard and mid-epoch resume
+# ----------------------------------------------------------------------
+
+
+def test_two_rank_multibranch_guarded_steps_equal_unguarded(two_ranks):
+    """Two multibranch steps with the guard on (per-slot predicates and
+    selects) and off, from the same parameters: the same losses and
+    every tensor of the state (parameters, AdamW moments, both groups'
+    step counts and rates) bit for bit on both ranks, every slot true."""
+    got, _ = two_ranks
+    for r in range(2):
+        g = got[r]["mb_guard"]
+        assert g["labels"] == ["branch-0", "branch-1", "encoder"]
+        for (l0, _, s0), (l1, ok, s1) in zip(g["plain"], g["guarded"]):
+            assert l0 == l1 and ok == [True, True, True]
+            assert set(s0) == set(s1)
+            for k, v in s0.items():
+                assert torch_equal(v, s1[k]), f"rank {r}: {k}"
+
+
+def _slot_of(key, slots):
+    """A state tensor's guard slot: its decoder branch, else 2 (the
+    encoder: encoder parameters, buffers and the groups' tensors)."""
+    if key.startswith("model/"):
+        name = key[len("model/"):]
+    elif key.startswith("opt/"):
+        name = key[len("opt/"):].rsplit("/", 1)[0]
+    else:
+        return 2
+    b = slots.get(f"model/{name}")
+    return 2 if b is None else b
+
+
+def test_two_rank_multibranch_guard_contains_a_branch_poison(two_ranks):
+    """NaN labels on branch 1's slot for one guarded step (the dual
+    optimizer, no clip; tests/test_guard.py's containment drill): the
+    predicate is [branch-0 ok, branch-1 bad, encoder bad] on both ranks,
+    the step adds nothing to the epoch's sums, branch 1's decoder and
+    the encoder (every group's step count included) stay as they were
+    and branch 0's decoder takes the clean step's update, bit for bit."""
+    got, _ = two_ranks
+    for r in range(2):
+        g = got[r]["mb_guard"]
+        clean, bad = g["clean"], g["poisoned"]
+        assert clean["ok"] == [True, True, True]
+        assert bad["ok"] == [True, False, False]
+        assert bad["loss"] == 0.0 and bad["graphs"] == 0.0
+        moved = 0
+        for k, before in bad["before"].items():
+            slot = _slot_of(k, g["slots"])
+            after = bad["after"][k]
+            if slot == 0:
+                assert torch_equal(after, clean["after"][k]), f"rank {r}: {k}"
+                moved += not torch_equal(after, before)
+            else:
+                assert torch_equal(after, before), f"rank {r}: {k} (slot {slot})"
+        assert moved > 0
+
+
+def test_two_rank_multibranch_stopped_and_continued(two_ranks):
+    """run_training under the multibranch scheme with the guard on and
+    resume containers every 2 steps (8 steps an epoch), stopped after its
+    6th step: the newest container's cursor is step 4 of epoch 0 with
+    per-branch cursors [4, 4]; continued, the run equals the
+    uninterrupted one bit for bit (losses and every model tensor), on
+    both ranks (tests/test_durability.py's multibranch resume)."""
+    got, _ = two_ranks
+    for r in range(2):
+        d = got[r]["mb_resume"]
+        assert d["stopped_at"] == 6 and d["whole"]["steps"] == 16
+        m = d["manifest"]
+        assert (m["epoch"], m["step"], m["branch_steps"]) == (0, 4, [4, 4])
+        _same_history(d["resumed"], d["whole"], f"rank {r} stopped + continued")
+        assert d["resumed"]["steps"] == 16
+
+
+# ----------------------------------------------------------------------
+# (i) the sharded checkpoint format under ZeRO
+# ----------------------------------------------------------------------
+
+
+def test_two_rank_zero_sharded_checkpoint(port, two_ranks):
+    """A ZeRO state (PNA, AdamW, one step) saved in the sharded format:
+    each rank's file holds exactly its own shard of every FSDP2 tensor
+    (rank 1's at the offset ceil(n / 2)), rank 0's also the replicated
+    tensors (the batch norms' statistics, the 0-d step counts and
+    rates); restored into a fresh ZeRO model each
+    rank's shards equal the live ones bit for bit; and here, at world 1,
+    an unsharded model restored from both files equals the gathered
+    state bit for bit."""
+    from hydragnn_tpu_torch.utils import checkpoint as ck
+
+    got, want = two_ranks
+    for r in range(2):
+        sh = got[r]["sharded"]
+        assert sh["local_equal"] and sh["steps"] == (1, 1)
+        plain = set(sh["plain"])
+        assert {k for k in sh["local"] if k.startswith("optimizer/param_groups")} <= plain
+        assert any(k.startswith("optimizer/state") for k in set(sh["local"]) - plain)
+        held = set(sh["file"])
+        assert held == (set(sh["local"]) if r == 0 else set(sh["local"]) - plain)
+        for k, (shape, offsets) in sh["file"].items():
+            assert shape == sh["local"][k], k
+            full = sh["full"][k]
+            if k not in plain and full.ndim:
+                assert offsets[0] == (0 if r == 0 else -(-full.shape[0] // 2)), k
+    torch = port.torch
+    model = port.create.create_model(worker.pna_cfg(port.spec, want["deg"]), "cpu")
+    state = port.state.TrainState(
+        model, port.optimizer.select_optimizer(model.parameters(), worker.MB_TRAINING))
+    ck._restore_sharded_dir(state, got[0]["sharded"]["path"])
+    back = dict(ck._tensor_leaves(ck._state_tree(state)))
+    assert set(back) == set(got[0]["sharded"]["full"]) and state.step == 1
+    for k, v in got[0]["sharded"]["full"].items():
+        assert torch.equal(back[k], torch.as_tensor(v)), k
+
+
+def test_two_rank_zero_run_sharded_equals_pt(two_ranks):
+    """ci.json's SchNet under ZeRO for one epoch with ``checkpoint_format``
+    "orbax" and with ".pt": the same losses and every full tensor bit for
+    bit (tests/test_model_loadpred.py's format cases); the orbax run wrote
+    ``orbax/final`` and its pointers, and ``run_prediction(config)`` from
+    it gives the same finite error on both ranks."""
+    got, _ = two_ranks
+    for r in range(2):
+        runs = got[r]["sharded"]["runs"]
+        _same_history(runs["orbax"], runs["pt"], f"rank {r} orbax vs pt")
+        assert {"LATEST", "RESUME", "final"} <= set(runs["orbax_dir"])
+        assert np.isfinite(runs["orbax_pred"][0])
+    assert got[0]["sharded"]["runs"]["orbax_pred"][0] == got[1]["sharded"]["runs"]["orbax_pred"][0]

@@ -6,7 +6,12 @@ manifest, ``skip_to``, ``Training.continue``) on the CPU.
   dict and ``decode_acc``'s values, the manifest's keys,
   ``drop_consumed_groups``, and ``skip_to``'s delivered suffix of a
   shuffled epoch (packing off and on, and superstep groups of 2);
-- ``DPLoader.skip_to`` delivers the tail of a whole epoch's deliveries;
+- ``DPLoader.skip_to`` delivers the tail of a whole epoch's deliveries,
+  and ``MultiBranchLoader.skip_to`` each slot's tail bit for bit, taking
+  a lockstep list of per-branch cursors and refusing a drifted one
+  (tests/test_durability.py:1060, :1082); the manifest's
+  ``branch_steps`` against the JAX package's, through both formats'
+  containers (:875);
 - the writer: transient write failures retried, exhaustion kept on
   ``last_error`` and not raised, the validate-finite gate, single-writer
   backpressure, a crash mid-container keeping the previous container,
@@ -193,6 +198,83 @@ def test_dp_loader_skip_to_delivers_the_tail(port):
             ld.set_epoch(0)
             ld.skip_to(cut[i])
             assert _delivered(ld) == whole[i:]
+
+
+def _batch_fields(batch) -> list:
+    import dataclasses
+
+    return [(f.name, None if getattr(batch, f.name) is None
+             else np.asarray(getattr(batch, f.name)))
+            for f in dataclasses.fields(batch)]
+
+
+def _same_field(fa, fb) -> bool:
+    (na, va), (nb, vb) = fa, fb
+    if na != nb or (va is None) != (vb is None):
+        return False
+    return va is None or (va.dtype == vb.dtype and np.array_equal(va, vb))
+
+
+def _same_batches(a, b) -> bool:
+    """Every field of every batch equal, dtype and bits."""
+    return len(a) == len(b) and all(
+        _same_field(fa, fb)
+        for x, y in zip(a, b) for fa, fb in zip(_batch_fields(x), _batch_fields(y)))
+
+
+def test_multibranch_loader_skip_to(port):
+    """Each slot of a two-branch ``MultiBranchLoader`` (shuffled, spec
+    schedule "auto"): ``skip_to(3)`` delivers the whole epoch's batches
+    from step 3 on, every field bit for bit; the next epoch iterates
+    whole; the manifest's lockstep list ``[2, 2]`` is taken and a drifted
+    ``[2, 3]`` raises; ``set_epoch`` clears an armed cursor."""
+    from hydragnn_tpu_torch.parallel.multibranch import MultiBranchLoader
+
+    arrays, _ = _graphs(40, seed=8)
+    branches = [[port.graph.GraphSample(**a) for a in arrays[:24]],
+                [port.graph.GraphSample(**a) for a in arrays[24:]]]
+    for slot in (0, 1):
+        def loader():
+            return MultiBranchLoader(branches, (1, 1), 4, slot, seed=2, variable_pad="auto")
+
+        ld = loader()
+        ld.set_epoch(1)
+        whole = list(ld)
+        assert len(whole) == 4
+        ld.set_epoch(1)
+        ld.skip_to(3)
+        assert _same_batches(list(ld), whole[3:])
+        fresh = loader()
+        fresh.set_epoch(1)
+        fresh.skip_to([1, 1])
+        assert _same_batches(list(fresh), whole[1:])
+        ld.set_epoch(2)
+        assert len(list(ld)) == len(whole)
+        ld.skip_to([2, 2])
+        assert ld._skip_next == 2
+        with pytest.raises(ValueError, match="lockstep"):
+            ld.skip_to([2, 3])
+        ld.set_epoch(1)
+        assert ld._skip_next == 0 and _same_batches(list(ld), whole)
+    assert port.loader.feed_supports_skip(ld)
+
+
+def test_manifest_branch_steps_round_trip(port, tmp_path, monkeypatch):
+    """``build_manifest``'s ``branch_steps`` as the JAX package records
+    it, and through the writer's container in both formats: ``[7, 7,
+    7]`` back as saved, None without (tests/test_durability.py:875)."""
+    monkeypatch.chdir(tmp_path)
+    got = port.ckpt.build_manifest(epoch=2, step=7, branch_steps=(7, 7, 7))
+    want = jckpt.build_manifest(epoch=2, step=7, branch_steps=(7, 7, 7))
+    assert set(got) == set(want) and got["branch_steps"] == want["branch_steps"] == [7, 7, 7]
+    for fmt in ("pt", "orbax"):
+        for name, bs in ((f"mb_{fmt}", [7, 7, 7]), (f"single_{fmt}", None)):
+            w = port.ckpt.CheckpointWriter(name, async_enabled=False, fmt=fmt)
+            w.save(_state(port, 1), kind="auto", epoch=2, step=7, branch_steps=bs)
+            w.close()
+            _, manifest = port.ckpt.load_resume_checkpoint(name, _state(port, 0), fmt=fmt)
+            assert manifest["branch_steps"] == bs and manifest["format"] == fmt
+            assert manifest["step"] == 7
 
 
 # ---------------------------------------------------------------- the writer

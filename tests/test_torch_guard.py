@@ -7,7 +7,10 @@
 - ``guard_settings``: the same resolutions and the same errors;
 - ``GuardMonitor``: both monitors fed the same predicate and norm
   sequences escalate alike at the same steps (skip, rollback, halt,
-  windows across epochs, the sampled cadence);
+  windows across epochs, the sampled cadence), and with the multibranch
+  guard's per-slot predicates (``branches``) alike with the same
+  ``window_bad_by_branch`` in every ``health`` row; the two packages'
+  ``branch_guard_labels``;
 - ci.json's SchNet through ``run_training`` with ``Guard`` on and
   ``nan:loss@3`` armed in both packages from the same initial
   parameters: per-epoch losses within the f32 gradient tolerance (rtol
@@ -56,13 +59,14 @@ def port():
     from hydragnn_tpu_torch import config, runner
     from hydragnn_tpu_torch.data import loader, synthetic
     from hydragnn_tpu_torch.models import convert, create
+    from hydragnn_tpu_torch.parallel import multibranch
     from hydragnn_tpu_torch.train import guard, loop, optimizer, state
-    from hydragnn_tpu_torch.utils import faults
+    from hydragnn_tpu_torch.utils import faults, telemetry
 
     return types.SimpleNamespace(torch=torch, config=config, runner=runner, loader=loader,
                                  synthetic=synthetic, convert=convert, create=create,
                                  guard=guard, loop=loop, optimizer=optimizer, state=state,
-                                 faults=faults)
+                                 faults=faults, multibranch=multibranch, telemetry=telemetry)
 
 
 @pytest.fixture(autouse=True)
@@ -166,10 +170,10 @@ def test_guard_settings_match_jax(port, training):
 # ---------------------------------------------------------------- the monitor
 
 
-def _drive(mod, settings, epochs):
+def _drive(mod, settings, epochs, branches=None):
     """Feed a monitor of ``mod`` the (k, oks, gnorms) dispatches of each
     epoch; record what it raised and its counts."""
-    m = mod.GuardMonitor(settings)
+    m = mod.GuardMonitor(settings, branches=branches)
     events = []
     for e, dispatches in enumerate(epochs):
         m.note_epoch(e)
@@ -216,6 +220,61 @@ def test_guard_monitor_escalates_as_jax(port, case, capsys):
     assert got[:4] == want[:4]
     assert got[4] == pytest.approx(want[4], rel=1e-6)
     assert "SKIPPED" in capsys.readouterr().out
+
+
+def _slot_epochs(rng, n_epochs, bad_at, k=1, n=12, slots=3):
+    """Per-slot dispatches: ``bad_at`` maps (epoch, step) to its bad
+    slots; a bad slot's partial norm is NaN."""
+    out = []
+    for e in range(n_epochs):
+        dispatches = []
+        for s in range(0, n, k):
+            oks = [[j not in bad_at.get((e, s + i), ()) for j in range(slots)]
+                   for i in range(k)]
+            gns = [[float(rng.uniform(0.1, 2.0)) if ok else float("nan") for ok in row]
+                   for row in oks]
+            dispatches.append((k, oks if k > 1 else oks[0], gns if k > 1 else gns[0]))
+        out.append(dispatches)
+    return out
+
+
+@pytest.mark.parametrize("case", ["isolated", "same-slot", "halt", "macro"])
+def test_guard_monitor_branches_escalate_as_jax(port, case, monkeypatch, capsys):
+    """The per-slot windows (tests/test_guard.py's isolation case): both
+    monitors with ``branches`` fed the same per-slot predicates escalate
+    at the same steps with the same counts, and every ``health`` row's
+    ``window_bad_by_branch`` is the same; two branches' single bad steps
+    never add up, one branch's two do."""
+    from hydragnn_tpu.utils import telemetry as jtel
+
+    rng = np.random.default_rng(5)
+    bad = {"isolated": {(0, 1): (0,), (0, 2): (1,), (1, 4): (0,)},
+           "same-slot": {(0, 1): (0, 2), (0, 2): (1,), (0, 5): (0, 2)},
+           "halt": {(0, 3): (1,), (1, 2): (1,), (1, 7): (2,)},
+           "macro": {(0, 1): (0,), (0, 2): (0, 2), (1, 6): (1,)}}[case]
+    block = {"enabled": True, "policy": "halt" if case == "halt" else "rollback",
+             "max_bad_steps": 1, "window_steps": 100, "max_rollbacks": 1}
+    epochs = _slot_epochs(rng, 2, bad, k=4 if case == "macro" else 1)
+    rows = {"port": [], "jax": []}
+    monkeypatch.setattr(port.telemetry, "active", lambda: True)
+    monkeypatch.setattr(port.telemetry, "emit", rows["port"].append)
+    monkeypatch.setattr(jtel, "emit", rows["jax"].append)
+    labels = port.multibranch.branch_guard_labels(2)
+    got = _drive(port.guard, port.guard.guard_settings({"Guard": block}), epochs, labels)
+    want = _drive(jguard, jguard.guard_settings({"Guard": block}), epochs, labels)
+    assert got[:4] == want[:4]
+    assert got[4] == pytest.approx(want[4], rel=1e-6)
+    by_branch = [r["window_bad_by_branch"] for r in rows["port"]]
+    assert by_branch == [r["window_bad_by_branch"] for r in rows["jax"]] and by_branch
+    assert [r["action"] for r in rows["port"]] == [r["action"] for r in rows["jax"]]
+    assert "[slots: " in capsys.readouterr().out
+
+
+def test_branch_guard_labels_match_jax(port):
+    from hydragnn_tpu.parallel.multibranch import branch_guard_labels
+
+    for n in (1, 2, 5):
+        assert port.multibranch.branch_guard_labels(n) == branch_guard_labels(n)
 
 
 # ---------------------------------------------------------------- against JAX

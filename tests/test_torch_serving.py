@@ -448,6 +448,17 @@ def test_export_cli_from_a_run_training_checkpoint(port, tmp_path, monkeypatch, 
     """run_training saves logs/<run>/checkpoint.pt; the CLI restores it,
     exports the first test batch's shape and prints the JAX CLI's line;
     the artifact equals the trained model on that batch bit for bit."""
+    _export_cli_case(port, tmp_path, monkeypatch, capsys, "pt")
+
+
+def test_export_cli_from_a_sharded_checkpoint(port, tmp_path, monkeypatch, capsys):
+    """The same with ``checkpoint_format: "orbax"``: run_training writes
+    the sharded ``orbax/final`` (and no ``checkpoint.pt``), which the CLI
+    restores by the config's key."""
+    _export_cli_case(port, tmp_path, monkeypatch, capsys, "orbax")
+
+
+def _export_cli_case(port, tmp_path, monkeypatch, capsys, fmt):
     import hydragnn_tpu_torch as hg
     from hydragnn_tpu_torch.data.loader import GraphLoader
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
@@ -460,9 +471,13 @@ def test_export_cli_from_a_run_training_checkpoint(port, tmp_path, monkeypatch, 
     config["Dataset"]["path"] = {"total": "dataset/demo"}
     config["NeuralNetwork"]["Training"]["num_epoch"] = 1
     config["NeuralNetwork"]["Training"]["batch_size"] = 8
+    config["NeuralNetwork"]["Training"]["checkpoint_format"] = fmt
     with open("config.json", "w") as fh:
         json.dump(config, fh)
     state, model, cfg, _, full = hg.run_training(config, device="cpu")
+    run = os.path.join("logs", full["_log_name"])
+    assert os.path.isdir(os.path.join(run, "orbax", "final")) == (fmt == "orbax")
+    assert os.path.exists(os.path.join(run, "checkpoint.pt")) == (fmt == "pt")
     capsys.readouterr()
     port.export.main(["config.json", "out/model.pt2z", "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
