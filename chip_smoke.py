@@ -194,6 +194,36 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                gradients, AdamW-updated parameters, running statistics; see
                hold_zinc_step for the scaling); the f32 step's eager and
                device time and kernel count.
+11a. pipeline  the input feed at full width: md17.json's PaiNN on
+               bench's molecules (packed (752, 7320, 40), (376, 3664, 20);
+               12 K1 and 12 K2 a step) and zinc.json's PNAPlus + GPS
+               (packed (1440, 2920, 120); 3 K1 a forward, 3 K2 a step)
+               trained by run_training for 2 epochs four ways: through
+               the collation workers (Parallelism.pipeline {workers 4,
+               depth 4, chunk 4, packed}, prefetch 2), through them with
+               packed off (each batch graph.collate's), serially (workers
+               0, prefetch 0) and through the prefetch thread alone
+               (workers 0, prefetch 2), each with the telemetry stream on;
+               then zinc.json on 16,000 of zinc.py's molecules (~200
+               packed train steps an epoch) through the workers, serially
+               and through the prefetch thread. Checks: per-step losses,
+               History and the final state (parameters, AdamW state) bit
+               for bit across the feeds, equal K1/K2 launches, equal
+               captures per epoch, no train step captured at epoch 1 or
+               later on the short runs (the captures there are eval
+               shapes' second sight, in every feed; the long run's epoch 1
+               may fill a budget epoch 0 did not), no capture_error; the
+               three batch assemblies
+               (graph.collate, collate_packed, the column store) bit for
+               bit on every train batch. Prints per feed: os.cpu_count()
+               and the resolved plan, the run's seconds, per epoch the
+               train pipeline's collate ms per batch, H2D ms per batch,
+               reorder depth and starved deliveries, and the step clock's
+               input wait per train step; per configuration the three
+               assemblies' host ms per batch in one thread. Every
+               run_training of every phase logs the feed it resolved
+               ("[feed]" lines; the default on a host of 4 or more CPUs is
+               the pipeline).
 12. polymer-kernels  K1 and K2 in the conv node head's a,W flavour at
                (F_in, F_out) = (64, 64) and (64, 1), f32, on the plan of the
                first packed train bin of polymers.json's run: against their
@@ -363,8 +393,8 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                "mace_width" and at PNAEq's under "pnaeq_widths";
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
-               MLIP, ZINC, polymer, oc20, PNAEq, dp (its guarded run too),
-               fsdp and multibranch runs and the superstep run,
+               MLIP, ZINC, pipeline, polymer, oc20, PNAEq, dp (its guarded
+               run too), fsdp and multibranch runs and the superstep run,
                "launches_by_path" splits them, DimeNet's 0 included), the
                card line, and the final {"ok": true, "device": ...} line.
 """
@@ -2747,6 +2777,290 @@ def zinc_run(config, splits, budgets):
             "loss_fell": bool(fell), "bins": sorted(set(shapes))}
 
 
+def log_feed(tag, config):
+    """Log (and return) the feed ``config``'s run_training resolves on
+    this host (``parallel/runtime.feed_line``: the collation workers by
+    default on 4 or more CPUs), for phases whose runs happen in child
+    processes."""
+    from hydragnn_tpu_torch.parallel import runtime
+
+    plan = runtime.plan_from_config(config, n_devices=1)
+    line = runtime.feed_line(plan) if plan.scheme != "multibranch" else (
+        f"multibranch: prefetch={plan.prefetch} (pipeline.workers "
+        f"{plan.pipeline_workers} ignored)")
+    log(f"[{tag}] feed: {line} (os.cpu_count() {os.cpu_count()})")
+    return line
+
+
+def install_feed_log():
+    """From here on every run_training of this process logs the feed it
+    resolved, as a "[feed]" line (the runner resolves it once a run,
+    through ``parallel/runtime.feed_line``)."""
+    from hydragnn_tpu_torch.parallel import runtime
+
+    plain = runtime.feed_line
+
+    def logged(plan):
+        line = plain(plan)
+        log(f"[feed] {plan.scheme}: {line} (os.cpu_count() {os.cpu_count()})")
+        return line
+
+    runtime.feed_line = logged
+
+
+@contextlib.contextmanager
+def captured_keys():
+    """While open, every CUDA-graph capture of a step is recorded as
+    (its key's kind, the epoch the run's compile observer is in)."""
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+    from hydragnn_tpu_torch.utils import telemetry
+
+    seen = []
+    plain = StepGraphs.capture
+
+    def capture(self, key, fn, batches):
+        obs = telemetry.observer()
+        seen.append((key[0], None if obs is None else obs.phase))
+        return plain(self, key, fn, batches)
+
+    StepGraphs.capture = capture
+    try:
+        yield seen
+    finally:
+        StepGraphs.capture = plain
+
+
+def pipeline_run(tag, config, splits, feed, late_captures=False):
+    """One run_training of ``config`` on the card through ``feed`` (a
+    ``Parallelism`` update), telemetry on. Returns what [pipeline]
+    compares and prints. A train step captured at epoch 1 or later fails
+    the run unless ``late_captures`` (a long epoch's packing can reach a
+    budget at epoch 1 that epoch 0 never filled; the feeds must then
+    agree on the captures per epoch, which ``pipeline_compare`` checks)."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    config = copy.deepcopy(config)
+    config.setdefault("Dataset", {})["name"] = f"pipeline_{tag}"
+    training = config["NeuralNetwork"]["Training"]
+    training["Parallelism"] = dict(training.get("Parallelism", {}), **feed)
+    training["Telemetry"] = {"enabled": True, "heartbeat_interval_s": 600}
+    line = log_feed(f"pipeline] [{tag}", config)
+    with recorded_run() as rec, captured_keys() as caps:
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, model, cfg, hist, full = port.run_training(config, datasets=splits, seed=0,
+                                                          device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        steps = [x.clone() for x in rec["losses"]]
+    with open(os.path.join("logs", full["_log_name"], "telemetry.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    rows = rows[max(i for i, r in enumerate(rows) if r["t"] == "header"):]  # this run's
+    epochs = len(hist.train_loss)
+    wait = [[r["input_wait_ms"] for r in rows if r["t"] == "step" and r["region"] == "train"
+             and r["epoch"] == e] for e in range(epochs)]
+    pipe = [r for r in rows if r["t"] == "pipeline"]
+    per_epoch = []
+    if pipe:
+        # one row per pass as each feed closes: train, val, test per epoch
+        check(len(pipe) == 3 * epochs, f"{tag}: {len(pipe)} pipeline rows for {epochs} epochs")
+        prev = {}
+        for e in range(epochs):
+            row = pipe[3 * e]  # cumulative: the train feed's totals after epoch e
+            n = row["delivered_batches"] - prev.get("delivered_batches", 0)
+            d = {k: row.get(k, 0) - prev.get(k, 0) for k in
+                 ("collate_s_total", "h2d_s_total", "starved_steps", "delivered_batches")}
+            per_epoch.append({"epoch": e, "chunks": n, "starved": d["starved_steps"],
+                              "collate_ms_per_delivery": round(
+                                  1e3 * d["collate_s_total"] / max(len(wait[e]), 1), 4),
+                              "h2d_ms_per_delivery": round(
+                                  1e3 * d["h2d_s_total"] / max(len(wait[e]), 1), 4),
+                              "queue_depth_avg_cum": row.get("queue_depth_avg")})
+            prev = row
+    execs = [r for r in rows if r["t"] == "executable"]
+    check(not [r for r in execs if "capture_error" in r],
+          f"{tag}: capture_error rows {[r for r in execs if 'capture_error' in r]}")
+    check(state.graphs is not None and state.graphs.replays > 0
+          and state.graphs.captures == len(state.graphs.graphs),
+          f"{tag}: the steps were not replayed once per key")
+    late_train = [c for c in caps if c[0] == "train" and (c[1] or 0) >= 1]
+    check(late_captures or not late_train,
+          f"{tag}: train steps captured at epoch 1 or later: {late_train}")
+    n_train = [len(w) for w in wait]
+    return {"state": state, "hist": hist, "steps": steps, "k1": k1, "k2": k2,
+            "seconds": seconds, "captures": [c for c in caps],
+            "report": {"feed": line, "cpus": os.cpu_count(),
+                       "seconds": round(seconds, 4), "epoch_seconds": hist.epoch_seconds,
+                       "epoch_captures": hist.epoch_captures,
+                       "input_wait_ms_per_step": [round(float(np.mean(w)), 4) if w else None
+                                                  for w in wait],
+                       "train_dispatches": n_train,
+                       "h2d_ms_per_batch": round(1e3 * state.graphs.h2d_seconds
+                                                 / max(state.graphs.h2d_batches, 1), 4),
+                       "pipeline_epochs": per_epoch, "k1": k1, "k2": k2}}
+
+
+def assembly_times(tag, config, trainset, limit=None):
+    """Host ms per batch of the three ways the feed can assemble a batch,
+    over the train loader's epoch-0 plan (its first ``limit`` entries),
+    in one thread so no sibling's GIL wait is in the clock: the loader's
+    ``collate_entry`` (``graph.collate``: the feed with ``packed`` off),
+    ``collate_packed`` (packed, no column store) and
+    ``PackedStore.assemble`` (packed, the default), both packed ones into
+    per-spec buffers reused as the card's recycling reuses them. Each is
+    checked bit for bit against ``collate_entry`` on every entry, then
+    timed as the best of two passes; the store's build is timed apart."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import PadSpec
+    from hydragnn_tpu_torch.data.pipeline import PackedStore, collate_packed
+
+    loader, _ = train_loader(config, trainset)
+    plan = list(loader.epoch_plan(0))[:limit]
+    ds = loader.dataset
+    t0 = time.perf_counter()
+    store = PackedStore.build(ds)
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    check(store is not None, f"[pipeline] {tag}: the column store refused the train split")
+    pools = {}
+
+    def spec_of(idx, spec):
+        if spec is not None:
+            return spec
+        return PadSpec.for_samples([ds[i] for i in idx], with_triplets=loader.with_triplets)
+
+    def packed(idx, spec):
+        spec = spec_of(idx, spec)
+        return collate_packed([ds[i] for i in idx], spec,
+                              with_segment_plan=loader.with_segment_plan,
+                              out=pools.setdefault(("packed", spec), {})).to("cpu")
+
+    def stored(idx, spec):
+        spec = spec_of(idx, spec)
+        return store.assemble(np.asarray(idx), spec, with_segment_plan=loader.with_segment_plan,
+                              out=pools.setdefault(("store", spec), {})).to("cpu")
+
+    ways = {"collate_entry": loader.collate_entry, "collate_packed": packed,
+            "store_assemble": stored}
+    for idx, spec in plan:
+        ref = loader.collate_entry(idx, spec).arrays()
+        for name in ("collate_packed", "store_assemble"):
+            got = ways[name](idx, spec).arrays()
+            check(got.keys() == ref.keys() and all(torch.equal(got[k], ref[k]) for k in ref),
+                  f"[pipeline] {tag}: {name} differs from collate_entry")
+    ms = {}
+    for name, fn in ways.items():
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for idx, spec in plan:
+                fn(idx, spec)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        ms[name] = round(1e3 * best / len(plan), 4)
+    return {"batches": len(plan), "graphs_per_batch": round(
+        float(np.mean([len(idx) for idx, _ in plan])), 2), "ms_per_batch": ms,
+        "store_build_ms": round(build_ms, 3), "samples": len(ds)}
+
+
+PIPELINE_LONG_MOLS = 16000  # [pipeline]'s real epoch: ~200 packed zinc train steps
+PIPELINE_FEEDS = {
+    "pipeline": {"pipeline": {"workers": 4, "depth": 4, "chunk": 4, "packed": True},
+                 "prefetch": 2},
+    "unpacked": {"pipeline": {"workers": 4, "depth": 4, "chunk": 4, "packed": False},
+                 "prefetch": 2},
+    "serial": {"pipeline": {"workers": 0}, "prefetch": 0},
+    "prefetch": {"pipeline": {"workers": 0}, "prefetch": 2},
+}
+
+
+def pipeline_compare(name, runs):
+    """Check every feed's run of ``name`` against the serial feed's, bit
+    for bit, and log each feed's report; returns the K1/K2 launches."""
+    import numpy as np
+
+    card = card_line()
+    ref = runs["serial"]
+    for f, run in runs.items():
+        if f == "serial":
+            continue
+        check(len(run["steps"]) == len(ref["steps"]) > 0
+              and all(torch.equal(a, b) for a, b in zip(run["steps"], ref["steps"])),
+              f"[pipeline] {name}: {f} feed's per-step losses differ from the serial feed's")
+        for field in ("train_loss", "val_loss", "test_loss", "lr", "epoch_captures"):
+            check(getattr(run["hist"], field) == getattr(ref["hist"], field),
+                  f"[pipeline] {name}: {f} History.{field} {getattr(run['hist'], field)} "
+                  f"!= serial {getattr(ref['hist'], field)}")
+        for field in ("train_tasks", "val_tasks", "test_tasks"):
+            check(all(np.array_equal(a, b) for a, b in zip(
+                getattr(run["hist"], field), getattr(ref["hist"], field))),
+                f"[pipeline] {name}: {f} History.{field} differs")
+        a, b = state_tensors(run["state"]), state_tensors(ref["state"])
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              f"[pipeline] {name}: {f} feed's final state differs from the serial feed's")
+        check((run["k1"], run["k2"]) == (ref["k1"], ref["k2"]) and ref["k1"] > 0
+              and ref["k2"] > 0,
+              f"[pipeline] {name}: K1/K2 {run['k1']}/{run['k2']} vs serial "
+              f"{ref['k1']}/{ref['k2']}")
+    for f, run in runs.items():
+        log(f"[pipeline] {name} {f} ({card}): {json.dumps(run['report'])}")
+    log(f"[pipeline] {name}: the {', '.join(f for f in runs if f != 'serial')} feeds equal "
+        f"the serial feed bit for bit ({len(ref['steps'])} train dispatches: per-step "
+        f"losses, History, final parameters and AdamW state), K1 {ref['k1']} and K2 "
+        f"{ref['k2']} in every feed, captures per epoch {ref['hist'].epoch_captures} in "
+        f"every feed, of a train step at epoch 1 or later "
+        f"{[c for c in ref['captures'] if c[0] == 'train' and (c[1] or 0) >= 1]}; run seconds "
+        + " / ".join(f"{f} {run['seconds']:.3f}" for f, run in runs.items()) + f" ({card})")
+    return (sum(run["k1"] for run in runs.values()), sum(run["k2"] for run in runs.values()))
+
+
+def phase_pipeline(mlip_cfg, mlip_splits, zinc_cfg, zinc_splits):
+    """[pipeline]: the module docstring's phase 11a."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    t0 = time.perf_counter()
+    out = {"cpus": os.cpu_count(), "card": card_line()}
+    k1 = k2 = 0
+    for name, config, splits in (("md17", mlip_cfg, mlip_splits),
+                                 ("zinc", zinc_cfg, zinc_splits)):
+        runs = {f: pipeline_run(f"{name}_{f}", config, splits, feed)
+                for f, feed in PIPELINE_FEEDS.items()}
+        a, b = pipeline_compare(name, runs)
+        k1, k2 = k1 + a, k2 + b
+        out[name] = {f: run["report"] for f, run in runs.items()}
+        out[name]["assembly"] = assembly_times(name, config, splits[0])
+        log(f"[pipeline] {name} assembly, one thread ({out['card']}): "
+            f"{json.dumps(out[name]['assembly'])}")
+    # A real epoch length: zinc.py's molecules at PIPELINE_LONG_MOLS, split
+    # 0.8 as zinc.py splits them (about 200 packed train steps an epoch).
+    t1 = time.perf_counter()
+    long_splits = split_dataset(synthetic_zinc(PIPELINE_LONG_MOLS, seed=1), 0.8)
+    log(f"[pipeline] zinc_long: zinc.py's molecules, {PIPELINE_LONG_MOLS} (seed 1), splits "
+        f"{[len(x) for x in long_splits]}, made in {time.perf_counter() - t1:.2f} s")
+    runs = {f: pipeline_run(f"zinc_long_{f}", zinc_cfg, long_splits, PIPELINE_FEEDS[f],
+                            late_captures=True)
+            for f in ("pipeline", "serial", "prefetch")}
+    a, b = pipeline_compare("zinc_long", runs)
+    k1, k2 = k1 + a, k2 + b
+    out["zinc_long"] = {f: run["report"] for f, run in runs.items()}
+    out["zinc_long"]["assembly"] = assembly_times("zinc_long", zinc_cfg, long_splits[0],
+                                                  limit=40)
+    log(f"[pipeline] zinc_long assembly, one thread, the first 40 batches ({out['card']}): "
+        f"{json.dumps(out['zinc_long']['assembly'])}")
+    out["k1"], out["k2"] = k1, k2
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[pipeline] {out['seconds']:.1f} s for the phase's {4 * 2 + 3} runs")
+    return out
+
+
 def phase_zinc(configs, splits, loader, first_bin):
     """zinc.json and zinc_bf16.json trained by run_training on the card
     (2 epochs each), then run_prediction; the first train step on the
@@ -4930,6 +5244,7 @@ def phase_multibranch():
         f"AdamW 2e-3), 2 epochs f32 on {MB_SIZES} molecules (seeds 0, 1, 2) split 0.8; "
         f"{MB_RANKS} ranks on cuda:0 in a gloo group (NCCL refuses two ranks on one "
         f"device); devices per branch {split}")
+    log_feed("multibranch", multibranch_config())
     work = tempfile.mkdtemp(prefix="multibranch_")
     t0 = time.perf_counter()
     rcs, logs = mb_spawn(work)
@@ -5460,6 +5775,7 @@ def phase_preempt(config):
     work = tempfile.mkdtemp(prefix="preempt_")
     for d in ("base", "drill"):
         os.makedirs(os.path.join(work, d))
+    log_feed("preempt", preempt_config(config, config["Dataset"]["path"]["total"]))
     with open(os.path.join(work, "config.json"), "w") as f:
         json.dump(preempt_config(config, config["Dataset"]["path"]["total"]), f)
 
@@ -5868,6 +6184,7 @@ def main():
     from hydragnn_tpu_torch.serve.engine import ServingSettings, fit_serving_budgets
     from hydragnn_tpu_torch.serve.loadgen import synthetic_request_samples
 
+    install_feed_log()
     prior_path = phase_build()
     samples = synthetic_request_samples("qm9", N_REQUESTS, seed=0)
     settings = ServingSettings(enabled=True)
@@ -5908,6 +6225,7 @@ def main():
     zinc_bin = next(iter(zinc_loader))
     zinc_rows = phase_zinc_kernels(zinc_bin.to("cuda"))
     zinc = phase_zinc(zinc_cfgs, zinc_splits, zinc_loader, zinc_bin)
+    pipeline = phase_pipeline(mlip_cfg, mlip_splits, zinc_cfgs["fp32"], zinc_splits)
     poly_cfg, poly_splits = polymer_data()
     poly_loader, _ = train_loader(poly_cfg, poly_splits[0])
     check(poly_loader.packing, "polymers.json's packing 'auto' did not pack the chains")
@@ -5955,7 +6273,7 @@ def main():
                      + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
-                     + preempt["k1"] + dp["guard"]["k1"] + tele["k1"]),
+                     + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -5966,7 +6284,8 @@ def main():
                              "polymers_superstep": cap_k1, "dp": dp["run"]["k1"],
                              "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"],
                              "guard": guard["k1"], "preempt": preempt["k1"],
-                             "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"]},
+                             "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
+                             "pipeline": pipeline["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -5998,7 +6317,7 @@ def main():
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
-                     + dp["guard"]["k2"] + tele["k2"]),
+                     + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -6008,7 +6327,8 @@ def main():
                              "polymers_superstep": cap_k2, "dp": dp["run"]["k2"],
                              "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"],
                              "guard": guard["k2"], "preempt": preempt["k2"],
-                             "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"]},
+                             "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
+                             "pipeline": pipeline["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -6043,6 +6363,7 @@ def main():
     log(f"[report] telemetry: {json.dumps(tele)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
+    log(f"[report] pipeline: {json.dumps(pipeline)}")
     log(f"[report] polymers: {json.dumps(polymers)}")
     log(f"[report] zoo: {json.dumps(zoo)}")
     log(f"[report] oc20: {json.dumps(oc20)}")

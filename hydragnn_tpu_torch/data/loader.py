@@ -24,8 +24,13 @@ and multibranch schemes a loader takes a shared ``spec_schedule``
 (``padschedule.dp_spec_schedule``/``slot_spec_schedule``: every rank's
 batch of a step padded to the step's one spec) or packs
 device-coordinated (``pack_dp_shards``: ``padschedule.pack_epoch_ffd_dp``),
-as in the JAX package. Resampling and the parallel input pipeline come
-with ROADMAP Queue 1 item 10.
+as in the JAX package. ``num_samples`` resamples each epoch (with
+replacement past the dataset's size) and ``drop_last`` drops a short
+last batch, as in the JAX package: constructor arguments only, which no
+config key reaches. The parallel feed over a loader's
+epoch plan (collation workers, packed assembly) is
+``data/pipeline.ParallelPipelineLoader``; the prefetch thread is
+``data/prefetch.PrefetchLoader``.
 
 Mid-epoch resume: ``skip_to(step)`` on a loader (and on
 ``SuperstepLoader`` and ``parallel/dp.DPLoader``) makes its next
@@ -91,7 +96,12 @@ class GraphLoader:
     packs device-coordinated for that many data slots. ``spec_schedule``
     pads batch j of epoch e to ``spec_schedule.spec(e, j)``.
     ``with_triplets`` attaches angular triplets (module docstring) and
-    can neither pack nor follow a schedule."""
+    can neither pack nor follow a schedule.
+
+    ``num_samples`` draws that many samples each epoch (the reference's
+    oversampling sampler; with replacement past the dataset's size); it
+    needs ``shuffle``, is never cached, and refuses ``pack_dp_shards`` >
+    1 (a resampled epoch could not be proven coordinatable up front)."""
 
     def __init__(
         self,
@@ -101,6 +111,8 @@ class GraphLoader:
         shuffle: bool = False,
         seed: int = 0,
         fixed_pad: "bool | str" = True,
+        drop_last: bool = False,
+        num_samples: Optional[int] = None,
         with_triplets: bool = False,
         with_segment_plan: bool = True,
         cache_batches: bool = False,
@@ -115,6 +127,12 @@ class GraphLoader:
         self.dataset = list(dataset)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
+        self.num_samples = None if num_samples is None else int(num_samples)
+        if self.num_samples is not None and not shuffle:
+            raise ValueError(
+                "num_samples (oversampling) draws a random sample each epoch; pass shuffle=True"
+            )
+        self.drop_last = bool(drop_last)
         self.with_triplets = bool(with_triplets)
         self.with_segment_plan = bool(with_segment_plan)
         self._seed = int(seed)
@@ -131,6 +149,12 @@ class GraphLoader:
             fixed_pad = False
         self.packing = bool(packing)
         self.pack_dp_shards = max(int(pack_dp_shards), 0)
+        if self.pack_dp_shards > 1 and self.num_samples is not None:
+            raise ValueError(
+                "device-coordinated packing (pack_dp_shards) is incompatible with "
+                "num_samples resampling: a resampled epoch can become infeasible to "
+                "coordinate mid-train"
+            )
         self.pack_budgets: Optional[List] = None
         self._pack_plan_cache: Optional[tuple] = None
         if self.packing:
@@ -162,7 +186,7 @@ class GraphLoader:
             )
             self._auto_selected = not fixed_pad
         self.fixed_pad = fixed_pad
-        self.cache_batches = cache_batches and not shuffle
+        self.cache_batches = cache_batches and not shuffle and self.num_samples is None
         self._batch_cache: Optional[List[GraphBatch]] = None
         self._skip_next = 0
         self.pad_spec: Optional[PadSpec] = None
@@ -175,7 +199,8 @@ class GraphLoader:
     def _epoch_batches(self, epoch: int) -> Iterator[np.ndarray]:
         return epoch_batch_indices(
             len(self.dataset), self.batch_size, shuffle=self.shuffle,
-            seed=self._seed, epoch=epoch,
+            seed=self._seed, epoch=epoch, num_samples=self.num_samples,
+            drop_last=self.drop_last,
         )
 
     def _packed_plan(self, epoch: int) -> List[tuple]:
@@ -239,7 +264,8 @@ class GraphLoader:
             }
         return ladder_spec_keys(
             *self._size_arrays(), self.batch_size, shuffle=self.shuffle,
-            seed=self._seed, epochs=epochs,
+            seed=self._seed, epochs=epochs, num_samples=self.num_samples,
+            drop_last=self.drop_last,
         )
 
     def _ladder_is_small(self) -> bool:
@@ -268,7 +294,10 @@ class GraphLoader:
     def __len__(self) -> int:
         if self.packing:
             return len(self._packed_plan(self._epoch))
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset) if self.num_samples is None else self.num_samples
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _fixed_batch_spec(self) -> PadSpec:
         return PadSpec(

@@ -48,14 +48,25 @@ def epoch_batch_indices(
     shuffle: bool,
     seed: int,
     epoch: int,
+    num_samples: Optional[int] = None,
+    drop_last: bool = False,
 ) -> Iterator[np.ndarray]:
-    """Index arrays of each batch of one epoch, keyed by (seed, epoch)."""
+    """Index arrays of each batch of one epoch, keyed by (seed, epoch).
+    ``num_samples`` draws that many indices instead of a permutation
+    (with replacement when it exceeds ``n``); ``drop_last`` drops a
+    short last batch."""
     rng = np.random.default_rng((seed, epoch))
-    order = np.arange(n)
-    if shuffle:
-        rng.shuffle(order)
+    if num_samples is not None:
+        order = rng.choice(n, size=num_samples, replace=num_samples > n)
+    else:
+        order = np.arange(n)
+        if shuffle:
+            rng.shuffle(order)
     for start in range(0, len(order), batch_size):
-        yield order[start : start + batch_size]
+        idx = order[start : start + batch_size]
+        if drop_last and len(idx) < batch_size:
+            return
+        yield idx
 
 
 def ladder_spec(tot_nodes: int, tot_edges: int, n_graphs: int) -> PadSpec:
@@ -76,13 +87,16 @@ def ladder_spec_keys(
     shuffle: bool,
     seed: int,
     epochs: int,
+    num_samples: Optional[int] = None,
+    drop_last: bool = False,
 ) -> set:
     """Distinct (nodes, edges, graphs) ladder keys over the first
-    ``epochs`` epochs' batches."""
+    ``epochs`` epochs' batches (``epoch_batch_indices``' order)."""
     keys = set()
     for ep in range(epochs):
         for idx in epoch_batch_indices(
-            len(node_sizes), batch_size, shuffle=shuffle, seed=seed, epoch=ep
+            len(node_sizes), batch_size, shuffle=shuffle, seed=seed, epoch=ep,
+            num_samples=num_samples, drop_last=drop_last,
         ):
             spec = ladder_spec(
                 int(node_sizes[idx].sum()), int(edge_sizes[idx].sum()), len(idx)

@@ -295,12 +295,10 @@ def main(argv=None):
         _check_num_nodes_bound,
         _ingest_datasets,
         _prediction_model,
-        _refuse_unported,
         restore_checkpoint_state,
     )
 
     config = load_config(args.config)
-    _refuse_unported(config)
     trainset, valset, testset = _ingest_datasets(config)
     config = update_config(config, trainset, valset, testset)
     # as run_training/run_prediction: an artifact whose dense scatter

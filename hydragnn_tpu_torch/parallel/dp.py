@@ -255,12 +255,20 @@ class DPLoader:
     batches. A fixed-order loader with ``cache_batches`` replays its
     first epoch's deliveries. ``skip_to(step)`` starts the next
     iteration at dp step ``step`` (the last short step counts as one),
-    collating none of the consumed entries."""
+    collating none of the consumed entries.
+
+    ``loader`` may be a ``data/pipeline.ParallelPipelineLoader`` over the
+    GraphLoader: its workers then collate this slot's entries
+    (``iter_groups``) and deliver them in order, bit for bit the serial
+    slot's batches."""
 
     def __init__(self, loader, mesh, superstep_k: int = 1):
+        from hydragnn_tpu_torch.data.pipeline import ParallelPipelineLoader
         from hydragnn_tpu_torch.parallel.runtime import process_count, process_index
 
         self.loader = loader
+        self._pipe = loader if isinstance(loader, ParallelPipelineLoader) else None
+        self._base = loader.loader if self._pipe is not None else loader
         self.mesh = mesh
         self.superstep_k = max(1, int(superstep_k))
         p = process_count()
@@ -271,9 +279,21 @@ class DPLoader:
         self._cache: Optional[list] = None
         self._skip_next = 0
 
+    @staticmethod
+    def required_hold(prefetch: int = 0) -> int:
+        """The deliveries a ``ParallelPipelineLoader`` under this loader
+        must keep a batch's recycled buffers for. The JAX package's
+        ``DPLoader`` buffers the ``n`` slots (``K * n`` under supersteps)
+        of a step before it stacks them; this one passes each delivery
+        (a batch, or one ``MacroBatch`` holding all K) straight on, so
+        what must be covered is the ``prefetch`` queue above it plus the
+        batch in the loop's hands: a recycled delivery has then been
+        copied to the card."""
+        return max(2, int(prefetch) + 2)
+
     @property
     def dataset(self):
-        return self.loader.dataset
+        return self._base.dataset
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
@@ -286,7 +306,7 @@ class DPLoader:
         self._skip_next = max(0, int(step))
 
     def _plan(self) -> list:
-        return list(self.loader.epoch_plan(self.loader._epoch))
+        return list(self._base.epoch_plan(self._base._epoch))
 
     def _groups(self, plan: list) -> List[int]:
         from hydragnn_tpu_torch.data.padschedule import dp_step_plan, superstep_groups
@@ -297,16 +317,19 @@ class DPLoader:
         return [len(g) for g in superstep_groups(steps, self.superstep_k)]
 
     def __len__(self) -> int:
-        if not len(self.loader):
+        if not len(self._base):
             return 0
         plan = self._plan()
         return len(self._groups(plan)) + (1 if len(plan) % self.n else 0)
+
+    def _collate(self, entries: list):
+        batches = [self._base.collate_entry(*e) for e in entries]
+        return MacroBatch(batches) if len(batches) > 1 else batches[0]
 
     def _deliveries(self, skip: int = 0):
         from hydragnn_tpu_torch.data.loader import drop_consumed_groups
 
         plan = self._plan()
-        collate = self.loader.collate_entry
         groups, t = [], 0
         for k in self._groups(plan):
             groups.append(list(range(t, t + k)))
@@ -314,15 +337,23 @@ class DPLoader:
         tail = plan[t * self.n :]
         if tail:
             groups.append([t])
+        entries, masked = [], []
         for steps in drop_consumed_groups(groups, skip):
             if steps[0] == t:  # the short last step
-                if self.slot < len(tail):
-                    yield collate(*tail[self.slot])
-                else:
-                    yield _masked_out(collate(*tail[(self.slot - len(tail)) % len(tail)]))
+                mine = self.slot < len(tail)
+                entries.append([tail[self.slot if mine else
+                                     (self.slot - len(tail)) % len(tail)]])
+                masked.append(not mine)
                 continue
-            batches = [collate(*plan[s * self.n + self.slot]) for s in steps]
-            yield MacroBatch(batches) if len(batches) > 1 else batches[0]
+            entries.append([plan[s * self.n + self.slot] for s in steps])
+            masked.append(False)
+        items = (self._pipe.iter_groups(entries) if self._pipe is not None
+                 else (self._collate(e) for e in entries))
+        try:
+            for item, m in zip(items, masked):
+                yield _masked_out(item) if m else item
+        finally:
+            items.close()  # stops the pipeline's workers on an early exit
 
     def __iter__(self):
         for item in self._iter_items():
@@ -332,14 +363,20 @@ class DPLoader:
     def _iter_items(self):
         from hydragnn_tpu_torch.data.loader import skip_delivered_items
 
+        from hydragnn_tpu_torch.data.pipeline import owned_copy
+
         skip, self._skip_next = self._skip_next, 0
+        pipe = self._pipe
         if self._cache is not None:
             yield from skip_delivered_items(self._cache, skip)
-            return
-        cache = [] if getattr(self.loader, "cache_batches", False) and not skip else None
-        for item in self._deliveries(skip):
+        else:
+            cache = [] if self._base.cache_batches and not skip else None
+            own = pipe is not None and pipe.recycle
+            for item in self._deliveries(skip):
+                if cache is not None:
+                    cache.append(owned_copy(item) if own else item)
+                yield item
             if cache is not None:
-                cache.append(item)
-            yield item
-        if cache is not None:
-            self._cache = cache
+                self._cache = cache
+        if pipe is not None:
+            pipe.stats.epochs += 1

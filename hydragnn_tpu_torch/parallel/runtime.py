@@ -15,8 +15,9 @@ uses ``cuda:LOCAL_RANK`` (``device.resolve_device``).
   the caller made first is kept).
 - ``ParallelPlan``/``plan_from_config`` resolve ``Training.Parallelism``
   as the JAX package does (``scheme``, ``data``, ``fsdp``, ``zero``,
-  ``HYDRAGNN_TPU_MESH``, ``HYDRAGNN_TPU_USE_FSDP``, packing, supersteps);
-  ``"auto"`` is dp when the world holds more than one rank.
+  ``HYDRAGNN_TPU_MESH``, ``HYDRAGNN_TPU_USE_FSDP``, packing, supersteps,
+  ``prefetch`` and the ``pipeline`` feed); ``"auto"`` is dp when the
+  world holds more than one rank.
 - A JAX *process* is a node here: every rank of a node gets the node's
   datasets and builds the same coordinated plan, and takes its own slot
   of each step (``parallel/dp.DPLoader``), so the ranks of one node
@@ -29,10 +30,13 @@ uses ``cuda:LOCAL_RANK`` (``device.resolve_device``).
 - ``wrap_loader``, ``prepare_state`` and ``gather_to_host`` wire a
   plan's loaders and state; ``_superstep_from_config`` and
   ``resolve_superstep_k`` give the superstep K (dp folds the plan to
-  steps first, ``padschedule.dp_step_plan``).
+  steps first, ``padschedule.dp_step_plan``). ``wrap_loader`` puts the
+  feed under every single and dp loader as the JAX package does: the
+  collation workers (``data/pipeline.ParallelPipelineLoader``) where
+  ``pipeline_workers`` > 0, which on a host of 4 or more CPUs is the
+  default, else the prefetch thread (``data/prefetch.PrefetchLoader``).
 
-The parallel input pipeline (``Parallelism.pipeline``) is ROADMAP Queue
-1 item 10, and the graph-sharded MPNN item 11b.
+The graph-sharded MPNN is ROADMAP Queue 1 item 11b.
 """
 
 from __future__ import annotations
@@ -122,17 +126,25 @@ def maybe_initialize_distributed(backend: Optional[str] = None) -> bool:
 
 @dataclass(frozen=True)
 class ParallelPlan:
-    """Resolved parallelism of one run (the JAX package's, without the
-    input pipeline's and the prefetch thread's fields: item 10). ``mesh`` is the ranks' layout
-    (``parallel/mesh.DataMesh``: ``data`` x ``fsdp``); ``fsdp`` shards
-    parameters with FSDP2, over the data axis itself (``fsdp_axis
-    "data"``, ZeRO) or over the ``fsdp`` axis (HSDP)."""
+    """Resolved parallelism of one run (the JAX package's). ``mesh`` is
+    the ranks' layout (``parallel/mesh.DataMesh``: ``data`` x ``fsdp``);
+    ``fsdp`` shards parameters with FSDP2, over the data axis itself
+    (``fsdp_axis "data"``, ZeRO) or over the ``fsdp`` axis (HSDP).
+    ``prefetch`` is the prefetch thread's depth (0: none);
+    ``pipeline_workers`` > 0 feeds through that many collation workers
+    (``pipeline_depth`` chunks in flight, ``pipeline_chunk`` batches a
+    chunk, ``pipeline_packed`` pooled packed assembly)."""
 
     scheme: str  # "single" | "dp" | "multibranch"
     mesh: Optional[DataMesh] = None
     fsdp: bool = False
     fsdp_axis: str = "fsdp"
     devices_per_branch: Optional[Tuple[int, ...]] = None
+    prefetch: int = 2
+    pipeline_workers: int = 0
+    pipeline_depth: int = 4
+    pipeline_packed: bool = True
+    pipeline_chunk: int = 4
     packing: "bool | str" = "auto"
     packing_max_budgets: int = 2
     packing_slack: Optional[float] = None
@@ -154,6 +166,36 @@ def _parse_mesh_env(spec: str) -> dict:
         k, _, v = part.partition("=")
         axes[k.strip()] = int(v)
     return axes
+
+
+def _pipeline_from_config(pcfg: dict) -> dict:
+    """The ``Parallelism.pipeline`` block (``workers``, ``depth``,
+    ``packed``, ``chunk``) with the overrides
+    ``HYDRAGNN_TPU_PIPELINE_{WORKERS,DEPTH,CHUNK,PACKED}``, as the JAX
+    package resolves it. Without a ``workers`` setting the count adapts
+    to the host: ``min(4, cpus - 2)`` on 4 or more CPUs, else 0 (the
+    serial feed, where workers would only compete with the step for
+    the cores); ``workers: 0`` asks for the serial feed anywhere."""
+    pl = dict(pcfg.get("pipeline", {}))
+    for key, env in (("workers", "HYDRAGNN_TPU_PIPELINE_WORKERS"),
+                     ("depth", "HYDRAGNN_TPU_PIPELINE_DEPTH"),
+                     ("chunk", "HYDRAGNN_TPU_PIPELINE_CHUNK")):
+        v = os.environ.get(env)
+        if v is not None and v.strip():
+            pl[key] = int(v)
+    v = os.environ.get("HYDRAGNN_TPU_PIPELINE_PACKED")
+    if v is not None and v.strip():
+        pl["packed"] = v.strip().lower() not in ("0", "false", "no")
+    workers = pl.get("workers")
+    if workers is None:
+        n_cpu = os.cpu_count() or 1
+        workers = 0 if n_cpu < 4 else min(4, n_cpu - 2)
+    return {
+        "pipeline_workers": max(0, int(workers)),
+        "pipeline_depth": max(1, int(pl.get("depth", 4))),
+        "pipeline_packed": bool(pl.get("packed", True)),
+        "pipeline_chunk": max(1, int(pl.get("chunk", 4))),
+    }
 
 
 def _packing_from_config(pcfg: dict) -> dict:
@@ -269,9 +311,10 @@ def resolve_superstep_k(settings, loader) -> int:
 def plan_from_config(config: dict, n_devices: Optional[int] = None) -> ParallelPlan:
     """Resolve the parallelism plan from ``Training.Parallelism``
     (``scheme`` "auto"/"single"/"dp"/"multibranch", ``data`` (-1 fills),
-    ``fsdp``, ``zero``, ``prefetch``, ``packing``, ``superstep``) and the
-    overrides ``HYDRAGNN_TPU_MESH="data=4,fsdp=2"`` and
-    ``HYDRAGNN_TPU_USE_FSDP``, as the JAX package resolves it over
+    ``fsdp``, ``zero``, ``prefetch``, ``pipeline``, ``packing``,
+    ``superstep``) and the overrides ``HYDRAGNN_TPU_MESH="data=4,fsdp=2"``,
+    ``HYDRAGNN_TPU_USE_FSDP`` and ``_pipeline_from_config``'s, as the JAX
+    package resolves it over
     ``n_devices`` (the world size by default): "auto" is dp over every
     rank when there is more than one, single otherwise."""
     n_dev = world_size() if n_devices is None else int(n_devices)
@@ -285,12 +328,13 @@ def plan_from_config(config: dict, n_devices: Optional[int] = None) -> ParallelP
         if "fsdp" in axes:
             pcfg["fsdp"] = axes["fsdp"]
     scheme = pcfg.get("scheme", "auto")
+    feed = {"prefetch": int(pcfg.get("prefetch", 2)), **_pipeline_from_config(pcfg)}
     packing = _packing_from_config(pcfg)
     superstep = _superstep_from_config(pcfg)
     if scheme == "auto":
         scheme = "dp" if n_dev > 1 else "single"
     if scheme == "single":
-        return ParallelPlan(scheme="single", **packing, **superstep)
+        return ParallelPlan(scheme="single", **feed, **packing, **superstep)
     if scheme not in ("dp", "multibranch"):
         raise ValueError(f"Parallelism.scheme {scheme!r} not in auto/single/dp/multibranch")
     zero = bool(pcfg.get("zero", False)) or os.environ.get(
@@ -310,6 +354,7 @@ def plan_from_config(config: dict, n_devices: Optional[int] = None) -> ParallelP
         mesh=make_mesh({"data": data_size, "fsdp": fsdp_size}),
         fsdp=fsdp_size > 1 or zero,
         fsdp_axis="fsdp" if fsdp_size > 1 else "data",
+        **feed,
         **packing,
         **superstep,
     )
@@ -330,23 +375,60 @@ def shard_dataset_for_process(samples: Sequence) -> list:
     return [samples[k] for k in list(block)[: len(samples) // p]]
 
 
-def wrap_loader(plan: ParallelPlan, loader, *, superstep: bool = True):
-    """A loader wrapped for the plan: under dp this rank's slot of every
-    step (``parallel/dp.DPLoader``, grouping K same-spec steps where
-    ``resolve_superstep_k`` says so); on the single scheme superstep
-    groups (``data/loader.SuperstepLoader``) for K > 1. ``superstep=
-    False`` pins K = 1 (the per-batch test pass). The host feeds serially
-    (the prefetch thread and the pipeline are item 10)."""
+def wrap_loader(plan: ParallelPlan, loader, *, superstep: bool = True, device=None):
+    """A GraphLoader wrapped for the plan, as the JAX package wraps it:
+
+    - dp: the collation workers (``data/pipeline.ParallelPipelineLoader``)
+      where ``pipeline_workers`` > 0, then this rank's slot of every step
+      (``parallel/dp.DPLoader``, grouping K same-spec steps where
+      ``resolve_superstep_k`` says so, its slot's entries collated by the
+      workers), then the prefetch thread (``data/prefetch.PrefetchLoader``)
+      where ``prefetch`` > 0;
+    - single: the workers delivering superstep groups of K where
+      ``pipeline_workers`` > 0; else ``data/loader.SuperstepLoader`` for
+      K > 1 and the prefetch thread.
+
+    ``superstep=False`` pins K = 1 (the per-batch test pass). ``device``
+    is where the consumer runs the steps: on a card every batch is copied
+    to it before the next is taken, so the workers recycle their packed
+    buffers after ``hold`` deliveries (``DPLoader.required_hold`` covers
+    the prefetch queue); elsewhere each batch keeps its own buffers."""
+    from hydragnn_tpu_torch.data.pipeline import ParallelPipelineLoader
+    from hydragnn_tpu_torch.data.prefetch import PrefetchLoader
+
     k = resolve_superstep_k(plan, loader) if superstep else 1
+    workers = plan.pipeline_workers
+    pipe_kw = dict(workers=workers, depth=plan.pipeline_depth, packed=plan.pipeline_packed,
+                   chunk=plan.pipeline_chunk,
+                   recycle=device is not None and torch.device(device).type == "cuda")
     if plan.scheme == "dp":
         from hydragnn_tpu_torch.parallel.dp import DPLoader
 
-        return DPLoader(loader, plan.mesh, superstep_k=k)
+        if workers > 0:
+            loader = ParallelPipelineLoader(
+                loader, hold=DPLoader.required_hold(plan.prefetch), **pipe_kw)
+        loader = DPLoader(loader, plan.mesh, superstep_k=k)
+        return PrefetchLoader(loader, depth=plan.prefetch) if plan.prefetch > 0 else loader
+    if workers > 0:
+        return ParallelPipelineLoader(loader, superstep_k=k, **pipe_kw)
     if k > 1:
         from hydragnn_tpu_torch.data.loader import SuperstepLoader
 
-        return SuperstepLoader(loader, k)
-    return loader
+        loader = SuperstepLoader(loader, k)
+    return PrefetchLoader(loader, depth=plan.prefetch) if plan.prefetch > 0 else loader
+
+
+def feed_line(plan: ParallelPlan) -> str:
+    """The feed ``wrap_loader`` builds for the plan, as a run logs it
+    (the JAX runner's line where the workers run; the prefetch thread
+    sits above the dp slot loader, and is the whole feed without
+    workers)."""
+    if plan.pipeline_workers > 0 and plan.scheme != "multibranch":
+        line = (f"input pipeline: workers={plan.pipeline_workers} "
+                f"depth={plan.pipeline_depth} packed={plan.pipeline_packed} "
+                f"chunk={plan.pipeline_chunk}")
+        return line + (f", prefetch={plan.prefetch}" if plan.scheme == "dp" else "")
+    return f"input feed: serial, prefetch={plan.prefetch}"
 
 
 def prepare_state(plan: ParallelPlan, state, device):

@@ -39,7 +39,18 @@ shape (``GraphLoader(with_triplets=True)``).
 Supersteps (``Training.Parallelism.superstep``) are resolved as the JAX
 runner resolves them on the single scheme (``parallel/runtime.py``: an
 integer pins K, ``"auto"`` asks the epoch plan), and a loader with K > 1
-delivers K-batch groups (``data/loader.SuperstepLoader``). On the card
+delivers K-batch groups (``data/loader.SuperstepLoader``, or the
+pipeline's own groups).
+
+The input feed (``Training.Parallelism.pipeline`` and ``prefetch``) is
+resolved and wrapped as the JAX runner does it
+(``parallel/runtime.wrap_loader``): collation workers where
+``pipeline.workers`` > 0 (by default ``min(4, cpus - 2)`` on a host of 4
+or more CPUs), else the prefetch thread; the run logs the feed at
+verbosity 2. The multibranch scheme ignores ``pipeline.workers``, with
+the JAX package's message, and prefetches its three loaders. The
+workers and the prefetch thread hand host batches to the loop, which
+makes the one copy to the card. On the card
 every train, eval and test step runs through the run's CUDA-graph cache
 (``train/capture.StepGraphs``, kept on the returned state), as the JAX
 package runs every step through ``jax.jit``; a capture that fails
@@ -77,8 +88,8 @@ end of training from an eval-shaped, unpacked loader over the train
 split.
 
 Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-it: the parallel input pipeline and dataset formats other than the raw
-LSMS text files (Queue 1 item 10). An interatomic-potential config
+them: dataset formats other than the raw LSMS text files (Queue 1 item
+10c). An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
 and ``run_prediction`` then returns graph energies and forces.
 """
@@ -100,7 +111,7 @@ from hydragnn_tpu_torch.data.graph import (
     count_triplets,
     select_input_features,
 )
-from hydragnn_tpu_torch.data.loader import GraphLoader, SuperstepLoader, split_dataset
+from hydragnn_tpu_torch.data.loader import GraphLoader, split_dataset
 from hydragnn_tpu_torch.data.padschedule import (
     dataset_size_arrays,
     dp_packing_beats_schedule,
@@ -109,6 +120,7 @@ from hydragnn_tpu_torch.data.padschedule import (
     packing_beats_ladder,
     worst_case_spec_from_sizes,
 )
+from hydragnn_tpu_torch.data.prefetch import PrefetchLoader
 from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config, needs_triplets
@@ -119,7 +131,7 @@ from hydragnn_tpu_torch.parallel.multibranch import (
     dual_optimizer,
     proportional_branch_split,
 )
-from hydragnn_tpu_torch.parallel.runtime import _superstep_from_config, resolve_superstep_k
+from hydragnn_tpu_torch.parallel.runtime import resolve_superstep_k
 from hydragnn_tpu_torch.train.capture import StepGraphs
 from hydragnn_tpu_torch.train.loop import bn_recalibration_epochs, train_validate_test
 from hydragnn_tpu_torch.train.loop import test as run_test
@@ -152,7 +164,7 @@ def _ingest_datasets(config: dict) -> Tuple[List[GraphSample], ...]:
     if fmt not in ("unit_test", "LSMS"):
         raise NotImplementedError(
             f"Dataset.format {fmt!r} is not ported yet (the port reads the raw "
-            "LSMS text format): ROADMAP Queue 1 item 10"
+            "LSMS text format): ROADMAP Queue 1 item 10c"
         )
     paths = ds.get("path", {})
     if not isinstance(paths, dict):
@@ -196,17 +208,6 @@ def _check_num_nodes_bound(config: dict, *datasets) -> None:
         raise ValueError(
             f"Graph with {max_n} nodes exceeds Architecture.num_nodes="
             f"{bound}; raise num_nodes (it must bound every split)"
-        )
-
-
-def _refuse_unported(config: dict) -> None:
-    """Raise on every configured feature the port does not port yet."""
-    training = config["NeuralNetwork"].get("Training", {})
-    par = training.get("Parallelism", {})
-    if int(par.get("pipeline", {}).get("workers", 0) or 0) > 0:
-        raise NotImplementedError(
-            "the parallel input pipeline is not ported yet (the port collates "
-            "serially): ROADMAP Queue 1 item 10"
         )
 
 
@@ -367,21 +368,15 @@ def _devices_per_branch(plan, branch_sets) -> List[int]:
     return proportional_branch_split([len(b[0]) for b in branch_sets], d)
 
 
-def _with_supersteps(settings: dict, loader):
-    """``loader`` delivering superstep groups of the K it resolves to
-    (itself when K is 1)."""
-    k = resolve_superstep_k(settings, loader)
-    return SuperstepLoader(loader, k) if k > 1 else loader
-
-
 def _step_graphs(dev: torch.device) -> Optional[StepGraphs]:
     """The run's CUDA-graph cache on a card; None on the CPU."""
     return StepGraphs(dev) if dev.type == "cuda" else None
 
 
-def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbosity):
+def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbosity, dev):
     """The dp scheme's (train, val, test) loaders, wrapped to this
-    rank's slot: as the JAX runner forms them (the node's shards;
+    rank's slot and fed for the plan on ``dev``
+    (``runtime.wrap_loader``): as the JAX runner forms them (the node's shards;
     device-coordinated packing where ``resolve_packing`` says so, with a
     per-split fallback when a split cannot feed every slot; else the
     cross-rank spec schedules or the worst case)."""
@@ -424,12 +419,14 @@ def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbo
                 loaders[i] = _build(i, ds, False)
     if multinode and not (scheds and scheds[0][0] is not None):
         _pin_full_worst_specs(list(zip(loaders, datasets)), batch_size, trips)
-    return tuple(runtime.wrap_loader(plan, ld) for ld in loaders)
+    return tuple(runtime.wrap_loader(plan, ld, device=dev) for ld in loaders)
 
 
-def _single_loaders(config, training, datasets, batch_size, seed, trips, seg_plan, verbosity):
-    """The single scheme's (train, val, test) loaders (superstep groups
-    where K > 1) and the batch-norm recalibration feed (None when
+def _single_loaders(config, plan, training, datasets, batch_size, seed, trips, seg_plan,
+                    verbosity, dev):
+    """The single scheme's (train, val, test) loaders, fed for the plan
+    on ``dev`` (``runtime.wrap_loader``: superstep groups where K > 1),
+    and the batch-norm recalibration feed (None when
     ``Training.bn_recalibration`` is off)."""
     trainset, valset, testset = datasets
     pk = packing_settings(config)
@@ -459,27 +456,37 @@ def _single_loaders(config, training, datasets, batch_size, seed, trips, seg_pla
         GraphLoader(trainset, batch_size, with_triplets=trips, with_segment_plan=seg_plan)
         if bn_recalibration_epochs(training) else None
     )
-    superstep = _superstep_from_config(training.get("Parallelism", {}))
+    k = resolve_superstep_k(plan, train_loader)
+    if k > 1:
+        print_distributed(verbosity, 2, f"supersteps: K = {k}")
     train_loader, val_loader, test_loader = (
-        _with_supersteps(superstep, ld) for ld in (train_loader, val_loader, test_loader))
-    if isinstance(train_loader, SuperstepLoader):
-        print_distributed(verbosity, 2, f"supersteps: K = {train_loader.k}")
+        runtime.wrap_loader(plan, ld, device=dev)
+        for ld in (train_loader, val_loader, test_loader))
     return train_loader, val_loader, test_loader, recal_loader
 
 
-def _multibranch_loaders(plan, branch_sets, batch_size, seed, trips, seg_plan):
+def _multibranch_loaders(plan, branch_sets, batch_size, seed, trips, seg_plan, verbosity):
     """The multibranch scheme's (train, val, test) ``MultiBranchLoader``s
     over this rank's slot (variable padding "auto", as the JAX runner's
-    default; triplet-bearing models keep the worst case)."""
+    default; triplet-bearing models keep the worst case), each behind
+    the prefetch thread where ``plan.prefetch`` > 0. The collation
+    workers drive one GraphLoader's plan; a ``MultiBranchLoader`` owns
+    its slot loaders, so ``pipeline.workers`` is ignored, as in the JAX
+    package."""
+    if plan.pipeline_workers > 0:
+        print_distributed(verbosity, 2, "input pipeline: multibranch scheme uses the "
+                          "single-thread prefetch feed (pipeline.workers ignored)")
     dpb = plan.devices_per_branch
     slot = plan.mesh.slot()
-    return tuple(
+    loaders = (
         MultiBranchLoader([d[i] for d in branch_sets], dpb, batch_size, slot,
                           shuffle=i == 0, seed=seed, with_triplets=trips,
                           variable_pad=False if trips else "auto",
                           with_segment_plan=seg_plan)
         for i in range(3)
     )
+    return tuple(PrefetchLoader(ld, depth=plan.prefetch) if plan.prefetch > 0 else ld
+                 for ld in loaders)
 
 
 def _plan_for_world(config: dict):
@@ -525,7 +532,6 @@ def run_training(
 
     Returns (state, model, cfg, history, config)."""
     config = load_config(config_source)
-    _refuse_unported(config)
     runtime.maybe_initialize_distributed()
     dev = resolve_device(device)
     verbosity = int(config.get("Verbosity", {}).get("level", 0))
@@ -573,17 +579,19 @@ def run_training(
         print_distributed(verbosity, 2, f"multibranch: devices per branch "
                           f"{list(plan.devices_per_branch)}")
         train_loader, val_loader, test_loader = _multibranch_loaders(
-            plan, branch_sets, batch_size, seed, trips, seg_plan)
+            plan, branch_sets, batch_size, seed, trips, seg_plan, verbosity)
     elif plan.scheme == "dp":
         print_distributed(verbosity, 2, f"dp: mesh {plan.mesh.shape}, "
                           f"{'FSDP2 ' + plan.fsdp_axis if plan.fsdp else 'replicated'}")
         train_loader, val_loader, test_loader = _dp_loaders(
             config, plan, (trainset, valset, testset), batch_size, seed, trips, seg_plan,
-            verbosity)
+            verbosity, dev)
     else:
         train_loader, val_loader, test_loader, recal_loader = _single_loaders(
-            config, training, (trainset, valset, testset), batch_size, seed, trips,
-            seg_plan, verbosity)
+            config, plan, training, (trainset, valset, testset), batch_size, seed, trips,
+            seg_plan, verbosity, dev)
+    if not multibranch:
+        print_distributed(verbosity, 2, runtime.feed_line(plan))
     model = runtime.prepare_state(plan, model, dev)
     optimizer = (dual_optimizer(model, training) if multibranch
                  else select_optimizer(model.parameters(), training))
@@ -736,7 +744,6 @@ def run_prediction(
     every rank. A dp plan takes that pass wherever a process group
     exists, at one rank too, as training does."""
     config = load_config(config_source)
-    _refuse_unported(config)
     grouped = runtime.maybe_initialize_distributed()
     scheme = config["NeuralNetwork"].get("Training", {}).get("Parallelism", {}).get("scheme")
     if scheme == "multibranch":
@@ -776,7 +783,8 @@ def run_prediction(
     p = runtime.process_count()
     if sched is None and p > 1:
         _pin_full_worst_specs([(base, testset)], batch_size, trips)
-    result = run_test(model, cfg, state, runtime.wrap_loader(plan, base, superstep=False),
+    result = run_test(model, cfg, state,
+                      runtime.wrap_loader(plan, base, superstep=False, device=dev),
                       plan=plan, **kw)
     leftover = list(testset[(len(testset) // p) * p :])
     if not leftover:

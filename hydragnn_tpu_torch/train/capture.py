@@ -47,6 +47,12 @@ Each capture is a compile to the run's telemetry
 a key's first eager run may be counted (``utils/telemetry.ExecCounter``:
 the flops and bytes of its ``executable`` row).
 
+The one host-to-device copy of a step's batches is made here, on the
+caller's thread (``StaticBatches.load`` for a replay, ``GraphBatch.to``
+for an eager run): its host time and batch count accumulate in
+``h2d_seconds`` and ``h2d_batches``, which the epoch loop hands to the
+input pipeline's stats.
+
 ``record`` captures without keeping the graph and ``put`` keeps it under
 a key, releasing the graph it replaces: a caller that must capture
 several graphs all or nothing (``ServingEngine.install_executables``)
@@ -177,6 +183,8 @@ class StepGraphs:
         self.captures = 0
         self.replays = 0
         self.capture_seconds = 0.0
+        self.h2d_seconds = 0.0
+        self.h2d_batches = 0
 
     def run(self, key: Hashable, fn: Callable, batches: Sequence, counter=None) -> tuple:
         """``counter`` (a ``utils/telemetry.ExecCounter``) counts the
@@ -192,7 +200,10 @@ class StepGraphs:
         """``fn`` run eagerly on the batches, on the side stream (under
         ``counter``'s count when one is given, for the graph of ``key``)."""
         with GRAPH_LOCK:
+            t0 = time.perf_counter()
             dev = [b.to(self.device) for b in batches]
+            self.h2d_seconds += time.perf_counter() - t0
+            self.h2d_batches += len(batches)
             cur = torch.cuda.current_stream(self.device)
             self._side.wait_stream(cur)
             with torch.cuda.stream(self._side):
@@ -277,7 +288,10 @@ class StepGraphs:
         """Copy ``batches`` into ``key``'s static buffers and replay it."""
         with GRAPH_LOCK:
             step = self.graphs[key]
+            t0 = time.perf_counter()
             step.static.load(batches)
+            self.h2d_seconds += time.perf_counter() - t0
+            self.h2d_batches += len(batches)
             step.graph.replay()
             for c, n in zip(_launch_counters(), step.launches):
                 c.launches += n

@@ -2,8 +2,8 @@
 
 Counterpart of ``hydragnn_tpu/train/loop.py``: ``make_train_step``,
 ``make_eval_step``, ``fold_step_metrics``, ``make_superstep_fn``,
-``superstep_task_count``, ``History``, ``train_validate_test`` (the
-serial feed, with superstep groups) and ``test``. An epoch runs each
+``superstep_task_count``, ``History``, ``train_validate_test`` (any
+feed, with superstep groups) and ``test``. An epoch runs each
 batch's step on the device and keeps the graph-weighted loss sums there;
 the host fetches them once at the end of the epoch (the JAX loop's
 discipline), never per step. The plateau scheduler steps on the
@@ -68,8 +68,14 @@ with the live MFU, and counts each key's first dispatch into an
 opens a ``torch.profiler`` window over one epoch, each dispatch inside a
 ``train_step``/``eval_step`` range.
 
-Not ported yet, and refused by the runner: the pipeline feed (ROADMAP
-item 10).
+The feed (``parallel/runtime.wrap_loader``: collation workers or the
+prefetch thread) hands the loop host batches; the loop thread makes the
+one copy to the card. Where the chain holds a
+``data/pipeline.ParallelPipelineLoader``, each dispatch's host-to-device
+time on the card (the graph cache's ``h2d_seconds``) goes into its
+``PipelineStats``, and after each pass (its last copy recorded) the
+loop flushes the stats and samples the pass's starved deliveries as
+``{region}/pipeline_starved_steps``.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ import numpy as np
 import torch
 
 from hydragnn_tpu_torch.data.loader import MacroBatch, feed_supports_skip
+from hydragnn_tpu_torch.data.pipeline import pipeline_stats
 from hydragnn_tpu_torch.models.layers import MaskedBatchNorm
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train import guard as guard_mod
@@ -484,6 +491,9 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
     trace_sync = trace_env.isdigit() and int(trace_env) > 0 and dev.type == "cuda"
     clock = telemetry.epoch_clock(loader, region, step0=step0)
     telemetry.note_phase(region)
+    pstats = pipeline_stats(loader)
+    starved_before = pstats.starved_steps if pstats is not None else 0
+    graphs = state.graphs if pstats is not None else None
     n = step0
     max_k = 0
     prev_end = None
@@ -506,6 +516,8 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
             tr.sample(f"{region}/dispatch_gap", t_dispatch - prev_end)
         probe = None if clock is None else clock.probe(batches[0], k)
         kw = {} if probe is None else {"probe": probe}
+        if graphs is not None:
+            h2d = (graphs.h2d_seconds, graphs.h2d_batches)
         tr.start(f"{region}/step")
         with tr.step_annotation(f"{region}_step", n, batches[0], k):
             if not train:
@@ -517,6 +529,8 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
             if trace_sync:
                 torch.cuda.synchronize(dev)
         tr.stop(f"{region}/step")
+        if graphs is not None:
+            pstats.record_h2d(graphs.h2d_seconds - h2d[0], graphs.h2d_batches - h2d[1])
         tr.note_trace_step()
         prev_end = time.perf_counter()
         tr.sample(f"{region}/steps_per_dispatch", float(k))
@@ -531,6 +545,10 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
                 guard.observe(step=n, k=k, ok_ref=oks, gnorm_ref=gnorms)
         if step_hook is not None:
             step_hook(state, n, acc)
+    if pstats is not None:
+        pstats.flush_to_tracer()
+        tr.sample(f"{region}/pipeline_starved_steps",
+                  float(pstats.starved_steps - starved_before))
     pack = _packing_stats(loader)
     if pack is not None:
         tr.sample(f"{region}/pack_pad_ratio", float(pack["pad_ratio"]))
@@ -1017,7 +1035,10 @@ def test(
                 y, m = np.asarray(batch.y_node)[:, start:end], nm
             trues[hi].append(y[m])
             preds[hi].append(out[m])
-    error, tasks_avg = (0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
+    pstats = pipeline_stats(loader)
+    if pstats is not None:
+        pstats.flush_to_tracer()
+    error, tasks_avg =(0.0, np.zeros(1)) if acc is None else _fetch_epoch(*acc)
     if red is not None and gather and red.active:
         both = _gather_slots(trues + preds, plan)
         trues, preds = both[:n_coll], both[n_coll:]

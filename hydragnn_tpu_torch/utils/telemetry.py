@@ -838,7 +838,11 @@ def _feed_labels(loader) -> tuple:
     ld, depth = loader, 0
     while ld is not None and depth < 8:
         name = type(ld).__name__
-        if name == "SuperstepLoader":
+        if name == "ParallelPipelineLoader":
+            labels.append("pipeline")
+        elif name == "PrefetchLoader":
+            labels.append("prefetch")
+        elif name == "SuperstepLoader":
             labels.append("superstep")
         elif name == "DPLoader":
             labels.append("dp")

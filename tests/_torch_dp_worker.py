@@ -13,9 +13,10 @@ and multibranch steps and the dp ``run_training``/``run_prediction``
 guard on a healthy run and on an injected NaN, and a run stopped
 mid-epoch then continued), the multibranch guard (guarded steps, a
 label poison on one branch) and a multibranch run stopped mid-epoch
-then continued, and the sharded checkpoint format under ZeRO (a state
-saved and restored, and a ZeRO run in both formats), and writes what it
-saw to ``out<RANK>.pt``.
+then continued, the sharded checkpoint format under ZeRO (a state
+saved and restored, and a ZeRO run in both formats), and the dp feed
+through the collation workers against the serial feed, and writes what
+it saw to ``out<RANK>.pt``.
 It imports torch and the port only (never jax, the JAX package or the
 tests' conftest).
 """
@@ -526,6 +527,76 @@ def case_nodes(inp, rank):
             "trues": trues, "preds": preds}
 
 
+def case_pipeline(inp, rank):
+    """The dp feed through two collation workers and the prefetch thread
+    (``wrap_loader`` of a plan with ``pipeline.workers`` 2, ``prefetch``
+    2, supersteps of 2), its packed buffers recycled as on a card after
+    ``DPLoader.required_hold(2)`` deliveries, against the serial feed
+    (workers 0, prefetch 0): this rank's slot of two device-coordinated
+    packed epochs, the second resumed at step 1, and three epochs of a
+    cached eval loader. Each delivery is cloned as it arrives (the
+    loop's copy to the card at the step's start), then a 20 ms stand-in
+    for the step lets the workers and the prefetch queue run ahead; the
+    clones are compared. Returns the comparison."""
+    import time
+
+    import torch
+
+    from hydragnn_tpu_torch.data.loader import GraphLoader, MacroBatch
+    from hydragnn_tpu_torch.data.pipeline import owned_copy
+    from hydragnn_tpu_torch.parallel import runtime
+
+    def plan(workers, prefetch):
+        return runtime.plan_from_config({"NeuralNetwork": {"Training": {"Parallelism": {
+            "scheme": "dp", "pipeline": {"workers": workers, "depth": 2, "chunk": 1},
+            "prefetch": prefetch, "superstep": {"steps": 2}}}}})
+
+    def batches(item):
+        return item.batches if isinstance(item, MacroBatch) else [item]
+
+    def taken(feed):
+        out = []
+        for item in feed:
+            out.append(owned_copy(item))
+            time.sleep(0.02)
+        return out
+
+    train, val = list(inp["run_splits"][0]), list(inp["run_splits"][1])
+    feeds = {}
+    for name, (workers, prefetch, device) in {"pipeline": (2, 2, "cuda"),
+                                               "serial": (0, 0, None)}.items():
+        p = plan(workers, prefetch)
+        tr = runtime.wrap_loader(p, GraphLoader(train, 2, shuffle=True, seed=3, packing=True,
+                                                pack_max_budgets=1, pack_dp_shards=2),
+                                 device=device)
+        ev = runtime.wrap_loader(p, GraphLoader(val, 2, cache_batches=True), device=device)
+        got = []
+        for epoch, cursor in ((0, 0), (1, 1)):
+            tr.set_epoch(epoch)
+            if cursor:
+                tr.skip_to(cursor)
+            got.append(taken(tr))
+        for epoch in range(3):
+            ev.set_epoch(epoch)
+            got.append(taken(ev))
+        chain, ld = [], tr
+        while ld is not None:
+            chain.append(type(ld).__name__)
+            ld = getattr(ld, "loader", None)
+        feeds[name] = (got, chain)
+    a, b = feeds["pipeline"][0], feeds["serial"][0]
+    same = [len(x) == len(y) and all(
+        len(batches(u)) == len(batches(v)) and all(
+            u1.arrays().keys() == v1.arrays().keys()
+            and all(torch.equal(t, v1.arrays()[k]) for k, t in u1.arrays().items())
+            for u1, v1 in zip(batches(u), batches(v)))
+        for u, v in zip(x, y)) for x, y in zip(a, b)]
+    return {"same": same, "deliveries": [len(x) for x in a],
+            "macros": sum(isinstance(u, MacroBatch) for x in a for u in x),
+            "chain": feeds["pipeline"][1], "hold": runtime.wrap_loader(
+                plan(2, 2), GraphLoader(val, 4), device="cuda").loader.loader.hold}
+
+
 def main(rank: int, world: int, work: str) -> None:
     import torch
 
@@ -541,7 +612,8 @@ def main(rank: int, world: int, work: str) -> None:
            "mb": case_multibranch(inp, rank), "run": case_run(inp, rank),
            "nodes": case_nodes(inp, rank), "hsdp": case_hsdp(inp, rank),
            "durability": case_durability(inp, rank), "mb_guard": case_mb_guard(inp, rank),
-           "mb_resume": case_mb_resume(inp, rank), "sharded": case_sharded(inp, rank)}
+           "mb_resume": case_mb_resume(inp, rank), "sharded": case_sharded(inp, rank),
+           "pipeline": case_pipeline(inp, rank)}
     torch.save(out, os.path.join(work, f"out{rank}.pt"))
     dist.destroy_process_group()
 

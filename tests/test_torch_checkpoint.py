@@ -19,10 +19,12 @@
   ``RESUME`` with its manifest, its ``.old`` after a crash between the
   renames, and a non-finite state refused with the pointers kept;
   ``keep`` pruning ``epoch_*``;
-- ``continue`` is no longer refused for the sharded format: a run
-  writing it, continued, and ``run_prediction(config)`` restoring it
-  (the writer, the manifest and ``continue`` itself are
-  tests/test_torch_durability.py's).
+- ``continue`` is no longer refused for the sharded format, nor the
+  parallel input pipeline: a run writing the format through two
+  collation workers, continued, and ``run_prediction(config)`` restoring
+  it (the writer, the manifest and ``continue`` itself are
+  tests/test_torch_durability.py's); a dataset format other than the raw
+  LSMS text is refused with ROADMAP item 10c.
 """
 
 import os
@@ -215,20 +217,23 @@ def test_run_prediction_restores_checkpoint(port, splits, tmp_path, monkeypatch)
 
 
 def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
-    """Only the parallel input pipeline is still refused; a ``continue``
-    in the sharded format runs: polymers.json for one epoch writing
-    ``orbax/`` (every epoch through the writer), continued to two, and
-    ``run_prediction(config)`` restoring ``final`` equal to the
-    in-process prediction bit for bit."""
+    """Only dataset formats other than the raw LSMS text are still
+    refused (ROADMAP item 10c); a ``continue`` in the sharded format
+    through the parallel input pipeline (two collation workers) runs:
+    polymers.json for one epoch writing ``orbax/`` (every epoch through
+    the writer), continued to two, and ``run_prediction(config)``
+    restoring ``final`` equal to the in-process prediction bit for
+    bit."""
     monkeypatch.chdir(tmp_path)
+    feed = {"Parallelism": {"pipeline": {"workers": 2, "chunk": 1}, "prefetch": 2}}
     refused = _config(1)
-    refused["NeuralNetwork"]["Training"].update(
-        {"continue": 1, "Parallelism": {"pipeline": {"workers": 2}}})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.runner.run_training(refused, datasets=splits, device="cpu")
+    refused["Dataset"] = {"format": "pickle", "path": {"total": str(tmp_path)}}
+    refused["NeuralNetwork"]["Training"].update({"continue": 1, **feed})
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        port.runner.run_training(refused, device="cpu")
     config = _config(1)
     config["NeuralNetwork"]["Training"].update(
-        checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 2})
+        checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 2}, **feed)
     _, _, _, _, full = port.runner.run_training(config, datasets=splits, device="cpu")
     base = os.path.join("logs", full["_log_name"], "orbax")
     assert {"LATEST", "RESUME", "final", "epoch_0"} <= set(os.listdir(base))
@@ -236,7 +241,7 @@ def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
     config = _config(2)
     config["NeuralNetwork"]["Training"].update(
         checkpoint_format="orbax", Checkpoint={"enabled": True, "interval_steps": 2},
-        **{"continue": 1})
+        **{"continue": 1}, **feed)
     state, model, cfg, hist, full = port.runner.run_training(config, datasets=splits,
                                                              device="cpu")
     assert len(hist.train_loss) == 2 and state.step > 0

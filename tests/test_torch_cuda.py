@@ -9,7 +9,9 @@ multibranch guard's per-slot step (world 1 over NCCL) eager and replayed
 against the unguarded one, and a label poison contained; the
 run telemetry: a run with the stream on equals it off, every step
 replayed, and the dispatch-mode counter's K1/K2 counts equal
-``k1_work``/``k2_work``.
+``k1_work``/``k2_work``; the input feed: run_training through the
+collation workers and the prefetch thread equal to the serial feed bit
+for bit, every step replayed.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -1505,11 +1507,12 @@ def test_ensure_fields_engine_on_card():
     eng.close()
 
 
-def _telemetry_run(torch, tmp_path, name, telemetry):
+def _telemetry_run(torch, tmp_path, name, telemetry, feed=None):
     """ci.json's SchNet (24 BCC configurations, batches of 4, two epochs,
     the guard on) through run_training on the card, every step through
     the graph cache; with ``telemetry`` the stream on (a fence every 3
-    dispatches). Returns (state, history, stream rows or None)."""
+    dispatches); ``feed`` updates ``Parallelism`` (the input feed).
+    Returns (state, history, stream rows or None)."""
     import copy
     import json
     import os
@@ -1528,7 +1531,7 @@ def _telemetry_run(torch, tmp_path, name, telemetry):
     config["Dataset"]["name"] = name
     t = config["NeuralNetwork"]["Training"]
     t.update(num_epoch=2, batch_size=4, Guard={"enabled": True},
-             Parallelism={"scheme": "single", "packing": {"enabled": False}})
+             Parallelism={"scheme": "single", "packing": {"enabled": False}, **(feed or {})})
     if telemetry:
         t["Telemetry"] = {"enabled": True, "sync_interval_steps": 3,
                           "heartbeat_interval_s": 600}
@@ -1576,6 +1579,41 @@ def test_telemetry_on_equals_off_replayed(tmp_path):
     steps = {(r["region"], r["spec"], r["k"]) for r in rows if r["t"] == "step"}
     assert {(r["region"], r["spec"], r["k"]) for r in execs} == steps
     assert len([r for r in rows if r["t"] == "compile"]) == s_on.graphs.captures
+
+
+@pytest.mark.cuda
+def test_pipeline_feed_equals_serial_on_card(tmp_path):
+    """run_training through three collation workers (buffers recycled:
+    the loop copies each batch to the card) and the prefetch thread
+    equals the serial feed bit for bit on the card (history, parameters,
+    optimizer state, K1/K2 launches), every step replayed after its
+    shape's first sight: the captures the loop thread records while the
+    workers collate succeed (no capture_error), the train feed's stats
+    carry its host-to-device time, and the run captured what the serial
+    run captured, epoch by epoch."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    feeds = {"pipeline": {"pipeline": {"workers": 3, "depth": 2, "chunk": 1}, "prefetch": 2},
+             "serial": {"pipeline": {"workers": 0}, "prefetch": 0}}
+    launches, runs = {}, {}
+    for name, feed in feeds.items():
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        runs[name] = _telemetry_run(torch, tmp_path, f"feed_{name}", True, feed)
+        launches[name] = (edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches)
+    (s_p, h_p, rows), (s_s, h_s, _) = runs["pipeline"], runs["serial"]
+    assert launches["pipeline"] == launches["serial"] and launches["serial"][0] > 0
+    assert h_p.train_loss == h_s.train_loss and h_p.val_loss == h_s.val_loss
+    assert h_p.test_loss == h_s.test_loss and h_p.epoch_captures == h_s.epoch_captures
+    _state_equal(torch, s_p.model, s_p.optimizer, s_s.model, s_s.optimizer)
+    assert s_p.graphs.replays > 0 and s_p.graphs.captures == s_s.graphs.captures
+    execs = [r for r in rows if r["t"] == "executable"]
+    assert execs and not [r for r in execs if "capture_error" in r]
+    pipe = [r for r in rows if r["t"] == "pipeline"]
+    assert len(pipe) == 6 and pipe[3]["h2d_s_total"] > 0 and pipe[3]["epochs"] == 2
 
 
 @pytest.mark.cuda

@@ -41,10 +41,15 @@ every two-rank case while this process computes the JAX side:
 - (i) the sharded checkpoint format under ZeRO: each rank's file holds
   its shard alone, the state restores bit for bit at world 2 (each rank
   from its file) and at world 1 here (from both files), and a ZeRO run
-  writing it equals the same run writing ``.pt`` bit for bit.
+  writing it equals the same run writing ``.pt`` bit for bit;
+- (j) the dp feed through the collation workers and the prefetch thread,
+  its buffers recycled after ``DPLoader.required_hold``, equal to the
+  serial feed on both ranks (packed supersteps, a resumed epoch, a
+  cached eval loader).
 
-Also: a config with ``pipeline.workers`` still raises with its ROADMAP
-item; the multibranch guard and the sharded format no longer do.
+Also: a dataset format other than the raw LSMS text still raises with
+its ROADMAP item (10c); a config with ``pipeline.workers`` no longer
+does.
 
 Tolerances: f32 forward rtol 1e-5 / atol 1e-4, f32 gradients and
 updated parameters rtol 1e-4 / atol 1e-3, each atol scaled by the
@@ -585,6 +590,22 @@ def test_two_rank_run_training_matches_jax(two_ranks):
     assert got[0]["run"]["train_loss"] == got[1]["run"]["train_loss"]
 
 
+def test_two_rank_dp_feed_through_the_pipeline(two_ranks):
+    """The dp feed through two collation workers and the prefetch thread,
+    buffers recycled after ``DPLoader.required_hold(2)`` = 4 deliveries,
+    equals the serial feed on both ranks: this rank's slot of two packed
+    epochs (supersteps of 2; the second resumed at step 1) and three
+    epochs of a cached eval loader."""
+    got, _ = two_ranks
+    for r in range(2):
+        g = got[r]["pipeline"]
+        assert g["chain"] == ["PrefetchLoader", "DPLoader", "ParallelPipelineLoader",
+                              "GraphLoader"], g["chain"]
+        assert g["hold"] == 4
+        assert g["same"] == [True] * 5, g
+        assert all(n > 0 for n in g["deliveries"]) and g["macros"] > 0
+
+
 def test_two_rank_run_as_two_nodes(two_ranks):
     """The multi-node form (each rank a node of its own): both ranks train
     on their equal shards to the same history, and run_prediction returns
@@ -730,25 +751,27 @@ def test_accumulate_matches_optax_multisteps(port):
 
 
 def test_unported_features_still_raise(port):
-    """The input pipeline still raises with its ROADMAP item; item 11's
-    schemes, ``continue`` and the guard elsewhere, and item 12b's two
-    configurations (the multibranch guard with a ``continue``, and the
-    sharded checkpoint format) no longer do."""
-    base = {"NeuralNetwork": {"Training": {}}}
-    config = copy.deepcopy(base)
-    config["NeuralNetwork"]["Training"].update({"Parallelism": {"pipeline": {"workers": 2}}})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.runner.run_training(config, device="cpu")
-    for training in ({"Parallelism": {"scheme": "multibranch"}, "Guard": {"enabled": True},
-                      "continue": 1},
-                     {"checkpoint_format": "orbax", "continue": 1}):
-        port.runner._refuse_unported({"NeuralNetwork": {"Training": training}})
-    for scheme in ("dp", "multibranch", "auto", "single"):
-        port.runner._refuse_unported(
-            {"NeuralNetwork": {"Training": {"Parallelism": {"scheme": scheme}}}})
-    for scheme in ("dp", "single"):
-        port.runner._refuse_unported({"NeuralNetwork": {"Training": {
-            "Parallelism": {"scheme": scheme}, "continue": 1, "Guard": {"enabled": True}}}})
+    """Dataset formats other than the raw LSMS text still raise with
+    their ROADMAP item (10c); the parallel input pipeline no longer
+    does: its config resolves on the single and dp schemes, and the
+    single scheme's loaders are fed by the collation workers (it runs
+    through ``run_training`` in tests/test_torch_pipeline.py and, with a
+    ``continue``, in tests/test_torch_checkpoint.py)."""
+    config = {"Dataset": {"format": "pickle", "path": {"total": "nowhere"}},
+              "NeuralNetwork": {"Training": {"Parallelism": {"pipeline": {"workers": 2}}}}}
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        port.runner.run_training(copy.deepcopy(config), device="cpu")
+    for scheme, n in (("single", 1), ("dp", 2), ("multibranch", 2)):
+        config["NeuralNetwork"]["Training"]["Parallelism"]["scheme"] = scheme
+        plan = port.runtime.plan_from_config(config, n_devices=n)
+        assert (plan.scheme, plan.pipeline_workers, plan.prefetch) == (scheme, 2, 2)
+    plan = port.runtime.plan_from_config(
+        {"NeuralNetwork": {"Training": {"Parallelism": {"pipeline": {"workers": 2}}}}})
+    samples = [port.graph.GraphSample(x=np.ones((3, 1), np.float32),
+                                      edge_index=np.array([[0, 1], [1, 2]]),
+                                      y_graph=np.ones(1, np.float32)) for _ in range(6)]
+    feed = port.runtime.wrap_loader(plan, port.loader.GraphLoader(samples, 2), device="cpu")
+    assert type(feed).__name__ == "ParallelPipelineLoader" and len(list(feed)) == 3
 
 
 def _same_history(a, b, what):
