@@ -12,7 +12,8 @@ same call with every step eager (eager_steps(), which keeps the port
 from building its graph cache), with its captures, replays, capture
 seconds and graph memory printed. The exceptions are the schemes whose
 steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
-([multibranch]), whose graph_report line says why.
+([multibranch], [graphshard]), whose graph_report or header line says
+why.
 
 1. device      torch/CUDA versions and the card's name and power limit;
                exits 2 without a CUDA device.
@@ -367,6 +368,26 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                branch_steps [s, s, s], and three continue processes equal
                to the uninterrupted run bit for bit. A failing rank fails
                the phase.
+20b. graphshard graph-dimension sharding through the giant-graph
+               driver's pieces (drivers/giant_graph.py), on four processes
+               of this script (--graphshard-rank R D DIR) on cuda:0 in a
+               gloo group: D = 4, one value_and_grad per scheme (all-gather,
+               halo; both with ring attention) on the z-sorted 512-atom
+               structure; D = 2 over ranks {0, 1}, the driver's
+               configuration (giant.py's defaults: 512 atoms, 24
+               configurations, hidden 32, 2 layers, 16 Gaussians, 2 heads,
+               cutoff 3.2, Adam 3e-3) 3 epochs per scheme, then an 8,000-atom
+               structure (a 20^3 grid, 4 configurations), 3 train steps per
+               scheme. Checks: every rank exits 0; finite losses; the ranks'
+               parameters equal bit for bit after every step; D = 4 and the
+               first D = 2 steps (energy, forces, summed gradients) within
+               tolerance of the one-process reference_mpnn_forward on the
+               card and on the CPU plain path; halo energy equal to the
+               all-gather one on every configuration of epoch 0 (rtol
+               2e-5); no K1/K2 launch. Prints the hops and caps, the
+               per-epoch lines, the transport per collective, and at 8,000
+               atoms the median step ms, ms per collective kind, each rank's
+               peak memory and the halo rows against N_pad.
 21. capture    at each path's step shape (the SchNet headline batch, the
                first packed MLIP, ZINC, polymer and oc20 bins): one train step
                through the train loop's superstep eager and replayed, the
@@ -394,8 +415,9 @@ steps the port runs eagerly by decision, FSDP2 ([fsdp]) and gloo
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
                MLIP, ZINC, pipeline, polymer, oc20, PNAEq, dp (its guarded
-               run too), fsdp and multibranch runs and the superstep run,
-               "launches_by_path" splits them, DimeNet's 0 included), the
+               run too), fsdp, multibranch and graphshard runs and the
+               superstep run, "launches_by_path" splits them, DimeNet's and
+               graphshard's 0 included), the
                card line, and the final {"ok": true, "device": ...} line.
 """
 
@@ -5444,6 +5466,404 @@ def multibranch_drills(work, ranks):
 
 
 # ----------------------------------------------------------------------
+# Graph sharding (ROADMAP item 11b)
+# ----------------------------------------------------------------------
+
+GS_RANKS = 4  # one spawn: D = 4 over every rank, then D = 2 over ranks {0, 1}
+GS_EPOCHS = 3
+GS_BIG = (8000, 4)  # atoms (a 20^3 grid) and configurations of [graphshard]'s large structure
+GS_STEPS = 3
+GS_CLI = ("--ranks", "2", "--epochs", "2", "--halo")  # the driver's defaults otherwise
+GS_SCHEMES = ("gather", "halo")
+GS_E_RTOL = 2e-5  # tests/test_graphshard.py:151 (energy through ring attention)
+GS_GRAD_TOL = dict(rtol=1e-3, atol=2e-5)  # tests/test_graphshard.py:174 (gradients through it)
+GS_NOISE = 1e-4  # a zero gradient's rounding noise, relative to the largest
+
+
+def gs_args(atoms=512, configs=24):
+    """examples/giant_graph/giant.py's defaults, the driver's: hidden 32,
+    2 attention heads, cutoff 3.2 (2 layers, 16 Gaussians)."""
+    import argparse
+
+    return argparse.Namespace(atoms=atoms, configs=configs, hidden=32, attn_heads=2,
+                              cutoff=3.2)
+
+
+def gs_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gs_digest(params):
+    import hashlib
+
+    from hydragnn_tpu_torch.parallel.graphshard import param_leaves
+
+    h = hashlib.sha256()
+    for t in param_leaves(params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gs_forward(scheme):
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+
+    return gg.forward_for(scheme == "halo")
+
+
+def gs_first(scheme, params, shards, mesh, kw):
+    """The energy, this rank's rows of -dE/dpos and the summed parameter
+    gradients at ``params`` (cleared after)."""
+    import dataclasses
+
+    from hydragnn_tpu_torch.parallel import graphshard as gs
+
+    pos = shards.pos.clone().requires_grad_()
+    e = gs_forward(scheme)(params, dataclasses.replace(shards, pos=pos), mesh, **kw)
+    e.backward()
+    gs.sum_gradients_(params, mesh)
+    out = {"e": float(e), "forces": -pos.grad.cpu().numpy(),
+           "grads": {k: t.grad.cpu().numpy().copy() for k, t in gs.param_items(params)}}
+    for t in gs.param_leaves(params):
+        t.grad = None
+    return out
+
+
+def gs_data(args):
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+
+    configs, edge_cap = gg.build_configs(args.atoms, args.configs, args.cutoff, seed=0)
+    energies = np.array([c[2] for c in configs], np.float32)
+    return configs, edge_cap, float(energies.mean()), float(energies.std() + 1e-6)
+
+
+def gs_training(mesh, dev, args):
+    """[graphshard] (1) on this rank: the driver's configuration trained
+    GS_EPOCHS epochs per scheme with the driver's step; the first step's
+    energy, forces and gradients; every step's loss, energy and parameter
+    digest; in the all-gather run's epoch 0 the halo forward's energy of
+    each configuration at the same parameters."""
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+    from hydragnn_tpu_torch.parallel import graphshard as gs
+
+    configs, edge_cap, e_mean, e_std = gs_data(args)
+    kw = gg.model_kwargs(args)
+    hosts = {s: gg.shard_configs(configs, edge_cap, mesh.size, halo=s == "halo")
+             for s in GS_SCHEMES}
+    locs = {s: [h.local(mesh, dev) for h in hosts[s]] for s in GS_SCHEMES}
+    n_train = int(0.8 * len(configs))
+    runs = {}
+    for scheme in GS_SCHEMES:
+        fwd = gs_forward(scheme)
+        params = gg.make_params(args, dev)
+        opt = gg.make_optimizer(params)
+        rec = {"first": gs_first(scheme, params, locs[scheme][0], mesh, kw), "losses": [],
+               "digests": [], "epochs": [], "twin": []}
+        gs_sync(dev)
+        t0 = time.perf_counter()
+        for epoch in range(GS_EPOCHS):
+            tot = 0.0
+            for i in range(n_train):
+                if scheme == "gather" and epoch == 0:
+                    with torch.no_grad():
+                        e_halo = float(gs.halo_mpnn_forward(params, locs["halo"][i], mesh, **kw))
+                loss, e = gg.train_step(fwd, params, opt, locs[scheme][i], mesh, configs[i][2],
+                                        e_mean, e_std, **kw)
+                if scheme == "gather" and epoch == 0:
+                    rec["twin"].append((float(e), e_halo))
+                rec["losses"].append(float(loss))
+                rec["digests"].append(gs_digest(params))
+                tot += float(loss)
+            val = 0.0
+            with torch.no_grad():
+                for i in range(n_train, len(configs)):
+                    e = fwd(params, locs[scheme][i], mesh, **kw)
+                    if scheme == "gather" and epoch == 0:
+                        rec["twin"].append((float(e), float(gs.halo_mpnn_forward(
+                            params, locs["halo"][i], mesh, **kw))))
+                    val += float(gg.standardized_loss(e, configs[i][2], e_mean, e_std))
+            rec["epochs"].append((tot / n_train, val / (len(configs) - n_train)))
+        gs_sync(dev)
+        rec["seconds"] = time.perf_counter() - t0
+        order = (gg.z_sorted(*configs[0][:2]) if scheme == "halo" else configs[0][:2])
+        rec["inputs"] = order
+        runs[scheme] = rec
+    return runs
+
+
+def gs_large(mesh, dev):
+    """[graphshard] (3) on this rank: GS_BIG's structure, GS_STEPS train
+    steps per scheme: each step's wall ms (the device synchronized) and
+    its collectives' calls and seconds by kind, this rank's peak memory
+    (reset per scheme), the halo rows against N_pad."""
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+
+    args = gs_args(*GS_BIG)
+    configs, edge_cap, e_mean, e_std = gs_data(args)
+    kw = gg.model_kwargs(args)
+    out = {"edges": [int(c[1].shape[1]) for c in configs]}
+    for scheme in GS_SCHEMES:
+        host = gg.shard_configs(configs, edge_cap, mesh.size, halo=scheme == "halo")
+        locs = [h.local(mesh, dev) for h in host[:GS_STEPS]]
+        params = gg.make_params(args, dev)
+        opt = gg.make_optimizer(params)
+        gs_sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        step_ms, losses, stats = [], [], []
+        for i, loc in enumerate(locs):
+            mesh.stats.clear()
+            gs_sync(dev)
+            t0 = time.perf_counter()
+            loss, _ = gg.train_step(gs_forward(scheme), params, opt, loc, mesh, configs[i][2],
+                                    e_mean, e_std, **kw)
+            gs_sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            stats.append({k: list(v) for k, v in mesh.stats.items()})
+        out[scheme] = {
+            "step_ms": step_ms, "losses": losses, "stats": stats,
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                         if dev.type == "cuda" else None),
+            "n_pad": host[0].num_nodes_padded,
+            "rows": host[0].halo_rows if scheme == "halo" else host[0].num_nodes_padded,
+            "layout": host[0].layout if scheme == "halo" else None}
+    return out
+
+
+def graphshard_rank(rank, world, work):
+    """One rank of [graphshard] (``chip_smoke.py --graphshard-rank R D
+    DIR``): on cuda:0 in a gloo group through a FileStore in DIR (NCCL
+    refuses two ranks on one device). (2) on a graph axis over all D
+    ranks, then (1) and (3) over ranks {0, 1}; K1/K2 counted from 0.
+    Writes ``rank<R>.pt`` into DIR."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+    from hydragnn_tpu_torch.ops import edge_pipeline as ep
+    from hydragnn_tpu_torch.parallel import graphshard as gs
+    from hydragnn_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                            rank=rank, world_size=world)
+    mesh_all = make_mesh({"graph": world})
+    mesh2 = make_mesh({"graph": 2}, ranks=[0, 1])
+    ep.edge_pipeline_planned.launches = 0
+    ep.edge_pipeline_bwd_planned.launches = 0
+    args = gs_args()
+    configs, _, _, _ = gs_data(gs_args(configs=1))
+    pos, ei = gg.z_sorted(*configs[0][:2])
+    x0 = np.ones((args.atoms, 1), np.float32)
+    out = {"rank": rank, "wide": {"inputs": (pos, ei)}}
+    for scheme in GS_SCHEMES:
+        build = gs.HaloShards.build if scheme == "halo" else gs.GraphShards.build
+        host = build(x0, pos, ei, world)
+        out["wide"][scheme] = gs_first(scheme, gg.make_params(args, dev),
+                                       host.local(mesh_all, dev), mesh_all,
+                                       gg.model_kwargs(args))
+        if scheme == "halo":
+            out["wide"]["layout"] = (host.hops, host.caps, host.halo_rows,
+                                     host.num_nodes_padded)
+    if mesh2.index >= 0:
+        out["train"] = gs_training(mesh2, dev, args)
+        out["large"] = gs_large(mesh2, dev)
+        out["transport"] = {op: gs.transport(mesh2, op, dev)
+                            for op in ("all_gather", "reduce_scatter", "ppermute", "all_reduce")}
+    out["k1"] = ep.edge_pipeline_planned.launches
+    out["k2"] = ep.edge_pipeline_bwd_planned.launches
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def gs_gap(got, want, rtol, atol):
+    """The worst |got - want| over its allowance atol + rtol |want| (held
+    when <= 1)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max())
+
+
+def gs_hold(tag, outs, inputs, args):
+    """The ranks' energy, forces (their rows in axis order) and summed
+    gradients against ``reference_mpnn_forward`` in this one process, on
+    the card and on the CPU plain path (``GS_E_RTOL``, ``GS_GRAD_TOL``;
+    the attention key biases, whose true gradient is 0, within
+    ``GS_NOISE`` of the largest gradient). Returns the worst gap per
+    device."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import giant_graph as gg
+    from hydragnn_tpu_torch.parallel import graphshard as gs
+
+    pos, ei = inputs
+    host = gs.GraphShards.build(np.ones((pos.shape[0], 1), np.float32), pos, ei, 1)
+    forces = np.concatenate([o["forces"] for o in outs])[: pos.shape[0]]
+    for o in outs[1:]:
+        check(o["e"] == outs[0]["e"] and all(np.array_equal(o["grads"][k], g)
+                                              for k, g in outs[0]["grads"].items()),
+              f"{tag}: the ranks' energies or summed gradients differ")
+    gaps = {}
+    for device in ("cuda", "cpu"):
+        params = gg.make_params(args, device)
+        ref_pos = torch.tensor(host.pos, device=device, requires_grad=True)
+        e = gs.reference_mpnn_forward(
+            params, torch.as_tensor(host.x, device=device), ref_pos,
+            torch.as_tensor(host.node_mask, device=device),
+            torch.as_tensor(host.senders.astype(np.int64), device=device),
+            torch.as_tensor(host.receivers.astype(np.int64), device=device),
+            torch.as_tensor(host.edge_mask, device=device), **gg.model_kwargs(args))
+        e.backward()
+        ref = {k: t.grad.cpu().numpy() for k, t in gs.param_items(params)}
+        top = max(float(np.abs(g).max()) for g in ref.values())
+        gap = {"e": gs_gap(outs[0]["e"], float(e.detach()), GS_E_RTOL, 0.0),
+               "forces": gs_gap(forces, -ref_pos.grad.cpu().numpy(), **GS_GRAD_TOL),
+               "grads": max(gs_gap(g, ref[k], **GS_GRAD_TOL)
+                            for k, g in outs[0]["grads"].items() if "/k/b" not in k),
+               "key_bias_noise": max(float(np.abs(g).max()) / top
+                                     for k, g in outs[0]["grads"].items() if "/k/b" in k)}
+        check(max(gap["e"], gap["forces"], gap["grads"]) <= 1.0
+              and gap["key_bias_noise"] <= GS_NOISE,
+              f"{tag}: against the one-process reference on {device}: {gap}")
+        gaps[device] = gap
+    return gaps
+
+
+def phase_graphshard():
+    """[graphshard] graph-dimension sharding through the driver's
+    pieces (``drivers/giant_graph``) on GS_RANKS processes of this script
+    on cuda:0 in a gloo group: (2) D = GS_RANKS, one value_and_grad per
+    scheme on the z-sorted 512-atom structure; (1) D = 2, the driver's
+    configuration (512 atoms, 24 configurations, hidden 32, 2 layers, 16
+    Gaussians, 2 heads, cutoff 3.2, Adam 3e-3) GS_EPOCHS epochs per scheme;
+    (3) D = 2, GS_BIG's structure, GS_STEPS train steps per scheme. Checks:
+    every rank exits 0; finite losses; the ranks' parameters equal bit for
+    bit after every step; first steps and (2) within tolerance of the
+    one-process reference on the card and on the CPU plain path; in epoch
+    0 the halo energy of every configuration equal to the all-gather one
+    (rtol GS_E_RTOL); no K1/K2 launch (the JAX package's graphshard path
+    reaches no Pallas kernel)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    work = tempfile.mkdtemp(prefix="graphshard_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--graphshard-rank",
+                               str(r), str(GS_RANKS), work], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(GS_RANKS)]
+    try:
+        logs = [p.communicate(timeout=400)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"graphshard rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(GS_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    card = card_line()
+    k1, k2 = sum(r["k1"] for r in ranks), sum(r["k2"] for r in ranks)
+    check(k1 == 0 and k2 == 0, f"[graphshard] K1 {k1} / K2 {k2} launches, want none")
+    args = gs_args()
+    log(f"[graphshard] {GS_RANKS} processes on cuda:0 in a gloo group ({wall:.1f} s; NCCL "
+        f"refuses two ranks on one device), steps eager (gloo's collectives cannot be "
+        f"captured); transport per collective {ranks[0]['transport']} (gloo's send/receive "
+        f"take no CUDA tensor); K1 {k1}, K2 {k2}; {card}")
+
+    wide = [r["wide"] for r in ranks]
+    hops, caps, rows, n_pad = wide[0]["layout"]
+    wide_gaps = {s: gs_hold(f"[graphshard] D = {GS_RANKS} {s}", [w[s] for w in wide],
+                            wide[0]["inputs"], args) for s in GS_SCHEMES}
+    log(f"[graphshard] D = {GS_RANKS} on the z-sorted {args.atoms}-atom structure: halo hops "
+        f"{list(hops)}, caps {list(caps)}, {rows} rows of N_pad {n_pad}; energy, forces and "
+        f"summed gradients within tolerance of the one-process reference (worst gap over "
+        f"its allowance, card / CPU): " + "; ".join(
+            f"{s} e {g['cuda']['e']:.3g}/{g['cpu']['e']:.3g}, forces "
+            f"{g['cuda']['forces']:.3g}/{g['cpu']['forces']:.3g}, grads "
+            f"{g['cuda']['grads']:.3g}/{g['cpu']['grads']:.3g}" for s, g in wide_gaps.items()))
+
+    train = [r["train"] for r in ranks[:2]]
+    first_gaps = {}
+    for s in GS_SCHEMES:
+        a, b = train[0][s], train[1][s]
+        check(all(np.isfinite(a["losses"])), f"[graphshard] {s}: a loss is not finite")
+        check(a["digests"] == b["digests"] and a["losses"] == b["losses"],
+              f"[graphshard] {s}: the ranks' parameters differ after some step")
+        first_gaps[s] = gs_hold(f"[graphshard] D = 2 {s} first step",
+                                [a["first"], b["first"]], a["inputs"], args)
+        for epoch, (tr, va) in enumerate(a["epochs"]):
+            log(f"[graphshard] {s} epoch {epoch:3d} | train {tr:.5f} | val {va:.5f}")
+    twin = train[0]["gather"]["twin"]
+    twin_gap = max(abs(g - h) / abs(g) for g, h in twin)
+    check(len(twin) == args.configs and twin_gap <= GS_E_RTOL,
+          f"[graphshard] halo against all-gather energies in epoch 0: {twin_gap:.3g}")
+    log(f"[graphshard] D = 2, the driver's configuration, {GS_EPOCHS} epochs per scheme "
+        f"({[round(t[s]['seconds'], 2) for t in train for s in GS_SCHEMES]} s): finite losses, "
+        f"the ranks' parameters equal bit for bit after each of "
+        f"{len(train[0]['gather']['digests'])} steps per scheme; the first step within "
+        f"tolerance of the one-process reference on the card and the CPU ({first_gaps}); "
+        f"the halo energy of all {len(twin)} configurations in epoch 0 within {twin_gap:.3g} "
+        f"of the all-gather one (rtol {GS_E_RTOL})")
+
+    # the driver itself, as a user runs it: it starts its two ranks on the card
+    t1 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "hydragnn_tpu_torch.drivers.giant_graph",
+                          *GS_CLI], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t1
+    lines = cli.stdout.splitlines()
+    check(cli.returncode == 0 and "giant-graph training done" in lines
+          and any(torch.cuda.get_device_name(0) in line for line in lines)
+          and sum(line.startswith("epoch") for line in lines) == 2,
+          f"the giant-graph driver {GS_CLI} exited {cli.returncode}:\n{cli.stdout[-2000:]}\n"
+          f"{cli.stderr[-2000:]}")
+    for line in lines:
+        log(f"[graphshard] driver {' '.join(GS_CLI)} | {line}")
+    log(f"[graphshard] the driver's two ranks took {cli_s:.1f} s")
+
+    large = [r["large"] for r in ranks[:2]]
+    report = {"wide": {"hops": list(hops), "caps": list(caps), "rows": rows, "n_pad": n_pad},
+              "first_gaps": first_gaps, "wide_gaps": wide_gaps, "twin_gap": twin_gap,
+              "transport": ranks[0]["transport"], "card": card, "wall_seconds": wall,
+              "epochs": {s: train[0][s]["epochs"] for s in GS_SCHEMES}, "large": {},
+              "k1": k1, "k2": k2, "driver_seconds": cli_s}
+    for s in GS_SCHEMES:
+        runs = [big[s] for big in large]
+        check(all(np.isfinite(x["losses"]).all() for x in runs) and runs[0]["losses"] == runs[1][
+            "losses"], f"[graphshard] {GS_BIG[0]} atoms {s}: losses {[x['losses'] for x in runs]}")
+        med = [statistics.median(x["step_ms"]) for x in runs]
+        # rank 0's collectives in its median step (the first step also
+        # warms the collectives' buffers up)
+        mid = sorted(range(GS_STEPS), key=runs[0]["step_ms"].__getitem__)[GS_STEPS // 2]
+        per_kind = {k: (v[0], v[1] * 1e3) for k, v in sorted(runs[0]["stats"][mid].items())}
+        report["large"][s] = {"median_step_ms": med, "step_ms": [x["step_ms"] for x in runs],
+                              "collectives_in_median_step": per_kind,
+                              "peak_mib": [x["peak_mib"] for x in runs], "rows": runs[0]["rows"],
+                              "n_pad": runs[0]["n_pad"], "layout": runs[0]["layout"]}
+        log(f"[graphshard] {GS_BIG[0]} atoms ({GS_BIG[1]} configurations, edges "
+            f"{large[0]['edges']}), D = 2, {s}: {GS_STEPS} train steps, median step "
+            f"{[round(m, 2) for m in med]} ms per rank (steps {[[round(t, 2) for t in x['step_ms']] for x in runs]}); "
+            f"rank 0's collectives in its median step (calls, ms) "
+            + ", ".join(f"{k} ({c:g}, {ms:.3f})" for k, (c, ms) in per_kind.items())
+            + f"; peak memory {[round(x['peak_mib'], 1) for x in runs]} MiB per rank; "
+            f"{runs[0]['rows']} feature rows of N_pad {runs[0]['n_pad']}"
+            + (f" (halo layout {runs[0]['layout']})" if s == "halo" else "") + f"; {card}")
+    return report
+
+
+# ----------------------------------------------------------------------
 # Durability (ROADMAP item 12): the divergence guard, the
 # asynchronous checkpoint writer and continue
 # ----------------------------------------------------------------------
@@ -6173,6 +6593,9 @@ def main():
     if sys.argv[1:2] == ["--multibranch-rank"]:
         multibranch_rank(int(sys.argv[2]), sys.argv[3], *sys.argv[4:5])
         return
+    if sys.argv[1:2] == ["--graphshard-rank"]:
+        graphshard_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if sys.argv[1:2] == ["--preempt-child"]:
         preempt_child(sys.argv[2], sys.argv[3])
         return
@@ -6255,6 +6678,7 @@ def main():
     pnaeq = phase_pnaeq(pnaeq_cfg, md17_splits, pnaeq_loader, pnaeq_bin)
     dimenet = phase_dimenet(*qm7x_data())
     multibranch = phase_multibranch()
+    graphshard = phase_graphshard()
     capture, cap_k1, cap_k2 = phase_capture([
         ("SchNet headline step", *head_step, head_cpu, (4, 4), False, True),
         ("MLIP first packed bin", *mlip.pop("step"), mlip_batch, (12, 12), True, True),
@@ -6273,7 +6697,8 @@ def main():
                      + oc20["k1"] + pnaeq["k1"] + cap_k1 + dp["run"]["k1"]
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
-                     + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]),
+                     + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
+                     + graphshard["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -6285,7 +6710,7 @@ def main():
                              "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"],
                              "guard": guard["k1"], "preempt": preempt["k1"],
                              "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
-                             "pipeline": pipeline["k1"]},
+                             "pipeline": pipeline["k1"], "graphshard": graphshard["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -6317,7 +6742,7 @@ def main():
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
-                     + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"]),
+                     + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + graphshard["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -6328,7 +6753,7 @@ def main():
                              "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"],
                              "guard": guard["k2"], "preempt": preempt["k2"],
                              "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
-                             "pipeline": pipeline["k2"]},
+                             "pipeline": pipeline["k2"], "graphshard": graphshard["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -6373,6 +6798,7 @@ def main():
     log(f"[report] dp: {json.dumps(dp)}")
     log(f"[report] fsdp: {json.dumps(fsdp)}")
     log(f"[report] multibranch: {json.dumps(multibranch)}")
+    log(f"[report] graphshard: {json.dumps(graphshard)}")
     log(f"[report] capture: {json.dumps(dict(capture, served_bin=served_bin))}")
     log(f"[report] card: {card}")
     print(card)

@@ -36,8 +36,13 @@ What runs today:
   divergence guard inside the (captured) train step
   (``utils/checkpoint.py``, ``train/guard.py``, ``utils/faults.py``).
 
-Graph sharding, observability beyond the telemetry stream core and the
-rest are later work (ROADMAP.md).
+- graph sharding: one structure's nodes and edges split over the ranks
+  of a ``graph`` axis, all-gather or halo message passing and ring
+  attention (``parallel/graphshard.py``), trained by the giant-graph
+  driver (``python -m hydragnn_tpu_torch.drivers.giant_graph``).
+
+The rest (dataset formats, MD rollouts, aux utilities) is later work
+(ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

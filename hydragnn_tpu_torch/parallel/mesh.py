@@ -16,12 +16,20 @@ step" replaces stacking, and two kinds of group carry the collectives:
 - the parameter-sharding device mesh of FSDP2 (``parallel/dp``): the
   whole world for ZeRO (``fsdp_axis "data"``), the ``(replicate,
   shard)`` grid for HSDP (``fsdp > 1``).
+
+A ``graph`` axis (``make_mesh({"graph": D})``, graph-dimension sharding
+of one structure, ``parallel/graphshard``) stands alone: its D devices
+are D ranks of the world (``ranks``, the first D by default), device d
+of the axis is the d-th of them, and one process group over them carries
+every collective of the sharded forward and backward. Every rank of the
+world calls ``make_mesh`` (``dist.new_group`` is collective); a rank
+outside ``ranks`` gets a mesh with ``index`` -1 and takes no part.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
 
@@ -85,12 +93,52 @@ class DataMesh:
         return self._groups["device_mesh"]
 
 
-def make_mesh(axes: Optional[Dict[str, int]] = None) -> DataMesh:
+@dataclass
+class GraphMesh:
+    """The ``graph`` axis: ``size`` ranks (global ``ranks``, in axis
+    order) and their ``group``; ``index`` is this rank's place on the
+    axis (-1 outside it). ``stats`` sums, per collective kind, the calls
+    and seconds the sharded forward and backward spent in collectives
+    (``parallel/graphshard``)."""
+
+    size: int
+    index: int
+    ranks: Tuple[int, ...]
+    group: object = field(default=None, repr=False, compare=False)
+    stats: Dict[str, list] = field(default_factory=dict, repr=False, compare=False)
+
+    def peer(self, index: int) -> int:
+        """The global rank of axis place ``index`` (mod ``size``)."""
+        return self.ranks[index % self.size]
+
+
+def make_mesh(axes: Optional[Dict[str, int]] = None,
+              ranks: Optional[Sequence[int]] = None) -> Union[DataMesh, GraphMesh]:
     """A ``DataMesh`` from ``{"data": a, "fsdp": k}`` (default: every
-    rank on ``data``)."""
+    rank on ``data``), or a ``GraphMesh`` from ``{"graph": D}`` over
+    ``ranks`` (default the first D ranks of the world; module
+    docstring)."""
     if axes is None:
         axes = {"data": dist.get_world_size() if dist.is_initialized() else 1}
+    if "graph" in axes:
+        if len(axes) > 1:
+            raise ValueError(f"mesh axes {sorted(axes)}: the graph axis stands alone")
+        return _graph_mesh(int(axes["graph"]), ranks)
     unknown = set(axes) - {"data", "fsdp"}
     if unknown:
-        raise ValueError(f"mesh axes {sorted(unknown)} are not data/fsdp")
+        raise ValueError(f"mesh axes {sorted(unknown)} are not data/fsdp or graph alone")
     return DataMesh(data=int(axes["data"]), fsdp=int(axes.get("fsdp", 1)))
+
+
+def _graph_mesh(size: int, ranks: Optional[Sequence[int]]) -> GraphMesh:
+    if not dist.is_initialized():
+        raise RuntimeError("a graph mesh needs a process group: its devices are ranks")
+    world = dist.get_world_size()
+    ranks = tuple(range(size)) if ranks is None else tuple(int(r) for r in ranks)
+    if len(ranks) != size or len(set(ranks)) != size or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"graph axis of {size} needs {size} distinct ranks of the world "
+                         f"({world}), got {list(ranks)}")
+    group = None if ranks == tuple(range(world)) else dist.new_group(list(ranks))
+    me = dist.get_rank()
+    return GraphMesh(size=size, index=ranks.index(me) if me in ranks else -1, ranks=ranks,
+                     group=group)

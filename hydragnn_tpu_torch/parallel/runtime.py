@@ -36,7 +36,9 @@ uses ``cuda:LOCAL_RANK`` (``device.resolve_device``).
   ``pipeline_workers`` > 0, which on a host of 4 or more CPUs is the
   default, else the prefetch thread (``data/prefetch.PrefetchLoader``).
 
-The graph-sharded MPNN is ROADMAP Queue 1 item 11b.
+The graph-sharded MPNN (``parallel/graphshard``) is not a
+``Training.Parallelism`` scheme, as in the JAX package: its driver
+(``drivers/giant_graph``) makes its own ``graph`` mesh.
 """
 
 from __future__ import annotations
