@@ -225,6 +225,37 @@ why.
                run_training of every phase logs the feed it resolved
                ("[feed]" lines; the default on a host of 4 or more CPUs is
                the pipeline).
+11b. formats   the dataset formats (after [pipeline], on its data): the
+               native host library (hydragnn_tpu_torch/native.py, g++ at
+               first use; a build failure fails the phase) takes every
+               radius graph of the MD17 stand-in's frames (open, radius 4.0,
+               24 neighbours) and of oc20.py's 200 slabs (periodic, cutoff
+               5.0), each equal to the numpy path's edge set (rows (s, r,
+               image) after one canonical sort), with both paths' host ms
+               and the CPU model; md17.json's PaiNN (as [pipeline] runs it)
+               from three .hgb files (Dataset.format "binary", preload
+               false): run_training's train, val and test feeds over the
+               files equal to its feeds over the in-memory lists, every
+               delivery of two epochs bit for bit, serially and through the
+               collation workers; run_training through both feeds equal to
+               the runs fed the lists bit for bit (per-step losses, History,
+               parameters and AdamW state, K1/K2); run_prediction(config)
+               alone restores the checkpoint and predicts equal to the
+               list-fed run's prediction bit for bit; md17's splits built
+               into POSIX shared memory (data/diststore.StoreDataset), a
+               spawned process of this script (--store-child NAME) attaches
+               the train split and returns the digest of every unpacked
+               sample (equal to the parent's), run_training on the store
+               views equal to the .hgb run bit for bit, and no attach once
+               the owner closed; zinc.json's PNAPlus + GPS from a pickle
+               directory per split (pna_deg taken from the data) through the
+               workers equal to the list-fed run bit for bit; zinc_long's
+               16,000 molecules written into one .hgb container (subset
+               views per split), one epoch through the workers, equal to
+               the list-fed run bit for bit, its epoch seconds and input
+               wait per dispatch beside the list-fed run's and [pipeline]'s;
+               the files' bytes and one thread's ms to read a train batch's
+               samples from each container against the list.
 12. polymer-kernels  K1 and K2 in the conv node head's a,W flavour at
                (F_in, F_out) = (64, 64) and (64, 1), f32, on the plan of the
                first packed train bin of polymers.json's run: against their
@@ -414,7 +445,7 @@ why.
                "mace_width" and at PNAEq's under "pnaeq_widths";
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
-               MLIP, ZINC, pipeline, polymer, oc20, PNAEq, dp (its guarded
+               MLIP, ZINC, pipeline, formats, polymer, oc20, PNAEq, dp (its guarded
                run too), fsdp, multibranch and graphshard runs and the
                superstep run, "launches_by_path" splits them, DimeNet's and
                graphshard's 0 included), the
@@ -2852,10 +2883,11 @@ def captured_keys():
         StepGraphs.capture = plain
 
 
-def pipeline_run(tag, config, splits, feed, late_captures=False):
+def pipeline_run(tag, config, splits, feed, late_captures=False, phase="pipeline"):
     """One run_training of ``config`` on the card through ``feed`` (a
-    ``Parallelism`` update), telemetry on. Returns what [pipeline]
-    compares and prints. A train step captured at epoch 1 or later fails
+    ``Parallelism`` update), telemetry on, fed ``splits`` (the config's
+    ``Dataset`` files where None). Returns what [pipeline] and [formats]
+    compare and print. A train step captured at epoch 1 or later fails
     the run unless ``late_captures`` (a long epoch's packing can reach a
     budget at epoch 1 that epoch 0 never filled; the feeds must then
     agree on the captures per epoch, which ``pipeline_compare`` checks)."""
@@ -2872,7 +2904,7 @@ def pipeline_run(tag, config, splits, feed, late_captures=False):
     training = config["NeuralNetwork"]["Training"]
     training["Parallelism"] = dict(training.get("Parallelism", {}), **feed)
     training["Telemetry"] = {"enabled": True, "heartbeat_interval_s": 600}
-    line = log_feed(f"pipeline] [{tag}", config)
+    line = log_feed(f"{phase}] [{tag}", config)
     with recorded_run() as rec, captured_keys() as caps:
         edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
         torch.cuda.synchronize()
@@ -2918,7 +2950,7 @@ def pipeline_run(tag, config, splits, feed, late_captures=False):
           f"{tag}: train steps captured at epoch 1 or later: {late_train}")
     n_train = [len(w) for w in wait]
     return {"state": state, "hist": hist, "steps": steps, "k1": k1, "k2": k2,
-            "seconds": seconds, "captures": [c for c in caps],
+            "seconds": seconds, "captures": [c for c in caps], "config": full,
             "report": {"feed": line, "cpus": os.cpu_count(),
                        "seconds": round(seconds, 4), "epoch_seconds": hist.epoch_seconds,
                        "epoch_captures": hist.epoch_captures,
@@ -3004,34 +3036,40 @@ PIPELINE_FEEDS = {
 }
 
 
+def runs_equal(what, got, want, ref):
+    """Two ``pipeline_run`` results equal bit for bit: per-step losses,
+    History (captures per epoch included), the final state (parameters,
+    AdamW state) and K1/K2 launches, both above zero. ``what`` names
+    ``got`` and ``ref`` names ``want`` in a failure's message."""
+    import numpy as np
+
+    check(len(got["steps"]) == len(want["steps"]) > 0
+          and all(torch.equal(a, b) for a, b in zip(got["steps"], want["steps"])),
+          f"{what}: per-step losses differ from {ref}'s")
+    for field in ("train_loss", "val_loss", "test_loss", "lr", "epoch_captures"):
+        check(getattr(got["hist"], field) == getattr(want["hist"], field),
+              f"{what}: History.{field} {getattr(got['hist'], field)} != {ref}'s "
+              f"{getattr(want['hist'], field)}")
+    for field in ("train_tasks", "val_tasks", "test_tasks"):
+        check(all(np.array_equal(a, b) for a, b in zip(getattr(got["hist"], field),
+                                                       getattr(want["hist"], field))),
+              f"{what}: History.{field} differs from {ref}'s")
+    a, b = state_tensors(got["state"]), state_tensors(want["state"])
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          f"{what}: the final state differs from {ref}'s")
+    check((got["k1"], got["k2"]) == (want["k1"], want["k2"]) and want["k1"] > 0
+          and want["k2"] > 0,
+          f"{what}: K1/K2 {got['k1']}/{got['k2']} vs {ref}'s {want['k1']}/{want['k2']}")
+
+
 def pipeline_compare(name, runs):
     """Check every feed's run of ``name`` against the serial feed's, bit
     for bit, and log each feed's report; returns the K1/K2 launches."""
-    import numpy as np
-
     card = card_line()
     ref = runs["serial"]
     for f, run in runs.items():
-        if f == "serial":
-            continue
-        check(len(run["steps"]) == len(ref["steps"]) > 0
-              and all(torch.equal(a, b) for a, b in zip(run["steps"], ref["steps"])),
-              f"[pipeline] {name}: {f} feed's per-step losses differ from the serial feed's")
-        for field in ("train_loss", "val_loss", "test_loss", "lr", "epoch_captures"):
-            check(getattr(run["hist"], field) == getattr(ref["hist"], field),
-                  f"[pipeline] {name}: {f} History.{field} {getattr(run['hist'], field)} "
-                  f"!= serial {getattr(ref['hist'], field)}")
-        for field in ("train_tasks", "val_tasks", "test_tasks"):
-            check(all(np.array_equal(a, b) for a, b in zip(
-                getattr(run["hist"], field), getattr(ref["hist"], field))),
-                f"[pipeline] {name}: {f} History.{field} differs")
-        a, b = state_tensors(run["state"]), state_tensors(ref["state"])
-        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
-              f"[pipeline] {name}: {f} feed's final state differs from the serial feed's")
-        check((run["k1"], run["k2"]) == (ref["k1"], ref["k2"]) and ref["k1"] > 0
-              and ref["k2"] > 0,
-              f"[pipeline] {name}: K1/K2 {run['k1']}/{run['k2']} vs serial "
-              f"{ref['k1']}/{ref['k2']}")
+        if f != "serial":
+            runs_equal(f"[pipeline] {name}: the {f} feed", run, ref, "the serial feed")
     for f, run in runs.items():
         log(f"[pipeline] {name} {f} ({card}): {json.dumps(run['report'])}")
     log(f"[pipeline] {name}: the {', '.join(f for f in runs if f != 'serial')} feeds equal "
@@ -3080,6 +3118,389 @@ def phase_pipeline(mlip_cfg, mlip_splits, zinc_cfg, zinc_splits):
     out["k1"], out["k2"] = k1, k2
     out["seconds"] = time.perf_counter() - t0
     log(f"[pipeline] {out['seconds']:.1f} s for the phase's {4 * 2 + 3} runs")
+    return out, long_splits
+
+
+# ---------------------------------------------------------------- [formats]
+
+
+def deliveries_equal(tag, got, want):
+    """Every delivery of two feeds equal, bit for bit (each batch of a
+    superstep group too); returns the batches compared. Pairs are compared
+    as they come, before either feed's buffers can be recycled."""
+    import itertools
+
+    from hydragnn_tpu_torch.data.loader import MacroBatch
+
+    n = 0
+    for a, b in itertools.zip_longest(got, want):
+        check(a is not None and b is not None, f"[formats] {tag}: the feeds' lengths differ")
+        xs = a.batches if isinstance(a, MacroBatch) else [a]
+        ys = b.batches if isinstance(b, MacroBatch) else [b]
+        check(len(xs) == len(ys), f"[formats] {tag}: a delivery's group sizes differ")
+        for x, y in zip(xs, ys):
+            fx, fy = x.arrays(), y.arrays()
+            check(fx.keys() == fy.keys() and x.seg_tile == y.seg_tile
+                  and all(torch.equal(torch.as_tensor(fx[k]), torch.as_tensor(fy[k]))
+                          for k in fx),
+                  f"[formats] {tag}: batch {n} differs from the in-memory lists' batch")
+            n += 1
+    return n
+
+
+def runner_batches_equal(tag, config, lazy, lists, feed):
+    """The train, val and test feeds run_training builds for ``config``
+    (``runner._single_loaders`` for the card, through ``feed``) over the
+    lazy splits against the same over the in-memory lists: every delivery
+    of two epochs bit for bit. Returns the batches compared."""
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.parallel import runtime
+
+    config = copy.deepcopy(config)
+    training = config["NeuralNetwork"]["Training"]
+    training["Parallelism"] = dict(training.get("Parallelism", {}), **feed)
+    config = update_config(config, *lists)
+    plan = runtime.plan_from_config(config, n_devices=1)
+    bs = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    dev = torch.device("cuda")
+    feeds = [runner._single_loaders(config, plan, config["NeuralNetwork"]["Training"], ds, bs,
+                                    0, False, True, 0, dev)[:3] for ds in (lazy, lists)]
+    n = 0
+    for epoch in (0, 1):
+        for which, (a, b) in enumerate(zip(*feeds)):
+            a.set_epoch(epoch)
+            b.set_epoch(epoch)
+            n += deliveries_equal(f"{tag} {('train', 'val', 'test')[which]} epoch {epoch}",
+                                  a, b)
+    return n
+
+
+def read_ms_per_batch(loader, datasets):
+    """Host ms to read one train batch's samples, by dataset name: the
+    loader's epoch-0 plan read from each (best of two passes)."""
+    plan = [idx for idx, _ in loader.epoch_plan(0)]
+    out = {}
+    for name, ds in datasets.items():
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for idx in plan:
+                [ds[int(i)] for i in idx]
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        out[name] = round(1e3 * best / max(len(plan), 1), 4)
+    return out
+
+
+def sample_digest(samples):
+    """sha256 over every sample's store record (``pack_sample``)."""
+    import hashlib
+
+    from hydragnn_tpu_torch.data.diststore import pack_sample
+
+    h = hashlib.sha256()
+    for s in samples:
+        h.update(pack_sample(s))
+    return h.hexdigest()
+
+
+def store_child(name):
+    """A spawned process of [formats]: attach the shm store ``name`` and
+    print the digest of every sample it unpacks, as one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hydragnn_tpu_torch.data.diststore import StoreDataset
+
+    view = StoreDataset.attach(name)
+    try:
+        print(json.dumps({"samples": len(view), "digest": sample_digest(view),
+                          "pid": os.getpid()}), flush=True)
+    finally:
+        view.close()
+
+
+def edge_rows(ei, shifts=None, cell=None):
+    """(s, r[, image]) rows in one canonical order; a shift becomes its
+    integer image (shift @ inverse cell), so rows compare exactly."""
+    import numpy as np
+
+    cols = [np.asarray(ei[0], np.int64), np.asarray(ei[1], np.int64)]
+    if shifts is not None:
+        img = np.rint(np.asarray(shifts, np.float64) @ np.linalg.inv(cell)).astype(np.int64)
+        check(np.allclose(img @ cell, shifts, atol=1e-6),
+              "[formats] a periodic shift is not an integer image of the cell")
+        cols += [img[:, 0], img[:, 1], img[:, 2]]
+    rows = np.stack(cols, axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def cpu_model():
+    """The host CPU's model name from /proc/cpuinfo, else what the
+    platform module knows, with the CPU count."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key.strip() in ("model name", "Model", "cpu model") and value.strip():
+                    name = value.strip()
+                    break
+    except OSError:
+        pass
+    name = name or f"{platform.machine()} {platform.processor()}".strip()
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def phase_native_cell_list(md17_frames_, slabs):
+    """[formats] the native cell list on the host: built and loaded (a
+    build failure fails the phase), taken by radius_graph and
+    radius_graph_pbc, and equal to the numpy path's edge sets on the MD17
+    stand-in's frames (open, radius 4.0, 24 neighbours) and oc20.py's slabs
+    (periodic, cutoff 5.0); both paths' host ms."""
+    from hydragnn_tpu_torch import native
+    from hydragnn_tpu_torch.ops import neighbors
+
+    check(native.available(), f"[formats] the native host library did not build: "
+          f"{native.build_error}")
+    check(not os.environ.get("HYDRAGNN_TPU_NO_NATIVE"),
+          "[formats] HYDRAGNN_TPU_NO_NATIVE is set: the native cell list would not be used")
+    calls = {"open": 0, "pbc": 0}
+    plain = (native.radius_graph_native, native.radius_graph_pbc_native)
+
+    def counted(kind, fn):
+        def call(*a, **k):
+            calls[kind] += 1
+            return fn(*a, **k)
+        return call
+
+    def build_all():
+        t0 = time.perf_counter()
+        opened = [neighbors.radius_graph(f.pos, 4.0, max_neighbours=24) for f in md17_frames_]
+        t1 = time.perf_counter()
+        periodic = [neighbors.radius_graph_pbc(s.pos, s.cell, 5.0) for s in slabs]
+        t2 = time.perf_counter()
+        return opened, periodic, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+    native.radius_graph_native = counted("open", plain[0])
+    native.radius_graph_pbc_native = counted("pbc", plain[1])
+    try:
+        nat = build_all()
+    finally:
+        native.radius_graph_native, native.radius_graph_pbc_native = plain
+    check(calls == {"open": len(md17_frames_), "pbc": len(slabs)},
+          f"[formats] the native cell list took {calls} of {len(md17_frames_)} frames and "
+          f"{len(slabs)} slabs")
+    os.environ["HYDRAGNN_TPU_NO_NATIVE"] = "1"
+    try:
+        ref = build_all()
+    finally:
+        del os.environ["HYDRAGNN_TPU_NO_NATIVE"]
+    edges = reordered = 0
+    for a, b in zip(nat[0], ref[0]):
+        check(a.shape == b.shape and (edge_rows(a) == edge_rows(b)).all(),
+              "[formats] a native open radius graph differs from numpy's edge set")
+        edges += a.shape[1]
+        reordered += int(not (a == b).all())
+    for (a, sa), (b, sb), s in zip(nat[1], ref[1], slabs):
+        cell = s.cell.astype("float64")
+        check(a.shape == b.shape and (edge_rows(a, sa, cell) == edge_rows(b, sb, cell)).all(),
+              "[formats] a native periodic radius graph differs from numpy's edge set")
+        edges += a.shape[1]
+        reordered += int(not (a == b).all())
+    out = {"available": True, "library": os.path.basename(native.library_path()),
+           "cpu": cpu_model(), "frames": len(md17_frames_), "slabs": len(slabs),
+           "edges": edges, "graphs_in_another_order": reordered,
+           "open_ms": {"native": round(nat[2], 3), "numpy": round(ref[2], 3)},
+           "periodic_ms": {"native": round(nat[3], 3), "numpy": round(ref[3], 3)}}
+    log(f"[formats] native cell list ({out['library']}, built by g++ on the host): "
+        f"{len(md17_frames_)} MD17 frames and {len(slabs)} oc20 slabs through it, {edges} "
+        f"edges, the numpy path's edge sets on every graph ({reordered} of them in another "
+        f"order); host ms open {out['open_ms']}, periodic {out['periodic_ms']} "
+        f"(CPU {out['cpu']})")
+    return out
+
+
+def phase_formats(mlip_cfg, mlip_splits, md17_splits, zinc_cfg, zinc_splits, long_splits,
+                  long_list_report):
+    """[formats]: the module docstring's phase 11b."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.binformat import BinDataset, write_bin_dataset
+    from hydragnn_tpu_torch.data.diststore import StoreDataset
+    from hydragnn_tpu_torch.data.pickledataset import SimplePickleWriter
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    import hydragnn_tpu_torch as port
+
+    t0 = time.perf_counter()
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="formats_")
+    names = ("train", "validate", "test")
+    out = {"card": card, "files": {}, "read_ms_per_batch": {}, "runs": {}}
+    k1 = k2 = 0
+    try:
+        out["native"] = phase_native_cell_list(md17_splits[0] + md17_splits[1],
+                                               synthetic_oc20(200))
+        # 1. md17.json's PaiNN on bench's molecules from three .hgb files
+        paths = {}
+        for split, samples in zip(names, mlip_splits):
+            paths[split] = os.path.join(work, f"md17_{split}.hgb")
+            write_bin_dataset(paths[split], samples)
+            out["files"][f"md17_{split}.hgb"] = os.path.getsize(paths[split])
+        lazy = tuple(BinDataset(paths[s]) for s in names)
+        n_batches = sum(runner_batches_equal(f"md17 {feed}", mlip_cfg, lazy, mlip_splits,
+                                             PIPELINE_FEEDS[feed])
+                        for feed in ("serial", "pipeline"))
+        log(f"[formats] md17: the run's feeds over the three .hgb files equal the in-memory "
+            f"lists' feeds: {n_batches} batches of 2 epochs (train, val, test; serial and "
+            f"through the workers) bit for bit")
+        loader, _ = train_loader(mlip_cfg, mlip_splits[0])
+        out["read_ms_per_batch"]["md17"] = read_ms_per_batch(
+            loader, {"hgb": lazy[0], "list": mlip_splits[0]})
+        bin_cfg = copy.deepcopy(mlip_cfg)
+        bin_cfg["Dataset"] = {"format": "binary", "path": paths, "preload": False}
+        md17 = {}
+        for feed in ("serial", "pipeline"):
+            md17[feed] = (
+                pipeline_run(f"md17_hgb_{feed}", bin_cfg, None, PIPELINE_FEEDS[feed],
+                             phase="formats"),
+                pipeline_run(f"md17_list_{feed}", mlip_cfg, mlip_splits, PIPELINE_FEEDS[feed],
+                             phase="formats"))
+            runs_equal(f"[formats] md17 {feed}: the .hgb run", *md17[feed], "the list-fed run")
+            for r in md17[feed]:
+                k1, k2 = k1 + r["k1"], k2 + r["k2"]
+        runs_equal("[formats] md17: the .hgb run through the workers", md17["pipeline"][0],
+                   md17["serial"][0], "the serial feed")
+        edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+        pred = port.run_prediction(md17["serial"][0]["config"], device="cuda")
+        pred_list = port.run_prediction(md17["serial"][1]["config"], datasets=mlip_splits,
+                                        device="cuda")
+        k1, k2 = k1 + edge_pipeline_planned.launches, k2 + edge_pipeline_bwd_planned.launches
+        check(pred[0] == pred_list[0] and all(
+            np.array_equal(a, b) for a, b in zip(pred[2] + pred[3], pred_list[2] + pred_list[3])),
+              "[formats] md17: run_prediction(config) on the .hgb files differs from the "
+              "list-fed run's")
+        check(np.isfinite(pred[3][0]).all() and np.isfinite(pred[3][1]).all(),
+              "[formats] md17: non-finite predictions")
+        out["runs"]["md17"] = {f: {"hgb": r[0]["report"], "list": r[1]["report"]}
+                               for f, r in md17.items()}
+        log(f"[formats] md17: run_training on Dataset.format binary (preload false) equals "
+            f"the run fed the lists bit for bit through the serial feed and the workers "
+            f"(per-step losses, History, parameters and AdamW state; K1 "
+            f"{md17['serial'][0]['k1']}, K2 {md17['serial'][0]['k2']} a run); "
+            f"run_prediction(config) restores the checkpoint and predicts energies "
+            f"{pred[3][0].shape} and forces {pred[3][1].shape} equal to the list-fed run's "
+            f"bit for bit (error {pred[0]:.6g}); run seconds hgb/list serial "
+            f"{md17['serial'][0]['seconds']:.3f}/{md17['serial'][1]['seconds']:.3f}, "
+            f"workers {md17['pipeline'][0]['seconds']:.3f}/"
+            f"{md17['pipeline'][1]['seconds']:.3f} ({card})")
+        # 3. the shm sample store: a spawned child attaches; the run on it
+        shm = f"/hgtpu_formats_{os.getpid()}"
+        stores = []
+        try:
+            for split, samples in zip(names, mlip_splits):
+                stores.append(StoreDataset.build(samples, shm_name=f"{shm}_{split}"))
+            p = subprocess.run([sys.executable, os.path.abspath(__file__), "--store-child",
+                                f"{shm}_train"], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True, timeout=300)
+            child = json.loads(p.stdout.strip().splitlines()[-1]) if p.returncode == 0 else {}
+            digest = sample_digest(mlip_splits[0])
+            check(p.returncode == 0 and child.get("digest") == digest
+                  and child.get("samples") == len(mlip_splits[0]),
+                  f"[formats] the store child (rc {p.returncode}) read {child} against the "
+                  f"parent's {len(mlip_splits[0])} samples, digest {digest}:\n{p.stdout}")
+            store_run = pipeline_run("md17_store", mlip_cfg, tuple(stores),
+                                     PIPELINE_FEEDS["serial"], phase="formats")
+            runs_equal("[formats] md17: the store-fed run", store_run, md17["serial"][0],
+                       "the .hgb run")
+            k1, k2 = k1 + store_run["k1"], k2 + store_run["k2"]
+        finally:
+            for st in stores:
+                st.close()
+        try:
+            StoreDataset.attach(f"{shm}_train").close()
+            attached = True
+        except RuntimeError:
+            attached = False
+        check(not attached, "[formats] the store's name outlived its owner's close")
+        out["store"] = {"child_pid": child["pid"], "samples": child["samples"],
+                        "digest": digest[:16], "run_seconds": round(store_run["seconds"], 4)}
+        log(f"[formats] sample store: md17's splits in POSIX shm ({shm}_*); a spawned process "
+            f"attached the train split and unpacked {child['samples']} samples with the "
+            f"parent's digest {digest[:16]}; run_training on the store views equals the "
+            f".hgb-fed run bit for bit; the names are gone after close")
+        # 2. zinc.json's PNAPlus + GPS from a pickle directory, pna_deg from the data
+        dirs = {}
+        for split, samples in zip(names, zinc_splits):
+            dirs[split] = os.path.join(work, "zinc_pickle", split)
+            SimplePickleWriter(samples, dirs[split])
+        out["files"]["zinc_pickle"] = sum(
+            os.path.getsize(os.path.join(r, f)) for r, _, fs in
+            os.walk(os.path.join(work, "zinc_pickle")) for f in fs)
+        pk_cfg = copy.deepcopy(zinc_cfg)
+        pk_cfg["Dataset"] = {"format": "pickle", "path": dirs}
+        zinc = (pipeline_run("zinc_pickle", pk_cfg, None, PIPELINE_FEEDS["pipeline"],
+                             phase="formats"),
+                pipeline_run("zinc_list", zinc_cfg, zinc_splits, PIPELINE_FEEDS["pipeline"],
+                             phase="formats"))
+        runs_equal("[formats] zinc: the pickle run", *zinc, "the list-fed run")
+        deg = [r["config"]["NeuralNetwork"]["Architecture"]["pna_deg"] for r in zinc]
+        check(deg[0] == deg[1] and sum(deg[0]) > 0,
+              f"[formats] zinc: pna_deg from the pickle files {deg[0]} vs the lists' {deg[1]}")
+        for r in zinc:
+            k1, k2 = k1 + r["k1"], k2 + r["k2"]
+        out["runs"]["zinc"] = {"pickle": zinc[0]["report"], "list": zinc[1]["report"],
+                               "pna_deg": deg[0]}
+        log(f"[formats] zinc: run_training on Dataset.format pickle (pna_deg {deg[0]} taken "
+            f"from the data) equals the run fed the lists through the workers bit for bit "
+            f"(K1 {zinc[0]['k1']}, K2 {zinc[0]['k2']}); run seconds "
+            f"{zinc[0]['seconds']:.3f}/{zinc[1]['seconds']:.3f} ({card})")
+        # zinc_long: 16,000 molecules in one .hgb container, one epoch
+        long_path = os.path.join(work, "zinc_long.hgb")
+        write_bin_dataset(long_path, [s for split in long_splits for s in split])
+        out["files"]["zinc_long.hgb"] = os.path.getsize(long_path)
+        bounds = np.cumsum([0] + [len(x) for x in long_splits])
+        views = tuple(BinDataset(long_path, subset=range(bounds[i], bounds[i + 1]))
+                      for i in range(3))
+        loader, _ = train_loader(zinc_cfg, long_splits[0])
+        out["read_ms_per_batch"]["zinc_long"] = read_ms_per_batch(
+            loader, {"hgb": views[0], "list": long_splits[0]})
+        one = copy.deepcopy(zinc_cfg)
+        one["NeuralNetwork"]["Training"]["num_epoch"] = 1
+        long_runs = (pipeline_run("zinc_long_hgb", one, views, PIPELINE_FEEDS["pipeline"],
+                                  late_captures=True, phase="formats"),
+                     pipeline_run("zinc_long_list", one, long_splits,
+                                  PIPELINE_FEEDS["pipeline"], late_captures=True,
+                                  phase="formats"))
+        runs_equal("[formats] zinc_long: the .hgb run", *long_runs, "the list-fed run")
+        for r in long_runs:
+            k1, k2 = k1 + r["k1"], k2 + r["k2"]
+        out["runs"]["zinc_long"] = {"hgb": long_runs[0]["report"],
+                                    "list": long_runs[1]["report"],
+                                    "pipeline_phase_list": long_list_report}
+        rep = [r["report"] for r in long_runs]
+        log(f"[formats] zinc_long: {len(long_splits[0])} train molecules from one .hgb "
+            f"container ({out['files']['zinc_long.hgb']} bytes; subset views per split) "
+            f"through the workers, one epoch, equal to the list-fed run bit for bit; epoch "
+            f"seconds hgb {rep[0]['epoch_seconds']} / list {rep[1]['epoch_seconds']}, input "
+            f"wait ms a dispatch {rep[0]['input_wait_ms_per_step']} / "
+            f"{rep[1]['input_wait_ms_per_step']}; [pipeline]'s in-memory run: epoch seconds "
+            f"{long_list_report['epoch_seconds']}, input wait "
+            f"{long_list_report['input_wait_ms_per_step']}; one thread's read ms a batch "
+            f"{out['read_ms_per_batch']['zinc_long']} ({card})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["k1"], out["k2"] = k1, k2
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    log(f"[formats] {out['seconds']:.1f} s; K1 {k1}, K2 {k2} launches in the phase")
     return out
 
 
@@ -6599,6 +7020,9 @@ def main():
     if sys.argv[1:2] == ["--preempt-child"]:
         preempt_child(sys.argv[2], sys.argv[3])
         return
+    if sys.argv[1:2] == ["--store-child"]:
+        store_child(sys.argv[2])
+        return
     card = phase_device()
     # The port lives next to this script; a copy of the script alone
     # fails here with ModuleNotFoundError.
@@ -6648,7 +7072,10 @@ def main():
     zinc_bin = next(iter(zinc_loader))
     zinc_rows = phase_zinc_kernels(zinc_bin.to("cuda"))
     zinc = phase_zinc(zinc_cfgs, zinc_splits, zinc_loader, zinc_bin)
-    pipeline = phase_pipeline(mlip_cfg, mlip_splits, zinc_cfgs["fp32"], zinc_splits)
+    pipeline, long_splits = phase_pipeline(mlip_cfg, mlip_splits, zinc_cfgs["fp32"],
+                                           zinc_splits)
+    formats = phase_formats(mlip_cfg, mlip_splits, md17_splits, zinc_cfgs["fp32"], zinc_splits,
+                            long_splits, pipeline["zinc_long"]["pipeline"])
     poly_cfg, poly_splits = polymer_data()
     poly_loader, _ = train_loader(poly_cfg, poly_splits[0])
     check(poly_loader.packing, "polymers.json's packing 'auto' did not pack the chains")
@@ -6698,7 +7125,7 @@ def main():
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
-                     + graphshard["k1"]),
+                     + formats["k1"] + graphshard["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -6710,7 +7137,8 @@ def main():
                              "fsdp": fsdp["run"]["k1"], "multibranch": multibranch["k1"],
                              "guard": guard["k1"], "preempt": preempt["k1"],
                              "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
-                             "pipeline": pipeline["k1"], "graphshard": graphshard["k1"]},
+                             "pipeline": pipeline["k1"], "formats": formats["k1"],
+                             "graphshard": graphshard["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -6742,7 +7170,8 @@ def main():
         "launches": (train["k2"] + mlip["k2"] + zinc["k2"] + polymers["k2"] + oc20["k2"]
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
-                     + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + graphshard["k2"]),
+                     + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
+                     + graphshard["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -6753,7 +7182,8 @@ def main():
                              "fsdp": fsdp["run"]["k2"], "multibranch": multibranch["k2"],
                              "guard": guard["k2"], "preempt": preempt["k2"],
                              "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
-                             "pipeline": pipeline["k2"], "graphshard": graphshard["k2"]},
+                             "pipeline": pipeline["k2"], "formats": formats["k2"],
+                             "graphshard": graphshard["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
@@ -6789,6 +7219,7 @@ def main():
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] pipeline: {json.dumps(pipeline)}")
+    log(f"[report] formats: {json.dumps(formats)}")
     log(f"[report] polymers: {json.dumps(polymers)}")
     log(f"[report] zoo: {json.dumps(zoo)}")
     log(f"[report] oc20: {json.dumps(oc20)}")

@@ -41,8 +41,13 @@ What runs today:
   attention (``parallel/graphshard.py``), trained by the giant-graph
   driver (``python -m hydragnn_tpu_torch.drivers.giant_graph``).
 
-The rest (dataset formats, MD rollouts, aux utilities) is later work
-(ROADMAP.md).
+- datasets: every format of the JAX package (raw LSMS, XYZ and CFG
+  files, pickle directories, ``.hgb`` binary containers read sample by
+  sample), a shared-memory sample store (``data/diststore.py``) and the
+  native C++ cell list behind the radius graphs (``native.py``, built
+  with ``g++`` at first use).
+
+The rest (MD rollouts, aux utilities) is later work (ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

@@ -2,7 +2,9 @@
 
 Counterpart of ``hydragnn_tpu/data/graph.py``: ``GraphSample`` (one host
 graph), ``GraphBatch`` (a padded batch with the same fields, as tensors),
-``select_input_features``, ``bucket_size``, ``build_triplets``,
+the dataset-wide optional-field map (``optional_field_widths``,
+``optional_field_widths_multi``), ``select_input_features``,
+``bucket_size``, ``build_triplets``,
 ``count_triplets``, ``fill_triplets``, ``PackSpec``, ``PadSpec``,
 ``collate`` and ``apply_segment_plan``. The host work is the JAX package's numpy code,
 copied, so collated arrays match it bit for bit.
@@ -145,6 +147,110 @@ class GraphSample:
     @property
     def num_edges(self) -> int:
         return 0 if self.edge_index is None else int(self.edge_index.shape[1])
+
+
+# Input-side optional fields: zero-filling an absent one means "no
+# feature" (open boundary, no conditioning attribute, no PE), so a mixed
+# dataset may materialize them in every batch.
+_ZERO_FILL_FIELDS = ("edge_attr", "edge_shifts", "rel_pe", "pe", "graph_attr")
+# Fields where a zero fill would train toward zero labels or positions:
+# present on every sample of a dataset or on none.
+_ALL_OR_NONE_FIELDS = ("pos", "energy", "forces", "y_graph", "y_node")
+
+
+def optional_field_widths(dataset) -> dict:
+    """{optional field -> last-dim width} over a whole dataset: the
+    ``ensure_fields`` map for ``collate``, so every batch of a mixed
+    dataset carries the same optional fields (``cell`` maps to None:
+    collate tests the key only). Raises on inconsistent widths and on
+    a label or position field present on some samples only.
+
+    A container that knows the map from its own metadata (``BinDataset``'s
+    header, a pickle directory's meta) answers through ``field_widths()``
+    with no sample read; otherwise one scan, cached on the dataset object
+    so several loaders over one lazy dataset read it once."""
+    fw = getattr(dataset, "field_widths", None)
+    if callable(fw):
+        meta = fw()
+        if meta is not None:
+            return dict(meta)
+    cached = getattr(dataset, "_cached_field_widths", None)
+    if cached is not None:
+        return dict(cached)
+    widths: dict = {}
+    present = {f: 0 for f in _ALL_OR_NONE_FIELDS}
+    has_cell = False
+    n = 0
+    for s in dataset:
+        n += 1
+        for f in _ZERO_FILL_FIELDS + _ALL_OR_NONE_FIELDS:
+            v = getattr(s, f)
+            if v is None:
+                continue
+            if f in _ALL_OR_NONE_FIELDS:
+                present[f] += 1
+            if f == "energy":
+                continue  # a scalar: no width
+            w = int(np.atleast_2d(v).shape[-1])
+            if widths.setdefault(f, w) != w:
+                raise ValueError(
+                    f"Inconsistent {f} widths across the dataset: "
+                    f"{widths[f]} vs {w} — homogeneous batches would "
+                    "collate to divergent shapes"
+                )
+        if s.cell is not None:
+            has_cell = True
+    for f, c in present.items():
+        if 0 < c < n:
+            raise ValueError(
+                f"Partially-labeled dataset: {f} present on {c}/{n} "
+                "samples; label and position fields must be present on "
+                "all samples or none"
+            )
+    out = {f: widths[f] for f in _ZERO_FILL_FIELDS if f in widths}
+    if has_cell:
+        out["cell"] = None
+    try:
+        dataset._cached_field_widths = dict(out)
+    except (AttributeError, TypeError):
+        pass  # plain lists and tuples cannot carry the cache
+    return out
+
+
+def optional_field_widths_multi(datasets) -> dict:
+    """One ``ensure_fields`` map over several datasets (the train, val and
+    test splits), each through its own metadata or cached scan and then
+    merged, so lazy containers are never concatenated into one list.
+    Raises on widths that conflict across datasets and on label or
+    position fields present in some splits only (presence is uniform
+    within a dataset, so one sample, or the container's
+    ``label_fields()``, tells a split's)."""
+    datasets = [d for d in datasets if len(d)]
+    out: dict = {}
+    for d in datasets:
+        for k, w in optional_field_widths(d).items():
+            if k in out and out[k] != w:
+                raise ValueError(
+                    f"Inconsistent {k} widths across datasets: "
+                    f"{out[k]} vs {w} — homogeneous batches would "
+                    "collate to divergent shapes"
+                )
+            out.setdefault(k, w)
+
+    def _presence(d):
+        lf = getattr(d, "label_fields", None)
+        if callable(lf):
+            return lf()
+        return frozenset(f for f in _ALL_OR_NONE_FIELDS if getattr(d[0], f) is not None)
+
+    presence = [_presence(d) for d in datasets]
+    if presence and any(p != presence[0] for p in presence[1:]):
+        raise ValueError(
+            "Partially-labeled dataset: label/position fields differ "
+            f"across datasets ({[sorted(p) for p in presence]}); "
+            "fields must be present on all splits or none"
+        )
+    return out
 
 
 def select_input_features(samples, input_cols):

@@ -10,6 +10,12 @@ K same-spec batches, ``MacroBatch``, and singletons) and
 ``split_dataset``. Batch order, pad specs, packed bins, superstep groups
 and collated arrays equal the JAX package's for the same seed.
 
+A loader keeps a container dataset lazy (``BinDataset``,
+``SimplePickleDataset``, ``StoreDataset``: its samples are read per
+batch, its sizes from its header where it has one) and zero-fills one
+dataset-wide optional-field map in every batch (``ensure_fields``;
+``graph.optional_field_widths``), as the JAX package's loader does.
+
 The port's batches carry the block plan at the Hopper tiles by default
 (``with_segment_plan=True``), packed bins included, so every aggregation
 runs K1 forward and K2 backward; ``with_segment_plan=False`` gives the
@@ -61,6 +67,7 @@ from hydragnn_tpu_torch.data.graph import (
     bucket_size,
     collate,
     count_triplets,
+    optional_field_widths,
 )
 from hydragnn_tpu_torch.data.padschedule import (
     MAX_PAD_BUCKETS,
@@ -79,7 +86,14 @@ from hydragnn_tpu_torch.data.padschedule import (
 
 
 class GraphLoader:
-    """Iterates GraphBatches (CPU tensors) over a list of GraphSamples.
+    """Iterates GraphBatches (CPU tensors) over a dataset of GraphSamples.
+
+    A container with ``__len__`` and ``__getitem__`` (``BinDataset``,
+    ``SimplePickleDataset``, ``StoreDataset``) is kept as it is and read
+    sample by sample per batch; its sizes come from ``sample_sizes()``
+    where it has one (``padschedule.dataset_size_arrays``), so building
+    the loader reads no sample. Lists and tuples are copied; anything
+    else (a generator) is materialized.
 
     ``fixed_pad=True`` pads every batch to the dataset's worst-case
     shape; ``False`` pads each batch up the bucket ladder; ``"auto"``
@@ -101,7 +115,13 @@ class GraphLoader:
     ``num_samples`` draws that many samples each epoch (the reference's
     oversampling sampler; with replacement past the dataset's size); it
     needs ``shuffle``, is never cached, and refuses ``pack_dp_shards`` >
-    1 (a resampled epoch could not be proven coordinatable up front)."""
+    1 (a resampled epoch could not be proven coordinatable up front).
+
+    ``ensure_fields`` (default: ``graph.optional_field_widths`` over the
+    dataset) names the optional fields every batch carries, zero-filled
+    where a batch's samples lack them, so a mixed dataset gives batches
+    of one structure; callers holding several loaders pass one map over
+    all their datasets."""
 
     def __init__(
         self,
@@ -123,8 +143,13 @@ class GraphLoader:
         pack_max_graphs: Optional[int] = None,
         pack_dp_shards: int = 0,
         spec_schedule: Optional[PadSpecSchedule] = None,
+        ensure_fields: Optional[dict] = None,
     ):
-        self.dataset = list(dataset)
+        if isinstance(dataset, (list, tuple)) or not (
+            hasattr(dataset, "__getitem__") and hasattr(dataset, "__len__")
+        ):
+            dataset = list(dataset)
+        self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.num_samples = None if num_samples is None else int(num_samples)
@@ -190,6 +215,10 @@ class GraphLoader:
         self._batch_cache: Optional[List[GraphBatch]] = None
         self._skip_next = 0
         self.pad_spec: Optional[PadSpec] = None
+        self._ensure_fields = (
+            ensure_fields if ensure_fields is not None
+            else optional_field_widths(self.dataset) if len(self.dataset) else {}
+        )
         if fixed_pad and len(self.dataset):
             self.pad_spec = self._worst_case_spec()
 
@@ -356,7 +385,8 @@ class GraphLoader:
         samples = [self.dataset[i] for i in idx]
         if spec is None:
             spec = PadSpec.for_samples(samples, with_triplets=self.with_triplets)
-        return collate(samples, spec, with_segment_plan=self.with_segment_plan)
+        return collate(samples, spec, with_segment_plan=self.with_segment_plan,
+                       ensure_fields=self._ensure_fields)
 
     def __iter__(self) -> Iterator[GraphBatch]:
         skip, self._skip_next = self._skip_next, 0

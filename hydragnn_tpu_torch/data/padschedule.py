@@ -268,9 +268,22 @@ def slot_spec_schedule(loaders: Sequence, bucket_limit: Optional[int] = None
 
 
 def dataset_size_arrays(dataset) -> tuple:
-    """Per-sample (node, edge) counts as int64 arrays."""
+    """Per-sample (node, edge) counts as int64 arrays. A container with a
+    header index (``BinDataset.sample_sizes``) answers without reading a
+    sample; otherwise one scan, cached on the dataset object."""
+    sizes = getattr(dataset, "sample_sizes", None)
+    if callable(sizes):
+        n, e = sizes()
+        return np.asarray(n, dtype=np.int64), np.asarray(e, dtype=np.int64)
+    cached = getattr(dataset, "_cached_sample_sizes", None)
+    if cached is not None:
+        return cached
     n = np.array([s.num_nodes for s in dataset], dtype=np.int64)
     e = np.array([s.num_edges for s in dataset], dtype=np.int64)
+    try:
+        dataset._cached_sample_sizes = (n, e)
+    except (AttributeError, TypeError):
+        pass  # plain lists and tuples cannot carry the cache
     return n, e
 
 

@@ -642,7 +642,8 @@ class ParallelPipelineLoader:
             spec = PadSpec.for_samples(samples, with_triplets=loader.with_triplets)
         key = _spec_key(spec)
         bufs = self._pool_acquire(key)
-        kw = dict(with_segment_plan=loader.with_segment_plan, out=bufs)
+        kw = dict(with_segment_plan=loader.with_segment_plan,
+                  ensure_fields=loader._ensure_fields, out=bufs)
         try:
             if self._store is not None:
                 batch = self._store.assemble(idx, spec, **kw)

@@ -5,18 +5,33 @@ Counterpart of the host half of ``hydragnn_tpu/ops/neighbors.py``:
 ``radius_graph`` (its numpy cell list, ``_cell_list_pairs``, and the
 per-receiver cap ``_cap_neighbors``), ``radius_graph_pbc`` (the image
 search over a triclinic cell with mixed periodicity) and
-``ensure_connected``, copied so that the edge arrays equal the JAX
-package's numpy path element for element. The JAX package may take a
-native C++ cell list instead, which finds the same edges in another
-order; the port has no native library. The in-jit builder comes with the
-slice that uses it (ROADMAP Queue 1).
+``ensure_connected``. Both builders take the native C++ cell list
+(``native.py``, the port's copy of the JAX package's source) whenever it
+builds, as the JAX package does, and fall back to numpy where it declines
+the geometry (``NativeUnsupported``). ``HYDRAGNN_TPU_NO_NATIVE=1`` (the
+JAX package's switch) keeps the numpy path, which stays the reference.
+The two find the same edges in different orders; each equals the JAX
+package's same path element for element (the numpy code is copied, the
+C++ is the same source). The in-jit builder comes with the slice that
+uses it (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
+
+
+def _native_available() -> bool:
+    """The C++ cell list unless ``HYDRAGNN_TPU_NO_NATIVE`` is set (or the
+    library does not build)."""
+    if os.environ.get("HYDRAGNN_TPU_NO_NATIVE"):
+        return False
+    from hydragnn_tpu_torch import native
+
+    return native.available()
 
 
 def radius_graph(
@@ -32,6 +47,15 @@ def radius_graph(
     pos = np.asarray(pos, dtype=np.float64)
     if pos.shape[0] == 0:
         return np.zeros((2, 0), dtype=np.int64)
+    if not loop and _native_available():
+        from hydragnn_tpu_torch.native import NativeUnsupported, radius_graph_native
+
+        try:
+            ei = radius_graph_native(pos, radius)
+        except NativeUnsupported:
+            pass
+        else:
+            return _cap_neighbors(ei[0], ei[1], pos, None, max_neighbours)[0]
     senders, receivers, _ = _cell_list_pairs(pos, radius, loop=loop)
     return _cap_neighbors(senders, receivers, pos, None, max_neighbours)[0]
 
@@ -54,6 +78,15 @@ def radius_graph_pbc(
     cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
     if pos.shape[0] == 0:
         return np.zeros((2, 0), dtype=np.int64), np.zeros((0, 3))
+    if _native_available():
+        from hydragnn_tpu_torch.native import NativeUnsupported, radius_graph_pbc_native
+
+        try:
+            ei, sh = radius_graph_pbc_native(pos, cell, radius, tuple(pbc))
+        except NativeUnsupported:
+            pass
+        else:
+            return _cap_neighbors(ei[0], ei[1], pos, sh, max_neighbours)
 
     # Images per axis: the distance between opposite faces must cover
     # the cutoff.

@@ -42,7 +42,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from hydragnn_tpu_torch.data.graph import GraphSample, PadSpec
+from hydragnn_tpu_torch.data.graph import GraphSample, PadSpec, optional_field_widths
 from hydragnn_tpu_torch.data.loader import GraphLoader
 from hydragnn_tpu_torch.models.spec import ModelConfig
 from hydragnn_tpu_torch.train.optimizer import OptaxOptimizer, select_optimizer
@@ -173,6 +173,9 @@ class MultiBranchLoader:
 
         self.slot = int(slot)
         self._skip_next = 0
+        # one optional-field map over every branch: each step's slots
+        # must collate to one structure
+        shared_fields = optional_field_widths([s for b in branch_datasets for s in b])
         self.loaders: List[GraphLoader] = []
         for bi, n_dev in enumerate(devices_per_branch):
             samples = [dataclasses.replace(s, dataset_id=bi) for s in branch_datasets[bi]]
@@ -185,7 +188,8 @@ class MultiBranchLoader:
                     )
                 self.loaders.append(GraphLoader(
                     shard, batch_size, shuffle=shuffle, seed=seed + 1000 * bi + di,
-                    with_triplets=with_triplets, with_segment_plan=with_segment_plan))
+                    with_triplets=with_triplets, with_segment_plan=with_segment_plan,
+                    ensure_fields=shared_fields))
         if variable_pad and not with_triplets:
             sched = slot_spec_schedule(self.loaders)
             if variable_pad != "auto" or sched.ladder_is_small():

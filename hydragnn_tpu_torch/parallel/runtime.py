@@ -362,15 +362,19 @@ def plan_from_config(config: dict, n_devices: Optional[int] = None) -> ParallelP
     )
 
 
-def shard_dataset_for_process(samples: Sequence) -> list:
-    """This node's equal-size shard of a sample list: the contiguous
-    block partition (``padschedule.shard_for_process``) truncated to one
-    length on every node, so per-epoch step counts agree with no
-    collective. One node keeps the whole list."""
-    samples = list(samples)
+def shard_dataset_for_process(samples: Sequence) -> Sequence:
+    """This node's equal-size shard of a dataset: the contiguous block
+    partition (``padschedule.shard_for_process``) truncated to one length
+    on every node, so per-epoch step counts agree with no collective. One
+    node keeps the whole dataset: a list or tuple as a list, a container
+    with ``__len__`` and ``__getitem__`` (``BinDataset``) as it is, read
+    lazily; across nodes the shard's samples are read by index.
+    Anything else is materialized first."""
+    if not (hasattr(samples, "__getitem__") and hasattr(samples, "__len__")):
+        samples = list(samples)
     p = process_count()
     if p == 1:
-        return samples
+        return list(samples) if isinstance(samples, (list, tuple)) else samples
     from hydragnn_tpu_torch.data.padschedule import shard_for_process
 
     block = shard_for_process(len(samples), process_index(), p)

@@ -87,9 +87,14 @@ directory.
 end of training from an eval-shaped, unpacked loader over the train
 split.
 
-Refused with ``NotImplementedError`` naming the ROADMAP item that ports
-them: dataset formats other than the raw LSMS text files (Queue 1 item
-10c). An interatomic-potential config
+Datasets (``_ingest_datasets``): every format the JAX package reads, the
+raw LSMS, CFG and XYZ files, pickle directories and binary containers;
+a container is read sample by sample as batches need it, never
+materialized (``data/loader.GraphLoader``). Every loader of a run
+zero-fills the optional fields of one map over the full splits
+(``graph.optional_field_widths_multi``), so all its batches have one
+structure, and a dataset whose label or position fields are present on
+some samples only is refused. An interatomic-potential config
 (``enable_interatomic_potential``) trains on the energy + force loss,
 and ``run_prediction`` then returns graph energies and forces.
 """
@@ -109,6 +114,8 @@ from hydragnn_tpu_torch.data.graph import (
     PadSpec,
     bucket_size,
     count_triplets,
+    optional_field_widths,
+    optional_field_widths_multi,
     select_input_features,
 )
 from hydragnn_tpu_torch.data.loader import GraphLoader, split_dataset
@@ -121,7 +128,7 @@ from hydragnn_tpu_torch.data.padschedule import (
     worst_case_spec_from_sizes,
 )
 from hydragnn_tpu_torch.data.prefetch import PrefetchLoader
-from hydragnn_tpu_torch.data.raw import process_raw_samples, read_lsms_directory
+from hydragnn_tpu_torch.data.raw import RawSample, process_raw_samples, read_lsms_directory
 from hydragnn_tpu_torch.device import resolve_device
 from hydragnn_tpu_torch.models.create import create_model_config, needs_triplets
 from hydragnn_tpu_torch.parallel import runtime
@@ -155,33 +162,89 @@ from hydragnn_tpu_torch.utils.print_utils import (
 )
 
 
-def _ingest_datasets(config: dict) -> Tuple[List[GraphSample], ...]:
-    """train/val/test GraphSamples from the raw LSMS text directories of
-    ``Dataset.path`` (one ``total`` directory split by ``perc_train``, or
-    one per split); normalization statistics come from all of them."""
+def _ingest_datasets(config: dict) -> Tuple[Sequence[GraphSample], ...]:
+    """train/val/test datasets per the ``Dataset`` section, as the JAX
+    package reads them. ``unit_test``/``LSMS``, ``CFG`` and ``XYZ`` read
+    raw files (one ``total`` directory split by ``perc_train``, or one per
+    split; normalization statistics come from all of them; CFG/XYZ take
+    ``node_features``/``graph_features`` column selections and need a
+    graph-target sidecar when the config asks for a graph output).
+    ``pickle`` opens a ``SimplePickleDataset`` per split and
+    ``binary``/``hgb``/``adios`` a ``BinDataset`` per split file
+    (``Dataset.preload`` reads it into memory up front; otherwise every
+    sample is read from the file when a batch needs it); both are stored
+    with their full node features, so ``input_node_features`` is applied
+    here. Any other format raises ValueError."""
     ds = config.get("Dataset", {})
     fmt = ds.get("format", "unit_test")
-    if fmt not in ("unit_test", "LSMS"):
-        raise NotImplementedError(
-            f"Dataset.format {fmt!r} is not ported yet (the port reads the raw "
-            "LSMS text format): ROADMAP Queue 1 item 10c"
-        )
     paths = ds.get("path", {})
-    if not isinstance(paths, dict):
-        raise ValueError(f"Dataset.path must be a dict, got {type(paths)}")
     training = config["NeuralNetwork"]["Training"]
-    if "total" in paths:
-        samples = process_raw_samples(read_lsms_directory(paths["total"], ds), config)
-        return split_dataset(
-            samples,
-            float(training.get("perc_train", 0.7)),
-            stratified=bool(ds.get("compositional_stratified_splitting", False)),
-        )
-    raws = {split: read_lsms_directory(paths[split], ds)
-            for split in ("train", "validate", "test")}
-    samples = process_raw_samples(raws["train"] + raws["validate"] + raws["test"], config)
-    n_tr, n_va = len(raws["train"]), len(raws["validate"])
-    return samples[:n_tr], samples[n_tr : n_tr + n_va], samples[n_tr + n_va :]
+    perc_train = float(training.get("perc_train", 0.7))
+    stratified = bool(ds.get("compositional_stratified_splitting", False))
+
+    def _ingest_raw(reader):
+        if not isinstance(paths, dict):
+            raise ValueError(f"Dataset.path must be a dict, got {type(paths)}")
+        if "total" in paths:
+            samples = process_raw_samples(reader(paths["total"]), config)
+            return split_dataset(samples, perc_train, stratified=stratified)
+        raws = {split: reader(paths[split]) for split in ("train", "validate", "test")}
+        samples = process_raw_samples(raws["train"] + raws["validate"] + raws["test"], config)
+        n_tr, n_va = len(raws["train"]), len(raws["validate"])
+        return samples[:n_tr], samples[n_tr : n_tr + n_va], samples[n_tr + n_va :]
+
+    if fmt in ("unit_test", "LSMS"):
+        return _ingest_raw(lambda p: read_lsms_directory(p, ds))
+    if fmt in ("CFG", "XYZ"):
+        from hydragnn_tpu_torch.data.formats import read_cfg_directory, read_xyz_directory
+
+        reader = read_cfg_directory if fmt == "CFG" else read_xyz_directory
+        node_cols = ds.get("node_features", {}).get("column_index")
+        graph_cols = ds.get("graph_features", {}).get("column_index")
+        wants_graph_target = "graph" in config["NeuralNetwork"][
+            "Variables_of_interest"].get("type", [])
+
+        def _to_raw(p):
+            out = []
+            for s in reader(p):
+                if s.y_graph is None and wants_graph_target:
+                    raise ValueError(
+                        f"{fmt} sample in {p} has no graph target sidecar "
+                        "(_energy.txt / .bulk) but the config asks for a graph output"
+                    )
+                x = np.asarray(s.x, np.float64)
+                if node_cols is not None:
+                    x = x[:, node_cols]
+                y = (np.asarray(s.y_graph, np.float64) if s.y_graph is not None
+                     else np.zeros(1))
+                if graph_cols is not None and s.y_graph is not None:
+                    y = y[graph_cols]
+                out.append(RawSample(node_features=x, positions=np.asarray(s.pos, np.float64),
+                                     graph_features=y, cell=s.cell))
+            return out
+
+        return _ingest_raw(_to_raw)
+    in_cols = _input_cols(config)
+    if fmt == "pickle":
+        from hydragnn_tpu_torch.data.pickledataset import SimplePickleDataset
+
+        return tuple(select_input_features(SimplePickleDataset(paths[split]), in_cols)
+                     for split in ("train", "validate", "test"))
+    if fmt in ("binary", "hgb", "adios"):
+        from hydragnn_tpu_torch.data.binformat import BinDataset
+
+        if not isinstance(paths, dict) or not all(
+            k in paths for k in ("train", "validate", "test")
+        ):
+            raise ValueError(
+                "binary format needs Dataset.path with train/validate/test container "
+                f"files (write splits separately with write_bin_dataset); got {paths!r}"
+            )
+        preload = bool(ds.get("preload", False))
+        return tuple(
+            select_input_features(BinDataset(paths[split], preload=preload), in_cols)
+            for split in ("train", "validate", "test"))
+    raise ValueError(f"Unknown Dataset.format: {fmt}")
 
 
 def _input_cols(config: dict):
@@ -203,7 +266,8 @@ def _check_num_nodes_bound(config: dict, *datasets) -> None:
     bound = arch.get("num_nodes")
     if not needs_bound or bound is None:
         return
-    max_n = max((s.num_nodes for ds in datasets for s in ds), default=0)
+    max_n = max((int(dataset_size_arrays(ds)[0].max()) for ds in datasets if len(ds)),
+                default=0)
     if max_n > int(bound):
         raise ValueError(
             f"Graph with {max_n} nodes exceeds Architecture.num_nodes="
@@ -381,6 +445,8 @@ def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbo
     per-split fallback when a split cannot feed every slot; else the
     cross-rank spec schedules or the worst case)."""
     trainset, valset, testset = datasets
+    # one map over the full splits: per-shard maps could differ by node
+    ensure = optional_field_widths_multi(datasets)
     splits = tuple(runtime.shard_dataset_for_process(d) for d in datasets)
     multinode = runtime.process_count() > 1
     pk = packing_settings(config)
@@ -396,14 +462,17 @@ def _dp_loaders(config, plan, datasets, batch_size, seed, trips, seg_plan, verbo
                 scheds.append(_dp_pad_schedules(plan, batch_size, seed, trips, datasets))
             sched = scheds[0][which]
         kw = dict(with_triplets=trips, with_segment_plan=seg_plan, fixed_pad=True,
-                  spec_schedule=sched, packing=pack, pack_max_budgets=pk["max_budgets"],
+                  ensure_fields=ensure, spec_schedule=sched, packing=pack,
+                  pack_max_budgets=pk["max_budgets"],
                   pack_slack=pk["slack"] if pk["slack"] is not None else slack,
                   pack_max_graphs=pk["max_graphs"],
                   pack_dp_shards=plan.data_parallel_size if pack else 0)
         if which == 0:
             return GraphLoader(ds, batch_size, shuffle=True, seed=seed,
                                pack_budgets=budgets if pack else None, **kw)
-        return GraphLoader(ds, batch_size, cache_batches=True, **kw)
+        # a fixed-order eval loader keeps its batches for later epochs,
+        # over in-memory lists only: a lazy container keeps its footprint
+        return GraphLoader(ds, batch_size, cache_batches=isinstance(ds, (list, tuple)), **kw)
 
     loaders = [_build(i, ds, packed) for i, ds in enumerate(splits)]
     if packed:
@@ -434,6 +503,7 @@ def _single_loaders(config, plan, training, datasets, batch_size, seed, trips, s
                                              trips=trips, verbosity=verbosity)
     pack_kw = dict(packing=packed, pack_max_budgets=pk["max_budgets"],
                    pack_slack=slack, pack_max_graphs=pk["max_graphs"])
+    ensure = optional_field_widths_multi(datasets)
     if packed:
         print_distributed(
             verbosity, 2,
@@ -443,17 +513,19 @@ def _single_loaders(config, plan, training, datasets, batch_size, seed, trips, s
     train_loader = GraphLoader(
         trainset, batch_size, shuffle=True, seed=seed, fixed_pad="auto",
         with_triplets=trips, with_segment_plan=seg_plan, pack_budgets=budgets,
-        **pack_kw,
+        ensure_fields=ensure, **pack_kw,
     )
     val_loader, test_loader = (
         GraphLoader(ds, batch_size, fixed_pad="auto", with_triplets=trips,
-                    with_segment_plan=seg_plan, cache_batches=True, **pack_kw)
+                    with_segment_plan=seg_plan, ensure_fields=ensure,
+                    cache_batches=isinstance(ds, (list, tuple)), **pack_kw)
         for ds in (valset, testset)
     )
     # The recalibration reads plain unpacked batches of the train split,
     # as eval batches them (the JAX runner's recal_loader).
     recal_loader = (
-        GraphLoader(trainset, batch_size, with_triplets=trips, with_segment_plan=seg_plan)
+        GraphLoader(trainset, batch_size, with_triplets=trips, with_segment_plan=seg_plan,
+                    ensure_fields=ensure)
         if bn_recalibration_epochs(training) else None
     )
     k = resolve_superstep_k(plan, train_loader)
@@ -698,10 +770,14 @@ def _multibranch_prediction(config, datasets, *, state=None, model=None, cfg=Non
     state = _prediction_state(state, None, dev)
     total, n_graphs, tasks_total = 0.0, 0, None
     trues_b, preds_b = [], []
-    for bi, b in enumerate(branch_sets):
+    # one map over every branch's test split: the batches keep the
+    # structure the train steps had
+    branch_tests = [[dataclasses.replace(x, dataset_id=bi) for x in b[2]]
+                    for bi, b in enumerate(branch_sets)]
+    shared_fields = optional_field_widths([s for bt in branch_tests for s in bt])
+    for bt in branch_tests:
         loader = GraphLoader(
-            [dataclasses.replace(x, dataset_id=bi) for x in b[2]], batch_size,
-            with_triplets=trips,
+            bt, batch_size, with_triplets=trips, ensure_fields=shared_fields,
             with_segment_plan=True if seg_plan == "auto" else bool(seg_plan))
         err, tasks, trues, preds = run_test(
             model, cfg, state, loader, device=dev,
@@ -777,22 +853,26 @@ def run_prediction(
                                   with_segment_plan=seg_plan)
         return run_test(model, cfg, state, test_loader, **kw)
     _, _, sched = _dp_pad_schedules(plan, batch_size, 0, trips, (testset,) * 3)
+    # the full set's map: per-shard maps could differ by node
+    ensure = optional_field_widths(testset)
     base = GraphLoader(runtime.shard_dataset_for_process(testset), batch_size,
                        with_triplets=trips, with_segment_plan=seg_plan, fixed_pad=True,
-                       spec_schedule=sched)
+                       spec_schedule=sched, ensure_fields=ensure)
     p = runtime.process_count()
     if sched is None and p > 1:
         _pin_full_worst_specs([(base, testset)], batch_size, trips)
     result = run_test(model, cfg, state,
                       runtime.wrap_loader(plan, base, superstep=False, device=dev),
                       plan=plan, **kw)
-    leftover = list(testset[(len(testset) // p) * p :])
+    # by index: a lazy container takes int indices only
+    leftover = [testset[i] for i in range((len(testset) // p) * p, len(testset))]
     if not leftover:
         return result
     # the samples the equal node shards leave out, on every rank alike
     err_l, tasks_l, trues_l, preds_l = run_test(
         model, cfg, dataclasses.replace(state, graphs=None),
-        GraphLoader(leftover, batch_size, with_triplets=trips, with_segment_plan=seg_plan),
+        GraphLoader(leftover, batch_size, with_triplets=trips, with_segment_plan=seg_plan,
+                    ensure_fields=ensure),
         **kw)
     err_m, tasks_m, trues_m, preds_m = result
     n_m, n_l = len(testset) - len(leftover), len(leftover)

@@ -217,8 +217,9 @@ def test_run_prediction_restores_checkpoint(port, splits, tmp_path, monkeypatch)
 
 
 def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
-    """Only dataset formats other than the raw LSMS text are still
-    refused (ROADMAP item 10c); a ``continue`` in the sharded format
+    """Only a dataset format neither package reads is refused (every
+    format of the JAX package is ported: ROADMAP item 10c), with the JAX
+    package's ValueError; a ``continue`` in the sharded format
     through the parallel input pipeline (two collation workers) runs:
     polymers.json for one epoch writing ``orbax/`` (every epoch through
     the writer), continued to two, and ``run_prediction(config)``
@@ -227,9 +228,9 @@ def test_continue_still_refused(port, splits, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     feed = {"Parallelism": {"pipeline": {"workers": 2, "chunk": 1}, "prefetch": 2}}
     refused = _config(1)
-    refused["Dataset"] = {"format": "pickle", "path": {"total": str(tmp_path)}}
+    refused["Dataset"] = {"format": "netcdf", "path": {"total": str(tmp_path)}}
     refused["NeuralNetwork"]["Training"].update({"continue": 1, **feed})
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="Unknown Dataset.format: netcdf"):
         port.runner.run_training(refused, device="cpu")
     config = _config(1)
     config["NeuralNetwork"]["Training"].update(

@@ -751,15 +751,16 @@ def test_accumulate_matches_optax_multisteps(port):
 
 
 def test_unported_features_still_raise(port):
-    """Dataset formats other than the raw LSMS text still raise with
-    their ROADMAP item (10c); the parallel input pipeline no longer
-    does: its config resolves on the single and dp schemes, and the
+    """Every dataset format of the JAX package is ported (item 10c,
+    tests/test_torch_formats.py): only a format neither package reads
+    raises, a ValueError as in the JAX package; the parallel input
+    pipeline's config resolves on the single and dp schemes, and the
     single scheme's loaders are fed by the collation workers (it runs
     through ``run_training`` in tests/test_torch_pipeline.py and, with a
     ``continue``, in tests/test_torch_checkpoint.py)."""
-    config = {"Dataset": {"format": "pickle", "path": {"total": "nowhere"}},
+    config = {"Dataset": {"format": "netcdf", "path": {"total": "nowhere"}},
               "NeuralNetwork": {"Training": {"Parallelism": {"pipeline": {"workers": 2}}}}}
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="Unknown Dataset.format: netcdf"):
         port.runner.run_training(copy.deepcopy(config), device="cpu")
     for scheme, n in (("single", 1), ("dp", 2), ("multibranch", 2)):
         config["NeuralNetwork"]["Training"]["Parallelism"]["scheme"] = scheme

@@ -307,10 +307,18 @@ def _wait_gone(threads, seconds=5.0):
 def test_worker_error_and_early_close(port):
     """A worker's exception (a partially labeled batch) is raised on the
     consumer after the batches before it, in order, directly and through
-    the prefetch thread; closing either feed early stops its threads."""
+    the prefetch thread; closing either feed early stops its threads.
+    The loader refuses such a dataset at construction through its
+    dataset-wide field map, so these loaders are given an explicit map,
+    which skips that check, for the batch to reach a worker."""
     samples = _samples(port.graph.GraphSample, 20, forces=True)
     samples[13] = dataclasses.replace(samples[13], energy=None)
-    GL = port.loader.GraphLoader
+    with pytest.raises(ValueError, match="Partially-labeled dataset: energy present on 19/20"):
+        port.loader.GraphLoader(samples, 4)
+
+    def GL(dataset, batch_size):
+        return port.loader.GraphLoader(dataset, batch_size, ensure_fields={})
+
     serial = GL(samples, 4)
     good = []
     with pytest.raises(ValueError, match="Partially-labeled"):
