@@ -175,6 +175,42 @@ why.
                bit for bit with K1 = K2 = 6 a bin; a full bin's and a
                one-request bin's device time (profiler over replays) with
                the indexing_backward_kernel share of each.
+9b. md         MD rollouts (simulate/): md17.json's PaiNN at full width
+               trained 1 epoch on the MD17 stand-in, then md17.json's own
+               Simulation block (Langevin NVT, kT 0.1, friction 0.5, dt
+               1e-3, 200 steps, K = 16, skin 0.4, 1,024 slots) from the
+               first test frame (21 atoms) through
+               hydragnn_tpu_torch.run_simulation on the card, each K-step
+               macro a replayed CUDA graph: K1 = K2 = 6 x (1 + 200) force
+               passes (the block plan built on the device from each step's
+               list), finite energies, the rollout rows (k 16 x 12 + 8)
+               read back by tools/graftboard.py, steps/s and ns/day. The
+               first 16 steps one at a time, each card step against one
+               step of the CPU plain path from the same state: positions,
+               velocities and energies at the f32 forward tolerance,
+               forces by [mlip]'s rule (the gradient tolerance or 10 x
+               the card's scatter floor), the neighbor arrays, counters
+               and key equal, also against the CPU's own trajectory
+               (whose gap to the card's is reported). K = 1 against
+               K = 16 (skin 0.01: rebuilds, the
+               thermostat on, 64 steps) bit for bit, a second run the same
+               bits, one macro eager, captured and replayed from one state
+               bit for bit. The drills: 64 slots overflow at t = 0 and
+               grow, equal to the roomy run; nan:force@20 halves dt with
+               the prefix bit for bit; halts on spent halvings, the halt
+               policy and spent growths; interrupted at step 96 through
+               CheckpointWriter (a halving at 40 first), resumed with the
+               ladder adopted, 192 steps equal to the uninterrupted run.
+               One replayed K = 16 macro's device time (CUDA events), its
+               profiler kernels (count, busy, idle share, K1, K2), its
+               parts timed alone (the neighbor build with its selects,
+               the device plan, the Langevin half steps, the force pass),
+               and the same macro with rebuild_policy "never". K1/K2 reduce-only at
+               F = 64 and 192 on the rollout's device plan (reduce_kernel_
+               rows). LJ.json's SchNet (random weights) NVE from a 3x3x3
+               cluster, 64 steps: K1 = K2 = 3 x 65, energy drift and
+               momentum within tests/test_simulate.py's bounds, K1/K2
+               a,b,W at its device plan against their plain versions.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
                run, in f32 and bf16: against their plain versions (same
@@ -498,6 +534,8 @@ def time_ms(fn, replays=20, per_graph=10):
     """Device time of one call of ``fn``: ``per_graph`` calls captured in
     one CUDA graph, replayed ``replays`` times between CUDA events, so
     the host's issue rate never shows (inputs stay L2-resident)."""
+    from hydragnn_tpu_torch.train.capture import collector_paused
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -505,7 +543,7 @@ def time_ms(fn, replays=20, per_graph=10):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(per_graph):
             fn()
     graph.replay()
@@ -2544,6 +2582,650 @@ def phase_serve_forces(mlip_config, md17_splits):
             "export_s": export_s}
 
 
+# ---------------------------------------------------------------- [md]
+
+MD_PARITY_STEPS = 16  # card against the CPU plain path, step by step
+MD_DISPATCH_STEPS = 64  # K = 1 against K = 16, small skin
+MD_SMALL_SKIN = 0.01  # rebuilds within MD_DISPATCH_STEPS at md17.json's dt and kT
+MD_DRILL_STEPS = 48  # overflow and nan:force drills
+MD_NAN_STEP = 20
+MD_INTERRUPT = 96  # the resume drill: interrupted here, 2 x this in all
+MD_LADDER_NAN = 40  # the resume drill's dt halving, before the interrupt
+LJ_STEPS = 64  # LJ.json's 300 steps cut for the time limit
+MD_TIMED_REPLAYS = 20
+
+
+def lj_cluster(ucells=(3, 3, 3), seed=0, vacancy_rate=0.05, jitter=0.05):
+    """The positions of examples/LennardJones/LJ_data.py's
+    ``configuration`` (numpy only, its draws in its order from
+    ``default_rng(seed)``): a simple-cubic lattice (a = 3.8) with
+    Gaussian jitter (0.05 a) and 5% vacancies, one species. The rollout
+    builds its lists with open boundaries, as LennardJones.py's does, so
+    the periodic cell is not kept."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.data.graph import GraphSample
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph
+
+    nx, ny, nz = ucells
+    a = 3.8
+    grid = np.array([(x, y, z) for x in range(nx) for y in range(ny) for z in range(nz)],
+                    dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    pos = grid * a + rng.normal(scale=jitter * a, size=grid.shape)
+    keep = rng.uniform(size=len(pos)) > vacancy_rate
+    if keep.sum() < 2:
+        keep[:2] = True
+    pos = pos[keep].astype(np.float32)
+    n = len(pos)
+    return GraphSample(x=np.ones((n, 1), np.float32), pos=pos,
+                       edge_index=radius_graph(pos, 5.0), energy=0.0,
+                       forces=np.zeros((n, 3), np.float32))
+
+
+def md_engine(model, cfg, sample, block, **over):
+    """A RolloutEngine for ``sample`` under ``block`` with ``over``'s keys
+    replaced (``neighbor`` and ``guard`` merged)."""
+    from hydragnn_tpu_torch.simulate import RolloutEngine, md_template_batch, simulation_settings
+
+    b = copy.deepcopy(block)
+    for k, v in over.items():
+        b[k] = dict(b.get(k) or {}, **v) if isinstance(v, dict) else v
+    s = simulation_settings({"Simulation": b})
+    return RolloutEngine(model, None, cfg,
+                         md_template_batch(sample.x, sample.pos, s.neighbor.max_edges), s)
+
+
+def md_counts():
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    return edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+
+
+def md_same(a, b, what):
+    """Two rollouts' trajectories, velocities, energies and kinetic
+    energies equal bit for bit."""
+    import numpy as np
+
+    for name in ("trajectory", "velocities", "energies", "kinetic"):
+        x, y = getattr(a, name), getattr(b, name)
+        check(x is not None and x.shape == y.shape and np.array_equal(x, y),
+              f"[md] {what}: {name} differ")
+
+
+def md_headline(config, model, cfg, state, start, per_pass):
+    """md17.json's Simulation block through hydragnn_tpu_torch.run_simulation
+    on the card with a telemetry stream: K1/K2 per force pass, finite
+    energies, the rollout rows through tools/graftboard.py."""
+    import tempfile
+
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.simulate import macro_plan, simulation_settings
+
+    s = simulation_settings(config)
+    with tempfile.TemporaryDirectory(prefix="md_stream_") as tdir:
+        run_cfg = copy.deepcopy(config)
+        path = os.path.join(tdir, "telemetry.jsonl")
+        run_cfg["NeuralNetwork"]["Training"]["Telemetry"] = {"enabled": True,
+                                                             "stream_path": path}
+        k0 = md_counts()
+        t0 = time.perf_counter()
+        res = port.run_simulation(run_cfg, sample=start, model=model, cfg=cfg, state=state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        k1, k2 = (c - b for c, b in zip(md_counts(), k0))
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+        try:
+            import graftboard
+
+            rep = graftboard.build_report(path)
+        finally:
+            sys.path.pop(0)
+        rows = [json.loads(line) for line in open(path) if line.strip()]
+    plan = macro_plan(s.steps, s.superstep_k)
+    rs = rep["rollout_summary"]
+    rollout = [r for r in rows if r.get("t") == "rollout"]
+    check(res.stats["steps"] == s.steps and res.stats["events"] == []
+          and np.isfinite(res.energies).all() and np.isfinite(res.kinetic).all(),
+          f"[md] md17.json's rollout: {res.stats}")
+    want = per_pass * (1 + s.steps)
+    check(k1 == k2 == want, f"[md] md17.json's rollout launched K1 {k1}, K2 {k2}; want "
+          f"{want} = {per_pass} x (1 + {s.steps} force passes) each")
+    check([r["k"] for r in rollout] == plan and rs["macros"] == len(plan)
+          and rs["steps"] == s.steps and rs["halts"] == 0 and rs["overflow_events"] == 0,
+          f"[md] rollout rows {[r['k'] for r in rollout]} / graftboard {rs} against the "
+          f"macro plan {plan}")
+    log(f"[md] md17.json's Simulation block through run_simulation (Langevin NVT, kT "
+        f"{s.kb * s.temperature_k}, friction {s.friction}, dt {s.dt}, {s.steps} steps, K = "
+        f"{s.superstep_k}, skin {s.neighbor.skin}, {s.neighbor.max_edges} slots): "
+        f"{seconds:.3f} s, {res.stats['steps_per_sec']:.1f} steps/s, "
+        f"{rollout[-1]['ns_per_day']} ns/day (dt read as fs), {res.stats['rebuilds']} "
+        f"rebuilds, energy drift {res.stats['energy_drift']:.4g} (a thermostatted run); "
+        f"K1 {k1} = K2 {k2} = {per_pass} x {1 + s.steps} force passes; {len(rollout)} "
+        f"rollout rows (k {plan[0]} x {len(plan) - 1} + {plan[-1]}), read back by "
+        f"graftboard: {rs}")
+    return {"seconds": seconds, "steps_per_sec": res.stats["steps_per_sec"],
+            "ns_per_day": rollout[-1]["ns_per_day"], "rebuilds": res.stats["rebuilds"],
+            "k1": k1, "k2": k2, "rows": len(rollout), "rollout_summary": rs,
+            "energy_drift": res.stats["energy_drift"]}
+
+
+def md_forces_held(card, cpu, model, cfg, st):
+    """The card's forces at ``st`` (its committed ``forces``) against the
+    CPU plain path's force pass on the same input, by [mlip]'s rule:
+    within the gradient tolerance or within 10 x the card's own floor
+    (the median over N_FLOORS card force passes with index_add_ in place
+    of K1/K2, each its own atomic order, of the largest error over the
+    largest |ref|). Returns (error, in tolerance, floor)."""
+    import dataclasses
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.train.mlip import energy_and_forces
+
+    h = {k: getattr(st, k).cpu() for k in ("pos", "senders", "receivers", "edge_mask")}
+    ref = cpu._energy_forces(h["pos"], h["senders"], h["receivers"], h["edge_mask"])[1].numpy()
+    got = st.forces.cpu().numpy()
+    unplanned = dataclasses.replace(card.template, pos=st.pos, senders=st.senders,
+                                    receivers=st.receivers, edge_mask=st.edge_mask)
+    floors = [scaled_error(energy_and_forces(model, unplanned, cfg,
+                                             create_graph=False)[1].cpu().numpy(), ref)
+              for _ in range(N_FLOORS)]
+    err, ok, floor = scaled_error(got, ref), close_scaled(got, ref, VJP_TOL), float(
+        np.median(floors))
+    check(ok or err <= 10 * floor,
+          f"[md] forces, card vs CPU: {err:.3g} x max|ref|, outside the tolerance and above "
+          f"10 x the median scatter floor {floor:.3g}")
+    return err, ok, floor
+
+
+def md_card_vs_cpu(model, cfg, start, block):
+    """The first MD_PARITY_STEPS steps on the card against the CPU plain
+    path, one step a dispatch from the card's initial state. Each card
+    step is held against one CPU step from the same state (the inputs
+    equal, as ROADMAP's parity rule asks): positions, velocities and
+    energies within the f32 forward tolerance (atol scaled as
+    assert_close_scaled scales it), the forces by [mlip]'s rule
+    (md_forces_held), the neighbor arrays, counters and key equal. The
+    CPU's own 16-step trajectory runs beside it: its neighbor arrays,
+    counters and key equal the card's at every step, and its largest gap
+    to the card's positions and velocities is reported (two free
+    trajectories part by the force passes' rounding, which a steep
+    potential amplifies)."""
+    from hydragnn_tpu_torch.simulate import MDState
+
+    def on_cpu(st):
+        return MDState(**{k: v.cpu() for k, v in st.leaves().items()})
+
+    card = md_engine(model, cfg, start, block)
+    cpu = md_engine(copy.deepcopy(model).to("cpu"), cfg, start, block)
+    st_c = card.init_state()
+    free = on_cpu(st_c)
+    forces = [md_forces_held(card, cpu, model, cfg, st_c)]
+    worst, drift = {}, {}
+    rebuild_steps = []
+    for i in range(MD_PARITY_STEPS):
+        step_h = cpu.run(on_cpu(st_c), 1).state
+        st_c = card.run(st_c, 1).state
+        free = cpu.run(free, 1).state
+        for name in ("senders", "receivers", "edge_mask", "rebuilds", "good_steps", "key"):
+            for other, what in ((step_h, "one CPU step"), (free, "the CPU's trajectory")):
+                check(torch.equal(getattr(st_c, name).cpu(), getattr(other, name)),
+                      f"[md] card vs {what}: {name} differ at step {i}")
+        for name in ("pos", "vel", "energy"):
+            got = getattr(st_c, name).cpu().numpy()
+            err, _ = assert_close_scaled(got, getattr(step_h, name).numpy(), F32_TOL,
+                                         f"[md] {name} at step {i}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            drift[name] = max(drift.get(name, 0.0),
+                              float(abs(got - getattr(free, name).numpy()).max()))
+        forces.append(md_forces_held(card, cpu, model, cfg, st_c))
+        if int(st_c.rebuilds) > len(rebuild_steps):
+            rebuild_steps.append(i)
+    f_err = max(f[0] for f in forces)
+    f_out = sum(not f[1] for f in forces)
+    log(f"[md] card vs CPU plain path, {MD_PARITY_STEPS} steps one at a time from the "
+        f"card's initial state, each against one CPU step from the same state: positions, "
+        f"velocities and energies within rtol 1e-5, atol 1e-4 (largest |card - CPU| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"); the forces of all {len(forces)} states by [mlip]'s rule (largest error "
+        f"{f_err:.3g} x max|ref|; {f_out} outside the gradient tolerance, each within 10 x "
+        f"its median scatter floor, floors {min(f[2] for f in forces):.3g}-"
+        f"{max(f[2] for f in forces):.3g}); senders, receivers, edge mask, rebuild and step "
+        f"counters and the key equal at every step, also against the CPU's own trajectory "
+        f"(rebuilds at steps {rebuild_steps}), whose largest gap to the card's is "
+        + ", ".join(f"{k} {v:.3g}" for k, v in drift.items()) + " (reported, not held)")
+    return {"max_abs_err": worst, "free_running_gap": drift, "forces_error": f_err,
+            "forces_outside_tolerance": f_out, "rebuild_steps": rebuild_steps}
+
+
+def md_dispatch(model, cfg, start, block, per_pass):
+    """K = 1 against K = 16 bit for bit with the thermostat on and
+    rebuilds (skin MD_SMALL_SKIN); a second K = 16 run the same bits; one
+    macro eager, then captured and replayed, then replayed, from the same
+    state: the same bits each time. Returns the timing engine and its
+    eager/replayed macro seconds."""
+    small = {"neighbor": {"skin": MD_SMALL_SKIN}}
+    runs = {}
+    for tag, k in (("k1", 1), ("k16", 16), ("k16_again", 16)):
+        eng = md_engine(model, cfg, start, block, superstep_k=k, **small)
+        k0 = md_counts()
+        runs[tag] = eng.run(eng.init_state(), MD_DISPATCH_STEPS, record=True)
+        torch.cuda.synchronize()
+        k1, k2 = (c - b for c, b in zip(md_counts(), k0))
+        want = per_pass * (1 + MD_DISPATCH_STEPS)
+        check(k1 == k2 == want, f"[md] K = {k}: K1 {k1}, K2 {k2}, want {want} each")
+        gs = eng.graph_stats()
+        check(gs["eager_runs"] == 1 and gs["captures"] == 1
+              and gs["replays"] == MD_DISPATCH_STEPS // k - 1, f"[md] K = {k}: graphs {gs}")
+    check(runs["k1"].stats["rebuilds"] == runs["k16"].stats["rebuilds"] > 0,
+          f"[md] rebuilds {runs['k1'].stats['rebuilds']} vs {runs['k16'].stats['rebuilds']}")
+    md_same(runs["k1"], runs["k16"], "K = 1 against K = 16")
+    md_same(runs["k16"], runs["k16_again"], "two K = 16 runs")
+    # one engine, one macro from the same state three times: eager,
+    # captured + replayed, replayed
+    eng = md_engine(model, cfg, start, block, **small)
+    s0 = eng.init_state()
+    outs, secs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs.append(eng.run(s0, 16, record=True))
+        secs.append(time.perf_counter() - t0)
+    md_same(outs[0], outs[1], "eager against captured-and-replayed")
+    md_same(outs[0], outs[2], "eager against replayed")
+    check(eng.graph_stats()["replays"] == 2, f"[md] {eng.graph_stats()}")
+    log(f"[md] dispatch (skin {MD_SMALL_SKIN}, {MD_DISPATCH_STEPS} steps, Langevin): K = 1 "
+        f"and K = 16 bit for bit (trajectory, velocities, energies, kinetic; "
+        f"{runs['k1'].stats['rebuilds']} rebuilds each), a second K = 16 run bit for bit, "
+        f"K1 = K2 = {per_pass} x {1 + MD_DISPATCH_STEPS} in each run; one 16-step macro from "
+        f"one state eager ({secs[0] * 1e3:.1f} ms), captured and replayed "
+        f"({secs[1] * 1e3:.1f} ms), replayed ({secs[2] * 1e3:.2f} ms host): bit for bit")
+    return {"rebuilds": runs["k1"].stats["rebuilds"], "eager_macro_ms": secs[0] * 1e3,
+            "capture_macro_ms": secs[1] * 1e3, "replay_macro_ms": secs[2] * 1e3,
+            "capture_seconds": eng.capture_seconds}
+
+
+def md_drills(model, cfg, start, block):
+    """The containment drills of tests/test_simulate.py on the card:
+    overflow growth, nan:force with a dt halving, halts, and the
+    interrupt and resume through CheckpointWriter."""
+    import tempfile
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.simulate import RolloutHalt
+    from hydragnn_tpu_torch.utils import faults
+    from hydragnn_tpu_torch.utils.checkpoint import CheckpointWriter, load_resume_checkpoint
+
+    out = {}
+    roomy = md_engine(model, cfg, start, block)
+    clean = roomy.run(roomy.init_state(), MD_DRILL_STEPS, record=True)
+    tiny = md_engine(model, cfg, start, block, neighbor={"max_edges": 64})
+    st = tiny.init_state()
+    check(bool(st.poisoned), "[md] 64 slots did not overflow at t = 0")
+    grown = tiny.run(st, MD_DRILL_STEPS, record=True)
+    check(grown.stats["capacity_growths"] >= 1 and [e["action"] for e in grown.stats["events"]]
+          == ["rebuild"] * grown.stats["capacity_growths"], f"[md] overflow: {grown.stats}")
+    md_same(grown, clean, "the grown run against the roomy one")
+    out["overflow"] = {"capacity": grown.stats["capacity"],
+                       "events": grown.stats["events"]}
+
+    faults.install(f"nan:force@{MD_NAN_STEP}")
+    try:
+        eng = md_engine(model, cfg, start, block)
+        res = eng.run(eng.init_state(), MD_DRILL_STEPS, record=True)
+    finally:
+        faults.reset()
+    check(res.stats["steps"] == MD_DRILL_STEPS and res.stats["dt_halvings"] == 1
+          and [e["action"] for e in res.stats["events"]] == ["dt_halve"]
+          and np.array_equal(res.trajectory[:MD_NAN_STEP], clean.trajectory[:MD_NAN_STEP])
+          and not np.array_equal(res.trajectory[MD_NAN_STEP:], clean.trajectory[MD_NAN_STEP:])
+          and np.isfinite(res.trajectory).all(), f"[md] nan:force@{MD_NAN_STEP}: {res.stats}")
+    out["nan_force"] = {"dt": res.stats["dt"], "events": res.stats["events"]}
+
+    halts = {}
+    for name, spec, over, match in (
+            ("dt halvings exhausted", "nan:force@5", {"guard": {"max_dt_halvings": 0}},
+             "halvings exhausted"),
+            ("halt policy", "nan:force@5", {"guard": {"on_nonfinite": "halt"}}, "non-finite"),
+            ("growths exhausted", "", {"neighbor": {"max_edges": 64},
+                                       "guard": {"max_capacity_growths": 0}},
+             "capacity growths exhausted")):
+        if spec:
+            faults.install(spec)
+        try:
+            eng = md_engine(model, cfg, start, block, **over)
+            try:
+                eng.run(eng.init_state(), MD_DRILL_STEPS)
+                raise RuntimeError(f"check failed: [md] {name}: the rollout did not halt")
+            except RolloutHalt as e:
+                check(match in str(e) and e.state is not None, f"[md] {name}: {e}")
+                halts[name] = int(e.state.good_steps)
+        finally:
+            faults.reset()
+    out["halts"] = halts
+
+    # interrupt at MD_INTERRUPT through the writer, then resume: the whole
+    # trajectory equals the uninterrupted one, at the adopted (halved) dt
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="md_resume_")
+    os.chdir(work)
+    try:
+        faults.install(f"nan:force@{MD_LADDER_NAN}")
+        try:
+            full_e = md_engine(model, cfg, start, block)
+            full = full_e.run(full_e.init_state(), 2 * MD_INTERRUPT, record=True)
+            first = md_engine(model, cfg, start, block)
+            half = first.run(first.init_state(), MD_INTERRUPT, record=True)
+        finally:
+            faults.reset()
+        w = CheckpointWriter("md_resume")
+        w.save(half.state, kind="auto", epoch=0, step=MD_INTERRUPT, loop=first.ladder_state())
+        w.close()
+        second = md_engine(model, cfg, start, block)
+        restored, manifest = load_resume_checkpoint("md_resume", second.init_state())
+        check(manifest is not None and manifest["step"] == MD_INTERRUPT,
+              f"[md] resume manifest {manifest}")
+        second.adopt_ladder(manifest["loop"])
+        rest = second.run(restored, MD_INTERRUPT, record=True)
+    finally:
+        os.chdir(cwd)
+    whole = np.concatenate([half.trajectory, rest.trajectory])
+    check(first.dt_halvings == 1 and second.dt == first.dt == full_e.dt
+          and rest.stats["events"] == [] and np.array_equal(whole, full.trajectory)
+          and np.array_equal(np.concatenate([half.velocities, rest.velocities]),
+                             full.velocities),
+          f"[md] resume: dt {second.dt} vs {first.dt}, events {rest.stats['events']}")
+    out["resume"] = {"dt": second.dt, "ladder": manifest["loop"]}
+    log(f"[md] drills: overflow at 64 slots grown to {grown.stats['capacity']} "
+        f"({grown.stats['events']}), {MD_DRILL_STEPS} steps equal to the roomy run bit for "
+        f"bit; nan:force@{MD_NAN_STEP} -> one dt halving (dt {res.stats['dt']}), the "
+        f"{MD_NAN_STEP}-step prefix bit for bit; halts {halts} (committed steps at the "
+        f"halt); interrupted at {MD_INTERRUPT} through CheckpointWriter (a dt halving at "
+        f"{MD_LADDER_NAN} before it), resumed with the ladder adopted (dt {second.dt}): "
+        f"{2 * MD_INTERRUPT} steps equal to the uninterrupted run bit for bit")
+    return out
+
+
+def md_timing(model, cfg, start, block, per_pass):
+    """One replayed K = 16 macro of md17.json's rollout: its device time
+    (CUDA events over MD_TIMED_REPLAYS replays, twice), and from
+    ``torch.profiler`` over 5 replays its kernels, their busy time, K1's
+    and K2's, and the idle share of the kernels' span. Its parts timed
+    alone at the macro's shapes, x 16 (time_ms: CUDA-graph replays): the
+    neighbor build with its selects, the device plan, the two Langevin
+    half steps (threefry noise included) and the force pass (the model's
+    forward and backward, K1/K2 included, less the plan); the rest is the
+    integrators, the containment selects and the packed rows. The same
+    macro with rebuild_policy "never" (no list built). Launches made by
+    the parts' timing are taken back out of the counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+        plan_blocks_device,
+        static_block_bound,
+    )
+    from hydragnn_tpu_torch.simulate.integrators import ou_half_step
+
+    def macro_ms(eng):
+        g = eng._graphs[(16, False)].graph
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        g.replay()
+        torch.cuda.synchronize()
+        start_ev.record()
+        for _ in range(MD_TIMED_REPLAYS):
+            g.replay()
+        end_ev.record()
+        torch.cuda.synchronize()
+        return start_ev.elapsed_time(end_ev) / MD_TIMED_REPLAYS
+
+    engines = {}
+    for policy in ("displacement", "never"):
+        eng = md_engine(model, cfg, start, block, neighbor={"rebuild_policy": policy})
+        st = eng.run(eng.init_state(), 48).state  # eager, capture + replay, replay
+        check(eng.graph_stats()["captures"] == 1, f"[md] timing engine {eng.graph_stats()}")
+        engines[policy] = (eng, st)
+    times = {p: macro_ms(e) for p, (e, _) in engines.items()}
+    times.update({f"{p}_again": macro_ms(e) for p, (e, _) in engines.items()})
+    eng, st = engines["displacement"]
+    g = eng._graphs[(16, False)].graph
+    k0 = md_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            g.replay()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    check(md_counts() == k0, "[md] a bare graph replay moved the launch counts")
+    n, e = st.pos.shape[0], st.senders.shape[0]
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    node_mask = eng.template.node_mask
+    skin2 = (0.5 * float(eng.settings.neighbor.skin)) ** 2
+
+    def neighbor_and_select():
+        snd, rcv, em, ovf = eng._neighbor(st.pos)
+        need = torch.max(torch.sum((st.pos - st.ref_pos) ** 2, dim=-1)) > skin2
+        return (torch.where(need, snd, st.senders), torch.where(need, rcv, st.receivers),
+                torch.where(need, em, st.edge_mask), torch.where(need, st.pos, st.ref_pos),
+                torch.where(need, ovf, zero))
+
+    def thermostat():
+        vel, key = ou_half_step(st.vel, st.key, eng._gamma_t, eng._kt_t, eng.masses,
+                                node_mask, eng._dt_t)
+        return ou_half_step(vel, key, eng._gamma_t, eng._kt_t, eng.masses, node_mask,
+                            eng._dt_t)
+
+    nb_ms = 16 * time_ms(neighbor_and_select)
+    plan_ms = 16 * time_ms(lambda: plan_blocks_device(st.receivers, st.edge_mask, n,
+                                                      static_block_bound(e, n)))
+    thermo_ms = 16 * time_ms(thermostat)
+    force_ms = 16 * time_ms(lambda: eng._energy_forces(st.pos, st.senders, st.receivers,
+                                                       st.edge_mask)) - plan_ms
+    edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches = k0
+    macro = times["displacement"]
+    row = {"macro_ms": macro, "macro_again_ms": times["displacement_again"],
+           "never_ms": times["never"], "never_again_ms": times["never_again"],
+           "neighbor_select_ms": nb_ms, "plan_ms": plan_ms, "thermostat_ms": thermo_ms,
+           "force_pass_ms": force_ms, "rest_ms": macro - nb_ms - plan_ms - thermo_ms - force_ms}
+    split = (f"alone x 16: neighbor build + select {nb_ms:.3f} ms, device plan {plan_ms:.3f}, "
+             f"the two Langevin half steps {thermo_ms:.3f}, the force pass {force_ms:.3f} "
+             f"(less the plan), the rest {row['rest_ms']:.3f}")
+    if kernels:
+        busy = sum(k.time_range.elapsed_us() for k in kernels) / 1e3 / 5
+        span = (max(k.time_range.end for k in kernels)
+                - min(k.time_range.start for k in kernels)) / 1e3 / 5
+        k1 = sum(k.time_range.elapsed_us() for k in kernels
+                 if "edge_pipeline_kernel<" in k.name) / 1e3 / 5
+        k2 = sum(k.time_range.elapsed_us() for k in kernels
+                 if "edge_pipeline_bwd_kernel<" in k.name or "bwd_finish_kernel<" in k.name
+                 ) / 1e3 / 5
+        row.update(profiled_busy_ms=busy, profiled_span_ms=span, k1_ms=k1, k2_ms=k2,
+                   idle_share=1.0 - busy / span, kernels_per_macro=len(kernels) // 5)
+        split = (f"profiler (5 replays): {row['kernels_per_macro']} kernels a macro, busy "
+                 f"{busy:.3f} ms over a span of {span:.3f} (idle {100 * row['idle_share']:.1f}%"
+                 f"), K1 {k1:.3f}, K2 {k2:.3f}; " + split)
+    else:
+        split = "the profiler recorded no kernels in the replayed graph; " + split
+    log(f"[md] one replayed K = 16 macro of md17.json's rollout (N {n}, E {e}, "
+        f"{per_pass} K1 + {per_pass} K2 a step; {card_line()}): {macro:.3f} / "
+        f"{times['displacement_again']:.3f} ms (CUDA events, {MD_TIMED_REPLAYS} replays, "
+        f"twice); {split}; the same macro with rebuild_policy \"never\" (no list built) "
+        f"{times['never']:.3f} / {times['never_again']:.3f} ms")
+    return row
+
+
+def md_kernel_rows(eng, st):
+    """K1 and K2 at the device plan of the rollout's list: reduce-only at
+    PaiNN's widths (reduce_kernel_rows: against the plain versions, the
+    times, the bound, index_add_ / index_select)."""
+    batch = eng.force_batch(st.pos, st.senders, st.receivers, st.edge_mask)
+    rows = []
+    for f, seed in ((64, 21), (3 * 64, 22)):
+        rows += reduce_kernel_rows("md-kernels", batch, f, seed,
+                                   what="md17's rollout list at t = 0")
+    return rows
+
+
+def md_lj_run():
+    """LJ.json's SchNet (random weights, seed 0) over a 3x3x3 cluster,
+    NVE under LJ.json's Simulation block cut to LJ_STEPS steps, through
+    run_simulation: K1/K2 launches per force pass, energy drift and total
+    momentum within tests/test_simulate.py's bounds; K1/K2 (a,b,W) at the
+    run's device plan against their plain versions, timed."""
+    import numpy as np
+
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.create import create_model_config
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.simulate import total_momentum
+
+    config = example_json("LennardJones", "LJ.json")
+    cluster = lj_cluster()
+    full = update_config(config, [cluster], [cluster], [cluster])
+    full["Simulation"]["steps"] = LJ_STEPS
+    model, cfg = create_model_config(full, "cuda", seed=0)
+    per_pass = cfg.num_conv_layers
+    k0 = md_counts()
+    res = port.run_simulation(full, sample=cluster, model=model, cfg=cfg)
+    torch.cuda.synchronize()
+    k1, k2 = (c - b for c, b in zip(md_counts(), k0))
+    check(res.stats["steps"] == LJ_STEPS and res.stats["events"] == [],
+          f"[md] LJ: {res.stats}")
+    check(k1 == k2 == per_pass * (1 + LJ_STEPS),
+          f"[md] LJ: K1 {k1}, K2 {k2}, want {per_pass} x {1 + LJ_STEPS} each")
+    total = res.energies + res.kinetic
+    scale = max(abs(float(total[0])), float(res.kinetic[0]), 1e-3)
+    drift = float(np.max(np.abs(total - total[0])))
+    eng = md_engine(model, cfg, cluster, full["Simulation"])
+    st = eng.init_state()
+    mom = total_momentum(res.state.vel, eng.masses, eng.template.node_mask).cpu().numpy()
+    check(drift < 1e-3 * scale and np.max(np.abs(mom)) < 1e-4,
+          f"[md] LJ NVE: drift {drift:.3g} against 1e-3 x {scale:.3g}, momentum {mom}")
+    # K1/K2 as SchNet runs them: a = h[snd] [E, 64], b = the filter, W [64, 64]
+    batch = eng.force_batch(st.pos, st.senders, st.receivers, st.edge_mask)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    n, e = batch.num_nodes, batch.num_edges
+    e_valid = int(batch.edge_mask.sum())
+    f_in, f_out = cfg.num_filters, cfg.hidden_dim
+    gen = torch.Generator().manual_seed(31)
+    a = torch.randn(e, f_in, generator=gen).cuda()
+    b = torch.randn(e, f_in, generator=gen).cuda()
+    w = torch.randn(f_in, f_out, generator=gen).cuda()
+    g = torch.randn(n, f_out, generator=gen).cuda()
+    args = (a, b, w, *plan, n)
+    with torch.no_grad():
+        got, again, ref = (edge_pipeline_planned(*args), edge_pipeline_planned(*args),
+                           edge_pipeline_plain(*args))
+    d, d_again, d_ref = (edge_pipeline_bwd_planned(g, *args), edge_pipeline_bwd_planned(g, *args),
+                         edge_pipeline_bwd_plain(g, *args))
+    torch.cuda.synchronize()
+    check(torch.equal(got, again) and all(torch.equal(x, y) for x, y in zip(d, d_again)),
+          "[md] LJ K1/K2: two runs differ")
+    torch.testing.assert_close(got, ref, **F32_TOL)
+    for x, y in zip(d, d_ref):
+        torch.testing.assert_close(x, y, **VJP_TOL)
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    row = {"f_in": f_in, "f_out": f_out, "flavour": "abw", "n": n, "e": e, "e_valid": e_valid,
+           "k1_max_abs_err": float((got - ref).abs().max()),
+           "k2_max_abs_err": max(float((x - y).abs().max()) for x, y in zip(d, d_ref))}
+    with torch.no_grad():
+        row["k1_ms"] = time_ms(lambda: edge_pipeline_planned(*args))
+        row["k1_plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
+    row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
+    row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+    nbytes, ops, out_dt = k1_work(e_valid, n, f_in, f_out, slots, blocks, torch.float32,
+                                  torch.float32, True, True)
+    row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
+    nbytes, ops, g_dt = k2_work(e, e_valid, n, f_in, f_out, slots, blocks, torch.float32,
+                                torch.float32, True, True)
+    row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
+    log(f"[md] LJ.json's SchNet (radius {cfg.radius}, hidden {cfg.hidden_dim}, "
+        f"{cfg.num_conv_layers} layers, random weights) on a 3x3x3 cluster of "
+        f"{cluster.num_nodes} atoms, NVE, {LJ_STEPS} steps (LJ.json's 300 cut), K = "
+        f"{full['Simulation']['superstep_k']}: {res.stats['steps_per_sec']:.1f} steps/s, "
+        f"{res.stats['rebuilds']} rebuilds; K1 {k1} = K2 {k2} = {per_pass} x "
+        f"{1 + LJ_STEPS} force passes; energy drift {drift:.3g} (bound 1e-3 x {scale:.3g}), "
+        f"total momentum {np.abs(mom).max():.3g} (bound 1e-4)")
+    log(f"[md] LJ's device plan (n {n}, e {e}, {e_valid} valid, {blocks} blocks): K1 a,b,W "
+        f"({f_in} -> {f_out}) {row['k1_ms'] * 1e3:.1f} us (plain "
+        f"{row['k1_plain_ms'] * 1e3:.1f}, bound {row['k1_bound_ms'] * 1e3:.2f} us, "
+        f"{row['k1_bound_by']}), K2 {row['k2_ms'] * 1e3:.1f} us (plain "
+        f"{row['k2_plain_ms'] * 1e3:.1f}, bound {row['k2_bound_ms'] * 1e3:.2f} us, "
+        f"{row['k2_bound_by']}); max|err| K1 {row['k1_max_abs_err']:.3g}, K2 "
+        f"{row['k2_max_abs_err']:.3g}; same bits on two runs")
+    return {"k1": k1, "k2": k2, "per_pass": per_pass, "atoms": cluster.num_nodes,
+            "steps_per_sec": res.stats["steps_per_sec"], "rebuilds": res.stats["rebuilds"],
+            "energy_drift_max": drift, "momentum_max": float(np.abs(mom).max()),
+            "kernel_row": row}
+
+
+def phase_md(mlip_config, md17_splits):
+    """md17.json's PaiNN integrated on the card (9b in the module
+    docstring). The counts start at 0 here; ``k1``/``k2`` are the
+    launches of the phase's runs (training, rollouts), not those of the
+    kernel comparisons."""
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    t_phase = time.perf_counter()
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    path = [0, 0]
+
+    def counted(fn, *args, **kw):
+        k0 = md_counts()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for i, (c, b) in enumerate(zip(md_counts(), k0)):
+            path[i] += c - b
+        return out
+
+    config = copy.deepcopy(mlip_config)
+    config["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    t0 = time.perf_counter()
+    state, model, cfg, hist, full = counted(port.run_training, config, datasets=md17_splits,
+                                            device="cuda")
+    train_s = time.perf_counter() - t0
+    block = copy.deepcopy(mlip_config["Simulation"])
+    full["Simulation"] = copy.deepcopy(block)
+    start = md17_splits[2][0]
+    per_pass = 2 * cfg.num_conv_layers
+    log(f"[md] weights: md17.json's PaiNN trained 1 epoch on the MD17 stand-in "
+        f"({train_s:.2f} s, train loss {hist.train_loss}); the start: the first test frame "
+        f"({start.num_nodes} atoms; N = {start.num_nodes + 1} rows with the padding node)")
+    headline = counted(md_headline, full, model, cfg, state, start, per_pass)
+    parity = counted(md_card_vs_cpu, model, cfg, start, block)
+    dispatch = counted(md_dispatch, model, cfg, start, block, per_pass)
+    drills = counted(md_drills, model, cfg, start, block)
+    timing = counted(md_timing, model, cfg, start, block, per_pass)
+    check(path[0] > 0 and path[1] > 0, f"[md] the rollouts launched K1 {path[0]}, K2 {path[1]}")
+    eng = md_engine(model, cfg, start, block)
+    rows = md_kernel_rows(eng, eng.init_state())
+    lj = md_lj_run()
+    k1, k2 = path[0] + lj["k1"], path[1] + lj["k2"]
+    seconds = time.perf_counter() - t_phase
+    log(f"[md] phase: {seconds:.1f} s; K1 {k1}, K2 {k2} launched by its runs (training, "
+        f"md17's rollouts, LJ's), the kernel comparisons not counted; {card_line()}")
+    return {"k1": k1, "k2": k2, "seconds": seconds, "train_seconds": train_s,
+            "headline": headline, "parity": parity, "dispatch": dispatch, "drills": drills,
+            "timing": timing, "lj": lj, "kernel_rows": rows}
+
+
 # ---------------------------------------------------------------- [zinc]
 
 ZINC_LOGP = {6: 0.34, 7: -0.8, 8: -0.55, 9: 0.2, 16: 0.6}  # C N O F S
@@ -2619,7 +3301,7 @@ def phase_zinc_kernels(batch):
     return reduce_kernel_rows("zinc-kernels", batch, ZINC_WIDTH, 11)
 
 
-def reduce_kernel_rows(tag, batch, f, seed):
+def reduce_kernel_rows(tag, batch, f, seed, what="first packed train bin"):
     """K1 and K2 in the reduce-only flavour at width ``f`` on ``batch``'s
     plan, in f32 and bf16: against their plain versions (same bits on two
     runs, K2 zero off the plan), the launch shape and shared memory per
@@ -2644,7 +3326,7 @@ def reduce_kernel_rows(tag, batch, f, seed):
     covered[plan[0][plan[2]].long()] = True
     shapes = {k: launch_shape(lib, k, n, e, f, f, 32, has_b=False, has_w=False)
               for k in ("k1", "k2")}
-    log(f"[{tag}] first packed train bin: n {n}, e {e} ({e_valid} valid), "
+    log(f"[{tag}] {what}: n {n}, e {e} ({e_valid} valid), "
         f"{batch.num_graphs} graph slots, plan {slots} slots in {blocks} blocks; F = {f}: "
         f"K1 {shapes['k1']}; K2 {shapes['k2']}")
     rows = []
@@ -7065,6 +7747,7 @@ def main():
     mlip_rows = phase_mlip_kernels(mlip_batch.to("cuda"))
     mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_budgets, mlip_batch)
     serve_forces = phase_serve_forces(mlip_cfg, md17_splits)
+    md = phase_md(mlip_cfg, md17_splits)
     widths = [r for r in mlip_rows if "k1_ms" in r]
     zinc_cfgs, zinc_splits = zinc_data()
     zinc_loader, _ = train_loader(zinc_cfgs["fp32"], zinc_splits[0])
@@ -7125,7 +7808,7 @@ def main():
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
-                     + formats["k1"] + graphshard["k1"]),
+                     + formats["k1"] + graphshard["k1"] + md["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -7138,10 +7821,12 @@ def main():
                              "guard": guard["k1"], "preempt": preempt["k1"],
                              "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
                              "pipeline": pipeline["k1"], "formats": formats["k1"],
-                             "graphshard": graphshard["k1"]},
+                             "graphshard": graphshard["k1"], "md": md["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
+                              + mace_rows + pnaeq_rows + md["kernel_rows"]
+                              if r["dtype"] == "f32"]
+                           + [md["lj"]["kernel_row"]["k1_max_abs_err"]]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -7162,6 +7847,10 @@ def main():
                        for r in mace_rows],
         "pnaeq_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                          for r in pnaeq_rows],
+        "md_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                      for r in md["kernel_rows"]],
+        "md_lj": {k.replace("k1_", ""): v for k, v in md["lj"]["kernel_row"].items()
+                  if "k2" not in k},
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
@@ -7171,7 +7860,7 @@ def main():
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
                      + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
-                     + graphshard["k2"]),
+                     + graphshard["k2"] + md["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -7183,10 +7872,12 @@ def main():
                              "guard": guard["k2"], "preempt": preempt["k2"],
                              "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
                              "pipeline": pipeline["k2"], "formats": formats["k2"],
-                             "graphshard": graphshard["k2"]},
+                             "graphshard": graphshard["k2"], "md": md["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows + pnaeq_rows if r["dtype"] == "f32"]),
+                              + mace_rows + pnaeq_rows + md["kernel_rows"]
+                              if r["dtype"] == "f32"]
+                           + [md["lj"]["kernel_row"]["k2_max_abs_err"]]),
         "ms": bwd_row["ms"],
         "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"],
@@ -7206,11 +7897,16 @@ def main():
                        for r in mace_rows],
         "pnaeq_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                          for r in pnaeq_rows],
+        "md_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                      for r in md["kernel_rows"]],
+        "md_lj": {k.replace("k2_", ""): v for k, v in md["lj"]["kernel_row"].items()
+                  if "k1" not in k},
     }]
     log(f"[report] export: {json.dumps(export)}")
     log(f"[report] loadbench: {json.dumps(loadbench)}")
     log(f"[report] fleet: {json.dumps(fleet)}")
     log(f"[report] serve-forces: {json.dumps(serve_forces)}")
+    log(f"[report] md: {json.dumps({k: v for k, v in md.items() if k != 'kernel_rows'})}")
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] guard: {json.dumps({k: v for k, v in guard.items() if k != 'halt'})}")

@@ -47,16 +47,23 @@ What runs today:
   native C++ cell list behind the radius graphs (``native.py``, built
   with ``g++`` at first use).
 
-The rest (MD rollouts, aux utilities) is later work (ROADMAP.md).
+- MD rollouts: ``run_simulation(config, sample=..., ...)`` integrates a
+  trained potential (velocity Verlet, NVE or Langevin NVT) in K-step
+  macros, each one replayed CUDA graph on the card, with the on-device
+  neighbor lists and block plans, the containment ladder, trajectory
+  checkpoints and ``rollout`` telemetry rows (``simulate/``).
+
+The rest (aux utilities and example scripts) is later work (ROADMAP.md).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load
-the runner, ``export_inference``/``load_exported`` the export module, on
-first access). The kernels are compiled with ``nvcc`` at
-their first launch (``ops/cuda_build.py``).
+the runner, ``export_inference``/``load_exported`` the export module,
+``run_simulation`` the rollout engine, on first access). The kernels are
+compiled with ``nvcc`` at their first launch (``ops/cuda_build.py``).
 """
 
-__all__ = ["run_training", "run_prediction", "export_inference", "load_exported"]
+__all__ = ["run_training", "run_prediction", "export_inference", "load_exported",
+           "run_simulation"]
 
 
 def __getattr__(name):
@@ -68,4 +75,8 @@ def __getattr__(name):
         from hydragnn_tpu_torch import export
 
         return getattr(export, name)
+    if name == "run_simulation":
+        from hydragnn_tpu_torch.simulate import engine
+
+        return engine.run_simulation
     raise AttributeError(f"module 'hydragnn_tpu_torch' has no attribute {name!r}")

@@ -757,7 +757,10 @@ class ParallelPipelineLoader:
                     _, item, bufs, dt = it
                     self.stats.record_collate(dt)
                     recycle.append(bufs)
-                    while len(recycle) > self.hold:
+                    # this delivery and the `hold` before it stay out of
+                    # the pool: a delivery is released at the next one
+                    # after its `hold` further deliveries
+                    while len(recycle) > self.hold + 1:
                         self._pool_release(recycle.popleft())
                     delivered += 1
                     yield item

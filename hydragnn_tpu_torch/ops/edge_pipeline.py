@@ -152,6 +152,66 @@ def static_block_bound(
     return (num_edges + be - 1) // be + (num_segments + bn - 1) // bn
 
 
+def plan_blocks_device(
+    seg_sorted: torch.Tensor,
+    edge_valid: torch.Tensor,
+    num_segments: int,
+    n_blocks_static: int,
+    be: int = DEFAULT_BE,
+    bn: int = DEFAULT_BN,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``plan_blocks_static`` computed on the tensors' device: the same
+    ``(perm, seg_padded, valid, window_id)``, element for element, for a
+    non-decreasing ``seg_sorted`` [E] and its ``edge_valid`` mask.
+
+    No JAX counterpart: the JAX rollout's force pass carries no plan and
+    sums with XLA. The MD rollout (``simulate/engine.py``) plans each
+    step's neighbor list here, whose receivers ``radius_graph_device``
+    returns sorted, so that every force pass runs K1 and K2 with no
+    host round trip. Each window's edge run comes from ``searchsorted``,
+    its tile count and its first block from a ``cumsum``, and block k
+    finds its window by a ``searchsorted`` of k in the block offsets;
+    blocks past the plan's end are the static padding (tile 0, no valid
+    slot, the last window). Shapes are static and no value is read
+    back to the host, so a captured CUDA graph replays it. The bound
+    must hold every plan of E edges (``static_block_bound``): a plan's
+    size is not known on the host, so a smaller bound raises here."""
+    dev = seg_sorted.device
+    e = int(seg_sorted.shape[0])
+    need = static_block_bound(e, num_segments, be, bn)
+    if n_blocks_static < need:
+        raise ValueError(
+            f"plan_blocks_device needs a static bound of at least {need} blocks "
+            f"for {e} edges over {num_segments} segments, got {n_blocks_static}"
+        )
+    n_windows = max((num_segments + bn - 1) // bn, 1)
+    seg = seg_sorted.to(torch.int64)
+    wins = torch.arange(n_windows, dtype=torch.int64, device=dev)
+    windows = seg // bn
+    starts = torch.searchsorted(windows, wins, right=False)
+    ends = torch.searchsorted(windows, wins, right=True)
+    filled = ends > starts
+    first_tile = torch.where(filled, starts // be, 0)
+    n_tiles = torch.where(filled, (ends - 1) // be - starts // be + 1, 1)
+    block_end = torch.cumsum(n_tiles, 0)
+    k = torch.arange(n_blocks_static, dtype=torch.int64, device=dev)
+    w = torch.clamp(torch.searchsorted(block_end, k, right=True), max=n_windows - 1)
+    pad = k >= block_end[-1]
+    tile = first_tile[w] + k - (block_end[w] - n_tiles[w])
+    rows = tile[:, None] * be + torch.arange(be, dtype=torch.int64, device=dev)[None, :]
+    rows_c = torch.clamp(rows, max=max(e - 1, 0))
+    valid = (rows >= starts[w][:, None]) & (rows < ends[w][:, None]) & ~pad[:, None]
+    if e:
+        valid = valid & edge_valid[rows_c]
+        seg_rows = seg[rows_c]
+    else:
+        seg_rows = rows_c
+    seg_p = torch.where(valid, seg_rows, (w * bn)[:, None])
+    perm = torch.where(pad[:, None], 0, rows_c)
+    return (perm.reshape(-1).to(torch.int32), seg_p.reshape(-1).to(torch.int32),
+            valid.reshape(-1), w.to(torch.int32))
+
+
 # ----------------------------------------------------------------------
 # K1 (the fused edge pipeline) and K2 (its pullback)
 # ----------------------------------------------------------------------

@@ -12,8 +12,12 @@ the geometry (``NativeUnsupported``). ``HYDRAGNN_TPU_NO_NATIVE=1`` (the
 JAX package's switch) keeps the numpy path, which stays the reference.
 The two find the same edges in different orders; each equals the JAX
 package's same path element for element (the numpy code is copied, the
-C++ is the same source). The in-jit builder comes with the slice that
-uses it (ROADMAP Queue 1).
+C++ is the same source).
+
+``radius_graph_device`` is the counterpart of ``radius_graph_jax``, the
+fixed-capacity neighbor list the MD rollout builds on the device every step
+(``simulate/engine.py``); it imports torch when called, so the host
+neighbor lists keep a numpy-only import.
 """
 
 from __future__ import annotations
@@ -226,3 +230,40 @@ def _cap_neighbors(senders, receivers, pos, shifts, max_neighbours):
         keep[idx] = True
     edge_index = np.stack([senders[keep], receivers[keep]]).astype(np.int64)
     return edge_index, None if shifts is None else shifts[keep]
+
+
+def radius_graph_device(pos, radius: float, node_graph_idx, node_mask, max_edges: int):
+    """Fixed-capacity radius graph on the tensors' device: the
+    counterpart of ``radius_graph_jax``, element for element.
+
+    A dense pair test over the ``[N, N]`` grid (same graph, both nodes
+    real, no self pairs, ``d2 <= radius * radius`` in float32), then a
+    stable compaction: the flat pair index ``r * N + s`` of every true
+    entry in ascending order, so the edges come sorted by receiver, then
+    the false entries, cut to ``max_edges`` slots (to ``N * N`` where the
+    grid is smaller, as the reference's slice is). Empty slots park on
+    the last node ``N - 1`` with a False mask. Returns ``(senders,
+    receivers, edge_mask, overflow)``: int32, int32, bool, and the 0-d
+    int32 count of true pairs that found no slot. No value is read back
+    to the host (no ``nonzero``, no ``masked_select``), so the list is
+    built inside a captured CUDA graph."""
+    import torch
+
+    n = pos.shape[0]
+    diff = pos[None, :, :] - pos[:, None, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    same_graph = node_graph_idx[None, :] == node_graph_idx[:, None]
+    valid = node_mask[None, :] & node_mask[:, None]
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    adj = (d2 <= radius * radius) & same_graph & valid & ~eye
+    flat = adj.reshape(-1)
+    total = torch.sum(flat.to(torch.int32))
+    # the true entries first, each group in index order
+    order = torch.argsort((~flat).to(torch.int32), stable=True)
+    taken = order[:max_edges]
+    edge_mask = flat[taken]
+    pad_node = n - 1
+    rcv = torch.where(edge_mask, taken // n, pad_node).to(torch.int32)
+    snd = torch.where(edge_mask, taken % n, pad_node).to(torch.int32)
+    overflow = torch.clamp(total - max_edges, min=0).to(torch.int32)
+    return snd, rcv, edge_mask, overflow

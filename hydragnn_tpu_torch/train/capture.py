@@ -41,6 +41,9 @@ to the card while a capture is live, and the launch counts a capture
 records are its own. Captures keep torch's default
 ``capture_error_mode="global"``, so a CUDA call from another thread that
 escaped the lock fails the capture loudly instead of corrupting it.
+Python's cyclic collector is held off while a capture is open
+(``collector_paused``): a collection there may run the destructor of a
+dead graph, event or stream, whose CUDA call invalidates the capture.
 
 Each capture is a compile to the run's telemetry
 (``utils/telemetry.note_capture``: host bookkeeping, no CUDA call), and
@@ -61,7 +64,9 @@ records them all, then puts them, or ``release``s what it recorded.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from typing import Callable, Dict, Hashable, List, Sequence, Tuple
@@ -74,6 +79,19 @@ _ALIGN = 256  # bytes between fields in the static buffer
 
 # Held by every eager run, capture and replay (module docstring).
 GRAPH_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Python's automatic cyclic collection off for the block (module
+    docstring); restored to what it was on the way out."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _launch_counters() -> tuple:
@@ -243,7 +261,7 @@ class StepGraphs:
         torch.cuda.empty_cache()  # as torch.cuda.graph does on entry
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with collector_paused(), torch.cuda.graph(graph):
             outputs = fn(static.views)
         recorded = tuple(c.launches - b for c, b in zip(counters, before))
         for c, b in zip(counters, before):

@@ -25,6 +25,12 @@ module's ``load_state_dict`` copies parameters in place, the port's
 optimizers do the same for their state), so CUDA graphs captured before
 a restore replay with the restored values.
 
+An MD rollout's trajectory checkpoints (``simulate/engine.py``) go
+through the same writer: the dict is ``{"md_state": {leaf: tensor}}``,
+every leaf of the ``MDState``, and the rollout's policy ladder rides in
+the manifest's ``loop`` slot, as the JAX engine writes it. The
+validate-finite gate holds for it too.
+
 The writer's files (``CheckpointWriter``) are the same dict with a
 ``"manifest"`` key added: the resume cursor ``(epoch, step)``, the plan
 seed and ``config_fingerprint`` that guard it, the epoch's partial
@@ -233,8 +239,19 @@ def _barrier(site: str = "save") -> None:
     telemetry.emit_barrier(site, seq, dt, dt)
 
 
+def _is_md_state(state) -> bool:
+    from hydragnn_tpu_torch.simulate.state import MDState
+
+    return isinstance(state, MDState)
+
+
 def _state_tree(state) -> dict:
-    """A ``TrainState``'s checkpoint dict over its live tensors."""
+    """The checkpoint dict over a state's live tensors: a ``TrainState``'s
+    model, optimizer and step, or an MD rollout's ``MDState`` leaf for
+    leaf under ``"md_state"`` (the rollout's ladder rides in the
+    manifest's ``loop`` slot)."""
+    if _is_md_state(state):
+        return {"md_state": state.leaves()}
     return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
             "step": int(state.step)}
 
@@ -263,9 +280,37 @@ def save_checkpoint(log_name: str, state, *, epoch: Optional[int] = None,
     return path
 
 
+def _restore_md_state(state, leaves: dict) -> None:
+    """Set each leaf of an ``MDState`` to the saved tensor on the live
+    leaf's device, bit for bit. The leaves are replaced, not copied into:
+    a rollout saved after a capacity growth holds longer neighbor lists
+    than a fresh engine's state (the ladder in the manifest says so)."""
+    live = state.leaves()
+    if set(live) != set(leaves):
+        raise ValueError(
+            f"checkpoint holds MD leaves {sorted(leaves)}, the state has {sorted(live)}"
+        )
+    for name, t in live.items():
+        saved = leaves[name]
+        if saved.dtype != t.dtype or saved.dim() != t.dim():
+            raise ValueError(
+                f"MD leaf {name}: saved {saved.dtype} {tuple(saved.shape)} does not fit "
+                f"{t.dtype} {tuple(t.shape)}"
+            )
+    for name, t in live.items():
+        setattr(state, name, leaves[name].to(t.device).clone())
+
+
 def _restore_blob(state, blob: dict) -> None:
     """Copy a loaded checkpoint dict into ``state`` in place, bit for
     bit (module docstring); a ``"manifest"`` key is not read."""
+    if _is_md_state(state):
+        if "md_state" not in blob:
+            raise ValueError("checkpoint holds a train state, not an MD rollout's")
+        _restore_md_state(state, blob["md_state"])
+        return
+    if "md_state" in blob:
+        raise ValueError("checkpoint holds an MD rollout's state, not a train state")
     live = state.model.state_dict()
     if any(hasattr(t, "full_tensor") for t in live.values()):
         from hydragnn_tpu_torch.train.optimizer import copy_into
@@ -470,7 +515,8 @@ def build_manifest(*, epoch: int, step: int = 0, plan_seed: Optional[int] = None
 
 
 def load_resume_checkpoint(log_name: str, state, *, fmt: str = "pt"):
-    """Restore the newest durable state for ``Training.continue`` into
+    """Restore the newest durable state for ``Training.continue`` (a
+    ``TrainState``) or for a resumed MD rollout (an ``MDState``) into
     ``state``: the writer's resume container (state and manifest in one
     file), else ``latest`` or an epoch file with no cursor. Returns
     ``(state, manifest or None)``. ``fmt="orbax"``:

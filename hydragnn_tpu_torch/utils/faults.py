@@ -28,10 +28,10 @@ grammar (``;``-separated rules):
   poison lands inside a captured K-step graph as well). Sites: ``loss``
   (after the backward: the gradients stay finite), ``grad`` (every
   gradient), ``batch`` (the node features: loss and gradients both go
-  non-finite). These rules are read once, when a train step is built
-  (``nan_rules``), and the step selects NaN where its counter matches.
-  The JAX package's ``force`` site belongs to its MD engine, which the
-  port has not ported (ROADMAP item 15).
+  non-finite), ``force`` (the MD rollout's forces, at the rollout's step
+  counter, ``simulate/engine.py``). These rules are read once, when a
+  train step or a rollout engine is built (``nan_rules``), and the step
+  selects NaN where its counter matches.
 
 Arm a plan with ``install(spec)``, or with the ``HYDRAGNN_TPU_FAULTS``
 environment variable, read once at first use (the drills' child
@@ -47,7 +47,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-NAN_SITES = ("loss", "grad", "batch")
+NAN_SITES = ("loss", "grad", "batch", "force")
 
 
 class InjectedCrash(BaseException):

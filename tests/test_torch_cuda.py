@@ -11,7 +11,9 @@ run telemetry: a run with the stream on equals it off, every step
 replayed, and the dispatch-mode counter's K1/K2 counts equal
 ``k1_work``/``k2_work``; the input feed: run_training through the
 collation workers and the prefetch thread equal to the serial feed bit
-for bit, every step replayed.
+for bit, every step replayed; MD rollouts: K1/K2 on a block plan built
+on the card equal their plain versions, and a captured K = 8 macro
+equals K = 1 bit for bit.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -668,6 +670,49 @@ def test_k_step_replay_equals_single_replays():
     _state_equal(torch, runs[0][0], runs[0][1], runs[1][0], runs[1][1])
     for x, y in zip(runs[0][2], runs[1][2]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_collector_off_inside_captures():
+    """Python's cyclic collector is off while a train step or a rollout
+    macro is captured, and on again after; the replays stay right. (A
+    collection inside a capture may destroy a dead graph, which
+    invalidates the capture in global mode.)"""
+    import gc
+
+    torch = _need_card()
+    from hydragnn_tpu_torch.simulate import RolloutEngine, md_template_batch, simulation_settings
+    from hydragnn_tpu_torch.train.capture import StepGraphs
+
+    seen = []
+
+    def watched(fn):
+        def run(*args):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+            return fn(*args)
+        return run
+
+    assert gc.isenabled()
+    _, _, _, batches = _capture_case(torch, n_batches=3)
+    graphs = StepGraphs("cuda")
+    step = watched(lambda views: (views[0].pos * 2.0,))
+    outs = [graphs.run(("doubled",), step, [b])[0].clone() for b in batches]
+    torch.cuda.synchronize()
+    assert (graphs.eager_runs, graphs.captures, graphs.replays) == (1, 1, 2)
+    for b, out in zip(batches, outs):
+        assert torch.equal(out.cpu(), torch.as_tensor(b.pos) * 2.0)
+
+    model, cfg, samples = _painn_serving(torch)
+    smp = samples[0]
+    s = simulation_settings({"Simulation": {
+        "steps": 12, "superstep_k": 4, "dt": 2e-3, "temperature_k": 0.0,
+        "neighbor": {"skin": 0.05, "max_edges": 256}}})
+    eng = RolloutEngine(model, None, cfg, md_template_batch(smp.x, smp.pos, 256), s)
+    eng._macro = watched(eng._macro)
+    res = eng.run(eng.init_state())
+    assert eng.graph_stats()["captures"] == 1 and np.isfinite(res.energies).all()
+    assert seen == [False, False] and gc.isenabled()
 
 
 @pytest.mark.cuda
@@ -1655,3 +1700,89 @@ def test_counter_k1_k2_equal_work_on_card():
     assert ctr.error is None
     assert (got1["calls"], got1["flops"], got1["bytes_accessed"]) == (1, k1[1], k1[0])
     assert (got2["calls"], got2["flops"], got2["bytes_accessed"]) == (1, k2[1], k2[0])
+
+
+def _rollout_lists(torch, n=22, box=6.1, radius=4.4, max_edges=1024, seed=0):
+    """A rollout's neighbor list on the card (md17's 21 atoms and one
+    padding row, the list radius 4.0 + skin 0.4): (senders, receivers,
+    edge_mask), receiver-sorted by ``radius_graph_device``."""
+    from hydragnn_tpu_torch.ops.neighbors import radius_graph_device
+
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.uniform(0, box, (n, 3)).astype(np.float32)).cuda()
+    pos[-1] = 0.0
+    ngi = torch.zeros(n, dtype=torch.int32, device="cuda")
+    ngi[-1] = 1
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    mask[-1] = False
+    snd, rcv, em, _ = radius_graph_device(pos, radius, ngi, mask, max_edges)
+    return snd, rcv, em
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64, 192])
+def test_device_plan_kernels_match_plain(f):
+    """K1 and K2 (reduce-only, PaiNN's widths) on a block plan built on
+    the card from ``radius_graph_device``'s list: the plan equals the host
+    planner's, each kernel equals its plain version, the same bits on
+    two runs."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops import edge_pipeline as ep
+
+    n = 22
+    _, rcv, em = _rollout_lists(torch, n)
+    e = rcv.numel()
+    bound = ep.static_block_bound(e, n)
+    plan = ep.plan_blocks_device(rcv, em, n, bound)
+    want = ep.plan_blocks_static(rcv.cpu().numpy(), n, bound, edge_valid=em.cpu().numpy())
+    for w, g in zip(want, plan):
+        assert np.array_equal(w, g.cpu().numpy())
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    a = torch.randn(e, f, device="cuda", generator=gen)
+    g = torch.randn(n, f, device="cuda", generator=gen)
+    out = ep.edge_pipeline_planned(a, None, None, *plan, n)
+    ref = ep.edge_pipeline_plain(a, None, None, *plan, n)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL["float32"])
+    assert torch.equal(out, ep.edge_pipeline_planned(a, None, None, *plan, n))
+    d_a = ep.edge_pipeline_bwd_planned(g, a, None, None, *plan, n)[0]
+    d_ref = ep.edge_pipeline_bwd_plain(g, a, None, None, *plan, n)[0]
+    np.testing.assert_allclose(d_a.cpu().numpy(), d_ref.cpu().numpy(), **VJP_TOL["float32"])
+    assert torch.equal(d_a, ep.edge_pipeline_bwd_planned(g, a, None, None, *plan, n)[0])
+
+
+@pytest.mark.cuda
+def test_rollout_captured_macro_equals_serial():
+    """A PaiNN rollout on the card: a K = 8 captured macro (eager, then
+    captured and replayed) equals K = 1 bit for bit, with the Langevin
+    thermostat and rebuilds; every force pass launches 6 K1 and 6 K2
+    (three layers, two receiver sums each), replays included."""
+    torch = _need_card()
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.simulate import RolloutEngine, md_template_batch, simulation_settings
+
+    model, cfg, samples = _painn_serving(torch)
+    smp = samples[0]
+    block = {"steps": 32, "dt": 2e-3, "temperature_k": 0.2, "kb": 1.0, "seed": 3,
+             "thermostat": "langevin", "friction": 0.5,
+             "neighbor": {"skin": 0.05, "max_edges": 256}}
+    out = {}
+    for k in (1, 8):
+        s = simulation_settings({"Simulation": dict(block, superstep_k=k)})
+        eng = RolloutEngine(model, None, cfg,
+                            md_template_batch(smp.x, smp.pos, s.neighbor.max_edges), s)
+        st = eng.init_state()
+        k1, k2 = edge_pipeline_planned.launches, edge_pipeline_bwd_planned.launches
+        res = eng.run(st, record=True)
+        torch.cuda.synchronize()
+        launches = (edge_pipeline_planned.launches - k1, edge_pipeline_bwd_planned.launches - k2)
+        assert launches == (6 * 32, 6 * 32), (k, launches)
+        stats = eng.graph_stats()
+        assert (stats["eager_runs"], stats["captures"], stats["replays"]) == (
+            1, 1, 32 // k - 1), stats
+        out[k] = res
+    assert out[1].stats["rebuilds"] == out[8].stats["rebuilds"] > 0
+    for name in ("trajectory", "velocities", "energies", "kinetic"):
+        assert np.array_equal(getattr(out[1], name), getattr(out[8], name)), name

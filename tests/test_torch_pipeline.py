@@ -175,11 +175,12 @@ def test_pipeline_equals_serial_and_jax(port, jax_side, case):
     for epoch in (0, 1):
         for ld in (serial, pipe, ref):
             ld.set_epoch(epoch)
-        got = [(a, b, c) for a, b, c in zip(serial, pipe, ref)]
-        assert len(got) == len(serial) == len(pipe) == len(ref) > 2
-        for a, b, c in got:
+        n = 0
+        for a, b, c in zip(serial, pipe, ref):  # a recycling pipe: compared as it delivers
             _assert_same(a, b)
             _assert_shared_with_jax(b, c)
+            n += 1
+        assert n == len(serial) == len(pipe) == len(ref) > 2
     assert (pipe._store is not None) == (store and pkw.get("packed", True))
 
 
