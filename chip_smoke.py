@@ -211,6 +211,34 @@ why.
                cluster, 64 steps: K1 = K2 = 3 x 65, energy drift and
                momentum within tests/test_simulate.py's bounds, K1/K2
                a,b,W at its device plan against their plain versions.
+9c. drivers    the port's example drivers (hydragnn_tpu_torch/drivers/),
+               each through its main() in this process on the card:
+               lennard_jones (--configs 64 --epochs 2 --simulate
+               --sim_steps 64: LJ.json's SchNet potential trained, then NVE
+               from a held-out configuration), md17 (--frames 60 --epochs
+               2 --simulate: md17.json's PaiNN, then its own Simulation
+               block, Langevin, 200 steps, K = 16), qm9 (--synthetic --mols
+               200 --epochs 2), zinc in f32 and bf16 (--mols 200 --epochs
+               2), csce_gap and ogb_gap (200 SMILES, 2 epochs), qm9_hpo
+               (--trials 2 --epochs 2 --mols 200) and lsms (--configs 200
+               --epochs 2). Checks: the generators' samples equal the CPU
+               build bit for bit (sha256 of their records against the
+               table tests/test_torch_drivers.py holds; md17's and zinc's
+               also against [mlip]'s and [zinc]'s copies); every number a
+               driver returns finite; each run_training, run_prediction
+               and run_simulation call's K1 and K2 launches equal what the
+               model predicts from its recorded forwards, train steps and
+               force passes (launches_per_pass, predicted_launches); both
+               rollouts finite with no containment event, and one rollout
+               step of each fitted potential on the card within the f32
+               tolerance of a CPU step from the same state (as [md] holds
+               its steps); qm9_hpo's device memory after trial 2 within
+               8 MiB of after trial 1. Where matplotlib imports, qm9 and
+               md17 run with Visualization.create_plots (a copy of their
+               example config) and the hook's plot files are checked (six
+               for qm9's graph head; nine for md17's energy and forces,
+               the force parity plot among them); where it does not, the
+               phase says so and holds qm9's run to raise ImportError.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
                run, in f32 and bf16: against their plain versions (same
@@ -481,8 +509,8 @@ why.
                "mace_width" and at PNAEq's under "pnaeq_widths";
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
-               MLIP, ZINC, pipeline, formats, polymer, oc20, PNAEq, dp (its guarded
-               run too), fsdp, multibranch and graphshard runs and the
+               MLIP, MD, drivers, ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
+               (its guarded run too), fsdp, multibranch and graphshard runs and the
                superstep run, "launches_by_path" splits them, DimeNet's and
                graphshard's 0 included), the
                card line, and the final {"ok": true, "device": ...} line.
@@ -3224,6 +3252,350 @@ def phase_md(mlip_config, md17_splits):
     return {"k1": k1, "k2": k2, "seconds": seconds, "train_seconds": train_s,
             "headline": headline, "parity": parity, "dispatch": dispatch, "drills": drills,
             "timing": timing, "lj": lj, "kernel_rows": rows}
+
+
+# ---------------------------------------------------------------- [drivers]
+
+# Each driver's command line in [drivers]: the example drivers the port
+# owns (hydragnn_tpu_torch/drivers/), every one on the card.
+DRIVER_RUNS = (
+    ("lennard_jones", ["--configs", "64", "--epochs", "2", "--simulate", "--sim_steps", "64"]),
+    ("md17", ["--frames", "60", "--epochs", "2", "--simulate"]),
+    ("qm9", ["--synthetic", "--mols", "200", "--epochs", "2"]),
+    ("zinc", ["--mols", "200", "--epochs", "2"]),
+    ("zinc", ["--mols", "200", "--epochs", "2", "--precision", "bf16"]),
+    ("csce_gap", ["--mols", "200", "--epochs", "2"]),
+    ("ogb_gap", ["--mols", "200", "--epochs", "2"]),
+    ("qm9_hpo", ["--trials", "2", "--epochs", "2", "--mols", "200"]),
+    ("lsms", ["--configs", "200", "--epochs", "2"]),
+)
+HPO_MEMORY_MIB = 8.0  # device memory after the last trial within this of after the first
+# The sha256 of each generator's samples (pack_sample records; lsms: the
+# files' bytes) at [drivers]' sizes, as the port's generators build them
+# on the CPU (tests/test_torch_drivers.py holds them equal to the
+# reference scripts' samples bit for bit): driver_digests() on the CPU.
+DRIVER_DIGESTS = {
+    "lj_data": "a085e6bb056d56f0176151759675c76dd5fe501ad31ba619374863d538a2cbdc",
+    "md17": "439101057c3251c8a1ddefefe8a07c8926407d796fd6531d4251a87370bc6032",
+    "qm9": "56104004b586fdb60ab246d4b0eb5e0299f7af468e9dded1f4493ebc8362d5ea",
+    "zinc": "ff1d39e180e693d373035e45b7d18211b8f27df06fd046fae77a20bd1fac39f4",
+    "csce_gap": "40cbf0cdf162c17a0afaa944c3fea418634fa904744a7592ce27a99863e4a18b",
+    "ogb_gap": "65b59c8ecccf9d811bae4a5d6be6f91b453d0e438df21af95c55b5e6aacc3018",
+    "lsms": "52e481b49b66aff5e28c5c4f0795ec3b88313cea573a5ba17c5da82614bc9121",
+}
+
+
+def driver_digests():
+    """{generator: sha256} of each driver's data at [drivers]' sizes:
+    LJ_data.create_dataset(64), the MD17 stand-in's 60 frames, 200
+    synthetic qm9 and zinc molecules, the csce and ogb drivers' 200
+    SMILES samples and deterministic_graph_data's 200 LSMS files (seed
+    3). Host code only (numpy and the native cell list)."""
+    import hashlib
+    import tempfile
+
+    from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
+    from hydragnn_tpu_torch.drivers import csce_gap, lj_data, md17, ogb_gap, qm9, zinc
+
+    out = {
+        "lj_data": sample_digest(lj_data.create_dataset(64, cutoff=5.0)),
+        "md17": sample_digest(md17.synthetic_md17(60)),
+        "qm9": sample_digest(qm9.synthetic_qm9(200)),
+        "zinc": sample_digest(zinc.synthetic_zinc(200)),
+        "csce_gap": sample_digest(csce_gap.smiles_samples(200, csce_gap.CSCE_TYPES,
+                                                          csce_gap.gap_target)),
+        "ogb_gap": sample_digest(ogb_gap.smiles_samples(200, ogb_gap.OGB_TYPES,
+                                                        ogb_gap.spectral_gap)),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        deterministic_graph_data(tmp, number_configurations=200, seed=3)
+        h = hashlib.sha256()
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+        out["lsms"] = h.hexdigest()
+    return out
+
+
+def launches_per_pass(cfg):
+    """K1 launches of one forward of ``cfg``'s model on a planned batch
+    (= K2 launches of its backward): SchNet one a,b,W launch a layer, PNA
+    and PNAPlus one reduce-only moment pass a layer, PaiNN two
+    reduce-only launches a layer (scalar and vector messages), GAT none
+    (its attention sums are the plain scatter)."""
+    per_layer = {"SCHNET": 1, "PNA": 1, "PNAPLUS": 1, "PAINN": 2, "GAT": 0}
+    return per_layer[cfg.mpnn_type.upper()] * cfg.num_conv_layers
+
+
+def predicted_launches(call):
+    """(K1, K2) a recorded entry-point call should launch, pf = K1 a
+    forward: without forces pf K1 a forward and pf K2 a train step's
+    backward. A potential's forward with forces is the forward and its
+    pullback (pf K1, pf K2), as is a rollout's force pass (the t = 0 pass
+    and one a step); its train step adds the loss's backward through the
+    force pass: K1's backward (pf K2) and K2's (ops/edge_pipeline.
+    _k2_backward: one K1 a launch, and one more K2 where the filter b is
+    an operand, SchNet's a,b,W flavour; none in the reduce-only one)."""
+    cfg = call["cfg"]
+    pf = launches_per_pass(cfg)
+    if call["call"] == "run_simulation":
+        return pf * call["force_passes"], pf * call["force_passes"]
+    fwd, steps = call["forwards"], call["train_steps"]
+    if cfg.enable_interatomic_potential:
+        with_b = cfg.mpnn_type.upper() == "SCHNET"
+        return pf * (fwd + steps), pf * (fwd + steps) + (pf * steps if with_b else 0)
+    return pf * fwd, pf * steps
+
+
+@contextlib.contextmanager
+def entry_point_calls():
+    """While open, each run_training, run_prediction and run_simulation
+    call (however a driver reaches it) is recorded: its K1/K2 launches,
+    its step dispatches (``recorded_run``: forwards, train steps), its
+    model config, and for a rollout its force passes; the rollout's
+    model, start and Simulation block are kept for the card-vs-CPU step.
+    Nothing of a run's state is kept, so trials free their graphs."""
+    from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.simulate import engine
+
+    calls = []
+    plain = {"run_training": (runner, runner.run_training),
+             "run_prediction": (runner, runner.run_prediction),
+             "run_simulation": (engine, engine.run_simulation)}
+
+    def wrap(name, fn):
+        def counted(*args, **kw):
+            k0 = md_counts()
+            with recorded_run() as rec:
+                out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            k1, k2 = (c - b for c, b in zip(md_counts(), k0))
+            row = {"call": name, "k1": k1, "k2": k2, "forwards": rec["forwards"],
+                   "train_steps": len(rec["shapes"])}
+            if name == "run_training":
+                row["cfg"], row["log_name"] = out[2], out[4]["_log_name"]
+            else:
+                row["cfg"] = kw["cfg"]
+            if name == "run_simulation":
+                row.update(force_passes=1 + int(out.stats["steps"]),
+                           events=list(out.stats["events"]), model=kw["model"],
+                           sample=kw["sample"], block=copy.deepcopy(args[0]["Simulation"]))
+            calls.append(row)
+            return out
+        return counted
+
+    for name, (mod, fn) in plain.items():
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, (mod, fn) in plain.items():
+            setattr(mod, name, fn)
+
+
+def driver_step_held(tag, call):
+    """One rollout step of the driver's fitted potential on the card
+    against one step of the CPU plain path from the same state (the
+    card's initial state): positions, velocities and energies within the
+    f32 forward tolerance, forces by [mlip]'s rule (md_forces_held), the
+    neighbor arrays, counters and key equal."""
+    from hydragnn_tpu_torch.simulate import MDState
+
+    model, cfg, start, block = call["model"], call["cfg"], call["sample"], call["block"]
+    card = md_engine(model, cfg, start, block)
+    cpu = md_engine(copy.deepcopy(model).to("cpu"), cfg, start, block)
+    st = card.init_state()
+    st_cpu = MDState(**{k: v.cpu() for k, v in st.leaves().items()})
+    one_cpu = cpu.run(st_cpu, 1).state
+    one = card.run(st, 1).state
+    for name in ("senders", "receivers", "edge_mask", "rebuilds", "good_steps", "key"):
+        check(torch.equal(getattr(one, name).cpu(), getattr(one_cpu, name)),
+              f"[drivers] {tag}: a card step vs a CPU step: {name} differ")
+    worst = {}
+    for name in ("pos", "vel", "energy"):
+        worst[name], _ = assert_close_scaled(getattr(one, name).cpu().numpy(),
+                                             getattr(one_cpu, name).numpy(), F32_TOL,
+                                             f"[drivers] {tag}: {name} after one step")
+    f_err, f_ok, floor = md_forces_held(card, cpu, model, cfg, one)
+    held = ("within the gradient tolerance" if f_ok
+            else f"within 10 x the scatter floor {floor:.3g}")
+    log(f"[drivers] {tag}: one rollout step of the fitted potential (K = 1, from the card's "
+        f"initial state, {start.num_nodes} atoms) card vs CPU plain path: positions, "
+        f"velocities, energies within rtol 1e-5 / atol 1e-4 (largest |card - CPU| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"); forces {f_err:.3g} x max|ref| ({held}); lists, counters and key equal")
+    return {"max_abs_err": worst, "forces_error": f_err, "forces_in_tolerance": f_ok}
+
+
+def driver_numbers(out):
+    """Every number in a driver's returned report (nested dicts, lists
+    and trial tuples), as floats."""
+    if isinstance(out, dict):
+        return [x for v in out.values() for x in driver_numbers(v)]
+    if isinstance(out, (list, tuple)):
+        return [x for v in out for x in driver_numbers(v)]
+    if isinstance(out, (int, float)) and not isinstance(out, bool):
+        return [float(out)]
+    return []
+
+
+def plot_config(src, work):
+    """A copy of the example config ``src`` under ``work`` with
+    Visualization.create_plots on (the example file itself is only read)."""
+    with open(src) as f:
+        config = json.load(f)
+    config["Visualization"] = {"create_plots": True}
+    path = os.path.join(work, "plots_" + os.path.basename(src))
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+PLOT_FILES = {
+    "qm9": ["error_hist_property.png", "global_analysis.png", "history.png", "num_nodes.png",
+            "scatter_property.png", "task_history.png"],
+    "md17": ["error_hist_energy.png", "error_hist_forces.png", "global_analysis.png",
+             "history.png", "num_nodes.png", "parity_forces.png", "scatter_energy.png",
+             "scatter_forces.png", "task_history.png"],
+}
+
+
+def driver_run(name, argv, plot_cfg):
+    """One driver's main(argv) on the card (with ``--config plot_cfg``
+    where given), its stdout sent to stderr, every entry-point call
+    recorded and held to its predicted K1/K2 launches, each rollout held
+    finite and one of its steps against the CPU's. Returns the run's
+    report."""
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"hydragnn_tpu_torch.drivers.{name}")
+    tag = name + ("_bf16" if "bf16" in argv else "")
+    extra = ["--config", plot_cfg] if plot_cfg else []
+    t0 = time.perf_counter()
+    with entry_point_calls() as calls, contextlib.redirect_stdout(sys.stderr):
+        out = mod.main(list(argv) + extra + ["--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in driver_numbers(out)),
+          f"[drivers] {tag}: non-finite results {out}")
+    rows = []
+    for c in calls:
+        want = predicted_launches(c)
+        row = {k: c[k] for k in ("call", "k1", "k2", "forwards", "train_steps")}
+        row.update(model=c["cfg"].mpnn_type, per_pass=launches_per_pass(c["cfg"]),
+                   force_passes=c.get("force_passes", 0))
+        check((c["k1"], c["k2"]) == want,
+              f"[drivers] {tag} {c['call']}: K1 {c['k1']}, K2 {c['k2']}, predicted {want} "
+              f"from {row}")
+        rows.append(row)
+    log(f"[drivers] {tag} {' '.join(argv)}: {seconds:.1f} s; "
+        + "; ".join(f"{r['call']} ({r['model']}, {r['per_pass']} a pass) K1 {r['k1']} K2 "
+                    f"{r['k2']} = predicted ({r['forwards']} forwards, {r['train_steps']} "
+                    f"train steps, {r['force_passes']} force passes)" for r in rows))
+    run = {"driver": tag, "seconds": seconds, "calls": rows,
+           "result": {k: v for k, v in out.items() if k != "trials"}}
+    for c in calls:
+        if c["call"] != "run_simulation":
+            continue
+        sim = out["simulation"]
+        check(sim["finite"] and not c["events"],
+              f"[drivers] {tag}: rollout {sim}, events {c['events']}")
+        log(f"[drivers] {tag} rollout: {sim['steps']} steps at dt {sim['dt']} ({sim['atoms']} "
+            f"atoms), {sim['rebuilds']} rebuilds, {sim['steps_per_sec']:.1f} steps/s, total "
+            f"energy's largest departure {sim['energy_drift']:.3g}, every energy finite")
+        run["step_held"] = driver_step_held(tag, c)
+    if plot_cfg:
+        log_name = next(c["log_name"] for c in calls if c["call"] == "run_training")
+        pngs = sorted(f for f in os.listdir(os.path.join("logs", log_name))
+                      if f.endswith(".png"))
+        check(pngs == PLOT_FILES[name], f"[drivers] {tag}: logs/{log_name} holds {pngs}")
+        log(f"[drivers] {tag} with create_plots: the hook wrote logs/{log_name}/"
+            f"{{{', '.join(pngs)}}}")
+        run["plots"] = pngs
+    return run
+
+
+def phase_drivers():
+    """The eight example drivers of the port run in this process on the
+    card through their main() (9c in the module docstring). The counts
+    start at 0 here; ``k1``/``k2`` are the drivers' launches, the card-vs-
+    CPU rollout steps not counted."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import common, lj_data, md17, zinc
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+
+    t_phase = time.perf_counter()
+    edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+    t0 = time.perf_counter()
+    digests = driver_digests()
+    gen_s = time.perf_counter() - t0
+    for name, want in DRIVER_DIGESTS.items():
+        check(digests[name] == want, f"[drivers] {name}'s samples differ from the CPU build "
+              f"(sha256 {digests[name][:16]} against {want[:16]})")
+    check(sample_digest(md17.synthetic_md17(60)) == sample_digest(md17_frames(60)),
+          "[drivers] md17's frames differ from [mlip]'s copy of the stand-in")
+    check(sample_digest(zinc.synthetic_zinc(200)) == sample_digest(synthetic_zinc(200)),
+          "[drivers] zinc's molecules differ from [zinc]'s copy of zinc.py's")
+    check(np.array_equal(lj_data.configuration((3, 3, 3), np.random.default_rng(0)).pos,
+                         lj_cluster().pos),
+          "[drivers] LJ_data's 3x3x3 configuration differs from [md]'s cluster")
+    log(f"[drivers] generators ({gen_s:.2f} s on the host): every sample set equal to the "
+        f"CPU build bit for bit (sha256 of its records: "
+        + ", ".join(f"{k} {v[:12]}" for k, v in digests.items())
+        + "); md17's and zinc's also equal [mlip]'s and [zinc]'s copies, LJ's 3x3x3 "
+        "configuration [md]'s cluster")
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+        log("[drivers] matplotlib does not import here: the plot hook is held to raise its "
+            "ImportError, and the runs below draw no plots")
+
+    work = tempfile.mkdtemp(prefix="drivers_")
+    runs = []
+    try:
+        for name, argv in DRIVER_RUNS:
+            plot_cfg = (plot_config(common.example_path(name, f"{name}.json"), work)
+                        if name in PLOT_FILES else None)
+            if plot_cfg and not have_mpl:
+                mod = importlib.import_module(f"hydragnn_tpu_torch.drivers.{name}")
+                try:
+                    with contextlib.redirect_stdout(sys.stderr):
+                        mod.main(list(argv) + ["--config", plot_cfg, "--device", "cuda"])
+                except ImportError as e:
+                    log(f"[drivers] {name} with create_plots: the hook raised ImportError "
+                        f"({e})")
+                else:
+                    check(False, f"[drivers] {name}: create_plots without matplotlib did "
+                          "not raise")
+                plot_cfg = None
+            run = driver_run(name, argv, plot_cfg)
+            if name == "qm9_hpo":
+                mib = run["result"]["device_mib"]
+                check(len(mib) == 2 and abs(mib[-1] - mib[0]) < HPO_MEMORY_MIB,
+                      f"[drivers] qm9_hpo: device memory after each trial {mib} MiB")
+                log(f"[drivers] qm9_hpo: device memory allocated after each trial "
+                    f"{[round(m, 2) for m in mib]} MiB (within {HPO_MEMORY_MIB} MiB)")
+            runs.append(run)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k1, k2 = (sum(r[k] for run in runs for r in run["calls"]) for k in ("k1", "k2"))
+    check(k1 > 0 and k2 > 0, f"[drivers] K1 {k1}, K2 {k2}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[drivers] phase: {seconds:.1f} s; K1 {k1}, K2 {k2} launched by the drivers' "
+        f"counted runs (the card-vs-CPU steps and the runs held to raise ImportError not "
+        f"counted); {card_line()}")
+    return {"k1": k1, "k2": k2, "seconds": seconds, "digests": digests, "runs": runs}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -7748,6 +8120,7 @@ def main():
     mlip = phase_mlip(mlip_cfg, mlip_splits, md17_splits, mlip_budgets, mlip_batch)
     serve_forces = phase_serve_forces(mlip_cfg, md17_splits)
     md = phase_md(mlip_cfg, md17_splits)
+    drivers = phase_drivers()
     widths = [r for r in mlip_rows if "k1_ms" in r]
     zinc_cfgs, zinc_splits = zinc_data()
     zinc_loader, _ = train_loader(zinc_cfgs["fp32"], zinc_splits[0])
@@ -7808,7 +8181,7 @@ def main():
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
-                     + formats["k1"] + graphshard["k1"] + md["k1"]),
+                     + formats["k1"] + graphshard["k1"] + md["k1"] + drivers["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -7821,7 +8194,8 @@ def main():
                              "guard": guard["k1"], "preempt": preempt["k1"],
                              "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
                              "pipeline": pipeline["k1"], "formats": formats["k1"],
-                             "graphshard": graphshard["k1"], "md": md["k1"]},
+                             "graphshard": graphshard["k1"], "md": md["k1"],
+                             "drivers": drivers["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"]
@@ -7860,7 +8234,7 @@ def main():
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
                      + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
-                     + graphshard["k2"] + md["k2"]),
+                     + graphshard["k2"] + md["k2"] + drivers["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -7872,7 +8246,8 @@ def main():
                              "guard": guard["k2"], "preempt": preempt["k2"],
                              "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
                              "pipeline": pipeline["k2"], "formats": formats["k2"],
-                             "graphshard": graphshard["k2"], "md": md["k2"]},
+                             "graphshard": graphshard["k2"], "md": md["k2"],
+                             "drivers": drivers["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"]
@@ -7907,6 +8282,7 @@ def main():
     log(f"[report] fleet: {json.dumps(fleet)}")
     log(f"[report] serve-forces: {json.dumps(serve_forces)}")
     log(f"[report] md: {json.dumps({k: v for k, v in md.items() if k != 'kernel_rows'})}")
+    log(f"[report] drivers: {json.dumps(drivers)}")
     log(f"[report] train: {json.dumps({k: v for k, v in train.items() if k != 'parity'})}")
     log(f"[report] headline train step: {json.dumps(headline)}")
     log(f"[report] guard: {json.dumps({k: v for k, v in guard.items() if k != 'halt'})}")

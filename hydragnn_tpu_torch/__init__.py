@@ -53,7 +53,19 @@ What runs today:
   neighbor lists and block plans, the containment ladder, trajectory
   checkpoints and ``rollout`` telemetry rows (``simulate/``).
 
-The rest (aux utilities and example scripts) is later work (ROADMAP.md).
+- aux utilities and example drivers: ``postprocess/`` (``output_denormalize``,
+  the ``Visualizer`` that ``run_training`` drives when the config's
+  ``Visualization.create_plots`` is true), ``utils/`` ``time_utils``,
+  ``hpo`` (random search and an Optuna objective over ``run_training``),
+  ``lsms``, ``smiles`` (the native SMILES parser) and ``descriptors``;
+  the example drivers under ``drivers/``, each ``python -m
+  hydragnn_tpu_torch.drivers.<name>`` with its reference script's flags
+  and ``--device`` (the card by default; ``--device cpu`` is the plain
+  path): ``lennard_jones``, ``md17``, ``qm9``, ``zinc``, ``csce_gap``,
+  ``ogb_gap``, ``qm9_hpo``, ``lsms`` and ``giant_graph``.
+
+Still to port (ROADMAP.md): the other drivers of ``examples/`` (item 16b)
+and the static analysis (item 17).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

@@ -86,6 +86,11 @@ directory.
 ``Training.bn_recalibration`` refreshes the running statistics at the
 end of training from an eval-shaped, unpacked loader over the train
 split.
+The config's ``Visualization`` section (``create_plots``; the
+``error_histograms``, ``global_analysis`` and ``task_history`` switches)
+draws the JAX runner's end-of-run plots at world 1, after the telemetry
+stream is closed: a per-sample test pass through the run's graph cache,
+then ``postprocess.Visualizer``'s plots under ``logs/<log_name>/``.
 
 Datasets (``_ingest_datasets``): every format the JAX package reads, the
 raw LSMS, CFG and XYZ files, pickle directories and binary containers;
@@ -701,9 +706,47 @@ def run_training(
         writer.close(barrier=done)
         tr.close_window()
         telemetry.close_run(tel_stream)
+    if config.get("Visualization", {}).get("create_plots", False) and runtime.world_size() == 1:
+        _create_plots(config, log_name, state, model, cfg, hist,
+                      (trainset, valset, testset), dev=dev, compute_dtype=compute_dtype,
+                      batch_size=batch_size, trips=trips, seg_plan=seg_plan)
     if tr.has("RegionTimer"):
         tr.save(log_name)
     return state, model, cfg, hist, config
+
+
+def _create_plots(config, log_name, state, model, cfg, hist, datasets, *, dev, compute_dtype,
+                  batch_size, trips, seg_plan) -> None:
+    """The end-of-run plots of the config's ``Visualization`` section
+    (the JAX runner's hook): a per-sample test pass, as ``run_prediction``
+    makes it, through the run's graph cache, then ``Visualizer``'s seven
+    plots under ``logs/<log_name>/``. It runs after the telemetry stream
+    is closed, so the pass's shapes never read as retrace leaks. Without
+    matplotlib the import raises."""
+    from hydragnn_tpu_torch.postprocess import Visualizer
+
+    trainset, valset, testset = datasets
+    loader = GraphLoader(testset, batch_size, with_triplets=trips, with_segment_plan=seg_plan)
+    _, _, trues, preds = run_test(
+        model, cfg, _prediction_state(state, None, dev), loader, device=dev,
+        compute_dtype=compute_dtype, compute_grad_energy=cfg.enable_interatomic_potential)
+    if cfg.enable_interatomic_potential:
+        names = ["energy", "forces"]  # run_test's MLIP collections
+    else:
+        names = [h.name for h in cfg.heads]
+    viz = Visualizer(log_name, num_heads=len(names))
+    viz.create_scatter_plots(trues, preds, output_names=names)
+    viz.plot_history(hist.train_loss, hist.val_loss, hist.test_loss)
+    viz.num_nodes_plot([trainset, valset, testset], ["train", "val", "test"])
+    vcfg = config.get("Visualization", {})
+    if vcfg.get("error_histograms", True):
+        viz.create_error_histograms(trues, preds, output_names=names)
+    if vcfg.get("global_analysis", True):
+        viz.create_plot_global(trues, preds, output_names=names)
+    if vcfg.get("task_history", True):
+        viz.plot_task_history(hist.train_tasks, task_names=names)
+    if cfg.enable_interatomic_potential and trues[1].ndim == 2:
+        viz.create_parity_plot_vector(trues[1], preds[1], name="forces")
 
 
 def restore_checkpoint_state(config: dict, model) -> TrainState:

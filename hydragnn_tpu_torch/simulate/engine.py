@@ -79,6 +79,7 @@ from hydragnn_tpu_torch.simulate.state import (
     md_template_batch,
 )
 from hydragnn_tpu_torch.train import mlip
+from hydragnn_tpu_torch.train.capture import side_stream
 from hydragnn_tpu_torch.train.guard import nan_injections, poison_scalar
 
 __all__ = [
@@ -335,7 +336,7 @@ class RolloutEngine:
         self._carry: Optional[MDState] = None
         self._graphs: Dict[Tuple[int, bool], _CapturedMacro] = {}
         self._seen: set = set()
-        self._side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._side = side_stream(dev) if dev.type == "cuda" else None
         self.eager_runs = 0
         self.captures = 0
         self.replays = 0

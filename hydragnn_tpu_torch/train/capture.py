@@ -81,6 +81,26 @@ _ALIGN = 256  # bytes between fields in the static buffer
 GRAPH_LOCK = threading.RLock()
 
 
+_SIDE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """The process's one side stream of a card, on which every
+    ``StepGraphs`` and rollout engine makes its eager first-sight runs.
+    One stream for all of them, not one per run: cuBLAS keeps a workspace
+    for every (handle, stream) pair it has served and frees none, so a
+    stream per run would leave a run's workspaces behind it (~64 MiB on an
+    H100), and in-process trials (``utils/hpo``) would grow device memory
+    run by run."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with GRAPH_LOCK:
+        if index not in _SIDE_STREAMS:
+            _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+        return _SIDE_STREAMS[index]
+
+
 @contextlib.contextmanager
 def collector_paused():
     """Python's automatic cyclic collection off for the block (module
@@ -196,7 +216,7 @@ class StepGraphs:
             raise ValueError(f"StepGraphs captures on a CUDA device, got {self.device}")
         self.graphs: Dict[Hashable, CapturedStep] = {}
         self._seen: set = set()
-        self._side = torch.cuda.Stream(self.device)
+        self._side = side_stream(self.device)
         self.eager_runs = 0
         self.captures = 0
         self.replays = 0

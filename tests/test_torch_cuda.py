@@ -13,7 +13,8 @@ replayed, and the dispatch-mode counter's K1/K2 counts equal
 collation workers and the prefetch thread equal to the serial feed bit
 for bit, every step replayed; MD rollouts: K1/K2 on a block plan built
 on the card equal their plain versions, and a captured K = 8 macro
-equals K = 1 bit for bit.
+equals K = 1 bit for bit; every run's eager steps on one side stream of
+the card, so two run_trainings leave device memory flat.
 
 These tests need a CUDA device and skip without one (the decision is
 made inside each test). This file imports no JAX, so it also runs where
@@ -1786,3 +1787,32 @@ def test_rollout_captured_macro_equals_serial():
     assert out[1].stats["rebuilds"] == out[8].stats["rebuilds"] > 0
     for name in ("trajectory", "velocities", "energies", "kinetic"):
         assert np.array_equal(getattr(out[1], name), getattr(out[8], name)), name
+
+
+@pytest.mark.cuda
+def test_runs_share_one_side_stream_and_keep_memory_flat():
+    """Every StepGraphs (and rollout engine) of a card makes its eager
+    runs on one side stream, so a run's cuBLAS workspaces (one per handle
+    and stream, never freed by torch) outlive no run: after two
+    run_trainings with dropped states, device memory is what it was after
+    the first."""
+    import gc
+
+    torch = _need_card()
+    from hydragnn_tpu_torch.data.loader import split_dataset
+    from hydragnn_tpu_torch.drivers.qm9 import synthetic_qm9
+    from hydragnn_tpu_torch.drivers.qm9_hpo import hpo_config
+    from hydragnn_tpu_torch.runner import run_training
+    from hydragnn_tpu_torch.train.capture import StepGraphs, side_stream
+
+    assert StepGraphs("cuda")._side is StepGraphs("cuda:0")._side is side_stream(0)
+    datasets = split_dataset(synthetic_qm9(60), 0.8)
+    after = []
+    for _ in range(2):
+        state = run_training(hpo_config(2), datasets=datasets, device="cuda")[0]
+        assert state.graphs.replays > 0
+        del state
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert abs(after[1] - after[0]) < 2**20, after
