@@ -239,6 +239,30 @@ why.
                for qm9's graph head; nine for md17's energy and forces,
                the force parity plot among them); where it does not, the
                phase says so and holds qm9's run to raise ImportError.
+               Then the atomistic drivers (ATOMISTIC_RUNS), 2 epochs
+               each at their example configs' widths: oc20 (MACE
+               potential, 100 slabs), oc22 (SchNet, periodic), odac23
+               (SchNet with FiLM graph_attr conditioning), oc25 (PaiNN
+               hidden 32 potential on 120 periodic slabs and gas-phase
+               frames mixed), mptrj (SAGE) and mptrj --forces (EGNN
+               potential), alexandria (PNA on residualized per-atom
+               targets), eam and eam --multitask (SchNet, graph and
+               node heads), omat24 (SchNet potential, periodic), ani1x
+               (SchNet) and ani1x --mlip (PaiNN potential), nabla2_dft
+               (PaiNN), omol25 and transition1x (PNAPlus), qcml (MACE
+               hidden 16), qm7x (DimeNet++) and qm7x --mlip (SchNet
+               potential), each followed by qm7x_inference with its
+               flags, which restores the run's checkpoint through
+               run_prediction(config). The same checks: their data's
+               sha256 against ATOMISTIC_DIGESTS (the CPU build), every
+               number finite, each entry-point call's K1/K2 equal to
+               predicted_launches (MACE one launch a layer; SAGE, EGNN
+               and DimeNet none). Last, K1 and K2 reduce-only against
+               their plain versions (f32 and bf16, same bits on two
+               runs) at the widths these runs meet first, on each run's
+               first train bin: oc25's F = 32 and 96, qcml's F = 144
+               (four and a half 32-column slabs), timed beside the
+               bound, the plain version and index_add_/index_select.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
                run, in f32 and bf16: against their plain versions (same
@@ -506,10 +530,12 @@ why.
                three SchNet shapes under "by_shape", at PaiNN's widths
                under "mlip_widths", at PNA's under "zinc_width", at the
                conv node head's under "polymer_widths", at MACE's under
-               "mace_width" and at PNAEq's under "pnaeq_widths";
+               "mace_width", at PNAEq's under "pnaeq_widths", at oc25's
+               under "oc25_widths" and at qcml's under "qcml_width";
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
-               MLIP, MD, drivers, ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
+               MLIP, MD, drivers (the first eight and the atomistic
+               ones), ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
                (its guarded run too), fsdp, multibranch and graphshard runs and the
                superstep run, "launches_by_path" splits them, DimeNet's and
                graphshard's 0 included), the
@@ -3269,6 +3295,32 @@ DRIVER_RUNS = (
     ("qm9_hpo", ["--trials", "2", "--epochs", "2", "--mols", "200"]),
     ("lsms", ["--configs", "200", "--epochs", "2"]),
 )
+# The atomistic drivers' command lines in [drivers]: 2 epochs on 100-160
+# structures or frames each; qm7x_inference predicts from the checkpoint
+# the qm7x run before it saved (the same --epochs: the log name holds it).
+ATOMISTIC_RUNS = (
+    ("oc20", ["--systems", "100", "--epochs", "2"]),
+    ("oc22", ["--systems", "100", "--epochs", "2"]),
+    ("odac23", ["--systems", "100", "--epochs", "2"]),
+    ("oc25", ["--systems", "120", "--epochs", "2"]),
+    ("mptrj", ["--structures", "100", "--epochs", "2"]),
+    ("mptrj", ["--structures", "100", "--epochs", "2", "--forces"]),
+    ("alexandria", ["--structures", "100", "--epochs", "2"]),
+    ("eam", ["--structures", "100", "--epochs", "2"]),
+    ("eam", ["--structures", "100", "--epochs", "2", "--multitask"]),
+    ("omat24", ["--structures", "100", "--epochs", "2"]),
+    ("ani1x", ["--frames", "160", "--epochs", "2"]),
+    ("ani1x", ["--frames", "160", "--epochs", "2", "--mlip"]),
+    ("nabla2_dft", ["--frames", "120", "--epochs", "2"]),
+    ("omol25", ["--frames", "120", "--epochs", "2"]),
+    ("qcml", ["--frames", "160", "--epochs", "2"]),
+    ("transition1x", ["--reactions", "12", "--epochs", "2"]),
+    ("qm7x", ["--frames", "160", "--epochs", "2"]),
+    ("qm7x_inference", ["--frames", "60", "--epochs", "2"]),
+    ("qm7x", ["--frames", "160", "--epochs", "2", "--mlip"]),
+    ("qm7x_inference", ["--frames", "60", "--epochs", "2", "--mlip"]),
+)
+RUN_FLAGS = ("--forces", "--multitask", "--mlip")  # in a run's tag
 HPO_MEMORY_MIB = 8.0  # device memory after the last trial within this of after the first
 # The sha256 of each generator's samples (pack_sample records; lsms: the
 # files' bytes) at [drivers]' sizes, as the port's generators build them
@@ -3317,13 +3369,171 @@ def driver_digests():
     return out
 
 
+# The same for the atomistic drivers' data at ATOMISTIC_RUNS' sizes
+# (tests/test_torch_drivers_atomistic.py holds the generators equal to
+# examples/'s and this table to the CPU build): atomistic_digests().
+ATOMISTIC_DIGESTS = {
+    "oc20": "6fa6ba0603686883a4c13537f8064dc8d24ca7bff3de86462a904d42cf64e7d0",
+    "oc22": "974ca8da930be33638d4639d86e23e8c1a4b3f5ff2c98f20ae02dca8831865cd",
+    "odac23": "c3350e49d02026a8510701a63e1bcba51629877a8f26fe4da90af4ac42c4a857",
+    "oc25": "86ba3108b853a7dad8e85276c1a53144b27ae518087b4bc3aca0a0be9435baf4",
+    "mptrj": "45200985a8cc244a693bb6718d62a74941c44cc2971a1d7f4637d0aeb81cc8b3",
+    "alexandria": "125df8210a84a1c2da90202a5fab87fd9b941e6326fa7a14ed289580bf8197d7",
+    "eam": "c882f87228242be2c532d8c5fb08111057ba1054b9ce141dd7996bb5dab147db",
+    "eam_multitask": "300f7d36345bb4978faa2b94163838f94eb5b5f47cf88f0e08e9adf3601e171c",
+    "omat24": "6c61e7976282893aac53cc90872f0fb1cbb7db59015558001bd1ddf1c1d47402",
+    "ani1x": "31107a0e378ea4728a2164d26fad08b1a3d7791c666d710ca2f23b32d2abf32a",
+    "nabla2_dft": "27b90032fb62fc37ba933c23cb0497ae8265d9698121457457576a1d57da8877",
+    "omol25": "877ce18f1ae17e60d66ba31538b11b415c207cadcc96a304e21bfc41186c117f",
+    "qcml": "7d59dc1769e79cbfc7223fa54f62ab4317cea331b0134776cd038e27bd605cb0",
+    "transition1x": "70769f8272a2f37c3128caec5569b3f97dde0e2dbe896e56b6027faa3e725bb6",
+    "qm7x": "2f77363ccb73ba5f4ca466f46616c66a380a17ce882106a40fa6a1eeb1c7b543",
+    "qm7x_inference": "3cebd9fefec3e3ae943e1f0344cf7ae4ddec57739894b884df51e94a48c98447",
+}
+
+
+def atomistic_digests():
+    """{data set: sha256} of the atomistic drivers' data at
+    ATOMISTIC_RUNS' sizes: the oc20 slabs (100, seed 0), oc22's
+    normalized slabs, odac23's conditioned set, oc25's shuffled mix of
+    120, the crystals at each flag set the drivers use (mptrj, alexandria
+    before its baseline, eam bulk and multitask, omat24: 100 each), the
+    molecule frames of ani1x, nabla2_dft, omol25, qcml and qm7x (160
+    and inference's 60) and transition1x's 12 reaction paths. Host code
+    only (numpy and the native cell list)."""
+    from hydragnn_tpu_torch.drivers import (
+        alexandria,
+        ani1x,
+        eam,
+        mptrj,
+        nabla2_dft,
+        oc20,
+        oc22,
+        oc25,
+        odac23,
+        omat24,
+        omol25,
+        qcml,
+        qm7x,
+    )
+    from hydragnn_tpu_torch.drivers import crystals
+    from hydragnn_tpu_torch.drivers.molecules import reaction_path_frames
+
+    sets = {
+        "oc20": oc20.synthetic_oc20(100),
+        "oc22": oc22.oc22_samples(100),
+        "odac23": odac23.conditioned_samples(100),
+        "oc25": oc25.mixed_samples(120),
+        "mptrj": mptrj.mptrj_samples(100),
+        "alexandria": crystals.random_crystals(100, species=(28, 41, 13, 22), seed=11),
+        "eam": eam.eam_samples(100),
+        "eam_multitask": eam.eam_samples(100, multitask=True),
+        "omat24": omat24.omat24_samples(100),
+        "ani1x": ani1x.ani1x_samples(160),
+        "nabla2_dft": nabla2_dft.nabla2_samples(120),
+        "omol25": omol25.omol25_samples(120),
+        "qcml": qcml.qcml_samples(160),
+        "transition1x": reaction_path_frames(12),
+        "qm7x": qm7x.build_dataset(160),
+        "qm7x_inference": qm7x.build_dataset(60),
+    }
+    return {k: sample_digest(v) for k, v in sets.items()}
+
+
+# alexandria's element baseline (a least squares through LAPACK's SVD) as
+# the CPU build fits it on the train split of its 100 crystals: {Z:
+# float.hex(coefficient)} of the four elements present
+# (alexandria_baseline(); the others' coefficients multiply zero counts).
+ALEXANDRIA_BASELINE = {13: "0x1.2baa5e34c88a5p-5", 22: "-0x1.aa6c27f14e9fap-6",
+                       28: "0x1.203111dda3091p-4", 41: "-0x1.8fa32cd50d2c1p-4"}
+TARGET_ULPS = 1  # alexandria's f32 targets from this host's baseline against the CPU build's
+
+
+def alexandria_baseline():
+    """(residualized splits, {Z: hex coefficient}) of alexandria's 100
+    crystals, the baseline fitted on this host."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import alexandria
+
+    splits, coeff = alexandria.residual_splits(100)
+    nonzero = np.flatnonzero(np.abs(coeff) > 1e-12)
+    return splits, {int(z) + 1: float(coeff[z]).hex() for z in nonzero}
+
+
+def alexandria_targets_held():
+    """alexandria's residualized targets on this host against the CPU
+    build's. The crystals are held bit for bit by their digest; the
+    baseline goes through this host's LAPACK, so its coefficients are
+    compared with ALEXANDRIA_BASELINE in ulps, and the per-atom f32
+    targets made with them against those made with the CPU build's
+    coefficients must agree within TARGET_ULPS."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import alexandria
+
+    splits, got = alexandria_baseline()
+    check(set(got) == set(ALEXANDRIA_BASELINE),
+          f"[drivers] alexandria's baseline fits elements {sorted(got)}")
+    want = np.array([float.fromhex(ALEXANDRIA_BASELINE[z]) for z in sorted(got)])
+    have = np.array([float.fromhex(got[z]) for z in sorted(got)])
+    coeff_ulps = float((np.abs(have - want) / np.spacing(np.abs(want))).max())
+    cpu = np.zeros(118)
+    cpu[np.array(sorted(got)) - 1] = want
+    ref, _ = alexandria.residual_splits(100, coeff=cpu)
+    y = np.concatenate([s.y_graph for split in splits for s in split])
+    y_ref = np.concatenate([s.y_graph for split in ref for s in split])
+    target_ulps = float((np.abs(y - y_ref) / np.spacing(np.abs(y_ref))).max())
+    check(target_ulps <= TARGET_ULPS,
+          f"[drivers] alexandria's targets {target_ulps} ulps from the CPU build's")
+    log(f"[drivers] alexandria's baseline on this host: coefficients {coeff_ulps:.0f} ulps "
+        f"from the CPU build's (LAPACK's SVD), per-atom f32 targets {target_ulps:.0f} ulps "
+        f"({'bit for bit' if target_ulps == 0 else f'within {TARGET_ULPS}'})")
+    return {"coeff_ulps": coeff_ulps, "target_ulps": target_ulps}
+
+
+# [drivers]' kernel checks at the widths the drivers meet first: (driver,
+# example config, K1/K2 reduce-only widths) on its run's first train bin
+DRIVER_WIDTHS = (("oc25", ("open_catalyst_2025", "oc25_energy.json"), (32, 96)),
+                 ("qcml", ("qcml", "qcml_energy.json"), (144,)))
+
+
+def driver_kernel_rows():
+    """K1 and K2, reduce-only, on the first train bin of oc25's run (its
+    mixed set of 120: PaiNN hidden 32, F = 32 scalar and 96 vector) and
+    of qcml's (160 frames: MACE hidden 16, F = 16 x 9 = 144, four and a
+    half 32-column slabs), in f32 and bf16 against their plain versions
+    (``reduce_kernel_rows``): the run's own plan, as train_loader
+    resolves packing for its config and train split."""
+    from hydragnn_tpu_torch.drivers import common, oc25, qcml
+
+    data = {"oc25": oc25.mixed_samples(120), "qcml": qcml.qcml_samples(160)}
+    rows = {}
+    for name, parts, widths in DRIVER_WIDTHS:
+        config = example_json(*parts)
+        loader, budgets = train_loader(config, common.split(data[name])[0])
+        batch = next(iter(loader))
+        what = (f"{name}'s first {'packed ' if loader.packing else ''}train bin (budgets "
+                f"{budget_keys(budgets)})")
+        rows[name] = [r for f in widths
+                      for r in reduce_kernel_rows("drivers", batch.to("cuda"), f, 400 + f, what)]
+    return rows
+
+
 def launches_per_pass(cfg):
     """K1 launches of one forward of ``cfg``'s model on a planned batch
     (= K2 launches of its backward): SchNet one a,b,W launch a layer, PNA
     and PNAPlus one reduce-only moment pass a layer, PaiNN two
-    reduce-only launches a layer (scalar and vector messages), GAT none
-    (its attention sums are the plain scatter)."""
-    per_layer = {"SCHNET": 1, "PNA": 1, "PNAPLUS": 1, "PAINN": 2, "GAT": 0}
+    reduce-only launches a layer (scalar and vector messages), MACE one
+    reduce-only receiver sum a layer; GAT, SAGE, EGNN and DimeNet none
+    (GAT's attention sums and SAGE's means are the plain scatter, EGNN
+    sums at the senders, DimeNet's triplet sums through index_add_). A
+    stack not listed raises KeyError, and a conv node head (K1/K2 a,W
+    launches of its own, not modelled here) raises ValueError."""
+    per_layer = {"SCHNET": 1, "PNA": 1, "PNAPLUS": 1, "PAINN": 2, "MACE": 1, "GAT": 0,
+                 "SAGE": 0, "EGNN": 0, "DIMENET": 0}
+    if any(b.node_head_type == "conv" for b in getattr(cfg, "node_branches", ())):
+        raise ValueError("launches_per_pass does not model a conv node head")
     return per_layer[cfg.mpnn_type.upper()] * cfg.num_conv_layers
 
 
@@ -3362,9 +3572,19 @@ def entry_point_calls():
     plain = {"run_training": (runner, runner.run_training),
              "run_prediction": (runner, runner.run_prediction),
              "run_simulation": (engine, engine.run_simulation)}
+    # run_prediction's model config, where the caller passes no cfg (a
+    # prediction from the run's checkpoint builds its own)
+    made = []
+    plain_model = runner._prediction_model
+
+    def prediction_model(*args, **kw):
+        model, cfg = plain_model(*args, **kw)
+        made.append(cfg)
+        return model, cfg
 
     def wrap(name, fn):
         def counted(*args, **kw):
+            made.clear()
             k0 = md_counts()
             with recorded_run() as rec:
                 out = fn(*args, **kw)
@@ -3374,6 +3594,8 @@ def entry_point_calls():
                    "train_steps": len(rec["shapes"])}
             if name == "run_training":
                 row["cfg"], row["log_name"] = out[2], out[4]["_log_name"]
+            elif name == "run_prediction" and made:
+                row["cfg"] = made[-1]
             else:
                 row["cfg"] = kw["cfg"]
             if name == "run_simulation":
@@ -3386,11 +3608,13 @@ def entry_point_calls():
 
     for name, (mod, fn) in plain.items():
         setattr(mod, name, wrap(name, fn))
+    runner._prediction_model = prediction_model
     try:
         yield calls
     finally:
         for name, (mod, fn) in plain.items():
             setattr(mod, name, fn)
+        runner._prediction_model = plain_model
 
 
 def driver_step_held(tag, call):
@@ -3471,7 +3695,8 @@ def driver_run(name, argv, plot_cfg):
     import numpy as np
 
     mod = importlib.import_module(f"hydragnn_tpu_torch.drivers.{name}")
-    tag = name + ("_bf16" if "bf16" in argv else "")
+    tag = (name + "".join("_" + a[2:] for a in argv if a in RUN_FLAGS)
+           + ("_bf16" if "bf16" in argv else ""))
     extra = ["--config", plot_cfg] if plot_cfg else []
     t0 = time.perf_counter()
     with entry_point_calls() as calls, contextlib.redirect_stdout(sys.stderr):
@@ -3517,10 +3742,13 @@ def driver_run(name, argv, plot_cfg):
 
 
 def phase_drivers():
-    """The eight example drivers of the port run in this process on the
-    card through their main() (9c in the module docstring). The counts
-    start at 0 here; ``k1``/``k2`` are the drivers' launches, the card-vs-
-    CPU rollout steps not counted."""
+    """The port's example drivers run in this process on the card through
+    their main() (9c in the module docstring): DRIVER_RUNS' eight, then the
+    atomistic ones (ATOMISTIC_RUNS), then K1 and K2 at the atomistic runs'
+    new widths (driver_kernel_rows). The counts start at 0 here; ``k1``/
+    ``k2`` are the first eight's launches, ``k1_atomistic``/
+    ``k2_atomistic`` the atomistic drivers', the card-vs-CPU rollout
+    steps and the kernel checks not counted."""
     import importlib
     import shutil
     import tempfile
@@ -3537,10 +3765,14 @@ def phase_drivers():
     edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
     t0 = time.perf_counter()
     digests = driver_digests()
+    atomistic = atomistic_digests()
     gen_s = time.perf_counter() - t0
-    for name, want in DRIVER_DIGESTS.items():
-        check(digests[name] == want, f"[drivers] {name}'s samples differ from the CPU build "
-              f"(sha256 {digests[name][:16]} against {want[:16]})")
+    for table, got in ((DRIVER_DIGESTS, digests), (ATOMISTIC_DIGESTS, atomistic)):
+        check(set(got) == set(table), f"[drivers] digests of {sorted(got)}, table of "
+              f"{sorted(table)}")
+        for name, want in table.items():
+            check(got[name] == want, f"[drivers] {name}'s samples differ from the CPU build "
+                  f"(sha256 {got[name][:16]} against {want[:16]})")
     check(sample_digest(md17.synthetic_md17(60)) == sample_digest(md17_frames(60)),
           "[drivers] md17's frames differ from [mlip]'s copy of the stand-in")
     check(sample_digest(zinc.synthetic_zinc(200)) == sample_digest(synthetic_zinc(200)),
@@ -3548,9 +3780,10 @@ def phase_drivers():
     check(np.array_equal(lj_data.configuration((3, 3, 3), np.random.default_rng(0)).pos,
                          lj_cluster().pos),
           "[drivers] LJ_data's 3x3x3 configuration differs from [md]'s cluster")
+    alexandria_held = alexandria_targets_held()
     log(f"[drivers] generators ({gen_s:.2f} s on the host): every sample set equal to the "
         f"CPU build bit for bit (sha256 of its records: "
-        + ", ".join(f"{k} {v[:12]}" for k, v in digests.items())
+        + ", ".join(f"{k} {v[:12]}" for k, v in {**digests, **atomistic}.items())
         + "); md17's and zinc's also equal [mlip]'s and [zinc]'s copies, LJ's 3x3x3 "
         "configuration [md]'s cluster")
     try:
@@ -3562,7 +3795,7 @@ def phase_drivers():
             "ImportError, and the runs below draw no plots")
 
     work = tempfile.mkdtemp(prefix="drivers_")
-    runs = []
+    runs, atomistic_runs = [], []
     try:
         for name, argv in DRIVER_RUNS:
             plot_cfg = (plot_config(common.example_path(name, f"{name}.json"), work)
@@ -3587,15 +3820,26 @@ def phase_drivers():
                 log(f"[drivers] qm9_hpo: device memory allocated after each trial "
                     f"{[round(m, 2) for m in mib]} MiB (within {HPO_MEMORY_MIB} MiB)")
             runs.append(run)
+        for name, argv in ATOMISTIC_RUNS:
+            atomistic_runs.append(driver_run(name, argv, None))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2 = (sum(r[k] for run in runs for r in run["calls"]) for k in ("k1", "k2"))
-    check(k1 > 0 and k2 > 0, f"[drivers] K1 {k1}, K2 {k2}")
+    k1_at, k2_at = (sum(r[k] for run in atomistic_runs for r in run["calls"])
+                    for k in ("k1", "k2"))
+    check(k1 > 0 and k2 > 0 and k1_at > 0 and k2_at > 0,
+          f"[drivers] K1 {k1} + {k1_at}, K2 {k2} + {k2_at}")
+    runs_s = time.perf_counter() - t_phase
+    log(f"[drivers] runs: {runs_s:.1f} s; K1 {k1}, K2 {k2} launched by the first eight "
+        f"drivers' counted runs, K1 {k1_at}, K2 {k2_at} by the atomistic drivers' (the "
+        f"card-vs-CPU steps and the runs held to raise ImportError not counted)")
+    kernel_rows = driver_kernel_rows()
     seconds = time.perf_counter() - t_phase
-    log(f"[drivers] phase: {seconds:.1f} s; K1 {k1}, K2 {k2} launched by the drivers' "
-        f"counted runs (the card-vs-CPU steps and the runs held to raise ImportError not "
-        f"counted); {card_line()}")
-    return {"k1": k1, "k2": k2, "seconds": seconds, "digests": digests, "runs": runs}
+    log(f"[drivers] phase: {seconds:.1f} s; {card_line()}")
+    return {"k1": k1, "k2": k2, "k1_atomistic": k1_at, "k2_atomistic": k2_at,
+            "seconds": seconds, "runs_seconds": runs_s, "digests": {**digests, **atomistic},
+            "alexandria_targets": alexandria_held,
+            "runs": runs, "atomistic_runs": atomistic_runs, "kernel_rows": kernel_rows}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -4951,145 +5195,34 @@ def phase_polymers(config, splits, loader, first_bin):
 # ---------------------------------------------------------------- [oc20]
 
 MACE_WIDTH = 288  # MACE's receiver sum: 32 channels x (max_ell + 1)^2 = 9 components
-# examples/LennardJones/LJ_data.py: the fcc(100) lattice constant and the
-# Lennard-Jones parameters of the OC20 stand-in's labels.
-LJ_LATTICE, LJ_EPSILON, LJ_SIGMA = 3.8, 1.0, 2.5
-# examples/common/crystals.py: per-species (epsilon, sigma), combined by
-# Lorentz-Berthelot rules (Ni, Nb, Al, Ti).
-LJ_SPECIES = {28: (1.00, 2.2), 41: (1.35, 2.6), 13: (0.80, 2.5), 22: (1.10, 2.4)}
-
-
-def lj_energy_forces(pos, neighbors):
-    """examples/LennardJones/LJ_data.py's ``lj_energy_forces`` on a given
-    periodic neighbour list (edge_index, shifts): the Lennard-Jones
-    energy summed over directed pairs and halved, and each atom's force."""
-    import numpy as np
-
-    (snd, rcv), shifts = neighbors
-    vec = pos[snd] + shifts - pos[rcv]
-    d = np.maximum(np.linalg.norm(vec, axis=1), 1e-6)
-    sr6 = (LJ_SIGMA / d) ** 6
-    sr12 = sr6 * sr6
-    energy = float(np.sum(4.0 * LJ_EPSILON * (sr12 - sr6)) / 2.0)
-    dedd = 4.0 * LJ_EPSILON * (-12.0 * sr12 + 6.0 * sr6) / d
-    f_pair = -dedd[:, None] * (vec / d[:, None])
-    forces = np.zeros_like(pos)
-    np.add.at(forces, rcv, -f_pair)
-    return energy, forces
 
 
 def synthetic_oc20(n_systems=200, seed=0, cutoff=5.0):
-    """examples/open_catalyst_2020/oc20.py's ``synthetic_oc20``, from the
-    same seeded generator in its order of draws, with the port's
-    ``radius_graph_pbc``: 2-3 x 2-3 x 2 simple-cubic Cu slabs (lattice
-    3.8, 8% vacancies, a cell three slabs tall) with a 1-3 atom H/C/O
-    chain above a surface site, jittered by 0.05, with Lennard-Jones
-    energies and forces under PBC."""
-    import numpy as np
+    """examples/open_catalyst_2020/oc20.py's ``synthetic_oc20``: the oc20
+    driver's (``drivers/oc20.py``), with the port's ``radius_graph_pbc``:
+    2-3 x 2-3 x 2 simple-cubic Cu slabs (lattice 3.8, 8% vacancies, a
+    cell three slabs tall) with a 1-3 atom H/C/O chain above a surface
+    site, jittered by 0.05, with Lennard-Jones energies and forces under
+    PBC."""
+    from hydragnn_tpu_torch.drivers import oc20
 
-    from hydragnn_tpu_torch.data.graph import GraphSample
-    from hydragnn_tpu_torch.ops.neighbors import radius_graph_pbc
-
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n_systems):
-        nx, ny = int(rng.integers(2, 4)), int(rng.integers(2, 4))
-        nz, a = 2, LJ_LATTICE
-        cell = np.diag([nx * a, ny * a, nz * a * 3.0]).astype(np.float64)
-        grid = np.stack(np.meshgrid(np.arange(nx) * a, np.arange(ny) * a,
-                                    np.arange(nz) * a, indexing="ij"), axis=-1).reshape(-1, 3)
-        slab = grid[rng.random(len(grid)) > 0.08]
-        n_ads = int(rng.integers(1, 4))
-        site = slab[rng.integers(0, len(slab))]
-        height = slab[:, 2].max() + rng.uniform(2.6, 3.2)
-        ads = np.stack([site[0] + np.arange(n_ads) * 2.6, np.full(n_ads, site[1]),
-                        np.full(n_ads, height)], axis=1)
-        ads = ads + rng.normal(scale=0.05, size=(n_ads, 3))
-        pos = np.concatenate([slab, ads]) + rng.normal(scale=0.05, size=(len(slab) + n_ads, 3))
-        pos = pos.astype(np.float64)
-        z = np.concatenate([np.full(len(slab), 29.0),
-                            rng.choice([1.0, 6.0, 8.0], n_ads)]).astype(np.float32)
-        ei, shifts = radius_graph_pbc(pos, cell, cutoff)
-        energy, forces = lj_energy_forces(pos, (ei, shifts))
-        out.append(GraphSample(x=z.reshape(-1, 1), pos=pos.astype(np.float32), edge_index=ei,
-                               edge_shifts=shifts.astype(np.float32),
-                               cell=cell.astype(np.float32), energy=energy, forces=forces))
-    return out
-
-
-def lj_multispecies(pos, z, cell, cutoff):
-    """examples/common/crystals.py's ``lj_multispecies_energy_forces``:
-    (energy, forces, per-atom energies, edge_index, shifts) of the
-    species-pair Lennard-Jones potential under PBC."""
-    import numpy as np
-
-    from hydragnn_tpu_torch.ops.neighbors import radius_graph_pbc
-
-    ei, shifts = radius_graph_pbc(pos, cell, cutoff)
-    snd, rcv = ei
-    eps_s = np.array([LJ_SPECIES[int(s)][0] for s in z])
-    sig_s = np.array([LJ_SPECIES[int(s)][1] for s in z])
-    eps = np.sqrt(eps_s[snd] * eps_s[rcv])
-    sig = 0.5 * (sig_s[snd] + sig_s[rcv])
-    vec = pos[snd] + shifts - pos[rcv]
-    d = np.maximum(np.linalg.norm(vec, axis=1), 1e-6)
-    sr6 = (sig / d) ** 6
-    sr12 = sr6 * sr6
-    e_edge = 4.0 * eps * (sr12 - sr6)
-    energy = float(e_edge.sum() / 2.0)
-    e_atom = np.zeros(len(pos))
-    np.add.at(e_atom, rcv, e_edge / 2.0)
-    dedd = 4.0 * eps * (-12.0 * sr12 + 6.0 * sr6) / d
-    f_pair = -dedd[:, None] * (vec / d[:, None])
-    forces = np.zeros_like(pos)
-    np.add.at(forces, rcv, -f_pair)
-    return energy, forces, e_atom, ei, shifts
+    return oc20.synthetic_oc20(n_systems, seed=seed, cutoff=cutoff)
 
 
 def random_crystals(n_structures, species, seed, lattice_constant=3.2, cells_range=(2, 4),
                     cutoff=5.0, jitter=0.06, vacancy_rate=0.04):
     """examples/common/crystals.py's ``random_crystals`` (total energies,
-    normalized), from the same seeded generator in its order of draws,
-    with the port's ``radius_graph_pbc``: simple-cubic cells of 2-3
-    lattice constants a side (6.4-9.6 at 3.2, against a 5.0 cutoff: one
-    pair meets in several images), random species, 4% vacancies, thermal
+    normalized): the crystal drivers' (``drivers/crystals.py``), with the
+    port's ``radius_graph_pbc``: simple-cubic cells of 2-3 lattice
+    constants a side (6.4-9.6 at 3.2, against a 5.0 cutoff: one pair
+    meets in several images), random species, 4% vacancies, thermal
     jitter redrawn while an atom sits in a repulsive core; energies
     centred and scaled over the set (forces scaled alike)."""
-    import dataclasses
+    from hydragnn_tpu_torch.drivers import crystals
 
-    import numpy as np
-
-    from hydragnn_tpu_torch.data.graph import GraphSample
-
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n_structures):
-        nx, ny, nz = (int(v) for v in rng.integers(*cells_range, 3))
-        a = lattice_constant
-        grid = np.stack(np.meshgrid(np.arange(nx) * a, np.arange(ny) * a,
-                                    np.arange(nz) * a, indexing="ij"), axis=-1).reshape(-1, 3)
-        keep = rng.uniform(size=len(grid)) > vacancy_rate
-        if keep.sum() < 2:
-            keep[:2] = True
-        z = rng.choice(species, keep.sum()).astype(np.int64)
-        cell = np.diag([nx * a, ny * a, nz * a]).astype(np.float64)
-        for _attempt in range(50):
-            pos = grid[keep] + rng.normal(scale=jitter * a, size=(keep.sum(), 3))
-            energy, forces, e_atom, ei, shifts = lj_multispecies(pos, z, cell, cutoff)
-            if e_atom.max() < 2.0 and np.abs(forces).max() < 30.0:
-                break
-        out.append(GraphSample(x=z.reshape(-1, 1).astype(np.float32),
-                               pos=pos.astype(np.float32), edge_index=ei,
-                               edge_shifts=shifts.astype(np.float32),
-                               cell=cell.astype(np.float32), energy=energy,
-                               forces=forces.astype(np.float32),
-                               y_graph=np.array([energy], np.float32)))
-    e = np.array([s.energy for s in out])
-    mu, sd = float(e.mean()), float(max(e.std(), 1e-6))
-    return [dataclasses.replace(s, energy=(s.energy - mu) / sd,
-                                forces=(s.forces / sd).astype(np.float32),
-                                y_graph=np.array([(s.energy - mu) / sd], np.float32))
-            for s in out]
+    return crystals.random_crystals(n_structures, species=species, seed=seed,
+                                    lattice_constant=lattice_constant, cells_range=cells_range,
+                                    cutoff=cutoff, jitter=jitter, vacancy_rate=vacancy_rate)
 
 
 def example_json(*parts, epochs=2):
@@ -5283,83 +5416,18 @@ def phase_pnaeq(config, splits, loader, first_bin):
 
 # ---------------------------------------------------------------- [dimenet]
 
-# examples/common/molecules.py: per-element Morse (depth, width, r0),
-# combined by geometric (depth) and arithmetic (width, r0) means.
-QM7X_MORSE = {1: (0.25, 1.6, 1.1), 6: (0.60, 1.2, 1.7), 7: (0.55, 1.3, 1.6),
-              8: (0.50, 1.4, 1.5), 16: (0.45, 1.1, 2.0)}
-
-
 def qm7x_frames(n_frames=400, seed=7):
-    """examples/qm7x/train.py's data: examples/common/molecules.py's
-    ``random_molecule_frames(frames, species=(1, 6, 7, 8, 16),
-    n_atoms_range=(4, 12), n_molecules=14, seed=7, feature="onehot")``,
-    from the same seeded generator in its order of draws, with the
-    port's radius graph (4.0, 24 neighbours): thermal frames (jitter 0.1)
-    of 14 random HCNOS molecules of 4-11 atoms placed at least 1.0
-    apart, species-dependent Morse energies and forces, energies centred
-    and scaled over the set (forces by the same factor)."""
-    import dataclasses
+    """examples/qm7x/train.py's data: the qm7x driver's ``build_dataset``
+    (``drivers/molecules.random_molecule_frames(frames, species=(1, 6, 7,
+    8, 16), n_atoms_range=(4, 12), n_molecules=14, seed=7,
+    feature="onehot")``), with the port's radius graph (4.0, 24
+    neighbours): thermal frames (jitter 0.1) of 14 random HCNOS molecules
+    of 4-11 atoms placed at least 1.0 apart, species-dependent Morse
+    energies and forces, energies centred and scaled over the set
+    (forces by the same factor)."""
+    from hydragnn_tpu_torch.drivers import qm7x
 
-    import numpy as np
-
-    from hydragnn_tpu_torch.data.graph import GraphSample
-    from hydragnn_tpu_torch.ops.neighbors import radius_graph
-
-    species = (1, 6, 7, 8, 16)
-
-    def packed_positions(n, rng, min_dist=1.0, box_scale=1.9):
-        box = box_scale * n ** (1 / 3) + 1.0
-        pts = [rng.uniform(0, box, 3)]
-        attempts = 0
-        while len(pts) < n:
-            cand = rng.uniform(0, box, 3)
-            if min(np.linalg.norm(cand - p) for p in pts) >= min_dist:
-                pts.append(cand)
-            attempts += 1
-            if attempts > 200 * n:
-                box *= 1.1
-                attempts = 0
-        return np.asarray(pts)
-
-    def morse(pos, z):
-        d_i, a_i, r_i = np.array([QM7X_MORSE[int(s)] for s in z], dtype=np.float64).T
-        depth = np.sqrt(d_i[:, None] * d_i[None, :])
-        width = 0.5 * (a_i[:, None] + a_i[None, :])
-        r0 = 0.5 * (r_i[:, None] + r_i[None, :])
-        diff = pos[:, None, :] - pos[None, :, :]
-        d = np.linalg.norm(diff, axis=-1)
-        np.fill_diagonal(d, np.inf)
-        ex = np.exp(-width * (d - r0))
-        energy = float((depth * (1.0 - ex) ** 2).sum() / 2.0)
-        dedr = 2.0 * depth * width * (1.0 - ex) * ex
-        with np.errstate(invalid="ignore"):
-            unit = np.where(np.isfinite(d[..., None]), diff / d[..., None], 0.0)
-        return energy, (-(dedr[..., None] * unit).sum(axis=1)).astype(np.float32)
-
-    rng = np.random.default_rng(seed)
-    mols = []
-    for _ in range(14):
-        n = int(rng.integers(4, 12))
-        z = rng.choice(species, n).astype(np.int64)
-        mols.append((z, packed_positions(n, rng)))
-    out = []
-    for i in range(n_frames):
-        z, base = mols[i % len(mols)]
-        pos = (base + rng.normal(scale=0.10, size=base.shape)).astype(np.float32)
-        energy, forces = morse(pos, z)
-        x = np.zeros((len(z), len(species) + 1), np.float32)
-        for j, sp in enumerate(species):
-            x[z == sp, j] = 1.0
-        x[:, -1] = z
-        out.append(GraphSample(x=x, pos=pos, energy=energy, forces=forces,
-                               edge_index=radius_graph(pos, 4.0, max_neighbours=24),
-                               y_graph=np.array([energy], np.float32)))
-    e = np.array([s.energy for s in out])
-    mu, scale = float(e.mean()), float(max(e.std(), 1e-6))
-    return [dataclasses.replace(s, energy=(s.energy - mu) / scale,
-                                forces=(s.forces / scale).astype(np.float32),
-                                y_graph=np.array([(s.energy - mu) / scale], np.float32))
-            for s in out]
+    return qm7x.build_dataset(n_frames, seed=seed)
 
 
 def qm7x_data():
@@ -8121,6 +8189,7 @@ def main():
     serve_forces = phase_serve_forces(mlip_cfg, md17_splits)
     md = phase_md(mlip_cfg, md17_splits)
     drivers = phase_drivers()
+    driver_rows = [r for rows_ in drivers["kernel_rows"].values() for r in rows_]
     widths = [r for r in mlip_rows if "k1_ms" in r]
     zinc_cfgs, zinc_splits = zinc_data()
     zinc_loader, _ = train_loader(zinc_cfgs["fp32"], zinc_splits[0])
@@ -8181,7 +8250,8 @@ def main():
                      + fsdp["run"]["k1"] + multibranch["k1"] + export["k1"]
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
-                     + formats["k1"] + graphshard["k1"] + md["k1"] + drivers["k1"]),
+                     + formats["k1"] + graphshard["k1"] + md["k1"] + drivers["k1"]
+                     + drivers["k1_atomistic"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -8195,10 +8265,11 @@ def main():
                              "dp_guard": dp["guard"]["k1"], "telemetry": tele["k1"],
                              "pipeline": pipeline["k1"], "formats": formats["k1"],
                              "graphshard": graphshard["k1"], "md": md["k1"],
-                             "drivers": drivers["k1"]},
+                             "drivers": drivers["k1"],
+                             "drivers_atomistic": drivers["k1_atomistic"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows + pnaeq_rows + md["kernel_rows"]
+                              + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
                               if r["dtype"] == "f32"]
                            + [md["lj"]["kernel_row"]["k1_max_abs_err"]]),
         "ms": main_row["ms"],
@@ -8225,6 +8296,10 @@ def main():
                       for r in md["kernel_rows"]],
         "md_lj": {k.replace("k1_", ""): v for k, v in md["lj"]["kernel_row"].items()
                   if "k2" not in k},
+        "oc25_widths": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                        for r in drivers["kernel_rows"]["oc25"]],
+        "qcml_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
+                       for r in drivers["kernel_rows"]["qcml"]],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
@@ -8234,7 +8309,8 @@ def main():
                      + pnaeq["k2"] + cap_k2 + dp["run"]["k2"] + fsdp["run"]["k2"]
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
                      + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
-                     + graphshard["k2"] + md["k2"] + drivers["k2"]),
+                     + graphshard["k2"] + md["k2"] + drivers["k2"]
+                     + drivers["k2_atomistic"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -8247,10 +8323,11 @@ def main():
                              "dp_guard": dp["guard"]["k2"], "telemetry": tele["k2"],
                              "pipeline": pipeline["k2"], "formats": formats["k2"],
                              "graphshard": graphshard["k2"], "md": md["k2"],
-                             "drivers": drivers["k2"]},
+                             "drivers": drivers["k2"],
+                             "drivers_atomistic": drivers["k2_atomistic"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
-                              + mace_rows + pnaeq_rows + md["kernel_rows"]
+                              + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
                               if r["dtype"] == "f32"]
                            + [md["lj"]["kernel_row"]["k2_max_abs_err"]]),
         "ms": bwd_row["ms"],
@@ -8276,6 +8353,10 @@ def main():
                       for r in md["kernel_rows"]],
         "md_lj": {k.replace("k2_", ""): v for k, v in md["lj"]["kernel_row"].items()
                   if "k1" not in k},
+        "oc25_widths": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                        for r in drivers["kernel_rows"]["oc25"]],
+        "qcml_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
+                       for r in drivers["kernel_rows"]["qcml"]],
     }]
     log(f"[report] export: {json.dumps(export)}")
     log(f"[report] loadbench: {json.dumps(loadbench)}")

@@ -62,10 +62,14 @@ What runs today:
   hydragnn_tpu_torch.drivers.<name>`` with its reference script's flags
   and ``--device`` (the card by default; ``--device cpu`` is the plain
   path): ``lennard_jones``, ``md17``, ``qm9``, ``zinc``, ``csce_gap``,
-  ``ogb_gap``, ``qm9_hpo``, ``lsms`` and ``giant_graph``.
+  ``ogb_gap``, ``qm9_hpo``, ``lsms`` and ``giant_graph``; and the
+  atomistic ones over ``drivers/crystals.py`` and ``molecules.py``:
+  ``oc20``, ``oc22``, ``odac23``, ``oc25``, ``mptrj``, ``alexandria``,
+  ``eam``, ``omat24``, ``ani1x``, ``nabla2_dft``, ``omol25``, ``qcml``,
+  ``transition1x``, ``qm7x`` and ``qm7x_inference``.
 
-Still to port (ROADMAP.md): the other drivers of ``examples/`` (item 16b)
-and the static analysis (item 17).
+Still to port (ROADMAP.md): the remaining drivers of ``examples/`` (item
+16c) and the static analysis (item 17).
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

@@ -1,5 +1,6 @@
-"""What the example drivers share: their configs' paths and the
-``--config``/``--device`` arguments.
+"""What the example drivers share: their configs' paths, the
+``--config``/``--device`` arguments, the run and its report, and the
+energy normalization of ``examples/common/loaders.py``.
 
 Each driver reads its JSON config from the repository's ``examples/``
 tree by path (the reference scripts' own files, read and never copied or
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,11 +26,35 @@ def example_path(*parts: str) -> str:
     return os.path.join(REPO, "examples", *parts)
 
 
-def parser(description: str, config: Optional[Sequence[str]] = None) -> argparse.ArgumentParser:
+class _Parser(argparse.ArgumentParser):
+    """Resolves ``--config`` after parsing where a flag picks between two
+    example configs."""
+
+    alt = None
+
+    def parse_args(self, args=None, namespace=None):
+        ns = super().parse_args(args, namespace)
+        if self.alt is not None and ns.config is None:
+            flag, on, off = self.alt
+            ns.config = example_path(*(on if getattr(ns, flag) else off))
+        return ns
+
+
+def parser(description: str, config: Optional[Sequence[str]] = None,
+           alt: Optional[Tuple[str, str, Sequence[str]]] = None) -> argparse.ArgumentParser:
     """An argument parser with ``--device`` and, where the driver reads
-    one, ``--config`` defaulting to ``examples/<config...>``."""
-    ap = argparse.ArgumentParser(description=description)
-    if config is not None:
+    one, ``--config`` defaulting to ``examples/<config...>``. ``alt`` =
+    (flag, help, config) adds the reference's ``--<flag>``, which makes
+    ``examples/<config...>`` the default instead."""
+    ap = _Parser(description=description)
+    if alt is not None:
+        flag, text, on = alt
+        ap.add_argument(f"--{flag}", action="store_true", help=text)
+        ap.alt = (flag, on, config)
+        ap.add_argument("--config", default=None,
+                        help=f"the JSON config (default: examples/{'/'.join(config)}, or "
+                        f"examples/{'/'.join(on)} with --{flag})")
+    elif config is not None:
         ap.add_argument("--config", default=example_path(*config),
                         help="the JSON config (default: %(default)s)")
     ap.add_argument("--device", default=None,
@@ -43,6 +68,56 @@ def device(args):
     from hydragnn_tpu_torch.device import resolve_device
 
     return resolve_device(args.device)
+
+
+def example_config(args) -> dict:
+    """The driver's ``--config`` with ``num_epoch`` set to ``--epochs``."""
+    from hydragnn_tpu_torch.config import load_config
+
+    config = load_config(args.config)
+    config["NeuralNetwork"]["Training"]["num_epoch"] = args.epochs
+    return config
+
+
+def split(samples):
+    """The reference drivers' 0.8 / 0.1 / 0.1 split."""
+    from hydragnn_tpu_torch.data.loader import split_dataset
+
+    return split_dataset(samples, 0.8)
+
+
+def train(config, splits, dev):
+    """``run_training`` on the three splits at seed 0, as the reference
+    drivers call it: (state, model, cfg, hist, full config)."""
+    import hydragnn_tpu_torch as port
+
+    return port.run_training(config, datasets=tuple(splits), seed=0, device=dev)
+
+
+def with_force_loss(hist, out: dict) -> dict:
+    """Prints the last epoch's test force loss (a potential's per-task
+    losses are [energy, energy per atom, forces]) and adds it to
+    ``out``."""
+    tasks = np.asarray(hist.test_tasks[-1]).reshape(-1)
+    print(f"test force loss {tasks[-1]:.5f}")
+    out["test_force_loss"] = float(tasks[-1])
+    return out
+
+
+def energy_mean_std(samples) -> Tuple[float, float]:
+    """Mean and standard deviation (at least 1e-6) of the energies."""
+    e = np.array([s.energy for s in samples])
+    return float(e.mean()), float(max(e.std(), 1e-6))
+
+
+def normalized_energy_targets(samples) -> List:
+    """Copies of ``samples`` with the z-scored energy written to
+    ``y_graph`` (energy only, for force-free graph-head configs)."""
+    import dataclasses
+
+    mu, sd = energy_mean_std(samples)
+    return [dataclasses.replace(s, y_graph=np.array([(s.energy - mu) / sd], np.float32))
+            for s in samples]
 
 
 def final_losses(hist) -> dict:

@@ -73,21 +73,15 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = common.device(args)
 
-    import hydragnn_tpu_torch as port
-    from hydragnn_tpu_torch.config import load_config
-    from hydragnn_tpu_torch.data.loader import split_dataset
     from hydragnn_tpu_torch.utils.smiles import get_node_attribute_name
 
-    config = load_config(args.config)
-    config["NeuralNetwork"]["Training"]["num_epoch"] = args.epochs
+    config = common.example_config(args)
     names, _ = get_node_attribute_name(CSCE_TYPES)
     config["NeuralNetwork"]["Variables_of_interest"]["input_node_features"] = list(
         range(len(names)))
 
-    tr, va, te = split_dataset(smiles_samples(args.mols, CSCE_TYPES, gap_target), 0.8)
-    state, model, cfg, hist, _ = port.run_training(config, datasets=(tr, va, te), seed=0,
-                                                   device=dev)
-    return common.final_losses(hist)
+    splits = common.split(smiles_samples(args.mols, CSCE_TYPES, gap_target))
+    return common.final_losses(common.train(config, splits, dev)[3])
 
 
 if __name__ == "__main__":

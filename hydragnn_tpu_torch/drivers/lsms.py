@@ -29,11 +29,9 @@ def main(argv=None) -> dict:
     dev = common.device(args)
 
     import hydragnn_tpu_torch as port
-    from hydragnn_tpu_torch.config import load_config
     from hydragnn_tpu_torch.data.synthetic import deterministic_graph_data
 
-    config = load_config(args.config)
-    config["NeuralNetwork"]["Training"]["num_epoch"] = args.epochs
+    config = common.example_config(args)
     with tempfile.TemporaryDirectory(prefix="lsms_demo_") as tmp:
         data_dir = args.data_dir
         if data_dir is None:

@@ -73,23 +73,14 @@ def main(argv=None) -> dict:
     dev = common.device(args)
 
     import hydragnn_tpu_torch as port
-    from hydragnn_tpu_torch.config import load_config
-    from hydragnn_tpu_torch.data.loader import split_dataset
 
-    config = load_config(args.config)
+    config = common.example_config(args)
     if args.mpnn_type:
         config["NeuralNetwork"]["Architecture"]["mpnn_type"] = args.mpnn_type
-    config["NeuralNetwork"]["Training"]["num_epoch"] = args.epochs
 
-    samples = synthetic_md17(args.frames)
-    tr, va, te = split_dataset(samples, 0.8)
-    state, model, cfg, hist, _ = port.run_training(config, datasets=(tr, va, te), seed=0,
-                                                   device=dev)
-    out = common.final_losses(hist)
-    # Per-task: [energy, energy-per-atom, forces] (train/mlip.py).
-    tasks = np.asarray(hist.test_tasks[-1]).reshape(-1)
-    print(f"test force loss {tasks[-1]:.5f}")
-    out["test_force_loss"] = float(tasks[-1])
+    tr, va, te = common.split(synthetic_md17(args.frames))
+    state, model, cfg, hist, _ = common.train(config, (tr, va, te), dev)
+    out = common.with_force_loss(hist, common.final_losses(hist))
 
     if args.simulate:
         if args.sim_steps is not None:

@@ -72,9 +72,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = common.device(args)
 
-    import hydragnn_tpu_torch as port
     from hydragnn_tpu_torch.config import load_config
-    from hydragnn_tpu_torch.data.loader import split_dataset
 
     cfg_name = "zinc_bf16.json" if args.precision == "bf16" else "zinc.json"
     config = load_config(args.config or common.example_path("zinc", cfg_name))
@@ -84,9 +82,7 @@ def main(argv=None) -> dict:
     if args.no_gps:
         config["NeuralNetwork"]["Architecture"].pop("global_attn_engine")
 
-    tr, va, te = split_dataset(synthetic_zinc(args.mols), 0.8)
-    state, model, cfg, hist, _ = port.run_training(config, datasets=(tr, va, te), seed=0,
-                                                   device=dev)
+    hist = common.train(config, common.split(synthetic_zinc(args.mols)), dev)[3]
     return common.final_losses(hist)
 
 
