@@ -263,6 +263,44 @@ why.
                first train bin: oc25's F = 32 and 96, qcml's F = 144
                (four and a half 32-column slabs), timed beside the
                bound, the plain version and index_add_/index_select.
+               Then the last nine drivers (ROADMAP item 16c; GFM_RUNS
+               and RANK_RUNS): polymers (--chains 100 --epochs 2:
+               polymers.json's SAGE and conv node head), multidataset
+               (--per_family 60 --epochs 2: gfm_energy.json's SchNet, one
+               encoder and three branches routed by dataset_id over
+               molecules, periodic crystals and reaction paths),
+               multidataset_hpo (--per_family 60 --trials 2 --epochs 1),
+               sc26_hpo (--frames 64 --trials 12 --epochs 1: the whole
+               grid of SchNet, EGNN and PAINN potentials at hidden 16 and
+               32), structure_optimization (--epochs 2 --frames 64
+               --blocks 2 --steps 20: a PaiNN potential, then the
+               relaxation, each block's steps replayed from a captured
+               step), uv_spectrum (--mols 100 --epochs 2: GIN, no K1/K2)
+               and ising (--configs 100 --epochs 2: PNA, graph and node
+               heads), each in this process; then the multibranch drivers,
+               each starting its ranks as processes of the driver on
+               cuda:0 over gloo: multibranch --epochs 2 at its default
+               sizes (300/120/80) on 3 ranks and again with --nosync 2 at
+               120/48/32, and multibranch_hpo --trials 2 --epochs 1 on 2
+               ranks. Checks: their data's sha256 against GFM_DIGESTS;
+               every count held to predicted_launches (the conv node head
+               one a,W launch a layer of its own; GIN none; a relaxation
+               pf x (blocks x steps + blocks + 2) K1 and pf x blocks x
+               steps K2), each rank's own in the multibranch drivers
+               (their ranks count K1/K2, forwards and train steps); the
+               ranks' parameters equal bit for bit after each epoch, and
+               with --nosync 2 moving on every second step only;
+               multibranch_hpo's ranks running the same trials; the
+               relaxation's energies finite and falling, one captured
+               block equal to the eager block bit for bit and to the CPU
+               plain path within rtol 1e-4 / atol 1e-3, and a descent
+               step's eager, capture and replay times with the
+               profiler's indexing_backward_kernel share, padded to the
+               sample and to a fixed budget of n x 24 edge slots. Last,
+               K1/K2 on sc26's first train bin: reduce-only at F = 16 and
+               48 (PAINN hidden 16) and a,b,W at F = 16 (SchNet's
+               16 filters, hidden 16), f32 and bf16 against their plain
+               versions, same bits twice, timed.
 10. zinc-kernels  K1 and K2 in the reduce-only flavour at PNA's moment-pass
                width (F = 128) on the first packed train bin of zinc.json's
                run, in f32 and bf16: against their plain versions (same
@@ -462,8 +500,8 @@ why.
                turns.
 20a. multibranch  (PR 10) examples/multibranch/train.py's configuration
                (SchNet, hidden 32, 3 layers, radius 2.5, 16 Gaussians, batch
-               8, AdamW 2e-3; branches of 300/120/80 molecules from this
-               script's copy of its make_branch_dataset, seeds 0, 1, 2,
+               8, AdamW 2e-3; branches of 300/120/80 molecules from the
+               multibranch driver's make_branch_dataset, seeds 0, 1, 2,
                split 0.8) through run_training under "multibranch" on three
                ranks sharing the card: three processes of this script
                (--multibranch-rank R DIR), each on cuda:0, in a gloo group
@@ -531,11 +569,12 @@ why.
                under "mlip_widths", at PNA's under "zinc_width", at the
                conv node head's under "polymer_widths", at MACE's under
                "mace_width", at PNAEq's under "pnaeq_widths", at oc25's
-               under "oc25_widths" and at qcml's under "qcml_width";
+               under "oc25_widths", at qcml's under "qcml_width" and at
+               sc26's under "sc26_painn_widths" and "sc26_schnet_width";
                "launches" sums the serving (slice, export, loadbench,
                fleet, serve-forces), SchNet training, guard and preempt,
-               MLIP, MD, drivers (the first eight and the atomistic
-               ones), ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
+               MLIP, MD, drivers (the first eight, the atomistic ones
+               and the last nine, every rank's), ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
                (its guarded run too), fsdp, multibranch and graphshard runs and the
                superstep run, "launches_by_path" splits them, DimeNet's and
                graphshard's 0 included), the
@@ -3525,16 +3564,18 @@ def launches_per_pass(cfg):
     (= K2 launches of its backward): SchNet one a,b,W launch a layer, PNA
     and PNAPlus one reduce-only moment pass a layer, PaiNN two
     reduce-only launches a layer (scalar and vector messages), MACE one
-    reduce-only receiver sum a layer; GAT, SAGE, EGNN and DimeNet none
-    (GAT's attention sums and SAGE's means are the plain scatter, EGNN
-    sums at the senders, DimeNet's triplet sums through index_add_). A
-    stack not listed raises KeyError, and a conv node head (K1/K2 a,W
-    launches of its own, not modelled here) raises ValueError."""
+    reduce-only receiver sum a layer; GAT, SAGE, EGNN, DimeNet and GIN
+    none (GAT's attention sums and SAGE's means are the plain scatter,
+    EGNN sums at the senders, DimeNet's triplet sums through index_add_,
+    GIN's through segment_sum). A conv node head adds one a,W launch a
+    layer of its own, ``len(dim_headlayers) + 1``, for each node head on
+    each conv branch. A stack not listed raises KeyError."""
     per_layer = {"SCHNET": 1, "PNA": 1, "PNAPLUS": 1, "PAINN": 2, "MACE": 1, "GAT": 0,
-                 "SAGE": 0, "EGNN": 0, "DIMENET": 0}
-    if any(b.node_head_type == "conv" for b in getattr(cfg, "node_branches", ())):
-        raise ValueError("launches_per_pass does not model a conv node head")
-    return per_layer[cfg.mpnn_type.upper()] * cfg.num_conv_layers
+                 "SAGE": 0, "EGNN": 0, "DIMENET": 0, "GIN": 0}
+    node_heads = sum(h.type == "node" for h in getattr(cfg, "heads", ()))
+    conv = sum(len(b.dim_headlayers) + 1 for b in getattr(cfg, "node_branches", ())
+               if b.node_head_type == "conv")
+    return per_layer[cfg.mpnn_type.upper()] * cfg.num_conv_layers + node_heads * conv
 
 
 def predicted_launches(call):
@@ -3545,11 +3586,15 @@ def predicted_launches(call):
     and one a step); its train step adds the loss's backward through the
     force pass: K1's backward (pf K2) and K2's (ops/edge_pipeline.
     _k2_backward: one K1 a launch, and one more K2 where the filter b is
-    an operand, SchNet's a,b,W flavour; none in the reduce-only one)."""
+    an operand, SchNet's a,b,W flavour; none in the reduce-only one). A
+    relaxation's descent step is a forward and its pullback (pf K1, pf
+    K2), an energy evaluation a forward (pf K1)."""
     cfg = call["cfg"]
     pf = launches_per_pass(cfg)
     if call["call"] == "run_simulation":
         return pf * call["force_passes"], pf * call["force_passes"]
+    if call["call"] == "relax":
+        return pf * (call["descent_steps"] + call["evaluations"]), pf * call["descent_steps"]
     fwd, steps = call["forwards"], call["train_steps"]
     if cfg.enable_interatomic_potential:
         with_b = cfg.mpnn_type.upper() == "SCHNET"
@@ -3559,19 +3604,24 @@ def predicted_launches(call):
 
 @contextlib.contextmanager
 def entry_point_calls():
-    """While open, each run_training, run_prediction and run_simulation
-    call (however a driver reaches it) is recorded: its K1/K2 launches,
-    its step dispatches (``recorded_run``: forwards, train steps), its
-    model config, and for a rollout its force passes; the rollout's
-    model, start and Simulation block are kept for the card-vs-CPU step.
-    Nothing of a run's state is kept, so trials free their graphs."""
+    """While open, each run_training, run_prediction, run_simulation and
+    relax (drivers/structure_optimization.py) call (however a driver
+    reaches it) is recorded: its K1/K2 launches, its step dispatches
+    (``recorded_run``: forwards, train steps), its model config, for a
+    rollout its force passes and for a relaxation its descent steps and
+    energy evaluations; the rollout's model, start and Simulation block,
+    and the relaxation's model, sample, start and settings, are kept for
+    the card-vs-CPU checks. Nothing of a run's state is kept, so trials
+    free their graphs."""
     from hydragnn_tpu_torch import runner
+    from hydragnn_tpu_torch.drivers import structure_optimization as so
     from hydragnn_tpu_torch.simulate import engine
 
     calls = []
     plain = {"run_training": (runner, runner.run_training),
              "run_prediction": (runner, runner.run_prediction),
-             "run_simulation": (engine, engine.run_simulation)}
+             "run_simulation": (engine, engine.run_simulation),
+             "relax": (so, so.relax)}
     # run_prediction's model config, where the caller passes no cfg (a
     # prediction from the run's checkpoint builds its own)
     made = []
@@ -3596,6 +3646,10 @@ def entry_point_calls():
                 row["cfg"], row["log_name"] = out[2], out[4]["_log_name"]
             elif name == "run_prediction" and made:
                 row["cfg"] = made[-1]
+            elif name == "relax":
+                row.update(cfg=args[1], model=args[0], sample=args[2], pos0=args[3],
+                           settings=dict(kw), descent_steps=kw["blocks"] * kw["steps"],
+                           evaluations=kw["blocks"] + 2, result=out)
             else:
                 row["cfg"] = kw["cfg"]
             if name == "run_simulation":
@@ -3709,7 +3763,8 @@ def driver_run(name, argv, plot_cfg):
         want = predicted_launches(c)
         row = {k: c[k] for k in ("call", "k1", "k2", "forwards", "train_steps")}
         row.update(model=c["cfg"].mpnn_type, per_pass=launches_per_pass(c["cfg"]),
-                   force_passes=c.get("force_passes", 0))
+                   force_passes=c.get("force_passes", 0),
+                   descent_steps=c.get("descent_steps", 0), evaluations=c.get("evaluations", 0))
         check((c["k1"], c["k2"]) == want,
               f"[drivers] {tag} {c['call']}: K1 {c['k1']}, K2 {c['k2']}, predicted {want} "
               f"from {row}")
@@ -3717,7 +3772,8 @@ def driver_run(name, argv, plot_cfg):
     log(f"[drivers] {tag} {' '.join(argv)}: {seconds:.1f} s; "
         + "; ".join(f"{r['call']} ({r['model']}, {r['per_pass']} a pass) K1 {r['k1']} K2 "
                     f"{r['k2']} = predicted ({r['forwards']} forwards, {r['train_steps']} "
-                    f"train steps, {r['force_passes']} force passes)" for r in rows))
+                    f"train steps, {r['force_passes']} force passes, {r['descent_steps']} "
+                    f"descent steps, {r['evaluations']} energy evaluations)" for r in rows))
     run = {"driver": tag, "seconds": seconds, "calls": rows,
            "result": {k: v for k, v in out.items() if k != "trials"}}
     for c in calls:
@@ -3730,6 +3786,9 @@ def driver_run(name, argv, plot_cfg):
             f"atoms), {sim['rebuilds']} rebuilds, {sim['steps_per_sec']:.1f} steps/s, total "
             f"energy's largest departure {sim['energy_drift']:.3g}, every energy finite")
         run["step_held"] = driver_step_held(tag, c)
+    for c in calls:
+        if c["call"] == "relax":
+            run["relax"] = relax_held(tag, c)
     if plot_cfg:
         log_name = next(c["log_name"] for c in calls if c["call"] == "run_training")
         pngs = sorted(f for f in os.listdir(os.path.join("logs", log_name))
@@ -3741,14 +3800,362 @@ def driver_run(name, argv, plot_cfg):
     return run
 
 
+# The last nine drivers' command lines in [drivers] (ROADMAP item 16c),
+# each through its main() in this process: 2 epochs (the searches 1) on
+# 60-100 samples a set; sc26_hpo's whole grid of 12 trials; the
+# relaxation at tests/test_examples.py's sizes.
+GFM_RUNS = (
+    ("polymers", ["--chains", "100", "--epochs", "2"]),
+    ("multidataset", ["--per_family", "60", "--epochs", "2"]),
+    ("multidataset_hpo", ["--per_family", "60", "--trials", "2", "--epochs", "1"]),
+    ("sc26_hpo", ["--frames", "64", "--trials", "12", "--epochs", "1"]),
+    ("structure_optimization", ["--epochs", "2", "--frames", "64", "--blocks", "2",
+                                "--steps", "20"]),
+    ("uv_spectrum", ["--mols", "100", "--epochs", "2"]),
+    ("ising", ["--configs", "100", "--epochs", "2"]),
+)
+# The multibranch drivers: (driver, arguments, ranks). Each main() starts
+# its ranks as processes of the driver, sharing cuda:0 over gloo; every
+# rank counts its own K1/K2 launches, forwards and train steps.
+RANK_RUNS = (
+    ("multibranch", ["--epochs", "2"], 3),
+    ("multibranch", ["--epochs", "2", "--nosync", "2", "--sizes", "120", "48", "32"], 3),
+    ("multibranch_hpo", ["--trials", "2", "--epochs", "1"], 2),
+)
+# The sha256 of those drivers' data at these sizes, as the CPU build
+# makes them (tests/test_torch_drivers_gfm.py holds the generators equal
+# to the reference scripts' and this table to the CPU build):
+# gfm_digests() on the CPU.
+GFM_DIGESTS = {
+    "polymers": "c3832a4dd4e64edbb1f69a92ac217d7800bea4276a882c4c44d2ebf74aa6301c",
+    "multibranch": "37428ddd124f6eb2dad3eb94ec1b998789877d09c0d9b6dc7924f6b419a306bc",
+    "multibranch_nosync": "999fbafe7ba397e35c5d2e0d958630b04b08d8bc372f1b837fce05d802ca292f",
+    "multibranch_hpo": "56f9f0c74b3d3a423a4250bdc47c2e219dfbb773f5552a3932d6214ba77bfb19",
+    "multidataset": "6a9e69943937e911d07a89c4770f8755295efbbf47fb78549b9805185feae1d5",
+    "multidataset_hpo": "d19a1dee93c635f3574ba5edc78252b8c3946c7fc02482d6889e358e486095dd",
+    "sc26_frames": "643d8e7fc0bbfdfbfa6d05f1db5444822b6d9052a09c423767018bcf1a307caf",
+    "uv_spectrum": "c3a3de5da53a155be717a0a187f32be7b19a96bc2c361aa84c7729515e98e793",
+    "ising": "4f217fc971b0dfe0f03548584b8af9a636c16364826af6ff647ce1eec481c10c",
+}
+
+
+def gfm_digests():
+    """{data set: sha256} of the item-16c drivers' data at GFM_RUNS' and
+    RANK_RUNS' sizes: 100 polymer chains (seed 26), the multibranch branch
+    sets at 300/120/80 and 120/48/32 and multibranch_hpo's at 160/80
+    (split 0.75), the shuffled family mixes of multidataset (60 a family
+    and six reaction paths) and multidataset_hpo (two families), sc26's
+    and the relaxation's 64 frames, 100 spectra and 100 Ising lattices.
+    Host code only (numpy and the native cell list)."""
+    from hydragnn_tpu_torch.drivers import (
+        ising,
+        multibranch,
+        multibranch_hpo,
+        multidataset,
+        polymers,
+        uv_spectrum,
+    )
+    from hydragnn_tpu_torch.drivers.molecules import random_molecule_frames
+
+    sets = {
+        "polymers": polymers.polymer_chains(100),
+        "multibranch": [s for b in multibranch.branch_sets((300, 120, 80)) for s in b],
+        "multibranch_nosync": [s for b in multibranch.branch_sets((120, 48, 32)) for s in b],
+        "multibranch_hpo": [s for b in multibranch_hpo.branch_splits((160, 80))
+                            for split in b for s in split],
+        "multidataset": multidataset.mixed_samples(multidataset.families(60)),
+        "multidataset_hpo": multidataset.mixed_samples(multidataset.families(60,
+                                                                             reactions=False)),
+        "sc26_frames": random_molecule_frames(64, seed=0),
+        "uv_spectrum": uv_spectrum.synthetic_spectra(100),
+        "ising": ising.synthetic_ising(100),
+    }
+    return {k: sample_digest(v) for k, v in sets.items()}
+
+
+RELAX_TIMED = 20  # back-to-back steps (eager) or replays timed per reading
+RELAX_PROFILED = 10  # replays under the profiler
+
+
+def relax_step_timing(model, sample, pos0, lr, edge_budget=None):
+    """One descent step at the first block's batch (padded to the sample,
+    or to ``edge_budget`` edge slots): eager ms (RELAX_TIMED steps between
+    CUDA events), the step's capture seconds, replayed ms (RELAX_TIMED
+    replays), and a replay's split from the profiler (device ms, kernels,
+    K1, K2, indexing_backward_kernel). Positions descend as it runs; the
+    shape stays."""
+    import numpy as np
+
+    import dataclasses
+
+    from hydragnn_tpu_torch.data.graph import PadSpec, collate
+    from hydragnn_tpu_torch.drivers import structure_optimization as so
+    from hydragnn_tpu_torch.train.capture import collector_paused
+
+    moved = so.block_sample(sample, np.asarray(pos0, np.float32))
+    pad = PadSpec.for_samples([moved])
+    if edge_budget is not None:
+        pad = dataclasses.replace(pad, num_edges=max(edge_budget, moved.num_edges))
+    batch = collate([moved], pad, with_segment_plan=True).to("cuda")
+    p = torch.as_tensor(np.asarray(pos0, np.float32), device="cuda").clone()
+    was = model.training
+    model.train(False)
+    try:
+        eager = eager_ms(lambda: so.descent_step(model, batch, p, lr), iters=RELAX_TIMED,
+                         warmup=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with collector_paused(), torch.cuda.graph(graph):
+            so.descent_step(model, batch, p, lr)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        replay = eager_ms(graph.replay, iters=RELAX_TIMED, warmup=1)
+        # a replay runs no wrapper: (0, 0) launches counted a call
+        prof = device_profile(graph.replay, (0, 0), "[drivers] a replayed descent step",
+                              n_prof=RELAX_PROFILED)
+        graph.reset()
+    finally:
+        model.train(was)
+    return {"n": batch.num_nodes, "e": batch.num_edges, "e_valid": int(batch.edge_mask.sum()),
+            "eager_ms": eager, "capture_s": capture_s, "replay_ms": replay, **prof}
+
+
+def relax_held(tag, call):
+    """The driver's relaxation (its recorded ``relax`` call) held on the
+    card: every energy finite and the last below the first; one block of
+    its steps captured (the driver's path) equal to the same block run
+    eagerly bit for bit (positions and energies); that block on the card
+    within the f32 gradient tolerance (rtol 1e-4, atol 1e-3 x min(max|
+    ref|, 1)) of the CPU plain path; and a step's eager, capture and
+    replay times, padded to the sample as the driver pads and to a fixed
+    edge budget (n x max_neighbours, a shape one capture could serve
+    every block with)."""
+    import numpy as np
+
+    from hydragnn_tpu_torch.drivers import structure_optimization as so
+
+    model, cfg, sample, pos0 = call["model"], call["cfg"], call["sample"], call["pos0"]
+    st, res = call["settings"], call["result"]
+    e = np.asarray(res["energies"])
+    check(np.isfinite(e).all() and e[-1] < e[0], f"[drivers] {tag}: energies {e.tolist()}")
+    one = dict(blocks=1, steps=st["steps"], lr=st["lr"])
+    t0 = time.perf_counter()
+    cap = so.relax(model, cfg, sample, pos0, device="cuda", capture=True, **one)
+    cap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = so.relax(model, cfg, sample, pos0, device="cuda", capture=False, **one)
+    eager_s = time.perf_counter() - t0
+    check(cap["captures"] == 1 and cap["replays"] == st["steps"] - 1
+          and eager["captures"] == 0, f"[drivers] {tag}: block counts {cap}, {eager}")
+    check(np.array_equal(cap["pos"].view(np.int32), eager["pos"].view(np.int32))
+          and np.array_equal(np.float32(cap["energies"]).view(np.int32),
+                             np.float32(eager["energies"]).view(np.int32)),
+          f"[drivers] {tag}: the captured block differs from the eager block")
+    cpu = so.relax(copy.deepcopy(model).to("cpu"), cfg, sample, pos0, device="cpu", **one)
+    pos_err, _ = assert_close_scaled(cap["pos"], cpu["pos"], VJP_TOL,
+                                     f"[drivers] {tag}: a block's positions card vs CPU")
+    e_err, _ = assert_close_scaled(np.asarray(cap["energies"]), np.asarray(cpu["energies"]),
+                                   VJP_TOL, f"[drivers] {tag}: a block's energies card vs CPU")
+    n_real = sample.num_nodes
+    timing = {"own": relax_step_timing(model, sample, pos0, st["lr"]),
+              "budget": relax_step_timing(model, sample, pos0, st["lr"],
+                                          edge_budget=n_real * so.MAX_NEIGHBOURS)}
+    log(f"[drivers] {tag} relaxation: energies {[round(x, 5) for x in e.tolist()]} (finite, "
+        f"falling); one block of {st['steps']} steps captured == eager bit for bit (positions "
+        f"and energies; {cap_s:.3f} s captured with its capture, {eager_s:.3f} s eager); card "
+        f"vs CPU plain path: positions {pos_err:.3g}, energies {e_err:.3g} (within rtol 1e-4 "
+        f"/ atol 1e-3)")
+    for name, t in timing.items():
+        share = (f"indexing_backward_kernel {t['indexing_backward_ms']:.4f} ms "
+                 f"({100 * t['indexing_backward_ms'] / t['device_ms']:.1f}%) of "
+                 f"{t['device_ms']:.4f} device ms, {t['kernels_per_call']} kernels, K1 "
+                 f"{t['k1_ms']:.4f}, K2 {t['k2_ms']:.4f}" if t.get("device_ms")
+                 else "device time not measured (the profiler recorded no kernels)")
+        padded = "the sample" if name == "own" else "a fixed edge budget"
+        log(f"[drivers] {tag} descent step padded to {padded} (n {t['n']}, e {t['e']}, "
+            f"{t['e_valid']} valid): eager {t['eager_ms']:.3f} ms, capture "
+            f"{t['capture_s'] * 1e3:.1f} ms, replay {t['replay_ms']:.3f} ms; a replay: "
+            f"{share}; {card_line()}")
+    return {"energies": e.tolist(), "captured_equals_eager": True, "pos_err": pos_err,
+            "energy_err": e_err, "block_captured_s": cap_s, "block_eager_s": eager_s,
+            "block_capture_s": cap["capture_seconds"], "timing": timing}
+
+
+class _StdoutToStderr:
+    """File descriptor 1 pointed at 2 while open, so that the processes a
+    driver starts print to this script's standard error."""
+
+    def __enter__(self):
+        sys.stdout.flush()
+        self.saved = os.dup(1)
+        os.dup2(2, 1)
+
+    def __exit__(self, *exc):
+        sys.stdout.flush()
+        os.dup2(self.saved, 1)
+        os.close(self.saved)
+
+
+def rank_driver_run(name, argv, ranks):
+    """A multibranch driver's main(argv) on the card with ``ranks`` ranks
+    (processes of the driver on cuda:0 over gloo): every rank's every
+    count (a training loop's or a trial's K1/K2 against its own forwards
+    and train steps) held to predicted_launches, every number finite;
+    multibranch: the ranks' parameters equal bit for bit after each epoch,
+    and with ``--nosync K`` moving only on every K-th step (else on every
+    step); multibranch_hpo: every rank's trials and values equal."""
+    import importlib
+    import types
+
+    import numpy as np
+
+    mod = importlib.import_module(f"hydragnn_tpu_torch.drivers.{name}")
+    nosync = int(argv[argv.index("--nosync") + 1]) if "--nosync" in argv else 0
+    tag = name + ("_nosync" if nosync else "")
+    t0 = time.perf_counter()
+    with _StdoutToStderr(), contextlib.redirect_stdout(sys.stderr):
+        out = mod.main(list(argv) + ["--ranks", str(ranks), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    outs = out["ranks"]
+    check([o["rank"] for o in outs] == list(range(ranks)), f"[drivers] {tag}: ranks {outs}")
+    check(all(np.isfinite(v) for v in driver_numbers(outs)),
+          f"[drivers] {tag}: non-finite results {outs}")
+    rows = []
+    for o in outs:
+        for c in o["calls"]:
+            cfg = types.SimpleNamespace(mpnn_type=c["mpnn_type"],
+                                        num_conv_layers=c["num_conv_layers"],
+                                        enable_interatomic_potential=c["potential"])
+            want = predicted_launches(dict(c, cfg=cfg))
+            check((c["k1"], c["k2"]) == want,
+                  f"[drivers] {tag} rank {o['rank']} {c['call']}: K1 {c['k1']}, K2 "
+                  f"{c['k2']}, predicted {want} from {c}")
+            rows.append(dict(c, rank=o["rank"], per_pass=launches_per_pass(cfg)))
+    held = ""
+    if name == "multibranch":
+        for e in range(len(outs[0]["epoch_digests"])):
+            check(len({o["epoch_digests"][e] for o in outs}) == 1,
+                  f"[drivers] {tag}: the ranks' parameters differ after epoch {e}")
+        for o in outs:
+            d = o["step_digests"]
+            moved = [a != b for a, b in zip(d, d[1:])]
+            want = [nosync < 2 or (i + 1) % nosync == 0 for i in range(len(moved))]
+            check(moved == want, f"[drivers] {tag} rank {o['rank']}: parameters moved "
+                  f"{moved}, want {want}")
+        held = (f"the ranks' parameters equal bit for bit after each of "
+                f"{len(outs[0]['epoch_digests'])} epochs; they moved "
+                + (f"on every {nosync}-th step only ({sum(moved)} of {len(moved)})" if nosync
+                   else f"on every one of {len(moved)} steps"))
+    else:
+        check(all(o["trials"] == outs[0]["trials"] for o in outs),
+              f"[drivers] {tag}: the ranks' trials differ")
+        held = f"every rank ran the same {len(outs[0]['trials'])} trials with the same values"
+    log(f"[drivers] {tag} {' '.join(argv)} on {ranks} ranks ({outs[0].get('backend', 'gloo')} "
+        f"on cuda:0): {seconds:.1f} s; " + "; ".join(
+            f"rank {r['rank']} {r['call']} ({r['mpnn_type']}, {r['per_pass']} a pass) K1 "
+            f"{r['k1']} K2 {r['k2']} = predicted ({r['forwards']} forwards, "
+            f"{r['train_steps']} train steps)" for r in rows) + f"; {held}")
+    result = {k: v for k, v in outs[0].items() if k not in ("step_digests", "calls")}
+    return {"driver": tag, "seconds": seconds, "ranks": ranks, "calls": rows,
+            "result": result}
+
+
+def abw_kernel_rows(tag, batch, f_in, f_out, seed, what):
+    """K1 and K2 in SchNet's a,b,W flavour (f_in -> f_out) on ``batch``'s
+    plan, in f32 and bf16: against their plain versions (same bits on two
+    runs), the times beside the bound and the plain version (no library
+    call computes this flavour)."""
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_plain,
+        edge_pipeline_bwd_planned,
+        edge_pipeline_plain,
+        edge_pipeline_planned,
+    )
+
+    dev = batch.seg_perm.device
+    gen = torch.Generator().manual_seed(seed)
+    plan = (batch.seg_perm, batch.seg_ids, batch.seg_valid, batch.seg_window)
+    n, e = batch.num_nodes, batch.num_edges
+    e_valid = int(batch.edge_mask.sum())
+    slots, blocks = plan[0].numel(), plan[3].numel()
+    rows = []
+    for dt, tol, vjp_tol in ((torch.float32, F32_TOL, VJP_TOL),
+                             (torch.bfloat16, BF16_TOL, BF16_TOL)):
+        a = torch.randn(e, f_in, generator=gen).to(dev, dt)
+        b = torch.randn(e, f_in, generator=gen).to(dev, dt)
+        w = (torch.randn(f_in, f_out, generator=gen) / f_in ** 0.5).to(dev, dt)
+        g = torch.randn(n, f_out, generator=gen).to(dev, dt)
+        args = (a, b, w, *plan, n)
+        with torch.no_grad():
+            got, again, ref = (edge_pipeline_planned(*args), edge_pipeline_planned(*args),
+                               edge_pipeline_plain(*args))
+        d, d_again, d_ref = (edge_pipeline_bwd_planned(g, *args),
+                             edge_pipeline_bwd_planned(g, *args), edge_pipeline_bwd_plain(g, *args))
+        torch.cuda.synchronize()
+        name = mix_name(dt, dt)
+        check(torch.equal(got, again) and all(torch.equal(x, y) for x, y in zip(d, d_again)),
+              f"[{tag}] a,b,W {f_in} -> {f_out} {name}: two runs differ")
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        for x, y in zip(d, d_ref):
+            torch.testing.assert_close(x.float(), y.float(), **vjp_tol)
+        row = {"f_in": f_in, "f_out": f_out, "flavour": "abw", "dtype": name, "n": n, "e": e,
+               "e_valid": e_valid,
+               "k1_max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "k2_max_abs_err": max(float((x.float() - y.float()).abs().max())
+                                     for x, y in zip(d, d_ref)),
+               "k1_library_ms": None, "k2_library_ms": None}
+        with torch.no_grad():
+            row["k1_ms"] = time_ms(lambda: edge_pipeline_planned(*args))
+            row["k1_plain_ms"] = time_ms(lambda: edge_pipeline_plain(*args))
+        row["k2_ms"] = time_ms(lambda: edge_pipeline_bwd_planned(g, *args))
+        row["k2_plain_ms"] = time_ms(lambda: edge_pipeline_bwd_plain(g, *args))
+        nbytes, ops, out_dt = k1_work(e_valid, n, f_in, f_out, slots, blocks, dt, dt, True, True)
+        row["k1_bound_ms"], row["k1_bound_by"] = bound(nbytes, ops, out_dt)
+        nbytes, ops, g_dt = k2_work(e, e_valid, n, f_in, f_out, slots, blocks, dt, dt, True,
+                                    True)
+        row["k2_bound_ms"], row["k2_bound_by"] = bound(nbytes, ops, g_dt)
+        rows.append(row)
+        log(f"[{tag}] {what}: a,b,W {f_in} -> {f_out} {name}: K1 max|err| "
+            f"{row['k1_max_abs_err']:.3g}, {row['k1_ms'] * 1e3:.1f} us, plain "
+            f"{row['k1_plain_ms'] * 1e3:.1f} us, bound {row['k1_bound_ms'] * 1e3:.2f} us "
+            f"({row['k1_bound_by']}); K2 max|err| {row['k2_max_abs_err']:.3g}, "
+            f"{row['k2_ms'] * 1e3:.1f} us, plain {row['k2_plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['k2_bound_ms'] * 1e3:.2f} us ({row['k2_bound_by']}); same bits on two runs")
+    return rows
+
+
+def gfm_kernel_rows():
+    """K1 and K2 at the item-16c drivers' new widths, on the first train
+    bin of sc26's 64 frames under its base config (SchNet hidden 16): the
+    PAINN trials' reduce-only F = 16 (scalar) and 48 (vector; half a
+    32-column slab and one and a half), and SchNet's a,b,W at F = 16
+    (num_filters 16 -> hidden 16), f32 and bf16 against their plain
+    versions."""
+    from hydragnn_tpu_torch.drivers import common, sc26_hpo
+    from hydragnn_tpu_torch.drivers.molecules import random_molecule_frames
+
+    trainset = common.split(random_molecule_frames(64, seed=0))[0]
+    loader, budgets = train_loader(sc26_hpo.base_config(1, 8), trainset)
+    batch = next(iter(loader)).to("cuda")
+    what = (f"sc26's first {'packed ' if loader.packing else ''}train bin (budgets "
+            f"{budget_keys(budgets)})")
+    return {"painn": [r for f in (16, 48) for r in reduce_kernel_rows("drivers", batch, f,
+                                                                       500 + f, what)],
+            "schnet": abw_kernel_rows("drivers", batch, 16, 16, 516, what)}
+
+
+
 def phase_drivers():
-    """The port's example drivers run in this process on the card through
-    their main() (9c in the module docstring): DRIVER_RUNS' eight, then the
-    atomistic ones (ATOMISTIC_RUNS), then K1 and K2 at the atomistic runs'
-    new widths (driver_kernel_rows). The counts start at 0 here; ``k1``/
-    ``k2`` are the first eight's launches, ``k1_atomistic``/
-    ``k2_atomistic`` the atomistic drivers', the card-vs-CPU rollout
-    steps and the kernel checks not counted."""
+    """The port's example drivers run on the card through their main()
+    (9c in the module docstring): DRIVER_RUNS' eight, the atomistic ones
+    (ATOMISTIC_RUNS) and the last nine (GFM_RUNS in this process,
+    RANK_RUNS on ranks of their own), then K1 and K2 at the new widths
+    (driver_kernel_rows, gfm_kernel_rows). The counts start at 0 here;
+    ``k1``/``k2`` are the first eight's launches, ``k1_atomistic``/
+    ``k2_atomistic`` the atomistic drivers', ``k1_gfm``/``k2_gfm`` the
+    last nine's (every rank's), the card-vs-CPU steps, the relaxation's
+    checks and the kernel checks not counted."""
     import importlib
     import shutil
     import tempfile
@@ -3766,8 +4173,10 @@ def phase_drivers():
     t0 = time.perf_counter()
     digests = driver_digests()
     atomistic = atomistic_digests()
+    gfm = gfm_digests()
     gen_s = time.perf_counter() - t0
-    for table, got in ((DRIVER_DIGESTS, digests), (ATOMISTIC_DIGESTS, atomistic)):
+    for table, got in ((DRIVER_DIGESTS, digests), (ATOMISTIC_DIGESTS, atomistic),
+                       (GFM_DIGESTS, gfm)):
         check(set(got) == set(table), f"[drivers] digests of {sorted(got)}, table of "
               f"{sorted(table)}")
         for name, want in table.items():
@@ -3783,7 +4192,7 @@ def phase_drivers():
     alexandria_held = alexandria_targets_held()
     log(f"[drivers] generators ({gen_s:.2f} s on the host): every sample set equal to the "
         f"CPU build bit for bit (sha256 of its records: "
-        + ", ".join(f"{k} {v[:12]}" for k, v in {**digests, **atomistic}.items())
+        + ", ".join(f"{k} {v[:12]}" for k, v in {**digests, **atomistic, **gfm}.items())
         + "); md17's and zinc's also equal [mlip]'s and [zinc]'s copies, LJ's 3x3x3 "
         "configuration [md]'s cluster")
     try:
@@ -3795,7 +4204,7 @@ def phase_drivers():
             "ImportError, and the runs below draw no plots")
 
     work = tempfile.mkdtemp(prefix="drivers_")
-    runs, atomistic_runs = [], []
+    runs, atomistic_runs, gfm_runs = [], [], []
     try:
         for name, argv in DRIVER_RUNS:
             plot_cfg = (plot_config(common.example_path(name, f"{name}.json"), work)
@@ -3822,24 +4231,34 @@ def phase_drivers():
             runs.append(run)
         for name, argv in ATOMISTIC_RUNS:
             atomistic_runs.append(driver_run(name, argv, None))
+        t_gfm = time.perf_counter()
+        for name, argv in GFM_RUNS:
+            gfm_runs.append(driver_run(name, argv, None))
+        for name, argv, ranks in RANK_RUNS:
+            gfm_runs.append(rank_driver_run(name, argv, ranks))
+        gfm_s = time.perf_counter() - t_gfm
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1, k2 = (sum(r[k] for run in runs for r in run["calls"]) for k in ("k1", "k2"))
     k1_at, k2_at = (sum(r[k] for run in atomistic_runs for r in run["calls"])
                     for k in ("k1", "k2"))
-    check(k1 > 0 and k2 > 0 and k1_at > 0 and k2_at > 0,
-          f"[drivers] K1 {k1} + {k1_at}, K2 {k2} + {k2_at}")
+    k1_gfm, k2_gfm = (sum(r[k] for run in gfm_runs for r in run["calls"]) for k in ("k1", "k2"))
+    check(k1 > 0 and k2 > 0 and k1_at > 0 and k2_at > 0 and k1_gfm > 0 and k2_gfm > 0,
+          f"[drivers] K1 {k1} + {k1_at} + {k1_gfm}, K2 {k2} + {k2_at} + {k2_gfm}")
     runs_s = time.perf_counter() - t_phase
-    log(f"[drivers] runs: {runs_s:.1f} s; K1 {k1}, K2 {k2} launched by the first eight "
-        f"drivers' counted runs, K1 {k1_at}, K2 {k2_at} by the atomistic drivers' (the "
-        f"card-vs-CPU steps and the runs held to raise ImportError not counted)")
-    kernel_rows = driver_kernel_rows()
+    log(f"[drivers] runs: {runs_s:.1f} s (the last nine drivers' {gfm_s:.1f} s); K1 {k1}, K2 "
+        f"{k2} launched by the first eight drivers' counted runs, K1 {k1_at}, K2 {k2_at} by "
+        f"the atomistic drivers', K1 {k1_gfm}, K2 {k2_gfm} by the last nine's (every rank's; "
+        f"the card-vs-CPU steps, the relaxation's checks and the runs held to raise "
+        f"ImportError not counted)")
+    kernel_rows = dict(driver_kernel_rows(), **gfm_kernel_rows())
     seconds = time.perf_counter() - t_phase
     log(f"[drivers] phase: {seconds:.1f} s; {card_line()}")
     return {"k1": k1, "k2": k2, "k1_atomistic": k1_at, "k2_atomistic": k2_at,
-            "seconds": seconds, "runs_seconds": runs_s, "digests": {**digests, **atomistic},
-            "alexandria_targets": alexandria_held,
-            "runs": runs, "atomistic_runs": atomistic_runs, "kernel_rows": kernel_rows}
+            "k1_gfm": k1_gfm, "k2_gfm": k2_gfm, "seconds": seconds, "runs_seconds": runs_s,
+            "gfm_seconds": gfm_s, "digests": {**digests, **atomistic, **gfm},
+            "alexandria_targets": alexandria_held, "runs": runs,
+            "atomistic_runs": atomistic_runs, "gfm_runs": gfm_runs, "kernel_rows": kernel_rows}
 
 
 # ---------------------------------------------------------------- [zinc]
@@ -4867,51 +5286,16 @@ def phase_zinc(configs, splits, loader, first_bin):
 
 # ---------------------------------------------------------------- [polymers]
 
-POLY_MONOMERS = 3  # one-hot monomer types
 POLYMER_WIDTHS = ((64, 64), (64, 1))  # the conv node head's K1/K2: [64, 64] + 1
 
 
 def polymer_chain(rng):
-    """examples/open_polymers_2026/train.py's ``polymer_chain``, from the
-    same seeded generator in its order of draws: a backbone of 20-39
-    sites with side groups of 1-2 atoms on about half of them, one-hot
-    monomer types, a graph target from length, branching and
-    composition, and a per-node strain proxy."""
-    import numpy as np
+    """examples/open_polymers_2026/train.py's ``polymer_chain``: the
+    polymers driver's (drivers/polymers.py), from the same seeded
+    generator in its order of draws."""
+    from hydragnn_tpu_torch.drivers.polymers import polymer_chain as chain
 
-    from hydragnn_tpu_torch.data.graph import GraphSample
-
-    n_backbone = int(rng.integers(20, 40))
-    edges = [(i, i + 1) for i in range(n_backbone - 1)]
-    types = [int(rng.integers(0, POLY_MONOMERS)) for _ in range(n_backbone)]
-    n = n_backbone
-    for i in range(n_backbone):
-        if rng.random() < 0.5:
-            k = int(rng.integers(1, 3))
-            prev = i
-            for _ in range(k):
-                edges.append((prev, n))
-                types.append(int(rng.integers(0, POLY_MONOMERS)))
-                prev = n
-                n += 1
-    snd = np.array([e[0] for e in edges] + [e[1] for e in edges])
-    rcv = np.array([e[1] for e in edges] + [e[0] for e in edges])
-    t = np.asarray(types)
-    x = np.zeros((n, POLY_MONOMERS), np.float32)
-    x[np.arange(n), t] = 1.0
-    deg = np.bincount(snd, minlength=n).astype(np.float32)
-    branch_frac = float((deg > 2).mean())
-    comp = x.mean(axis=0)
-    y_graph = np.array(
-        [0.01 * n + 2.0 * branch_frac + float(comp @ [0.5, -0.3, 0.1])], np.float32
-    )
-    ntype = t[rcv].astype(np.float32)
-    nbr_mean = np.zeros(n, np.float32)
-    np.add.at(nbr_mean, snd, ntype)
-    nbr_mean /= np.maximum(deg, 1.0)
-    y_node = (0.3 * deg + np.abs(t - nbr_mean)).astype(np.float32)
-    return GraphSample(x=x, edge_index=np.stack([snd, rcv]).astype(np.int64),
-                       y_graph=y_graph, y_node=y_node.reshape(-1, 1))
+    return chain(rng)
 
 
 def example_config(*parts):
@@ -6464,26 +6848,12 @@ MB_RANKS = 3
 
 
 def make_branch_dataset(n, scale, seed):
-    """examples/multibranch/train.py's ``make_branch_dataset`` on the
-    port's ``radius_graph``: ``n`` molecules of 6-15 atoms in a 3 A box,
-    edges within 2.5 A (16 nearest), one node feature, the target
-    ``scale`` x its mean."""
-    import numpy as np
+    """examples/multibranch/train.py's ``make_branch_dataset``: the
+    multibranch driver's (drivers/multibranch.py), on the port's
+    ``radius_graph``."""
+    from hydragnn_tpu_torch.drivers.multibranch import make_branch_dataset as make
 
-    from hydragnn_tpu_torch.data.graph import GraphSample
-    from hydragnn_tpu_torch.ops.neighbors import radius_graph
-
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        k = int(rng.integers(6, 16))
-        pos = rng.uniform(0, 3.0, (k, 3)).astype(np.float32)
-        x = rng.normal(size=(k, 1)).astype(np.float32)
-        y = scale * float(x.mean())
-        out.append(GraphSample(x=x, pos=pos,
-                               edge_index=radius_graph(pos, 2.5, max_neighbours=16),
-                               y_graph=np.array([y], np.float32)))
-    return out
+    return make(n, scale, seed)
 
 
 def multibranch_config(epochs=2):
@@ -8251,7 +8621,7 @@ def main():
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
                      + formats["k1"] + graphshard["k1"] + md["k1"] + drivers["k1"]
-                     + drivers["k1_atomistic"]),
+                     + drivers["k1_atomistic"] + drivers["k1_gfm"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -8266,7 +8636,8 @@ def main():
                              "pipeline": pipeline["k1"], "formats": formats["k1"],
                              "graphshard": graphshard["k1"], "md": md["k1"],
                              "drivers": drivers["k1"],
-                             "drivers_atomistic": drivers["k1_atomistic"]},
+                             "drivers_atomistic": drivers["k1_atomistic"],
+                             "drivers_gfm": drivers["k1_gfm"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
@@ -8300,6 +8671,12 @@ def main():
                         for r in drivers["kernel_rows"]["oc25"]],
         "qcml_width": [{k.replace("k1_", ""): v for k, v in r.items() if "k2" not in k}
                        for r in drivers["kernel_rows"]["qcml"]],
+        "sc26_painn_widths": [{k.replace("k1_", ""): v for k, v in r.items()
+                               if "k2" not in k}
+                              for r in drivers["kernel_rows"]["painn"]],
+        "sc26_schnet_width": [{k.replace("k1_", ""): v for k, v in r.items()
+                               if "k2" not in k}
+                              for r in drivers["kernel_rows"]["schnet"]],
     }, {
         "name": "edge_pipeline_bwd",
         "route": "cuda",
@@ -8310,7 +8687,7 @@ def main():
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
                      + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
                      + graphshard["k2"] + md["k2"] + drivers["k2"]
-                     + drivers["k2_atomistic"]),
+                     + drivers["k2_atomistic"] + drivers["k2_gfm"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -8324,7 +8701,8 @@ def main():
                              "pipeline": pipeline["k2"], "formats": formats["k2"],
                              "graphshard": graphshard["k2"], "md": md["k2"],
                              "drivers": drivers["k2"],
-                             "drivers_atomistic": drivers["k2_atomistic"]},
+                             "drivers_atomistic": drivers["k2_atomistic"],
+                             "drivers_gfm": drivers["k2_gfm"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
@@ -8357,6 +8735,12 @@ def main():
                         for r in drivers["kernel_rows"]["oc25"]],
         "qcml_width": [{k.replace("k2_", ""): v for k, v in r.items() if "k1" not in k}
                        for r in drivers["kernel_rows"]["qcml"]],
+        "sc26_painn_widths": [{k.replace("k2_", ""): v for k, v in r.items()
+                               if "k1" not in k}
+                              for r in drivers["kernel_rows"]["painn"]],
+        "sc26_schnet_width": [{k.replace("k2_", ""): v for k, v in r.items()
+                               if "k1" not in k}
+                              for r in drivers["kernel_rows"]["schnet"]],
     }]
     log(f"[report] export: {json.dumps(export)}")
     log(f"[report] loadbench: {json.dumps(loadbench)}")

@@ -1,6 +1,7 @@
 """What the example drivers share: their configs' paths, the
-``--config``/``--device`` arguments, the run and its report, and the
-energy normalization of ``examples/common/loaders.py``.
+``--config``/``--device`` arguments, the run and its report, the
+energy normalization of ``examples/common/loaders.py``, and the ranks of
+the multi-process drivers (``launched``, ``join``, ``spawn``).
 
 Each driver reads its JSON config from the repository's ``examples/``
 tree by path (the reference scripts' own files, read and never copied or
@@ -13,7 +14,13 @@ printed as numbers.
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -140,3 +147,107 @@ def rollout_numbers(res) -> dict:
             "events": list(res.stats["events"]),
             "energy_drift": float(np.max(np.abs(total - total[0]))) if total.size else 0.0,
             "finite": bool(np.isfinite(total).all())}
+
+
+def launched() -> bool:
+    """Whether a launcher (torchrun) started this process as a rank."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def join(args):
+    """This process's rank of a multi-process driver: a spawned one
+    (``args.rank`` set) joins the FileStore ``args.store`` of
+    ``args.ranks`` ranks, a launched one the group its variables name,
+    any other a group of one. On cards each rank takes ``cuda:LOCAL_RANK``
+    modulo the visible cards: NCCL with a card per rank, else gloo (ranks
+    sharing a card, where NCCL refuses two ranks on one device). Returns
+    (device, backend)."""
+    import torch
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.device import resolve_device
+    from hydragnn_tpu_torch.parallel import runtime
+
+    if args.rank is not None:
+        world = per_node = args.ranks
+        local = args.rank
+    else:
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        local = runtime.local_rank()
+    dev, backend = resolve_device(args.device), "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        backend = "nccl" if cards >= per_node else "gloo"
+        if dev.index is None:
+            dev = torch.device("cuda", local % cards)
+        torch.cuda.set_device(dev)
+    if args.rank is not None:
+        dist.init_process_group(backend, store=dist.FileStore(args.store, world),
+                                rank=args.rank, world_size=world)
+    elif not runtime.maybe_initialize_distributed(backend):
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return dev, backend
+
+
+def rank_arguments(ap: argparse.ArgumentParser) -> None:
+    """``--ranks`` (the processes a driver started alone spawns; default
+    one per branch) and the hidden ``--rank``/``--store`` a spawned rank
+    is given."""
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="processes to start when run alone (not under torchrun; default: "
+                    "one per branch; 1 runs in this process)")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
+
+
+def write_rank_output(args, out: dict) -> None:
+    """A spawned rank's report, beside its FileStore, where ``spawn``
+    collects it."""
+    if args.store is None:
+        return
+    import torch.distributed as dist
+
+    path = os.path.join(os.path.dirname(args.store), f"rank{dist.get_rank()}.json")
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def spawn(module: str, argv: Sequence[str], ranks: int) -> Tuple[int, List[Optional[dict]]]:
+    """Start ``ranks`` processes of ``python -m <module>`` on ``argv``,
+    joined through a FileStore in a fresh directory; when one fails the
+    rest are stopped. Returns the first nonzero exit code (else 0) and
+    each rank's report (``write_rank_output``; None where it wrote
+    none)."""
+    work = tempfile.mkdtemp(prefix=module.rsplit(".", 1)[-1] + "_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = [subprocess.Popen([sys.executable, "-m", module, *argv, "--rank", str(r),
+                               "--store", os.path.join(work, "store")], env=env)
+             for r in range(ranks)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.05)
+        outs = []
+        for r in range(ranks):
+            path = os.path.join(work, f"rank{r}.json")
+            outs.append(json.load(open(path)) if os.path.exists(path) else None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return next((p.returncode for p in procs if p.returncode != 0), 0), outs
+
+
+def spawn_ranks(module: str, argv: Sequence[str], ranks: int, args) -> List[dict]:
+    """``spawn`` of ``ranks`` ranks (after refusing ``cuda`` without a
+    card here); raises unless every rank exited 0 with its report."""
+    device(args)
+    rc, outs = spawn(module, list(argv) + ["--ranks", str(ranks)], ranks)
+    if rc != 0 or any(o is None for o in outs):
+        raise RuntimeError(f"{module}: a rank exited with code {rc}")
+    return outs

@@ -28,15 +28,12 @@ graph-sharded step under NCCL waits for a host with two or more cards.
 from __future__ import annotations
 
 import argparse
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
-import time
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+
+from hydragnn_tpu_torch.drivers import common
 
 MORSE_D, MORSE_A, MORSE_R0 = 0.4, 1.1, 2.2
 NUM_GAUSSIANS = 16
@@ -202,42 +199,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _launched() -> bool:
-    """Whether a launcher (torchrun) started this process as a rank."""
-    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
-
-
-def _join(args):
-    """This process's rank: a spawned one joins the FileStore, a
-    launched one the group its variables name. Returns (device, backend)."""
-    import torch
-    import torch.distributed as dist
-
-    from hydragnn_tpu_torch.device import resolve_device
-    from hydragnn_tpu_torch.parallel import runtime
-
-    if args.rank is not None:
-        world = per_node = args.ranks
-        local = args.rank
-    else:
-        world = int(os.environ["WORLD_SIZE"])
-        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-        local = runtime.local_rank()
-    device, backend = resolve_device(args.device), "gloo"
-    if device.type == "cuda":
-        cards = torch.cuda.device_count()
-        backend = "nccl" if cards >= per_node else "gloo"
-        if device.index is None:
-            device = torch.device("cuda", local % cards)
-        torch.cuda.set_device(device)
-    if args.rank is not None:
-        dist.init_process_group(backend, store=dist.FileStore(args.store, world),
-                                rank=args.rank, world_size=world)
-    elif not runtime.maybe_initialize_distributed(backend):
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    return device, backend
-
-
 def run_rank(args) -> None:
     """giant.py's training on this rank (every rank alike; rank 0 prints)."""
     import torch
@@ -245,7 +206,7 @@ def run_rank(args) -> None:
 
     from hydragnn_tpu_torch.parallel.mesh import make_mesh
 
-    device, backend = _join(args)
+    device, backend = common.join(args)
     mesh = make_mesh({"graph": dist.get_world_size()})
     say = print if mesh.index == 0 else (lambda *a, **k: None)
     eager = "" if device.type != "cuda" else "; steps eager: " + (
@@ -283,39 +244,13 @@ def run_rank(args) -> None:
     dist.destroy_process_group()
 
 
-def spawn(argv: Sequence[str], ranks: int) -> int:
-    """Start ``ranks`` processes of this driver on ``argv``, joined
-    through a FileStore in a fresh directory; when one fails the rest are
-    stopped. Returns the first nonzero exit code, else 0."""
-    work = tempfile.mkdtemp(prefix="giant_graph_")
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    procs = [subprocess.Popen([sys.executable, "-m", "hydragnn_tpu_torch.drivers.giant_graph",
-                               *argv, "--rank", str(r),
-                               "--store", os.path.join(work, "store")], env=env)
-             for r in range(ranks)]
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        shutil.rmtree(work, ignore_errors=True)
-    return next((p.returncode for p in procs if p.returncode != 0), 0)
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parser().parse_args(argv)
-    if args.rank is not None or _launched():
+    if args.rank is not None or common.launched():
         run_rank(args)
         return 0
-    return spawn(argv, args.ranks)
+    return common.spawn("hydragnn_tpu_torch.drivers.giant_graph", argv, args.ranks)[0]
 
 
 if __name__ == "__main__":

@@ -354,10 +354,20 @@ def _steps_fn(body, rows: int = 3) -> Callable:
     return run
 
 
+# Every step dispatch of this process since it started, by what it ran:
+# model forwards (one a train or eval step) and, of those, train steps.
+# A caller reads the difference over a run (drivers/multibranch_hpo.py's
+# ranks count each trial's steps beside its K1/K2 launches).
+DISPATCHES = {"forwards": 0, "train_steps": 0}
+
+
 def _dispatch(run, graphs, key, batches, device, counter=None):
     """``run`` over host batches: through the graph cache on the card,
     eagerly on ``device`` otherwise. ``counter`` (a telemetry
     ``ExecCounter``) counts the key's first eager run."""
+    DISPATCHES["forwards"] += len(batches)
+    if "train" in key[:2]:  # ("train", ...) or a plan's ("dp", "train", ...)
+        DISPATCHES["train_steps"] += len(batches)
     if graphs is None:
         dev = [b.to(device) for b in batches]
         return run(dev) if counter is None else counter.run(run, dev)

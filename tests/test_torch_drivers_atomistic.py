@@ -324,15 +324,15 @@ def test_chip_smoke_atomistic_digests_are_the_cpu_build():
 
 def test_chip_smoke_launch_model_knows_the_drivers_stacks():
     """K1 launches a forward for each stack the drivers run (MACE one a
-    layer, SAGE/EGNN/DimeNet none); an unknown stack raises."""
+    layer, SAGE/EGNN/DimeNet/GIN none); a stack no package has raises."""
     smoke = _chip_smoke()
     cfg = types.SimpleNamespace
     want = {"SchNet": 3, "PNA": 3, "PNAPlus": 3, "PAINN": 6, "GAT": 0, "MACE": 3,
-            "SAGE": 0, "EGNN": 0, "DimeNet": 0}
+            "SAGE": 0, "EGNN": 0, "DimeNet": 0, "GIN": 0}
     for stack, n in want.items():
         assert smoke.launches_per_pass(cfg(mpnn_type=stack, num_conv_layers=3)) == n, stack
     with pytest.raises(KeyError):
-        smoke.launches_per_pass(cfg(mpnn_type="GIN", num_conv_layers=3))
+        smoke.launches_per_pass(cfg(mpnn_type="NoSuchStack", num_conv_layers=3))
 
 
 # ------------------------------------------------------- oc25 end to end
