@@ -127,6 +127,19 @@ why.
                (Training.continue): parameters, AdamW state and the loss
                and lr history equal the uninterrupted run's bit for bit;
                the writer's snapshot ms, saves and bytes.
+7c. lint       the port's static analysis on the card's host: the CLI
+               (python -m hydragnn_tpu_torch.analysis --check --json) in
+               a subprocess on this host's Python and CUDA torch must
+               exit 0 (new/baselined/suppressed per rule, the torch
+               version torch-api resolved against, seconds); then the
+               host-sync rule held to the card: under
+               torch.cuda.set_sync_debug_mode("warn"), one steady-state
+               train epoch of [train]'s SchNet (its 4th, every step a
+               replay, no capture) and one served bin of [slice] record
+               the innermost hydragnn_tpu_torch frame of every
+               synchronizing call; each site is a line the rule flags
+               (suppressed or baselined) or lies outside its scope, with
+               its count per step; K1 4 per forward, K2 4 per train step.
 8. mlip-kernels  K1 and K2 in the reduce-only flavour at PaiNN's widths
                (F = 1, 3, 64, 192) on the plan of the first packed bin
                that md17.json's run_training trains on,
@@ -572,7 +585,7 @@ why.
                under "oc25_widths", at qcml's under "qcml_width" and at
                sc26's under "sc26_painn_widths" and "sc26_schnet_width";
                "launches" sums the serving (slice, export, loadbench,
-               fleet, serve-forces), SchNet training, guard and preempt,
+               fleet, serve-forces), SchNet training, guard, preempt and lint,
                MLIP, MD, drivers (the first eight, the atomistic ones
                and the last nine, every rank's), ZINC, pipeline, formats, polymer, oc20, PNAEq, dp
                (its guarded run too), fsdp, multibranch and graphshard runs and the
@@ -3018,8 +3031,11 @@ def md_drills(model, cfg, start, block):
         finally:
             faults.reset()
         w = CheckpointWriter("md_resume")
-        w.save(half.state, kind="auto", epoch=0, step=MD_INTERRUPT, loop=first.ladder_state())
-        w.close()
+        try:
+            w.save(half.state, kind="auto", epoch=0, step=MD_INTERRUPT,
+                   loop=first.ladder_state())
+        finally:
+            w.close()
         second = md_engine(model, cfg, start, block)
         restored, manifest = load_resume_checkpoint("md_resume", second.init_state())
         check(manifest is not None and manifest["step"] == MD_INTERRUPT,
@@ -8324,6 +8340,161 @@ def telemetry_step_cost(model0, cfg, training, host_batch, work, iters=20):
             "nodes": host_batch.num_nodes, "edges": host_batch.num_edges}
 
 
+SYNC_WARNING = "synchronizing CUDA operation"
+LINT_EPOCHS = 4  # [lint] watches the last train epoch: every step a replay
+
+
+@contextlib.contextmanager
+def sync_sites():
+    """While open, torch's sync debug mode warns on every synchronizing
+    CUDA call, and each warning's innermost frame in the port's package
+    (outside analysis/) is counted: ``sites[(relpath, line)]``. Other
+    warnings pass through as they would."""
+    import collections
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(root, "hydragnn_tpu_torch") + os.sep
+    skip = os.path.join(pkg, "analysis") + os.sep
+    sites = collections.Counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        plain = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING not in str(message):
+                return plain(message, category, filename, lineno, file, line)
+            frame = sys._getframe(1)
+            while frame is not None:
+                path = os.path.abspath(frame.f_code.co_filename)
+                if path.startswith(pkg) and not path.startswith(skip):
+                    sites[(os.path.relpath(path, root).replace(os.sep, "/"),
+                           frame.f_lineno)] += 1
+                    return None
+                frame = frame.f_back
+            sites[("<outside the port>", 0)] += 1
+            return None
+
+        warnings.showwarning = show
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+
+def phase_lint(config, splits, samples, budgets, settings):
+    """[lint]: the CLI's gate on this host, then the host-sync rule held to
+    the card's synchronizing calls (the docstring's 7c)."""
+    import hydragnn_tpu_torch as port
+    from hydragnn_tpu_torch.analysis.engine import collect_files
+    from hydragnn_tpu_torch.analysis.rules.host_sync import site_verdict
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.ops.edge_pipeline import (
+        edge_pipeline_bwd_planned,
+        edge_pipeline_planned,
+    )
+    from hydragnn_tpu_torch.serve.batcher import DynamicBatcher
+    from hydragnn_tpu_torch.serve.engine import ServingEngine
+    from hydragnn_tpu_torch.train import loop
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "hydragnn_tpu_torch.analysis", "--check",
+                           "--json"], capture_output=True, text=True, cwd=root, timeout=600)
+    lint_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[lint] graftlint --check exited {proc.returncode}:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    doc = json.loads(proc.stdout)
+    per_rule = {r: [c["new"], c["baselined"], c["suppressed"]]
+                for r, c in sorted(doc["per_rule"].items())}
+    log(f"[lint] python -m hydragnn_tpu_torch.analysis --check --json: exit 0 in "
+        f"{lint_s:.2f} s against torch {doc['torch_version']}; {doc['new']} new, "
+        f"{doc['baselined']} baselined, {doc['suppressed']} suppressed; per rule "
+        f"[new, baselined, suppressed]: {json.dumps(per_rule)}")
+    out = {"seconds": round(lint_s, 3), "torch": doc["torch_version"], "per_rule": per_rule,
+           "new": doc["new"], "baselined": doc["baselined"], "suppressed": doc["suppressed"]}
+
+    # the train path: the last of LINT_EPOCHS epochs watched
+    cfg_run = copy.deepcopy(config)
+    cfg_run["NeuralNetwork"]["Training"]["num_epoch"] = LINT_EPOCHS
+    plain = loop._run_epoch
+    seen = {"train": 0, "steps": 0, "captures": None}
+    watched = {}
+
+    def run_epoch(superstep, state, loader, *, train, **kw):
+        if not train:
+            return plain(superstep, state, loader, train=train, **kw)
+        seen["train"] += 1
+        if seen["train"] < LINT_EPOCHS:
+            return plain(superstep, state, loader, train=train, **kw)
+        graphs = state.graphs
+        caps, step0 = graphs.captures, state.step
+        with sync_sites() as sites:
+            res = plain(superstep, state, loader, train=train, **kw)
+        seen["steps"], seen["captures"] = state.step - step0, graphs.captures - caps
+        watched.update(sites)
+        return res
+
+    loop._run_epoch = run_epoch
+    try:
+        with recorded_run() as rec:
+            edge_pipeline_planned.launches = edge_pipeline_bwd_planned.launches = 0
+            state, model, cfg, hist, _ = port.run_training(cfg_run, device="cuda")
+            torch.cuda.synchronize()
+            k1, k2, n_fwd = (edge_pipeline_planned.launches,
+                             edge_pipeline_bwd_planned.launches, rec["forwards"])
+    finally:
+        loop._run_epoch = plain
+    layers = cfg.num_conv_layers
+    check(k1 == layers * n_fwd and k2 == layers * state.step,
+          f"[lint] K1 {k1}, K2 {k2} for {n_fwd} forwards and {state.step} train steps "
+          f"(want {layers} each)")
+    check(seen["steps"] > 0 and seen["captures"] == 0,
+          f"[lint] the watched epoch ran {seen['steps']} steps with {seen['captures']} "
+          "captures (want replays only)")
+
+    # the serving path: one bin of [slice]'s engine after its warm-up
+    engine = ServingEngine(create_model(full_width_config(), device="cuda", seed=0),
+                           full_width_config(), None, budgets, example=samples[0],
+                           settings=settings, device="cuda")
+    try:
+        batcher = DynamicBatcher(budgets, deadline_ms=settings.deadline_ms,
+                                 max_open_bins=settings.max_open_bins)
+        reqs = [batcher.submit(x) for x in samples[:4]]
+        batcher.close()
+        edge_pipeline_planned.launches = 0
+        with sync_sites() as served:
+            records = engine.process(batcher)
+        torch.cuda.synchronize()
+        k1_serve = edge_pipeline_planned.launches
+    finally:
+        engine.close()
+    check(len(records) == 1 and all(r.result is not None for r in reqs),
+          f"[lint] {len(records)} bins for 4 requests (want one, every request served)")
+    check(k1_serve == layers, f"[lint] K1 launched {k1_serve} times for the served bin")
+
+    ctx = collect_files(root, ["hydragnn_tpu_torch"])
+    rows = []
+    for where, sites, per in (("train", watched, seen["steps"]), ("serve", served, 1)):
+        verdict = site_verdict(ctx, [s for s in sites if s[1]])
+        for site, n in sorted(sites.items()):
+            v = verdict.get(site, "outside the port")
+            rows.append({"path": where, "site": f"{site[0]}:{site[1]}", "calls": n,
+                         "per_step": round(n / per, 4), "verdict": v})
+            log(f"[lint] {where}: {site[0]}:{site[1]} {n} synchronizing call(s), "
+                f"{n / per:.3g} per {'step' if where == 'train' else 'bin'}: {v}")
+    missed = [r for r in rows if r["verdict"] not in ("flagged", "out of scope")]
+    check(not missed, f"[lint] synchronizing sites the host-sync rule does not see: {missed}")
+    log(f"[lint] {seen['steps']} replayed train steps (epoch {LINT_EPOCHS}, 0 captures) and "
+        f"one served bin: {len(rows)} synchronizing site(s), every one flagged by host-sync "
+        f"or outside its scope; K1 {k1} = {layers} x {n_fwd} forwards, K2 {k2} = {layers} "
+        f"x {state.step} train steps, the bin's K1 {k1_serve}")
+    out.update({"train_steps": seen["steps"], "sites": rows, "k1": k1 + k1_serve, "k2": k2})
+    return out
+
+
 def phase_telemetry(config, splits, head_step, head_cpu):
     """[telemetry] run_training of [train]'s full-width SchNet on the BCC
     split (``telemetry_config``: guard on, containers every 3 steps)
@@ -8546,6 +8717,7 @@ def main():
     guard = phase_guard(config, splits, head_step, head_cpu)
     preempt = phase_preempt(config)
     tele = phase_telemetry(config, splits, head_step, head_cpu)
+    lint = phase_lint(config, splits, samples, budgets, settings)
     mlip_cfg, mlip_splits, md17_splits = mlip_data()
     mlip_loader, mlip_budgets = train_loader(mlip_cfg, mlip_splits[0])
     check(mlip_loader.packing, "md17.json's packing 'auto' did not pack bench's molecules")
@@ -8621,7 +8793,7 @@ def main():
                      + loadbench["k1"] + fleet["k1"] + serve_forces["k1"] + guard["k1"]
                      + preempt["k1"] + dp["guard"]["k1"] + tele["k1"] + pipeline["k1"]
                      + formats["k1"] + graphshard["k1"] + md["k1"] + drivers["k1"]
-                     + drivers["k1_atomistic"] + drivers["k1_gfm"]),
+                     + drivers["k1_atomistic"] + drivers["k1_gfm"] + lint["k1"]),
         "launches_by_path": {"serve": launches, "export": export["k1"],
                              "loadbench": loadbench["k1"], "fleet": fleet["k1"],
                              "serve_forces": serve_forces["k1"],
@@ -8637,7 +8809,7 @@ def main():
                              "graphshard": graphshard["k1"], "md": md["k1"],
                              "drivers": drivers["k1"],
                              "drivers_atomistic": drivers["k1_atomistic"],
-                             "drivers_gfm": drivers["k1_gfm"]},
+                             "drivers_gfm": drivers["k1_gfm"], "lint": lint["k1"]},
         "max_abs_err": max([r["max_abs_err"] for r in rows if r["dtype"] == "f32"]
                            + [r["k1_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
@@ -8687,7 +8859,7 @@ def main():
                      + multibranch["k2"] + serve_forces["k2"] + guard["k2"] + preempt["k2"]
                      + dp["guard"]["k2"] + tele["k2"] + pipeline["k2"] + formats["k2"]
                      + graphshard["k2"] + md["k2"] + drivers["k2"]
-                     + drivers["k2_atomistic"] + drivers["k2_gfm"]),
+                     + drivers["k2_atomistic"] + drivers["k2_gfm"] + lint["k2"]),
         "launches_by_path": {"serve": 0, "export": 0, "loadbench": 0, "fleet": 0,
                              "serve_forces": serve_forces["k2"],
                              "train": train["k2"], "mlip": mlip["k2"],
@@ -8702,7 +8874,7 @@ def main():
                              "graphshard": graphshard["k2"], "md": md["k2"],
                              "drivers": drivers["k2"],
                              "drivers_atomistic": drivers["k2_atomistic"],
-                             "drivers_gfm": drivers["k2_gfm"]},
+                             "drivers_gfm": drivers["k2_gfm"], "lint": lint["k2"]},
         "max_abs_err": max([r["max_abs_err"] for r in bwd_rows if r["dtype"] == "f32"]
                            + [r["k2_max_abs_err"] for r in mlip_rows + zinc_rows + poly_rows
                               + mace_rows + pnaeq_rows + md["kernel_rows"] + driver_rows
@@ -8753,6 +8925,7 @@ def main():
     log(f"[report] guard: {json.dumps({k: v for k, v in guard.items() if k != 'halt'})}")
     log(f"[report] preempt: {json.dumps(preempt)}")
     log(f"[report] telemetry: {json.dumps(tele)}")
+    log(f"[report] lint: {json.dumps(lint)}")
     log(f"[report] mlip: {json.dumps(mlip)}")
     log(f"[report] zinc: {json.dumps(zinc)}")
     log(f"[report] pipeline: {json.dumps(pipeline)}")

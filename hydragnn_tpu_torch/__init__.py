@@ -66,10 +66,18 @@ What runs today:
   atomistic ones over ``drivers/crystals.py`` and ``molecules.py``:
   ``oc20``, ``oc22``, ``odac23``, ``oc25``, ``mptrj``, ``alexandria``,
   ``eam``, ``omat24``, ``ani1x``, ``nabla2_dft``, ``omol25``, ``qcml``,
-  ``transition1x``, ``qm7x`` and ``qm7x_inference``.
+  ``transition1x``, ``qm7x`` and ``qm7x_inference``; and the last nine:
+  ``polymers``, ``multibranch``, ``multibranch_hpo``, ``multidataset``,
+  ``multidataset_hpo``, ``sc26_hpo``, ``structure_optimization``,
+  ``uv_spectrum`` and ``ising``.
+- static analysis: ``analysis/``, the port's graftlint (``python -m
+  hydragnn_tpu_torch.analysis --check``): config-schema, nondet,
+  thread-discipline, lock-order, guarded-field, barrier-discipline and
+  suppression over the port's code, with host-sync, hot-coverage and
+  torch-api as the torch counterparts of the JAX package's host-sync,
+  hot-coverage and jax-api.
 
-Still to port (ROADMAP.md): the remaining drivers of ``examples/`` (item
-16c) and the static analysis (item 17).
+Every module of the JAX package has its counterpart here.
 
 Importing the package is cheap on purpose: it builds no CUDA code and
 imports none of its submodules (``run_training``/``run_prediction`` load

@@ -453,4 +453,5 @@ def gather_to_host(tensor: torch.Tensor) -> torch.Tensor:
     shards) is all-gathered (every rank must call this together), a
     plain tensor copied."""
     full = getattr(tensor, "full_tensor", None)
+    # graftlint: disable-next-line=host-sync -- the checkpoint snapshot's copy itself: callers (CheckpointWriter.save, save_checkpoint) fetch the state once per save, never per step
     return (full() if callable(full) else tensor).detach().cpu()

@@ -424,6 +424,7 @@ class ServingEngine:
         (``train/capture.py``)."""
         t0 = time.perf_counter()
         with GRAPH_LOCK:
+            # graftlint: disable-next-line=host-sync -- the response fetch: the one designed sync of the serving path, paid AFTER the next bin was already dispatched (double buffering)
             outs_host = [o.cpu().numpy() for o in rec["outs"]]
         t_done = rec["clock"]()
         fetch_ms = round(1e3 * (time.perf_counter() - t0), 4)

@@ -501,6 +501,7 @@ class RolloutEngine:
         """Run one macro on the carry and fetch its packed rows to the
         host (one copy, one sync)."""
         if self.device.type != "cuda":
+            # graftlint: disable-next-line=host-sync -- the CPU path: the macro's rows are host memory already, nothing waits
             return self._macro(k, record).numpy()
         from hydragnn_tpu_torch.train.capture import GRAPH_LOCK
 
@@ -514,6 +515,7 @@ class RolloutEngine:
             else:
                 self._capture(key)
                 out = self._replay(key)
+            # graftlint: disable-next-line=host-sync -- the per-macro policy point: one copy of the packed rows per K-step dispatch, the rollout's one designed fetch
             return out.cpu().numpy()
 
     def _eager(self, k: int, record: bool) -> torch.Tensor:
@@ -532,6 +534,7 @@ class RolloutEngine:
         t0 = time.perf_counter()
         counters = _launch_counters()
         before = tuple(c.launches for c in counters)
+        # graftlint: disable-next-line=host-sync -- the sync before a capture: the pool's reserved bytes are read against an idle card; once per key, never per macro
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
@@ -541,6 +544,7 @@ class RolloutEngine:
         recorded = tuple(c.launches - b for c, b in zip(counters, before))
         for c, b in zip(counters, before):
             c.launches = b
+        # graftlint: disable-next-line=host-sync -- the sync after a capture: the capture's seconds and pool bytes; once per key, never per macro
         torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         self._graphs[key] = _CapturedMacro(

@@ -168,7 +168,9 @@ class StaticBatches:
             raise ValueError(f"{len(batches)} batches for a {self.k}-batch buffer")
         host = self._host[self._turn]
         if self._copied[self._turn] is not None:
+            # graftlint: disable-next-line=host-sync -- waits for the copy two loads ago before its pinned buffer is rewritten: by then the card has long read it, so the wait is empty on the step path
             self._copied[self._turn].synchronize()
+        # graftlint: disable-next-line=host-sync -- a numpy view of the pinned host buffer: host memory, no copy and no wait
         buf = host.numpy()
         for k, b in enumerate(batches):
             arrays = b.arrays()
@@ -181,6 +183,7 @@ class StaticBatches:
             for name, dt, shape, o, n in self.layout:
                 src = torch.as_tensor(arrays[name])
                 self._check(name, src, dt, shape)
+                # graftlint: disable-next-line=host-sync -- the host batch's own arrays (numpy or CPU tensors): host memory, no wait
                 buf[base + o: base + o + n] = src.contiguous().numpy().reshape(-1).view("u1")
         self.flat.copy_(host, non_blocking=True)
         done = torch.cuda.Event()
@@ -277,6 +280,7 @@ class StepGraphs:
         static = StaticBatches(batches, self.device)
         counters = _launch_counters()
         before = tuple(c.launches for c in counters)
+        # graftlint: disable-next-line=host-sync -- the sync before a capture: the pool's reserved bytes are read against an idle card; once per key, never per replay
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()  # as torch.cuda.graph does on entry
         reserved = torch.cuda.memory_reserved(self.device)
@@ -286,6 +290,7 @@ class StepGraphs:
         recorded = tuple(c.launches - b for c, b in zip(counters, before))
         for c, b in zip(counters, before):
             c.launches = b
+        # graftlint: disable-next-line=host-sync -- the sync after a capture: the capture's seconds and pool bytes; once per key, never per replay
         torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         step = CapturedStep(graph, static, tuple(outputs), recorded, seconds,

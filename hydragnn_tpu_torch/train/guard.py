@@ -397,6 +397,7 @@ class GuardMonitor:
         for _, k, ok, gn in pending:
             parts.append(torch.as_tensor(ok).reshape(-1).to(torch.float64))
             parts.append(torch.as_tensor(gn).reshape(-1).to(torch.float64))
+        # graftlint: disable-next-line=host-sync -- the guard's designed resolution point: epoch-end (after the loop's own metrics fetch) or the opt-in Guard.check_interval_steps sampled cadence, never per dispatch
         flat = torch.cat([p.to(parts[0].device) for p in parts]).cpu().numpy()
         out, at = [], 0
         for i, (_, k, _, _) in enumerate(pending):

@@ -463,6 +463,7 @@ class History:
 
 def _fetch_epoch(loss_sum, tasks_sum, n_graphs) -> Tuple[float, np.ndarray]:
     """The one host fetch of an epoch: (mean loss, mean per-task)."""
+    # graftlint: disable-next-line=host-sync -- the ONE amortized metrics fetch this loop exists to provide (vs the reference's per-batch .item())
     vals = torch.cat(
         [loss_sum.reshape(1).double(), tasks_sum.reshape(-1).double(),
          n_graphs.reshape(1).double()]
@@ -537,6 +538,7 @@ def _run_epoch(superstep, state, loader, *, train: bool, acc0=None, step0: int =
             else:
                 state, acc = superstep(state, acc, batches, **kw)
             if trace_sync:
+                # graftlint: disable-next-line=host-sync -- HYDRAGNN_TPU_TRACE_LEVEL>0 opt-in: per-step barrier so tracer times device work, at the documented cost of the dispatch overlap
                 torch.cuda.synchronize(dev)
         tr.stop(f"{region}/step")
         if graphs is not None:

@@ -179,6 +179,7 @@ def _atomic_write_bytes(path: str, blob: bytes) -> None:
     as a real one would."""
     tmp = path + ".tmp"
     half = max(len(blob) // 2, 1)
+    # graftlint: disable-next-line=thread-discipline -- the sync-format fallback (Checkpoint.async false) writes on the caller thread BY DESIGN; the async path reaches here only on the worker thread
     with open(tmp, "wb") as f:
         f.write(blob[:half])
         faults.on_write(path)
@@ -480,6 +481,7 @@ def encode_acc(acc) -> Optional[dict]:
     loss_sum, tasks_sum, n_graphs = (torch.as_tensor(a) for a in acc)
     flat = torch.cat([loss_sum.reshape(1).float(), tasks_sum.reshape(-1).float(),
                       n_graphs.to(loss_sum.device).reshape(1).float()])
+    # graftlint: disable-next-line=host-sync -- part of the designed snapshot barrier: the epoch's partial sums, fetched once per save, not per step
     bits = flat.detach().cpu().numpy().astype(np.float32).view(np.uint32)
     return {"loss_sum": int(bits[0]), "tasks_sum": [int(v) for v in bits[1:-1]],
             "n_graphs": int(bits[-1])}
@@ -577,6 +579,7 @@ def _write_pointer(base: str, name: str, target: str) -> None:
     """``base/name`` holding ``target``, through a tmp file and
     ``os.replace``."""
     pointer = os.path.join(base, name)
+    # graftlint: disable-next-line=thread-discipline -- pointer swap: a few bytes, shared by the worker and the designed sync fallback
     with open(pointer + ".tmp", "w") as f:
         f.write(target)
         f.flush()
@@ -978,6 +981,7 @@ def _host_snapshot(tree):
         else:
             groups.setdefault((t.device, t.dtype), []).append((i, t))
     for members in groups.values():
+        # graftlint: disable-next-line=host-sync -- the designed snapshot barrier: one copy per device and dtype, once per save; serialize+write then run off-thread
         flat = torch.cat([t.reshape(-1) for _, t in members]).cpu()
         at = 0
         for i, t in members:
@@ -999,6 +1003,7 @@ def _processes_agree_finite(local_ok: bool, site: str = "finite", seq: int = 0) 
         t0 = time.perf_counter()
         try:
             dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            # graftlint: disable-next-line=host-sync -- the ranks' agreement flag after the MIN all-reduce: one int per save (validate-finite), never per step
             ok = bool(flag.item())
         except BaseException:
             dt = time.perf_counter() - t0
@@ -1190,6 +1195,7 @@ class CheckpointWriter:
                     break
                 self.retried += 1
                 _warn(f"transient checkpoint write failure ({e}); retrying in {delay:.2f}s")
+                # graftlint: disable-next-line=thread-discipline -- retry backoff: worker-thread path (or the designed sync fallback) waiting out a transient write failure
                 time.sleep(delay)
                 delay = min(delay * 2.0, _BACKOFF_CAP_S)
             except BaseException as e:
@@ -1248,6 +1254,7 @@ class CheckpointWriter:
     def _drain(self) -> None:
         with self._cv:
             while self._inflight:
+                # graftlint: disable-next-line=thread-discipline -- single-writer backpressure: bounded by the ONE in-flight job (measured as checkpoint/backpressure_ms), and the worker signals on every exit path
                 self._cv.wait()
 
     def wait(self) -> None:

@@ -199,6 +199,7 @@ def on_write(path: str) -> None:
                 fail = True
                 break
     if delay:
+        # graftlint: disable-next-line=thread-discipline -- the slow_write fault injector: the stall IS the injected fault (durability drills arm it to prove the step loop survives a slow writer)
         time.sleep(delay)
     if fail:
         raise OSError(f"injected transient write failure: {path}")
@@ -254,4 +255,5 @@ def tick(site: str) -> None:
     if kill:
         os.kill(os.getpid(), signal.SIGKILL)
     if delay:
+        # graftlint: disable-next-line=thread-discipline -- the stall fault injector: the sleep IS the injected fault (a late process at a shared rendezvous); drills arm it to prove the stall lands
         time.sleep(delay)

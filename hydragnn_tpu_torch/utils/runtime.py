@@ -119,6 +119,7 @@ def host_memory() -> dict:
     except (ImportError, OSError):
         pass
     try:
+        # graftlint: disable-next-line=thread-discipline -- procfs, not disk: a few bytes of this process's RSS, read by the memory rows at epoch boundaries and after captures, never per step
         with open("/proc/self/statm") as f:
             rss_pages = int(f.read().split()[1])
         out["host_rss_bytes"] = rss_pages * os.sysconf("SC_PAGE_SIZE")

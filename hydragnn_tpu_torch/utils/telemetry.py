@@ -1013,6 +1013,7 @@ class StepClock:
 
                     done = torch.cuda.Event()
                     done.record()
+                    # graftlint: disable-next-line=host-sync -- config-gated sampled fence (Telemetry.sync_interval_steps > 0); the default interval 0 never reaches this line
                     done.synchronize()
                 row["device_complete_ms"] = round(
                     1e3 * (time.perf_counter() - t_dispatch_start), 4)
@@ -1058,6 +1059,7 @@ class StepClock:
         after the loop's own fetch of the epoch's sums."""
         vals = None
         if self._n_refs:
+            # graftlint: disable-next-line=host-sync -- ONE batched epoch-end fetch of already-computed scalars (the loop's own metrics fetch has already drained the queue)
             vals = self._buf[: self._n_refs].cpu().numpy()
         for row, ctr in self._execs:
             if ctr.graphs is not None and "flops" in row:

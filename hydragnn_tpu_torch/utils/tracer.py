@@ -299,6 +299,7 @@ def _stop_trace() -> None:
     import torch
 
     if torch.cuda.is_initialized():
+        # graftlint: disable-next-line=host-sync -- closing a profiler window (Profiling.steps, opt-in): the card's queued work must land in the trace, once per window
         torch.cuda.synchronize()
     prof.stop()
     prof.export_chrome_trace(path)
@@ -406,6 +407,7 @@ def _device_sync() -> None:
     import torch
 
     if torch.cuda.is_initialized():
+        # graftlint: disable-next-line=host-sync -- this IS the sync barrier: the opt-in fence of start/stop(sync=True), so a region times device completion
         torch.cuda.synchronize()
 
 
